@@ -1,0 +1,6 @@
+"""Datasets and host-side pipeline of the port."""
+from .pipeline import Prefetcher, RequestQueue, ServeRequest, prefetch
+from .synthetic import DATASETS, make_node_dataset, rmat_graph
+
+__all__ = ["Prefetcher", "prefetch", "ServeRequest", "RequestQueue",
+           "DATASETS", "make_node_dataset", "rmat_graph"]

@@ -1,0 +1,101 @@
+"""Fused GAT attention (ROADMAP B2, forward): the CUDA kernel's wrapper
+and its plain PyTorch version.
+
+Replaces ``src/repro/kernels/edge_softmax/kernel.py::_attention_kernel``
+(built by ``fused_attention_pallas_call``, launched once per pow2 degree
+class from ``repro/kernels/edge_softmax/ops.py``). The CUDA source is
+``../csrc/fused_attention_csr.cu``: one warp per (row, head) runs an
+online softmax over the row's CSR edges, so no ELL stripe is packed. Its
+header says what bounds it on the H100 (bytes) and what the design does
+about hub rows.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...substrate.nn import leaky_relu
+from .. import _build
+from ..common import check_operand, ptr, raise_on_error, stream_handle
+
+__all__ = ["fused_attention_csr", "fused_attention_plain", "MAX_F"]
+
+_KERNEL = "fused_attention_csr"
+MAX_F = 128  # the kernel keeps ≤ 4 features per lane in registers
+
+
+def _lib():
+    lib = _build.library(_KERNEL)
+    fn = lib.fused_attention_csr_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_attention_plain(g, el: torch.Tensor, er: torch.Tensor,
+                          z: torch.Tensor, slope: float = 0.2
+                          ) -> torch.Tensor:
+    """Gather, leaky-relu, ``scatter_reduce("amax")``, exp, ``index_add_``:
+    ``out[v,h,:] = Σ_e α_e·z[u,h,:]`` with α the softmax over v's in-edges
+    of ``leaky(el[u]+er[v])``. Zero-degree rows are 0. ``el`` (n_src, H),
+    ``er`` (n_dst, H), ``z`` (n_src, H, F) → (n_dst, H, F)."""
+    src, dst = g.long("src"), g.long("dst")
+    H = el.shape[-1]
+    m = el.index_select(0, src) + er.index_select(0, dst)       # (E, H)
+    m = leaky_relu(m, slope)
+    idx = dst[:, None].expand(-1, H)
+    mx = torch.full((g.n_dst, H), float("-inf"), dtype=m.dtype,
+                    device=m.device)
+    mx = mx.scatter_reduce(0, idx, m, "amax", include_self=True)
+    mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
+    ex = torch.exp(m - mx.index_select(0, dst))
+    zs = torch.zeros((g.n_dst, H), dtype=m.dtype, device=m.device)
+    zs.index_add_(0, dst, ex)
+    alpha = ex / zs.clamp(min=1e-38).index_select(0, dst)
+    msg = alpha[..., None] * z.index_select(0, src)             # (E, H, F)
+    out = torch.zeros((g.n_dst,) + tuple(z.shape[1:]), dtype=z.dtype,
+                      device=z.device)
+    out.index_add_(0, dst, msg)
+    return out
+
+
+def fused_attention_csr(g, el: torch.Tensor, er: torch.Tensor,
+                        z: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    """B2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU tensors. fp32 only; F ≤ :data:`MAX_F`.
+
+    ``fused_attention_csr.launches`` counts kernel launches (CUDA only).
+    """
+    if z.device.type == "cpu":
+        return fused_attention_plain(g, el, er, z, slope)
+    if z.device.type != "cuda":
+        raise ValueError(f"{_KERNEL}: unsupported device {z.device}")
+    dev = z.device
+    if z.ndim != 3:
+        raise ValueError(f"{_KERNEL}: z must be (n_src, H, F), got "
+                         f"{tuple(z.shape)}")
+    _, H, F = z.shape
+    if F > MAX_F:
+        raise ValueError(f"{_KERNEL}: F={F} > {MAX_F} is not supported")
+    check_operand(_KERNEL, "indptr_dst", g.indptr_dst, torch.int32,
+                  (g.n_dst + 1,), dev)
+    check_operand(_KERNEL, "src", g.src, torch.int32, (g.n_edges,), dev)
+    check_operand(_KERNEL, "el", el, torch.float32, (g.n_src, H), dev)
+    check_operand(_KERNEL, "er", er, torch.float32, (g.n_dst, H), dev)
+    check_operand(_KERNEL, "z", z, torch.float32, (g.n_src, H, F), dev)
+    out = torch.empty((g.n_dst, H, F), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = _lib()
+    with torch.cuda.device(dev):
+        rc = fn(ptr(g.indptr_dst), ptr(g.src), ptr(el), ptr(er), ptr(z),
+                ptr(out), g.n_dst, H, F, float(slope), stream_handle(dev))
+    raise_on_error(_KERNEL, rc)
+    fused_attention_csr.launches += 1
+    return out
+
+
+fused_attention_csr.launches = 0

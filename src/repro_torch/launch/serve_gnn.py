@@ -1,0 +1,180 @@
+"""GNN inference serving entry point (port of
+``repro/launch/serve_gnn.py``).
+
+Stands up a :class:`~repro_torch.core.serving.GNNServer` over a synthetic
+dataset and drives it with N concurrent requester threads through a
+:class:`~repro_torch.data.RequestQueue`: clients submit node-id requests
+and block on futures, the serving loop drains coalescing windows through
+the prefetcher, batches pad onto signature classes, and steady state
+meets no new signature.
+
+Usage (on the card; ``--device cpu`` runs the plain versions):
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --app gcn \\
+      --dataset reddit-like --clients 4 --requests 25
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import threading
+import time
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from ..core.serving import SERVE_APPS, GNNServer
+from ..data import RequestQueue, make_node_dataset
+from ..device import DeviceLike, resolve_device
+from ..models.gnn import gat, gcn, sage
+
+__all__ = ["build_server", "run_session", "percentile_nearest_rank", "main"]
+
+
+def percentile_nearest_rank(values, p: float) -> float:
+    """``sorted(values)[ceil(p/100 * n) - 1]`` over the full sample."""
+    if not 0 < p <= 100:
+        raise ValueError(f"percentile p must be in (0, 100], got {p}")
+    xs = sorted(values)
+    if not xs:
+        raise ValueError("percentile of empty sample")
+    return xs[max(0, math.ceil(p / 100.0 * len(xs)) - 1)]
+
+
+def build_server(app: str, dataset: str, *, mode: str = "auto",
+                 classes=(8, 32, 128), d_hidden: int = 32,
+                 cache_rows: int = 4096, pin_hot: int = 256, seed: int = 0,
+                 device: DeviceLike = "cuda") -> GNNServer:
+    """Dataset + randomly initialized model (from ``seed``) + server on
+    ``device``, ready to serve. Serving correctness does not depend on
+    the weights: served rows are held to the full forward under the same
+    model."""
+    dev = resolve_device(device)
+    if app == "rgcn":
+        raise NotImplementedError(
+            "app 'rgcn' is not ported yet: ROADMAP A11 (relational apps)")
+    if app not in SERVE_APPS:
+        raise ValueError(f"unknown serve app {app!r}; expected one of "
+                         f"{SERVE_APPS}")
+    g, feats, _labels, _tr, _va, n_classes = make_node_dataset(
+        dataset, device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    init = {"gcn": gcn.init, "sage": sage.init, "gat": gat.init}[app]
+    model = init(gen, feats.shape[1], d_hidden, n_classes, device=dev)
+    return GNNServer(app, model, g, feats, mode=mode, classes=classes,
+                     cache_rows=cache_rows, pin_hot=pin_hot, device=dev)
+
+
+def run_session(srv: GNNServer, *, n_clients: int, requests_per_client: int,
+                ids_fn: Callable[[np.random.Generator], np.ndarray],
+                max_wait: float = 0.002, depth: int = 2,
+                timeout: float = 600.0) -> Dict:
+    """Drive the server with ``n_clients`` concurrent closed-loop
+    requester threads, each submitting ``requests_per_client`` requests
+    drawn by ``ids_fn`` and blocking on each before the next.
+
+    Returns per-request wall latencies (submit → fulfilled: queueing +
+    batching + compute), nearest-rank p50/p99, throughput, the
+    new-signature count over the steady-state window, server stats, and
+    every ``(ids, rows)`` response for checking.
+    """
+    srv.warmup()                       # the table is computed HERE
+    compiles_before = srv.compiles
+    rq = RequestQueue(max_wait=max_wait)
+    lat: List[List[float]] = [[] for _ in range(n_clients)]
+    responses: List[List] = [[] for _ in range(n_clients)]
+    errs: List[BaseException] = []
+
+    def client(cid: int) -> None:
+        rng = np.random.default_rng(1000 + cid)
+        try:
+            for _ in range(requests_per_client):
+                ids = ids_fn(rng)
+                req = rq.submit(ids)
+                rows = req.result(timeout=timeout)
+                lat[cid].append(time.perf_counter() - req.t_submit)
+                responses[cid].append((np.asarray(ids), rows))
+        except BaseException as e:      # noqa: BLE001
+            errs.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(n_clients)]
+
+    def close_when_done() -> None:
+        for t in threads:
+            t.join()
+        rq.close()
+
+    closer = threading.Thread(target=close_when_done, daemon=True)
+    for t in threads:
+        t.start()
+    closer.start()
+    t0 = time.perf_counter()
+    srv.run(rq, depth=depth)           # serving loop, main thread
+    elapsed = time.perf_counter() - t0
+    closer.join(timeout=timeout)
+    if errs:
+        raise errs[0]
+
+    flat = sorted(x for per in lat for x in per)
+    n = len(flat)
+    return {
+        "latencies": flat,
+        "n_samples": n,
+        "p50_ms": 1e3 * percentile_nearest_rank(flat, 50) if n else
+                  float("nan"),
+        "p99_ms": 1e3 * percentile_nearest_rank(flat, 99) if n else
+                  float("nan"),
+        "throughput_rps": n / max(elapsed, 1e-9),
+        "elapsed_s": elapsed,
+        "recompiles_steady": srv.compiles - compiles_before,
+        "stats": srv.stats(),
+        "responses": [r for per in responses for r in per],
+    }
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--app", choices=SERVE_APPS, default="gcn")
+    ap.add_argument("--dataset", default="tiny")
+    ap.add_argument("--mode", default="auto", choices=("auto", "layerwise"))
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=50,
+                    help="requests per client")
+    ap.add_argument("--request-ids", type=int, default=4,
+                    help="node ids per request")
+    ap.add_argument("--classes", type=int, nargs="+", default=[8, 32, 128])
+    ap.add_argument("--cache-rows", type=int, default=4096)
+    ap.add_argument("--pin-hot", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+
+    srv = build_server(args.app, args.dataset, mode=args.mode,
+                       classes=tuple(args.classes),
+                       cache_rows=args.cache_rows, pin_hot=args.pin_hot,
+                       seed=args.seed, device=args.device)
+    n_nodes = srv.g.n_src
+
+    def ids_fn(rng: np.random.Generator) -> np.ndarray:
+        return rng.integers(0, n_nodes, args.request_ids)
+
+    res = run_session(srv, n_clients=args.clients,
+                      requests_per_client=args.requests, ids_fn=ids_fn)
+    print(f"[serve_gnn] app={args.app} dataset={args.dataset} "
+          f"device={srv.device} clients={args.clients} "
+          f"req/client={args.requests} ids/req={args.request_ids}")
+    print(f"[serve_gnn] p50 {res['p50_ms']:.3f} ms  p99 {res['p99_ms']:.3f} "
+          f"ms  {res['throughput_rps']:.0f} req/s (n={res['n_samples']})")
+    print(f"[serve_gnn] steady-state new signatures: "
+          f"{res['recompiles_steady']} (must be 0)")
+    cs = res["stats"]["out_cache"]
+    print(f"[serve_gnn] out_cache: hit_ratio {cs.hit_ratio:.3f} "
+          f"({cs.hits}h/{cs.misses}m, {cs.evictions} evictions, "
+          f"{cs.pinned} pinned)")
+    if res["recompiles_steady"]:
+        raise SystemExit("steady-state recompiles detected")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,62 @@
+"""GraphSAGE (mean aggregator), full-graph forward (port of
+``repro/models/gnn/sage.py``).
+
+h'_v = σ(W·[h_v ; mean_{u∈N(v)} h_u]) — the aggregation is
+``u_copy_mean_v``, the mean Copy-Reduce kernel (B1) on the card. The
+sampled and partitioned variants come with later slices (A10, A12).
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+from torch import nn
+
+from ...core.binary_reduce import gspmm
+from ...device import DeviceLike
+from ...substrate.nn import Linear
+from .common import GraphBundle
+
+__all__ = ["SAGE", "init", "forward", "infer"]
+
+
+class SAGE(nn.Module):
+    """Stack of mean aggregation → ``Linear`` on ``[h ; mean]``."""
+
+    def __init__(self, layers: Sequence[Linear]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+    @classmethod
+    def from_numpy(cls, tree: Dict, device: DeviceLike = "cuda") -> "SAGE":
+        return cls([Linear.from_numpy(p, device) for p in tree["layers"]])
+
+    def forward(self, bundle: GraphBundle, x: torch.Tensor, *,
+                strategy: str = "auto") -> torch.Tensor:
+        h = x
+        for i, lyr in enumerate(self.layers):
+            hn = gspmm(bundle.g, "u_copy_mean_v", u=h, strategy=strategy)
+            h = lyr(torch.cat([h, hn], dim=-1))
+            if i < len(self.layers) - 1:
+                h = torch.relu(h)
+        return h
+
+
+def init(gen: torch.Generator, d_in: int, d_hidden: int, n_classes: int,
+         n_layers: int = 2, device: DeviceLike = "cuda") -> SAGE:
+    dims = [d_in] + [d_hidden] * (n_layers - 1) + [n_classes]
+    return SAGE([Linear.init(gen, 2 * dims[i], dims[i + 1], device=device)
+                 for i in range(n_layers)])
+
+
+def forward(model: SAGE, bundle: GraphBundle, x: torch.Tensor, *,
+            strategy: str = "auto") -> torch.Tensor:
+    return model(bundle, x, strategy=strategy)
+
+
+def infer(model: SAGE, bundle: GraphBundle, x: torch.Tensor, *,
+          strategy: str = "auto") -> torch.Tensor:
+    """Inference-mode forward — the serving tier's layer-wise refresh
+    entry point (no autograd graph, so the kernels can launch)."""
+    with torch.no_grad():
+        return forward(model, bundle, x, strategy=strategy)
