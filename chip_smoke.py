@@ -9,13 +9,19 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
    with nvcc for sm_90a, all in parallel.
 3. Kernels: on the ``reddit-like`` graph, with and without self-loops
    (the latter has ~30k zero-in-degree rows), at each main-path shape,
-   hold each kernel against its plain PyTorch version and time kernel,
-   plain version and (B1 only) ``torch.sparse.mm`` on a CSR tensor —
-   a yardstick the port never calls — with CUDA events.
+   hold each kernel (B1 Copy-Reduce, B2 fused attention, B3 gSDDMM, B4
+   Binary-Reduce, B5 edge softmax) against its plain PyTorch version
+   within a stated tolerance, and time kernel, plain version and, where
+   one PyTorch call computes the same function, that call — a yardstick
+   the port never calls — with CUDA events.
 4. Serve: for gcn, sage and gat, ``build_server(app, "reddit-like")``
    and a 4-client session; served rows must equal a plain-version full
-   forward, the kernels' launch counters must rise in the refresh, and
-   no new signature may appear in steady state.
+   forward, each refresh must launch exactly the app's kernels (GAT
+   serves multipass: B3 × 6 and B4 × 2), and no new signature may appear
+   in steady state.
+5. Forward: ``gat.infer`` on the served model at ``attn`` = multipass,
+   softmax-fused (B3 × 2 + B5 × 2) and auto (the fused pipeline on B2,
+   × 2), each against the plain multipass forward.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -42,10 +48,39 @@ B1_SHAPES = [(32, "sum"), (41, "sum"), (602, "sum"),
              (32, "mean"), (41, "mean"), (602, "mean")]
 B1_MAIN = [(32, "sum"), (41, "sum"), (602, "mean"), (32, "mean")]
 B2_SHAPES = [(4, 32), (1, 41)]
-B1_SOURCE = "src/repro_torch/kernels/csrc/spmm_csr.cu"
-B2_SOURCE = "src/repro_torch/kernels/csrc/fused_attention_csr.cu"
-B1_REPLACES = "src/repro/kernels/spmm/kernel.py:31"
-B2_REPLACES = "src/repro/kernels/edge_softmax/kernel.py:51"
+# (op, lhs target, rhs target, width): GAT multipass's three per layer at
+# H = 4 then 1, and mul / dot / copy at the same shapes
+B3_SHAPES = [(op, lt, rt, d) for op, lt, rt in (
+    ("add", "u", "v"), ("sub", "e", "v"), ("div", "e", "v"),
+    ("mul", "e", "v"), ("dot", "u", "v"), ("copy", "u", None))
+    for d in (4, 1)]
+B3_MAIN = [(op, lt, rt, d) for d in (4, 1)
+           for op, lt, rt in (("add", "u", "v"), ("sub", "e", "v"),
+                              ("div", "e", "v"))]
+# (binop, width of B, width of E, reduce): the composed softmax's sums
+# at H = 4 then 1, a vector-E u_mul_e and a mean
+B4_SHAPES = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum"),
+             ("mul", 32, 32, "sum"), ("copy_rhs", 4, 4, "mean")]
+B4_MAIN = B4_SHAPES[:2]
+B5_SHAPES = [4, 1]
+SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in (
+    "spmm_csr", "fused_attention_csr", "sddmm_csr", "binary_reduce_csr",
+    "edge_softmax_csr")}
+REPLACES = {"spmm_csr": "src/repro/kernels/spmm/kernel.py:31",
+            "fused_attention_csr": "src/repro/kernels/edge_softmax/kernel.py:51",
+            "sddmm_csr": "src/repro/kernels/sddmm/kernel.py:18",
+            "sddmm_csr:copy": "src/repro/kernels/sddmm/kernel.py:36",
+            "binary_reduce_csr": "src/repro/kernels/binary_reduce/kernel.py:32",
+            "edge_softmax_csr": "src/repro/kernels/edge_softmax/kernel.py:23"}
+# kernel launches per refresh of each app's served (default) forward, and
+# per forward of each GAT attn mode; every other counter must stay 0
+SERVE_LAUNCHES = {"gcn": {"spmm_csr": 2}, "sage": {"spmm_csr": 2},
+                  "gat": {"sddmm_csr": 6, "binary_reduce_csr": 2}}
+# (attn="fused" names the fused pipeline's plain version, as in the JAX
+# package; "auto" is the pipeline on its kernel, B2)
+FORWARD_LAUNCHES = {"multipass": {"sddmm_csr": 6, "binary_reduce_csr": 2},
+                    "softmax-fused": {"sddmm_csr": 2, "edge_softmax_csr": 2},
+                    "auto": {"fused_attention_csr": 2}}
 
 
 def emit(obj) -> None:
@@ -148,9 +183,165 @@ def check_b2(g, gen, label: str, rows: dict) -> None:
         rows[(label, H, F)] = row
 
 
-def serve_app(app: str) -> dict:
-    from repro_torch.kernels.edge_softmax.ops import fused_attention_csr
+def check_b3(g, gen, label: str, rows: dict) -> None:
+    from repro_torch.kernels.sddmm.ops import sddmm_csr, sddmm_plain
+
+    n_rows = {"u": g.n_src, "v": g.n_dst, "e": g.n_edges}
+    src_caller = g.long("src").index_select(0, g.long("eid_inv"))
+    for op, lt, rt, d in B3_SHAPES:
+        lhs = torch.randn(n_rows[lt], d, generator=gen).cuda()
+        args = (g, op, lt, lhs)
+        n_idx = len({"e", lt})
+        if rt is not None:
+            rhs = torch.randn(n_rows[rt], d, generator=gen).cuda()
+            if op == "div":     # the path divides by sums of exp, >= 1
+                rhs = rhs.abs() + 0.5
+            args += (rt, rhs)
+            n_idx = len({"e", lt, rt})
+        n0 = sddmm_csr.launches
+        got = sddmm_csr(*args)
+        ref = sddmm_plain(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        if op == "dot":
+            tol = 1e-5 + 1e-5 * float(ref.abs().max())
+            why = "fma chain vs torch.sum: another summation order"
+        else:
+            tol = 1e-6 * max(1.0, float(ref.abs().max()))
+            why = "one IEEE op per element in both: expected exact"
+        lib_ms = None
+        if op == "copy":
+            lib_err = max_err(lhs.index_select(0, src_caller), ref)
+            if lib_err != 0.0:
+                raise AssertionError(f"index_select copy differs: {lib_err}")
+            lib_ms = time_ms(lambda: lhs.index_select(0, src_caller))
+        k_ms = time_ms(lambda: sddmm_csr(*args))
+        p_ms = time_ms(lambda: sddmm_plain(*args))
+        nbytes = 4 * (n_idx * g.n_edges + lhs.numel()
+                      + (0 if rt is None else args[5].numel()) + ref.numel())
+        b_ms, b_by = bound(nbytes, g.n_edges * d)
+        row = {"phase": "kernel", "kernel": "sddmm_csr", "graph": label,
+               "op": op, "lhs": lt, "rhs": rt, "d": d, "max_abs_err": err,
+               "tol": tol, "tol_reason": why, "kernel_ms": k_ms,
+               "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "launches": sddmm_csr.launches - n0}
+        emit(row)
+        if not err <= tol:
+            raise AssertionError(f"sddmm_csr disagrees: {row}")
+        rows[(label, op, lt, rt, d)] = row
+
+
+def check_b4(g, gen, label: str, rows: dict) -> None:
+    from repro_torch.kernels.binary_reduce.ops import (binary_reduce_csr,
+                                                       binary_reduce_plain)
+
+    deg = g.in_degrees.long()
+    has_edge = deg > 0
+    for binop, d, de, red in B4_SHAPES:
+        mean = red == "mean"
+        B = (None if binop == "copy_rhs"
+             else torch.randn(g.n_src, d, generator=gen).cuda())
+        E = torch.randn(g.n_edges, de, generator=gen).cuda()
+        n0 = binary_reduce_csr.launches
+        got = binary_reduce_csr(g, B, E, binop, mean)
+        ref = binary_reduce_plain(g, B, E, binop, mean)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        tol = 1e-5 + 1e-5 * float(ref.abs().max())
+        lib_ms = lib_err = None
+        if binop == "copy_rhs":
+            # the edge values already in canonical order: the permutation
+            # through eid is left out of the library's time
+            e_canon = E.index_select(0, g.long("eid"))
+
+            def lib():
+                return torch.segment_reduce(e_canon, red, lengths=deg)
+
+            lib_err = max_err(lib()[has_edge], ref[has_edge])
+            lib_ms = time_ms(lib)
+        k_ms = time_ms(lambda: binary_reduce_csr(g, B, E, binop, mean))
+        p_ms = time_ms(lambda: binary_reduce_plain(g, B, E, binop, mean))
+        nbytes = 4 * ((g.n_dst + 1) + g.n_edges + E.numel() + ref.numel()
+                      + (0 if B is None else g.n_edges + B.numel()))
+        b_ms, b_by = bound(nbytes, g.n_edges * d * (1 if B is None else 2))
+        row = {"phase": "kernel", "kernel": "binary_reduce_csr",
+               "graph": label, "binop": binop, "d": d, "de": de,
+               "reduce": red, "max_abs_err": err, "tol": tol,
+               "tol_reason": "another summation order",
+               "library_max_abs_err": lib_err, "kernel_ms": k_ms,
+               "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "launches": binary_reduce_csr.launches - n0}
+        emit(row)
+        if not err <= tol:
+            raise AssertionError(f"binary_reduce_csr disagrees: {row}")
+        rows[(label, binop, d, de, red)] = row
+
+
+def check_b5(g, gen, label: str, rows: dict) -> None:
+    from repro_torch.kernels.edge_softmax.ops import (edge_softmax_csr,
+                                                      edge_softmax_plain)
+
+    for H in B5_SHAPES:
+        x = 3 * torch.randn(g.n_edges, H, generator=gen).cuda()
+        n0 = edge_softmax_csr.launches
+        got = edge_softmax_csr(g, x)
+        ref = edge_softmax_plain(g, x)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        tol = 1e-5
+        k_ms = time_ms(lambda: edge_softmax_csr(g, x))
+        p_ms = time_ms(lambda: edge_softmax_plain(g, x))
+        nbytes = 4 * ((g.n_dst + 1) + g.n_edges + 2 * x.numel())
+        b_ms, b_by = bound(nbytes, 4 * x.numel())
+        row = {"phase": "kernel", "kernel": "edge_softmax_csr",
+               "graph": label, "H": H, "max_abs_err": err, "tol": tol,
+               "tol_reason": "alpha <= 1; expf and the sum's order differ",
+               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "launches": edge_softmax_csr.launches - n0}
+        emit(row)
+        if not err <= tol:
+            raise AssertionError(f"edge_softmax_csr disagrees: {row}")
+        rows[(label, H)] = row
+
+
+def counters():
+    """Every kernel wrapper, by name, with its launch counter; B3's copy
+    (B3b) is read from ``sddmm_csr.op_launches``."""
+    from repro_torch.kernels.binary_reduce.ops import binary_reduce_csr
+    from repro_torch.kernels.edge_softmax.ops import (edge_softmax_csr,
+                                                      fused_attention_csr)
+    from repro_torch.kernels.sddmm.ops import sddmm_csr
     from repro_torch.kernels.spmm.ops import spmm_csr
+
+    return {f.__name__: f for f in (spmm_csr, fused_attention_csr, sddmm_csr,
+                                    binary_reduce_csr, edge_softmax_csr)}
+
+
+def reset_counts() -> None:
+    for f in counters().values():
+        f.launches = 0
+    counters()["sddmm_csr"].op_launches.clear()
+
+
+def read_counts() -> dict:
+    out = {name: f.launches for name, f in counters().items()}
+    out["sddmm_csr:copy"] = counters()["sddmm_csr"].op_launches["copy"]
+    out["sddmm_csr"] -= out["sddmm_csr:copy"]
+    return out
+
+
+def check_launches(what: str, launches: dict, per_run: dict,
+                   runs: int) -> None:
+    want = {k: per_run.get(k, 0) * runs for k in launches}
+    if runs < 1 or launches != want:
+        raise AssertionError(f"{what}: launches {launches} over {runs} "
+                             f"run(s); expected {want}")
+
+
+def serve_app(app: str):
+    """Serve ``app`` through ``build_server`` and check it; returns the
+    row and the server (its model feeds the forward phase)."""
     from repro_torch.launch.serve_gnn import build_server, run_session
     from repro_torch.models.gnn import gat, gcn, sage
 
@@ -158,17 +349,12 @@ def serve_app(app: str) -> dict:
     srv = build_server(app, "reddit-like", device="cuda")
     setup_s = time.perf_counter() - t0
     n = srv.g.n_src
-    spmm_csr.launches = 0
-    fused_attention_csr.launches = 0
+    reset_counts()
     res = run_session(srv, n_clients=4, requests_per_client=25,
                       ids_fn=lambda rng: rng.integers(0, n, 4))
-    launches = {"spmm_csr": spmm_csr.launches,
-                "fused_attention_csr": fused_attention_csr.launches}
+    launches = read_counts()
     refreshes = srv.refreshes
-    kernel = "fused_attention_csr" if app == "gat" else "spmm_csr"
-    if refreshes < 1 or launches[kernel] != 2 * refreshes:
-        raise AssertionError(f"{app}: {launches} launches over {refreshes} "
-                             f"refreshes; expected 2 {kernel} per refresh")
+    check_launches(app, launches, SERVE_LAUNCHES[app], refreshes)
     if res["recompiles_steady"] != 0:
         raise AssertionError(f"{app}: {res['recompiles_steady']} "
                              f"steady-state recompiles")
@@ -206,7 +392,34 @@ def serve_app(app: str) -> dict:
            "plain_forward_ms": time_ms(plain_forward, reps=5, warmup=1),
            "setup_s": setup_s}
     emit(row)
-    return row
+    return row, srv
+
+
+def forward_gat(srv) -> dict:
+    """``gat.infer`` on the served GAT at each attn mode that reaches a
+    kernel: launches per forward, error against the plain multipass
+    forward, and the forward's time. Returns mode → row."""
+    from repro_torch.models.gnn import gat
+
+    args = (srv.model, srv.bundle, srv.x_device)
+    ref = gat.infer(*args, strategy="segment")
+    rows = {}
+    for attn, per_run in FORWARD_LAUNCHES.items():
+        reset_counts()
+        out = gat.infer(*args, attn=attn)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        check_launches(f"gat attn={attn}", launches, per_run, 1)
+        err = max_err(out, ref)
+        if not err <= 1e-4:
+            raise AssertionError(f"gat attn={attn}: off by {err}")
+        row = {"phase": "forward", "app": "gat", "dataset": "reddit-like",
+               "attn": attn, "launches": launches, "max_abs_err": err,
+               "refresh_forward_ms": time_ms(lambda: gat.infer(
+                   *args, attn=attn), reps=5, warmup=1)}
+        emit(row)
+        rows[attn] = row
+    return rows
 
 
 def summary(name, source, replaces, main_rows, all_rows, launches):
@@ -222,7 +435,8 @@ def summary(name, source, replaces, main_rows, all_rows, launches):
             "bound_by": max(main_rows, key=lambda r: r["bound_ms"])[
                 "bound_by"],
             "library_ms": total("library_ms"),
-            "shapes": [{k: r[k] for k in ("d", "reduce", "H", "F")
+            "shapes": [{k: r[k] for k in ("op", "binop", "lhs", "rhs", "d",
+                                          "de", "reduce", "H", "F")
                         if k in r} for r in main_rows]}
 
 
@@ -262,7 +476,7 @@ def main() -> int:
 
     # 3. kernels, with and without zero-in-degree rows
     gen = torch.Generator().manual_seed(0)
-    b1_rows, b2_rows = {}, {}
+    b1_rows, b2_rows, b3_rows, b4_rows, b5_rows = {}, {}, {}, {}, {}
     g_loops = make_node_dataset("reddit-like", device="cuda")[0]
     src, dst, n = rmat_graph(16, 600_000, seed=0)
     g_bare = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
@@ -274,22 +488,43 @@ def main() -> int:
         w = make_bundle(g).gcn_norm.index_select(0, g.long("eid"))
         check_b1(g, w.contiguous(), gen, label, b1_rows)
         check_b2(g, gen, label, b2_rows)
+        check_b3(g, gen, label, b3_rows)
+        check_b4(g, gen, label, b4_rows)
+        check_b5(g, gen, label, b5_rows)
     del g_loops, g_bare
     torch.cuda.empty_cache()
 
-    # 4. serve through the entry points a user calls
-    served = {app: serve_app(app) for app in ("gcn", "sage", "gat")}
+    # 4. serve through the entry points a user calls; 5. GAT's modes
+    served = {}
+    for app in ("gcn", "sage", "gat"):
+        served[app], srv = serve_app(app)
+    forward = forward_gat(srv)
+    del srv
 
-    b1_main = [b1_rows[("self_loops", d, r)] for d, r in B1_MAIN]
-    b2_main = [b2_rows[("self_loops", H, F)] for H, F in B2_SHAPES]
-    b1_launches = sum(s["launches"]["spmm_csr"] for s in served.values())
-    b2_launches = sum(s["launches"]["fused_attention_csr"]
-                      for s in served.values())
+    # launches on the main path: every serve and forward run, each
+    # counted from 0 just before it
+    runs = list(served.values()) + list(forward.values())
+    launches = {k: sum(r["launches"][k] for r in runs)
+                for k in runs[0]["launches"]}
+    main = {
+        "spmm_csr": [b1_rows[("self_loops", d, r)] for d, r in B1_MAIN],
+        "fused_attention_csr": [b2_rows[("self_loops", H, F)]
+                                for H, F in B2_SHAPES],
+        "sddmm_csr": [b3_rows[("self_loops",) + k] for k in B3_MAIN],
+        "sddmm_csr:copy": [b3_rows[("self_loops",) + k] for k in B3_SHAPES
+                           if k[0] == "copy"],
+        "binary_reduce_csr": [b4_rows[("self_loops",) + k] for k in B4_MAIN],
+        "edge_softmax_csr": [b5_rows[("self_loops", H)] for H in B5_SHAPES]}
+    every = {"spmm_csr": b1_rows, "fused_attention_csr": b2_rows,
+             "sddmm_csr": {k: r for k, r in b3_rows.items()
+                           if r["op"] != "copy"},
+             "sddmm_csr:copy": {k: r for k, r in b3_rows.items()
+                                if r["op"] == "copy"},
+             "binary_reduce_csr": b4_rows, "edge_softmax_csr": b5_rows}
     emit({"kernels": [
-        summary("spmm_csr", B1_SOURCE, B1_REPLACES, b1_main,
-                list(b1_rows.values()), b1_launches),
-        summary("fused_attention_csr", B2_SOURCE, B2_REPLACES, b2_main,
-                list(b2_rows.values()), b2_launches)]})
+        summary(name, SOURCES[name.split(":")[0]], REPLACES[name],
+                main[name], list(every[name].values()), launches[name])
+        for name in main]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,7 +1,8 @@
 """Core graph structures and aggregation primitives of the port."""
 from .binary_reduce import BRSpec, copy_reduce, gspmm, gsddmm, parse_op
-from .edge_softmax import fused_attention
+from .edge_softmax import edge_softmax, edge_softmax_fused, fused_attention
 from .graph import Graph, add_self_loops, from_coo
 
 __all__ = ["Graph", "from_coo", "add_self_loops", "BRSpec", "parse_op",
-           "gspmm", "gsddmm", "copy_reduce", "fused_attention"]
+           "gspmm", "gsddmm", "copy_reduce", "edge_softmax",
+           "edge_softmax_fused", "fused_attention"]

@@ -1,23 +1,33 @@
-"""The Binary-Reduce / Copy-Reduce lattice, node outputs (port of
+"""The Binary-Reduce / Copy-Reduce lattice (port of
 ``repro/core/binary_reduce.py``).
 
 ``BR(x, y, ⊗, ⊕, z) : z ← ⊕(⊗(x, y), z)`` with operands on source nodes
 (``u``), destination nodes (``v``) or edges (``e``), named DGL-style
-(``u_mul_e_add_v``, ``u_copy_mean_v``, ...) exactly as in the JAX
-package.
+(``u_mul_e_add_v``, ``u_copy_mean_v``, ``u_add_v_copy_e``, ...) exactly
+as in the JAX package.
 
-Strategies of :func:`gspmm` in this slice:
+Strategies of :func:`gspmm` (node outputs):
 
 * ``"segment"`` — per-edge messages, then the plain segment reduction
-  (``strategies.pull_segment``). The reference.
-* ``"kernel"`` — the CUDA Copy-Reduce kernel (B1) through
-  ``kernels/dispatch.py``; raises for a spec it does not cover.
-* ``"auto"`` — the kernel for a CUDA tensor whose spec B1 covers,
+  (``strategies.pull_segment``), every reducer. The reference.
+* ``"kernel"`` — the CUDA Copy-Reduce (B1) or Binary-Reduce (B4) kernel
+  through ``kernels/dispatch.py``; raises for a spec neither covers.
+* ``"auto"`` — the kernel for a CUDA tensor whose spec a kernel covers,
   segment otherwise. Without the planner (ROADMAP A9) there is no cost
   model to consult.
 
-The JAX package's other strategies and edge outputs (``gsddmm``) are
-queued; asking for them raises ``NotImplementedError`` naming the item.
+Strategies of :func:`gsddmm` (edge outputs):
+
+* ``"canonical"`` — gather in canonical (dst-sorted) order, ⊗, one
+  un-permute by ``eid_inv`` (the B3 kernel's plain version);
+* ``"gather"`` — operands gathered straight into caller order;
+* ``"kernel"`` — the CUDA gSDDMM kernel (B3);
+* ``"auto"`` — the kernel for a CUDA operand that B3 covers, canonical
+  otherwise.
+
+The JAX package's other strategies are queued; asking for them raises
+``NotImplementedError`` naming the item. No backward yet: the kernel
+wrappers raise on operands that require grad.
 """
 from __future__ import annotations
 
@@ -27,10 +37,13 @@ from typing import Callable, Dict, Optional
 import torch
 
 from . import strategies as S
-from ..kernels.dispatch import gspmm_kernel, kernel_supports
+from ..kernels.dispatch import (gspmm_kernel, kernel_supports,
+                                sddmm_kernel_supports)
+from ..kernels.sddmm.ops import TARGET_INDEX, sddmm_csr, sddmm_plain
 
 __all__ = ["BRSpec", "parse_op", "gspmm", "gsddmm", "copy_reduce",
-           "BINARY_OPS", "REDUCE_OPS", "OP_TARGETS", "STRATEGIES"]
+           "BINARY_OPS", "REDUCE_OPS", "OP_TARGETS", "STRATEGIES",
+           "SDDMM_STRATEGIES", "SDDMM_FOR"]
 
 OP_TARGETS = ("u", "v", "e")
 
@@ -49,6 +62,12 @@ REDUCE_OPS: Dict[str, str] = {
 }
 
 STRATEGIES = ("auto", "segment", "kernel")
+SDDMM_STRATEGIES = ("auto", "canonical", "gather", "kernel")
+# a gspmm strategy name pinned on an edge output, as the sddmm lattice
+# reads it (repro/core/binary_reduce.py:195-199 in port names): the
+# baseline pins the caller-order gather (the JAX package's other names,
+# not ported, pin the canonical stream)
+SDDMM_FOR = {"auto": "auto", "kernel": "kernel", "segment": "gather"}
 
 # the JAX package's strategy names this slice does not run, and where
 # each one is queued
@@ -107,8 +126,7 @@ def parse_op(name: str) -> BRSpec:
 
 def _edge_val(g, target: str, data: torch.Tensor) -> torch.Tensor:
     """Per-edge operand values in canonical edge order."""
-    idx = {"u": "src", "v": "dst", "e": "eid"}[target]
-    return data.index_select(0, g.long(idx))
+    return data.index_select(0, g.long(TARGET_INDEX[target]))
 
 
 def _as2d(x: torch.Tensor) -> torch.Tensor:
@@ -138,7 +156,8 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
     if spec.rhs is not None and data[spec.rhs] is None:
         raise ValueError(f"{op_name}: operand {spec.rhs!r} missing")
     if spec.out == "e":
-        return gsddmm(g, op_name, u=u, v=v, e=e)
+        return gsddmm(g, op_name, u=u, v=v, e=e,
+                      strategy=SDDMM_FOR[strategy])
     if spec.reduce == "none":
         raise ValueError(f"{op_name}: copy-reduce to nodes needs a reducer")
 
@@ -176,11 +195,62 @@ def _execute_segment(g, spec: BRSpec, lhs_data, rhs_data) -> torch.Tensor:
     return S.pull_segment(msg, tgt, n_tgt, spec.reduce, deg)
 
 
-def gsddmm(g, op_name: str, *, u=None, v=None, e=None) -> torch.Tensor:
-    """Edge-output BR (gSDDMM) — not in this slice."""
-    raise NotImplementedError(
-        f"{op_name}: edge outputs (gsddmm) are not ported yet — ROADMAP A3 "
-        f"with the SDDMM kernel B3")
+def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
+           v: Optional[torch.Tensor] = None,
+           e: Optional[torch.Tensor] = None,
+           strategy: str = "auto") -> torch.Tensor:
+    """Generalized SDDMM: per-edge ⊗ of node/edge operands (attention
+    logits, the edge softmax's shift and divide, bilinear edge scores).
+
+    Operand conventions match :func:`gspmm`; the op's ``out`` target must
+    be ``e`` (its reducer is ignored). Returns (n_edges, d) in the
+    caller's edge order; 1-D operands widen to d = 1.
+    """
+    spec = parse_op(op_name)
+    if spec.out != "e":
+        raise ValueError(f"{op_name}: gsddmm computes edge outputs "
+                         f"(got out={spec.out!r}); use gspmm")
+    if strategy == "pallas":
+        raise NotImplementedError(
+            "sddmm strategy 'pallas' is the TPU kernel; its port is "
+            "strategy='kernel' (ROADMAP B3)")
+    if strategy not in SDDMM_STRATEGIES:
+        raise ValueError(f"unknown sddmm strategy {strategy!r}; expected "
+                         f"one of {SDDMM_STRATEGIES}")
+    data = {"u": u, "v": v, "e": e}
+    if data[spec.lhs] is None:
+        raise ValueError(f"{op_name}: operand {spec.lhs!r} missing")
+    if spec.rhs is not None and data[spec.rhs] is None:
+        raise ValueError(f"{op_name}: operand {spec.rhs!r} missing")
+    lhs_data = _as2d(data[spec.lhs])
+    rhs_data = _as2d(data[spec.rhs]) if spec.rhs is not None else None
+
+    if strategy == "auto":
+        strategy = ("kernel" if lhs_data.device.type == "cuda"
+                    and sddmm_kernel_supports(spec, lhs_data, rhs_data)
+                    else "canonical")
+    if strategy == "kernel":
+        if not sddmm_kernel_supports(spec, lhs_data, rhs_data):
+            raise NotImplementedError(
+                f"the sddmm kernel does not compute {spec.name} on these "
+                f"operands (rank-2 fp32, widths equal or 1); use "
+                f"strategy='canonical' or 'auto'")
+        return sddmm_csr(g, spec.op, spec.lhs, lhs_data.contiguous(),
+                         spec.rhs,
+                         None if rhs_data is None else rhs_data.contiguous())
+    if strategy == "gather":
+        # caller-order view of the endpoints, one gather per operand
+        def fetch(target, x):
+            if target == "e":
+                return x
+            idx = g.long(TARGET_INDEX[target]).index_select(
+                0, g.long("eid_inv"))
+            return x.index_select(0, idx)
+
+        return BINARY_OPS[spec.op](
+            fetch(spec.lhs, lhs_data),
+            None if rhs_data is None else fetch(spec.rhs, rhs_data))
+    return sddmm_plain(g, spec.op, spec.lhs, lhs_data, spec.rhs, rhs_data)
 
 
 def copy_reduce(g, x: torch.Tensor, reduce: str = "sum",

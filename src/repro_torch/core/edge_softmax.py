@@ -1,29 +1,87 @@
-"""Fused GAT attention, forward (port of
-``repro/core/edge_softmax.py::fused_attention``).
+"""Edge softmax and fused GAT attention, forward (port of
+``repro/core/edge_softmax.py``).
 
-GAT's attention pipeline — ``u_add_v_copy_e`` logits, leaky-relu, edge
-softmax and the ``u_mul_e_add_v`` aggregation — as ONE pass; per-edge α
-is never materialized in caller order. Strategies:
+* :func:`edge_softmax` — GAT's 5-primitive BR chain (paper Table 2, row
+  8): ``e_copy_max_v``, ``e_sub_v_copy_e``, exp, ``e_copy_add_v``,
+  ``e_div_v_copy_e``, each through :func:`gspmm`.
+* :func:`edge_softmax_fused` — the single-pass softmax over canonical
+  order; on the card the edge-softmax kernel (B5).
+* :func:`fused_attention` — the whole attention pipeline
+  (``u_add_v_copy_e`` logits, leaky-relu, edge softmax and the
+  ``u_mul_e_add_v`` aggregation) as ONE pass; per-edge α is never
+  materialized.
 
-* ``"fused"`` — the plain PyTorch pipeline in canonical order
-  (``kernels.edge_softmax.ops.fused_attention_plain``);
-* ``"kernel"`` — the CUDA online-softmax kernel (B2);
-* ``"auto"`` — the kernel for CUDA tensors, ``"fused"`` otherwise.
+Strategies of the two single-pass forms (``ATTN_STRATEGIES``):
+``"fused"`` is the plain PyTorch version in canonical order,
+``"kernel"`` the CUDA kernel (B5 / B2), ``"auto"`` the kernel for CUDA
+tensors and ``"fused"`` otherwise.
 
-The backward (``_attention_grads``), the composed 5-primitive
-``edge_softmax``, ``edge_softmax_fused`` and the block / partitioned
-variants come with later slices (ROADMAP A4, A10, A12).
+The backward (``_attention_grads``) and the block / partitioned variants
+come with later slices (ROADMAP A4, A10, A12).
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.edge_softmax.ops import (fused_attention_csr,
+from ..kernels.edge_softmax.ops import (edge_softmax_csr, edge_softmax_plain,
+                                        fused_attention_csr,
                                         fused_attention_plain)
+from .binary_reduce import gspmm
 
-__all__ = ["fused_attention", "ATTN_STRATEGIES"]
+__all__ = ["edge_softmax", "edge_softmax_fused", "fused_attention",
+           "ATTN_STRATEGIES"]
 
 ATTN_STRATEGIES = ("auto", "fused", "kernel")
+
+
+def _single_pass(strategy: str, x: torch.Tensor, kernel: str) -> str:
+    """Resolve a single-pass form's strategy for tensor ``x``."""
+    if strategy == "pallas":
+        raise NotImplementedError(
+            f"strategy 'pallas' is the TPU kernel; its port is "
+            f"strategy='kernel' (ROADMAP {kernel})")
+    if strategy not in ATTN_STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r}; expected one of "
+                         f"{ATTN_STRATEGIES}")
+    if strategy == "auto":
+        return "kernel" if x.device.type == "cuda" else "fused"
+    return strategy
+
+
+def edge_softmax(g, logits: torch.Tensor,
+                 strategy: str = "auto") -> torch.Tensor:
+    """Softmax over incoming edges of each destination node, composed from
+    the five primitives the paper profiles.
+
+    ``logits``: (n_edges, H) in the caller's edge order; returns the same
+    shape and order ((n_edges, 1) for 1-D logits, as in JAX).
+    ``strategy`` ('auto' | 'segment' | 'kernel') goes to the four ops a
+    kernel covers; ``e_copy_max_v`` always runs on segment, where the JAX
+    planner's fallback chain lands it (no kernel computes a max).
+    """
+    maxv = gspmm(g, "e_copy_max_v", e=logits, strategy="segment")
+    # a zero-in-degree node's max is the reduce identity on any strategy
+    # that skips the degree finalize — never let it reach the subtract
+    maxv = torch.where(torch.isfinite(maxv), maxv,
+                       torch.zeros((), dtype=maxv.dtype, device=maxv.device))
+    shifted = gspmm(g, "e_sub_v_copy_e", e=logits, v=maxv, strategy=strategy)
+    ex = torch.exp(shifted)
+    z = gspmm(g, "e_copy_add_v", e=ex, strategy=strategy)
+    return gspmm(g, "e_div_v_copy_e", e=ex, v=z, strategy=strategy)
+
+
+def edge_softmax_fused(g, logits: torch.Tensor,
+                       strategy: str = "auto") -> torch.Tensor:
+    """Single-pass edge softmax: ``logits`` (n_edges, H) or (n_edges,) in
+    caller edge order → α of the same shape and order. 'fused' is the
+    canonical-order PyTorch form (``edge_softmax_plain``), 'kernel' the
+    B5 kernel, 'auto' the kernel for CUDA tensors."""
+    x = logits[:, None] if logits.ndim == 1 else logits
+    if _single_pass(strategy, x, "B5") == "kernel":
+        out = edge_softmax_csr(g, x.contiguous())
+    else:
+        out = edge_softmax_plain(g, x)
+    return out[:, 0] if logits.ndim == 1 else out
 
 
 def fused_attention(g, el: torch.Tensor, er: torch.Tensor, z: torch.Tensor,
@@ -33,18 +91,10 @@ def fused_attention(g, el: torch.Tensor, er: torch.Tensor, z: torch.Tensor,
     H) destination terms; ``z``: (n_src, H, F) source features ((n_src, F)
     when ``el`` is 1-D). Returns (n_dst, H, F) aggregated features;
     zero-degree rows are 0."""
-    if strategy == "pallas":
-        raise NotImplementedError(
-            "strategy 'pallas' is the TPU kernel; its port is "
-            "strategy='kernel' (ROADMAP B2)")
-    if strategy not in ATTN_STRATEGIES:
-        raise ValueError(f"unknown attention strategy {strategy!r}; "
-                         f"expected one of {ATTN_STRATEGIES}")
     squeeze = el.ndim == 1
     if squeeze:
         el, er, z = el[:, None], er[:, None], z[:, None, :]
-    if strategy == "auto":
-        strategy = "kernel" if z.device.type == "cuda" else "fused"
+    strategy = _single_pass(strategy, z, "B2")
     slope = float(negative_slope)
     if strategy == "kernel":
         out = fused_attention_csr(g, el.contiguous(), er.contiguous(),

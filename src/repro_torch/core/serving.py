@@ -298,7 +298,9 @@ class GNNServer:
     (``init`` or ``from_jax_params``); ``g`` the graph and ``feats`` the
     (n, d) host feature array. The graph, model and features are placed
     on ``device``; a CUDA device runs the refresh through the kernels.
-    GAT serves the fused attention pipeline (``attn='auto'``).
+    The refresh calls each app's ``infer`` with its defaults, so GAT
+    serves the multipass pipeline (gSDDMM logits, composed edge softmax),
+    as the JAX server does.
     """
 
     def __init__(self, app: str, model, g, feats, *, mode: str = "auto",

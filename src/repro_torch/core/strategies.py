@@ -1,10 +1,10 @@
 """Reduce-stage strategies (port of ``repro/core/strategies.py``).
 
 This slice ports the plain one: ``pull_segment``, a destination-sorted
-segment reduction (paper Alg. 2), for the sum and mean reducers. It is
-the reference every CUDA kernel of the port is held against. The push,
-blocked-ELL and one-hot strategies and the max/min/prod reducers are
-queued as ROADMAP item A3.
+segment reduction (paper Alg. 2), for every reducer of the lattice (sum,
+mean, max, min, prod). It is the reference every CUDA kernel of the port
+is held against. The push, blocked-ELL and one-hot strategies are queued
+as ROADMAP item A3.
 """
 from __future__ import annotations
 
@@ -12,7 +12,18 @@ from typing import Optional
 
 import torch
 
-__all__ = ["finalize_empty_rows", "pull_segment"]
+__all__ = ["REDUCE_IDENTITY", "finalize_empty_rows", "pull_segment"]
+
+REDUCE_IDENTITY = {
+    "sum": 0.0,
+    "mean": 0.0,
+    "max": -float("inf"),
+    "min": float("inf"),
+    "prod": 1.0,
+}
+
+# torch.scatter_reduce's name for each reducer that is not a sum
+_SCATTER = {"max": "amax", "min": "amin", "prod": "prod"}
 
 
 def finalize_empty_rows(out: torch.Tensor, deg: torch.Tensor,
@@ -29,15 +40,31 @@ def pull_segment(msg: torch.Tensor, tgt_sorted: torch.Tensor, n_tgt: int,
                  reduce_op: str, deg: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Segment reduction of per-edge messages ``msg`` (E, *feat) onto
-    ``n_tgt`` rows; ``tgt_sorted`` is the int64 target of each edge."""
-    if reduce_op not in ("sum", "mean"):
-        raise NotImplementedError(
-            f"reducer {reduce_op!r} is not ported yet (ROADMAP A3); this "
-            f"slice supports sum and mean")
-    out = torch.zeros((n_tgt,) + tuple(msg.shape[1:]), dtype=msg.dtype,
-                      device=msg.device)
-    out.index_add_(0, tgt_sorted, msg)
-    if reduce_op == "mean":
-        d = deg.clamp(min=1).to(msg.dtype)
-        out = out / d.reshape((n_tgt,) + (1,) * (msg.ndim - 1))
+    ``n_tgt`` rows; ``tgt_sorted`` is the int64 target of each edge.
+
+    As in the JAX package, an extremum that is not finite (an empty row's
+    identity, or an infinite message) becomes 0, and with ``deg`` given
+    every empty row is 0 — a product's included.
+    """
+    shape = (n_tgt,) + tuple(msg.shape[1:])
+    if reduce_op in ("sum", "mean"):
+        out = torch.zeros(shape, dtype=msg.dtype, device=msg.device)
+        out.index_add_(0, tgt_sorted, msg)
+        if reduce_op == "mean":
+            d = deg.clamp(min=1).to(msg.dtype)
+            out = out / d.reshape((n_tgt,) + (1,) * (msg.ndim - 1))
+    elif reduce_op in _SCATTER:
+        # identity-filled output with include_self: an empty row keeps the
+        # identity, exactly what jax.ops.segment_{max,min,prod} return
+        out = torch.full(shape, REDUCE_IDENTITY[reduce_op], dtype=msg.dtype,
+                         device=msg.device)
+        idx = tgt_sorted.reshape((-1,) + (1,) * (msg.ndim - 1)).expand_as(msg)
+        out = out.scatter_reduce(0, idx, msg, _SCATTER[reduce_op],
+                                 include_self=True)
+        if reduce_op != "prod":
+            out = torch.where(torch.isfinite(out), out,
+                              torch.zeros((), dtype=out.dtype,
+                                          device=out.device))
+    else:
+        raise ValueError(f"unknown reduce op {reduce_op!r}")
     return finalize_empty_rows(out, deg, reduce_op) if deg is not None else out

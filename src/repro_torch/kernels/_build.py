@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "NVCC_FLAGS", "nvcc_path", "build",
            "library", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCES = ("spmm_csr", "fused_attention_csr")
+SOURCES = ("spmm_csr", "fused_attention_csr", "sddmm_csr",
+           "binary_reduce_csr", "edge_softmax_csr")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,1 +1,1 @@
-"""Fused GAT attention kernel (ROADMAP B2, forward)."""
+"""Fused GAT attention (ROADMAP B2, forward) and edge softmax (B5) kernels."""

@@ -1,13 +1,20 @@
-"""Fused GAT attention (ROADMAP B2, forward): the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""Fused GAT attention (ROADMAP B2, forward) and edge softmax (B5): the
+CUDA kernels' wrappers and their plain PyTorch versions.
 
-Replaces ``src/repro/kernels/edge_softmax/kernel.py::_attention_kernel``
-(built by ``fused_attention_pallas_call``, launched once per pow2 degree
-class from ``repro/kernels/edge_softmax/ops.py``). The CUDA source is
-``../csrc/fused_attention_csr.cu``: one warp per (row, head) runs an
-online softmax over the row's CSR edges, so no ELL stripe is packed. Its
-header says what bounds it on the H100 (bytes) and what the design does
-about hub rows.
+* ``fused_attention_csr`` replaces
+  ``src/repro/kernels/edge_softmax/kernel.py::_attention_kernel`` (built
+  by ``fused_attention_pallas_call``, launched once per pow2 degree class
+  from ``repro/kernels/edge_softmax/ops.py``). The CUDA source is
+  ``../csrc/fused_attention_csr.cu``: one warp per (row, head) runs an
+  online softmax over the row's CSR edges, so no ELL stripe is packed.
+* ``edge_softmax_csr`` replaces ``::_softmax_kernel`` (built by
+  ``edge_softmax_pallas_call``, launched from ``ops.py::edge_softmax``).
+  The CUDA source is ``../csrc/edge_softmax_csr.cu``: one warp per
+  destination row, lanes over (edge, head), reading the logits and
+  writing α through ``eid`` in caller order — no stripe, no scatter-back.
+
+Each source's header says what bounds it on the H100 (bytes) and what
+its design does about hub rows and narrow head counts.
 """
 from __future__ import annotations
 
@@ -19,10 +26,15 @@ from ...substrate.nn import leaky_relu
 from .. import _build
 from ..common import check_operand, ptr, raise_on_error, stream_handle
 
-__all__ = ["fused_attention_csr", "fused_attention_plain", "MAX_F"]
+__all__ = ["fused_attention_csr", "fused_attention_plain", "MAX_F",
+           "edge_softmax_csr", "edge_softmax_plain"]
 
 _KERNEL = "fused_attention_csr"
+_SOFTMAX_KERNEL = "edge_softmax_csr"
 MAX_F = 128  # the kernel keeps ≤ 4 features per lane in registers
+# the TPU kernel's mask value and sum floor (kernel.py:20, :31)
+_NEG = -1e30
+_TINY = 1e-38
 
 
 def _lib():
@@ -99,3 +111,68 @@ def fused_attention_csr(g, el: torch.Tensor, er: torch.Tensor,
 
 
 fused_attention_csr.launches = 0
+
+
+def _softmax_lib():
+    lib = _build.library(_SOFTMAX_KERNEL)
+    fn = lib.edge_softmax_csr_f32
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def edge_softmax_plain(g, logits: torch.Tensor) -> torch.Tensor:
+    """Softmax of ``logits`` (n_edges, H), caller edge order, over each
+    destination's in-edges, in canonical order: gather by ``eid``,
+    ``scatter_reduce("amax")`` from −1e30, exp, ``index_add_``, divide by
+    max(sum, 1e-38), un-permute by ``eid_inv``. The −1e30 floor and the
+    1e-38 floor are the Pallas kernel's; on logits above −1e30 this is
+    also ``repro.core.edge_softmax.edge_softmax_fused``. The reference the
+    kernel is held against."""
+    dst = g.long("dst")
+    x = logits.index_select(0, g.long("eid"))                    # (E, H)
+    mx = torch.full((g.n_dst,) + tuple(x.shape[1:]), _NEG, dtype=x.dtype,
+                    device=x.device)
+    idx = dst.reshape((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+    mx = mx.scatter_reduce(0, idx, x, "amax", include_self=True)
+    ex = torch.exp(x - mx.index_select(0, dst))
+    zs = torch.zeros_like(mx)
+    zs.index_add_(0, dst, ex)
+    out = ex / zs.clamp(min=_TINY).index_select(0, dst)
+    return out.index_select(0, g.long("eid_inv"))
+
+
+def edge_softmax_csr(g, logits: torch.Tensor) -> torch.Tensor:
+    """B5 wrapper: the CUDA kernel for CUDA ``logits``, the plain version
+    for CPU ``logits``. ``logits``: (n_edges, H) fp32 in caller edge
+    order; returns α of the same shape and order.
+
+    ``edge_softmax_csr.launches`` counts kernel launches (CUDA only).
+    """
+    if logits.device.type == "cpu":
+        return edge_softmax_plain(g, logits)
+    if logits.device.type != "cuda":
+        raise ValueError(f"{_SOFTMAX_KERNEL}: unsupported device "
+                         f"{logits.device}")
+    dev = logits.device
+    check_operand(_SOFTMAX_KERNEL, "indptr_dst", g.indptr_dst, torch.int32,
+                  (g.n_dst + 1,), dev)
+    check_operand(_SOFTMAX_KERNEL, "eid", g.eid, torch.int32, (g.n_edges,),
+                  dev)
+    check_operand(_SOFTMAX_KERNEL, "logits", logits, torch.float32,
+                  (g.n_edges, None), dev)
+    out = torch.empty_like(logits)
+    if out.numel() == 0:
+        return out
+    fn = _softmax_lib()
+    with torch.cuda.device(dev):
+        rc = fn(ptr(g.indptr_dst), ptr(g.eid), ptr(logits), ptr(out),
+                g.n_dst, logits.shape[1], stream_handle(dev))
+    raise_on_error(_SOFTMAX_KERNEL, rc)
+    edge_softmax_csr.launches += 1
+    return out
+
+
+edge_softmax_csr.launches = 0

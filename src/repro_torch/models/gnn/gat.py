@@ -1,17 +1,26 @@
-"""GAT, full-graph forward (port of ``repro/models/gnn/gat.py``).
+"""GAT, full-graph forward (port of ``repro/models/gnn/gat.py``) — the
+paper's heaviest BR user (Table 2, row 8).
 
-Each layer projects ``z = h @ w`` into (H, F) heads, forms the source and
-destination logit terms ``el``/``er``, and runs the whole attention
-pipeline (logits, leaky-relu, edge softmax, α-weighted aggregation) as
-ONE pass through :func:`repro_torch.core.fused_attention` — the fused
-attention kernel (B2) on the card.
+Each layer projects ``z = h @ w`` into (H, F) heads and forms the source
+and destination logit terms ``el`` / ``er``. ``attn`` selects how much of
+the attention pipeline fuses, with the JAX package's modes:
 
-``attn`` keeps the JAX package's modes. ``'fused'``, ``'pallas'`` and
-``'auto'`` run the fused pipeline: 'fused' its plain PyTorch version,
-'pallas' the kernel, 'auto' the kernel for CUDA tensors. The multipass
-family (``None``, ``'multipass'``, ``'softmax-fused'``) needs gSDDMM and
-the composed edge softmax and is queued. ``strategy='segment'`` pins the
-plain versions everywhere, attention included.
+    'multipass'     — ``u_add_v_copy_e`` logits on gSDDMM (kernel B3),
+                      leaky-relu, the composed 5-primitive edge softmax
+                      (B3 and B4 on the card, the max on segment), then
+                      ``u_mul_e_add_v`` with per-head α (rank 3, so it
+                      stays on segment) — the paper's layering;
+    'softmax-fused' — the same, with the single-pass edge softmax (B5);
+    'fused'/'pallas'/'auto'
+                    — the whole pipeline as ONE pass,
+                      :func:`repro_torch.core.fused_attention` (B2):
+                      'fused' its plain version, 'pallas' the kernel,
+                      'auto' the kernel for CUDA tensors.
+
+``attn=None`` means 'multipass' (or 'softmax-fused' under the older
+``fused_softmax=True``), as in JAX; it is what ``infer`` and the serving
+tier run. ``strategy='segment'`` pins the plain versions everywhere,
+``'kernel'`` the kernels for every op a kernel covers.
 """
 from __future__ import annotations
 
@@ -21,15 +30,32 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ...core.edge_softmax import fused_attention
+from ...core.binary_reduce import SDDMM_FOR, gsddmm, gspmm
+from ...core.edge_softmax import (edge_softmax, edge_softmax_fused,
+                                  fused_attention)
 from ...device import DeviceLike
-from ...substrate.nn import from_numpy, glorot
+from ...substrate.nn import from_numpy, glorot, leaky_relu
 from .common import GraphBundle
 
 __all__ = ["GAT", "GATLayer", "init", "forward", "infer"]
 
 _ATTN_MODES = ("multipass", "softmax-fused", "fused", "pallas", "auto")
+_STRATEGIES = ("auto", "segment", "kernel")
+# strategy of the single-pass forms (fused attention, fused softmax) for
+# each model strategy; 'auto' fused attention keeps its attn name below
+_SINGLE_PASS = {"segment": "fused", "kernel": "kernel", "auto": "auto"}
 _FUSED_STRATEGY = {"auto": "auto", "fused": "fused", "pallas": "kernel"}
+
+
+def _resolve_attn(attn: Optional[str], fused_softmax: bool) -> str:
+    """Back-compat: ``fused_softmax`` predates ``attn`` and keeps its
+    meaning when ``attn`` is not given."""
+    if attn is None:
+        return "softmax-fused" if fused_softmax else "multipass"
+    if attn not in _ATTN_MODES:
+        raise ValueError(f"unknown attn mode {attn!r}; expected one of "
+                         f"{_ATTN_MODES}")
+    return attn
 
 
 class GATLayer(nn.Module):
@@ -42,38 +68,35 @@ class GATLayer(nn.Module):
         self.attn_l = nn.Parameter(attn_l)
         self.attn_r = nn.Parameter(attn_r)
 
-    def forward(self, bundle: GraphBundle, h: torch.Tensor,
-                attention_strategy: str) -> torch.Tensor:
+    def forward(self, bundle: GraphBundle, h: torch.Tensor, *,
+                strategy: str, attn: str) -> torch.Tensor:
+        g = bundle.g
         heads, out = self.attn_l.shape
         z = (h @ self.w).reshape(-1, heads, out)           # (n, H, F)
         el = (z * self.attn_l).sum(dim=-1)                 # (n, H)
         er = (z * self.attn_r).sum(dim=-1)
-        out_feat = fused_attention(bundle.g, el, er, z,
-                                   strategy=attention_strategy)
+        if attn in _FUSED_STRATEGY:
+            how = (_FUSED_STRATEGY[attn] if strategy == "auto"
+                   else _SINGLE_PASS[strategy])
+            out_feat = fused_attention(g, el, er, z, strategy=how)
+            return out_feat.reshape(-1, heads * out)
+        logits = gsddmm(g, "u_add_v_copy_e", u=el, v=er,
+                        strategy=SDDMM_FOR[strategy])
+        logits = leaky_relu(logits)
+        if attn == "softmax-fused":
+            alpha = edge_softmax_fused(g, logits,
+                                       strategy=_SINGLE_PASS[strategy])
+        else:
+            alpha = edge_softmax(g, logits, strategy=strategy)  # (E, H)
+        # u_mul_e_add_v with per-head scalar α is a rank-3 broadcast: no
+        # kernel takes it (the JAX planner keeps it off pallas too)
+        out_feat = gspmm(g, "u_mul_e_add_v", u=z, e=alpha[:, :, None],
+                         strategy="segment")
         return out_feat.reshape(-1, heads * out)
 
 
-def _attention_strategy(strategy: str, attn: Optional[str]) -> str:
-    if attn is None or attn in ("multipass", "softmax-fused"):
-        raise NotImplementedError(
-            f"GAT attn={attn!r} (gSDDMM logits + composed edge softmax) is "
-            f"not ported yet: ROADMAP A4 with kernels B3/B4; use "
-            f"attn='auto', 'fused' or 'pallas'")
-    if attn not in _ATTN_MODES:
-        raise ValueError(f"unknown attn mode {attn!r}; expected one of "
-                         f"{_ATTN_MODES}")
-    if strategy == "segment":
-        return "fused"
-    if strategy == "kernel":
-        return "kernel"
-    if strategy != "auto":
-        raise ValueError(f"unknown strategy {strategy!r}; expected 'auto', "
-                         f"'segment' or 'kernel'")
-    return _FUSED_STRATEGY[attn]
-
-
 class GAT(nn.Module):
-    """Stack of fused-attention layers, elu between layers."""
+    """Stack of attention layers, elu between layers."""
 
     def __init__(self, layers: Sequence[GATLayer]):
         super().__init__()
@@ -86,12 +109,15 @@ class GAT(nn.Module):
                     for p in tree["layers"]])
 
     def forward(self, bundle: GraphBundle, x: torch.Tensor, *,
-                strategy: str = "auto",
-                attn: Optional[str] = "auto") -> torch.Tensor:
-        how = _attention_strategy(strategy, attn)
+                strategy: str = "auto", attn: Optional[str] = None,
+                fused_softmax: bool = False) -> torch.Tensor:
+        attn = _resolve_attn(attn, fused_softmax)
+        if strategy not in _STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r}; expected one "
+                             f"of {_STRATEGIES}")
         h = x
         for i, lyr in enumerate(self.layers):
-            h = lyr(bundle, h, how)
+            h = lyr(bundle, h, strategy=strategy, attn=attn)
             if i < len(self.layers) - 1:
                 h = F.elu(h)
         return h
@@ -113,14 +139,15 @@ def init(gen: torch.Generator, d_in: int, d_hidden: int, n_classes: int,
 
 
 def forward(model: GAT, bundle: GraphBundle, x: torch.Tensor, *,
-            strategy: str = "auto",
-            attn: Optional[str] = "auto") -> torch.Tensor:
-    return model(bundle, x, strategy=strategy, attn=attn)
+            strategy: str = "auto", fused_softmax: bool = False,
+            attn: Optional[str] = None) -> torch.Tensor:
+    return model(bundle, x, strategy=strategy, attn=attn,
+                 fused_softmax=fused_softmax)
 
 
 def infer(model: GAT, bundle: GraphBundle, x: torch.Tensor, *,
           strategy: str = "auto",
-          attn: Optional[str] = "auto") -> torch.Tensor:
+          attn: Optional[str] = None) -> torch.Tensor:
     """Inference-mode forward — the serving tier's layer-wise refresh
     entry point (no autograd graph, so the kernels can launch)."""
     with torch.no_grad():

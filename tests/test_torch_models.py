@@ -2,8 +2,9 @@
 
 * ``make_node_dataset("tiny")`` gives identical arrays in both packages.
 * ``gcn`` / ``sage`` / ``gat.infer`` with ``from_jax_params`` (the JAX
-  init carried across as numpy) match JAX's ``infer`` at 1e-5 — GAT
-  against both the fused pipeline and JAX's default multipass.
+  init carried across as numpy) match JAX's ``infer`` at 1e-5. GAT's
+  default is multipass in both packages; each of its five ``attn`` modes
+  matches JAX's at that mode.
 """
 import jax
 import jax.numpy as jnp
@@ -70,19 +71,26 @@ def test_edge_norms_identical():
     np.testing.assert_array_equal(edge_norms(tg)[0], np.asarray(jb.gcn_norm))
 
 
-@pytest.mark.parametrize("app", ["gcn", "sage", "gat"])
+@pytest.mark.parametrize("app", ["gcn", "sage", "gat", "gat-multipass"])
 def test_infer_matches_jax(app):
+    """Default arguments on both sides; ``gat-multipass`` names the mode
+    on both sides and checks it is the port's default."""
     (jg, jf, *_, n_cls), (tg, tf, *_) = _tiny()
+    app, _, attn = app.partition("-")
+    kw = {"attn": attn} if attn else {}
     p, tree = _params(app, jf.shape[1], n_cls)
     model = from_jax_params(app, tree, device="cpu")
-    got = PORT_APPS[app].infer(model, make_bundle(tg),
-                               torch.from_numpy(tf)).numpy()
+    bundle, x = make_bundle(tg), torch.from_numpy(tf)
+    got = PORT_APPS[app].infer(model, bundle, x, **kw).numpy()
     jb = jax_make_bundle(jg)
     refs = ([JAX_APPS[app].infer(p, jb, jnp.asarray(jf), attn=a)
-             for a in ("fused", None)] if app == "gat"
-            else [JAX_APPS[app].infer(p, jb, jnp.asarray(jf))])
+             for a in ("fused", None)] if app == "gat" and not attn
+            else [JAX_APPS[app].infer(p, jb, jnp.asarray(jf), **kw)])
     for ref in refs:
         np.testing.assert_allclose(got, np.asarray(ref), rtol=TOL, atol=TOL)
+    if attn:
+        torch.testing.assert_close(PORT_APPS[app].infer(model, bundle, x),
+                                   torch.from_numpy(got), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("app", ["gcn", "sage", "gat"])
@@ -107,18 +115,27 @@ def test_infer_builds_no_autograd_graph():
 
 
 def test_gat_attn_modes():
-    (_, jf, *_, n_cls), (tg, tf, *_) = _tiny()
-    model = from_jax_params("gat", _params("gat", jf.shape[1], n_cls)[1],
-                            device="cpu")
+    """Every mode matches JAX's ``infer`` at that mode; ``fused_softmax``
+    keeps its meaning when ``attn`` is not given."""
+    (jg, jf, *_, n_cls), (tg, tf, *_) = _tiny()
+    p, tree = _params("gat", jf.shape[1], n_cls)
+    model = from_jax_params("gat", tree, device="cpu")
     bundle, x = make_bundle(tg), torch.from_numpy(tf)
-    ref = gat.infer(model, bundle, x, attn="fused")
-    torch.testing.assert_close(gat.infer(model, bundle, x, attn="pallas"),
-                               ref, rtol=0, atol=0)
-    for attn in (None, "multipass", "softmax-fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            gat.infer(model, bundle, x, attn=attn)
+    jb = jax_make_bundle(jg)
+    for attn in ("multipass", "softmax-fused", "fused", "pallas", "auto"):
+        ref = np.asarray(jax_gat.infer(p, jb, jnp.asarray(jf), attn=attn))
+        for strategy in ("auto", "segment", "kernel"):
+            got = gat.infer(model, bundle, x, strategy=strategy, attn=attn)
+            np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL,
+                                       err_msg=f"{attn}/{strategy}")
+    with torch.no_grad():
+        torch.testing.assert_close(
+            gat.forward(model, bundle, x, fused_softmax=True),
+            gat.infer(model, bundle, x, attn="softmax-fused"), rtol=0, atol=0)
     with pytest.raises(ValueError):
         gat.infer(model, bundle, x, attn="bogus")
+    with pytest.raises(ValueError):
+        gat.infer(model, bundle, x, strategy="bogus")
 
 
 def test_init_from_generator_is_deterministic():

@@ -4,8 +4,7 @@
   as the JAX package's, with identical accounting and batches.
 * The port's ``GNNServer`` (device="cpu") serves the same rows as JAX's
   ``GNNServer`` for gcn/sage/gat at 1e-5, across batch splits, request
-  orderings and duplicate ids (JAX serves GAT multipass, the port the
-  fused pipeline).
+  orderings and duplicate ids; both serve GAT multipass.
 * One ``RequestQueue`` session runs end to end through ``run_session``.
 * Entry points called without ``device`` on a host with no GPU raise.
 """
@@ -92,6 +91,22 @@ def test_served_rows_match_jax_server(app):
     _check(app, [(0, np.array([7, 7, 3, 99, 3, 7, 0, 0]))])   # duplicates
     _check(app, [(0, [7, 3, 7]), (1, [3, 3]), (2, [7])])
     _check(app, [(0, rng.integers(0, N, 40))])                # oversize
+
+
+def test_gat_server_serves_multipass():
+    """Both servers' GAT tables are their package's multipass forward,
+    and agree with each other at 1e-5."""
+    jsrv, tsrv = _setup("gat")
+    jsrv.serve([(0, [0])])
+    tsrv.serve([(0, [0])])
+    jref = jax_gat.infer(jsrv.params, jsrv._graph_arg,
+                         jax.numpy.asarray(jsrv.feats), attn="multipass")
+    np.testing.assert_array_equal(jsrv._out_cache.store, np.asarray(jref))
+    tref = gat.infer(tsrv.model, tsrv.bundle, tsrv.x_device,
+                     attn="multipass").numpy()
+    np.testing.assert_array_equal(tsrv._out_cache.store, tref)
+    np.testing.assert_allclose(tsrv._out_cache.store, jsrv._out_cache.store,
+                               rtol=TOL, atol=TOL)
 
 
 def test_no_new_signatures_in_steady_state():

@@ -114,27 +114,36 @@ def test_copy_reduce_mean_matches_jax():
 
 
 def test_kernel_supports_exactly_the_b1_specs():
+    """The B1 specs are covered; so, since B4, is a vector edge operand
+    of the node's width — but not one of another width, a max, a
+    v-operand, or a type the kernels do not take."""
     u = torch.zeros(4, 3)
-    e1, e3 = torch.zeros(5, 1), torch.zeros(5, 3)
+    e1, e2, e3 = torch.zeros(5, 1), torch.zeros(5, 2), torch.zeros(5, 3)
     for op in B1_SPECS:
         assert kernel_supports(parse_op(op), u, e1)
-    assert not kernel_supports(parse_op("u_mul_e_add_v"), u, e3)
+    assert kernel_supports(parse_op("u_mul_e_add_v"), u, e3)
+    assert not kernel_supports(parse_op("u_mul_e_add_v"), u, e2)
     assert not kernel_supports(parse_op("u_copy_max_v"), u, None)
     assert not kernel_supports(parse_op("u_add_v_add_v"), u, u)
+    assert not kernel_supports(parse_op("u_copy_add_v"), u.double(), None)
 
 
 def test_queued_strategies_and_outputs_raise():
-    _, tg, B, w = _case(30, 30, 400, 7)
+    """The queued strategies still raise, naming their ROADMAP item, and
+    so does a spec no kernel covers under 'kernel'; edge outputs and the
+    max reducer, queued before, now compute."""
+    jg, tg, B, w = _case(30, 30, 400, 7)
     u = torch.from_numpy(B)
     for strategy in ("push", "ell", "onehot", "ring", "pallas"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gspmm(tg, "u_copy_add_v", u=u, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gspmm(tg, "u_add_v_copy_e", u=u, v=u)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gspmm(tg, "u_copy_max_v", u=u, strategy="segment")
-    with pytest.raises(NotImplementedError, match="B4"):
+    with pytest.raises(NotImplementedError, match="no kernel computes"):
         gspmm(tg, "u_add_v_add_v", u=u, v=u, strategy="kernel")
+    for op in ("u_add_v_copy_e", "u_copy_max_v"):
+        ref = np.asarray(jax_gspmm(jg, op, u=jnp.asarray(B),
+                                   v=jnp.asarray(B), strategy="segment"))
+        got = gspmm(tg, op, u=u, v=u, strategy="segment").numpy()
+        np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 
 
 def test_operand_checks_reject_what_the_kernels_cannot_take():
