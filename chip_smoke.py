@@ -13,7 +13,10 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
    Binary-Reduce, B5 edge softmax) against its plain PyTorch version
    within a stated tolerance, and time kernel, plain version and, where
    one PyTorch call computes the same function, that call — a yardstick
-   the port never calls — with CUDA events.
+   the port never calls — with CUDA events. B1 and B2 are called twice
+   at every shape and must give bit-identical outputs; they and
+   ``torch.sparse.mm`` are also timed on the device alone, warm and with
+   L2 flushed between launches (cold).
 4. Serve: for gcn, sage and gat, ``build_server(app, "reddit-like")``
    and a 4-client session; served rows must equal a plain-version full
    forward, each refresh must launch exactly the app's kernels (GAT
@@ -44,6 +47,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32, outside the tensor cores
+FLUSH_BYTES = 128 << 20       # written between cold launches: > 2.5x L2
+SLEEP_CYCLES = 2_000_000      # ~1 ms of GPU sleep ahead of each timed launch
 B1_SHAPES = [(32, "sum"), (41, "sum"), (602, "sum"),
              (32, "mean"), (41, "mean"), (602, "mean")]
 B1_MAIN = [(32, "sum"), (41, "sum"), (602, "mean"), (32, "mean")]
@@ -104,6 +109,41 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_device_ms(fn, cold: bool, reps: int = 20,
+                   warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn``'s device work
+    alone. The GPU first sleeps, so the host has queued both events and
+    ``fn``'s launches before the first event runs (``time_ms`` above also
+    counts the host's wrapper time); with ``cold``, ``FLUSH_BYTES`` are
+    written between launches so the inputs start outside L2."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        if cold:
+            flush.zero_()
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def bit_identical(what: str, fn) -> torch.Tensor:
+    """Call ``fn`` twice; raise unless the outputs are bit-identical."""
+    first, second = fn(), fn()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{what}: two calls differ by "
+                             f"{float((first - second).abs().max())}")
+    return first
+
+
 def bound(bytes_moved: float, flops: float):
     """(least time in ms, what bounds it) on the H100's published peaks."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -126,7 +166,8 @@ def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
         weight = None if mean else w_canon
         B = torch.randn(g.n_src, d, generator=gen).cuda()
         n0 = spmm_csr.launches
-        got = spmm_csr(g, B, weight, mean)
+        got = bit_identical(f"spmm_csr d={d} {red}",
+                            lambda: spmm_csr(g, B, weight, mean))
         ref = spmm_plain(g, B, weight, mean)
         torch.cuda.synchronize()
         err = max_err(got, ref)
@@ -138,6 +179,11 @@ def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
         k_ms = time_ms(lambda: spmm_csr(g, B, weight, mean))
         p_ms = time_ms(lambda: spmm_plain(g, B, weight, mean))
         l_ms = time_ms(lambda: torch.sparse.mm(A, B))
+        dev_ms = {(who, cold): time_device_ms(f, cold)
+                  for who, f in (("kernel",
+                                  lambda: spmm_csr(g, B, weight, mean)),
+                                 ("library", lambda: torch.sparse.mm(A, B)))
+                  for cold in (False, True)}
         nbytes = 4 * ((g.n_dst + 1) + g.n_edges * (1 if mean else 2)
                       + g.n_src * d + g.n_dst * d)
         b_ms, b_by = bound(nbytes, 2 * g.n_edges * d)
@@ -145,7 +191,11 @@ def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
                "d": d, "reduce": red, "weighted": not mean,
                "max_abs_err": err, "tol": tol, "library_max_abs_err": lib_err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "kernel_device_ms": dev_ms["kernel", False],
+               "kernel_cold_ms": dev_ms["kernel", True],
+               "library_device_ms": dev_ms["library", False],
+               "library_cold_ms": dev_ms["library", True],
+               "bound_ms": b_ms, "bound_by": b_by, "bit_identical": True,
                "launches": spmm_csr.launches - n0}
         emit(row)
         if not err <= tol:
@@ -162,20 +212,26 @@ def check_b2(g, gen, label: str, rows: dict) -> None:
         er = torch.randn(g.n_dst, H, generator=gen).cuda()
         z = torch.randn(g.n_src, H, F, generator=gen).cuda()
         n0 = fused_attention_csr.launches
-        got = fused_attention_csr(g, el, er, z, 0.2)
+        got = bit_identical(f"fused_attention_csr H={H} F={F}",
+                            lambda: fused_attention_csr(g, el, er, z, 0.2))
         ref = fused_attention_plain(g, el, er, z, 0.2)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         tol = 1e-5 + 1e-4 * float(ref.abs().max())
         k_ms = time_ms(lambda: fused_attention_csr(g, el, er, z, 0.2))
         p_ms = time_ms(lambda: fused_attention_plain(g, el, er, z, 0.2))
+        dev_ms = {cold: time_device_ms(
+            lambda: fused_attention_csr(g, el, er, z, 0.2), cold)
+            for cold in (False, True)}
         nbytes = 4 * ((g.n_dst + 1) + g.n_edges + g.n_src * H
                       + g.n_dst * H + g.n_src * H * F + g.n_dst * H * F)
         b_ms, b_by = bound(nbytes, g.n_edges * H * (2 * F + 6))
         row = {"phase": "kernel", "kernel": "fused_attention_csr",
                "graph": label, "H": H, "F": F, "max_abs_err": err,
                "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+               "library_ms": None, "kernel_device_ms": dev_ms[False],
+               "kernel_cold_ms": dev_ms[True],
+               "bound_ms": b_ms, "bound_by": b_by, "bit_identical": True,
                "launches": fused_attention_csr.launches - n0}
         emit(row)
         if not err <= tol:
@@ -435,9 +491,11 @@ def summary(name, source, replaces, main_rows, all_rows, launches):
             "bound_by": max(main_rows, key=lambda r: r["bound_ms"])[
                 "bound_by"],
             "library_ms": total("library_ms"),
-            "shapes": [{k: r[k] for k in ("op", "binop", "lhs", "rhs", "d",
-                                          "de", "reduce", "H", "F")
-                        if k in r} for r in main_rows]}
+            "shapes": [{k: r[k] for k in (
+                "op", "binop", "lhs", "rhs", "d", "de", "reduce", "H", "F",
+                "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
+                "library_ms", "library_device_ms", "library_cold_ms",
+                "plain_ms", "bound_ms") if k in r} for r in main_rows]}
 
 
 def main() -> int:
@@ -445,6 +503,7 @@ def main() -> int:
     from repro_torch.data.synthetic import make_node_dataset, rmat_graph
     from repro_torch.core.graph import from_coo
     from repro_torch.kernels import _build
+    from repro_torch.kernels.rowsplit import row_split
     from repro_torch.models.gnn.common import make_bundle
 
     if not torch.cuda.is_available():
@@ -481,10 +540,17 @@ def main() -> int:
     src, dst, n = rmat_graph(16, 600_000, seed=0)
     g_bare = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
     for label, g in (("self_loops", g_loops), ("no_self_loops", g_bare)):
+        t0 = time.perf_counter()
+        rs = row_split(g)
         emit({"phase": "graph", "graph": label, "n_nodes": g.n_dst,
               "n_edges": g.n_edges,
               "max_in_degree": int(g.host.in_degrees.max()),
-              "zero_in_degree_rows": int((g.host.in_degrees == 0).sum())})
+              "zero_in_degree_rows": int((g.host.in_degrees == 0).sum()),
+              "work_list": {"K": rs.K, "segments": rs.n_segments,
+                            "split_rows": rs.n_split,
+                            "partial_slots": rs.n_partials,
+                            "longest_segment": rs.max_segment,
+                            "build_s": time.perf_counter() - t0}})
         w = make_bundle(g).gcn_norm.index_select(0, g.long("eid"))
         check_b1(g, w.contiguous(), gen, label, b1_rows)
         check_b2(g, gen, label, b2_rows)

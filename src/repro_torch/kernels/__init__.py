@@ -8,7 +8,9 @@ its plain PyTorch version and a launch counter on its wrapper:
 * ``binary_reduce.ops.binary_reduce_csr`` — fused Binary-Reduce (B4);
 * ``edge_softmax.ops.edge_softmax_csr`` — edge softmax (B5).
 
-``dispatch`` routes the lattice's specs onto them.
+``dispatch`` routes the lattice's specs onto them; ``rowsplit`` cuts the
+graph's rows into bounded edge segments, the work list B1 and B2 launch
+over.
 
 ``_build`` compiles the sources with ``nvcc`` at first use.
 """

@@ -18,7 +18,8 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..common import check_operand, ptr, raise_on_error, stream_handle
+from ..common import (check_operand, device_guard, ptr, raise_on_error,
+                      stream_handle)
 
 __all__ = ["BINOPS", "binary_reduce", "binary_reduce_csr",
            "binary_reduce_plain"]
@@ -106,7 +107,7 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
     if out.numel() == 0:
         return out
     fn = _lib()
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         rc = fn(ptr(g.indptr_dst), ptr(g.src), ptr(g.eid), ptr(B), ptr(E),
                 ptr(out), g.n_dst, d, de, BINOPS[binop], int(bool(mean)),
                 stream_handle(dev))

@@ -7,12 +7,13 @@ a CUDA error.
 """
 from __future__ import annotations
 
-import ctypes
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["check_operand", "stream_handle", "ptr", "raise_on_error"]
+__all__ = ["check_operand", "device_guard", "stream_handle", "ptr",
+           "raise_on_error"]
 
 
 def check_operand(kernel: str, name: str, t: torch.Tensor,
@@ -41,13 +42,28 @@ def check_operand(kernel: str, name: str, t: torch.Tensor,
             f"come with the training slice; run under torch.no_grad()")
 
 
-def stream_handle(device: torch.device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device``, for a C launcher."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def device_guard(device: torch.device):
+    """Make ``device`` current for a launch: ``torch.cuda.device(device)``,
+    or no context at all when it is current already (the usual case; the
+    switch costs microseconds a launch would pay each call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
-def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def stream_handle(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, for a C launcher (the
+    raw handle, as ``torch.cuda.current_stream(device).cuda_stream`` gives
+    it, without building a Stream object on every launch)."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's data pointer for a ``ctypes.c_void_p`` argument (None
+    passes a null pointer)."""
+    return None if t is None else t.data_ptr()
 
 
 def raise_on_error(kernel: str, rc: int) -> None:

@@ -5,8 +5,11 @@ CUDA kernels' wrappers and their plain PyTorch versions.
   ``src/repro/kernels/edge_softmax/kernel.py::_attention_kernel`` (built
   by ``fused_attention_pallas_call``, launched once per pow2 degree class
   from ``repro/kernels/edge_softmax/ops.py``). The CUDA source is
-  ``../csrc/fused_attention_csr.cu``: one warp per (row, head) runs an
-  online softmax over the row's CSR edges, so no ELL stripe is packed.
+  ``../csrc/fused_attention_csr.cu``: one warp per segment of the
+  row-segment work list (``../rowsplit.py``) and group of heads runs an
+  online softmax over the segment's CSR edges, so no ELL stripe is
+  packed; a heavy row's segments are merged in edge order (flash
+  decoding) by a second launch of the same call.
 * ``edge_softmax_csr`` replaces ``::_softmax_kernel`` (built by
   ``edge_softmax_pallas_call``, launched from ``ops.py::edge_softmax``).
   The CUDA source is ``../csrc/edge_softmax_csr.cu``: one warp per
@@ -24,14 +27,17 @@ import torch
 
 from ...substrate.nn import leaky_relu
 from .. import _build
-from ..common import check_operand, ptr, raise_on_error, stream_handle
+from ..common import (check_operand, device_guard, ptr, raise_on_error,
+                      stream_handle)
+from ..rowsplit import row_split
 
 __all__ = ["fused_attention_csr", "fused_attention_plain", "MAX_F",
-           "edge_softmax_csr", "edge_softmax_plain"]
+           "heads_per_warp", "edge_softmax_csr", "edge_softmax_plain"]
 
 _KERNEL = "fused_attention_csr"
 _SOFTMAX_KERNEL = "edge_softmax_csr"
-MAX_F = 128  # the kernel keeps ≤ 4 features per lane in registers
+MAX_F = 128  # a warp's lanes hold ≤ 128 floats of z[src] (4 per lane)
+_MAX_HEADS_PER_WARP = 8  # the kernel's register state for heads (HMAX)
 # the TPU kernel's mask value and sum floor (kernel.py:20, :31)
 _NEG = -1e30
 _TINY = 1e-38
@@ -41,10 +47,18 @@ def _lib():
     lib = _build.library(_KERNEL)
     fn = lib.fused_attention_csr_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
-            ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+                           ctypes.c_int] * 3 + [ctypes.c_float,
+                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def heads_per_warp(H: int, F: int) -> int:
+    """Heads one warp of the kernel covers: as many as fit in the lanes'
+    128 floats of ``z[src]``, at most 8 (and at least 1)."""
+    return max(1, min(H, MAX_F // max(F, 1), _MAX_HEADS_PER_WARP))
 
 
 def fused_attention_plain(g, el: torch.Tensor, er: torch.Tensor,
@@ -79,7 +93,8 @@ def fused_attention_csr(g, el: torch.Tensor, er: torch.Tensor,
     """B2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
     CPU tensors. fp32 only; F ≤ :data:`MAX_F`.
 
-    ``fused_attention_csr.launches`` counts kernel launches (CUDA only).
+    ``fused_attention_csr.launches`` counts calls that launched the
+    kernel (CUDA only); a heavy row's merge pass is part of the same call.
     """
     if z.device.type == "cpu":
         return fused_attention_plain(g, el, er, z, slope)
@@ -98,19 +113,42 @@ def fused_attention_csr(g, el: torch.Tensor, er: torch.Tensor,
     check_operand(_KERNEL, "el", el, torch.float32, (g.n_src, H), dev)
     check_operand(_KERNEL, "er", er, torch.float32, (g.n_dst, H), dev)
     check_operand(_KERNEL, "z", z, torch.float32, (g.n_src, H, F), dev)
-    out = torch.empty((g.n_dst, H, F), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    fn = _lib()
-    with torch.cuda.device(dev):
-        rc = fn(ptr(g.indptr_dst), ptr(g.src), ptr(el), ptr(er), ptr(z),
-                ptr(out), g.n_dst, H, F, float(slope), stream_handle(dev))
-    raise_on_error(_KERNEL, rc)
+    if g.n_dst * H * F == 0:
+        return torch.empty((g.n_dst, H, F), dtype=torch.float32, device=dev)
+    out = _launch_attention(g, el, er, z, slope, heads_per_warp(H, F),
+                            row_split(g))
     fused_attention_csr.launches += 1
     return out
 
 
 fused_attention_csr.launches = 0
+
+
+def _launch_attention(g, el: torch.Tensor, er: torch.Tensor,
+                      z: torch.Tensor, slope: float, hg: int, rs
+                      ) -> torch.Tensor:
+    """Launch B2 on checked operands with ``hg`` heads per warp over work
+    list ``rs`` (the wrapper passes :func:`heads_per_warp` and the graph's
+    cached list; ``benchmarks/torch_rowsplit_sweep.py`` also times one
+    head per warp and other caps K). Counts nothing."""
+    dev = z.device
+    _, H, F = z.shape
+    out = torch.empty((g.n_dst, H, F), dtype=torch.float32, device=dev)
+    # one workspace: (n_partials, H, F) accumulators, then (n_partials, H,
+    # 2) running (max, sum) pairs
+    pacc = pml = None
+    if rs.n_partials:
+        ws = torch.empty(rs.n_partials * H * (F + 2), dtype=torch.float32,
+                         device=dev)
+        pacc = ws.data_ptr()
+        pml = pacc + 4 * rs.n_partials * H * F
+    fn = _lib()
+    with device_guard(dev):
+        rc = fn(ptr(rs.seg), rs.n_segments, ptr(rs.split), rs.n_split,
+                ptr(g.src), ptr(el), ptr(er), ptr(z), ptr(out), pacc, pml,
+                H, F, int(hg), float(slope), stream_handle(dev))
+    raise_on_error(_KERNEL, rc)
+    return out
 
 
 def _softmax_lib():
@@ -167,7 +205,7 @@ def edge_softmax_csr(g, logits: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     fn = _softmax_lib()
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         rc = fn(ptr(g.indptr_dst), ptr(g.eid), ptr(logits), ptr(out),
                 g.n_dst, logits.shape[1], stream_handle(dev))
     raise_on_error(_SOFTMAX_KERNEL, rc)

@@ -20,7 +20,8 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..common import check_operand, ptr, raise_on_error, stream_handle
+from ..common import (check_operand, device_guard, ptr, raise_on_error,
+                      stream_handle)
 
 __all__ = ["OPS", "TARGET_INDEX", "sddmm_csr", "sddmm_plain", "out_width"]
 
@@ -119,7 +120,7 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
     if out.numel() == 0:
         return out
     fn = _lib()
-    with torch.cuda.device(dev):
+    with device_guard(dev):
         rc = fn(ptr(idx_l), ptr(idx_r), ptr(g.eid), ptr(lhs), ptr(rhs),
                 ptr(out), g.n_edges, dl, dr, OPS[op], stream_handle(dev))
     raise_on_error(_KERNEL, rc)

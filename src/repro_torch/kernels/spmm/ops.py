@@ -4,9 +4,12 @@ PyTorch version.
 Replaces ``src/repro/kernels/spmm/kernel.py::_spmm_kernel`` (the TPU
 kernel built by ``spmm_pallas_call`` and launched from
 ``repro/kernels/spmm/ops.py::spmm``). The CUDA source is
-``../csrc/spmm_csr.cu``: one warp per destination row walks the CSR by
-destination directly, so no TilePack is built. Its header says what
-bounds it on the H100 (bytes) and how the design keeps gathers in flight.
+``../csrc/spmm_csr.cu``: one warp per segment of the row-segment work
+list (``../rowsplit.py``, at most ``SEGMENT_EDGES`` edges) walks the
+CSR by destination directly, so no TilePack is built; a heavy row's
+segments are combined in edge order by a second launch of the same call.
+Its header says what bounds it on the H100 (bytes) and how the design
+keeps gathers in flight.
 """
 from __future__ import annotations
 
@@ -16,7 +19,9 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..common import check_operand, ptr, raise_on_error, stream_handle
+from ..common import (check_operand, device_guard, ptr, raise_on_error,
+                      stream_handle)
+from ..rowsplit import row_split
 
 __all__ = ["spmm", "spmm_csr", "spmm_plain"]
 
@@ -27,8 +32,9 @@ def _lib():
     lib = _build.library(_KERNEL)
     fn = lib.spmm_csr_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int] + [ctypes.c_void_p] * 6 + [
+                           ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -55,7 +61,8 @@ def spmm_csr(g, B: torch.Tensor, weight: Optional[torch.Tensor] = None,
     a CPU ``B``. ``B``: (n_src, d) fp32; ``weight``: (n_edges,) fp32 in
     canonical edge order, or None. Returns (n_dst, d).
 
-    ``spmm_csr.launches`` counts kernel launches (CUDA branch only).
+    ``spmm_csr.launches`` counts calls that launched the kernel (CUDA
+    branch only); a heavy row's combine pass is part of the same call.
     """
     if B.device.type == "cpu":
         return spmm_plain(g, B, weight, mean)
@@ -69,20 +76,34 @@ def spmm_csr(g, B: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if weight is not None:
         check_operand(_KERNEL, "weight", weight, torch.float32,
                       (g.n_edges,), dev)
-    d = B.shape[1]
-    out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    fn = _lib()
-    with torch.cuda.device(dev):
-        rc = fn(ptr(g.indptr_dst), ptr(g.src), ptr(weight), ptr(B), ptr(out),
-                g.n_dst, d, int(bool(mean)), stream_handle(dev))
-    raise_on_error(_KERNEL, rc)
+    if g.n_dst * B.shape[1] == 0:
+        return torch.empty((g.n_dst, B.shape[1]), dtype=torch.float32,
+                           device=dev)
+    out = _launch_spmm(g, B, weight, mean, row_split(g))
     spmm_csr.launches += 1
     return out
 
 
 spmm_csr.launches = 0
+
+
+def _launch_spmm(g, B: torch.Tensor, weight: Optional[torch.Tensor],
+                 mean: bool, rs) -> torch.Tensor:
+    """Launch B1 on checked operands over work list ``rs`` (the wrapper
+    passes the graph's cached list; ``benchmarks/torch_rowsplit_sweep.py``
+    also times other caps K). Counts nothing."""
+    dev = B.device
+    d = B.shape[1]
+    out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
+    partial = (torch.empty((rs.n_partials, d), dtype=torch.float32,
+                           device=dev) if rs.n_partials else None)
+    fn = _lib()
+    with device_guard(dev):
+        rc = fn(ptr(rs.seg), rs.n_segments, ptr(rs.split), rs.n_split,
+                ptr(g.indptr_dst), ptr(g.src), ptr(weight), ptr(B), ptr(out),
+                ptr(partial), d, int(bool(mean)), stream_handle(dev))
+    raise_on_error(_KERNEL, rc)
+    return out
 
 
 def spmm(g, B: torch.Tensor, reduce_op: str = "sum",
