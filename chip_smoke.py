@@ -13,10 +13,12 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
    Binary-Reduce, B5 edge softmax) against its plain PyTorch version
    within a stated tolerance, and time kernel, plain version and, where
    one PyTorch call computes the same function, that call — a yardstick
-   the port never calls — with CUDA events. B1 and B2 are called twice
-   at every shape and must give bit-identical outputs; they and
-   ``torch.sparse.mm`` are also timed on the device alone, warm and with
-   L2 flushed between launches (cold).
+   the port never calls — with CUDA events. B1, B2 and B5 are called
+   twice at every shape and must give bit-identical outputs. Every kernel
+   and yardstick is also timed on the device alone, warm and with L2
+   flushed between launches (cold). B3 is also timed walking canonical
+   order (its first version, kept in ``benchmarks/``), and B5 over work
+   lists of other caps K and lanes per segment (the sweep rows).
 4. Serve: for gcn, sage and gat, ``build_server(app, "reddit-like")``
    and a 4-client session; served rows must equal a plain-version full
    forward, each refresh must launch exactly the app's kernels (GAT
@@ -68,6 +70,8 @@ B4_SHAPES = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum"),
              ("mul", 32, 32, "sum"), ("copy_rhs", 4, 4, "mean")]
 B4_MAIN = B4_SHAPES[:2]
 B5_SHAPES = [4, 1]
+B5_CAPS = (128, 256, 512)     # work-list caps K of B5's sweep rows
+B5_LANES = (16, 32)           # lanes per segment of B5's sweep rows
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in (
     "spmm_csr", "fused_attention_csr", "sddmm_csr", "binary_reduce_csr",
     "edge_softmax_csr")}
@@ -135,6 +139,11 @@ def time_device_ms(fn, cold: bool, reps: int = 20,
     return statistics.median(times)
 
 
+def warm_cold_ms(fn):
+    """``time_device_ms`` of ``fn`` warm and with L2 flushed (cold)."""
+    return time_device_ms(fn, False), time_device_ms(fn, True)
+
+
 def bit_identical(what: str, fn) -> torch.Tensor:
     """Call ``fn`` twice; raise unless the outputs are bit-identical."""
     first, second = fn(), fn()
@@ -179,11 +188,8 @@ def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
         k_ms = time_ms(lambda: spmm_csr(g, B, weight, mean))
         p_ms = time_ms(lambda: spmm_plain(g, B, weight, mean))
         l_ms = time_ms(lambda: torch.sparse.mm(A, B))
-        dev_ms = {(who, cold): time_device_ms(f, cold)
-                  for who, f in (("kernel",
-                                  lambda: spmm_csr(g, B, weight, mean)),
-                                 ("library", lambda: torch.sparse.mm(A, B)))
-                  for cold in (False, True)}
+        k_dev = warm_cold_ms(lambda: spmm_csr(g, B, weight, mean))
+        lib_dev = warm_cold_ms(lambda: torch.sparse.mm(A, B))
         nbytes = 4 * ((g.n_dst + 1) + g.n_edges * (1 if mean else 2)
                       + g.n_src * d + g.n_dst * d)
         b_ms, b_by = bound(nbytes, 2 * g.n_edges * d)
@@ -191,10 +197,9 @@ def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
                "d": d, "reduce": red, "weighted": not mean,
                "max_abs_err": err, "tol": tol, "library_max_abs_err": lib_err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-               "kernel_device_ms": dev_ms["kernel", False],
-               "kernel_cold_ms": dev_ms["kernel", True],
-               "library_device_ms": dev_ms["library", False],
-               "library_cold_ms": dev_ms["library", True],
+               "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
+               "library_device_ms": lib_dev[0],
+               "library_cold_ms": lib_dev[1],
                "bound_ms": b_ms, "bound_by": b_by, "bit_identical": True,
                "launches": spmm_csr.launches - n0}
         emit(row)
@@ -220,17 +225,15 @@ def check_b2(g, gen, label: str, rows: dict) -> None:
         tol = 1e-5 + 1e-4 * float(ref.abs().max())
         k_ms = time_ms(lambda: fused_attention_csr(g, el, er, z, 0.2))
         p_ms = time_ms(lambda: fused_attention_plain(g, el, er, z, 0.2))
-        dev_ms = {cold: time_device_ms(
-            lambda: fused_attention_csr(g, el, er, z, 0.2), cold)
-            for cold in (False, True)}
+        k_dev = warm_cold_ms(lambda: fused_attention_csr(g, el, er, z, 0.2))
         nbytes = 4 * ((g.n_dst + 1) + g.n_edges + g.n_src * H
                       + g.n_dst * H + g.n_src * H * F + g.n_dst * H * F)
         b_ms, b_by = bound(nbytes, g.n_edges * H * (2 * F + 6))
         row = {"phase": "kernel", "kernel": "fused_attention_csr",
                "graph": label, "H": H, "F": F, "max_abs_err": err,
                "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
-               "library_ms": None, "kernel_device_ms": dev_ms[False],
-               "kernel_cold_ms": dev_ms[True],
+               "library_ms": None, "kernel_device_ms": k_dev[0],
+               "kernel_cold_ms": k_dev[1],
                "bound_ms": b_ms, "bound_by": b_by, "bit_identical": True,
                "launches": fused_attention_csr.launches - n0}
         emit(row)
@@ -239,21 +242,27 @@ def check_b2(g, gen, label: str, rows: dict) -> None:
         rows[(label, H, F)] = row
 
 
+def b3_operands(g, gen, op: str, lt: str, rt, d: int) -> tuple:
+    """B3's arguments ``(g, op, lt, lhs[, rt, rhs])`` at one shape, drawn
+    from ``gen`` on the card."""
+    n_rows = {"u": g.n_src, "v": g.n_dst, "e": g.n_edges}
+    args = (g, op, lt, torch.randn(n_rows[lt], d, generator=gen).cuda())
+    if rt is not None:
+        rhs = torch.randn(n_rows[rt], d, generator=gen).cuda()
+        if op == "div":     # the path divides by sums of exp, >= 1
+            rhs = rhs.abs() + 0.5
+        args += (rt, rhs)
+    return args
+
+
 def check_b3(g, gen, label: str, rows: dict) -> None:
+    from benchmarks.torch_sddmm_walks import sddmm_canonical
     from repro_torch.kernels.sddmm.ops import sddmm_csr, sddmm_plain
 
-    n_rows = {"u": g.n_src, "v": g.n_dst, "e": g.n_edges}
-    src_caller = g.long("src").index_select(0, g.long("eid_inv"))
+    src_caller = g.long("src_caller")
     for op, lt, rt, d in B3_SHAPES:
-        lhs = torch.randn(n_rows[lt], d, generator=gen).cuda()
-        args = (g, op, lt, lhs)
-        n_idx = len({"e", lt})
-        if rt is not None:
-            rhs = torch.randn(n_rows[rt], d, generator=gen).cuda()
-            if op == "div":     # the path divides by sums of exp, >= 1
-                rhs = rhs.abs() + 0.5
-            args += (rt, rhs)
-            n_idx = len({"e", lt, rt})
+        args = b3_operands(g, gen, op, lt, rt, d)
+        lhs = args[3]
         n0 = sddmm_csr.launches
         got = sddmm_csr(*args)
         ref = sddmm_plain(*args)
@@ -263,26 +272,40 @@ def check_b3(g, gen, label: str, rows: dict) -> None:
             tol = 1e-5 + 1e-5 * float(ref.abs().max())
             why = "fma chain vs torch.sum: another summation order"
         else:
-            tol = 1e-6 * max(1.0, float(ref.abs().max()))
-            why = "one IEEE op per element in both: expected exact"
-        lib_ms = None
+            tol = 0.0
+            why = "one IEEE op per element in both: exact"
+        lib_ms, lib_dev = None, (None, None)
         if op == "copy":
             lib_err = max_err(lhs.index_select(0, src_caller), ref)
             if lib_err != 0.0:
                 raise AssertionError(f"index_select copy differs: {lib_err}")
             lib_ms = time_ms(lambda: lhs.index_select(0, src_caller))
+            lib_dev = warm_cold_ms(lambda: lhs.index_select(0, src_caller))
         k_ms = time_ms(lambda: sddmm_csr(*args))
         p_ms = time_ms(lambda: sddmm_plain(*args))
+        k_dev = warm_cold_ms(lambda: sddmm_csr(*args))
+        # the kernel's first walk (canonical order, written through eid),
+        # a benchmark variant kept to show what the caller-order walk buys
+        canon_err = max_err(sddmm_canonical(*args), ref)
+        canon_ms = time_device_ms(lambda: sddmm_canonical(*args), False)
+        # one caller-order index array per node operand; an edge operand
+        # is read at its own caller edge id, with no index
+        n_idx = len({lt, rt} - {"e", None})
         nbytes = 4 * (n_idx * g.n_edges + lhs.numel()
                       + (0 if rt is None else args[5].numel()) + ref.numel())
         b_ms, b_by = bound(nbytes, g.n_edges * d)
         row = {"phase": "kernel", "kernel": "sddmm_csr", "graph": label,
                "op": op, "lhs": lt, "rhs": rt, "d": d, "max_abs_err": err,
                "tol": tol, "tol_reason": why, "kernel_ms": k_ms,
-               "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "plain_ms": p_ms, "library_ms": lib_ms,
+               "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
+               "library_device_ms": lib_dev[0],
+               "library_cold_ms": lib_dev[1],
+               "canonical_device_ms": canon_ms,
+               "canonical_max_abs_err": canon_err, "bound_ms": b_ms,
                "bound_by": b_by, "launches": sddmm_csr.launches - n0}
         emit(row)
-        if not err <= tol:
+        if not (err <= tol and canon_err <= tol):
             raise AssertionError(f"sddmm_csr disagrees: {row}")
         rows[(label, op, lt, rt, d)] = row
 
@@ -305,6 +328,7 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
         err = max_err(got, ref)
         tol = 1e-5 + 1e-5 * float(ref.abs().max())
         lib_ms = lib_err = None
+        lib_dev = (None, None)
         if binop == "copy_rhs":
             # the edge values already in canonical order: the permutation
             # through eid is left out of the library's time
@@ -315,8 +339,10 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
 
             lib_err = max_err(lib()[has_edge], ref[has_edge])
             lib_ms = time_ms(lib)
+            lib_dev = warm_cold_ms(lib)
         k_ms = time_ms(lambda: binary_reduce_csr(g, B, E, binop, mean))
         p_ms = time_ms(lambda: binary_reduce_plain(g, B, E, binop, mean))
+        k_dev = warm_cold_ms(lambda: binary_reduce_csr(g, B, E, binop, mean))
         nbytes = 4 * ((g.n_dst + 1) + g.n_edges + E.numel() + ref.numel()
                       + (0 if B is None else g.n_edges + B.numel()))
         b_ms, b_by = bound(nbytes, g.n_edges * d * (1 if B is None else 2))
@@ -325,7 +351,10 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
                "reduce": red, "max_abs_err": err, "tol": tol,
                "tol_reason": "another summation order",
                "library_max_abs_err": lib_err, "kernel_ms": k_ms,
-               "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "plain_ms": p_ms, "library_ms": lib_ms,
+               "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
+               "library_device_ms": lib_dev[0],
+               "library_cold_ms": lib_dev[1], "bound_ms": b_ms,
                "bound_by": b_by, "launches": binary_reduce_csr.launches - n0}
         emit(row)
         if not err <= tol:
@@ -334,31 +363,50 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
 
 
 def check_b5(g, gen, label: str, rows: dict) -> None:
-    from repro_torch.kernels.edge_softmax.ops import (edge_softmax_csr,
+    from repro_torch.kernels.edge_softmax.ops import (_launch_softmax,
+                                                      edge_softmax_csr,
                                                       edge_softmax_plain)
+    from repro_torch.kernels.rowsplit import build_row_split
 
     for H in B5_SHAPES:
         x = 3 * torch.randn(g.n_edges, H, generator=gen).cuda()
         n0 = edge_softmax_csr.launches
-        got = edge_softmax_csr(g, x)
+        got = bit_identical(f"edge_softmax_csr H={H}",
+                            lambda: edge_softmax_csr(g, x))
         ref = edge_softmax_plain(g, x)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         tol = 1e-5
         k_ms = time_ms(lambda: edge_softmax_csr(g, x))
         p_ms = time_ms(lambda: edge_softmax_plain(g, x))
+        k_dev = warm_cold_ms(lambda: edge_softmax_csr(g, x))
         nbytes = 4 * ((g.n_dst + 1) + g.n_edges + 2 * x.numel())
         b_ms, b_by = bound(nbytes, 4 * x.numel())
         row = {"phase": "kernel", "kernel": "edge_softmax_csr",
                "graph": label, "H": H, "max_abs_err": err, "tol": tol,
                "tol_reason": "alpha <= 1; expf and the sum's order differ",
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
+               "bound_ms": b_ms, "bound_by": b_by, "bit_identical": True,
                "launches": edge_softmax_csr.launches - n0}
         emit(row)
         if not err <= tol:
             raise AssertionError(f"edge_softmax_csr disagrees: {row}")
         rows[(label, H)] = row
+        # the work list's cap K and the lanes per segment: the wrapper's
+        # (128, 16) against their neighbours
+        hl = min(32, 1 << (H - 1).bit_length())
+        for K, lanes in [(K, n) for K in B5_CAPS for n in B5_LANES
+                         if n >= hl]:
+            rs = build_row_split(g.indptr_dst, K)
+            k_err = max_err(_launch_softmax(g, x, rs, lanes), ref)
+            emit({"phase": "sweep", "kernel": "edge_softmax_csr",
+                  "graph": label, "H": H, "K": K, "lanes": lanes,
+                  "max_abs_err": k_err, "device_ms": time_device_ms(
+                      lambda: _launch_softmax(g, x, rs, lanes), False)})
+            if not k_err <= tol:
+                raise AssertionError(f"edge_softmax K={K} lanes={lanes} "
+                                     f"H={H}: {k_err}")
 
 
 def counters():
@@ -494,16 +542,19 @@ def summary(name, source, replaces, main_rows, all_rows, launches):
             "shapes": [{k: r[k] for k in (
                 "op", "binop", "lhs", "rhs", "d", "de", "reduce", "H", "F",
                 "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
-                "library_ms", "library_device_ms", "library_cold_ms",
-                "plain_ms", "bound_ms") if k in r} for r in main_rows]}
+                "canonical_device_ms", "library_ms", "library_device_ms",
+                "library_cold_ms", "plain_ms", "bound_ms") if k in r}
+                for r in main_rows]}
 
 
 def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
+    from benchmarks.torch_sddmm_walks import CANONICAL_SRC
     from repro_torch.data.synthetic import make_node_dataset, rmat_graph
     from repro_torch.core.graph import from_coo
     from repro_torch.kernels import _build
-    from repro_torch.kernels.rowsplit import row_split
+    from repro_torch.kernels.edge_softmax.ops import SOFTMAX_SEGMENT_EDGES
+    from repro_torch.kernels.rowsplit import SEGMENT_EDGES, row_split
     from repro_torch.models.gnn.common import make_bundle
 
     if not torch.cuda.is_available():
@@ -525,10 +576,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    per_source = _build.build()
+    sources = _build.SOURCES + (CANONICAL_SRC,)
+    per_source = _build.build(sources)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": per_source, "nvcc": _build.nvcc_path()})
-    for name in _build.SOURCES:
+    for name in sources:
         report = [ln for ln in _build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         emit({"phase": "ptxas", "source": name, "report": report})
@@ -540,17 +592,20 @@ def main() -> int:
     src, dst, n = rmat_graph(16, 600_000, seed=0)
     g_bare = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
     for label, g in (("self_loops", g_loops), ("no_self_loops", g_bare)):
-        t0 = time.perf_counter()
-        rs = row_split(g)
+        lists = []
+        for K in (SEGMENT_EDGES, SOFTMAX_SEGMENT_EDGES):   # B1 / B2, B5
+            t0 = time.perf_counter()
+            rs = row_split(g, K)
+            lists.append({"K": rs.K, "segments": rs.n_segments,
+                          "split_rows": rs.n_split,
+                          "partial_slots": rs.n_partials,
+                          "longest_segment": rs.max_segment,
+                          "build_s": time.perf_counter() - t0})
         emit({"phase": "graph", "graph": label, "n_nodes": g.n_dst,
               "n_edges": g.n_edges,
               "max_in_degree": int(g.host.in_degrees.max()),
               "zero_in_degree_rows": int((g.host.in_degrees == 0).sum()),
-              "work_list": {"K": rs.K, "segments": rs.n_segments,
-                            "split_rows": rs.n_split,
-                            "partial_slots": rs.n_partials,
-                            "longest_segment": rs.max_segment,
-                            "build_s": time.perf_counter() - t0}})
+              "work_lists": lists})
         w = make_bundle(g).gcn_norm.index_select(0, g.long("eid"))
         check_b1(g, w.contiguous(), gen, label, b1_rows)
         check_b2(g, gen, label, b2_rows)

@@ -39,7 +39,8 @@ import torch
 from . import strategies as S
 from ..kernels.dispatch import (gspmm_kernel, kernel_supports,
                                 sddmm_kernel_supports)
-from ..kernels.sddmm.ops import TARGET_INDEX, sddmm_csr, sddmm_plain
+from ..kernels.sddmm.ops import (CALLER_INDEX, TARGET_INDEX, sddmm_csr,
+                                 sddmm_plain)
 
 __all__ = ["BRSpec", "parse_op", "gspmm", "gsddmm", "copy_reduce",
            "BINARY_OPS", "REDUCE_OPS", "OP_TARGETS", "STRATEGIES",
@@ -241,11 +242,8 @@ def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
     if strategy == "gather":
         # caller-order view of the endpoints, one gather per operand
         def fetch(target, x):
-            if target == "e":
-                return x
-            idx = g.long(TARGET_INDEX[target]).index_select(
-                0, g.long("eid_inv"))
-            return x.index_select(0, idx)
+            name = CALLER_INDEX[target]
+            return x if name is None else x.index_select(0, g.long(name))
 
         return BINARY_OPS[spec.op](
             fetch(spec.lhs, lhs_data),

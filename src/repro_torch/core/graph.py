@@ -7,7 +7,10 @@ construction, exactly as the JAX package does, and exposes
   * COO views ``(src, dst, eid)`` sorted by destination (pull order),
   * CSR-by-destination ``indptr_dst`` — the layout both CUDA kernels walk,
   * CSC-by-source ``indptr_src`` + ``perm_src`` (push order),
-  * ``eid`` / ``eid_inv`` between canonical slots and caller edge ids.
+  * ``eid`` / ``eid_inv`` between canonical slots and caller edge ids,
+  * ``src_caller`` / ``dst_caller``, each edge's endpoints in caller edge
+    order (``src[eid_inv]``, ``dst[eid_inv]``; made on first use), the
+    arrays the JAX ``gather`` plan computes as ``src_c`` / ``dst_c``.
 
 Every index array lives twice: as host numpy (``g.host``) and as an
 int32 tensor on ``g.device``, the dtype the kernels take. The plain
@@ -67,6 +70,8 @@ class Graph:
     host: HostIndex
     _long: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
+    _derived: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -81,6 +86,25 @@ class Graph:
     def out_degrees(self) -> torch.Tensor:
         """(n_src,) int32 number of outgoing edges per source."""
         return self.indptr_src[1:] - self.indptr_src[:-1]
+
+    @property
+    def src_caller(self) -> torch.Tensor:
+        """(nnz,) int32 source of each edge in caller edge order."""
+        return self._caller("src")
+
+    @property
+    def dst_caller(self) -> torch.Tensor:
+        """(nnz,) int32 destination of each edge in caller edge order."""
+        return self._caller("dst")
+
+    def _caller(self, name: str) -> torch.Tensor:
+        key = f"{name}_caller"
+        t = self._derived.get(key)
+        if t is None:
+            t = getattr(self, name).index_select(
+                0, self.eid_inv.long()).contiguous()
+            self._derived[key] = t
+        return t
 
     def long(self, name: str) -> torch.Tensor:
         """int64 copy of index array ``name`` on the graph's device, made

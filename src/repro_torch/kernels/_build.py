@@ -7,7 +7,9 @@ the checkout, named by a hash of the source and the flags, so an edited
 source rebuilds and an unchanged one is reused. Nothing is built at
 import time: the first launch of a kernel builds it, and
 :func:`build` compiles several sources at once, one ``nvcc`` process
-each, all started together.
+each, all started together. A name may also be the path of a ``.cu``
+file outside ``csrc/`` (a benchmark's variant of a kernel), built the
+same way.
 """
 from __future__ import annotations
 
@@ -48,11 +50,16 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels cannot be built")
 
 
+def _source(name: str) -> Path:
+    return Path(name) if name.endswith(".cu") else CSRC / f"{name}.cu"
+
+
 def _target(name: str) -> Path:
+    src = _source(name)
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    h.update((CSRC / f"{name}.cu").read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -61,7 +68,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     source; raises with the compiler's output when one fails."""
     names = tuple(SOURCES if names is None else names)
     for name in names:
-        if name not in SOURCES:
+        if name not in SOURCES and not _source(name).is_file():
             raise ValueError(f"unknown kernel source {name!r}")
     todo = [n for n in names if not _target(n).is_file()]
     if not todo:
@@ -73,7 +80,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for name in todo:
         out = _target(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

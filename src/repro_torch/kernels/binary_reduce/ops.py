@@ -18,8 +18,8 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..common import (check_operand, device_guard, ptr, raise_on_error,
-                      stream_handle)
+from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
+                      raise_on_error, stream_handle)
 
 __all__ = ["BINOPS", "binary_reduce", "binary_reduce_csr",
            "binary_reduce_plain"]
@@ -89,11 +89,7 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
         return binary_reduce_plain(g, B, E, binop, mean)
     if E.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {E.device}")
-    dev = E.device
-    check_operand(_KERNEL, "indptr_dst", g.indptr_dst, torch.int32,
-                  (g.n_dst + 1,), dev)
-    check_operand(_KERNEL, "src", g.src, torch.int32, (g.n_edges,), dev)
-    check_operand(_KERNEL, "eid", g.eid, torch.int32, (g.n_edges,), dev)
+    dev = g.device
     check_operand(_KERNEL, "E", E, torch.float32, (g.n_edges, None), dev)
     de = E.shape[1]
     d = de
@@ -106,9 +102,10 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
     out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    idx = graph_index_ptrs(_KERNEL, g)
     fn = _lib()
     with device_guard(dev):
-        rc = fn(ptr(g.indptr_dst), ptr(g.src), ptr(g.eid), ptr(B), ptr(E),
+        rc = fn(idx["indptr_dst"], idx["src"], idx["eid"], ptr(B), ptr(E),
                 ptr(out), g.n_dst, d, de, BINOPS[binop], int(bool(mean)),
                 stream_handle(dev))
     raise_on_error(_KERNEL, rc)

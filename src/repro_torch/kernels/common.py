@@ -3,17 +3,28 @@
 A wrapper validates everything the CUDA kernel cannot (device, dtype,
 shape, contiguity, autograd) in Python before it passes raw pointers,
 launches on PyTorch's current stream, and raises when the launch reports
-a CUDA error.
+a CUDA error. A graph's index arrays are fixed at construction, so
+:func:`graph_index_ptrs` checks them once per graph.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+import weakref
+from typing import Dict, Optional, Sequence
 
 import torch
 
-__all__ = ["check_operand", "device_guard", "stream_handle", "ptr",
-           "raise_on_error"]
+__all__ = ["check_operand", "graph_index_ptrs", "device_guard",
+           "stream_handle", "ptr", "raise_on_error"]
+
+# every int32 index array of a Graph, by its length in (n_src, n_dst,
+# n_edges) terms: "edges", or the CSR pointers' rows + 1
+_INDEX_ARRAYS = {"src": "edges", "dst": "edges", "eid": "edges",
+                 "eid_inv": "edges", "perm_src": "edges",
+                 "src_caller": "edges", "dst_caller": "edges",
+                 "indptr_dst": "n_dst", "indptr_src": "n_src"}
+_graph_ptrs: "weakref.WeakKeyDictionary[object, Dict[str, int]]" = (
+    weakref.WeakKeyDictionary())
 
 
 def check_operand(kernel: str, name: str, t: torch.Tensor,
@@ -40,6 +51,23 @@ def check_operand(kernel: str, name: str, t: torch.Tensor,
         raise NotImplementedError(
             f"{kernel}: {name} requires grad, but the backward kernels "
             f"come with the training slice; run under torch.no_grad()")
+
+
+def graph_index_ptrs(kernel: str, g) -> Dict[str, int]:
+    """Data pointers of graph ``g``'s int32 index arrays by name (those of
+    ``core.graph.Graph``, the caller-order pair included), each checked
+    as :func:`check_operand` checks an operand at the graph's first
+    launch, and kept for as long as the graph lives."""
+    ptrs = _graph_ptrs.get(g)
+    if ptrs is None:
+        ptrs = {}
+        for name, rows in _INDEX_ARRAYS.items():
+            t = getattr(g, name)
+            n = g.n_edges if rows == "edges" else getattr(g, rows) + 1
+            check_operand(kernel, name, t, torch.int32, (n,), g.device)
+            ptrs[name] = t.data_ptr()
+        _graph_ptrs[g] = ptrs
+    return ptrs
 
 
 def device_guard(device: torch.device):

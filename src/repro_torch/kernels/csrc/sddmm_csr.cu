@@ -1,29 +1,43 @@
-// gSDDMM over the canonical edge stream, fp32, for sm_90a.
+// gSDDMM in caller edge order, fp32, for sm_90a.
 //
-//   out[eid[k], j] = lhs[idx_l[k], j] (op) rhs[idx_r[k], j]     k < n_edges
-//   op in {add, sub, mul, div, copy};  dot: out[eid[k], 0] = sum_j of mul
+//   out[e, j] = lhs[ia[e], j] (op) rhs[ib[e], j]      e < n_edges, caller id
+//   op in {add, sub, mul, div, copy};
+//   dot: out[e, 0] = one fma chain over j ascending of lhs * rhs
 //
-// idx_l / idx_r are the canonical (dst-sorted) index arrays of the
-// operands' targets: src for 'u', dst for 'v', eid for 'e'. An operand of
-// width 1 broadcasts to the other's width. Since eid is a permutation, no
-// two threads write one output row.
+// ia / ib give each operand's row: src_caller (src[eid_inv]) for a 'u'
+// operand, dst_caller for 'v', and null for 'e', whose row is e itself (no
+// index array is read). An operand of width 1 broadcasts to the other's
+// width. Every thread owns whole output rows, so no two threads write one.
 //
 // Replaces the TPU kernels src/repro/kernels/sddmm/kernel.py::_binary_kernel
 // and ::_copy_kernel. Those take operand streams that XLA has already
-// gathered into canonical order, padded to a multiple of the edge block,
-// and leave the un-permute by eid_inv to XLA: three passes over (E, d)
-// streams in HBM. Here the gather, the op and the un-permute are one pass.
+// gathered into canonical (dst-sorted) order, padded to a multiple of the
+// edge block, and leave the un-permute by eid_inv to XLA: three passes
+// over (E, d) streams in HBM. Here the kernel walks the caller's order, as
+// the JAX package's own `gather` plan does (repro/core/binary_reduce.py),
+// so there is neither a gather into canonical order nor an un-permute.
 //
-// Bound on the H100: bytes. One op per element (d flops per edge for
-// dot) against 8 or more bytes per element. The least traffic is the
-// index arrays, each operand and the output once. The design:
-//   * one thread per output element, so at the GAT widths (d = 4, then 1)
-//     a warp covers 8 or 32 edges and no lane idles;
-//   * neighbouring threads read neighbouring features of one gathered
-//     row, and the dst-side operand streams (dst is sorted);
-//   * the write through eid is a scatter of d-float rows; it is coalesced
-//     only where caller order follows canonical order. Timed as it is.
-// Division is IEEE (nvcc's default -prec-div=true); there are no pad rows.
+// Bound on the H100: bytes. One op per element (d flops per edge for dot)
+// against 8 or more bytes per element. The least traffic is one index
+// array per node operand, each operand and the output once. The design:
+//   * the output and an 'e' operand are read and written contiguously;
+//     caller order is usually sorted by source (an edge list from
+//     np.unique(src * n + dst)), so a 'u' operand is read in
+//     non-decreasing row order, and only a 'v' operand is a gather
+//     (at most 65,536 x 4 fp32 on reddit-like, which sits in L2);
+//   * width 4 (GAT's H = 4): one edge per thread, one float4 load per
+//     operand of width 4 and one float4 store (two edges per thread, all
+//     loads in flight first, measured no faster);
+//   * width 1: four edges per thread, one int4 load per index array, one
+//     float4 load of an 'e' operand and one float4 store;
+//   * other widths, or pointers not 16-byte aligned: one thread per output
+//     element (dot: per edge), in caller order all the same.
+// Per element the arithmetic is the plain version's (one IEEE op; division
+// is IEEE, nvcc's default -prec-div=true), so every op but dot gives the
+// plain version's bits. There are no pad rows.
+// History: the first version walked canonical order and wrote out[eid[k]],
+// a scatter of 4- or 16-byte rows, with an 'e' operand gathered through
+// eid (benchmarks/csrc/sddmm_canonical.cu keeps it, to time the two walks).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,46 +53,123 @@ __device__ __forceinline__ float apply(float a, float b) {
   if constexpr (OP == kSub) return a - b;
   if constexpr (OP == kMul) return a * b;
   if constexpr (OP == kDiv) return a / b;
+  if constexpr (OP == kDot) return fmaf(a, b, 0.0f);  // a chain of one
   return a;  // kCopy
 }
 
-// Elementwise ops: thread t computes element (k, j) = (t / d, t % d).
+// the operand row of caller edge e: idx[e], or e itself for an 'e' operand
+__device__ __forceinline__ int64_t row_of(const int* __restrict__ idx,
+                                          int64_t e) {
+  return idx != nullptr ? (int64_t)__ldg(idx + e) : e;
+}
+
+// row r of an operand of width w (4, or 1 broadcast) as one float4
+__device__ __forceinline__ float4 load_row4(const float* __restrict__ p,
+                                            int64_t r, int w) {
+  if (w == 4) return __ldg(reinterpret_cast<const float4*>(p) + r);
+  const float v = __ldg(p + r);
+  return make_float4(v, v, v, v);
+}
+
+// a width-1 operand at caller edges e0 .. e0 + 3
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ p,
+                                            const int* __restrict__ idx,
+                                            int64_t e0) {
+  if (idx == nullptr)
+    return __ldg(reinterpret_cast<const float4*>(p + e0));
+  const int4 r = __ldg(reinterpret_cast<const int4*>(idx + e0));
+  return make_float4(__ldg(p + r.x), __ldg(p + r.y), __ldg(p + r.z),
+                     __ldg(p + r.w));
+}
+
+// Width 4: thread per edge.
 template <int OP>
 __global__ void __launch_bounds__(kThreads)
-sddmm_elem_kernel(const int* __restrict__ idx_l, const int* __restrict__ idx_r,
-                  const int* __restrict__ eid, const float* __restrict__ lhs,
+sddmm_w4_kernel(const int* __restrict__ ia, const int* __restrict__ ib,
+                const float* __restrict__ lhs, const float* __restrict__ rhs,
+                float* __restrict__ out, int n_edges, int dl, int dr) {
+  const int stride = gridDim.x * blockDim.x;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
+       e += stride) {
+    const float4 a = load_row4(lhs, row_of(ia, e), dl);
+    float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (OP != kCopy) b = load_row4(rhs, row_of(ib, e), dr);
+    if constexpr (OP == kDot) {
+      out[e] = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y,
+                                                  fmaf(a.x, b.x, 0.0f))));
+    } else {
+      reinterpret_cast<float4*>(out)[e] =
+          make_float4(apply<OP>(a.x, b.x), apply<OP>(a.y, b.y),
+                      apply<OP>(a.z, b.z), apply<OP>(a.w, b.w));
+    }
+  }
+}
+
+// Width 1: thread per four consecutive edges; the first n_edges % 4
+// threads also take one edge of the tail.
+template <int OP>
+__global__ void __launch_bounds__(kThreads)
+sddmm_w1_kernel(const int* __restrict__ ia, const int* __restrict__ ib,
+                const float* __restrict__ lhs, const float* __restrict__ rhs,
+                float* __restrict__ out, int n_edges) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int n4 = n_edges >> 2;
+  for (int q = tid; q < n4; q += stride) {
+    const int64_t e0 = (int64_t)q * 4;
+    const float4 a = load_quad(lhs, ia, e0);
+    float4 b = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if constexpr (OP != kCopy) b = load_quad(rhs, ib, e0);
+    reinterpret_cast<float4*>(out)[q] =
+        make_float4(apply<OP>(a.x, b.x), apply<OP>(a.y, b.y),
+                    apply<OP>(a.z, b.z), apply<OP>(a.w, b.w));
+  }
+  if (tid < (n_edges & 3)) {
+    const int64_t e = (int64_t)n4 * 4 + tid;
+    const float a = __ldg(lhs + row_of(ia, e));
+    float b = 0.0f;
+    if constexpr (OP != kCopy) b = __ldg(rhs + row_of(ib, e));
+    out[e] = apply<OP>(a, b);
+  }
+}
+
+// Any width, elementwise ops: thread t computes element (e, j) =
+// (t / d, t % d).
+template <int OP>
+__global__ void __launch_bounds__(kThreads)
+sddmm_elem_kernel(const int* __restrict__ ia, const int* __restrict__ ib,
+                  const float* __restrict__ lhs,
                   const float* __restrict__ rhs, float* __restrict__ out,
                   int64_t n_elems, int d, int dl, int dr) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
        t < n_elems; t += stride) {
-    const int64_t k = t / d;
-    const int j = (int)(t - k * d);
-    const float a = __ldg(lhs + (int64_t)__ldg(idx_l + k) * dl +
-                          (dl == 1 ? 0 : j));
+    const int64_t e = t / d;
+    const int j = (int)(t - e * d);
+    const float a = __ldg(lhs + row_of(ia, e) * dl + (dl == 1 ? 0 : j));
     float b = 0.0f;
     if constexpr (OP != kCopy)
-      b = __ldg(rhs + (int64_t)__ldg(idx_r + k) * dr + (dr == 1 ? 0 : j));
-    out[(int64_t)__ldg(eid + k) * d + j] = apply<OP>(a, b);
+      b = __ldg(rhs + row_of(ib, e) * dr + (dr == 1 ? 0 : j));
+    out[t] = apply<OP>(a, b);
   }
 }
 
-// dot: one thread per edge sums over the feature axis, writes width 1.
+// Any width, dot: thread per edge, one fma chain over j ascending.
 __global__ void __launch_bounds__(kThreads)
-sddmm_dot_kernel(const int* __restrict__ idx_l, const int* __restrict__ idx_r,
-                 const int* __restrict__ eid, const float* __restrict__ lhs,
-                 const float* __restrict__ rhs, float* __restrict__ out,
-                 int n_edges, int d, int dl, int dr) {
+sddmm_dot_kernel(const int* __restrict__ ia, const int* __restrict__ ib,
+                 const float* __restrict__ lhs, const float* __restrict__ rhs,
+                 float* __restrict__ out, int n_edges, int d, int dl,
+                 int dr) {
   const int stride = gridDim.x * blockDim.x;
-  for (int k = blockIdx.x * blockDim.x + threadIdx.x; k < n_edges;
-       k += stride) {
-    const float* a = lhs + (int64_t)__ldg(idx_l + k) * dl;
-    const float* b = rhs + (int64_t)__ldg(idx_r + k) * dr;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
+       e += stride) {
+    const float* a = lhs + row_of(ia, e) * dl;
+    const float* b = rhs + row_of(ib, e) * dr;
     float acc = 0.0f;
     for (int j = 0; j < d; ++j)
       acc = fmaf(__ldg(a + (dl == 1 ? 0 : j)), __ldg(b + (dr == 1 ? 0 : j)),
                  acc);
-    out[__ldg(eid + k)] = acc;
+    out[e] = acc;
   }
 }
 
@@ -87,16 +178,47 @@ unsigned grid_for(int64_t work) {
   return (unsigned)(blocks < (1 << 20) ? blocks : (1 << 20));
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <int OP>
+void launch(const int* ia, const int* ib, const float* lp, const float* rp,
+            float* o, int n_edges, int dl, int dr, cudaStream_t st) {
+  const int w = OP == kCopy ? dl : (dl > dr ? dl : dr);  // operand width
+  // width 1 reads an index array as int4s, an 'e' operand as float4s
+  const bool quads_ok = (ia == nullptr ? aligned16(lp) : aligned16(ia)) &&
+                        (OP == kCopy ||
+                         (ib == nullptr ? aligned16(rp) : aligned16(ib)));
+  if (w == 4 && (dl == 1 || aligned16(lp)) &&
+      (OP == kCopy || dr == 1 || aligned16(rp)) &&
+      (OP == kDot || aligned16(o))) {
+    sddmm_w4_kernel<OP><<<grid_for(n_edges), kThreads, 0, st>>>(
+        ia, ib, lp, rp, o, n_edges, dl, dr);
+  } else if (w == 1 && quads_ok && aligned16(o)) {
+    sddmm_w1_kernel<OP><<<grid_for((n_edges + 3) / 4), kThreads, 0, st>>>(
+        ia, ib, lp, rp, o, n_edges);
+  } else if constexpr (OP == kDot) {
+    sddmm_dot_kernel<<<grid_for(n_edges), kThreads, 0, st>>>(
+        ia, ib, lp, rp, o, n_edges, w, dl, dr);
+  } else {
+    const int64_t n = (int64_t)n_edges * w;
+    sddmm_elem_kernel<OP><<<grid_for(n), kThreads, 0, st>>>(
+        ia, ib, lp, rp, o, n, w, dl, dr);
+  }
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown op or widths that neither match
-// nor broadcast from 1. ``rhs`` / ``idx_r`` are ignored (may be null) for
-// copy, whose width is dl.
+// nor broadcast from 1. ``idx_l`` / ``idx_r`` are the operands' caller-order
+// index arrays, null for an 'e' operand; ``rhs`` / ``idx_r`` are ignored
+// (may be null) for copy, whose width is dl.
 extern "C" int sddmm_csr_f32(const void* idx_l, const void* idx_r,
-                             const void* eid, const void* lhs,
-                             const void* rhs, void* out, int n_edges, int dl,
-                             int dr, int op, void* stream) {
+                             const void* lhs, const void* rhs, void* out,
+                             int n_edges, int dl, int dr, int op,
+                             void* stream) {
   if (op < kAdd || op > kCopy || dl < 1 || (op != kCopy && dr < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int d = op == kCopy ? dl : (dl > dr ? dl : dr);
@@ -104,39 +226,18 @@ extern "C" int sddmm_csr_f32(const void* idx_l, const void* idx_r,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_edges > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int* il = static_cast<const int*>(idx_l);
-    const int* ir = static_cast<const int*>(idx_r);
-    const int* ei = static_cast<const int*>(eid);
+    const int* ia = static_cast<const int*>(idx_l);
+    const int* ib = static_cast<const int*>(idx_r);
     const float* lp = static_cast<const float*>(lhs);
     const float* rp = static_cast<const float*>(rhs);
     float* o = static_cast<float*>(out);
-    if (op == kDot) {
-      sddmm_dot_kernel<<<grid_for(n_edges), kThreads, 0, st>>>(
-          il, ir, ei, lp, rp, o, n_edges, d, dl, dr);
-    } else {
-      const int64_t n = (int64_t)n_edges * d;
-      const unsigned grid = grid_for(n);
-      switch (op) {
-        case kAdd:
-          sddmm_elem_kernel<kAdd><<<grid, kThreads, 0, st>>>(
-              il, ir, ei, lp, rp, o, n, d, dl, dr);
-          break;
-        case kSub:
-          sddmm_elem_kernel<kSub><<<grid, kThreads, 0, st>>>(
-              il, ir, ei, lp, rp, o, n, d, dl, dr);
-          break;
-        case kMul:
-          sddmm_elem_kernel<kMul><<<grid, kThreads, 0, st>>>(
-              il, ir, ei, lp, rp, o, n, d, dl, dr);
-          break;
-        case kDiv:
-          sddmm_elem_kernel<kDiv><<<grid, kThreads, 0, st>>>(
-              il, ir, ei, lp, rp, o, n, d, dl, dr);
-          break;
-        default:
-          sddmm_elem_kernel<kCopy><<<grid, kThreads, 0, st>>>(
-              il, ir, ei, lp, rp, o, n, d, dl, dr);
-      }
+    switch (op) {
+      case kAdd: launch<kAdd>(ia, ib, lp, rp, o, n_edges, dl, dr, st); break;
+      case kSub: launch<kSub>(ia, ib, lp, rp, o, n_edges, dl, dr, st); break;
+      case kMul: launch<kMul>(ia, ib, lp, rp, o, n_edges, dl, dr, st); break;
+      case kDiv: launch<kDiv>(ia, ib, lp, rp, o, n_edges, dl, dr, st); break;
+      case kDot: launch<kDot>(ia, ib, lp, rp, o, n_edges, dl, dr, st); break;
+      default: launch<kCopy>(ia, ib, lp, rp, o, n_edges, dl, dr, st);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -12,9 +12,13 @@ CUDA kernels' wrappers and their plain PyTorch versions.
   decoding) by a second launch of the same call.
 * ``edge_softmax_csr`` replaces ``::_softmax_kernel`` (built by
   ``edge_softmax_pallas_call``, launched from ``ops.py::edge_softmax``).
-  The CUDA source is ``../csrc/edge_softmax_csr.cu``: one warp per
-  destination row, lanes over (edge, head), reading the logits and
-  writing α through ``eid`` in caller order — no stripe, no scatter-back.
+  The CUDA source is ``../csrc/edge_softmax_csr.cu``: over the same work
+  list at K = 128, 16 lanes per segment (two segments per warp) over
+  (edge, head) fold the logits into an online (max, sum) and write α
+  through ``eid`` in caller order (no stripe, no scatter-back); a heavy
+  row's segments leave their (max, sum) pairs in a workspace, and a
+  second launch of the same call, one block per such row, merges them in
+  segment order and writes the row's α.
 
 Each source's header says what bounds it on the H100 (bytes) and what
 its design does about hub rows and narrow head counts.
@@ -22,22 +26,28 @@ its design does about hub rows and narrow head counts.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ...substrate.nn import leaky_relu
 from .. import _build
-from ..common import (check_operand, device_guard, ptr, raise_on_error,
-                      stream_handle)
+from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
+                      raise_on_error, stream_handle)
 from ..rowsplit import row_split
 
 __all__ = ["fused_attention_csr", "fused_attention_plain", "MAX_F",
-           "heads_per_warp", "edge_softmax_csr", "edge_softmax_plain"]
+           "heads_per_warp", "edge_softmax_csr", "edge_softmax_plain",
+           "MAX_HEADS", "SOFTMAX_SEGMENT_EDGES"]
 
 _KERNEL = "fused_attention_csr"
 _SOFTMAX_KERNEL = "edge_softmax_csr"
 MAX_F = 128  # a warp's lanes hold ≤ 128 floats of z[src] (4 per lane)
 _MAX_HEADS_PER_WARP = 8  # the kernel's register state for heads (HMAX)
+MAX_HEADS = 4096  # B5's merge keeps a (max, sum) pair per head in smem
+# B5's work-list cap: with 16 lanes per segment, K = 128 beat 256 and 512
+# at H = 4 and 1 (chip_smoke's sweep rows; PERF.md §6)
+SOFTMAX_SEGMENT_EDGES = 128
 # the TPU kernel's mask value and sum floor (kernel.py:20, :31)
 _NEG = -1e30
 _TINY = 1e-38
@@ -100,16 +110,13 @@ def fused_attention_csr(g, el: torch.Tensor, er: torch.Tensor,
         return fused_attention_plain(g, el, er, z, slope)
     if z.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {z.device}")
-    dev = z.device
+    dev = g.device
     if z.ndim != 3:
         raise ValueError(f"{_KERNEL}: z must be (n_src, H, F), got "
                          f"{tuple(z.shape)}")
     _, H, F = z.shape
     if F > MAX_F:
         raise ValueError(f"{_KERNEL}: F={F} > {MAX_F} is not supported")
-    check_operand(_KERNEL, "indptr_dst", g.indptr_dst, torch.int32,
-                  (g.n_dst + 1,), dev)
-    check_operand(_KERNEL, "src", g.src, torch.int32, (g.n_edges,), dev)
     check_operand(_KERNEL, "el", el, torch.float32, (g.n_src, H), dev)
     check_operand(_KERNEL, "er", er, torch.float32, (g.n_dst, H), dev)
     check_operand(_KERNEL, "z", z, torch.float32, (g.n_src, H, F), dev)
@@ -142,21 +149,24 @@ def _launch_attention(g, el: torch.Tensor, er: torch.Tensor,
                          device=dev)
         pacc = ws.data_ptr()
         pml = pacc + 4 * rs.n_partials * H * F
+    idx = graph_index_ptrs(_KERNEL, g)
     fn = _lib()
     with device_guard(dev):
         rc = fn(ptr(rs.seg), rs.n_segments, ptr(rs.split), rs.n_split,
-                ptr(g.src), ptr(el), ptr(er), ptr(z), ptr(out), pacc, pml,
+                idx["src"], ptr(el), ptr(er), ptr(z), ptr(out), pacc, pml,
                 H, F, int(hg), float(slope), stream_handle(dev))
     raise_on_error(_KERNEL, rc)
     return out
 
 
+@functools.cache
 def _softmax_lib():
     lib = _build.library(_SOFTMAX_KERNEL)
     fn = lib.edge_softmax_csr_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+                           ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -187,30 +197,46 @@ def edge_softmax_csr(g, logits: torch.Tensor) -> torch.Tensor:
     for CPU ``logits``. ``logits``: (n_edges, H) fp32 in caller edge
     order; returns α of the same shape and order.
 
-    ``edge_softmax_csr.launches`` counts kernel launches (CUDA only).
+    ``edge_softmax_csr.launches`` counts calls that launched the kernel
+    (CUDA only); a heavy row's merge pass is part of the same call.
     """
     if logits.device.type == "cpu":
         return edge_softmax_plain(g, logits)
     if logits.device.type != "cuda":
         raise ValueError(f"{_SOFTMAX_KERNEL}: unsupported device "
                          f"{logits.device}")
-    dev = logits.device
-    check_operand(_SOFTMAX_KERNEL, "indptr_dst", g.indptr_dst, torch.int32,
-                  (g.n_dst + 1,), dev)
-    check_operand(_SOFTMAX_KERNEL, "eid", g.eid, torch.int32, (g.n_edges,),
-                  dev)
     check_operand(_SOFTMAX_KERNEL, "logits", logits, torch.float32,
-                  (g.n_edges, None), dev)
-    out = torch.empty_like(logits)
-    if out.numel() == 0:
-        return out
-    fn = _softmax_lib()
-    with device_guard(dev):
-        rc = fn(ptr(g.indptr_dst), ptr(g.eid), ptr(logits), ptr(out),
-                g.n_dst, logits.shape[1], stream_handle(dev))
-    raise_on_error(_SOFTMAX_KERNEL, rc)
+                  (g.n_edges, None), g.device)
+    if logits.shape[1] > MAX_HEADS:
+        raise ValueError(f"{_SOFTMAX_KERNEL}: H={logits.shape[1]} > "
+                         f"{MAX_HEADS} is not supported")
+    if logits.numel() == 0:
+        return torch.empty_like(logits)
+    out = _launch_softmax(g, logits, row_split(g, SOFTMAX_SEGMENT_EDGES))
     edge_softmax_csr.launches += 1
     return out
 
 
 edge_softmax_csr.launches = 0
+
+
+def _launch_softmax(g, logits: torch.Tensor, rs, lanes: int = 0
+                    ) -> torch.Tensor:
+    """Launch B5 on checked logits over work list ``rs`` with ``lanes``
+    lanes per segment (0: the kernel's default; the wrapper passes the
+    graph's cached list and 0, ``chip_smoke.py`` also times other caps K
+    and lane counts). Counts nothing."""
+    dev = logits.device
+    H = logits.shape[1]
+    out = torch.empty_like(logits)
+    # the split rows' segments' (max, sum) pairs, (n_partials, H, 2)
+    pml = (torch.empty(rs.n_partials * H * 2, dtype=torch.float32,
+                       device=dev) if rs.n_partials else None)
+    idx = graph_index_ptrs(_SOFTMAX_KERNEL, g)
+    fn = _softmax_lib()
+    with device_guard(dev):
+        rc = fn(ptr(rs.seg), rs.n_segments, ptr(rs.split), rs.n_split,
+                idx["indptr_dst"], idx["eid"], ptr(logits), ptr(out),
+                ptr(pml), H, int(lanes), stream_handle(dev))
+    raise_on_error(_SOFTMAX_KERNEL, rc)
+    return out

@@ -1,1 +1,1 @@
-"""gSDDMM kernel: per-edge binary op, gather and un-permute fused (ROADMAP B3)."""
+"""gSDDMM kernel: per-edge binary op in caller edge order (ROADMAP B3)."""

@@ -6,29 +6,40 @@ Replaces ``src/repro/kernels/sddmm/kernel.py::_binary_kernel`` and
 launched from ``repro/kernels/sddmm/ops.py::sddmm``). There the caller
 gathers the operands into canonical (dst-sorted) edge order, the kernel
 applies ⊗ to the streams, and the caller un-permutes the result by
-``eid_inv``. The CUDA source ``../csrc/sddmm_csr.cu`` does all three in
-one pass: ``out[eid[k]] = lhs[idx_l[k]] ⊗ rhs[idx_r[k]]``, with each
-index array taken from its operand's target (``u`` → src, ``v`` → dst,
-``e`` → eid). Its header says what bounds it on the H100 (bytes).
+``eid_inv``. The CUDA source ``../csrc/sddmm_csr.cu`` walks the caller's
+edge order instead, as the JAX ``gather`` plan does:
+``out[e] = lhs[ia[e]] ⊗ rhs[ib[e]]``, with ``ia`` / ``ib`` the graph's
+caller-order endpoints (``Graph.src_caller`` for ``u``,
+``Graph.dst_caller`` for ``v``) and no index at all for ``e``. Nothing
+goes through ``eid``; the output and edge operands are contiguous. Bytes
+bound it on the H100 (its header says how the design meets that).
+
+The graph's index arrays are fixed at construction, so the wrapper checks
+them once per graph; each call checks only its operands.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from .. import _build
-from ..common import (check_operand, device_guard, ptr, raise_on_error,
-                      stream_handle)
+from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
+                      raise_on_error, stream_handle)
 
-__all__ = ["OPS", "TARGET_INDEX", "sddmm_csr", "sddmm_plain", "out_width"]
+__all__ = ["OPS", "TARGET_INDEX", "CALLER_INDEX", "sddmm_csr", "sddmm_plain",
+           "out_width"]
 
 _KERNEL = "sddmm_csr"
 OPS = {"add": 0, "sub": 1, "mul": 2, "div": 3, "dot": 4, "copy": 5}
 # the canonical index array that gathers each operand target
 TARGET_INDEX = {"u": "src", "v": "dst", "e": "eid"}
+# the caller-order index array of each operand target; an 'e' operand is
+# read at the caller edge id itself
+CALLER_INDEX = {"u": "src_caller", "v": "dst_caller", "e": None}
 
 _PLAIN = {
     "add": torch.add,
@@ -40,11 +51,12 @@ _PLAIN = {
 }
 
 
+@functools.cache
 def _lib():
     lib = _build.library(_KERNEL)
     fn = lib.sddmm_csr_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -77,6 +89,12 @@ def _rows(g, target: str) -> int:
     return {"u": g.n_src, "v": g.n_dst, "e": g.n_edges}[target]
 
 
+def _index(ptrs, target: str) -> Optional[int]:
+    """The caller-order index array of an operand target (None: ``e``)."""
+    name = CALLER_INDEX[target]
+    return None if name is None else ptrs[name]
+
+
 def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
               rhs_target: Optional[str] = None,
               rhs: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -98,20 +116,15 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
         return sddmm_plain(g, op, lhs_target, lhs, rhs_target, rhs)
     if lhs.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {lhs.device}")
-    dev = lhs.device
-    idx_l = getattr(g, TARGET_INDEX[lhs_target])
-    check_operand(_KERNEL, "idx_l", idx_l, torch.int32, (g.n_edges,), dev)
-    check_operand(_KERNEL, "eid", g.eid, torch.int32, (g.n_edges,), dev)
+    dev = g.device
     check_operand(_KERNEL, "lhs", lhs, torch.float32,
                   (_rows(g, lhs_target), None), dev)
     dl, dr, idx_r = lhs.shape[1], 0, None
+    idx = graph_index_ptrs(_KERNEL, g)
     if rhs is not None:
-        idx_r = getattr(g, TARGET_INDEX[rhs_target])
-        check_operand(_KERNEL, "idx_r", idx_r, torch.int32, (g.n_edges,),
-                      dev)
         check_operand(_KERNEL, "rhs", rhs, torch.float32,
                       (_rows(g, rhs_target), None), dev)
-        dr = rhs.shape[1]
+        dr, idx_r = rhs.shape[1], _index(idx, rhs_target)
     d = out_width(op, dl, dr)
     if d is None or dl == 0:
         raise ValueError(f"{_KERNEL}: widths {dl} and {dr} neither match "
@@ -121,8 +134,9 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
         return out
     fn = _lib()
     with device_guard(dev):
-        rc = fn(ptr(idx_l), ptr(idx_r), ptr(g.eid), ptr(lhs), ptr(rhs),
-                ptr(out), g.n_edges, dl, dr, OPS[op], stream_handle(dev))
+        rc = fn(_index(idx, lhs_target), idx_r, lhs.data_ptr(), ptr(rhs),
+                out.data_ptr(), g.n_edges, dl, dr, OPS[op],
+                stream_handle(dev))
     raise_on_error(_KERNEL, rc)
     sddmm_csr.launches += 1
     sddmm_csr.op_launches[op] += 1

@@ -19,8 +19,8 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..common import (check_operand, device_guard, ptr, raise_on_error,
-                      stream_handle)
+from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
+                      raise_on_error, stream_handle)
 from ..rowsplit import row_split
 
 __all__ = ["spmm", "spmm_csr", "spmm_plain"]
@@ -68,10 +68,7 @@ def spmm_csr(g, B: torch.Tensor, weight: Optional[torch.Tensor] = None,
         return spmm_plain(g, B, weight, mean)
     if B.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {B.device}")
-    dev = B.device
-    check_operand(_KERNEL, "indptr_dst", g.indptr_dst, torch.int32,
-                  (g.n_dst + 1,), dev)
-    check_operand(_KERNEL, "src", g.src, torch.int32, (g.n_edges,), dev)
+    dev = g.device
     check_operand(_KERNEL, "B", B, torch.float32, (g.n_src, None), dev)
     if weight is not None:
         check_operand(_KERNEL, "weight", weight, torch.float32,
@@ -97,10 +94,11 @@ def _launch_spmm(g, B: torch.Tensor, weight: Optional[torch.Tensor],
     out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
     partial = (torch.empty((rs.n_partials, d), dtype=torch.float32,
                            device=dev) if rs.n_partials else None)
+    idx = graph_index_ptrs(_KERNEL, g)
     fn = _lib()
     with device_guard(dev):
         rc = fn(ptr(rs.seg), rs.n_segments, ptr(rs.split), rs.n_split,
-                ptr(g.indptr_dst), ptr(g.src), ptr(weight), ptr(B), ptr(out),
+                idx["indptr_dst"], idx["src"], ptr(weight), ptr(B), ptr(out),
                 ptr(partial), d, int(bool(mean)), stream_handle(dev))
     raise_on_error(_KERNEL, rc)
     return out

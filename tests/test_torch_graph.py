@@ -2,8 +2,11 @@
 
 Every index array of the port's :class:`Graph` — host copies and device
 tensors — equals the JAX ``from_coo`` one on the same numpy COO input,
-including empty destination rows and duplicate edges.
+including empty destination rows and duplicate edges. The caller-order
+endpoints ``src_caller`` / ``dst_caller`` equal the ``src_c`` / ``dst_c``
+of the JAX ``gather`` plan (``repro/core/binary_reduce.py``).
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -76,3 +79,35 @@ def test_from_coo_validates_input():
 def test_to_same_device_is_identity():
     g = from_coo([0, 1], [1, 0], device="cpu")
     assert g.to("cpu") is g
+
+
+@pytest.mark.parametrize("n_src,n_dst,nnz,unique", CASES)
+def test_caller_order_endpoints_match_jax_gather_plan(n_src, n_dst, nnz,
+                                                      unique):
+    rng = np.random.default_rng(nnz + n_src)
+    src, dst = random_edges(rng, n_src, n_dst, nnz, unique=unique)
+    jg = jax_from_coo(src, dst, n_src=n_src, n_dst=n_dst)
+    tg = from_coo(src, dst, n_src=n_src, n_dst=n_dst, device="cpu")
+    for name, canon, given in (("src_caller", "src", src),
+                               ("dst_caller", "dst", dst)):
+        got = getattr(tg, name)
+        assert got.dtype == torch.int32 and got.device == tg.device
+        assert got.is_contiguous() and got.shape == (tg.n_edges,)
+        ref = np.asarray(jnp.take(getattr(jg, canon), jg.eid_inv))
+        np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
+        host = getattr(tg.host, canon)[tg.host.eid_inv]
+        np.testing.assert_array_equal(got.numpy(), host, err_msg=name)
+        # caller order is the order the edges were given in
+        np.testing.assert_array_equal(got.numpy(), given, err_msg=name)
+
+
+def test_caller_order_endpoints_are_built_once_per_graph():
+    rng = np.random.default_rng(5)
+    src, dst = random_edges(rng, 40, 30, 200)
+    tg = from_coo(src, dst, n_src=40, n_dst=30, device="cpu")
+    a, b = tg.src_caller, tg.dst_caller
+    assert tg.src_caller is a and tg.dst_caller is b
+    assert tg.long("src_caller") is tg.long("src_caller")
+    other = from_coo(src, dst, n_src=40, n_dst=30, device="cpu")
+    assert other.src_caller is not a
+    assert torch.equal(other.src_caller, a)

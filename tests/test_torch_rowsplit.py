@@ -11,11 +11,15 @@ emulations of the two kernels built on it.
   partials summed in slot order and scaled by its FULL degree.
   ``emulate_attention`` mirrors B2's flash-decoding merge
   (``fused_attention_csr.cu``): (m_i, l_i, acc_i) per segment and head,
-  merged in slot order. Both are held against the port's plain versions
-  and the JAX package (``gspmm(strategy="segment")``; ``fused_attention``
-  on its canonical jnp pipeline, ``strategy="fused"``) on the same numpy
-  inputs at 1e-5 (fp32 sums in another order). The CUDA kernels
-  themselves run on the card (``chip_smoke.py``).
+  merged in slot order. ``emulate_softmax`` mirrors B5
+  (``edge_softmax_csr.cu``): an online (max, sum) per segment, lane group
+  and head, the groups merged, a whole row written at once and a split
+  row's slots folded in slot order. All three are held against the
+  port's plain versions and the JAX package (``gspmm(strategy="segment")``;
+  ``fused_attention`` on its canonical jnp pipeline, ``strategy="fused"``;
+  ``edge_softmax_fused``) on the same numpy inputs at 1e-5 (fp32 sums in
+  another order). The CUDA kernels themselves run on the card
+  (``chip_smoke.py``).
 """
 import gc
 import weakref
@@ -26,11 +30,13 @@ import pytest
 import torch
 
 from repro.core import gspmm as jax_gspmm
+from repro.core.edge_softmax import edge_softmax_fused as jax_es_fused
 from repro.core.edge_softmax import fused_attention as jax_fused_attention
 from repro.core.graph import from_coo as jax_from_coo
 from repro_torch.core import from_coo
 from repro_torch.data.synthetic import rmat_graph
-from repro_torch.kernels.edge_softmax.ops import (MAX_F, fused_attention_plain,
+from repro_torch.kernels.edge_softmax.ops import (MAX_F, edge_softmax_plain,
+                                                  fused_attention_plain,
                                                   heads_per_warp)
 from repro_torch.kernels.rowsplit import build_row_split, row_split
 from repro_torch.kernels.spmm.ops import spmm_plain
@@ -288,3 +294,90 @@ def test_heads_per_warp_fills_at_most_128_floats():
         for F in (1, 5, 32, 41, 100, MAX_F):
             hg = heads_per_warp(H, F)
             assert 1 <= hg <= min(H, 8) and hg * F <= MAX_F
+
+
+def emulate_softmax(g, rs, x):
+    """B5 as the CUDA source computes it. A segment has max(Hl, 16) lanes
+    (Hl the power of two >= H, at most 32) in groups of Hl; group ``grp``
+    of its max(Hl, 16) / Hl takes the edges at positions ≡ grp mod that
+    count in edge order and folds each into
+    its online (max m, sum s) from (−1e30, 0), the sum rescaled when the
+    max grows; the groups merge (max, rescale, sum). A whole row writes
+    exp(x − m) / max(s, 1e-38); a split row's slots are folded in slot
+    order first."""
+    H = x.shape[1]
+    hl = 1
+    while hl < H and hl < 32:
+        hl *= 2
+    ngrp = max(hl, 16) // hl
+    seg, sid, eids = _segment_edges(rs)
+    S = len(seg)
+    xc = x[g.long("eid")[eids]]                       # (E, H), list order
+    pos = eids - seg[sid, 1]
+    gid, step = sid * ngrp + pos % ngrp, pos // ngrp
+    m = torch.full((S * ngrp, H), -1e30)
+    s = torch.zeros(S * ngrp, H)
+    for t in range(int(step.max()) + 1 if len(step) else 0):
+        at = step == t              # at most one edge per group and step
+        i, v = gid[at], xc[at]
+        up = v > m[i]
+        s[i] = torch.where(up, s[i] * torch.exp(m[i] - v) + 1.0,
+                           s[i] + torch.exp(v - m[i]))
+        m[i] = torch.where(up, v, m[i])
+    m, s = m.view(S, ngrp, H), s.view(S, ngrp, H)
+    mx = m.amax(1)                                    # (S, H)
+    sm = (s * torch.exp(m - mx[:, None])).sum(1)
+    alpha = torch.full_like(x, float("nan"))
+    out_at = g.long("eid")[eids]
+    whole = (seg[:, 3] < 0)[sid]
+    alpha[out_at[whole]] = (torch.exp(xc[whole] - mx[sid[whole]])
+                            / sm[sid[whole]].clamp(min=1e-38))
+    at_slot = {int(v): i for i, v in enumerate(seg[:, 3]) if v >= 0}
+    indptr = g.long("indptr_dst")
+    for row, first, count in rs.split.long().tolist():
+        idx = [at_slot[first + i] for i in range(count)]
+        m_row = mx[idx].amax(0)
+        s_row = torch.zeros(H)
+        for i in idx:                                 # slot order
+            s_row = s_row + sm[i] * torch.exp(mx[i] - m_row)
+        k = g.long("eid")[indptr[row]:indptr[row + 1]]
+        alpha[k] = torch.exp(x[k] - m_row) / s_row.clamp(min=1e-38)
+    return alpha
+
+
+@pytest.mark.parametrize("K", KS)
+@pytest.mark.parametrize("H", [4, 1, 3])
+def test_softmax_emulation_matches_plain_and_jax(H, K):
+    jg, tg = _graphs()
+    rng = np.random.default_rng(200 + K + H)
+    # spread over ±30: a segment's max moves a lot as its edges are
+    # folded, and the hub's segments' maxima differ, so every rescale counts
+    x = rng.uniform(-30.0, 30.0, size=(tg.n_edges, H)).astype(np.float32)
+    rs = row_split(tg, K)
+    hub = rs.split[rs.split[:, 0] == HUB]
+    assert len(hub) == 1 and int(hub[0, 2]) >= 8
+    got = emulate_softmax(tg, rs, torch.from_numpy(x))
+    assert torch.isfinite(got).all()      # every edge written
+    plain = edge_softmax_plain(tg, torch.from_numpy(x))
+    ref = np.asarray(jax_es_fused(jg, jnp.asarray(x)))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL,
+                               atol=TOL)
+
+
+def test_softmax_merge_rescales_segment_maxima():
+    """On the hub row, split at K = 32 with the edges of sources 64..127
+    lifted by 50, the other segments' share underflows: a merge without
+    the rescale (plain sums of the slots' s) would not give the lifted
+    edges' own softmax."""
+    _, tg = _graphs()
+    x = np.zeros((tg.n_edges, 1), np.float32)
+    src_caller = tg.src_caller.numpy()
+    dst_caller = tg.dst_caller.numpy()
+    lifted = (dst_caller == HUB) & (src_caller >= 64) & (src_caller < 128)
+    x[lifted, 0] = 50.0
+    got = emulate_softmax(tg, row_split(tg, 32), torch.from_numpy(x))
+    hub = dst_caller == HUB
+    np.testing.assert_allclose(got.numpy()[lifted, 0],
+                               1.0 / lifted.sum(), rtol=1e-5)
+    assert float(got[hub & ~lifted].max()) < 1e-20

@@ -8,8 +8,13 @@ its ``ref.py`` oracle, for every ⊗, width broadcast and operand target
 pair, on a random graph with zero-degree rows and duplicate edges and on
 a small R-MAT graph. The port's ``gsddmm`` is held against JAX
 ``gsddmm``. Tolerance 1e-5 (fp32); 1e-4 for ``div``, as the JAX kernel
-tests use. The CUDA branch is exercised on the card by ``chip_smoke.py``.
+tests use. ``emulate_caller_order`` mirrors the CUDA kernel's walk
+(``sddmm_csr.cu``: caller edge e reads ``lhs[ia[e]] ⊗ rhs[ib[e]]``, no
+``eid``) and must give the plain version's bits for every op but dot. The
+CUDA branch is exercised on the card by ``chip_smoke.py``.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +28,9 @@ from repro_torch.core import from_coo, gspmm, gsddmm, parse_op
 from repro_torch.core.binary_reduce import SDDMM_FOR, SDDMM_STRATEGIES
 from repro_torch.data.synthetic import rmat_graph
 from repro_torch.kernels.dispatch import sddmm_kernel_supports
-from repro_torch.kernels.sddmm.ops import sddmm_csr, sddmm_plain
+from repro_torch.kernels.common import graph_index_ptrs
+from repro_torch.kernels.sddmm.ops import (CALLER_INDEX, sddmm_csr,
+                                           sddmm_plain)
 from tests.graphgen import random_edges
 from tests.test_torch_harness import jax_c1_shim  # noqa: F401
 
@@ -184,3 +191,74 @@ def test_wrapper_on_cpu_counts_nothing_and_checks_arguments():
         sddmm_csr(tg, "add", "u", u)
     with pytest.raises(ValueError, match="takes no rhs"):
         sddmm_csr(tg, "copy", "u", u, "v", v)
+
+
+def emulate_caller_order(tg, op, lt, lhs, rt=None, rhs=None):
+    """B3 as the CUDA source computes it: caller edge e reads row
+    ``src_caller[e]`` of a ``u`` operand, ``dst_caller[e]`` of a ``v``
+    operand and row e of an ``e`` operand, and applies ⊗ (width 1
+    broadcasts); dot sums j = 0, 1, … in order."""
+    def rows(target, x):
+        name = CALLER_INDEX[target]
+        return x if name is None else x[getattr(tg, name).long()]
+
+    a = rows(lt, lhs)
+    if op == "copy":
+        return a.clone()
+    b = rows(rt, rhs)
+    if op == "dot":
+        a, b = torch.broadcast_tensors(a, b)
+        acc = torch.zeros(a.shape[0])
+        for j in range(a.shape[1]):
+            acc = acc + a[:, j] * b[:, j]
+        return acc[:, None]
+    return {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+            "div": torch.div}[op](a, b)
+
+
+# every ⊗ on GAT's target pairs at widths 4 and 1 with broadcast, copy of
+# each target
+EMULATION_CASES = (
+    [(op, t, w) for op in OPS[:-1] for t in ("uv", "ev")
+     for w in ((4, 4), (4, 1), (1, 4), (1, 1))]
+    + [("copy", t + t, (w, w)) for t in "uve" for w in (4, 1)])
+
+
+@pytest.mark.parametrize("op,targets,widths", EMULATION_CASES)
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_caller_order_walk_gives_the_plain_versions_bits(graph, op, targets,
+                                                         widths):
+    lt, rt = targets
+    lw, rw = widths
+    jg, tg, lhs, rhs = _case(graph, lt, lw, rt, rw, op, seed=11)
+    args = (tg, op, lt, torch.from_numpy(lhs))
+    if op != "copy":
+        args += (rt, torch.from_numpy(rhs))
+    got = emulate_caller_order(*args)
+    plain = sddmm_plain(*args)
+    assert got.shape == plain.shape
+    if op == "dot":
+        np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        assert torch.equal(got, plain)
+    name = (f"{lt}_copy_add_e" if op == "copy"
+            else f"{lt}_{op}_{rt}_copy_e")
+    data = {lt: jnp.asarray(lhs)}
+    if op != "copy":
+        data[rt] = jnp.asarray(rhs)
+    ref = np.asarray(jax_gsddmm(jg, name, strategy="gather", **data))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=_tol(op),
+                               atol=_tol(op))
+
+
+def test_graph_index_arrays_are_checked_once_per_graph():
+    _, tg, _, _ = _case("random", "u", 4, "v", 4, "add")
+    ptrs = graph_index_ptrs("k", tg)
+    assert graph_index_ptrs("k", tg) is ptrs
+    for name in ("src", "dst", "eid", "indptr_dst", "src_caller",
+                 "dst_caller"):
+        assert ptrs[name] == getattr(tg, name).data_ptr()
+    bad = dataclasses.replace(tg, eid=tg.eid.long())
+    with pytest.raises(TypeError, match="k: eid has dtype torch.int64"):
+        graph_index_ptrs("k", bad)
