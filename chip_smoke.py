@@ -13,12 +13,12 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
    Binary-Reduce, B5 edge softmax) against its plain PyTorch version
    within a stated tolerance, and time kernel, plain version and, where
    one PyTorch call computes the same function, that call — a yardstick
-   the port never calls — with CUDA events. B1, B2 and B5 are called
+   the port never calls — with CUDA events. B1, B2, B4 and B5 are called
    twice at every shape and must give bit-identical outputs. Every kernel
    and yardstick is also timed on the device alone, warm and with L2
    flushed between launches (cold). B3 is also timed walking canonical
-   order (its first version, kept in ``benchmarks/``), and B5 over work
-   lists of other caps K and lanes per segment (the sweep rows).
+   order (its first version, kept in ``benchmarks/``), and B4 and B5 over
+   work lists of other caps K and lanes per segment (the sweep rows).
 4. Serve: for gcn, sage and gat, ``build_server(app, "reddit-like")``
    and a 4-client session; served rows must equal a plain-version full
    forward, each refresh must launch exactly the app's kernels (GAT
@@ -27,6 +27,8 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
 5. Forward: ``gat.infer`` on the served model at ``attn`` = multipass,
    softmax-fused (B3 × 2 + B5 × 2) and auto (the fused pipeline on B2,
    × 2), each against the plain multipass forward.
+6. Trace: ``torch.profiler`` over one served GAT refresh (multipass): the
+   ten device operations that take the most time, with their counts.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -65,10 +67,14 @@ B3_MAIN = [(op, lt, rt, d) for d in (4, 1)
            for op, lt, rt in (("add", "u", "v"), ("sub", "e", "v"),
                               ("div", "e", "v"))]
 # (binop, width of B, width of E, reduce): the composed softmax's sums
-# at H = 4 then 1, a vector-E u_mul_e and a mean
+# at H = 4 then 1, a vector-E u_mul_e, a mean, and a width-1 E divided
+# into a width that is no power of two, a mean through the split rows' fold
 B4_SHAPES = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum"),
-             ("mul", 32, 32, "sum"), ("copy_rhs", 4, 4, "mean")]
+             ("mul", 32, 32, "sum"), ("copy_rhs", 4, 4, "mean"),
+             ("div", 41, 1, "mean")]
 B4_MAIN = B4_SHAPES[:2]
+B4_CAPS = (128, 256)          # work-list caps K of B4's sweep rows
+B4_LANES = (16, 32)           # lanes per segment of B4's sweep rows
 B5_SHAPES = [4, 1]
 B5_CAPS = (128, 256, 512)     # work-list caps K of B5's sweep rows
 B5_LANES = (16, 32)           # lanes per segment of B5's sweep rows
@@ -311,8 +317,10 @@ def check_b3(g, gen, label: str, rows: dict) -> None:
 
 
 def check_b4(g, gen, label: str, rows: dict) -> None:
-    from repro_torch.kernels.binary_reduce.ops import (binary_reduce_csr,
+    from repro_torch.kernels.binary_reduce.ops import (_launch_br,
+                                                       binary_reduce_csr,
                                                        binary_reduce_plain)
+    from repro_torch.kernels.rowsplit import row_split
 
     deg = g.in_degrees.long()
     has_edge = deg > 0
@@ -321,8 +329,11 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
         B = (None if binop == "copy_rhs"
              else torch.randn(g.n_src, d, generator=gen).cuda())
         E = torch.randn(g.n_edges, de, generator=gen).cuda()
+        if binop == "div":      # keep divisors away from 0
+            E = E.abs() + 0.5
         n0 = binary_reduce_csr.launches
-        got = binary_reduce_csr(g, B, E, binop, mean)
+        got = bit_identical(f"binary_reduce_csr {binop} d={d} {red}",
+                            lambda: binary_reduce_csr(g, B, E, binop, mean))
         ref = binary_reduce_plain(g, B, E, binop, mean)
         torch.cuda.synchronize()
         err = max_err(got, ref)
@@ -355,11 +366,29 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
                "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
                "library_device_ms": lib_dev[0],
                "library_cold_ms": lib_dev[1], "bound_ms": b_ms,
-               "bound_by": b_by, "launches": binary_reduce_csr.launches - n0}
+               "bound_by": b_by, "bit_identical": True,
+               "launches": binary_reduce_csr.launches - n0}
         emit(row)
         if not err <= tol:
             raise AssertionError(f"binary_reduce_csr disagrees: {row}")
         rows[(label, binop, d, de, red)] = row
+        if (binop, d, de, red) not in B4_MAIN:
+            continue
+        # the work list's cap K and the lanes per segment: the wrapper's
+        # (128, 16) against their neighbours
+        lpe = min(32, 1 << (d - 1).bit_length())
+        for K, lanes in [(K, n) for K in B4_CAPS for n in B4_LANES
+                         if n >= lpe]:
+            rs = row_split(g, K)
+            k_err = max_err(_launch_br(g, B, E, binop, mean, rs, lanes), ref)
+            emit({"phase": "sweep", "kernel": "binary_reduce_csr",
+                  "graph": label, "binop": binop, "d": d, "reduce": red,
+                  "K": K, "lanes": lanes, "max_abs_err": k_err,
+                  "device_ms": time_device_ms(lambda: _launch_br(
+                      g, B, E, binop, mean, rs, lanes), False)})
+            if not k_err <= tol:
+                raise AssertionError(f"binary_reduce_csr K={K} lanes="
+                                     f"{lanes} d={d}: {k_err}")
 
 
 def check_b5(g, gen, label: str, rows: dict) -> None:
@@ -526,6 +555,45 @@ def forward_gat(srv) -> dict:
     return rows
 
 
+def trace_gat_refresh(srv, top: int = 10) -> dict:
+    """One served GAT refresh (``gat.infer``, multipass) under
+    ``torch.profiler`` with CUDA activity: the ``top`` device operations
+    by total device time, with their counts. A reading only: it checks
+    nothing, and no kernel counter is read from it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.gnn import gat
+
+    args = (srv.model, srv.bundle, srv.x_device)
+    gat.infer(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gat.infer(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+
+    def entry(e):
+        return {"name": e.key[:160], "count": e.count,
+                "total_us": e.self_device_time_total}
+
+    # the port's own kernels live in anonymous namespaces of csrc/*.cu
+    row = {"phase": "trace", "app": "gat", "attn": "multipass",
+           "device_events": sum(e.count for e in dev),
+           "device_us_total": sum(e.self_device_time_total for e in dev),
+           "wall_us_profiled": wall_us,
+           "top": [entry(e) for e in dev[:top]],
+           "port_kernels": [entry(e) for e in dev if e.key.startswith(
+               "void (anonymous namespace)::")]}
+    emit(row)
+    return row
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches):
     def total(key):
         vals = [r[key] for r in main_rows]
@@ -620,6 +688,7 @@ def main() -> int:
     for app in ("gcn", "sage", "gat"):
         served[app], srv = serve_app(app)
     forward = forward_gat(srv)
+    trace_gat_refresh(srv)
     del srv
 
     # launches on the main path: every serve and forward run, each

@@ -9,7 +9,7 @@ its plain PyTorch version and a launch counter on its wrapper:
 * ``edge_softmax.ops.edge_softmax_csr`` — edge softmax (B5).
 
 ``dispatch`` routes the lattice's specs onto them; ``rowsplit`` cuts the
-graph's rows into bounded edge segments, the work list B1, B2 and B5
+graph's rows into bounded edge segments, the work list B1, B2, B4 and B5
 launch over.
 
 ``_build`` compiles the sources with ``nvcc`` at first use.

@@ -4,27 +4,36 @@ plain PyTorch version.
 Replaces ``src/repro/kernels/binary_reduce/kernel.py::_br_kernel`` (the
 TPU kernel built by ``binary_reduce_pallas_call`` and launched from
 ``repro/kernels/binary_reduce/ops.py::binary_reduce``). The CUDA source
-is ``../csrc/binary_reduce_csr.cu``: one warp per destination row walks
-the CSR by destination, reading the edge operand in caller order through
-``eid``, so no TilePack is built and no edge feature is permuted first.
-Its header says what bounds it on the H100 (bytes) and how narrow rows
-keep the warp's lanes busy.
+is ``../csrc/binary_reduce_csr.cu``: over the row-segment work list
+(``../rowsplit.py``) at ``BR_SEGMENT_EDGES`` edges, 16 lanes per segment
+at d <= 16 (two segments per warp), it walks the CSR by destination and
+reads the edge operand in caller order through ``eid``, so no TilePack is
+built and no edge feature is permuted first; a heavy row's segments'
+sums are folded in edge order, in the same launch, by whichever of them
+finishes last. Its header says what bounds it on the H100 (bytes) and how
+narrow rows keep the warp's lanes busy.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import threading
+import weakref
+from typing import Dict, Optional
 
 import torch
 
 from .. import _build
 from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
                       raise_on_error, stream_handle)
+from ..rowsplit import row_split
 
-__all__ = ["BINOPS", "binary_reduce", "binary_reduce_csr",
-           "binary_reduce_plain"]
+__all__ = ["BINOPS", "BR_SEGMENT_EDGES", "binary_reduce",
+           "binary_reduce_csr", "binary_reduce_plain"]
 
 _KERNEL = "binary_reduce_csr"
+# B4's work-list cap: B5's (edge_softmax.ops.SOFTMAX_SEGMENT_EDGES), so a
+# GAT refresh builds no list of its own; chip_smoke's sweep rows time 256
+BR_SEGMENT_EDGES = 128
 BINOPS = {"add": 0, "sub": 1, "mul": 2, "div": 3, "copy_lhs": 4,
           "copy_rhs": 5}
 
@@ -42,8 +51,8 @@ def _lib():
     lib = _build.library(_KERNEL)
     fn = lib.binary_reduce_csr_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
+            ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -77,7 +86,8 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
     ``E``: (n_edges, d) or (n_edges, 1) fp32 in caller edge order.
     Returns (n_dst, d).
 
-    ``binary_reduce_csr.launches`` counts kernel launches (CUDA only).
+    ``binary_reduce_csr.launches`` counts calls that launched the kernel
+    (CUDA only).
     """
     if binop not in BINOPS:
         raise ValueError(f"{_KERNEL}: unknown binop {binop!r}; expected one "
@@ -99,21 +109,60 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
     if de not in (d, 1):
         raise ValueError(f"{_KERNEL}: edge feature width {de} is neither "
                          f"the node width {d} nor 1")
-    out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
-    if out.numel() == 0:
-        return out
-    idx = graph_index_ptrs(_KERNEL, g)
-    fn = _lib()
-    with device_guard(dev):
-        rc = fn(idx["indptr_dst"], idx["src"], idx["eid"], ptr(B), ptr(E),
-                ptr(out), g.n_dst, d, de, BINOPS[binop], int(bool(mean)),
-                stream_handle(dev))
-    raise_on_error(_KERNEL, rc)
+    if g.n_dst * d == 0:
+        return torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
+    out = _launch_br(g, B, E, binop, mean, row_split(g, BR_SEGMENT_EDGES))
     binary_reduce_csr.launches += 1
     return out
 
 
 binary_reduce_csr.launches = 0
+
+
+# per graph and stream: the split rows' counts of finished segments, all 0
+# between launches (the kernel's fold resets them); one array per stream,
+# so launches on two streams never share one
+_counters: "weakref.WeakKeyDictionary[object, Dict[int, torch.Tensor]]" = (
+    weakref.WeakKeyDictionary())
+_counters_lock = threading.Lock()
+
+
+def _row_counters(g, stream: int) -> torch.Tensor:
+    per_graph = _counters.get(g)
+    cnt = None if per_graph is None else per_graph.get(stream)
+    if cnt is None:
+        with _counters_lock:
+            per_graph = _counters.setdefault(g, {})
+            cnt = per_graph.get(stream)
+            if cnt is None:
+                cnt = torch.zeros(g.n_dst, dtype=torch.int32,
+                                  device=g.device)
+                per_graph[stream] = cnt
+    return cnt
+
+
+def _launch_br(g, B: Optional[torch.Tensor], E: torch.Tensor, binop: str,
+               mean: bool, rs, lanes: int = 0) -> torch.Tensor:
+    """Launch B4 on checked operands over work list ``rs`` with ``lanes``
+    lanes per segment (0: the kernel's default, max(lpe, 16); the wrapper
+    passes the graph's cached list and 0, ``chip_smoke.py`` also times
+    other caps K and lane counts). Counts nothing."""
+    dev = E.device
+    d = E.shape[1] if B is None else B.shape[1]
+    out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
+    partial = (torch.empty((rs.n_partials, d), dtype=torch.float32,
+                           device=dev) if rs.n_partials else None)
+    idx = graph_index_ptrs(_KERNEL, g)
+    fn = _lib()
+    with device_guard(dev):
+        stream = stream_handle(dev)
+        cnt = _row_counters(g, stream) if rs.n_split else None
+        rc = fn(ptr(rs.seg), rs.n_segments, rs.n_split, idx["indptr_dst"],
+                idx["src"], idx["eid"], ptr(B), ptr(E), ptr(out),
+                ptr(partial), ptr(cnt), rs.K, d, E.shape[1], BINOPS[binop],
+                int(bool(mean)), int(lanes), stream)
+    raise_on_error(_KERNEL, rc)
+    return out
 
 
 def binary_reduce(g, B: Optional[torch.Tensor], E: torch.Tensor,

@@ -1,4 +1,4 @@
-// Fused Binary-Reduce over CSR-by-destination, fp32, for sm_90a.
+// Fused Binary-Reduce over the row-segment work list, fp32, for sm_90a.
 //
 //   C[v, j] = sum_{k in row v} B[src[k], j] (op) E[eid[k], j]
 //   op in {add, sub, mul, div, copy_lhs, copy_rhs}
@@ -11,23 +11,47 @@
 // Replaces the TPU kernel src/repro/kernels/binary_reduce/kernel.py::
 // _br_kernel, which walks TilePack buckets, gathers B with a one-hot
 // matmul, reads E pre-permuted into tile order, zeroes the pad slots and
-// scatters with a second one-hot matmul. Hopper needs none of that: one
-// warp owns one destination row of the CSR, reads E through eid, and
-// there are no pad slots. No atomics, so a sum is the same on every run.
+// scatters with a second one-hot matmul. Hopper needs none of that: the
+// kernel walks the CSR by destination over the row-segment work list
+// (kernels/rowsplit.py) at K = 128 edges per segment, B5's list, reads E
+// through eid, and there are no pad slots.
 //
 // Bound on the H100: bytes. One op and one add per element against 4 to
-// 8 bytes read per element. The least traffic is the CSR, B and E read
-// once and C written once. The design:
-//   * a row of width d is covered by a group of lpe lanes (the power of
-//     two >= d, at most 32); the warp's 32 / lpe groups take different
-//     edges of the row, so at d = 4 and 1 (GAT's softmax sums) a warp
-//     works on 8 or 32 edges at once instead of idling 28 or 31 lanes;
-//   * the warp loads 32 edges' (src, eid) with one coalesced read and
-//     broadcasts them by shuffle; each lane keeps UNR edges' loads in
-//     flight before it accumulates;
-//   * the groups' partial sums are combined by a fixed shuffle tree.
-// A hub row (in-degree 4,275 on reddit-like) is one warp's serial loop,
-// as in spmm_csr.cu; splitting it is later work.
+// 8 bytes read per element; E in caller order costs one 32-byte sector
+// per edge even at d = 1, since a row's edges are scattered in it. What
+// the time goes to is each segment's chain of dependent loads (the
+// segment, its (src, eid), E[eid]) over ~67k segments, most of them
+// short (mean in-degree 9.6). Before the work list it was the hub row
+// (in-degree 4,275 on reddit-like), one warp's serial loop of 134 chunks.
+// The design:
+//   * launch 1: a segment gets `lanes` lanes, 16 or 32 (max(lpe, 16) by
+//     default), so at d <= 16 a warp takes two consecutive segments of the
+//     longest-first list. A row of width d is covered by a group of LPE
+//     lanes (a template: the power of two >= d, at most 32; a column loop
+//     covers d > 32), and the segment's lanes / LPE groups take its edges
+//     in a fixed stride: group g those at positions = g mod (lanes / LPE),
+//     in ascending order.
+//   * the segment's lanes load a tile of R x lanes edges' (src, eid) with
+//     R coalesced reads and broadcast them by shuffle. R is picked so that
+//     a group holds max(LPE, UNR) edges of the tile, UNR = 4 loads of B
+//     and E in flight before it accumulates: at d = 1 and 4 a short
+//     segment (most of them) is one tile. UNR = 8 took 10-22% longer (more
+//     registers and guarded code for edges short segments lack), and a cap
+//     of 32 registers spilled (PERF.md §6). The warp's two segments
+//     walk the longer one's trip count, so every shuffle has the whole
+//     warp.
+//   * the groups' sums are combined by a fixed __shfl_xor tree. A segment
+//     that is the whole row (slot < 0; on reddit-like at K = 128 all but
+//     697 rows) writes C, divided by its degree for mean; a split row's
+//     segment writes its raw sum to partial slot `slot`.
+//   * a split row is folded in the same launch, by whichever of its
+//     segments finishes last: each writes its slot, fences, and adds one
+//     to the row's counter (atomicAdd); the one that sees count - 1 sums
+//     the row's slots in slot (= edge) order, divides by the row's full
+//     degree for mean, writes C and resets the counter to 0. A second
+//     launch for the fold cost ~0.002 ms more (PERF.md §6).
+// No value is summed by an atomic and every sum has a fixed order: C is
+// bit-identical from call to call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,7 +62,7 @@ enum BinOp { kAdd = 0, kSub = 1, kMul = 2, kDiv = 3, kCopyLhs = 4,
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
-constexpr int UNR = 4;
+constexpr int UNR = 4;  // loads of B and E a lane keeps in flight
 
 template <int OP>
 __device__ __forceinline__ float apply(float a, float b) {
@@ -50,116 +74,205 @@ __device__ __forceinline__ float apply(float a, float b) {
   return b;  // kCopyRhs
 }
 
-template <int OP>
+// One group of `lanes` lanes (16 or 32) per segment, 32 / lanes segments
+// per warp; a row is covered by groups of LPE lanes.
+template <int OP, int LPE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-binary_reduce_csr_kernel(const int* __restrict__ indptr,
-                         const int* __restrict__ src,
-                         const int* __restrict__ eid,
-                         const float* __restrict__ B,
-                         const float* __restrict__ E, float* __restrict__ C,
-                         int n_dst, int d, int de, int lpe, int mean) {
+br_segment_kernel(const int4* __restrict__ seg, int n_seg,
+                  const int* __restrict__ src, const int* __restrict__ eid,
+                  const float* __restrict__ B, const float* __restrict__ E,
+                  float* __restrict__ C, float* __restrict__ partial,
+                  const int* __restrict__ indptr, int* __restrict__ cnt,
+                  int K, int d, int de, int lanes, int mean) {
   constexpr bool kReadB = OP != kCopyRhs;
   constexpr bool kReadE = OP != kCopyLhs;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= n_dst) return;  // warp-uniform
+  // a tile is R x lanes edges, R (src, eid) registers a lane; a group takes
+  // R x LPE = max(LPE, UNR) of them
+  constexpr int R = UNR > LPE ? UNR / LPE : 1;
+  constexpr int kPer = R * LPE;  // a group's edges in a tile
+  // lanes is 16 or 32: shifts and masks, not integer divisions
+  const int lsh = lanes == 16 ? 4 : 5;
+  const int64_t s0 = ((int64_t)blockIdx.x * kWarpsPerBlock +
+                      (threadIdx.x >> 5)) << (5 - lsh);
+  if (s0 >= n_seg) return;  // warp-uniform
   const int lane = threadIdx.x & 31;
-  const int ngrp = 32 / lpe;
-  const int grp = lane / lpe;
-  const int sub = lane - grp * lpe;
-  const int beg = __ldg(indptr + row);
-  const int end = __ldg(indptr + row + 1);
-  const float deg = (float)max(end - beg, 1);
-  float* crow = C + (int64_t)row * d;
+  const int ln = lane & (lanes - 1);
+  const int64_t si = s0 + (lane >> lsh);
+  // past the list's end: an empty segment that writes nothing but keeps
+  // its lanes in the warp's shuffles
+  const bool valid = si < n_seg;
+  const int4 sg = valid ? __ldg(seg + si) : make_int4(0, 0, 0, -1);
+  const int beg = sg.y;
+  const int len = sg.z - sg.y;
+  int wlen = len;  // the warp's longest segment sets its trip counts
+  for (int off = lanes; off < 32; off <<= 1)
+    wlen = max(wlen, __shfl_xor_sync(kFull, wlen, off));
+  const int ngrp = lanes / LPE;  // LPE is a power of two: a shift
+  const int grp = ln / LPE;
+  const int sub = ln - grp * LPE;
+  const int tile = R * lanes;
+  // a whole row writes C, divided by its degree for mean; a segment of a
+  // split row writes its raw sum
+  float* orow;
+  float deg = 1.0f;
+  if (sg.w < 0) {
+    orow = C + (int64_t)sg.x * d;
+    if (mean) deg = (float)max(len, 1);
+  } else {
+    orow = partial + (int64_t)sg.w * d;
+  }
 
-  for (int c0 = 0; c0 < d; c0 += lpe) {
+  for (int c0 = 0; c0 < d; c0 += LPE) {
     const int c = c0 + sub;
     const bool col_ok = c < d;
     const int ce = de == 1 ? 0 : c;
     float acc = 0.0f;
-    for (int e0 = beg; e0 < end; e0 += 32) {
-      const int e = e0 + lane;
-      int s = 0, id = 0;
-      if (e < end) {
-        if (kReadB) s = __ldg(src + e);
-        if (kReadE) id = __ldg(eid + e);
+    for (int t0 = 0; t0 < wlen; t0 += tile) {
+      int s[R], id[R];
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        const int k = t0 + t * lanes + ln;
+        s[t] = 0;
+        id[t] = 0;
+        if (t * lanes < wlen - t0 && k < len) {  // the first, warp-uniform
+          if (kReadB) s[t] = __ldg(src + beg + k);
+          if (kReadE) id[t] = __ldg(eid + beg + k);
+        }
       }
-      const int cnt = min(32, end - e0);
-      for (int jj = 0; jj < cnt; jj += ngrp * UNR) {
+      // the group's i-th edge of the tile sits at position grp + ngrp * i,
+      // in register i / LPE of lane grp + ngrp * (i % LPE): the group
+      // takes the positions = grp mod ngrp, in ascending order
+#pragma unroll
+      for (int i0 = 0; i0 < kPer; i0 += UNR) {
         float a[UNR], b[UNR];
         bool ok[UNR];
 #pragma unroll
         for (int u = 0; u < UNR; ++u) {
-          const int j = jj + u * ngrp + grp;
-          const int sj = __shfl_sync(kFull, s, j & 31);
-          const int ij = __shfl_sync(kFull, id, j & 31);
-          ok[u] = j < cnt && col_ok;
-          a[u] = (kReadB && ok[u]) ? __ldg(B + (int64_t)sj * d + c) : 0.0f;
-          b[u] = (kReadE && ok[u]) ? __ldg(E + (int64_t)ij * de + ce) : 0.0f;
+          const int i = i0 + u;
+          ok[u] = false;
+          a[u] = 0.0f;
+          b[u] = 0.0f;
+          if (ngrp * i < wlen - t0) {  // warp-uniform
+            const int q = grp + ngrp * (i % LPE);
+            const int sj = kReadB ? __shfl_sync(kFull, s[i / LPE], q, lanes)
+                                  : 0;
+            const int ij = kReadE ? __shfl_sync(kFull, id[i / LPE], q, lanes)
+                                  : 0;
+            ok[u] = t0 + grp + ngrp * i < len && col_ok;
+            if (kReadB && ok[u]) a[u] = __ldg(B + (int64_t)sj * d + c);
+            if (kReadE && ok[u]) b[u] = __ldg(E + (int64_t)ij * de + ce);
+          }
         }
 #pragma unroll
         for (int u = 0; u < UNR; ++u)
           if (ok[u]) acc += apply<OP>(a[u], b[u]);
       }
     }
-    // combine the edge groups of a narrow row (a fixed order)
-    for (int off = lpe; off < 32; off <<= 1)
+    // combine the segment's edge groups (a fixed order)
+    for (int off = LPE; off < lanes; off <<= 1)
       acc += __shfl_xor_sync(kFull, acc, off);
-    if (grp == 0 && col_ok) crow[c] = mean ? acc / deg : acc;
+    if (valid && grp == 0 && col_ok) orow[c] = mean ? acc / deg : acc;
   }
+  // the segment of a split row that finishes last folds the row's slots
+  // in slot order; cnt[row] counts the row's finished segments
+  const bool split_seg = valid && sg.w >= 0;
+  int last = 0;
+  if (split_seg) __threadfence();
+  __syncwarp();
+  if (split_seg && ln == 0) {
+    const int rb = __ldg(indptr + sg.x);
+    const int count = (__ldg(indptr + sg.x + 1) - rb + K - 1) / K;
+    last = atomicAdd(cnt + sg.x, 1) == count - 1;
+  }
+  last = __shfl_sync(kFull, last, 0, lanes);
+  if (!last) return;
+  __threadfence();
+  const int rb = __ldg(indptr + sg.x);
+  const int rdeg = __ldg(indptr + sg.x + 1) - rb;
+  const int count = (rdeg + K - 1) / K;
+  const int first = sg.w - (beg - rb) / K;
+  for (int c = ln; c < d; c += lanes) {
+    float acc = 0.0f;
+#pragma unroll 8
+    for (int k = 0; k < count; ++k)
+      acc += __ldcg(partial + (int64_t)(first + k) * d + c);
+    C[(int64_t)sg.x * d + c] = mean ? acc / (float)max(rdeg, 1) : acc;
+  }
+  if (ln == 0) cnt[sg.x] = 0;  // ready for the next call
 }
 
 template <int OP>
-void launch(const int* indptr, const int* src, const int* eid, const float* B,
-            const float* E, float* C, int n_dst, int d, int de, int mean,
-            cudaStream_t stream) {
-  int lpe = 1;
-  while (lpe < d && lpe < 32) lpe <<= 1;
-  const dim3 grid((unsigned)((n_dst + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  binary_reduce_csr_kernel<OP><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-      indptr, src, eid, B, E, C, n_dst, d, de, lpe, mean);
+void launch_segments(int lpe, int lanes, const int4* seg, int n_seg,
+                     const int* src, const int* eid, const float* B,
+                     const float* E, float* C, float* partial,
+                     const int* indptr, int* cnt, int K, int d, int de,
+                     int mean, cudaStream_t stream) {
+  const int64_t warps = (n_seg + 32 / lanes - 1) / (32 / lanes);
+  const dim3 grid((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+#define BR_LPE(LPE)                                                       \
+  br_segment_kernel<OP, LPE><<<grid, kWarpsPerBlock * 32, 0, stream>>>(    \
+      seg, n_seg, src, eid, B, E, C, partial, indptr, cnt, K, d, de, lanes, \
+      mean)
+  switch (lpe) {
+    case 1: BR_LPE(1); break;
+    case 2: BR_LPE(2); break;
+    case 4: BR_LPE(4); break;
+    case 8: BR_LPE(8); break;
+    case 16: BR_LPE(16); break;
+    default: BR_LPE(32);
+  }
+#undef BR_LPE
 }
 
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unknown op, an E width other than d or 1,
-// or a null B for an op that reads it. ``mean`` != 0 divides by
-// max(deg, 1).
-extern "C" int binary_reduce_csr_f32(const void* indptr, const void* src,
+// a null B for an op that reads it, ``lanes`` (lanes per segment: 16 or
+// 32, at least lpe; 0 for the default, max(lpe, 16)) not one of those, or
+// split rows without a workspace. ``seg`` (n_seg x 4) is the work list of
+// kernels/rowsplit.py at cap K, with n_split split rows; ``partial``
+// (n_partials x d) holds their segments' sums and ``counters`` (n_dst
+// ints, all 0) their finished segments, which the fold resets to 0.
+// ``mean`` != 0 divides by max(deg, 1).
+extern "C" int binary_reduce_csr_f32(const void* seg, int n_seg, int n_split,
+                                     const void* indptr, const void* src,
                                      const void* eid, const void* B,
-                                     const void* E, void* C, int n_dst, int d,
-                                     int de, int binop, int mean,
+                                     const void* E, void* C, void* partial,
+                                     void* counters, int K, int d, int de,
+                                     int binop, int mean, int lanes,
                                      void* stream) {
+  int lpe = 1;
+  while (lpe < d && lpe < 32) lpe <<= 1;
+  if (lanes == 0) lanes = lpe > 16 ? lpe : 16;
   if (binop < kAdd || binop > kCopyRhs || (de != d && de != 1) ||
-      (B == nullptr && binop != kCopyRhs))
+      (B == nullptr && binop != kCopyRhs) ||
+      (lanes != 16 && lanes != 32) || lanes < lpe ||
+      (n_split > 0 && (partial == nullptr || counters == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_dst > 0 && d > 0) {
-    const int* ip = static_cast<const int*>(indptr);
+  if (n_seg > 0 && d > 0) {
+    const int4* sg = static_cast<const int4*>(seg);
     const int* sp = static_cast<const int*>(src);
     const int* ep = static_cast<const int*>(eid);
     const float* bp = static_cast<const float*>(B);
     const float* xp = static_cast<const float*>(E);
     float* cp = static_cast<float*>(C);
+    float* pp = static_cast<float*>(partial);
+    const int* ip = static_cast<const int*>(indptr);
+    int* cn = static_cast<int*>(counters);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BR_SEGMENTS(OP)                                                   \
+  launch_segments<OP>(lpe, lanes, sg, n_seg, sp, ep, bp, xp, cp, pp, ip, cn, \
+                      K, d, de, mean, st)
     switch (binop) {
-      case kAdd:
-        launch<kAdd>(ip, sp, ep, bp, xp, cp, n_dst, d, de, mean, st);
-        break;
-      case kSub:
-        launch<kSub>(ip, sp, ep, bp, xp, cp, n_dst, d, de, mean, st);
-        break;
-      case kMul:
-        launch<kMul>(ip, sp, ep, bp, xp, cp, n_dst, d, de, mean, st);
-        break;
-      case kDiv:
-        launch<kDiv>(ip, sp, ep, bp, xp, cp, n_dst, d, de, mean, st);
-        break;
-      case kCopyLhs:
-        launch<kCopyLhs>(ip, sp, ep, bp, xp, cp, n_dst, d, de, mean, st);
-        break;
-      default:
-        launch<kCopyRhs>(ip, sp, ep, bp, xp, cp, n_dst, d, de, mean, st);
+      case kAdd: BR_SEGMENTS(kAdd); break;
+      case kSub: BR_SEGMENTS(kSub); break;
+      case kMul: BR_SEGMENTS(kMul); break;
+      case kDiv: BR_SEGMENTS(kDiv); break;
+      case kCopyLhs: BR_SEGMENTS(kCopyLhs); break;
+      default: BR_SEGMENTS(kCopyRhs);
     }
+#undef BR_SEGMENTS
   }
   return static_cast<int>(cudaGetLastError());
 }

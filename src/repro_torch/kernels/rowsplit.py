@@ -14,7 +14,7 @@ kernel can give each segment its own warp:
   (so in edge order), never in arrival order. Results are therefore
   bit-identical from call to call.
 
-The list is kernel-agnostic (B1 and B2 take it at K = 256, B5 at
+The list is kernel-agnostic (B1 and B2 take it at K = 256, B4 and B5 at
 K = 128), built once per (graph, K) in plain torch on the graph's device
 and cached on the graph object weakly: :func:`row_split` builds nothing
 on a repeated call.

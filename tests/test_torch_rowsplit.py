@@ -14,9 +14,13 @@ emulations of the two kernels built on it.
   merged in slot order. ``emulate_softmax`` mirrors B5
   (``edge_softmax_csr.cu``): an online (max, sum) per segment, lane group
   and head, the groups merged, a whole row written at once and a split
-  row's slots folded in slot order. All three are held against the
-  port's plain versions and the JAX package (``gspmm(strategy="segment")``;
-  ``fused_attention`` on its canonical jnp pipeline, ``strategy="fused"``;
+  row's slots folded in slot order. ``emulate_binary_reduce`` mirrors B4
+  (``binary_reduce_csr.cu``): lane groups taking a segment's edges in a
+  fixed stride, combined by the shuffle tree, a whole row divided by its
+  degree, a split row's slots summed in slot order and divided by its
+  FULL degree. All four are held against the port's plain versions and
+  the JAX package (``gspmm(strategy="segment")``; ``fused_attention`` on
+  its canonical jnp pipeline, ``strategy="fused"``;
   ``edge_softmax_fused``) on the same numpy inputs at 1e-5 (fp32 sums in
   another order). The CUDA kernels themselves run on the card
   (``chip_smoke.py``).
@@ -35,6 +39,7 @@ from repro.core.edge_softmax import fused_attention as jax_fused_attention
 from repro.core.graph import from_coo as jax_from_coo
 from repro_torch.core import from_coo
 from repro_torch.data.synthetic import rmat_graph
+from repro_torch.kernels.binary_reduce.ops import binary_reduce_plain
 from repro_torch.kernels.edge_softmax.ops import (MAX_F, edge_softmax_plain,
                                                   fused_attention_plain,
                                                   heads_per_warp)
@@ -381,3 +386,92 @@ def test_softmax_merge_rescales_segment_maxima():
     np.testing.assert_allclose(got.numpy()[lifted, 0],
                                1.0 / lifted.sum(), rtol=1e-5)
     assert float(got[hub & ~lifted].max()) < 1e-20
+
+
+def emulate_binary_reduce(g, rs, B, E, binop, mean):
+    """B4 as the CUDA source computes it at its default lanes. A segment
+    has max(lpe, 16) lanes (lpe the power of two >= d, at most 32) in
+    groups of lpe; group ``grp`` of its max(lpe, 16) / lpe takes the edges
+    at positions ≡ grp mod that count and adds each message to its sum in
+    edge order from 0. The groups combine by the shuffle tree (sum with
+    the group ``grp ^ s`` for s = 1, 2, 4, …). A whole row is divided by
+    its degree for mean; a split row's slots are summed in slot order and
+    divided by the row's full degree."""
+    d = E.shape[1] if B is None else B.shape[1]
+    lpe = 1
+    while lpe < d and lpe < 32:
+        lpe *= 2
+    ngrp = max(lpe, 16) // lpe
+    seg, sid, eids = _segment_edges(rs)
+    S = len(seg)
+    e_val = E[g.long("eid")[eids]].expand(-1, d)        # list order
+    b_val = None if B is None else B[g.long("src")[eids]]
+    msg = {"add": lambda: b_val + e_val, "sub": lambda: b_val - e_val,
+           "mul": lambda: b_val * e_val, "div": lambda: b_val / e_val,
+           "copy_lhs": lambda: b_val, "copy_rhs": lambda: e_val}[binop]()
+    pos = eids - seg[sid, 1]
+    gid, step = sid * ngrp + pos % ngrp, pos // ngrp
+    acc = torch.zeros(S * ngrp, d)
+    for t in range(int(step.max()) + 1 if len(step) else 0):
+        at = step == t              # at most one edge per group and step
+        acc[gid[at]] = acc[gid[at]] + msg[at]
+    acc = acc.view(S, ngrp, d)
+    s = 1
+    while s < ngrp:                 # the __shfl_xor tree
+        acc = acc + acc[:, torch.arange(ngrp) ^ s]
+        s *= 2
+    part = acc[:, 0]                                    # group 0 writes
+    out = torch.full((g.n_dst, d), float("nan"))
+    whole = seg[:, 3] < 0
+    length = (seg[:, 2] - seg[:, 1]).clamp(min=1).float()
+    out[seg[whole, 0]] = (part[whole] / length[whole, None] if mean
+                          else part[whole])
+    partial = torch.empty(rs.n_partials, d)
+    partial[seg[~whole, 3]] = part[~whole]
+    deg = g.in_degrees.long()
+    for row, first, count in rs.split.long().tolist():
+        total = torch.zeros(d)
+        for i in range(count):                          # slot order
+            total = total + partial[first + i]
+        out[row] = total / max(int(deg[row]), 1) if mean else total
+    return out
+
+
+# (JAX spec, binop, node width d, edge width de): the composed softmax's
+# sums at H = 4 and 1, a vector-E mul, a scalar-E div mean at a width
+# that is no power of two, a sub mean
+BR_CASES = [("e_copy_add_v", "copy_rhs", 4, 4),
+            ("e_copy_add_v", "copy_rhs", 1, 1),
+            ("u_mul_e_add_v", "mul", 32, 32),
+            ("u_div_e_mean_v", "div", 41, 1),
+            ("u_sub_e_mean_v", "sub", 4, 4)]
+
+
+@pytest.mark.parametrize("K", KS)
+@pytest.mark.parametrize("spec,binop,d,de", BR_CASES)
+def test_binary_reduce_emulation_matches_plain_and_jax(spec, binop, d, de,
+                                                        K):
+    jg, tg = _graphs()
+    rng = np.random.default_rng(300 + K + d)
+    B = rng.normal(size=(N, d)).astype(np.float32)
+    E = rng.normal(size=(tg.n_edges, de)).astype(np.float32)
+    if binop == "div":   # keep divisors away from 0
+        E = (np.sign(E) * (0.5 + np.abs(E))).astype(np.float32)
+    kw = dict(e=jnp.asarray(E))
+    if binop != "copy_rhs":
+        kw["u"] = jnp.asarray(B)
+    ref = np.asarray(jax_gspmm(jg, spec, strategy="segment", **kw))
+    rs = row_split(tg, K)
+    hub = rs.split[rs.split[:, 0] == HUB]
+    assert len(hub) == 1 and int(hub[0, 2]) >= 8
+    Bt = None if binop == "copy_rhs" else torch.from_numpy(B)
+    Et = torch.from_numpy(E)
+    mean = spec.endswith("mean_v")
+    got = emulate_binary_reduce(tg, rs, Bt, Et, binop, mean)
+    plain = binary_reduce_plain(tg, Bt, Et, binop, mean)
+    assert got.shape == (N, d)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL,
+                               atol=TOL)
+    empty = tg.host.in_degrees == 0
+    assert not got.numpy()[empty].any()
