@@ -29,6 +29,26 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
    × 2), each against the plain multipass forward.
 6. Trace: ``torch.profiler`` over one served GAT refresh (multipass): the
    ten device operations that take the most time, with their counts.
+7. Blocks (run with the kernel phase, on ``reddit-like``): one class-128
+   batch sampled at fan-out 10, seed 0, as the fan-out server samples
+   it. Its two block graphs are bipartite (15,488 → 1,408 and 1,408 →
+   128 slots) with a dummy row that holds every pad edge, the heaviest
+   row, split on the work list; on each, B1 (GCN's weighted sum, SAGE's
+   mean), B2, B3 (GAT's add / sub / div), B4 (``copy_rhs`` sum) and B5
+   are held against their plain versions, bit-identical where the
+   kernel phase requires it, and timed.
+8. Serve fan-out: for gcn, sage and gat, ``build_server(app,
+   "reddit-like", mode="fanout", fanout=10)`` and the serve phase's
+   session; each served batch must launch the app's kernels once per
+   block (B1 × 2; GAT B3 × 6 and B4 × 2), no new signature in steady
+   state, and ``infer_blocks`` through the kernels must equal the uniform
+   pull (``strategy="ell"``) on one fixed minibatch. Per-batch medians of
+   each phase: sample, block graphs, work lists, feature rows, forward.
+9. Serve exact: on 65,536 nodes of in-degree exactly 8, rows served at
+   the default fan-out (8, every in-edge) equal the layer-wise rows.
+10. Serve auto: ``mode="auto"``, fan-out 10: the class→mode map must be
+    the planner formula's (class 8 fanout, 32 and 128 layerwise); a
+    session serves both modes, and one row of each equals its reference.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -96,6 +116,19 @@ SERVE_LAUNCHES = {"gcn": {"spmm_csr": 2}, "sage": {"spmm_csr": 2},
 FORWARD_LAUNCHES = {"multipass": {"sddmm_csr": 6, "binary_reduce_csr": 2},
                     "softmax-fused": {"sddmm_csr": 2, "edge_softmax_csr": 2},
                     "auto": {"fused_attention_csr": 2}}
+# the fan-out serving phases: fan-out per layer (benchmarks/fig_serve.py's
+# CMP_FANOUT). A served fan-out batch runs one block per layer, so it
+# launches what a refresh launches: SERVE_LAUNCHES, per batch
+FANOUT = 10
+# per block of the class-128 fan-out batch (outer hop first): B1 at GCN's
+# weighted sum and SAGE's mean, B2 / B3 / B4 / B5 at GAT's heads
+BLOCK_SHAPES = [
+    {"b1": [(32, "sum"), (602, "mean")], "b2": [(4, 32)],
+     "b3": [k for k in B3_MAIN if k[3] == 4],
+     "b4": [("copy_rhs", 4, 4, "sum")], "b5": [4]},
+    {"b1": [(41, "sum"), (32, "mean")], "b2": [(1, 41)],
+     "b3": [k for k in B3_MAIN if k[3] == 1],
+     "b4": [("copy_rhs", 1, 1, "sum")], "b5": [1]}]
 
 
 def emit(obj) -> None:
@@ -172,21 +205,45 @@ def max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).abs().max()) if ref.numel() else 0.0
 
 
-def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
+def plain_reference(fn, *args, fp64: bool = False):
+    """The plain version ``fn`` on ``args``: as is (fp32), or with every
+    floating tensor in float64. A block's dummy row sums ~10^4 pad edges
+    from ONE source row; the fp32 plain version (atomic ``index_add_``)
+    then carries a rounding error that grows with the row's length, so
+    the block phase holds the kernels to the fp64 result instead."""
+    if not fp64:
+        return fn(*args)
+    return fn(*(a.double() if isinstance(a, torch.Tensor)
+                and a.is_floating_point() else a for a in args))
+
+
+def reference_fields(ref, fn, args, fp64: bool) -> dict:
+    """Which reference a row's error is taken against; with ``fp64``,
+    also the fp32 plain version's own error against it."""
+    if not fp64:
+        return {"reference": "fp32 plain"}
+    return {"reference": "fp64 plain",
+            "plain_fp32_max_abs_err": max_err(fn(*args), ref)}
+
+
+def check_b1(g, w_canon, gen, label: str, rows: dict,
+             shapes=B1_SHAPES, fp64: bool = False) -> None:
     from repro_torch.kernels.spmm.ops import spmm_csr, spmm_plain
 
     deg = g.in_degrees.clamp(min=1).float()
-    for d, red in B1_SHAPES:
+    for d, red in shapes:
         mean = red == "mean"
         weight = None if mean else w_canon
         B = torch.randn(g.n_src, d, generator=gen).cuda()
         n0 = spmm_csr.launches
         got = bit_identical(f"spmm_csr d={d} {red}",
                             lambda: spmm_csr(g, B, weight, mean))
-        ref = spmm_plain(g, B, weight, mean)
+        ref = plain_reference(spmm_plain, g, B, weight, mean, fp64=fp64)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         tol = 1e-5 + 1e-5 * float(ref.abs().max())
+        refs = reference_fields(ref, spmm_plain, (g, B, weight, mean),
+                                fp64)
         vals = (1.0 / deg).index_select(0, g.long("dst")) if mean else weight
         A = torch.sparse_csr_tensor(g.long("indptr_dst"), g.long("src"),
                                     vals, size=(g.n_dst, g.n_src))
@@ -201,7 +258,8 @@ def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
         b_ms, b_by = bound(nbytes, 2 * g.n_edges * d)
         row = {"phase": "kernel", "kernel": "spmm_csr", "graph": label,
                "d": d, "reduce": red, "weighted": not mean,
-               "max_abs_err": err, "tol": tol, "library_max_abs_err": lib_err,
+               "max_abs_err": err, "tol": tol, **refs,
+               "library_max_abs_err": lib_err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
                "library_device_ms": lib_dev[0],
@@ -214,21 +272,24 @@ def check_b1(g, w_canon, gen, label: str, rows: dict) -> None:
         rows[(label, d, red)] = row
 
 
-def check_b2(g, gen, label: str, rows: dict) -> None:
+def check_b2(g, gen, label: str, rows: dict, shapes=B2_SHAPES,
+             fp64: bool = False) -> None:
     from repro_torch.kernels.edge_softmax.ops import (fused_attention_csr,
                                                       fused_attention_plain)
 
-    for H, F in B2_SHAPES:
+    for H, F in shapes:
         el = torch.randn(g.n_src, H, generator=gen).cuda()
         er = torch.randn(g.n_dst, H, generator=gen).cuda()
         z = torch.randn(g.n_src, H, F, generator=gen).cuda()
         n0 = fused_attention_csr.launches
         got = bit_identical(f"fused_attention_csr H={H} F={F}",
                             lambda: fused_attention_csr(g, el, er, z, 0.2))
-        ref = fused_attention_plain(g, el, er, z, 0.2)
+        args = (g, el, er, z, 0.2)
+        ref = plain_reference(fused_attention_plain, *args, fp64=fp64)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         tol = 1e-5 + 1e-4 * float(ref.abs().max())
+        refs = reference_fields(ref, fused_attention_plain, args, fp64)
         k_ms = time_ms(lambda: fused_attention_csr(g, el, er, z, 0.2))
         p_ms = time_ms(lambda: fused_attention_plain(g, el, er, z, 0.2))
         k_dev = warm_cold_ms(lambda: fused_attention_csr(g, el, er, z, 0.2))
@@ -237,7 +298,7 @@ def check_b2(g, gen, label: str, rows: dict) -> None:
         b_ms, b_by = bound(nbytes, g.n_edges * H * (2 * F + 6))
         row = {"phase": "kernel", "kernel": "fused_attention_csr",
                "graph": label, "H": H, "F": F, "max_abs_err": err,
-               "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
+               "tol": tol, **refs, "kernel_ms": k_ms, "plain_ms": p_ms,
                "library_ms": None, "kernel_device_ms": k_dev[0],
                "kernel_cold_ms": k_dev[1],
                "bound_ms": b_ms, "bound_by": b_by, "bit_identical": True,
@@ -261,12 +322,12 @@ def b3_operands(g, gen, op: str, lt: str, rt, d: int) -> tuple:
     return args
 
 
-def check_b3(g, gen, label: str, rows: dict) -> None:
+def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES) -> None:
     from benchmarks.torch_sddmm_walks import sddmm_canonical
     from repro_torch.kernels.sddmm.ops import sddmm_csr, sddmm_plain
 
     src_caller = g.long("src_caller")
-    for op, lt, rt, d in B3_SHAPES:
+    for op, lt, rt, d in shapes:
         args = b3_operands(g, gen, op, lt, rt, d)
         lhs = args[3]
         n0 = sddmm_csr.launches
@@ -316,7 +377,8 @@ def check_b3(g, gen, label: str, rows: dict) -> None:
         rows[(label, op, lt, rt, d)] = row
 
 
-def check_b4(g, gen, label: str, rows: dict) -> None:
+def check_b4(g, gen, label: str, rows: dict, shapes=B4_SHAPES,
+             sweep: bool = True, fp64: bool = False) -> None:
     from repro_torch.kernels.binary_reduce.ops import (_launch_br,
                                                        binary_reduce_csr,
                                                        binary_reduce_plain)
@@ -324,7 +386,7 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
 
     deg = g.in_degrees.long()
     has_edge = deg > 0
-    for binop, d, de, red in B4_SHAPES:
+    for binop, d, de, red in shapes:
         mean = red == "mean"
         B = (None if binop == "copy_rhs"
              else torch.randn(g.n_src, d, generator=gen).cuda())
@@ -334,10 +396,12 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
         n0 = binary_reduce_csr.launches
         got = bit_identical(f"binary_reduce_csr {binop} d={d} {red}",
                             lambda: binary_reduce_csr(g, B, E, binop, mean))
-        ref = binary_reduce_plain(g, B, E, binop, mean)
+        args = (g, B, E, binop, mean)
+        ref = plain_reference(binary_reduce_plain, *args, fp64=fp64)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         tol = 1e-5 + 1e-5 * float(ref.abs().max())
+        refs = reference_fields(ref, binary_reduce_plain, args, fp64)
         lib_ms = lib_err = None
         lib_dev = (None, None)
         if binop == "copy_rhs":
@@ -359,7 +423,7 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
         b_ms, b_by = bound(nbytes, g.n_edges * d * (1 if B is None else 2))
         row = {"phase": "kernel", "kernel": "binary_reduce_csr",
                "graph": label, "binop": binop, "d": d, "de": de,
-               "reduce": red, "max_abs_err": err, "tol": tol,
+               "reduce": red, "max_abs_err": err, "tol": tol, **refs,
                "tol_reason": "another summation order",
                "library_max_abs_err": lib_err, "kernel_ms": k_ms,
                "plain_ms": p_ms, "library_ms": lib_ms,
@@ -372,7 +436,7 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
         if not err <= tol:
             raise AssertionError(f"binary_reduce_csr disagrees: {row}")
         rows[(label, binop, d, de, red)] = row
-        if (binop, d, de, red) not in B4_MAIN:
+        if not sweep or (binop, d, de, red) not in B4_MAIN:
             continue
         # the work list's cap K and the lanes per segment: the wrapper's
         # (128, 16) against their neighbours
@@ -391,21 +455,23 @@ def check_b4(g, gen, label: str, rows: dict) -> None:
                                      f"{lanes} d={d}: {k_err}")
 
 
-def check_b5(g, gen, label: str, rows: dict) -> None:
+def check_b5(g, gen, label: str, rows: dict, shapes=B5_SHAPES,
+             sweep: bool = True, fp64: bool = False) -> None:
     from repro_torch.kernels.edge_softmax.ops import (_launch_softmax,
                                                       edge_softmax_csr,
                                                       edge_softmax_plain)
     from repro_torch.kernels.rowsplit import build_row_split
 
-    for H in B5_SHAPES:
+    for H in shapes:
         x = 3 * torch.randn(g.n_edges, H, generator=gen).cuda()
         n0 = edge_softmax_csr.launches
         got = bit_identical(f"edge_softmax_csr H={H}",
                             lambda: edge_softmax_csr(g, x))
-        ref = edge_softmax_plain(g, x)
+        ref = plain_reference(edge_softmax_plain, g, x, fp64=fp64)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         tol = 1e-5
+        refs = reference_fields(ref, edge_softmax_plain, (g, x), fp64)
         k_ms = time_ms(lambda: edge_softmax_csr(g, x))
         p_ms = time_ms(lambda: edge_softmax_plain(g, x))
         k_dev = warm_cold_ms(lambda: edge_softmax_csr(g, x))
@@ -413,6 +479,7 @@ def check_b5(g, gen, label: str, rows: dict) -> None:
         b_ms, b_by = bound(nbytes, 4 * x.numel())
         row = {"phase": "kernel", "kernel": "edge_softmax_csr",
                "graph": label, "H": H, "max_abs_err": err, "tol": tol,
+               **refs,
                "tol_reason": "alpha <= 1; expf and the sum's order differ",
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
                "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
@@ -422,6 +489,8 @@ def check_b5(g, gen, label: str, rows: dict) -> None:
         if not err <= tol:
             raise AssertionError(f"edge_softmax_csr disagrees: {row}")
         rows[(label, H)] = row
+        if not sweep:
+            continue
         # the work list's cap K and the lanes per segment: the wrapper's
         # (128, 16) against their neighbours
         hl = min(32, 1 << (H - 1).bit_length())
@@ -594,7 +663,345 @@ def trace_gat_refresh(srv, top: int = 10) -> dict:
     return row
 
 
-def summary(name, source, replaces, main_rows, all_rows, launches):
+def check_blocks(g, gen, rows: dict) -> None:
+    """Sample one class-128 batch of ``g`` at fan-out ``FANOUT``, seed 0,
+    as the fan-out server samples it, and hold every kernel against its
+    plain version on each of its two block graphs (bipartite, with a
+    dummy row holding every pad edge) at ``BLOCK_SHAPES``."""
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.kernels.edge_softmax.ops import SOFTMAX_SEGMENT_EDGES
+    from repro_torch.kernels.rowsplit import SEGMENT_EDGES, row_split
+
+    seeds = np.random.default_rng(0).permutation(g.n_dst)[:128]
+    sampler = NeighborSampler(g, [FANOUT, FANOUT], 128, seed=0,
+                              device="cuda")
+    mb = sampler.sample(seeds, np.zeros(128, np.int64))
+    for li, (blk, shapes) in enumerate(zip(mb.blocks, BLOCK_SHAPES)):
+        bg = blk.bg
+        bgg = bg.g
+        label = f"block{li}"
+        deg = bgg.host.in_degrees
+        n_real = int(deg[:bg.n_dst_real].sum())
+        lists = []
+        for K in (SEGMENT_EDGES, SOFTMAX_SEGMENT_EDGES):
+            rs = row_split(bgg, K)
+            lists.append({"K": rs.K, "segments": rs.n_segments,
+                          "split_rows": rs.n_split,
+                          "partial_slots": rs.n_partials,
+                          "dummy_row_split": bool((rs.split[:, 0]
+                                                   == bg.n_dst_real).any())})
+        emit({"phase": "blocks", "graph": label, "n_src": bgg.n_src,
+              "n_dst_real": bg.n_dst_real, "fanout": bg.fanout,
+              "edge_slots": bgg.n_edges, "real_edges": n_real,
+              "pad_edges": bgg.n_edges - n_real,
+              "real_sources": int((blk.src_ids_host >= 0).sum()),
+              "dummy_row_degree": int(deg[bg.n_dst_real]),
+              "max_real_degree": int(deg[:bg.n_dst_real].max()),
+              "work_lists": lists})
+        if int(deg[bg.n_dst_real]) != bgg.n_edges - n_real:
+            raise AssertionError(f"{label}: a pad edge outside the dummy "
+                                 f"row")
+        w = blk.gcn_norm.index_select(0, bgg.long("eid")).contiguous()
+        check_b1(bgg, w, gen, label, rows["spmm_csr"], shapes["b1"],
+                 fp64=True)
+        check_b2(bgg, gen, label, rows["fused_attention_csr"], shapes["b2"],
+                 fp64=True)
+        check_b3(bgg, gen, label, rows["sddmm_csr"], shapes["b3"])
+        check_b4(bgg, gen, label, rows["binary_reduce_csr"], shapes["b4"],
+                 sweep=False, fp64=True)
+        check_b5(bgg, gen, label, rows["edge_softmax_csr"], shapes["b5"],
+                 sweep=False, fp64=True)
+
+
+def prepare_blocks(mb, app: str) -> None:
+    """Build on each block graph of ``mb`` what the app's kernels build
+    at their first launch on a graph: the work list, the checked index
+    arrays with the caller-order endpoints, ``eid`` as int64 (B1's weight
+    order), B4's row counters and the neighbor table as int64 (GAT's
+    uniform pulls). The forward then only launches."""
+    from repro_torch.kernels.binary_reduce.ops import (BR_SEGMENT_EDGES,
+                                                       _row_counters)
+    from repro_torch.kernels.common import graph_index_ptrs, stream_handle
+    from repro_torch.kernels.rowsplit import SEGMENT_EDGES, row_split
+
+    for blk in mb.blocks:
+        g = blk.bg.g
+        graph_index_ptrs("prepare_blocks", g)
+        if app == "gat":
+            if row_split(g, BR_SEGMENT_EDGES).n_split:
+                _row_counters(g, stream_handle(g.device))
+            blk.bg.long("nbr")
+            blk.bg.long("nbr_eid")
+        else:
+            row_split(g, SEGMENT_EDGES)
+            g.long("eid")
+    torch.cuda.synchronize()
+
+
+FANOUT_PHASES = ("sample", "block_graphs", "work_lists", "feature_rows",
+                 "forward")
+
+
+def instrument_fanout(srv, app: str) -> dict:
+    """Time each phase of every fan-out batch ``srv`` serves (ms, host
+    clock): the host draw, the block graphs' build and upload, the
+    per-graph structures of the kernels' first launch
+    (:func:`prepare_blocks`, else done inside the forward), the feature
+    rows through the cache and their upload, and the forward with its
+    copy back. It wraps, on this instance only, the pieces the server's
+    own ``_serve_fanout`` calls; each phase ends in a host wait for the
+    device already (an upload, a work-list count, the copy back)."""
+    times = {k: [] for k in FANOUT_PHASES}
+
+    def timed(name, fn):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    make_sampler, infer = srv._sampler, srv._infer_blocks
+
+    def sampler(cls):
+        s = make_sampler(cls)
+        if "draw" not in vars(s):
+            s.draw = timed("sample", s.draw)
+            s.build = timed("block_graphs", s.build)
+        return s
+
+    def infer_blocks(mb, x):
+        timed("work_lists", prepare_blocks)(mb, app)
+        return timed("forward", infer)(mb, x)
+
+    srv._sampler = sampler
+    srv._feature_rows = timed("feature_rows", srv._feature_rows)
+    srv._infer_blocks = infer_blocks
+    return times
+
+
+def plain_rows(x_device: torch.Tensor, ids: np.ndarray) -> torch.Tensor:
+    """Feature rows for padded global ids (-1 → a zero row), without the
+    server's cache: the reference's input."""
+    idx = torch.from_numpy(ids).to(x_device.device)
+    x = x_device.index_select(0, idx.clamp(min=0))
+    return x * (idx >= 0).to(x.dtype)[:, None]
+
+
+def check_session(app: str, res: dict, n_out: int) -> None:
+    if res["recompiles_steady"] != 0:
+        raise AssertionError(f"{app}: {res['recompiles_steady']} "
+                             f"steady-state recompiles")
+    for ids, rows in res["responses"]:
+        if rows.shape != (len(ids), n_out) or not np.isfinite(rows).all():
+            raise AssertionError(f"{app}: served {rows.shape}, finite "
+                                 f"{np.isfinite(rows).all()}")
+
+
+def serve_fanout_app(app: str) -> dict:
+    """Serve ``app`` on ``reddit-like`` in mode fanout at ``FANOUT``
+    through ``build_server``: the 4-client session of the serve phase,
+    the app's launches per served batch, zero steady-state signatures,
+    the kernels against the uniform pull on one fixed minibatch, and the
+    per-batch medians of each phase."""
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.launch.serve_gnn import build_server, run_session
+    from repro_torch.models.gnn import gat, gcn, sage
+
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    t0 = time.perf_counter()
+    srv = build_server(app, "reddit-like", mode="fanout", fanout=FANOUT,
+                       device="cuda")
+    setup_s = time.perf_counter() - t0
+    times = instrument_fanout(srv, app)
+    n = srv.g.n_src
+    reset_counts()
+    res = run_session(srv, n_clients=4, requests_per_client=25,
+                      ids_fn=lambda rng: rng.integers(0, n, 4))
+    launches = read_counts()
+    check_launches(f"{app} fanout", launches, SERVE_LAUNCHES[app],
+                   srv.served_batches)
+    check_session(app, res, 41)
+    if srv.refreshes or srv.mode_batches["layerwise"]:
+        raise AssertionError(f"{app}: mode fanout refreshed a table")
+    # the kernels against the uniform pull on one fixed minibatch
+    ids = np.random.default_rng(1).permutation(n)[:128]
+    mb = NeighborSampler(srv.g, [FANOUT] * 2, 128, seed=0,
+                         device="cuda").sample(ids, np.zeros(128, np.int64))
+    x = plain_rows(srv.x_device, mb.input_ids_host)
+    got = mod.infer_blocks(srv.model, mb.blocks, x)
+    ref = mod.infer_blocks(srv.model, mb.blocks, x, strategy="ell")
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    if not err <= 1e-4:
+        raise AssertionError(f"{app} fanout: kernels off the uniform pull "
+                             f"by {err}")
+    fc = res["stats"]["feat_cache"]
+    row = {"phase": "serve_fanout", "app": app, "dataset": "reddit-like",
+           "fanout": FANOUT, "n_samples": res["n_samples"],
+           "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+           "throughput_rps": res["throughput_rps"],
+           "recompiles_steady": res["recompiles_steady"],
+           "served_batches": srv.served_batches, "launches": launches,
+           "signatures": sorted(map(list, srv.tracker.seen)),
+           "feat_cache": {"hits": fc.hits, "misses": fc.misses,
+                          "hit_ratio": fc.hit_ratio, "pinned": fc.pinned},
+           "batch_medians_ms": {k: statistics.median(v)
+                                for k, v in times.items() if v},
+           "batch_phase_counts": {k: len(v) for k, v in times.items()},
+           "kernel_vs_ell_max_abs_err": err,
+           "block_forward_ms": time_ms(lambda: mod.infer_blocks(
+               srv.model, mb.blocks, x), reps=10, warmup=1),
+           "block_forward_ell_ms": time_ms(lambda: mod.infer_blocks(
+               srv.model, mb.blocks, x, strategy="ell"), reps=10, warmup=1),
+           "setup_s": setup_s}
+    emit(row)
+    return row
+
+
+def serve_exact() -> list:
+    """The JAX serve test's claim at full width on the card: on 65,536
+    nodes of in-degree exactly 8 (numpy seed 0), rows served in mode
+    fanout at the default fan-out (8, every in-edge) equal those served
+    layer-wise, within 1e-4, for each app."""
+    from repro_torch.core.graph import from_coo
+    from repro_torch.core.serving import GNNServer
+    from repro_torch.models.gnn import gat, gcn, sage
+
+    rng = np.random.default_rng(0)
+    n, k = 65_536, 8
+    src = rng.integers(0, n, (n, k)).reshape(-1)
+    dst = np.repeat(np.arange(n), k)
+    feats = rng.standard_normal((n, 602)).astype(np.float32)
+    g = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
+    ids = np.random.default_rng(1).integers(0, n, 300)
+    # classes 8, 32 and 128, then 300 ids in largest-class chunks
+    requests = [[(0, ids[:6])], [(1, ids[6:26])], [(2, ids[26:126])],
+                [(3, ids)]]
+    rows = []
+    for app, mod in (("gcn", gcn), ("sage", sage), ("gat", gat)):
+        model = mod.init(torch.Generator().manual_seed(0), 602, 32, 41,
+                         device="cuda")
+        fo = GNNServer(app, model, g, feats, mode="fanout", device="cuda")
+        lw = GNNServer(app, model, g, feats, mode="layerwise",
+                       device="cuda")
+        if fo.fanout != k:
+            raise AssertionError(f"default fan-out {fo.fanout} != {k}")
+        reset_counts()
+        got = [fo.serve(r) for r in requests]
+        launches = read_counts()
+        check_launches(f"{app} exact", launches, SERVE_LAUNCHES[app],
+                       fo.served_batches)
+        ref = [lw.serve(r) for r in requests]
+        err = 0.0
+        for r, a, b in zip(requests, got, ref):
+            for rid, rid_ids in r:
+                if a[rid].shape != (len(rid_ids), 41):
+                    raise AssertionError(f"{app}: shape {a[rid].shape}")
+                err = max(err, float(np.abs(a[rid] - b[rid]).max()))
+        row = {"phase": "serve_exact", "app": app, "n_nodes": n,
+               "n_edges": g.n_edges, "fanout": fo.fanout,
+               "served_batches": fo.served_batches,
+               "signatures": sorted(map(list, fo.tracker.seen)),
+               "launches": launches, "fanout_vs_layerwise_max_abs_err": err}
+        emit(row)
+        if not err <= 1e-4:
+            raise AssertionError(f"{app}: fan-out rows off the layer-wise "
+                                 f"rows by {err}")
+        rows.append(row)
+        del fo, lw
+    return rows
+
+
+def expected_modes(n_edges: int, n_layers: int, fanout: int, classes,
+                   refresh_batches: int) -> dict:
+    """The serve planner's choice per class, by its formula: layer-wise
+    costs ``n_edges·layers/refresh_batches + 8·class``, fan-out its
+    padded edge slots ``Σ_l n_dst_l·fanout``; ties go layer-wise."""
+    out = {}
+    for c in classes:
+        sizes, slots = [c], 0
+        for _ in range(n_layers):
+            slots += sizes[-1] * fanout
+            sizes.append(sizes[-1] * (fanout + 1))
+        layerwise = n_edges * n_layers / refresh_batches + 8.0 * c
+        out[c] = "fanout" if slots < layerwise else "layerwise"
+    return out
+
+
+def serve_auto_app(app: str) -> dict:
+    """``build_server(app, "reddit-like", mode="auto", fanout=FANOUT)``:
+    the class→mode map against the planner's formula, a session that
+    serves both modes (launches: the app's per refresh and per fan-out
+    batch), then one fan-out row against the uniform pull on the same
+    seeded blocks and one layer-wise row against the plain forward.
+
+    Each request asks for 1 id (three in four) or 12, so a batch of
+    small requests alone is class 8 (fan-out) and one holding a 12-id
+    request is class 32 (layer-wise)."""
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.launch.serve_gnn import build_server, run_session
+    from repro_torch.models.gnn import gat, gcn, sage
+
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    srv = build_server(app, "reddit-like", mode="auto", fanout=FANOUT,
+                       device="cuda")
+    classes = srv.batcher.classes
+    modes = {c: srv.mode_for_class(c) for c in classes}
+    want = expected_modes(srv.g.n_edges, srv.n_layers, FANOUT, classes,
+                          srv.refresh_batches)
+    if modes != want or want != {8: "fanout", 32: "layerwise",
+                                 128: "layerwise"}:
+        raise AssertionError(f"{app}: class→mode {modes}, formula {want}")
+    n = srv.g.n_src
+    reset_counts()
+    res = run_session(srv, n_clients=4, requests_per_client=25,
+                      ids_fn=lambda rng: rng.integers(
+                          0, n, 1 if rng.random() < 0.75 else 12))
+    launches = read_counts()
+    per_mode = dict(srv.mode_batches)
+    check_launches(f"{app} auto", launches, SERVE_LAUNCHES[app],
+                   srv.refreshes + per_mode["fanout"])
+    check_session(app, res, 41)
+    # the batches of the session proper: warm-up serves one per class
+    session = {m: k - list(modes.values()).count(m)
+               for m, k in per_mode.items()}
+    if not (session["fanout"] and session["layerwise"]):
+        raise AssertionError(f"{app}: one mode served nothing {session}")
+    # one fan-out row: the class-8 sampler replayed from its seed
+    ids4 = np.random.default_rng(2).integers(0, n, 4)
+    srv._sampler(8).reset()
+    got8 = srv.serve([(0, ids4)])[0]
+    mb = NeighborSampler(srv.g, [FANOUT] * 2, 8, seed=srv.seed,
+                         device="cuda").sample(ids4, np.zeros(4, np.int64))
+    ref8 = mod.infer_blocks(srv.model, mb.blocks,
+                            plain_rows(srv.x_device, mb.input_ids_host),
+                            strategy="ell")[:4].cpu().numpy()
+    err_fanout = float(np.abs(got8 - ref8).max())
+    # one layer-wise row against the plain full forward
+    ids20 = np.random.default_rng(3).integers(0, n, 20)
+    got32 = srv.serve([(1, ids20)])[1]
+    full = mod.infer(srv.model, srv.bundle, srv.x_device,
+                     strategy="segment").cpu().numpy()
+    err_lw = float(np.abs(got32 - full[ids20]).max())
+    row = {"phase": "serve_auto", "app": app, "dataset": "reddit-like",
+           "fanout": FANOUT, "refresh_batches": srv.refresh_batches,
+           "class_modes": {str(c): m for c, m in modes.items()},
+           "n_samples": res["n_samples"], "p50_ms": res["p50_ms"],
+           "p99_ms": res["p99_ms"], "throughput_rps": res["throughput_rps"],
+           "recompiles_steady": res["recompiles_steady"],
+           "mode_batches": per_mode, "session_mode_batches": session,
+           "refreshes": srv.refreshes,
+           "launches": launches, "fanout_row_max_abs_err": err_fanout,
+           "layerwise_row_max_abs_err": err_lw}
+    emit(row)
+    if not (err_fanout <= 1e-4 and err_lw <= 1e-4):
+        raise AssertionError(f"{app} auto: rows off {err_fanout} {err_lw}")
+    return row
+
+
+def summary(name, source, replaces, main_rows, all_rows, launches,
+            block_rows=()):
     def total(key):
         vals = [r[key] for r in main_rows]
         return None if any(v is None for v in vals) else sum(vals)
@@ -607,12 +1014,16 @@ def summary(name, source, replaces, main_rows, all_rows, launches):
             "bound_by": max(main_rows, key=lambda r: r["bound_ms"])[
                 "bound_by"],
             "library_ms": total("library_ms"),
-            "shapes": [{k: r[k] for k in (
-                "op", "binop", "lhs", "rhs", "d", "de", "reduce", "H", "F",
-                "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
-                "canonical_device_ms", "library_ms", "library_device_ms",
-                "library_cold_ms", "plain_ms", "bound_ms") if k in r}
-                for r in main_rows]}
+            "shapes": [shape_entry(r) for r in main_rows],
+            "block_shapes": [shape_entry(r) for r in block_rows]}
+
+
+def shape_entry(r: dict) -> dict:
+    return {k: r[k] for k in (
+        "graph", "op", "binop", "lhs", "rhs", "d", "de", "reduce", "H", "F",
+        "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
+        "canonical_device_ms", "library_ms", "library_device_ms",
+        "library_cold_ms", "plain_ms", "bound_ms", "max_abs_err") if k in r}
 
 
 def main() -> int:
@@ -680,6 +1091,11 @@ def main() -> int:
         check_b3(g, gen, label, b3_rows)
         check_b4(g, gen, label, b4_rows)
         check_b5(g, gen, label, b5_rows)
+    # 3b. the same kernels on the two blocks of a sampled fan-out batch
+    block_rows = {k: {} for k in ("spmm_csr", "fused_attention_csr",
+                                  "sddmm_csr", "binary_reduce_csr",
+                                  "edge_softmax_csr")}
+    check_blocks(g_loops, gen, block_rows)
     del g_loops, g_bare
     torch.cuda.empty_cache()
 
@@ -690,10 +1106,20 @@ def main() -> int:
     forward = forward_gat(srv)
     trace_gat_refresh(srv)
     del srv
+    torch.cuda.empty_cache()
 
-    # launches on the main path: every serve and forward run, each
-    # counted from 0 just before it
-    runs = list(served.values()) + list(forward.values())
+    # 7. fan-out serving; 8. fan-out = layer-wise at the full fan-out;
+    # 9. auto resolving per class
+    fanned = [serve_fanout_app(app) for app in ("gcn", "sage", "gat")]
+    torch.cuda.empty_cache()
+    exact = serve_exact()
+    torch.cuda.empty_cache()
+    auto = [serve_auto_app(app) for app in ("gcn", "sage", "gat")]
+
+    # launches on the main path: every serve, forward and fan-out run,
+    # each counted from 0 just before it
+    runs = (list(served.values()) + list(forward.values()) + fanned + exact
+            + auto)
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     main = {
@@ -711,9 +1137,12 @@ def main() -> int:
              "sddmm_csr:copy": {k: r for k, r in b3_rows.items()
                                 if r["op"] == "copy"},
              "binary_reduce_csr": b4_rows, "edge_softmax_csr": b5_rows}
+    blocks = {k: list(v.values()) for k, v in block_rows.items()}
+    blocks["sddmm_csr:copy"] = []
     emit({"kernels": [
         summary(name, SOURCES[name.split(":")[0]], REPLACES[name],
-                main[name], list(every[name].values()), launches[name])
+                main[name], list(every[name].values()) + blocks[name],
+                launches[name], blocks[name])
         for name in main]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

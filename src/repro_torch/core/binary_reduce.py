@@ -74,7 +74,9 @@ SDDMM_FOR = {"auto": "auto", "kernel": "kernel", "segment": "gather"}
 # each one is queued
 _QUEUED = {
     "push": "ROADMAP A3 (push-scatter strategy)",
-    "ell": "ROADMAP A2/A3 (ELL packs and the blocked-pull strategy)",
+    "ell": "the uniform pull runs on sampled blocks "
+           "(core/blocks.block_gspmm, strategy='ell'); the full-graph ELL "
+           "pack and its blocked pull are ROADMAP A2/A3",
     "onehot": "ROADMAP A2/A3 (TilePack and the one-hot strategy)",
     "ring": "ROADMAP A12 (partitioned ring execution)",
     "pallas": "ROADMAP B1 (the TPU kernel's port is strategy='kernel')",

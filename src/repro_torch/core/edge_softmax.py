@@ -16,8 +16,13 @@ Strategies of the two single-pass forms (``ATTN_STRATEGIES``):
 ``"kernel"`` the CUDA kernel (B5 / B2), ``"auto"`` the kernel for CUDA
 tensors and ``"fused"`` otherwise.
 
-The backward (``_attention_grads``) and the block / partitioned variants
-come with later slices (ROADMAP A4, A10, A12).
+The block forms run the same operators on one sampled block
+(:class:`~repro_torch.core.blocks.BlockGraph`): :func:`block_edge_softmax`
+composes the chain on ``bg.g`` (B3 and B4 on the card, the max on the
+uniform pull), :func:`block_fused_attention` runs the fused pipeline on
+``bg.g`` (B2) and slices off the dummy row. The backward
+(``_attention_grads``) and the partitioned variant come with later
+slices (ROADMAP A4, A12).
 """
 from __future__ import annotations
 
@@ -26,10 +31,12 @@ import torch
 from ..kernels.edge_softmax.ops import (edge_softmax_csr, edge_softmax_plain,
                                         fused_attention_csr,
                                         fused_attention_plain)
-from .binary_reduce import gspmm
+from .binary_reduce import gsddmm, gspmm
+from .blocks import (SDDMM_FOR_BLOCK, BlockGraph, block_gspmm,
+                     check_block_strategy)
 
 __all__ = ["edge_softmax", "edge_softmax_fused", "fused_attention",
-           "ATTN_STRATEGIES"]
+           "block_edge_softmax", "block_fused_attention", "ATTN_STRATEGIES"]
 
 ATTN_STRATEGIES = ("auto", "fused", "kernel")
 
@@ -70,6 +77,36 @@ def edge_softmax(g, logits: torch.Tensor,
     return gspmm(g, "e_div_v_copy_e", e=ex, v=z, strategy=strategy)
 
 
+def block_edge_softmax(bg: BlockGraph, logits: torch.Tensor,
+                       strategy: str = "auto") -> torch.Tensor:
+    """Edge softmax over one sampled block's real in-edges.
+
+    The chain of :func:`edge_softmax` on ``bg.g``: the two node-output
+    reductions go through :func:`~repro_torch.core.blocks.block_gspmm`
+    (the sum on B4 under 'auto' / 'kernel'; the max always on the
+    uniform pull, or on segment when ``strategy='segment'``), the shift
+    and divide through gSDDMM (B3). Pad edges live in the dummy
+    destination row, so real rows see exactly their real edges; the
+    dummy row's sum is set to 1 so pad edges divide by a finite value.
+    """
+    check_block_strategy(strategy)
+    x = logits[:, None] if logits.ndim == 1 else logits
+    sddmm = SDDMM_FOR_BLOCK[strategy]
+    pad = x.new_zeros((1,) + tuple(x.shape[1:]))
+    maxv = block_gspmm(bg, "e_copy_max_v", e=x,
+                       strategy="segment" if strategy == "segment"
+                       else "ell")
+    shifted = gsddmm(bg.g, "e_sub_v_copy_e", e=x,
+                     v=torch.cat([maxv, pad], dim=0), strategy=sddmm)
+    ex = torch.exp(shifted)
+    z = block_gspmm(bg, "e_copy_add_v", e=ex, strategy=strategy)
+    # dummy row gets z = 1 so pad edges divide by a finite value; every
+    # real edge's destination has >= 1 real edge, so z > 0 on real rows
+    zp = torch.cat([z, torch.ones_like(pad)], dim=0)
+    out = gsddmm(bg.g, "e_div_v_copy_e", e=ex, v=zp, strategy=sddmm)
+    return out[:, 0] if logits.ndim == 1 else out
+
+
 def edge_softmax_fused(g, logits: torch.Tensor,
                        strategy: str = "auto") -> torch.Tensor:
     """Single-pass edge softmax: ``logits`` (n_edges, H) or (n_edges,) in
@@ -102,3 +139,20 @@ def fused_attention(g, el: torch.Tensor, er: torch.Tensor, z: torch.Tensor,
     else:
         out = fused_attention_plain(g, el, er, z, slope)
     return out[:, 0, :] if squeeze else out
+
+
+def block_fused_attention(bg: BlockGraph, el: torch.Tensor,
+                          er: torch.Tensor, z: torch.Tensor, *,
+                          negative_slope: float = 0.2,
+                          strategy: str = "auto") -> torch.Tensor:
+    """Fused attention over one sampled block's real in-edges.
+
+    ``er`` spans the padded destination range (n_dst_real + 1 rows, the
+    caller's dummy row last). Pad edges all point at the dummy row, so
+    real rows' softmax sees exactly their real edges; the dummy row is
+    sliced off. Returns (n_dst_real, H, F) ((n_dst_real, F) for 1-D
+    ``el``).
+    """
+    out = fused_attention(bg.g, el, er, z, negative_slope=negative_slope,
+                          strategy=strategy)
+    return out[: bg.n_dst_real]

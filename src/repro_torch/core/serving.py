@@ -7,14 +7,19 @@
   computes every layer once for ALL nodes — the app's full-graph
   ``infer``, so the CUDA kernels on the card — and requests are answered
   by row lookups. Exact by construction.
-* :class:`FeatureCache` is the hot-node tier over the output table: a
-  degree-ordered pinned set over an LRU, with exact accounting
-  (:class:`CacheStats`).
+* **Fan-out inference**: each batch samples its L-hop blocks
+  (:class:`~repro_torch.data.NeighborSampler`, one per class, seeded),
+  pulls their input rows through a feature cache and runs the app's
+  ``infer_blocks`` (the kernels again, on each block graph). Exact when
+  ``fanout`` ≥ the max in-degree, the default.
+* :class:`FeatureCache` is the hot-node tier over the output table
+  (layer-wise) and the input features (fan-out): a degree-ordered pinned
+  set over an LRU, with exact accounting (:class:`CacheStats`).
 
-Modes: ``layerwise``, and ``auto``, which resolves to layerwise — what
-the JAX planner's serve cost picks for full-neighbor fan-out at these
-sizes. The fan-out mode (blocks + sampler) is ROADMAP A10, R-GCN is A11;
-the spans, metrics and drift hooks of the JAX server are A8.
+Each class resolves to a mode once, via
+:func:`~repro_torch.core.planner.plan_serve`, as the JAX server resolves
+it. R-GCN is ROADMAP A11; the spans, metrics and drift hooks of the JAX
+server are A8.
 """
 from __future__ import annotations
 
@@ -26,10 +31,13 @@ import numpy as np
 import torch
 
 from ..data.pipeline import prefetch
+from ..data.sampler import MiniBatch, NeighborSampler
 from ..device import DeviceLike, resolve_device
 from ..models.gnn import gat, gcn, sage
 from ..models.gnn.common import make_bundle
 from ..obs.signatures import SignatureTracker
+from . import planner
+from .blocks import serve_block_signature
 
 __all__ = ["CacheStats", "FeatureCache", "MicroBatch", "MicroBatcher",
            "GNNServer", "hot_node_ids", "SERVE_APPS", "SERVE_MODES"]
@@ -82,13 +90,17 @@ class FeatureCache:
     """
 
     def __init__(self, store: np.ndarray, capacity: int,
-                 pinned: Optional[np.ndarray] = None):
+                 pinned: Optional[np.ndarray] = None,
+                 name: Optional[str] = None):
         self.store = np.asarray(store)
         if self.store.ndim < 1:
             raise ValueError("store must be at least 1-D (rows)")
         self.capacity = int(capacity)
         if self.capacity < 0:
             raise ValueError("capacity must be ≥ 0")
+        # the JAX cache mirrors a named cache's counters into its metrics
+        # registry; the port keeps the name for that (ROADMAP A8)
+        self.name = name
         self._pinned: Dict[int, np.ndarray] = {}
         if pinned is not None:
             for i in np.asarray(pinned).reshape(-1):
@@ -286,26 +298,38 @@ class MicroBatcher:
 # the server
 # --------------------------------------------------------------------- #
 SERVE_APPS = ("gcn", "sage", "gat")
-SERVE_MODES = ("layerwise",)
-_QUEUED_MODES = {"fanout": "ROADMAP A10 (fan-out serving with blocks and "
-                           "the neighbor sampler)"}
+SERVE_MODES = planner.SERVE_MODES
 
 
 class GNNServer:
-    """Micro-batched layer-wise GNN inference over one graph.
+    """Micro-batched GNN inference over one graph.
 
     ``app``: 'gcn' | 'sage' | 'gat'; ``model`` is the app's module
     (``init`` or ``from_jax_params``); ``g`` the graph and ``feats`` the
     (n, d) host feature array. The graph, model and features are placed
-    on ``device``; a CUDA device runs the refresh through the kernels.
-    The refresh calls each app's ``infer`` with its defaults, so GAT
-    serves the multipass pipeline (gSDDMM logits, composed edge softmax),
-    as the JAX server does.
+    on ``device``; a CUDA device runs both modes through the kernels.
+
+    Each class resolves to a mode once (``mode='auto'``: the cheaper by
+    :func:`~repro_torch.core.planner.plan_serve`):
+
+    * ``layerwise`` — :meth:`refresh` calls the app's ``infer`` with its
+      defaults (GAT multipass, as the JAX server), requests are row
+      lookups through the output cache;
+    * ``fanout`` — each batch samples ``fanout`` in-edges per node per
+      layer (default: the max in-degree, every in-edge, so exact) with a
+      per-class sampler seeded with ``seed``, and runs ``infer_blocks``.
+
+    ``refresh_batches`` is the number of batches a refresh is amortized
+    over in the planner's cost. Every served batch's static signature
+    feeds a :class:`SignatureTracker` bounded by ``len(classes)`` per
+    mode.
     """
 
     def __init__(self, app: str, model, g, feats, *, mode: str = "auto",
                  classes: Sequence[int] = (8, 32, 128),
+                 fanout: Optional[int] = None,
                  cache_rows: int = 4096, pin_hot: int = 256,
+                 refresh_batches: int = 1024, seed: int = 0,
                  device: DeviceLike = "cuda"):
         if app == "rgcn":
             raise NotImplementedError(
@@ -313,10 +337,6 @@ class GNNServer:
         if app not in SERVE_APPS:
             raise ValueError(f"unknown serve app {app!r}; expected one of "
                              f"{SERVE_APPS}")
-        if mode in _QUEUED_MODES:
-            raise NotImplementedError(
-                f"serve mode {mode!r} is not ported yet: "
-                f"{_QUEUED_MODES[mode]}")
         if mode not in ("auto",) + SERVE_MODES:
             raise ValueError(f"unknown serve mode {mode!r}; expected 'auto' "
                              f"or one of {SERVE_MODES}")
@@ -327,14 +347,23 @@ class GNNServer:
         self.model = model.to(self.device)
         self.mode = mode
         self.batcher = MicroBatcher(classes)
+        self.refresh_batches = int(refresh_batches)
+        self.seed = int(seed)
         self.g = g.to(self.device)
         self.bundle = make_bundle(self.g)
-        self._full_fn = {"gcn": gcn, "sage": sage, "gat": gat}[app].infer
+        mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+        self._full_fn = mod.infer
+        self._blocks_fn = mod.infer_blocks
         self.feats = np.asarray(feats, np.float32)
         self.x_device = torch.from_numpy(
             np.ascontiguousarray(self.feats)).to(self.device)
+        self.n_layers = len(self.model.layers)
+        deg = self.g.host.in_degrees
+        max_deg = int(deg.max()) if deg.size else 0
+        # full-neighbor default: keep every in-edge, so serving is exact
+        self.fanout = int(fanout) if fanout is not None else max(max_deg, 1)
         self.cache_rows = int(cache_rows)
-        self._hot = hot_node_ids(self.g.host.in_degrees, pin_hot)
+        self._hot = hot_node_ids(deg, pin_hot)
 
         # one signature per (class, mode) is the whole budget
         self.tracker = SignatureTracker(
@@ -343,12 +372,30 @@ class GNNServer:
         self.refreshes = 0
         self.served_batches = 0
         self.served_requests = 0
+        self.mode_batches = {m: 0 for m in SERVE_MODES}
         self._out_cache: Optional[FeatureCache] = None
+        self._feat_cache: Optional[FeatureCache] = None
+        self._samplers: Dict[int, NeighborSampler] = {}
+        self._mode_by_class: Dict[int, str] = {}
+
+    # -- planning ------------------------------------------------------- #
+    def _expansion_edges(self, cls: int) -> int:
+        """Static edge-slot count of one fan-out batch of class ``cls``
+        (the per-request re-expansion work the layer-wise plan avoids)."""
+        return sum(sig[2] for sig in serve_block_signature(
+            cls, self.fanout, self.n_layers))
 
     def mode_for_class(self, cls: int) -> str:
-        """Serve mode of class ``cls``: layer-wise for every class (the
-        only mode of this slice, and what 'auto' resolves to)."""
-        return "layerwise"
+        """Serve mode of class ``cls``, planned once and cached."""
+        chosen = self._mode_by_class.get(cls)
+        if chosen is None:
+            chosen = planner.plan_serve(
+                (self.g.n_src, self.g.n_edges, int(cls), self.n_layers),
+                "infer", requested=self.mode,
+                expansion_edges=self._expansion_edges(cls),
+                refresh_batches=self.refresh_batches)
+            self._mode_by_class[cls] = chosen
+        return chosen
 
     # -- layer-wise plan ------------------------------------------------ #
     def refresh(self) -> CacheStats:
@@ -360,21 +407,60 @@ class GNNServer:
         self.refreshes += 1
         if self._out_cache is None:
             self._out_cache = FeatureCache(store, self.cache_rows,
-                                           pinned=self._hot)
+                                           pinned=self._hot, name="out")
         else:
             self._out_cache.replace_store(store)
         return self._out_cache.stats()
 
     def update_features(self, ids, rows) -> None:
-        """Write new input features and recompute the output table — a
-        stale output row is a wrong prediction."""
+        """Write new input features (through the fan-out path's cache, so
+        it never serves a stale row) and recompute the layer-wise table —
+        a stale output row is a wrong prediction."""
         ids = np.asarray(ids).reshape(-1)
         rows = np.asarray(rows, np.float32).reshape(len(ids), -1)
-        self.feats[ids] = rows
+        if self._feat_cache is not None:
+            self._feat_cache.update(ids, rows)     # writes self.feats too
+        else:
+            self.feats[ids] = rows
         self.x_device[torch.from_numpy(ids).to(self.device)] = (
             torch.from_numpy(rows).to(self.device))
         if self._out_cache is not None:
             self.refresh()
+
+    # -- fan-out plan --------------------------------------------------- #
+    def _sampler(self, cls: int) -> NeighborSampler:
+        s = self._samplers.get(cls)
+        if s is None:
+            s = NeighborSampler(self.g, [self.fanout] * self.n_layers,
+                                batch_size=cls, seed=self.seed,
+                                device=self.device)
+            self._samplers[cls] = s
+        return s
+
+    def _feature_rows(self, ids: np.ndarray) -> torch.Tensor:
+        """Input features for padded global ids, pulled through the
+        hot-node cache (-1 pads read as zero rows), on the device."""
+        if self._feat_cache is None:
+            self._feat_cache = FeatureCache(self.feats, self.cache_rows,
+                                            pinned=self._hot, name="feat")
+        ids = np.asarray(ids)
+        x = np.zeros((ids.shape[0], self.feats.shape[1]), np.float32)
+        real = ids >= 0
+        if real.any():
+            x[real] = self._feat_cache.lookup(ids[real])
+        return torch.from_numpy(x).to(self.device)
+
+    def _infer_blocks(self, mb: MiniBatch, x: torch.Tensor) -> np.ndarray:
+        out = self._blocks_fn(self.model, mb.blocks, x)
+        return out.cpu().numpy()              # waits for the device
+
+    def _serve_fanout(self, batch: MicroBatch) -> np.ndarray:
+        sampler = self._sampler(batch.cls)
+        mb = sampler.sample(batch.ids[:batch.n_real],
+                            np.zeros(batch.n_real, np.int64))
+        x = self._feature_rows(mb.input_ids_host)
+        self._observe(("fanout", batch.cls) + mb.shape_signature())
+        return self._infer_blocks(mb, x)[:batch.n_real]
 
     # -- serving -------------------------------------------------------- #
     def _observe(self, signature: Tuple) -> None:
@@ -384,13 +470,16 @@ class GNNServer:
     def serve_batch(self, batch: MicroBatch) -> np.ndarray:
         """(n_real, n_out) predictions for one coalesced batch."""
         mode = self.mode_for_class(batch.cls)
-        if self._out_cache is None:
-            self.refresh()
-        self._observe((mode, batch.cls))
-        out = self._out_cache.lookup(batch.ids[:batch.n_real])
+        if mode == "layerwise":
+            if self._out_cache is None:
+                self.refresh()
+            self._observe(("layerwise", batch.cls))
+            out = self._out_cache.lookup(batch.ids[:batch.n_real])
+        else:
+            out = self._serve_fanout(batch)
         self.served_batches += 1
+        self.mode_batches[mode] += 1
         return out
-
     def serve(self, requests: Sequence[Tuple[int, Sequence[int]]]
               ) -> Dict[int, np.ndarray]:
         """Serve ``(rid, node_ids)`` requests; returns rid → (len(ids),
@@ -448,6 +537,9 @@ class GNNServer:
             "signatures": len(self.tracker.seen),
             "compiles": self.compiles,
             "refreshes": self.refreshes,
+            "mode_batches": dict(self.mode_batches),
             "out_cache": (self._out_cache.stats()
                           if self._out_cache is not None else None),
+            "feat_cache": (self._feat_cache.stats()
+                           if self._feat_cache is not None else None),
         }

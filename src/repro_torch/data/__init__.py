@@ -1,6 +1,8 @@
 """Datasets and host-side pipeline of the port."""
 from .pipeline import Prefetcher, RequestQueue, ServeRequest, prefetch
+from .sampler import MiniBatch, NeighborSampler, SampledBlock
 from .synthetic import DATASETS, make_node_dataset, rmat_graph
 
 __all__ = ["Prefetcher", "prefetch", "ServeRequest", "RequestQueue",
-           "DATASETS", "make_node_dataset", "rmat_graph"]
+           "DATASETS", "make_node_dataset", "rmat_graph", "NeighborSampler",
+           "SampledBlock", "MiniBatch"]

@@ -11,6 +11,8 @@ meets no new signature.
 Usage (on the card; ``--device cpu`` runs the plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --app gcn \\
       --dataset reddit-like --clients 4 --requests 25
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --app gat \\
+      --dataset tiny --mode fanout --fanout 10 --device cpu
 """
 from __future__ import annotations
 
@@ -18,12 +20,12 @@ import argparse
 import math
 import threading
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from ..core.serving import SERVE_APPS, GNNServer
+from ..core.serving import SERVE_APPS, SERVE_MODES, GNNServer
 from ..data import RequestQueue, make_node_dataset
 from ..device import DeviceLike, resolve_device
 from ..models.gnn import gat, gcn, sage
@@ -43,12 +45,14 @@ def percentile_nearest_rank(values, p: float) -> float:
 
 def build_server(app: str, dataset: str, *, mode: str = "auto",
                  classes=(8, 32, 128), d_hidden: int = 32,
-                 cache_rows: int = 4096, pin_hot: int = 256, seed: int = 0,
+                 fanout: Optional[int] = None, cache_rows: int = 4096,
+                 pin_hot: int = 256, seed: int = 0,
                  device: DeviceLike = "cuda") -> GNNServer:
     """Dataset + randomly initialized model (from ``seed``) + server on
-    ``device``, ready to serve. Serving correctness does not depend on
-    the weights: served rows are held to the full forward under the same
-    model."""
+    ``device``, ready to serve. ``fanout`` is the fan-out mode's per-layer
+    sample size (None: the max in-degree, exact). Serving correctness
+    does not depend on the weights: served rows are held to the full
+    forward under the same model."""
     dev = resolve_device(device)
     if app == "rgcn":
         raise NotImplementedError(
@@ -62,7 +66,8 @@ def build_server(app: str, dataset: str, *, mode: str = "auto",
     init = {"gcn": gcn.init, "sage": sage.init, "gat": gat.init}[app]
     model = init(gen, feats.shape[1], d_hidden, n_classes, device=dev)
     return GNNServer(app, model, g, feats, mode=mode, classes=classes,
-                     cache_rows=cache_rows, pin_hot=pin_hot, device=dev)
+                     fanout=fanout, cache_rows=cache_rows, pin_hot=pin_hot,
+                     seed=seed, device=dev)
 
 
 def run_session(srv: GNNServer, *, n_clients: int, requests_per_client: int,
@@ -137,7 +142,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--app", choices=SERVE_APPS, default="gcn")
     ap.add_argument("--dataset", default="tiny")
-    ap.add_argument("--mode", default="auto", choices=("auto", "layerwise"))
+    ap.add_argument("--mode", default="auto", choices=("auto",) + SERVE_MODES)
+    ap.add_argument("--fanout", type=int, default=None,
+                    help="fan-out per layer (default: the max in-degree)")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--requests", type=int, default=50,
                     help="requests per client")
@@ -151,7 +158,7 @@ def main():
     args = ap.parse_args()
 
     srv = build_server(args.app, args.dataset, mode=args.mode,
-                       classes=tuple(args.classes),
+                       classes=tuple(args.classes), fanout=args.fanout,
                        cache_rows=args.cache_rows, pin_hot=args.pin_hot,
                        seed=args.seed, device=args.device)
     n_nodes = srv.g.n_src
@@ -161,17 +168,21 @@ def main():
 
     res = run_session(srv, n_clients=args.clients,
                       requests_per_client=args.requests, ids_fn=ids_fn)
+    modes = {c: srv.mode_for_class(c) for c in srv.batcher.classes}
     print(f"[serve_gnn] app={args.app} dataset={args.dataset} "
           f"device={srv.device} clients={args.clients} "
           f"req/client={args.requests} ids/req={args.request_ids}")
+    print(f"[serve_gnn] class→mode {modes} (fanout={srv.fanout})")
     print(f"[serve_gnn] p50 {res['p50_ms']:.3f} ms  p99 {res['p99_ms']:.3f} "
           f"ms  {res['throughput_rps']:.0f} req/s (n={res['n_samples']})")
     print(f"[serve_gnn] steady-state new signatures: "
           f"{res['recompiles_steady']} (must be 0)")
-    cs = res["stats"]["out_cache"]
-    print(f"[serve_gnn] out_cache: hit_ratio {cs.hit_ratio:.3f} "
-          f"({cs.hits}h/{cs.misses}m, {cs.evictions} evictions, "
-          f"{cs.pinned} pinned)")
+    for name in ("out_cache", "feat_cache"):
+        cs = res["stats"][name]
+        if cs is not None:
+            print(f"[serve_gnn] {name}: hit_ratio {cs.hit_ratio:.3f} "
+                  f"({cs.hits}h/{cs.misses}m, {cs.evictions} evictions, "
+                  f"{cs.pinned} pinned)")
     if res["recompiles_steady"]:
         raise SystemExit("steady-state recompiles detected")
 

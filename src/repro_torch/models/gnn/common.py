@@ -1,23 +1,25 @@
-"""Shared GNN plumbing (port of ``repro/models/gnn/common.py``, the
-full-graph parts): the graph bundle with its per-edge normalizations, and
-the loader that carries JAX-initialized parameters into the port.
+"""Shared GNN plumbing (port of ``repro/models/gnn/common.py``): the
+graph bundle with its per-edge normalizations, the loader that carries
+JAX-initialized parameters into the port, and the one code path every
+app's sampled-minibatch forward runs on (:func:`run_blocks`).
 
-The training-graph packs (``TrainingGraph``, ROADMAP A5), the block path
-(``run_blocks``, A10) and the partitioned bundle (A12) come later.
+The training-graph packs (``TrainingGraph``, ROADMAP A5) and the
+partitioned bundle (A12) come later.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ...core.graph import Graph
-from ...device import DeviceLike
+from ...device import DeviceLike, resolve_device
 
-__all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params"]
+__all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params",
+           "pad_features", "block_features", "run_blocks"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -68,3 +70,44 @@ def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:
         raise ValueError(f"unknown app {app!r}; expected one of "
                          f"{tuple(mods)}")
     return mods[app].from_numpy(tree, device)
+
+
+# --------------------------------------------------------------------- #
+# sampled-minibatch (block) forward — one code path for every app
+# --------------------------------------------------------------------- #
+def pad_features(feats, device: DeviceLike = "cuda") -> torch.Tensor:
+    """(n + 1, d) float32 features on ``device``: one zero row appended,
+    so global id -1 (pad) gathers zeros."""
+    feats = np.asarray(feats, np.float32)
+    return torch.from_numpy(np.vstack([
+        feats, np.zeros((1, feats.shape[1]), np.float32)])).to(
+            resolve_device(device))
+
+
+def block_features(feats_padded: torch.Tensor, ids) -> torch.Tensor:
+    """Gather input features for padded global ids (-1 → the zero row)."""
+    ids = torch.as_tensor(ids, device=feats_padded.device).long()
+    safe = torch.where(ids >= 0, ids, feats_padded.shape[0] - 1)
+    return feats_padded.index_select(0, safe)
+
+
+def run_blocks(block_layer: Callable, layers: Sequence, blocks: Sequence,
+               h: torch.Tensor, *, strategy: str = "auto",
+               activation: Callable = torch.relu) -> torch.Tensor:
+    """Drive a per-app layer function over a minibatch's blocks.
+
+    ``block_layer(lyr, blk, h, strategy=...)`` maps the layer-l frontier
+    features ``h`` (n_src_pad, d) to destination features (n_dst_real,
+    d'). With the sampler's dst-first source numbering the next block's
+    frontier IS this block's destination set, so the loop chains layers;
+    the last block's destinations are the seeds, so the result is
+    (batch_size, d_out). Dropout comes with the training slice (A7).
+    """
+    if len(layers) != len(blocks):
+        raise ValueError(f"{len(layers)} layers but {len(blocks)} blocks: "
+                         f"sampler fanouts must match model depth")
+    for i, (lyr, blk) in enumerate(zip(layers, blocks)):
+        h = block_layer(lyr, blk, h, strategy=strategy)
+        if i < len(layers) - 1:
+            h = activation(h)
+    return h

@@ -21,6 +21,14 @@ the attention pipeline fuses, with the JAX package's modes:
 ``fused_softmax=True``), as in JAX; it is what ``infer`` and the serving
 tier run. ``strategy='segment'`` pins the plain versions everywhere,
 ``'kernel'`` the kernels for every op a kernel covers.
+
+On a sampled block (:func:`block_layer`, :func:`forward_blocks`) the
+same modes run on the block graph ``bg.g``: multipass as B3 logits, the
+block edge softmax (B3 + B4, its max on the uniform pull) and the rank-3
+aggregation on the uniform pull; softmax-fused with B5 on ``bg.g`` (pad
+edges get the dummy row's own softmax, which no real row reads); the
+fused modes as B2. ``strategy='ell'`` pins the JAX block path's plain
+pulls.
 """
 from __future__ import annotations
 
@@ -31,13 +39,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...core.binary_reduce import SDDMM_FOR, gsddmm, gspmm
-from ...core.edge_softmax import (edge_softmax, edge_softmax_fused,
+from ...core.blocks import (SDDMM_FOR_BLOCK, block_gspmm,
+                            check_block_strategy)
+from ...core.edge_softmax import (block_edge_softmax, block_fused_attention,
+                                  edge_softmax, edge_softmax_fused,
                                   fused_attention)
 from ...device import DeviceLike
 from ...substrate.nn import from_numpy, glorot, leaky_relu
-from .common import GraphBundle
+from .common import GraphBundle, run_blocks
 
-__all__ = ["GAT", "GATLayer", "init", "forward", "infer"]
+__all__ = ["GAT", "GATLayer", "init", "forward", "infer", "block_layer",
+           "forward_blocks", "infer_blocks"]
 
 _ATTN_MODES = ("multipass", "softmax-fused", "fused", "pallas", "auto")
 _STRATEGIES = ("auto", "segment", "kernel")
@@ -45,6 +57,11 @@ _STRATEGIES = ("auto", "segment", "kernel")
 # each model strategy; 'auto' fused attention keeps its attn name below
 _SINGLE_PASS = {"segment": "fused", "kernel": "kernel", "auto": "auto"}
 _FUSED_STRATEGY = {"auto": "auto", "fused": "fused", "pallas": "kernel"}
+# on a block: the single-pass forms under each block strategy, and the
+# rank-3 aggregation (no kernel takes it) on the uniform pull
+_BLOCK_SINGLE_PASS = dict(_SINGLE_PASS, ell="fused")
+_BLOCK_RANK3 = {"auto": "ell", "kernel": "ell", "ell": "ell",
+                "segment": "segment"}
 
 
 def _resolve_attn(attn: Optional[str], fused_softmax: bool) -> str:
@@ -152,3 +169,64 @@ def infer(model: GAT, bundle: GraphBundle, x: torch.Tensor, *,
     entry point (no autograd graph, so the kernels can launch)."""
     with torch.no_grad():
         return forward(model, bundle, x, strategy=strategy, attn=attn)
+
+
+def block_layer(lyr: GATLayer, blk, h: torch.Tensor, *,
+                strategy: str = "auto", attn: str = "multipass"
+                ) -> torch.Tensor:
+    """One GAT layer on a sampled block.
+
+    Logits are per sampled edge; the destination term uses
+    ``z[:n_dst_real]`` (dst-first numbering) padded with one zero dummy
+    row, and the softmax normalizes over each destination's REAL
+    in-edges only (pads live in the dummy row)."""
+    bg = blk.bg
+    nd = bg.n_dst_real
+    heads, out = lyr.attn_l.shape
+    z = (h @ lyr.w).reshape(-1, heads, out)              # (n_src_pad, H, F)
+    el = (z * lyr.attn_l).sum(dim=-1)                    # (n_src_pad, H)
+    er = (z[:nd] * lyr.attn_r).sum(dim=-1)
+    er = torch.cat([er, er.new_zeros((1, heads))], dim=0)
+    if attn in _FUSED_STRATEGY:
+        how = (_FUSED_STRATEGY[attn] if strategy == "auto"
+               else _BLOCK_SINGLE_PASS[strategy])
+        out_feat = block_fused_attention(bg, el, er, z, strategy=how)
+        return out_feat.reshape(nd, heads * out)
+    logits = gsddmm(bg.g, "u_add_v_copy_e", u=el, v=er,
+                    strategy=SDDMM_FOR_BLOCK[strategy])
+    logits = leaky_relu(logits)
+    if attn == "softmax-fused":
+        alpha = edge_softmax_fused(bg.g, logits,
+                                   strategy=_BLOCK_SINGLE_PASS[strategy])
+    else:
+        alpha = block_edge_softmax(bg, logits, strategy=strategy)
+    out_feat = block_gspmm(bg, "u_mul_e_add_v", u=z, e=alpha[:, :, None],
+                           strategy=_BLOCK_RANK3[strategy])  # (nd, H, F)
+    return out_feat.reshape(nd, heads * out)
+
+
+def forward_blocks(model: GAT, blocks, x: torch.Tensor, *,
+                   strategy: str = "auto",
+                   attn: Optional[str] = None) -> torch.Tensor:
+    """Sampled mini-batch forward on the shared block path; ``attn=None``
+    is multipass, as in JAX. ``strategy``: one of
+    :data:`~repro_torch.core.blocks.BLOCK_STRATEGIES`."""
+    attn = _resolve_attn(attn, False)
+    check_block_strategy(strategy)
+
+    def layer(lyr, blk, h, **kw):
+        return block_layer(lyr, blk, h, attn=attn, **kw)
+
+    return run_blocks(layer, model.layers, blocks, x, strategy=strategy,
+                      activation=F.elu)
+
+
+def infer_blocks(model: GAT, blocks, x: torch.Tensor, *,
+                 strategy: str = "auto",
+                 attn: Optional[str] = None) -> torch.Tensor:
+    """Inference-mode block forward — the serving tier's fan-out path.
+    Defaults to the same multipass family as the full forward, so the
+    two serve modes agree to float tolerance."""
+    with torch.no_grad():
+        return forward_blocks(model, blocks, x, strategy=strategy,
+                              attn=attn)

@@ -5,8 +5,9 @@ H^{l+1} = σ( D^{-1/2} (A+I) D^{-1/2} H^l W^l )
 
 The symmetric normalization is folded into per-edge scalar weights
 (``bundle.gcn_norm``), so the hot op is ``u_mul_e_add_v`` with a scalar
-edge operand — the weighted Copy-Reduce kernel (B1) on the card.
-Dropout and the training paths come with the training slice (A7).
+edge operand — the weighted Copy-Reduce kernel (B1) on the card, on the
+full graph and on each sampled block (:func:`forward_blocks`). Dropout
+and the training paths come with the training slice (A7).
 """
 from __future__ import annotations
 
@@ -16,11 +17,13 @@ import torch
 from torch import nn
 
 from ...core.binary_reduce import gspmm
+from ...core.blocks import block_gspmm
 from ...device import DeviceLike
 from ...substrate.nn import Linear
-from .common import GraphBundle
+from .common import GraphBundle, run_blocks
 
-__all__ = ["GCN", "init", "forward", "infer"]
+__all__ = ["GCN", "init", "forward", "infer", "block_layer",
+           "forward_blocks", "infer_blocks"]
 
 
 class GCN(nn.Module):
@@ -63,3 +66,27 @@ def infer(model: GCN, bundle: GraphBundle, x: torch.Tensor, *,
     entry point (no autograd graph, so the kernels can launch)."""
     with torch.no_grad():
         return forward(model, bundle, x, strategy=strategy)
+
+
+def block_layer(lyr: Linear, blk, h: torch.Tensor, *,
+                strategy: str = "auto") -> torch.Tensor:
+    """One GCN layer on a sampled block: linear, then the weighted sum
+    ``u_mul_e_add_v`` with the FULL graph's symmetric normalization
+    gathered per sampled edge (``blk.gcn_norm``; pad edges weigh 0).
+    With fanout ≥ max in-degree this is exactly the full-graph layer."""
+    return block_gspmm(blk.bg, "u_mul_e_add_v", u=lyr(h),
+                       e=blk.gcn_norm[:, None], strategy=strategy)
+
+
+def forward_blocks(model: GCN, blocks, x: torch.Tensor, *,
+                   strategy: str = "auto") -> torch.Tensor:
+    """Sampled mini-batch forward on the shared block path."""
+    return run_blocks(block_layer, model.layers, blocks, x,
+                      strategy=strategy, activation=torch.relu)
+
+
+def infer_blocks(model: GCN, blocks, x: torch.Tensor, *,
+                 strategy: str = "auto") -> torch.Tensor:
+    """Inference-mode block forward — the serving tier's fan-out path."""
+    with torch.no_grad():
+        return forward_blocks(model, blocks, x, strategy=strategy)

@@ -2,8 +2,9 @@
 ``repro/models/gnn/sage.py``).
 
 h'_v = σ(W·[h_v ; mean_{u∈N(v)} h_u]) — the aggregation is
-``u_copy_mean_v``, the mean Copy-Reduce kernel (B1) on the card. The
-sampled and partitioned variants come with later slices (A10, A12).
+``u_copy_mean_v``, the mean Copy-Reduce kernel (B1) on the card, on the
+full graph and on each sampled block (:func:`forward_blocks`). The
+partitioned variant comes with a later slice (A12).
 """
 from __future__ import annotations
 
@@ -13,11 +14,13 @@ import torch
 from torch import nn
 
 from ...core.binary_reduce import gspmm
+from ...core.blocks import block_gspmm
 from ...device import DeviceLike
 from ...substrate.nn import Linear
-from .common import GraphBundle
+from .common import GraphBundle, run_blocks
 
-__all__ = ["SAGE", "init", "forward", "infer"]
+__all__ = ["SAGE", "init", "forward", "infer", "block_layer",
+           "forward_blocks", "infer_blocks"]
 
 
 class SAGE(nn.Module):
@@ -60,3 +63,27 @@ def infer(model: SAGE, bundle: GraphBundle, x: torch.Tensor, *,
     entry point (no autograd graph, so the kernels can launch)."""
     with torch.no_grad():
         return forward(model, bundle, x, strategy=strategy)
+
+
+def block_layer(lyr: Linear, blk, h: torch.Tensor, *,
+                strategy: str = "auto") -> torch.Tensor:
+    """One SAGE layer on a sampled block: the mean over sampled in-edges
+    (pad slots contribute zero) concat the destination's own features
+    (dst-first numbering: ``h[:n_dst_real]``)."""
+    bg = blk.bg
+    hn = block_gspmm(bg, "u_copy_mean_v", u=h, strategy=strategy)
+    return lyr(torch.cat([h[: bg.n_dst_real], hn], dim=-1))
+
+
+def forward_blocks(model: SAGE, blocks, x: torch.Tensor, *,
+                   strategy: str = "auto") -> torch.Tensor:
+    """Sampled mini-batch forward (paper Fig. 3) on the shared path."""
+    return run_blocks(block_layer, model.layers, blocks, x,
+                      strategy=strategy, activation=torch.relu)
+
+
+def infer_blocks(model: SAGE, blocks, x: torch.Tensor, *,
+                 strategy: str = "auto") -> torch.Tensor:
+    """Inference-mode block forward — the serving tier's fan-out path."""
+    with torch.no_grad():
+        return forward_blocks(model, blocks, x, strategy=strategy)

@@ -24,6 +24,8 @@ emulations of the two kernels built on it.
   ``edge_softmax_fused``) on the same numpy inputs at 1e-5 (fp32 sums in
   another order). The CUDA kernels themselves run on the card
   (``chip_smoke.py``).
+* The same four emulations on a sampled fan-out block graph, whose dummy
+  destination row (every pad edge) is the heaviest row and is split.
 """
 import gc
 import weakref
@@ -474,4 +476,50 @@ def test_binary_reduce_emulation_matches_plain_and_jax(spec, binop, d, de,
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=TOL,
                                atol=TOL)
     empty = tg.host.in_degrees == 0
+    assert not got.numpy()[empty].any()
+
+
+@pytest.mark.parametrize("K", (4, 32))
+def test_emulations_on_a_sampled_block(K):
+    """A fan-out block is bipartite (n_src ≫ n_dst) and its dummy row
+    holds every pad edge, so it is the block's heaviest row and goes
+    through the split-row fold. The four emulations on the padded block
+    graph match the plain versions; real rows with no real edge are 0."""
+    from repro_torch.data import NeighborSampler
+
+    _, tg = _graphs()
+    seeds = np.array([HUB, 0, 1, 2, 3, 4, 6, 7, 9, 11])
+    mb = NeighborSampler(tg, [12], 16, seed=0, device="cpu").sample(
+        seeds, np.zeros(len(seeds), np.int64))
+    bg = mb.blocks[0].bg
+    g = bg.g
+    deg = g.host.in_degrees
+    assert g.n_src > 4 * g.n_dst and int(deg.argmax()) == bg.n_dst_real
+    rs = row_split(g, K)
+    assert bg.n_dst_real in rs.split[:, 0].tolist()
+    empty = deg == 0
+    rng = np.random.default_rng(K)
+    B = torch.from_numpy(rng.normal(size=(g.n_src, 41)).astype(np.float32))
+    w = mb.blocks[0].gcn_norm[g.long("eid")]
+    for weight, mean in ((w, False), (None, True)):
+        got = emulate_spmm(g, rs, B, weight, mean)
+        np.testing.assert_allclose(got.numpy(),
+                                   spmm_plain(g, B, weight, mean).numpy(),
+                                   rtol=TOL, atol=TOL)
+        assert not got.numpy()[empty].any()
+    E = torch.from_numpy(rng.normal(size=(g.n_edges, 4)).astype(np.float32))
+    got = emulate_binary_reduce(g, rs, None, E, "copy_rhs", False)
+    np.testing.assert_allclose(
+        got.numpy(), binary_reduce_plain(g, None, E, "copy_rhs").numpy(),
+        rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(emulate_softmax(g, rs, E).numpy(),
+                               edge_softmax_plain(g, E).numpy(), rtol=TOL,
+                               atol=TOL)
+    el = torch.from_numpy(rng.normal(size=(g.n_src, 4)).astype(np.float32))
+    er = torch.from_numpy(rng.normal(size=(g.n_dst, 4)).astype(np.float32))
+    z = torch.from_numpy(rng.normal(size=(g.n_src, 4, 8)).astype(np.float32))
+    got = emulate_attention(g, rs, el, er, z)
+    np.testing.assert_allclose(
+        got.numpy(), fused_attention_plain(g, el, er, z).numpy(),
+        rtol=TOL, atol=TOL)
     assert not got.numpy()[empty].any()

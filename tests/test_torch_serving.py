@@ -238,9 +238,11 @@ def test_update_features_refreshes_the_table():
 
 
 def test_queued_modes_and_apps_raise():
+    """Fan-out serving is ported (tests/test_torch_serving_fanout.py);
+    an unknown mode raises, and R-GCN is still queued (A11)."""
     _, tsrv = _setup("gcn")
-    with pytest.raises(NotImplementedError, match="A10"):
-        GNNServer("gcn", tsrv.model, tsrv.g, tsrv.feats, mode="fanout",
+    with pytest.raises(ValueError, match="unknown serve mode"):
+        GNNServer("gcn", tsrv.model, tsrv.g, tsrv.feats, mode="push",
                   device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         GNNServer("rgcn", tsrv.model, tsrv.g, tsrv.feats, device="cpu")
