@@ -25,8 +25,9 @@ Strategies of :func:`block_gspmm` (node outputs, real rows only):
 * ``"push"`` is queued (ROADMAP A3).
 
 Edge outputs go to :func:`~repro_torch.core.binary_reduce.gsddmm` on
-``bg.g``. The reverse table (``rev_src`` / ``rev_dst`` / ``rev_eid``) is
-carried for the block VJP of the training slice (ROADMAP A10).
+``bg.g``. The reverse table (``rev_src`` / ``rev_dst`` / ``rev_eid``),
+built on first use, is for the block VJP of the training slice (ROADMAP
+A10).
 """
 from __future__ import annotations
 
@@ -79,7 +80,8 @@ class BlockGraph:
     dummy source and are masked out), ``nbr_eid[j, k]`` the matching
     caller-order edge id, ``real_deg[j]`` the number of real sampled
     in-edges. The reverse table views the same edges sorted by source
-    slot (pad edges last, pointing at the dummy row).
+    slot (pad edges last, pointing at the dummy row); it is built on
+    first use from ``g``'s caller-order endpoints.
     """
     g: Graph
     nbr: torch.Tensor        # (n_dst_real, fanout) int32 source slots
@@ -88,10 +90,9 @@ class BlockGraph:
     real_deg: torch.Tensor   # (n_dst_real,) int32
     n_dst_real: int
     fanout: int
-    rev_src: Optional[torch.Tensor] = None   # (n_edges,) int32, sorted
-    rev_dst: Optional[torch.Tensor] = None   # (n_edges,) int32 dst rows
-    rev_eid: Optional[torch.Tensor] = None   # (n_edges,) int32 caller ids
     _long: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
+    _rev: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
     @property
@@ -106,6 +107,31 @@ class BlockGraph:
             t = getattr(self, name).long()
             self._long[name] = t
         return t
+
+    @property
+    def rev_src(self) -> torch.Tensor:
+        """(n_edges,) int32 source slot of each edge, sorted by source."""
+        return self._reverse()["src"]
+
+    @property
+    def rev_dst(self) -> torch.Tensor:
+        """(n_edges,) int32 destination row of each ``rev_src`` edge."""
+        return self._reverse()["dst"]
+
+    @property
+    def rev_eid(self) -> torch.Tensor:
+        """(n_edges,) int32 caller edge id of each ``rev_src`` edge."""
+        return self._reverse()["eid"]
+
+    def _reverse(self) -> Dict[str, torch.Tensor]:
+        """The reverse table, built on first use: caller-order edges
+        stably sorted by source slot, so pad edges (dummy source = last
+        slot) sort last. Serving never reads it."""
+        if not self._rev:
+            src, order = torch.sort(self.g.src_caller, stable=True)
+            self._rev.update(src=src, eid=order.int(),
+                             dst=self.g.dst_caller.index_select(0, order))
+        return self._rev
 
     def __repr__(self):
         return (f"BlockGraph(n_src={self.g.n_src}, "

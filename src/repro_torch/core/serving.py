@@ -90,17 +90,13 @@ class FeatureCache:
     """
 
     def __init__(self, store: np.ndarray, capacity: int,
-                 pinned: Optional[np.ndarray] = None,
-                 name: Optional[str] = None):
+                 pinned: Optional[np.ndarray] = None):
         self.store = np.asarray(store)
         if self.store.ndim < 1:
             raise ValueError("store must be at least 1-D (rows)")
         self.capacity = int(capacity)
         if self.capacity < 0:
             raise ValueError("capacity must be ≥ 0")
-        # the JAX cache mirrors a named cache's counters into its metrics
-        # registry; the port keeps the name for that (ROADMAP A8)
-        self.name = name
         self._pinned: Dict[int, np.ndarray] = {}
         if pinned is not None:
             for i in np.asarray(pinned).reshape(-1):
@@ -407,7 +403,7 @@ class GNNServer:
         self.refreshes += 1
         if self._out_cache is None:
             self._out_cache = FeatureCache(store, self.cache_rows,
-                                           pinned=self._hot, name="out")
+                                           pinned=self._hot)
         else:
             self._out_cache.replace_store(store)
         return self._out_cache.stats()
@@ -442,7 +438,7 @@ class GNNServer:
         hot-node cache (-1 pads read as zero rows), on the device."""
         if self._feat_cache is None:
             self._feat_cache = FeatureCache(self.feats, self.cache_rows,
-                                            pinned=self._hot, name="feat")
+                                            pinned=self._hot)
         ids = np.asarray(ids)
         x = np.zeros((ids.shape[0], self.feats.shape[1]), np.float32)
         real = ids >= 0
@@ -480,6 +476,7 @@ class GNNServer:
         self.served_batches += 1
         self.mode_batches[mode] += 1
         return out
+
     def serve(self, requests: Sequence[Tuple[int, Sequence[int]]]
               ) -> Dict[int, np.ndarray]:
         """Serve ``(rid, node_ids)`` requests; returns rid → (len(ids),

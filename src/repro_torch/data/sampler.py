@@ -12,8 +12,9 @@ pads them:
 
 Each block carries the dense uniform neighbor table of
 :class:`repro_torch.core.blocks.BlockGraph`, the per-edge GCN weights
-from the FULL graph's degrees (0 on pad edges) and the src-sorted
-*reverse table* (carried for the block VJP of the training slice).
+from the FULL graph's degrees (0 on pad edges) and, built on first
+use, the src-sorted *reverse table* (for the block VJP of the training
+slice).
 
 The draw (``_sample_layer``) and the slot numbering are the JAX
 sampler's, line for line, on host numpy: one seed gives bit-identical
@@ -46,8 +47,9 @@ class SampledBlock:
     """One bipartite layer of a minibatch (outer hop = larger side).
 
     ``bg`` holds the padded block graph, its uniform neighbor table and
-    the src-sorted reverse table; ``src_ids`` the global node id per
-    source slot (-1 = pad), ``src_ids_host`` the same ids as host int64
+    (built on first use) the src-sorted reverse table; ``src_ids`` the
+    global node id per source slot (-1 = pad), ``src_ids_host`` the same
+    ids as host int64
     (what a feature lookup reads, without a device round trip);
     ``gcn_norm`` per-edge 1/√(deg_out(u)·deg_in(v)) from the FULL graph's
     degrees, caller edge order, 0 on pad edges. With ``edge_rel``,
@@ -95,7 +97,6 @@ class _HostLayer:
     nbr_eid: np.ndarray     # (n_dst, fanout) int32
     nbr_mask: np.ndarray    # (n_dst, fanout) bool
     real_deg: np.ndarray    # (n_dst,) int32
-    rev: Tuple[np.ndarray, np.ndarray, np.ndarray]
     src_ids: np.ndarray     # (n_src_pad,) int64
     norms: np.ndarray       # (n_edges_pad,) float32
     rel: Optional[np.ndarray]
@@ -263,11 +264,6 @@ class NeighborSampler:
             # they are masked, so the value never reaches a reduction
             nbr_eid[~nbr_mask] = min(n_real, n_edges_pad - 1)
             real_deg = nbr_mask.sum(axis=1).astype(np.int32)
-            # reverse table: the same edge list stably sorted by source
-            # slot; pad edges (dummy source = last slot) sort last
-            rev_eid = np.argsort(srcs, kind="stable").astype(np.int32)
-            rev = (srcs[rev_eid].astype(np.int32),
-                   dsts[rev_eid].astype(np.int32), rev_eid)
             rel_blk = rel_norm = None
             if self.rel is not None:
                 # relation id per sampled edge + the per-(dst, relation)
@@ -283,7 +279,7 @@ class NeighborSampler:
             layers.append(_HostLayer(
                 srcs=srcs, dsts=dsts, n_src_pad=n_src_pad, n_dst=n_dst,
                 fanout=fanout, nbr=nbr, nbr_eid=nbr_eid, nbr_mask=nbr_mask,
-                real_deg=real_deg, rev=rev, src_ids=src_ids, norms=norms,
+                real_deg=real_deg, src_ids=src_ids, norms=norms,
                 rel=rel_blk, rel_norm=rel_norm))
             frontier = src_ids
         return HostMiniBatch(layers=tuple(layers), seeds=seeds,
@@ -305,8 +301,7 @@ class NeighborSampler:
             bg = BlockGraph(g=g, nbr=put(hl.nbr), nbr_eid=put(hl.nbr_eid),
                             nbr_mask=put(hl.nbr_mask),
                             real_deg=put(hl.real_deg), n_dst_real=hl.n_dst,
-                            fanout=hl.fanout, rev_src=put(hl.rev[0]),
-                            rev_dst=put(hl.rev[1]), rev_eid=put(hl.rev[2]))
+                            fanout=hl.fanout)
             blocks.append(SampledBlock(
                 bg=bg, src_ids=put(hl.src_ids.astype(np.int32)),
                 src_ids_host=hl.src_ids, gcn_norm=put(hl.norms),

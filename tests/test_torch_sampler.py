@@ -177,6 +177,25 @@ def test_blocks_exact_above_max_in_degree():
     assert (blk.gcn_norm.numpy()[n_real:] == 0).all()
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reverse_table_built_on_first_use(seed):
+    """Sampling builds no reverse table (serving never reads one); the
+    first read builds JAX's, bit for bit, and later reads reuse it."""
+    jg, tg, _ = _graph(seed=7)
+    seeds, lab = np.arange(0, 40, 5), np.zeros(8, np.int64)
+    got = NeighborSampler(tg, [3, 5], 8, seed=seed,
+                          device="cpu").sample(seeds, lab)
+    ref = JaxSampler(jg, [3, 5], 8, seed=seed).sample(seeds, lab)
+    for b, r in zip(got.blocks, ref.blocks):
+        assert not b.bg._rev
+        first = b.bg.rev_eid
+        for f in ("rev_src", "rev_dst", "rev_eid"):
+            assert getattr(b.bg, f).dtype == torch.int32
+            np.testing.assert_array_equal(_np(getattr(b.bg, f)),
+                                          _np(getattr(r.bg, f)), err_msg=f)
+        assert b.bg.rev_eid is first
+
+
 def test_sampler_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("host has a GPU: the default device is usable")
