@@ -49,6 +49,27 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
 10. Serve auto: ``mode="auto"``, fan-out 10: the class→mode map must be
     the planner formula's (class 8 fanout, 32 and 128 layerwise); a
     session serves both modes, and one row of each equals its reference.
+11. Train: full-graph training on ``reddit-like`` at the widths of
+    ``benchmarks/fig2_full_graph.py`` (2 layers, hidden 16; GAT 4 heads ×
+    16, then 1 × 41; dropout 0.5 / 0.5 / 0.4), AdamW lr 1e-2. First the
+    backward kernels at the step's shapes, each against its plain version
+    and timed: B1 on Gᵀ (d = 16, 41) and on G (d = 16), B3 ``copy`` from
+    the destination and ``u_dot_v``, B4 ``copy_rhs`` on Gᵀ (B3's
+    ``e_div_v`` and B4 on G have the forward's shapes, phase 3). Then
+    GAT's attention chain (B3 logits, the composed edge softmax): its
+    kernel-route grads bit-identical over two calls and within tolerance
+    of the plain ones. Then, per app: one step's grads on the kernel path
+    (``strategy="auto"``, a training bundle) against ``"segment"``, per
+    parameter, with one dropout seed; the kernel launches of one step
+    (``TRAIN_LAUNCHES``); GCN's and SAGE's grads bit-identical over two
+    calls (GAT's rank-3 ``u_mul_e_add_v`` differentiates by atomic
+    ``index_add_``, so its whole-model grads are only reported);
+    ``train_full_graph`` for 10 epochs on each path, twice, in turns
+    (kernel, plain, plain, kernel: epoch time median and p90 over the 20,
+    loss finite and falling, peak device memory, launches: every kernel
+    on the kernel path, none on the plain one); and one step
+    under ``torch.profiler`` (the ten device operations with the most
+    time, the port's kernels, device busy time over wall time).
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -58,6 +79,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -116,6 +138,32 @@ SERVE_LAUNCHES = {"gcn": {"spmm_csr": 2}, "sage": {"spmm_csr": 2},
 FORWARD_LAUNCHES = {"multipass": {"sddmm_csr": 6, "binary_reduce_csr": 2},
                     "softmax-fused": {"sddmm_csr": 2, "edge_softmax_csr": 2},
                     "auto": {"fused_attention_csr": 2}}
+# kernel launches per full-graph training step (forward and backward) of
+# each app on a training bundle, strategy "auto": GCN B1 × 2 forward, × 2
+# on Gᵀ backward; SAGE B1 × 2 forward, × 1 on Gᵀ backward (layer 0 reads
+# x, which needs no grad); GAT multipass B3 × 6 and B4 × 2 forward, per
+# layer backward B3 e_div_v and copy, B4 on G × 3 (div, sub, add's v) and
+# on Gᵀ × 1 (add's u)
+TRAIN_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
+                  "gat": {"sddmm_csr": 8, "sddmm_csr:copy": 2,
+                          "binary_reduce_csr": 10}}
+# the training phase: hidden width and epochs; per-parameter grads of the
+# kernel path against the plain one are held to TRAIN_GRAD_RTOL of the
+# parameter's largest plain grad (+ 1e-6): a weight's grad sums up to
+# 65,536 rows whose terms each carry the aggregations' reordering error
+TRAIN_HIDDEN = 16
+TRAIN_EPOCHS = 10
+TRAIN_GRAD_RTOL = 1e-4
+# the backward kernels' shapes that the forward's do not cover: B1 on Gᵀ
+# (GCN ∂x at d = 41 and 16, SAGE at 16) and on G at d = 16 (GCN layer 0,
+# SAGE layer 1); B3 copy of ct from the destination (∂ of e_copy_add_v)
+# at H = 4, 1, and u_dot_v (weighted_copy_reduce's ∂w) at d = 16, 41; B4
+# copy_rhs on Gᵀ (∂ of u_add_v_copy_e's u) at H = 4, 1
+TRAIN_B1 = {"reverse": [(16, "sum"), (41, "sum")],
+            "self_loops": [(16, "sum")]}
+TRAIN_B3 = [("copy", "v", None, 4), ("copy", "v", None, 1),
+            ("dot", "u", "v", 16), ("dot", "u", "v", 41)]
+TRAIN_B4 = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
 # the fan-out serving phases: fan-out per layer (benchmarks/fig_serve.py's
 # CMP_FANOUT). A served fan-out batch runs one block per layer, so it
 # launches what a refresh launches: SERVE_LAUNCHES, per batch
@@ -335,9 +383,9 @@ def b3_operands(g, gen, op: str, lt: str, rt, d: int) -> tuple:
 
 def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES) -> None:
     from benchmarks.torch_sddmm_walks import sddmm_canonical
-    from repro_torch.kernels.sddmm.ops import sddmm_csr, sddmm_plain
+    from repro_torch.kernels.sddmm.ops import (CALLER_INDEX, sddmm_csr,
+                                               sddmm_plain)
 
-    src_caller = g.long("src_caller")
     n_u, n_v = rows_read(g)
     read = {"u": n_u, "v": n_v, "e": g.n_edges}
     for op, lt, rt, d in shapes:
@@ -356,11 +404,12 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES) -> None:
             why = "one IEEE op per element in both: exact"
         lib_ms, lib_dev = None, (None, None)
         if op == "copy":
-            lib_err = max_err(lhs.index_select(0, src_caller), ref)
+            caller = g.long(CALLER_INDEX[lt])
+            lib_err = max_err(lhs.index_select(0, caller), ref)
             if lib_err != 0.0:
                 raise AssertionError(f"index_select copy differs: {lib_err}")
-            lib_ms = time_ms(lambda: lhs.index_select(0, src_caller))
-            lib_dev = warm_cold_ms(lambda: lhs.index_select(0, src_caller))
+            lib_ms = time_ms(lambda: lhs.index_select(0, caller))
+            lib_dev = warm_cold_ms(lambda: lhs.index_select(0, caller))
         k_ms = time_ms(lambda: sddmm_csr(*args))
         p_ms = time_ms(lambda: sddmm_plain(*args))
         k_dev = warm_cold_ms(lambda: sddmm_csr(*args))
@@ -639,41 +688,85 @@ def forward_gat(srv) -> dict:
     return rows
 
 
-def trace_gat_refresh(srv, top: int = 10) -> dict:
-    """One served GAT refresh (``gat.infer``, multipass) under
-    ``torch.profiler`` with CUDA activity: the ``top`` device operations
-    by total device time, with their counts. A reading only: it checks
+def trace(fn, top: int = 10) -> dict:
+    """``fn()`` (which ends in a host wait for the device) under
+    ``torch.profiler`` with CUDA activity, twice: a warm-up call, then,
+    after a pause, the recorded one (a call recorded from the profiler's
+    start, or at once after its warm-up, lost its first launches on the
+    H100 in some runs). Returns the ``top`` device operations by total
+    device time, with their counts, the port's own kernels, their
+    launches (combine passes left out, so one per wrapper call), and
+    device time over the profiled wall time. A reading only: it checks
     nothing, and no kernel counter is read from it."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    from repro_torch.models.gnn import gat
+    from benchmarks.torch_sddmm_walks import CANONICAL_SRC
 
-    args = (srv.model, srv.bundle, srv.x_device)
-    gat.infer(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    recorded = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: recorded.append(
+                     p.key_averages())) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(0.05)
         t0 = time.perf_counter()
-        gat.infer(*args)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [e for e in prof.key_averages()
+        prof.step()
+    # the step annotation carries its kernels' device time: left out
+    dev = [e for e in recorded[0]
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
+           and e.self_device_time_total > 0
+           and not e.key.startswith("ProfilerStep")]
     dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
 
     def entry(e):
         return {"name": e.key[:160], "count": e.count,
                 "total_us": e.self_device_time_total}
 
-    # the port's own kernels live in anonymous namespaces of csrc/*.cu
+    # the port's kernels live in anonymous namespaces of csrc/*.cu, as
+    # some of PyTorch's do: match the __global__ names of its sources too
+    root = os.path.dirname(os.path.abspath(__file__))
+    names = set()
+    for path in [os.path.join(root, p) for p in SOURCES.values()] + [
+            str(CANONICAL_SRC)]:
+        with open(path) as f:
+            names.update(re.findall(r"__global__.*?\b(\w+_kernel)\s*\(",
+                                    f.read(), re.S))
+    head = "void (anonymous namespace)::"
+
+    def ours(key):
+        return (key.startswith(head)
+                and re.split(r"[<(]", key[len(head):])[0] in names)
+
+    device_us = sum(e.self_device_time_total for e in dev)
+    port = [e for e in dev if ours(e.key)]
+    host = sorted((e for e in recorded[0] if e.self_cpu_time_total > 0
+                   and not e.key.startswith("ProfilerStep")),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    return {"device_events": sum(e.count for e in dev),
+            "device_us_total": device_us, "wall_us_profiled": wall_us,
+            "device_busy_share_profiled": device_us / wall_us,
+            "top": [entry(e) for e in dev[:top]],
+            "port_kernels": [entry(e) for e in port],
+            "top_host": [{"name": e.key[:160], "count": e.count,
+                          "self_cpu_us": e.self_cpu_time_total}
+                         for e in host[:top]],
+            "port_launches": sum(e.count for e in port
+                                 if "combine" not in e.key)}
+
+
+def trace_gat_refresh(srv, top: int = 10) -> dict:
+    """One served GAT refresh (``gat.infer``, multipass) under
+    :func:`trace`."""
+    from repro_torch.models.gnn import gat
+
+    args = (srv.model, srv.bundle, srv.x_device)
     row = {"phase": "trace", "app": "gat", "attn": "multipass",
-           "device_events": sum(e.count for e in dev),
-           "device_us_total": sum(e.self_device_time_total for e in dev),
-           "wall_us_profiled": wall_us,
-           "top": [entry(e) for e in dev[:top]],
-           "port_kernels": [entry(e) for e in dev if e.key.startswith(
-               "void (anonymous namespace)::")]}
+           **trace(lambda: gat.infer(*args), top)}
     emit(row)
     return row
 
@@ -999,6 +1092,203 @@ def serve_auto_app(app: str) -> dict:
     return row
 
 
+def train_kernels(g, gen, rows: dict) -> None:
+    """The backward kernels at the training step's shapes (``TRAIN_B1``,
+    ``TRAIN_B3``, ``TRAIN_B4``), each against its plain version, bit-
+    identical over two calls where the kernel phase requires it, timed
+    warm and device-only, with a bound from ``rows_read`` of G or Gᵀ."""
+    from repro_torch.core.graph import reverse
+    from repro_torch.models.gnn.common import make_bundle
+
+    g_rev = reverse(g)
+    w = make_bundle(g).gcn_norm
+    for label, gr in (("reverse", g_rev), ("self_loops", g)):
+        check_b1(gr, w.index_select(0, gr.long("eid")).contiguous(), gen,
+                 label, rows["spmm_csr"], TRAIN_B1[label])
+    check_b3(g, gen, "self_loops", rows["sddmm_csr"], TRAIN_B3)
+    check_b4(g_rev, gen, "reverse", rows["binary_reduce_csr"], TRAIN_B4,
+             sweep=False)
+
+
+def check_attention_chain(g, gen) -> list:
+    """GAT's attention chain on ``g`` at H = 4 and 1 — B3 logits,
+    leaky-relu, the composed edge softmax — differentiated on the kernel
+    routes (B3 / B4 backward) and on the plain ones: the kernel-route
+    grads of el and er must be bit-identical over two calls and within
+    ``1e-5 + 1e-5·max|plain|`` of the plain grads."""
+    from repro_torch.core import edge_softmax, gsddmm
+    from repro_torch.substrate.nn import leaky_relu
+
+    rows = []
+    for H in (4, 1):
+        el = torch.randn(g.n_src, H, generator=gen).cuda().requires_grad_()
+        er = torch.randn(g.n_dst, H, generator=gen).cuda().requires_grad_()
+        ct = torch.randn(g.n_edges, H, generator=gen).cuda()
+
+        def grads(strategy):
+            logits = leaky_relu(gsddmm(
+                g, "u_add_v_copy_e", u=el, v=er,
+                strategy="kernel" if strategy == "kernel" else "gather"))
+            alpha = edge_softmax(g, logits, strategy=strategy)
+            return torch.autograd.grad(alpha, (el, er), ct)
+
+        first, again, plain = grads("kernel"), grads("kernel"), grads(
+            "segment")
+        torch.cuda.synchronize()
+        bit = all(torch.equal(a, b) for a, b in zip(first, again))
+        errs = [max_err(a, b) for a, b in zip(first, plain)]
+        tols = [1e-5 + 1e-5 * float(b.abs().max()) for b in plain]
+        row = {"phase": "train_chain", "H": H, "bit_identical": bit,
+               "max_abs_err": {"el": errs[0], "er": errs[1]},
+               "tol": {"el": tols[0], "er": tols[1]}}
+        emit(row)
+        if not bit or any(e > t for e, t in zip(errs, tols)):
+            raise AssertionError(f"attention chain grads: {row}")
+        rows.append(row)
+    return rows
+
+
+def train_app(app: str, data) -> dict:
+    """Train ``app`` full-graph on ``reddit-like`` (``data``: the bundle
+    with its training graph, features, labels, masks, class count): the
+    checks and readings of phase 11, one row."""
+    import copy
+
+    from repro_torch.models.gnn import gat, gcn, sage
+    from repro_torch.models.gnn.train import make_train_step, train_full_graph
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    bundle, x, labels, train_mask, val_mask, n_classes = data
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    model = mod.init(torch.Generator().manual_seed(0), x.shape[1],
+                     TRAIN_HIDDEN, n_classes, device="cuda")
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+
+    def grads(strategy):
+        logits = mod.forward(model, bundle, x, strategy=strategy, train=True,
+                             gen=torch.Generator(device="cuda").manual_seed(0))
+        out = torch.autograd.grad(
+            cross_entropy_loss(logits, labels, train_mask), params)
+        torch.cuda.synchronize()
+        return out
+
+    grads("auto")       # G's and Gᵀ's per-graph kernel structures
+    reset_counts()
+    kernel = grads("auto")
+    step_launches = read_counts()
+    check_launches(f"{app} train step", step_launches, TRAIN_LAUNCHES[app],
+                   1)
+    again, plain = grads("auto"), grads("segment")
+    grad_rows = {}
+    for n, k, a, p in zip(names, kernel, again, plain):
+        tol = 1e-6 + TRAIN_GRAD_RTOL * float(p.abs().max())
+        grad_rows[n] = {"max_abs_err": max_err(k, p), "tol": tol,
+                        "max_abs_plain": float(p.abs().max()),
+                        "bit_identical": torch.equal(k, a),
+                        "again_max_abs_diff": float((k - a).abs().max())}
+    bad = {n: r for n, r in grad_rows.items() if r["max_abs_err"] > r["tol"]
+           or (app != "gat" and not r["bit_identical"])}
+    if bad:
+        raise AssertionError(f"{app} train grads: {bad}")
+
+    # 10 epochs per run, in turns: kernel, plain, plain, kernel
+    strategy = {"kernel": "auto", "plain": "segment"}
+    runs = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        m = copy.deepcopy(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        _, hist = train_full_graph(
+            mod.forward, m, bundle, x, labels, train_mask,
+            strategy=strategy[path], epochs=TRAIN_EPOCHS, seed=0,
+            val_mask=val_mask)
+        launches = read_counts()
+        loss = hist["loss"]
+        if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+            raise AssertionError(f"{app} {path}: loss {loss}")
+        # a step per epoch and the warm-up, a forward per validation
+        want = {k: TRAIN_LAUNCHES[app].get(k, 0) * (TRAIN_EPOCHS + 1)
+                + SERVE_LAUNCHES[app].get(k, 0) * TRAIN_EPOCHS
+                if path == "kernel" else 0 for k in launches}
+        if launches != want:
+            raise AssertionError(f"{app} {path} training launched "
+                                 f"{launches}; expected {want}")
+        runs[path].append({
+            "epoch_ms": [t * 1e3 for t in hist["epoch_time"]],
+            "loss": loss, "val_acc": hist["val_acc"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches})
+
+    def pooled(path):
+        rs = runs[path]
+        ep = [t for r in rs for t in r["epoch_ms"]]
+        return {"epoch_ms_median": statistics.median(ep),
+                "epoch_ms_p90": statistics.quantiles(ep, n=10,
+                                                     method="inclusive")[-1],
+                "run_medians_ms": [statistics.median(r["epoch_ms"])
+                                   for r in rs],
+                "epoch_ms": [r["epoch_ms"] for r in rs],
+                "loss": rs[0]["loss"], "val_acc": rs[0]["val_acc"],
+                "max_memory_allocated_bytes": max(
+                    r["max_memory_allocated_bytes"] for r in rs),
+                "launches": {k: sum(r["launches"][k] for r in rs)
+                             for k in rs[0]["launches"]}}
+
+    runs = {path: pooled(path) for path in runs}
+
+    # per path: the host's time to run a step's Python and launches
+    # (forward, backward, clip, update) against its wait for the device
+    # after it (the loss read); medians over 5 steps after one
+    for path in runs:
+        opt_init, step = make_train_step(mod.forward, strategy[path])
+        m = copy.deepcopy(model)
+        state = opt_init(m)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        host, wait = [], []
+        for i in range(6):
+            t0 = time.perf_counter()
+            state, loss = step(m, state, i, bundle, x, labels, train_mask,
+                               gen)
+            t1 = time.perf_counter()
+            float(loss)
+            t2 = time.perf_counter()
+            if i:
+                host.append((t1 - t0) * 1e3)
+                wait.append((t2 - t1) * 1e3)
+        runs[path]["step_host_ms_median"] = statistics.median(host)
+        runs[path]["step_wait_ms_median"] = statistics.median(wait)
+
+    # one training step on the kernel path under the profiler
+    opt_init, step = make_train_step(mod.forward)
+    m = copy.deepcopy(model)
+    state = opt_init(m)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # a trace that lost launches (fewer of the port's than a step makes)
+    # is taken again, up to three times in all
+    for attempt in range(1, 4):
+        traced = trace(lambda: float(step(m, state, 0, bundle, x, labels,
+                                          train_mask, gen)[1]))
+        traced["attempt"] = attempt
+        if traced["port_launches"] == sum(TRAIN_LAUNCHES[app].values()):
+            break
+    traced["device_busy_share_vs_epoch_median"] = (
+        traced["device_us_total"] / 1e3 / runs["kernel"]["epoch_ms_median"])
+    row = {"phase": "train", "app": app, "dataset": "reddit-like",
+           "hidden": TRAIN_HIDDEN, "epochs": TRAIN_EPOCHS,
+           "step_launches": step_launches,
+           "launches": runs["kernel"]["launches"], "grads": grad_rows,
+           "grads_bit_identical": all(r["bit_identical"]
+                                      for r in grad_rows.values()),
+           "kernel": runs["kernel"], "plain": runs["plain"],
+           "epoch_speedup_median": (runs["plain"]["epoch_ms_median"]
+                                    / runs["kernel"]["epoch_ms_median"]),
+           "trace": traced}
+    emit(row)
+    return row
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -1066,7 +1356,8 @@ def main() -> int:
     # 3. kernels, with and without zero-in-degree rows
     gen = torch.Generator().manual_seed(0)
     b1_rows, b2_rows, b3_rows, b4_rows, b5_rows = {}, {}, {}, {}, {}
-    g_loops = make_node_dataset("reddit-like", device="cuda")[0]
+    dataset = make_node_dataset("reddit-like", device="cuda")
+    g_loops = dataset[0]
     src, dst, n = rmat_graph(16, 600_000, seed=0)
     g_bare = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
     for label, g in (("self_loops", g_loops), ("no_self_loops", g_bare)):
@@ -1095,7 +1386,7 @@ def main() -> int:
                                   "sddmm_csr", "binary_reduce_csr",
                                   "edge_softmax_csr")}
     check_blocks(g_loops, gen, block_rows)
-    del g_loops, g_bare
+    del g_bare
     torch.cuda.empty_cache()
 
     # 4. serve through the entry points a user calls; 5. GAT's modes
@@ -1114,21 +1405,41 @@ def main() -> int:
     exact = serve_exact()
     torch.cuda.empty_cache()
     auto = [serve_auto_app(app) for app in ("gcn", "sage", "gat")]
+    torch.cuda.empty_cache()
 
-    # launches on the main path: every serve, forward and fan-out run,
-    # each counted from 0 just before it
+    # 11. full-graph training: the backward kernels, GAT's attention
+    # chain, then each app
+    t0 = time.perf_counter()
+    train_kernels(g_loops, gen, {"spmm_csr": b1_rows, "sddmm_csr": b3_rows,
+                                 "binary_reduce_csr": b4_rows})
+    check_attention_chain(g_loops, gen)
+    _, feats, labels, train_mask, val_mask, n_classes = dataset
+    data = (make_bundle(g_loops, training=True),
+            *(torch.from_numpy(a).cuda()
+              for a in (feats, labels, train_mask, val_mask)), n_classes)
+    trained = [train_app(app, data) for app in ("gcn", "sage", "gat")]
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
+
+    # launches on the main path: every serve, forward, fan-out and
+    # training run, each counted from 0 just before it
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
-            + auto)
+            + auto + trained
+            + [{"launches": r["step_launches"]} for r in trained])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
+    # the main path's shapes: serving's, and training's backward ones (B3
+    # e_div_v and B4 on G have the forward's shapes)
     main = {
-        "spmm_csr": [b1_rows[("self_loops", d, r)] for d, r in B1_MAIN],
+        "spmm_csr": [b1_rows[("self_loops", d, r)] for d, r in B1_MAIN]
+        + [b1_rows[(label, d, r)] for label, shapes in TRAIN_B1.items()
+           for d, r in shapes],
         "fused_attention_csr": [b2_rows[("self_loops", H, F)]
                                 for H, F in B2_SHAPES],
         "sddmm_csr": [b3_rows[("self_loops",) + k] for k in B3_MAIN],
-        "sddmm_csr:copy": [b3_rows[("self_loops",) + k] for k in B3_SHAPES
+        "sddmm_csr:copy": [b3_rows[("self_loops",) + k] for k in TRAIN_B3
                            if k[0] == "copy"],
-        "binary_reduce_csr": [b4_rows[("self_loops",) + k] for k in B4_MAIN],
+        "binary_reduce_csr": [b4_rows[("self_loops",) + k] for k in B4_MAIN]
+        + [b4_rows[("reverse",) + k] for k in TRAIN_B4],
         "edge_softmax_csr": [b5_rows[("self_loops", H)] for H in B5_SHAPES]}
     every = {"spmm_csr": b1_rows, "fused_attention_csr": b2_rows,
              "sddmm_csr": {k: r for k, r in b3_rows.items()

@@ -26,21 +26,43 @@ Strategies of :func:`gsddmm` (edge outputs):
   otherwise.
 
 The JAX package's other strategies are queued; asking for them raises
-``NotImplementedError`` naming the item. No backward yet: the kernel
-wrappers raise on operands that require grad.
+``NotImplementedError`` naming the item.
+
+Gradients. The segment, canonical and gather routes differentiate by
+plain autograd: they are the reference. Each kernel route is a
+``torch.autograd.Function`` whose backward runs the port's own kernels
+where the adjoint is an operator they compute (the kernel wrappers take
+no autograd input, so the Functions hand them detached operands):
+
+* B1 (``u_copy_*_v``, ``u_mul_e_*_v`` with a scalar weight): ∂u is B1 on
+  Gᵀ (:func:`~repro_torch.core.graph.reverse`) with the same weights —
+  a mean's 1/deg_in folded into the cotangent first, never B1 mean on
+  Gᵀ — and ∂e is B3 ``u_dot_v`` (u, ct);
+* B4 ``e_copy_*_v``: ∂e is B3 ``copy`` of ct from the destination;
+* any other node-output spec on the kernels differentiates through the
+  segment route, as the JAX package's ``_gspmm_pallas_diff`` does;
+* gSDDMM on B3 (:func:`_sddmm_grads`): per-edge factors on B3 (``mul`` /
+  ``div`` by a node operand), node sums on B4 ``copy_rhs`` — over G for a
+  ``v`` operand, over Gᵀ for a ``u`` operand; an ``e`` operand's grad
+  stays per edge.
+
+A backward computes only the grads ``ctx.needs_input_grad`` asks for.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from . import strategies as S
+from .graph import reverse
+from ..kernels.binary_reduce.ops import binary_reduce_csr
 from ..kernels.dispatch import (gspmm_kernel, kernel_supports,
                                 sddmm_kernel_supports)
 from ..kernels.sddmm.ops import (CALLER_INDEX, TARGET_INDEX, sddmm_csr,
                                  sddmm_plain)
+from ..kernels.spmm.ops import spmm
 
 __all__ = ["BRSpec", "parse_op", "gspmm", "gsddmm", "copy_reduce",
            "BINARY_OPS", "REDUCE_OPS", "OP_TARGETS", "STRATEGIES",
@@ -136,6 +158,48 @@ def _as2d(x: torch.Tensor) -> torch.Tensor:
     return x[:, None] if x.ndim == 1 else x
 
 
+def _detach(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if x is None else x.detach()
+
+
+def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
+    """Will autograd want a gradient of some tensor in ``ts``?"""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+# --------------------------------------------------------------------- #
+# ⊗-adjoint machinery (repro/core/binary_reduce.py:121-158)
+# --------------------------------------------------------------------- #
+def _unbroadcast(grad: torch.Tensor, feat_shape: Tuple[int, ...]
+                 ) -> torch.Tensor:
+    """Reduce a per-edge gradient ``(E, *G)`` to an operand's per-edge
+    shape ``(E, *feat_shape)`` (right-aligned broadcasting adjoint)."""
+    extra = (grad.ndim - 1) - len(feat_shape)
+    if extra > 0:
+        grad = grad.sum(dim=tuple(range(1, 1 + extra)))
+    axes = tuple(i + 1 for i, w in enumerate(feat_shape)
+                 if w == 1 and grad.shape[i + 1] != 1)
+    if axes:
+        grad = grad.sum(dim=axes, keepdim=True)
+    return grad
+
+
+def _dmsg(op: str, side: str, lhs_val, rhs_val, ct_e):
+    """Per-edge cotangent of ``msg = lhs ⊗ rhs`` w.r.t. one side."""
+    if op in ("copy", "add"):
+        return ct_e
+    if op == "sub":
+        return ct_e if side == "l" else -ct_e
+    if op in ("mul", "dot"):    # dot: ct_e has a trailing 1 — broadcasts
+        return ct_e * (rhs_val if side == "l" else lhs_val)
+    if op == "div":
+        if side == "l":
+            return ct_e / rhs_val
+        return -ct_e * lhs_val / (rhs_val * rhs_val)
+    raise ValueError(f"no ⊗-adjoint for {op!r}")
+
+
 def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
           v: Optional[torch.Tensor] = None,
           e: Optional[torch.Tensor] = None,
@@ -172,7 +236,9 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
                     and kernel_supports(spec, lhs_data, rhs_data)
                     else "segment")
     if strategy == "kernel":
-        out = gspmm_kernel(g, spec, lhs_data, rhs_data)
+        out = (_KernelGspmm.apply(g, spec, lhs_data, rhs_data)
+               if _needs_grad(lhs_data, rhs_data)
+               else gspmm_kernel(g, spec, lhs_data, rhs_data))
     else:
         out = _execute_segment(g, spec, lhs_data, rhs_data)
     # node outputs keep the feature operand's floating dtype
@@ -238,9 +304,9 @@ def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
                 f"the sddmm kernel does not compute {spec.name} on these "
                 f"operands (rank-2 fp32, widths equal or 1); use "
                 f"strategy='canonical' or 'auto'")
-        return sddmm_csr(g, spec.op, spec.lhs, lhs_data.contiguous(),
-                         spec.rhs,
-                         None if rhs_data is None else rhs_data.contiguous())
+        if _needs_grad(lhs_data, rhs_data):
+            return _KernelGsddmm.apply(g, spec, lhs_data, rhs_data)
+        return _sddmm_kernel(g, spec, lhs_data, rhs_data)
     if strategy == "gather":
         # caller-order view of the endpoints, one gather per operand
         def fetch(target, x):
@@ -253,8 +319,129 @@ def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
     return sddmm_plain(g, spec.op, spec.lhs, lhs_data, spec.rhs, rhs_data)
 
 
+def _sddmm_kernel(g, spec: BRSpec, lhs_data: torch.Tensor,
+                  rhs_data: Optional[torch.Tensor]) -> torch.Tensor:
+    return sddmm_csr(g, spec.op, spec.lhs, lhs_data.contiguous(), spec.rhs,
+                     None if rhs_data is None else rhs_data.contiguous())
+
+
 def copy_reduce(g, x: torch.Tensor, reduce: str = "sum",
                 strategy: str = "auto") -> torch.Tensor:
     """CR: ``u_copy_<reduce>_v`` (paper Eq. 3/4)."""
     red = {"sum": "add", "prod": "mul"}.get(reduce, reduce)
     return gspmm(g, f"u_copy_{red}_v", u=x, strategy=strategy)
+
+
+# --------------------------------------------------------------------- #
+# the kernel routes' backward (module docstring: "Gradients")
+# --------------------------------------------------------------------- #
+def _node_sum(g, target: str, gmsg: torch.Tensor) -> torch.Tensor:
+    """Σ of caller-order per-edge rows onto an operand target: B4
+    ``copy_rhs`` over G (``v``: in-edges) or over Gᵀ (``u``: out-edges);
+    an ``e`` target keeps the rows."""
+    if target == "e":
+        return gmsg
+    gr = g if target == "v" else reverse(g)
+    return binary_reduce_csr(gr, None, gmsg.contiguous(), "copy_rhs")
+
+
+def _segment_vjp(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool]):
+    """The segment route's VJP: what a kernel route without a backward
+    kernel of its own differentiates through (``_gspmm_pallas_diff``)."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_(n)
+               for t, n in zip((lhs, rhs), needs)]
+        out = _execute_segment(g, spec, *ins)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, n in zip(ins, needs) if n], ct))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+def _gspmm_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool]):
+    """(∂lhs, ∂rhs) of a node-output BR that ran on B1 or B4."""
+    need_l, need_r = needs
+    b1 = spec.lhs == "u" and (spec.op == "copy" or (
+        spec.op == "mul" and spec.rhs == "e" and rhs.shape[-1] == 1))
+    if not (b1 or spec.op == "copy"):
+        return _segment_vjp(g, spec, lhs, rhs, ct, needs)
+    if spec.reduce == "mean":       # fold 1/deg_in into the cotangent
+        ct = ct / g.in_degrees.clamp(min=1).to(ct.dtype)[:, None]
+    if not b1:                      # e_copy_*_v on B4
+        return (sddmm_csr(g, "copy", "v", ct.contiguous())
+                if need_l else None), None
+    dl = dr = None
+    if need_l:                      # the pull over Gᵀ, the same weights
+        dl = spmm(reverse(g), ct.contiguous(), "sum",
+                  weight=None if spec.op == "copy" else rhs)
+    if need_r:                      # ∂w_e = <u[src_e], ct[dst_e]>
+        dr = sddmm_csr(g, "dot", "u", lhs.contiguous(), "v",
+                       ct.contiguous())
+    return dl, dr
+
+
+def _sddmm_grads(g, spec: BRSpec, lhs, rhs, out, ct,
+                 needs: Sequence[bool]):
+    """(∂lhs, ∂rhs) of an edge-output BR that ran on B3 (port of
+    ``repro/core/binary_reduce.py:335``, on the kernels): the per-edge
+    cotangent of each side, by ``_dmsg`` where every value it reads is
+    already per edge, else by B3 (``ct ⊗ other`` with ⊗ = ``mul`` or
+    ``div`` against a node operand); then summed onto the side's target
+    (:func:`_node_sum`). ``out`` is the forward's output (``div`` only).
+    """
+    def grad_for(side: str):
+        target, data = (spec.lhs, lhs) if side == "l" else (spec.rhs, rhs)
+        other_t, other = (spec.rhs, rhs) if side == "l" else (spec.lhs, lhs)
+        divide = False
+        if spec.op in ("copy", "add", "sub"):
+            gmsg = _dmsg(spec.op, side, None, None, ct)
+        elif spec.op == "div" and side == "r":
+            # -ct·l/r² = -(ct·out)/r; r holds one value per target row,
+            # so it divides after the sum
+            gmsg, divide = ct * out, True
+        elif other_t == "e":
+            gmsg = _dmsg(spec.op, side, lhs, rhs, ct)
+        else:
+            gmsg = sddmm_csr(g, "div" if spec.op == "div" else "mul", "e",
+                             ct, other_t, other.contiguous())
+        grad = _node_sum(g, target, _unbroadcast(gmsg, tuple(data.shape[1:])))
+        return -grad / data if divide else grad
+
+    return tuple(grad_for(side) if n else None
+                 for side, n in zip("lr", needs))
+
+
+class _KernelGspmm(torch.autograd.Function):
+    """gspmm's kernel route (B1 / B4) with the backward of
+    :func:`_gspmm_grads`."""
+
+    @staticmethod
+    def forward(ctx, g, spec, lhs, rhs):
+        ctx.g, ctx.spec = g, spec
+        ctx.save_for_backward(lhs, rhs)
+        return gspmm_kernel(g, spec, lhs.detach(), _detach(rhs))
+
+    @staticmethod
+    def backward(ctx, ct):
+        lhs, rhs = ctx.saved_tensors
+        return (None, None) + _gspmm_grads(
+            ctx.g, ctx.spec, lhs.detach(), _detach(rhs), ct,
+            ctx.needs_input_grad[2:])
+
+
+class _KernelGsddmm(torch.autograd.Function):
+    """gsddmm's kernel route (B3) with the backward of
+    :func:`_sddmm_grads`."""
+
+    @staticmethod
+    def forward(ctx, g, spec, lhs, rhs):
+        ctx.g, ctx.spec = g, spec
+        out = _sddmm_kernel(g, spec, lhs.detach(), _detach(rhs))
+        ctx.save_for_backward(lhs, rhs, out if spec.op == "div" else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        lhs, rhs, out = ctx.saved_tensors
+        return (None, None) + _sddmm_grads(
+            ctx.g, ctx.spec, lhs.detach(), _detach(rhs), out,
+            ct.contiguous(), ctx.needs_input_grad[2:])

@@ -26,8 +26,8 @@ Strategies of :func:`block_gspmm` (node outputs, real rows only):
 
 Edge outputs go to :func:`~repro_torch.core.binary_reduce.gsddmm` on
 ``bg.g``. The reverse table (``rev_src`` / ``rev_dst`` / ``rev_eid``),
-built on first use, is for the block VJP of the training slice (ROADMAP
-A10).
+built on first use, is for the block VJP of sampled training (ROADMAP
+A10, queue A item 4); full-graph training differentiates on G and Gᵀ.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Edge softmax and fused GAT attention, forward (port of
+"""Edge softmax and fused GAT attention (port of
 ``repro/core/edge_softmax.py``).
 
 * :func:`edge_softmax` — GAT's 5-primitive BR chain (paper Table 2, row
@@ -16,22 +16,34 @@ Strategies of the two single-pass forms (``ATTN_STRATEGIES``):
 ``"kernel"`` the CUDA kernel (B5 / B2), ``"auto"`` the kernel for CUDA
 tensors and ``"fused"`` otherwise.
 
+Gradients. The composed chain differentiates through its ops (the kernel
+routes' backwards of ``core/binary_reduce.py``; the max stays on the
+segment route's autograd, as in JAX, with no stop-gradient: the shift
+cancels in the softmax). The plain single-pass forms differentiate by
+autograd. The kernel routes are ``torch.autograd.Function``s:
+``edge_softmax_fused``'s B5 route has ∂logits = α ⊙ (ct − Σ_row α·ct)
+with the row sums on B4 and the broadcast subtract on B3;
+``fused_attention``'s B2 route recomputes α on the canonical stream and
+runs :func:`_attention_grads` (the JAX adjoint, plain torch).
+
 The block forms run the same operators on one sampled block
 (:class:`~repro_torch.core.blocks.BlockGraph`): :func:`block_edge_softmax`
 composes the chain on ``bg.g`` (B3 and B4 on the card, the max on the
 uniform pull), :func:`block_fused_attention` runs the fused pipeline on
-``bg.g`` (B2) and slices off the dummy row. The backward
-(``_attention_grads``) and the partitioned variant come with later
-slices (ROADMAP A4, A12).
+``bg.g`` (B2) and slices off the dummy row. Their backward comes with
+sampled training, and the partitioned variant with A12 (ROADMAP A).
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.edge_softmax.ops import (edge_softmax_csr, edge_softmax_plain,
+from ..kernels.binary_reduce.ops import binary_reduce_csr
+from ..kernels.edge_softmax.ops import (attention_alpha, edge_softmax_csr,
+                                        edge_softmax_plain,
                                         fused_attention_csr,
                                         fused_attention_plain)
-from .binary_reduce import gsddmm, gspmm
+from ..kernels.sddmm.ops import sddmm_csr
+from .binary_reduce import _needs_grad, gsddmm, gspmm
 from .blocks import (SDDMM_FOR_BLOCK, BlockGraph, block_gspmm,
                      check_block_strategy)
 
@@ -115,7 +127,8 @@ def edge_softmax_fused(g, logits: torch.Tensor,
     B5 kernel, 'auto' the kernel for CUDA tensors."""
     x = logits[:, None] if logits.ndim == 1 else logits
     if _single_pass(strategy, x, "B5") == "kernel":
-        out = edge_softmax_csr(g, x.contiguous())
+        out = (_EdgeSoftmaxKernel.apply(g, x) if _needs_grad(x)
+               else edge_softmax_csr(g, x.contiguous()))
     else:
         out = edge_softmax_plain(g, x)
     return out[:, 0] if logits.ndim == 1 else out
@@ -134,8 +147,10 @@ def fused_attention(g, el: torch.Tensor, er: torch.Tensor, z: torch.Tensor,
     strategy = _single_pass(strategy, z, "B2")
     slope = float(negative_slope)
     if strategy == "kernel":
-        out = fused_attention_csr(g, el.contiguous(), er.contiguous(),
-                                  z.contiguous(), slope)
+        out = (_FusedAttentionKernel.apply(g, slope, el, er, z)
+               if _needs_grad(el, er, z)
+               else fused_attention_csr(g, el.contiguous(), er.contiguous(),
+                                        z.contiguous(), slope))
     else:
         out = fused_attention_plain(g, el, er, z, slope)
     return out[:, 0, :] if squeeze else out
@@ -156,3 +171,68 @@ def block_fused_attention(bg: BlockGraph, el: torch.Tensor,
     out = fused_attention(bg.g, el, er, z, negative_slope=negative_slope,
                           strategy=strategy)
     return out[: bg.n_dst_real]
+
+
+# --------------------------------------------------------------------- #
+# the single-pass kernel routes' backward
+# --------------------------------------------------------------------- #
+class _EdgeSoftmaxKernel(torch.autograd.Function):
+    """B5 forward; ∂logits = α ⊙ (ct − Σ_row α·ct) on B4 and B3."""
+
+    @staticmethod
+    def forward(ctx, g, x):
+        ctx.g = g
+        alpha = edge_softmax_csr(g, x.detach().contiguous())
+        ctx.save_for_backward(alpha)
+        return alpha
+
+    @staticmethod
+    def backward(ctx, ct):
+        alpha, = ctx.saved_tensors
+        ct = ct.contiguous()
+        row = binary_reduce_csr(ctx.g, None, (alpha * ct).contiguous(),
+                                "copy_rhs")
+        return None, alpha * sddmm_csr(ctx.g, "sub", "e", ct, "v", row)
+
+
+def _attention_grads(g, el, er, z, slope: float, ct, needs):
+    """Adjoints of the fused pipeline (port of
+    ``repro/core/edge_softmax.py:130``): α recomputed on the canonical
+    stream, source-side sums by ``index_add_``; only the grads ``needs``
+    asks for (el, er, z)."""
+    alpha, m_raw = attention_alpha(g, el, er, slope)
+    src, dst = g.long("src"), g.long("dst")
+    ct_e = ct.index_select(0, dst)                       # (E, H, F)
+    d_el = d_er = dz = None
+    if needs[2]:
+        dz = torch.zeros_like(z).index_add_(0, src, alpha[..., None] * ct_e)
+    if needs[0] or needs[1]:
+        g_alpha = (ct_e * z.index_select(0, src)).sum(dim=-1)   # (E, H)
+        s_dot = torch.zeros_like(er).index_add_(0, dst, alpha * g_alpha)
+        # softmax adjoint, then the leaky-relu mask (>= as in substrate)
+        g_m = alpha * (g_alpha - s_dot.index_select(0, dst))
+        g_m = g_m * torch.where(m_raw >= 0, 1.0, slope).to(g_m.dtype)
+        if needs[0]:
+            d_el = torch.zeros_like(el).index_add_(0, src, g_m)
+        if needs[1]:
+            d_er = torch.zeros_like(er).index_add_(0, dst, g_m)
+    return d_el, d_er, dz
+
+
+class _FusedAttentionKernel(torch.autograd.Function):
+    """B2 forward; :func:`_attention_grads` backward (plain torch: the
+    JAX package has no backward kernel, ROADMAP queue B's leads)."""
+
+    @staticmethod
+    def forward(ctx, g, slope, el, er, z):
+        ctx.g, ctx.slope = g, slope
+        ctx.save_for_backward(el, er, z)
+        return fused_attention_csr(g, el.detach().contiguous(),
+                                   er.detach().contiguous(),
+                                   z.detach().contiguous(), slope)
+
+    @staticmethod
+    def backward(ctx, ct):
+        el, er, z = (t.detach() for t in ctx.saved_tensors)
+        return (None, None) + _attention_grads(
+            ctx.g, el, er, z, ctx.slope, ct, ctx.needs_input_grad[2:])

@@ -12,6 +12,10 @@ construction, exactly as the JAX package does, and exposes
     order (``src[eid_inv]``, ``dst[eid_inv]``; made on first use), the
     arrays the JAX ``gather`` plan computes as ``src_c`` / ``dst_c``.
 
+:func:`reverse` gives the graph with every edge reversed (Gᵀ), keeping
+the caller's edge ids, so one caller-order edge operand lines up on G
+and on Gᵀ; the backward passes pull over it.
+
 Every index array lives twice: as host numpy (``g.host``) and as an
 int32 tensor on ``g.device``, the dtype the kernels take. The plain
 PyTorch versions index with int64 copies made on first use
@@ -20,6 +24,8 @@ PyTorch versions index with int64 copies made on first use
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,7 +33,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["Graph", "HostIndex", "from_coo", "add_self_loops"]
+__all__ = ["Graph", "HostIndex", "from_coo", "reverse", "add_self_loops"]
 
 _INDEX_FIELDS = ("src", "dst", "eid", "indptr_dst", "indptr_src",
                  "perm_src", "eid_inv")
@@ -160,7 +166,15 @@ def from_coo(src, dst, *, n_src: Optional[int] = None,
         raise ValueError("dst ids out of range")
     if max(nnz, n_src, n_dst) >= 2 ** 31:
         raise ValueError("graph too large for int32 indices")
+    return _from_host(_host_index(src, dst, n_src, n_dst), n_src, n_dst, dev)
 
+
+def _host_index(src: np.ndarray, dst: np.ndarray, n_src: int,
+                n_dst: int) -> HostIndex:
+    """Every index array of the graph with int64 host edges ``src`` /
+    ``dst``, edge ids by position, as ``repro.core.graph.from_coo``
+    computes them."""
+    nnz = src.shape[0]
     order = np.lexsort((src, dst))
     s_src, s_dst = src[order], dst[order]
     eid = order.astype(np.int32)
@@ -177,10 +191,40 @@ def from_coo(src, dst, *, n_src: Optional[int] = None,
     eid_inv = np.empty_like(eid)
     eid_inv[eid] = np.arange(nnz, dtype=np.int32)
 
-    host = HostIndex(src=s_src.astype(np.int32), dst=s_dst.astype(np.int32),
+    return HostIndex(src=s_src.astype(np.int32), dst=s_dst.astype(np.int32),
                      eid=eid, indptr_dst=indptr_dst, indptr_src=indptr_src,
                      perm_src=order_src.astype(np.int32), eid_inv=eid_inv)
-    return _from_host(host, n_src, n_dst, dev)
+
+
+_reverse_lock = threading.Lock()
+_reversed: "weakref.WeakKeyDictionary[Graph, Graph]" = (
+    weakref.WeakKeyDictionary())
+
+
+def reverse(g: Graph) -> Graph:
+    """Gᵀ: every edge of ``g`` reversed, on ``g``'s device, keeping the
+    caller's edge ids (``eid`` / ``eid_inv`` remapped as
+    ``repro.core.graph.reverse`` remaps them), so an edge operand in
+    caller order lines up on both graphs. Built from ``g.host`` at first
+    use and kept for as long as ``g`` lives, so a training run builds Gᵀ,
+    and the kernels' per-graph structures on it, once."""
+    rg = _reversed.get(g)      # lock-free hit: every backward asks
+    if rg is not None:
+        return rg
+    with _reverse_lock:
+        rg = _reversed.get(g)
+        if rg is None:
+            h = g.host
+            rh = _host_index(h.dst.astype(np.int64), h.src.astype(np.int64),
+                             g.n_dst, g.n_src)
+            # from the positions of g's canonical slots to caller ids
+            eid = h.eid[rh.eid]
+            eid_inv = np.empty_like(eid)
+            eid_inv[eid] = np.arange(eid.shape[0], dtype=eid.dtype)
+            rh = dataclasses.replace(rh, eid=eid, eid_inv=eid_inv)
+            rg = _from_host(rh, g.n_dst, g.n_src, g.device)
+            _reversed[g] = rg
+        return rg
 
 
 def add_self_loops(src, dst, n: int):

@@ -1,7 +1,8 @@
 """Operand checks and launch plumbing shared by the port's kernel wrappers.
 
 A wrapper validates everything the CUDA kernel cannot (device, dtype,
-shape, contiguity, autograd) in Python before it passes raw pointers,
+shape, contiguity, autograd: a wrapper never drops a gradient, so an
+operand that requires grad raises) in Python before it passes raw pointers,
 launches on PyTorch's current stream, and raises when the launch reports
 a CUDA error. A graph's index arrays are fixed at construction, so
 :func:`graph_index_ptrs` checks them once per graph.
@@ -49,8 +50,11 @@ def check_operand(kernel: str, name: str, t: torch.Tensor,
         raise ValueError(f"{kernel}: {name} must be contiguous")
     if t.requires_grad:
         raise NotImplementedError(
-            f"{kernel}: {name} requires grad, but the backward kernels "
-            f"come with the training slice; run under torch.no_grad()")
+            f"{kernel}: {name} requires grad, and a kernel wrapper takes "
+            f"no autograd input; differentiate through core.gspmm / "
+            f"gsddmm / the edge softmax forms / weighted_copy_reduce, whose "
+            f"kernel routes run the backward kernels, or call it under "
+            f"torch.no_grad()")
 
 
 def graph_index_ptrs(kernel: str, g) -> Dict[str, int]:

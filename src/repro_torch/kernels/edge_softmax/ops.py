@@ -36,7 +36,8 @@ from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
                       raise_on_error, stream_handle)
 from ..rowsplit import row_split
 
-__all__ = ["fused_attention_csr", "fused_attention_plain", "MAX_F",
+__all__ = ["fused_attention_csr", "fused_attention_plain", "attention_alpha",
+           "MAX_F",
            "heads_per_warp", "edge_softmax_csr", "edge_softmax_plain",
            "MAX_HEADS", "SOFTMAX_SEGMENT_EDGES"]
 
@@ -71,17 +72,17 @@ def heads_per_warp(H: int, F: int) -> int:
     return max(1, min(H, MAX_F // max(F, 1), _MAX_HEADS_PER_WARP))
 
 
-def fused_attention_plain(g, el: torch.Tensor, er: torch.Tensor,
-                          z: torch.Tensor, slope: float = 0.2
-                          ) -> torch.Tensor:
-    """Gather, leaky-relu, ``scatter_reduce("amax")``, exp, ``index_add_``:
-    ``out[v,h,:] = Σ_e α_e·z[u,h,:]`` with α the softmax over v's in-edges
-    of ``leaky(el[u]+er[v])``. Zero-degree rows are 0. ``el`` (n_src, H),
-    ``er`` (n_dst, H), ``z`` (n_src, H, F) → (n_dst, H, F)."""
+def attention_alpha(g, el: torch.Tensor, er: torch.Tensor,
+                    slope: float = 0.2):
+    """Canonical-order α (E, H) — the softmax over each destination's
+    in-edges of ``leaky(el[u] + er[v])`` — and the raw logits before the
+    leaky-relu (for its mask), as ``repro.core.edge_softmax.
+    _attention_alpha`` computes them: gather, ``scatter_reduce("amax")``,
+    exp, ``index_add_``, divide by max(sum, 1e-38)."""
     src, dst = g.long("src"), g.long("dst")
     H = el.shape[-1]
-    m = el.index_select(0, src) + er.index_select(0, dst)       # (E, H)
-    m = leaky_relu(m, slope)
+    m_raw = el.index_select(0, src) + er.index_select(0, dst)   # (E, H)
+    m = leaky_relu(m_raw, slope)
     idx = dst[:, None].expand(-1, H)
     mx = torch.full((g.n_dst, H), float("-inf"), dtype=m.dtype,
                     device=m.device)
@@ -90,11 +91,20 @@ def fused_attention_plain(g, el: torch.Tensor, er: torch.Tensor,
     ex = torch.exp(m - mx.index_select(0, dst))
     zs = torch.zeros((g.n_dst, H), dtype=m.dtype, device=m.device)
     zs.index_add_(0, dst, ex)
-    alpha = ex / zs.clamp(min=1e-38).index_select(0, dst)
-    msg = alpha[..., None] * z.index_select(0, src)             # (E, H, F)
+    return ex / zs.clamp(min=_TINY).index_select(0, dst), m_raw
+
+
+def fused_attention_plain(g, el: torch.Tensor, er: torch.Tensor,
+                          z: torch.Tensor, slope: float = 0.2
+                          ) -> torch.Tensor:
+    """:func:`attention_alpha`, then ``index_add_``: ``out[v,h,:] = Σ_e
+    α_e·z[u,h,:]``. Zero-degree rows are 0. ``el`` (n_src, H), ``er``
+    (n_dst, H), ``z`` (n_src, H, F) → (n_dst, H, F)."""
+    alpha, _ = attention_alpha(g, el, er, slope)
+    msg = alpha[..., None] * z.index_select(0, g.long("src"))  # (E, H, F)
     out = torch.zeros((g.n_dst,) + tuple(z.shape[1:]), dtype=z.dtype,
                       device=z.device)
-    out.index_add_(0, dst, msg)
+    out.index_add_(0, g.long("dst"), msg)
     return out
 
 

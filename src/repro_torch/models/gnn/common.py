@@ -1,38 +1,52 @@
 """Shared GNN plumbing (port of ``repro/models/gnn/common.py``): the
-graph bundle with its per-edge normalizations, the loader that carries
-JAX-initialized parameters into the port, and the one code path every
-app's sampled-minibatch forward runs on (:func:`run_blocks`).
+graph bundle with its per-edge normalizations and, for training, the
+reverse graph (:class:`~repro_torch.core.training_ops.TrainingGraph`);
+the loaders that carry parameters between the JAX package and the port
+(:func:`from_jax_params`, :func:`to_jax_params`); and the one code path
+every app's sampled-minibatch forward runs on (:func:`run_blocks`).
 
-The training-graph packs (``TrainingGraph``, ROADMAP A5) and the
-partitioned bundle (A12) come later.
+The partitioned bundle is ROADMAP A12.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ...core.graph import Graph
+from ...core.training_ops import TrainingGraph, make_training_graph
 from ...device import DeviceLike, resolve_device
 
 __all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params",
-           "pad_features", "block_features", "run_blocks"]
+           "to_jax_params", "pad_features", "block_features", "run_blocks"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class GraphBundle:
     """Graph + precomputed per-edge normalization weights, both on the
-    graph's device, in CALLER edge order.
+    graph's device, in CALLER edge order, + the training graph.
 
     ``gcn_norm``: 1/sqrt(deg_out(u)·deg_in(v)); ``mean_norm``:
-    1/deg_in(v) — mean aggregation as a weighted Copy-Reduce.
+    1/deg_in(v) — mean aggregation as a weighted Copy-Reduce. ``tg``
+    (from ``make_bundle(g, training=True)``) carries Gᵀ, so GCN's and
+    SAGE's weighted pulls run B1 in the backward too.
     """
     g: Graph
     gcn_norm: torch.Tensor   # (n_edges,)
     mean_norm: torch.Tensor  # (n_edges,)
+    tg: Optional[TrainingGraph] = None
+
+    def use_training_graph(self, strategy: str, d: int) -> bool:
+        """Route an aggregation at width ``d`` through
+        ``weighted_copy_reduce`` (B1 forward AND backward)? Yes when the
+        bundle has a training graph and ``strategy`` is ``"auto"`` or
+        ``"kernel"``. This stands in for the JAX package's
+        ``cache.prefers_ell(d)``: the port has no planner cost model yet
+        (ROADMAP A9), so ``d`` does not change the answer."""
+        return self.tg is not None and strategy in ("auto", "kernel")
 
 
 def edge_norms(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
@@ -51,12 +65,14 @@ def edge_norms(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
     return w_caller.astype(np.float32), m_caller.astype(np.float32)
 
 
-def make_bundle(g: Graph) -> GraphBundle:
-    """Assemble a bundle on ``g``'s device."""
+def make_bundle(g: Graph, *, training: bool = False) -> GraphBundle:
+    """Assemble a bundle on ``g``'s device; ``training`` builds the
+    training graph (Gᵀ) as well. The serving tier's bundles have none."""
     w_caller, m_caller = edge_norms(g)
     return GraphBundle(g=g,
                        gcn_norm=torch.from_numpy(w_caller).to(g.device),
-                       mean_norm=torch.from_numpy(m_caller).to(g.device))
+                       mean_norm=torch.from_numpy(m_caller).to(g.device),
+                       tg=make_training_graph(g) if training else None)
 
 
 def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:
@@ -70,6 +86,19 @@ def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:
         raise ValueError(f"unknown app {app!r}; expected one of "
                          f"{tuple(mods)}")
     return mods[app].from_numpy(tree, device)
+
+
+def to_jax_params(model: nn.Module, grads: bool = False) -> Dict:
+    """The inverse of :func:`from_jax_params`: the JAX params pytree
+    (``{"layers": [{leaf: numpy array}, ...]}``) of ``model``'s parameters
+    or, with ``grads``, of their ``.grad`` — so a test can hold the port's
+    gradients against ``jax.grad`` leaf by leaf."""
+    layers: Dict[int, Dict] = {}
+    for name, p in model.named_parameters():
+        _, i, leaf = name.split(".")        # "layers.<i>.<leaf>"
+        t = p.grad if grads else p
+        layers.setdefault(int(i), {})[leaf] = t.detach().cpu().numpy()
+    return {"layers": [layers[i] for i in sorted(layers)]}
 
 
 # --------------------------------------------------------------------- #
@@ -101,7 +130,8 @@ def run_blocks(block_layer: Callable, layers: Sequence, blocks: Sequence,
     d'). With the sampler's dst-first source numbering the next block's
     frontier IS this block's destination set, so the loop chains layers;
     the last block's destinations are the seeds, so the result is
-    (batch_size, d_out). Dropout comes with the training slice (A7).
+    (batch_size, d_out). The block path takes no dropout yet: it comes
+    with sampled training (ROADMAP A item 4).
     """
     if len(layers) != len(blocks):
         raise ValueError(f"{len(layers)} layers but {len(blocks)} blocks: "

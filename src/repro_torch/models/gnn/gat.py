@@ -18,8 +18,11 @@ the attention pipeline fuses, with the JAX package's modes:
                       'auto' the kernel for CUDA tensors.
 
 ``attn=None`` means 'multipass' (or 'softmax-fused' under the older
-``fused_softmax=True``), as in JAX; it is what ``infer`` and the serving
-tier run. ``strategy='segment'`` pins the plain versions everywhere,
+``fused_softmax=True``), as in JAX; it is what ``infer``, the serving
+tier and training run. ``train=True`` drops out each layer's input (rate
+0.4 by default, as in JAX); every kernel route differentiates through
+its own backward (``core/binary_reduce.py``, ``core/edge_softmax.py``).
+``strategy='segment'`` pins the plain versions everywhere,
 ``'kernel'`` the kernels for every op a kernel covers.
 
 On a sampled block (:func:`block_layer`, :func:`forward_blocks`) the
@@ -45,7 +48,7 @@ from ...core.edge_softmax import (block_edge_softmax, block_fused_attention,
                                   edge_softmax, edge_softmax_fused,
                                   fused_attention)
 from ...device import DeviceLike
-from ...substrate.nn import from_numpy, glorot, leaky_relu
+from ...substrate.nn import dropout, from_numpy, glorot, leaky_relu
 from .common import GraphBundle, run_blocks
 
 __all__ = ["GAT", "GATLayer", "init", "forward", "infer", "block_layer",
@@ -127,13 +130,17 @@ class GAT(nn.Module):
 
     def forward(self, bundle: GraphBundle, x: torch.Tensor, *,
                 strategy: str = "auto", attn: Optional[str] = None,
-                fused_softmax: bool = False) -> torch.Tensor:
+                fused_softmax: bool = False, train: bool = False,
+                gen: Optional[torch.Generator] = None,
+                drop: float = 0.4) -> torch.Tensor:
         attn = _resolve_attn(attn, fused_softmax)
         if strategy not in _STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}; expected one "
                              f"of {_STRATEGIES}")
         h = x
         for i, lyr in enumerate(self.layers):
+            if train and gen is not None:
+                h = dropout(gen, h, drop, train)
             h = lyr(bundle, h, strategy=strategy, attn=attn)
             if i < len(self.layers) - 1:
                 h = F.elu(h)
@@ -156,10 +163,15 @@ def init(gen: torch.Generator, d_in: int, d_hidden: int, n_classes: int,
 
 
 def forward(model: GAT, bundle: GraphBundle, x: torch.Tensor, *,
-            strategy: str = "auto", fused_softmax: bool = False,
+            strategy: str = "auto", train: bool = False,
+            gen: Optional[torch.Generator] = None, drop: float = 0.4,
+            fused_softmax: bool = False,
             attn: Optional[str] = None) -> torch.Tensor:
+    """Full-graph forward; with ``train`` and a generator ``gen`` on the
+    graph's device, dropout at rate ``drop`` before each layer."""
     return model(bundle, x, strategy=strategy, attn=attn,
-                 fused_softmax=fused_softmax)
+                 fused_softmax=fused_softmax, train=train, gen=gen,
+                 drop=drop)
 
 
 def infer(model: GAT, bundle: GraphBundle, x: torch.Tensor, *,

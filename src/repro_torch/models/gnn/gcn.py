@@ -6,20 +6,22 @@ H^{l+1} = σ( D^{-1/2} (A+I) D^{-1/2} H^l W^l )
 The symmetric normalization is folded into per-edge scalar weights
 (``bundle.gcn_norm``), so the hot op is ``u_mul_e_add_v`` with a scalar
 edge operand — the weighted Copy-Reduce kernel (B1) on the card, on the
-full graph and on each sampled block (:func:`forward_blocks`). Dropout
-and the training paths come with the training slice (A7).
+full graph and on each sampled block (:func:`forward_blocks`). With a
+training bundle it runs through ``weighted_copy_reduce``, whose backward
+is B1 on Gᵀ; ``train=True`` drops out each layer's input, as in JAX.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ...core.binary_reduce import gspmm
 from ...core.blocks import block_gspmm
+from ...core.training_ops import weighted_copy_reduce
 from ...device import DeviceLike
-from ...substrate.nn import Linear
+from ...substrate.nn import Linear, dropout
 from .common import GraphBundle, run_blocks
 
 __all__ = ["GCN", "init", "forward", "infer", "block_layer",
@@ -38,11 +40,20 @@ class GCN(nn.Module):
         return cls([Linear.from_numpy(p, device) for p in tree["layers"]])
 
     def forward(self, bundle: GraphBundle, x: torch.Tensor, *,
-                strategy: str = "auto") -> torch.Tensor:
+                strategy: str = "auto", train: bool = False,
+                gen: Optional[torch.Generator] = None,
+                drop: float = 0.5) -> torch.Tensor:
         h = x
         for i, lyr in enumerate(self.layers):
-            h = gspmm(bundle.g, "u_mul_e_add_v", u=lyr(h),
-                      e=bundle.gcn_norm[:, None], strategy=strategy)
+            if train and gen is not None:
+                h = dropout(gen, h, drop, train)
+            h = lyr(h)
+            if bundle.use_training_graph(strategy, h.shape[-1]):
+                h = weighted_copy_reduce(bundle.tg, h,
+                                         bundle.gcn_norm[:, None])
+            else:
+                h = gspmm(bundle.g, "u_mul_e_add_v", u=h,
+                          e=bundle.gcn_norm[:, None], strategy=strategy)
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
         return h
@@ -56,8 +67,13 @@ def init(gen: torch.Generator, d_in: int, d_hidden: int, n_classes: int,
 
 
 def forward(model: GCN, bundle: GraphBundle, x: torch.Tensor, *,
-            strategy: str = "auto") -> torch.Tensor:
-    return model(bundle, x, strategy=strategy)
+            strategy: str = "auto", train: bool = False,
+            gen: Optional[torch.Generator] = None,
+            drop: float = 0.5) -> torch.Tensor:
+    """Full-graph forward; with ``train`` and a generator ``gen`` on the
+    graph's device, dropout at rate ``drop`` before each layer."""
+    return model(bundle, x, strategy=strategy, train=train, gen=gen,
+                 drop=drop)
 
 
 def infer(model: GCN, bundle: GraphBundle, x: torch.Tensor, *,

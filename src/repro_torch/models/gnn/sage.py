@@ -3,20 +3,23 @@
 
 h'_v = σ(W·[h_v ; mean_{u∈N(v)} h_u]) — the aggregation is
 ``u_copy_mean_v``, the mean Copy-Reduce kernel (B1) on the card, on the
-full graph and on each sampled block (:func:`forward_blocks`). The
-partitioned variant comes with a later slice (A12).
+full graph and on each sampled block (:func:`forward_blocks`). With a
+training bundle the mean runs as ``weighted_copy_reduce`` with weights
+1/deg_in (B1 forward, B1 on Gᵀ backward), as in JAX; ``train=True``
+drops out each layer's input. The partitioned variant is A12.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ...core.binary_reduce import gspmm
 from ...core.blocks import block_gspmm
+from ...core.training_ops import weighted_copy_reduce
 from ...device import DeviceLike
-from ...substrate.nn import Linear
+from ...substrate.nn import Linear, dropout
 from .common import GraphBundle, run_blocks
 
 __all__ = ["SAGE", "init", "forward", "infer", "block_layer",
@@ -35,10 +38,19 @@ class SAGE(nn.Module):
         return cls([Linear.from_numpy(p, device) for p in tree["layers"]])
 
     def forward(self, bundle: GraphBundle, x: torch.Tensor, *,
-                strategy: str = "auto") -> torch.Tensor:
+                strategy: str = "auto", train: bool = False,
+                gen: Optional[torch.Generator] = None,
+                drop: float = 0.5) -> torch.Tensor:
         h = x
         for i, lyr in enumerate(self.layers):
-            hn = gspmm(bundle.g, "u_copy_mean_v", u=h, strategy=strategy)
+            if train and gen is not None:
+                h = dropout(gen, h, drop, train)
+            if bundle.use_training_graph(strategy, h.shape[-1]):
+                hn = weighted_copy_reduce(bundle.tg, h,
+                                          bundle.mean_norm[:, None])
+            else:
+                hn = gspmm(bundle.g, "u_copy_mean_v", u=h,
+                           strategy=strategy)
             h = lyr(torch.cat([h, hn], dim=-1))
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
@@ -53,8 +65,13 @@ def init(gen: torch.Generator, d_in: int, d_hidden: int, n_classes: int,
 
 
 def forward(model: SAGE, bundle: GraphBundle, x: torch.Tensor, *,
-            strategy: str = "auto") -> torch.Tensor:
-    return model(bundle, x, strategy=strategy)
+            strategy: str = "auto", train: bool = False,
+            gen: Optional[torch.Generator] = None,
+            drop: float = 0.5) -> torch.Tensor:
+    """Full-graph forward; with ``train`` and a generator ``gen`` on the
+    graph's device, dropout at rate ``drop`` before each layer."""
+    return model(bundle, x, strategy=strategy, train=train, gen=gen,
+                 drop=drop)
 
 
 def infer(model: SAGE, bundle: GraphBundle, x: torch.Tensor, *,
