@@ -53,13 +53,16 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     ``benchmarks/fig2_full_graph.py`` (2 layers, hidden 16; GAT 4 heads ×
     16, then 1 × 41; dropout 0.5 / 0.5 / 0.4), AdamW lr 1e-2. First the
     backward kernels at the step's shapes, each against its plain version
-    and timed: B1 on Gᵀ (d = 16, 41) and on G (d = 16), B3 ``copy`` from
-    the destination and ``u_dot_v``, B4 ``copy_rhs`` on Gᵀ (B3's
-    ``e_div_v`` and B4 on G have the forward's shapes, phase 3). Then
-    GAT's attention chain (B3 logits, the composed edge softmax): its
-    kernel-route grads bit-identical over two calls and within tolerance
-    of the plain ones. Then, per app: one step's grads on the kernel path
-    (``strategy="auto"``, a training bundle) against ``"segment"``, per
+    and timed: B1 on Gᵀ (d = 16, 41 weighted, 16 unweighted) and on G
+    (d = 16 weighted and mean), B3 ``copy`` from the destination and
+    ``u_dot_v``, B4 ``copy_rhs`` on Gᵀ (B3's ``e_div_v`` and B4 on G
+    have the forward's shapes, phase 3; SAGE's layer-0 mean at d = 602
+    is serving's). Then GAT's attention chain (B3 logits, the composed
+    edge softmax), and the B4 specs' kernel routes (``u_mul_e``,
+    ``u_sub_e``, ``u_div_e``, ``e_mul_u``; backward on B1 / B4 over Gᵀ
+    and B3): their kernel-route grads bit-identical over two calls and
+    within tolerance of the plain ones. Then, per app: one step's grads
+    on the kernel path (``strategy="auto"``) against ``"segment"``, per
     parameter, with one dropout seed; the kernel launches of one step
     (``TRAIN_LAUNCHES``); GCN's and SAGE's grads bit-identical over two
     calls (GAT's rank-3 ``u_mul_e_add_v`` differentiates by atomic
@@ -69,7 +72,9 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     loss finite and falling, peak device memory, launches: every kernel
     on the kernel path, none on the plain one); and one step
     under ``torch.profiler`` (the ten device operations with the most
-    time, the port's kernels, device busy time over wall time).
+    time, the port's kernels, device busy time over wall time; marked
+    ``"complete": false``, and no busy share read from it, if it never
+    recorded the step's launches).
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -139,7 +144,7 @@ FORWARD_LAUNCHES = {"multipass": {"sddmm_csr": 6, "binary_reduce_csr": 2},
                     "softmax-fused": {"sddmm_csr": 2, "edge_softmax_csr": 2},
                     "auto": {"fused_attention_csr": 2}}
 # kernel launches per full-graph training step (forward and backward) of
-# each app on a training bundle, strategy "auto": GCN B1 × 2 forward, × 2
+# each app, strategy "auto": GCN B1 × 2 forward, × 2
 # on Gᵀ backward; SAGE B1 × 2 forward, × 1 on Gᵀ backward (layer 0 reads
 # x, which needs no grad); GAT multipass B3 × 6 and B4 × 2 forward, per
 # layer backward B3 e_div_v and copy, B4 on G × 3 (div, sub, add's v) and
@@ -154,13 +159,14 @@ TRAIN_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
 TRAIN_HIDDEN = 16
 TRAIN_EPOCHS = 10
 TRAIN_GRAD_RTOL = 1e-4
-# the backward kernels' shapes that the forward's do not cover: B1 on Gᵀ
-# (GCN ∂x at d = 41 and 16, SAGE at 16) and on G at d = 16 (GCN layer 0,
-# SAGE layer 1); B3 copy of ct from the destination (∂ of e_copy_add_v)
-# at H = 4, 1, and u_dot_v (weighted_copy_reduce's ∂w) at d = 16, 41; B4
-# copy_rhs on Gᵀ (∂ of u_add_v_copy_e's u) at H = 4, 1
-TRAIN_B1 = {"reverse": [(16, "sum"), (41, "sum")],
-            "self_loops": [(16, "sum")]}
+# the training step's kernel shapes that serving's do not cover: B1 on Gᵀ
+# (GCN ∂x at d = 41 and 16 weighted, SAGE's at 16 unweighted: "copy_sum",
+# its 1/deg_in folded into the cotangent) and on G at d = 16 (GCN layer
+# 0 weighted, SAGE layer 1 mean); B3 copy of ct from the destination (∂
+# of e_copy_add_v) at H = 4, 1, and u_dot_v (∂ of a scalar weight) at d =
+# 16, 41; B4 copy_rhs on Gᵀ (∂ of u_add_v_copy_e's u) at H = 4, 1
+TRAIN_B1 = {"reverse": [(16, "sum"), (41, "sum"), (16, "copy_sum")],
+            "self_loops": [(16, "sum"), (16, "mean")]}
 TRAIN_B3 = [("copy", "v", None, 4), ("copy", "v", None, 1),
             ("dot", "u", "v", 16), ("dot", "u", "v", 41)]
 TRAIN_B4 = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
@@ -289,9 +295,9 @@ def check_b1(g, w_canon, gen, label: str, rows: dict,
 
     deg = g.in_degrees.clamp(min=1).float()
     n_u = rows_read(g)[0]
-    for d, red in shapes:
+    for d, red in shapes:      # red: "sum" (weighted), "mean", "copy_sum"
         mean = red == "mean"
-        weight = None if mean else w_canon
+        weight = w_canon if red == "sum" else None
         B = torch.randn(g.n_src, d, generator=gen).cuda()
         n0 = spmm_csr.launches
         got = bit_identical(f"spmm_csr d={d} {red}",
@@ -302,7 +308,11 @@ def check_b1(g, w_canon, gen, label: str, rows: dict,
         tol = 1e-5 + 1e-5 * float(ref.abs().max())
         refs = reference_fields(ref, spmm_plain, (g, B, weight, mean),
                                 fp64)
-        vals = (1.0 / deg).index_select(0, g.long("dst")) if mean else weight
+        if mean:
+            vals = (1.0 / deg).index_select(0, g.long("dst"))
+        else:
+            vals = (torch.ones(g.n_edges, device=deg.device)
+                    if weight is None else weight)
         A = torch.sparse_csr_tensor(g.long("indptr_dst"), g.long("src"),
                                     vals, size=(g.n_dst, g.n_src))
         lib_err = max_err(torch.sparse.mm(A, B), ref)
@@ -311,11 +321,12 @@ def check_b1(g, w_canon, gen, label: str, rows: dict,
         l_ms = time_ms(lambda: torch.sparse.mm(A, B))
         k_dev = warm_cold_ms(lambda: spmm_csr(g, B, weight, mean))
         lib_dev = warm_cold_ms(lambda: torch.sparse.mm(A, B))
-        nbytes = 4 * ((g.n_dst + 1) + g.n_edges * (1 if mean else 2)
+        nbytes = 4 * ((g.n_dst + 1)
+                      + g.n_edges * (1 if weight is None else 2)
                       + n_u * d + g.n_dst * d)
         b_ms, b_by = bound(nbytes, 2 * g.n_edges * d)
         row = {"phase": "kernel", "kernel": "spmm_csr", "graph": label,
-               "d": d, "reduce": red, "weighted": not mean,
+               "d": d, "reduce": red, "weighted": weight is not None,
                "max_abs_err": err, "tol": tol, **refs,
                "library_max_abs_err": lib_err,
                "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
@@ -1148,10 +1159,52 @@ def check_attention_chain(g, gen) -> list:
     return rows
 
 
+# the B4 specs whose kernel-route backward runs B1 / B4 on Gᵀ and B3 (no
+# app's step reaches them): (op, node width, edge width)
+TRAIN_GSPMM = [("u_mul_e_add_v", 16, 16), ("u_sub_e_add_v", 16, 16),
+               ("u_div_e_mean_v", 16, 1), ("e_mul_u_add_v", 16, 16)]
+
+
+def check_gspmm_grads(g, gen) -> list:
+    """``gspmm`` on ``g`` for each spec of ``TRAIN_GSPMM``, differentiated
+    on its kernel route and on the segment route: the kernel-route grads
+    of both operands must be bit-identical over two calls and within
+    ``1e-5 + 1e-5·max|plain|`` of the plain grads."""
+    from repro_torch.core import gspmm
+
+    rows = []
+    for op, d, de in TRAIN_GSPMM:
+        u = torch.randn(g.n_src, d, generator=gen).cuda().requires_grad_()
+        e = (torch.rand(g.n_edges, de, generator=gen) + 0.5).cuda()
+        e.requires_grad_()
+        ct = torch.randn(g.n_dst, d, generator=gen).cuda()
+        kw = {"e": e, "u": u}
+
+        def grads(strategy):
+            return torch.autograd.grad(
+                gspmm(g, op, strategy=strategy, **kw), (u, e), ct)
+
+        first, again, plain = grads("kernel"), grads("kernel"), grads(
+            "segment")
+        torch.cuda.synchronize()
+        bit = all(torch.equal(a, b) for a, b in zip(first, again))
+        errs = [max_err(a, b) for a, b in zip(first, plain)]
+        tols = [1e-5 + 1e-5 * float(b.abs().max()) for b in plain]
+        row = {"phase": "train_gspmm", "op": op, "d": d, "de": de,
+               "bit_identical": bit,
+               "max_abs_err": {"u": errs[0], "e": errs[1]},
+               "tol": {"u": tols[0], "e": tols[1]}}
+        emit(row)
+        if not bit or any(err > t for err, t in zip(errs, tols)):
+            raise AssertionError(f"gspmm grads: {row}")
+        rows.append(row)
+    return rows
+
+
 def train_app(app: str, data) -> dict:
-    """Train ``app`` full-graph on ``reddit-like`` (``data``: the bundle
-    with its training graph, features, labels, masks, class count): the
-    checks and readings of phase 11, one row."""
+    """Train ``app`` full-graph on ``reddit-like`` (``data``: the bundle,
+    features, labels, masks, class count): the checks and readings of
+    phase 11, one row."""
     import copy
 
     from repro_torch.models.gnn import gat, gcn, sage
@@ -1266,15 +1319,23 @@ def train_app(app: str, data) -> dict:
     state = opt_init(m)
     gen = torch.Generator(device="cuda").manual_seed(0)
     # a trace that lost launches (fewer of the port's than a step makes)
-    # is taken again, up to three times in all
+    # is taken again, up to three times in all; if none recorded them
+    # all, it is marked incomplete and no busy share is read from it
     for attempt in range(1, 4):
         traced = trace(lambda: float(step(m, state, 0, bundle, x, labels,
                                           train_mask, gen)[1]))
         traced["attempt"] = attempt
-        if traced["port_launches"] == sum(TRAIN_LAUNCHES[app].values()):
+        traced["complete"] = (traced["port_launches"]
+                              == sum(TRAIN_LAUNCHES[app].values()))
+        if traced["complete"]:
             break
+    # the traced step's device time over the epoch median of the untraced
+    # kernel-path runs above (a separate run of the same step)
     traced["device_busy_share_vs_epoch_median"] = (
-        traced["device_us_total"] / 1e3 / runs["kernel"]["epoch_ms_median"])
+        traced["device_us_total"] / 1e3 / runs["kernel"]["epoch_ms_median"]
+        if traced["complete"] else None)
+    if not traced["complete"]:
+        traced["device_busy_share_profiled"] = None
     row = {"phase": "train", "app": app, "dataset": "reddit-like",
            "hidden": TRAIN_HIDDEN, "epochs": TRAIN_EPOCHS,
            "step_launches": step_launches,
@@ -1408,13 +1469,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. full-graph training: the backward kernels, GAT's attention
-    # chain, then each app
+    # chain, the B4 specs' kernel-route grads, then each app
     t0 = time.perf_counter()
     train_kernels(g_loops, gen, {"spmm_csr": b1_rows, "sddmm_csr": b3_rows,
                                  "binary_reduce_csr": b4_rows})
     check_attention_chain(g_loops, gen)
+    check_gspmm_grads(g_loops, gen)
     _, feats, labels, train_mask, val_mask, n_classes = dataset
-    data = (make_bundle(g_loops, training=True),
+    data = (make_bundle(g_loops),
             *(torch.from_numpy(a).cuda()
               for a in (feats, labels, train_mask, val_mask)), n_classes)
     trained = [train_app(app, data) for app in ("gcn", "sage", "gat")]

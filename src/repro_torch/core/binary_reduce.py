@@ -30,17 +30,21 @@ The JAX package's other strategies are queued; asking for them raises
 
 Gradients. The segment, canonical and gather routes differentiate by
 plain autograd: they are the reference. Each kernel route is a
-``torch.autograd.Function`` whose backward runs the port's own kernels
-where the adjoint is an operator they compute (the kernel wrappers take
-no autograd input, so the Functions hand them detached operands):
+``torch.autograd.Function`` whose backward runs the port's own kernels,
+because every adjoint of a spec they compute forward is again an
+operator they compute (the kernel wrappers take no autograd input, so
+the Functions hand them detached operands). A mean's 1/deg_in is folded
+into the cotangent first (never B1 mean on Gᵀ); Gᵀ is
+:func:`~repro_torch.core.graph.reverse`, whose edges keep their ids:
 
-* B1 (``u_copy_*_v``, ``u_mul_e_*_v`` with a scalar weight): ∂u is B1 on
-  Gᵀ (:func:`~repro_torch.core.graph.reverse`) with the same weights —
-  a mean's 1/deg_in folded into the cotangent first, never B1 mean on
-  Gᵀ — and ∂e is B3 ``u_dot_v`` (u, ct);
-* B4 ``e_copy_*_v``: ∂e is B3 ``copy`` of ct from the destination;
-* any other node-output spec on the kernels differentiates through the
-  segment route, as the JAX package's ``_gspmm_pallas_diff`` does;
+* ∂ of the node operand: B1 on Gᵀ — unweighted for ``copy``, ``add``
+  and ``sub``, with the same weights for a scalar ``mul`` — or B4 on Gᵀ
+  (ct ⊗ e, the same caller-order ``e``) for a vector ``mul`` and ``div``;
+* ∂e, per edge on B3: ``copy`` of ct from the destination for
+  ``e_copy_*_v`` and ``add`` (for ``sub`` negated, for a scalar ``e``
+  summed over the width, both at the node first); ``u_mul_v`` (vector
+  ``e``) or ``u_dot_v`` (scalar ``e``) for ``mul``, the same ÷ −e² for
+  ``div``;
 * gSDDMM on B3 (:func:`_sddmm_grads`): per-edge factors on B3 (``mul`` /
   ``div`` by a node operand), node sums on B4 ``copy_rhs`` — over G for a
   ``v`` operand, over Gᵀ for a ``u`` operand; an ``e`` operand's grad
@@ -345,38 +349,42 @@ def _node_sum(g, target: str, gmsg: torch.Tensor) -> torch.Tensor:
     return binary_reduce_csr(gr, None, gmsg.contiguous(), "copy_rhs")
 
 
-def _segment_vjp(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool]):
-    """The segment route's VJP: what a kernel route without a backward
-    kernel of its own differentiates through (``_gspmm_pallas_diff``)."""
-    with torch.enable_grad():
-        ins = [None if t is None else t.detach().requires_grad_(n)
-               for t, n in zip((lhs, rhs), needs)]
-        out = _execute_segment(g, spec, *ins)
-        grads = iter(torch.autograd.grad(
-            out, [t for t, n in zip(ins, needs) if n], ct))
-    return tuple(next(grads) if n else None for n in needs)
-
-
 def _gspmm_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool]):
-    """(∂lhs, ∂rhs) of a node-output BR that ran on B1 or B4."""
-    need_l, need_r = needs
-    b1 = spec.lhs == "u" and (spec.op == "copy" or (
-        spec.op == "mul" and spec.rhs == "e" and rhs.shape[-1] == 1))
-    if not (b1 or spec.op == "copy"):
-        return _segment_vjp(g, spec, lhs, rhs, ct, needs)
+    """(∂lhs, ∂rhs) of a node-output BR that ran on B1 or B4 — any spec
+    ``kernels.dispatch.kernel_supports`` admits — on the kernels (module
+    docstring: "Gradients")."""
     if spec.reduce == "mean":       # fold 1/deg_in into the cotangent
         ct = ct / g.in_degrees.clamp(min=1).to(ct.dtype)[:, None]
-    if not b1:                      # e_copy_*_v on B4
-        return (sddmm_csr(g, "copy", "v", ct.contiguous())
-                if need_l else None), None
-    dl = dr = None
-    if need_l:                      # the pull over Gᵀ, the same weights
-        dl = spmm(reverse(g), ct.contiguous(), "sum",
-                  weight=None if spec.op == "copy" else rhs)
-    if need_r:                      # ∂w_e = <u[src_e], ct[dst_e]>
-        dr = sddmm_csr(g, "dot", "u", lhs.contiguous(), "v",
-                       ct.contiguous())
-    return dl, dr
+    ct = ct.contiguous()
+    if spec.op == "copy":
+        if not needs[0]:
+            return None, None
+        if spec.lhs == "e":         # e_copy_*_v: ct[dst_e] per edge
+            return sddmm_csr(g, "copy", "v", ct), None
+        return spmm(reverse(g), ct, "sum"), None
+    flip = spec.lhs == "e"          # e_⊗_u: add and mul commute
+    u, e = (rhs, lhs) if flip else (lhs, rhs)
+    need_u, need_e = needs[::-1] if flip else needs
+    scalar = e.shape[-1] == 1
+    du = de = None
+    if need_u:                      # Σ over out-edges: pulls over Gᵀ
+        if spec.op in ("add", "sub"):
+            du = spmm(reverse(g), ct, "sum")
+        elif spec.op == "mul" and scalar:
+            du = spmm(reverse(g), ct, "sum", weight=e)
+        else:
+            du = binary_reduce_csr(reverse(g), ct, e, spec.op)
+    if need_e:
+        if spec.op in ("add", "sub"):
+            c = ct.sum(-1, keepdim=True) if scalar else ct
+            de = sddmm_csr(g, "copy", "v",
+                           (-c if spec.op == "sub" else c).contiguous())
+        else:                       # u[src_e] ⊙ ct[dst_e], summed if scalar
+            de = sddmm_csr(g, "dot" if scalar else "mul", "u",
+                           u.contiguous(), "v", ct)
+            if spec.op == "div":
+                de = -de / (e * e)
+    return (de, du) if flip else (du, de)
 
 
 def _sddmm_grads(g, spec: BRSpec, lhs, rhs, out, ct,

@@ -3,8 +3,9 @@ of ``repro/core/training_ops.py``).
 
 Autodiff of a gather-based pull gives a scatter-add backward. But the
 adjoint of Copy-Reduce is Copy-Reduce on the REVERSE graph (the paper's
-observation for Embedding), so :func:`weighted_copy_reduce` is a
-``torch.autograd.Function``:
+observation for Embedding). In the port that is what the kernel route of
+``gspmm`` already does (``core/binary_reduce.py``, "Gradients"), so
+:func:`weighted_copy_reduce` is that route under the JAX package's name:
 
   forward:   out[v] = Σ_{e=(u→v)} w_e · x[u]       B1 weighted sum on G
   ∂x:        dx[u]  = Σ_{e=(u→v)} w_e · ct[v]      B1 weighted sum on Gᵀ
@@ -21,8 +22,7 @@ import dataclasses
 
 import torch
 
-from ..kernels.sddmm.ops import sddmm_csr
-from ..kernels.spmm.ops import spmm
+from .binary_reduce import gspmm
 from .graph import Graph, reverse
 
 __all__ = ["TrainingGraph", "make_training_graph", "weighted_copy_reduce"]
@@ -41,34 +41,6 @@ def make_training_graph(g: Graph) -> TrainingGraph:
     return TrainingGraph(g=g, g_rev=reverse(g))
 
 
-def _pull_weighted(g: Graph, x: torch.Tensor, w: torch.Tensor
-                   ) -> torch.Tensor:
-    """Σ w_e x[src_e] into destinations on B1; ``w`` (n_edges, 1) in
-    caller edge order, on either graph."""
-    return spmm(g, x.contiguous(), "sum", weight=w)
-
-
-class _WeightedCopyReduce(torch.autograd.Function):
-
-    @staticmethod
-    def forward(ctx, tg, x, w):
-        ctx.tg = tg
-        ctx.save_for_backward(x, w)
-        return _pull_weighted(tg.g, x.detach(), w.detach())
-
-    @staticmethod
-    def backward(ctx, ct):
-        x, w = ctx.saved_tensors
-        ct = ct.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[1]:
-            dx = _pull_weighted(ctx.tg.g_rev, ct, w.detach())
-        if ctx.needs_input_grad[2]:
-            dw = sddmm_csr(ctx.tg.g, "dot", "u", x.detach().contiguous(),
-                           "v", ct)
-        return None, dx, dw
-
-
 def weighted_copy_reduce(tg: TrainingGraph, x: torch.Tensor,
                          w: torch.Tensor) -> torch.Tensor:
     """out[v] = Σ_{(u→v)=e} w[e]·x[u] — B1 forward AND backward.
@@ -76,6 +48,4 @@ def weighted_copy_reduce(tg: TrainingGraph, x: torch.Tensor,
     ``x``: (n_src, d) fp32; ``w``: (n_edges, 1) in caller edge order
     (pass ones for a plain sum).
     """
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _WeightedCopyReduce.apply(tg, x, w)
-    return _pull_weighted(tg.g, x, w)
+    return gspmm(tg.g, "u_mul_e_add_v", u=x, e=w, strategy="kernel")

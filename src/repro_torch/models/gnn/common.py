@@ -1,23 +1,23 @@
 """Shared GNN plumbing (port of ``repro/models/gnn/common.py``): the
-graph bundle with its per-edge normalizations and, for training, the
-reverse graph (:class:`~repro_torch.core.training_ops.TrainingGraph`);
-the loaders that carry parameters between the JAX package and the port
-(:func:`from_jax_params`, :func:`to_jax_params`); and the one code path
-every app's sampled-minibatch forward runs on (:func:`run_blocks`).
+graph bundle with its per-edge normalizations, which serving and
+training share (a kernel route's backward builds Gᵀ itself, once per
+graph: ``core/graph.reverse``); the loaders that carry parameters
+between the JAX package and the port (:func:`from_jax_params`,
+:func:`to_jax_params`); and the one code path every app's
+sampled-minibatch forward runs on (:func:`run_blocks`).
 
 The partitioned bundle is ROADMAP A12.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ...core.graph import Graph
-from ...core.training_ops import TrainingGraph, make_training_graph
 from ...device import DeviceLike, resolve_device
 
 __all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params",
@@ -27,26 +27,14 @@ __all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params",
 @dataclasses.dataclass(frozen=True, eq=False)
 class GraphBundle:
     """Graph + precomputed per-edge normalization weights, both on the
-    graph's device, in CALLER edge order, + the training graph.
+    graph's device, in CALLER edge order.
 
     ``gcn_norm``: 1/sqrt(deg_out(u)·deg_in(v)); ``mean_norm``:
-    1/deg_in(v) — mean aggregation as a weighted Copy-Reduce. ``tg``
-    (from ``make_bundle(g, training=True)``) carries Gᵀ, so GCN's and
-    SAGE's weighted pulls run B1 in the backward too.
+    1/deg_in(v) — mean aggregation as a weighted Copy-Reduce.
     """
     g: Graph
     gcn_norm: torch.Tensor   # (n_edges,)
     mean_norm: torch.Tensor  # (n_edges,)
-    tg: Optional[TrainingGraph] = None
-
-    def use_training_graph(self, strategy: str, d: int) -> bool:
-        """Route an aggregation at width ``d`` through
-        ``weighted_copy_reduce`` (B1 forward AND backward)? Yes when the
-        bundle has a training graph and ``strategy`` is ``"auto"`` or
-        ``"kernel"``. This stands in for the JAX package's
-        ``cache.prefers_ell(d)``: the port has no planner cost model yet
-        (ROADMAP A9), so ``d`` does not change the answer."""
-        return self.tg is not None and strategy in ("auto", "kernel")
 
 
 def edge_norms(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
@@ -65,14 +53,12 @@ def edge_norms(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
     return w_caller.astype(np.float32), m_caller.astype(np.float32)
 
 
-def make_bundle(g: Graph, *, training: bool = False) -> GraphBundle:
-    """Assemble a bundle on ``g``'s device; ``training`` builds the
-    training graph (Gᵀ) as well. The serving tier's bundles have none."""
+def make_bundle(g: Graph) -> GraphBundle:
+    """Assemble a bundle on ``g``'s device."""
     w_caller, m_caller = edge_norms(g)
     return GraphBundle(g=g,
                        gcn_norm=torch.from_numpy(w_caller).to(g.device),
-                       mean_norm=torch.from_numpy(m_caller).to(g.device),
-                       tg=make_training_graph(g) if training else None)
+                       mean_norm=torch.from_numpy(m_caller).to(g.device))
 
 
 def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:

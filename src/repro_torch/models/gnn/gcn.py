@@ -6,9 +6,10 @@ H^{l+1} = σ( D^{-1/2} (A+I) D^{-1/2} H^l W^l )
 The symmetric normalization is folded into per-edge scalar weights
 (``bundle.gcn_norm``), so the hot op is ``u_mul_e_add_v`` with a scalar
 edge operand — the weighted Copy-Reduce kernel (B1) on the card, on the
-full graph and on each sampled block (:func:`forward_blocks`). With a
-training bundle it runs through ``weighted_copy_reduce``, whose backward
-is B1 on Gᵀ; ``train=True`` drops out each layer's input, as in JAX.
+full graph and on each sampled block (:func:`forward_blocks`); its
+backward is B1 on Gᵀ with the same weights (the JAX package's
+``weighted_copy_reduce``). ``train=True`` drops out each layer's input,
+as in JAX.
 """
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ from torch import nn
 
 from ...core.binary_reduce import gspmm
 from ...core.blocks import block_gspmm
-from ...core.training_ops import weighted_copy_reduce
 from ...device import DeviceLike
 from ...substrate.nn import Linear, dropout
 from .common import GraphBundle, run_blocks
@@ -47,13 +47,8 @@ class GCN(nn.Module):
         for i, lyr in enumerate(self.layers):
             if train and gen is not None:
                 h = dropout(gen, h, drop, train)
-            h = lyr(h)
-            if bundle.use_training_graph(strategy, h.shape[-1]):
-                h = weighted_copy_reduce(bundle.tg, h,
-                                         bundle.gcn_norm[:, None])
-            else:
-                h = gspmm(bundle.g, "u_mul_e_add_v", u=h,
-                          e=bundle.gcn_norm[:, None], strategy=strategy)
+            h = gspmm(bundle.g, "u_mul_e_add_v", u=lyr(h),
+                      e=bundle.gcn_norm[:, None], strategy=strategy)
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
         return h

@@ -3,10 +3,11 @@
 
 h'_v = σ(W·[h_v ; mean_{u∈N(v)} h_u]) — the aggregation is
 ``u_copy_mean_v``, the mean Copy-Reduce kernel (B1) on the card, on the
-full graph and on each sampled block (:func:`forward_blocks`). With a
-training bundle the mean runs as ``weighted_copy_reduce`` with weights
-1/deg_in (B1 forward, B1 on Gᵀ backward), as in JAX; ``train=True``
-drops out each layer's input. The partitioned variant is A12.
+full graph and on each sampled block (:func:`forward_blocks`); its
+backward is B1 on Gᵀ with 1/deg_in folded into the cotangent (the JAX
+package's ``weighted_copy_reduce`` with ``mean_norm``), skipped for
+layer 0, whose input needs no grad. ``train=True`` drops out each
+layer's input. The partitioned variant is A12.
 """
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ from torch import nn
 
 from ...core.binary_reduce import gspmm
 from ...core.blocks import block_gspmm
-from ...core.training_ops import weighted_copy_reduce
 from ...device import DeviceLike
 from ...substrate.nn import Linear, dropout
 from .common import GraphBundle, run_blocks
@@ -45,12 +45,7 @@ class SAGE(nn.Module):
         for i, lyr in enumerate(self.layers):
             if train and gen is not None:
                 h = dropout(gen, h, drop, train)
-            if bundle.use_training_graph(strategy, h.shape[-1]):
-                hn = weighted_copy_reduce(bundle.tg, h,
-                                          bundle.mean_norm[:, None])
-            else:
-                hn = gspmm(bundle.g, "u_copy_mean_v", u=h,
-                           strategy=strategy)
+            hn = gspmm(bundle.g, "u_copy_mean_v", u=h, strategy=strategy)
             h = lyr(torch.cat([h, hn], dim=-1))
             if i < len(self.layers) - 1:
                 h = torch.relu(h)

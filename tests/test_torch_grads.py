@@ -7,9 +7,11 @@ function and ``torch.autograd.grad`` of the port's, on a bipartite graph
 
 * ``reverse``: every index array of Gᵀ bit-equal to JAX's;
 * ``weighted_copy_reduce`` (∂x, ∂w);
-* ``gspmm`` for every spec of the kernel routes' adjoint table and the
-  specs that differentiate through the segment route, on ``segment`` and
-  ``kernel``;
+* ``gspmm`` for every spec of the kernel routes' adjoint table (B1 and
+  B4, every ⊗ and width they take) and the specs only the segment route
+  computes, on ``segment`` and ``kernel``; and, counted through the
+  wrappers' plain branches, which kernels a kernel route's backward runs
+  (never the segment route);
 * ``gsddmm`` for every ⊗ on u / v / e operands and width broadcasts, on
   ``kernel``, ``canonical`` and ``gather``;
 * ``edge_softmax``, ``edge_softmax_fused`` and ``fused_attention``, with
@@ -143,10 +145,9 @@ def test_weighted_copy_reduce_grads(wrt):
 # gspmm
 # --------------------------------------------------------------------- #
 # (op, lhs width/shape, rhs width/shape or None): the kernel routes'
-# adjoint table (B1 sum / mean, weighted or not; B4 e_copy) and specs
-# whose kernel route differentiates through the segment route (B4 with a
-# vector edge operand, e_⊗_u); the rank-3 per-head aggregation and the
-# max run on segment only
+# adjoint table — B1 sum / mean, weighted or not; B4 e_copy, u_⊗_e for
+# every ⊗ with a vector or a scalar edge operand, e_⊗_u; the rank-3
+# per-head aggregation and the max run on segment only
 GSPMM_CASES = [
     ("u_mul_e_add_v", (N_SRC, 8), (E, 1)),
     ("u_mul_e_mean_v", (N_SRC, 8), (E, 1)),
@@ -155,9 +156,16 @@ GSPMM_CASES = [
     ("e_copy_add_v", (E, 4), None),
     ("e_copy_mean_v", (E, 1), None),
     ("u_mul_e_add_v", (N_SRC, 4), (E, 4)),
+    ("u_mul_e_mean_v", (N_SRC, 4), (E, 4)),
+    ("u_add_e_add_v", (N_SRC, 4), (E, 4)),
+    ("u_add_e_mean_v", (N_SRC, 4), (E, 1)),
     ("u_sub_e_add_v", (N_SRC, 4), (E, 4)),
+    ("u_sub_e_add_v", (N_SRC, 4), (E, 1)),
+    ("u_div_e_add_v", (N_SRC, 4), (E, 4)),
     ("u_div_e_mean_v", (N_SRC, 4), (E, 1)),
     ("e_mul_u_add_v", (E, 4), (N_SRC, 4)),
+    ("e_mul_u_add_v", (E, 1), (N_SRC, 4)),
+    ("e_add_u_mean_v", (E, 4), (N_SRC, 4)),
     ("u_mul_e_add_v", (N_SRC, 4, 3), (E, 4, 1)),
     ("e_copy_max_v", (E, 4), None),
 ]
@@ -195,6 +203,77 @@ def test_gspmm_grads(op, lshape, rshape, strategy):
         _close(a, b, tol, what=op)
     if op.startswith("u_"):     # sources with no out-edge get exactly 0
         assert not tgr[0][105:].any()
+
+
+# the wrappers' plain branches a kernel route runs, forward and backward
+# (all operands differentiated): B1 on G then Gᵀ, B4 on G (and on Gᵀ for
+# a vector mul or a div), B3 for the edge operand
+KERNEL_BACKWARDS = {
+    ("u_mul_e_add_v", 1): {"spmm": 2, "sddmm": 1},
+    ("u_mul_e_mean_v", 1): {"spmm": 2, "sddmm": 1},
+    ("u_copy_add_v", None): {"spmm": 2},
+    ("u_copy_mean_v", None): {"spmm": 2},
+    ("e_copy_add_v", None): {"br": 1, "sddmm": 1},
+    ("e_copy_mean_v", None): {"br": 1, "sddmm": 1},
+    ("u_mul_e_add_v", 4): {"br": 2, "sddmm": 1},
+    ("u_mul_e_mean_v", 4): {"br": 2, "sddmm": 1},
+    ("u_add_e_add_v", 4): {"br": 1, "spmm": 1, "sddmm": 1},
+    ("u_add_e_mean_v", 1): {"br": 1, "spmm": 1, "sddmm": 1},
+    ("u_sub_e_add_v", 4): {"br": 1, "spmm": 1, "sddmm": 1},
+    ("u_sub_e_add_v", 1): {"br": 1, "spmm": 1, "sddmm": 1},
+    ("u_div_e_add_v", 4): {"br": 2, "sddmm": 1},
+    ("u_div_e_mean_v", 1): {"br": 2, "sddmm": 1},
+    ("e_mul_u_add_v", 4): {"br": 2, "sddmm": 1},
+    ("e_mul_u_add_v", 1): {"br": 1, "spmm": 1, "sddmm": 1},
+    ("e_add_u_mean_v", 4): {"br": 1, "spmm": 1, "sddmm": 1},
+}
+KERNEL_CASES = [c for c in GSPMM_CASES
+                if len(c[1]) == 2 and "max" not in c[0]]
+
+
+def _edge_width(op, lshape, rshape):
+    if op.startswith("e_") and rshape is not None:
+        return lshape[1]
+    return None if rshape is None else rshape[1]
+
+
+@pytest.mark.parametrize("op,lshape,rshape", KERNEL_CASES,
+                         ids=[f"{c[0]}-{c[2] and c[2][1]}"
+                              for c in KERNEL_CASES])
+def test_gspmm_kernel_route_backward_runs_the_kernels(op, lshape, rshape,
+                                                      monkeypatch):
+    """Every spec a kernel computes forward differentiates on the
+    kernels too: count each wrapper's plain branch (its kernel's stand-in
+    on the CPU) over the forward and backward, and fail on any call of
+    the segment route."""
+    from repro_torch.core import strategies
+    from repro_torch.kernels.binary_reduce import ops as br_ops
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    _, tg = _graphs()
+    counts = {}
+    for key, mod, name in (("spmm", spmm_ops, "spmm_plain"),
+                           ("sddmm", sddmm_ops, "sddmm_plain"),
+                           ("br", br_ops, "binary_reduce_plain")):
+        def wrapped(*a, _key=key, _plain=getattr(mod, name), **kw):
+            counts[_key] = counts.get(_key, 0) + 1
+            return _plain(*a, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    def no_segment(*a, **kw):
+        raise AssertionError("a kernel route reached the segment route")
+    monkeypatch.setattr(strategies, "pull_segment", no_segment)
+    rng = np.random.default_rng(12)
+    ops = [torch.tensor(_normal(rng, *lshape), requires_grad=True)]
+    if rshape is not None:
+        ops.append(torch.tensor(np.abs(_normal(rng, *rshape)) + 0.5,
+                                requires_grad=True))
+    out = gspmm(tg, op, strategy="kernel", **_operand_kw(op, ops))
+    grads = torch.autograd.grad(out, ops, torch.ones_like(out))
+    assert all(gr.shape == t.shape for gr, t in zip(grads, ops))
+    assert counts == KERNEL_BACKWARDS[(op, _edge_width(op, lshape,
+                                                       rshape))]
 
 
 # --------------------------------------------------------------------- #
@@ -310,18 +389,19 @@ def test_kernel_routes_are_autograd_functions():
     e = torch.tensor(_normal(rng, E, 4), requires_grad=True)
     w = torch.tensor(_normal(rng, E, 1), requires_grad=True)
     z = torch.tensor(_normal(rng, N_SRC, 4, 3), requires_grad=True)
-    ttg = make_training_graph(tg)
     outs = {
         "_KernelGspmm": gspmm(tg, "u_mul_e_add_v", u=u, e=w,
                               strategy="kernel"),
         "_KernelGsddmm": gsddmm(tg, "u_add_v_copy_e", u=u, v=v,
                                 strategy="kernel"),
-        "_WeightedCopyReduce": weighted_copy_reduce(ttg, u, w),
         "_EdgeSoftmaxKernel": edge_softmax_fused(tg, e, strategy="kernel"),
         "_FusedAttentionKernel": fused_attention(tg, u, v, z,
                                                  strategy="kernel")}
     for name, out in outs.items():
         assert type(out.grad_fn).__name__ == f"{name}Backward", name
+    # the JAX package's weighted_copy_reduce is gspmm's kernel route
+    wcr = weighted_copy_reduce(make_training_graph(tg), u, w)
+    assert type(wcr.grad_fn).__name__ == "_KernelGspmmBackward"
     plain = gspmm(tg, "u_mul_e_add_v", u=u, e=w, strategy="segment")
     assert "Kernel" not in type(plain.grad_fn).__name__
     with torch.no_grad():       # no graph: the wrappers are called directly

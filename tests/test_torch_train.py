@@ -114,7 +114,7 @@ def test_loss_grads_match_jax(app, attn, strategy):
 
     jloss, jgrads = jax.value_and_grad(jax_loss)(p)
     model = from_jax_params(app, tree, device="cpu")
-    bundle = make_bundle(tg, training=True)
+    bundle = make_bundle(tg)
     logits = PORT_APPS[app].forward(
         model, bundle, torch.from_numpy(tf), strategy=strategy, train=True,
         gen=torch.Generator().manual_seed(0), drop=0.0, **kw)
@@ -142,9 +142,8 @@ def test_to_jax_params_inverts_from_jax_params():
 def test_training_step_launches(app, monkeypatch):
     """Each wrapper's plain branch stands in for its kernel on the CPU:
     count those calls over one forward and backward with strategy
-    "kernel" on a training bundle (dropout on), and none with "segment".
-    (On the card "auto" is "kernel"; on the CPU it takes the plain
-    routes, but for the training graph's weighted pulls.)"""
+    "kernel" (dropout on), and none with "segment". (On the card "auto"
+    is "kernel"; on the CPU it takes the plain routes.)"""
     (*_, n_cls), (tg, tf, tl, ttr, *_) = _data("tiny")
     counts = {}
 
@@ -165,7 +164,7 @@ def test_training_step_launches(app, monkeypatch):
     counting(es_ops, "fused_attention_plain", "fused_attention_csr")
     model = from_jax_params(app, _params(app, tf.shape[1], n_cls)[1],
                             device="cpu")
-    bundle = make_bundle(tg, training=True)
+    bundle = make_bundle(tg)
     for strategy, want in (("kernel", TRAIN_LAUNCHES[app]),
                            ("segment", {})):
         counts.clear()
@@ -213,7 +212,7 @@ def test_forward_dropout_follows_the_generator(app):
     (*_, n_cls), (tg, tf, *_) = _data("tiny")
     model = from_jax_params(app, _params(app, tf.shape[1], n_cls)[1],
                             device="cpu")
-    bundle, x = make_bundle(tg, training=True), torch.from_numpy(tf)
+    bundle, x = make_bundle(tg), torch.from_numpy(tf)
     fwd = PORT_APPS[app].forward
 
     def run(seed, **kw):
@@ -326,7 +325,7 @@ def test_train_step_matches_jax(app):
                           jnp.asarray(jtr), jax.random.PRNGKey(0))
     model = from_jax_params(app, tree, device="cpu")
     t_init, t_step = make_train_step(fwd_t)
-    _, loss = t_step(model, t_init(model), 0, make_bundle(tg, training=True),
+    _, loss = t_step(model, t_init(model), 0, make_bundle(tg),
                      torch.from_numpy(tf), torch.from_numpy(tl),
                      torch.from_numpy(ttr), torch.Generator().manual_seed(0))
     np.testing.assert_allclose(float(loss), float(jloss), rtol=TOL)
@@ -336,8 +335,9 @@ def test_train_step_matches_jax(app):
 @pytest.mark.parametrize("dataset", ["tiny", "pubmed-like"])
 @pytest.mark.parametrize("app", ["gcn", "sage", "gat"])
 def test_train_full_graph_trajectory_matches_jax(app, dataset):
-    """5 epochs, dropout 0, the port's default strategy (the kernel
-    routes) against JAX's segment path: loss per epoch within
+    """5 epochs, dropout 0, the port's kernel routes (``"kernel"``, what
+    ``"auto"`` takes on the card; their wrappers' plain versions here)
+    against JAX's segment path: loss per epoch within
     :data:`TRAJ_TOL` (relative), validation accuracy within 1% (one
     borderline node may flip), and the loss falls."""
     (jg, jf, jl, jtr, jva, n_cls), (tg, tf, tl, ttr, tva, _) = _data(dataset)
@@ -349,7 +349,8 @@ def test_train_full_graph_trajectory_matches_jax(app, dataset):
     model = from_jax_params(app, tree, device="cpu")
     _, th = train_full_graph(
         functools.partial(PORT_APPS[app].forward, drop=0.0), model,
-        make_bundle(tg, training=True), tf, tl, ttr, epochs=5, val_mask=tva)
+        make_bundle(tg), tf, tl, ttr, strategy="kernel", epochs=5,
+        val_mask=tva)
     assert set(th) == {"loss", "epoch_time", "val_acc"}
     assert len(th["epoch_time"]) == 5 and min(th["epoch_time"]) > 0
     np.testing.assert_allclose(th["loss"], jh["loss"], rtol=TRAJ_TOL)
@@ -361,7 +362,7 @@ def test_train_full_graph_discards_the_warm_up_and_checks_precision():
     (*_, n_cls), (tg, tf, tl, ttr, *_) = _data("tiny")
     _, tree = _params("gcn", tf.shape[1], n_cls)
     model = from_jax_params("gcn", tree, device="cpu")
-    bundle = make_bundle(tg, training=True)
+    bundle = make_bundle(tg)
     _, hist = train_full_graph(gcn.forward, model, bundle, tf, tl, ttr,
                                epochs=0)
     assert hist == {"loss": [], "epoch_time": [], "val_acc": []}
