@@ -22,8 +22,10 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
 4. Serve: for gcn, sage and gat, ``build_server(app, "reddit-like")``
    and a 4-client session; served rows must equal a plain-version full
    forward, each refresh must launch exactly the app's kernels (GAT
-   serves multipass: B3 × 6 and B4 × 2), and no new signature may appear
-   in steady state.
+   serves multipass: B3 × 6 and B4 × 2) and be bit-identical over two
+   calls, and no new signature may appear in steady state. The session's
+   spans (``repro_torch.obs``): time per span name — intake and batching
+   among them — and their coverage; SAGE's exported as a Chrome trace.
 5. Forward: ``gat.infer`` on the served model at ``attn`` = multipass,
    softmax-fused (B3 × 2 + B5 × 2) and auto (the fused pipeline on B2,
    × 2), each against the plain multipass forward.
@@ -43,7 +45,11 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
    block (B1 × 2; GAT B3 × 6 and B4 × 2), no new signature in steady
    state, and ``infer_blocks`` through the kernels must equal the uniform
    pull (``strategy="ell"``) on one fixed minibatch. Per-batch medians of
-   each phase: sample, block graphs, work lists, feature rows, forward.
+   each phase of a second session: the host draw (the ``serve.sample``
+   span less the block graphs' build), the block graphs, the feature rows
+   (``serve.cache_lookup``), the forward (``serve.infer``, with the
+   kernels' first-launch structures) and the forward once more on the
+   same blocks.
 9. Serve exact: on 65,536 nodes of in-degree exactly 8, rows served at
    the default fan-out (8, every in-edge) equal the layer-wise rows.
 10. Serve auto: ``mode="auto"``, fan-out 10: the class→mode map must be
@@ -64,9 +70,9 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     within tolerance of the plain ones. Then, per app: one step's grads
     on the kernel path (``strategy="auto"``) against ``"segment"``, per
     parameter, with one dropout seed; the kernel launches of one step
-    (``TRAIN_LAUNCHES``); GCN's and SAGE's grads bit-identical over two
-    calls (GAT's rank-3 ``u_mul_e_add_v`` differentiates by atomic
-    ``index_add_``, so its whole-model grads are only reported);
+    (``TRAIN_LAUNCHES``); every app's grads bit-identical over two calls
+    (GAT's rank-3 ``u_mul_e_add_v`` on the segment route sums sorted
+    segments, forward and backward);
     ``train_full_graph`` for 10 epochs on each path, twice, in turns
     (kernel, plain, plain, kernel: epoch time median and p90 over the 20,
     loss finite and falling, peak device memory, launches: every kernel
@@ -75,6 +81,24 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     time, the port's kernels, device busy time over wall time; marked
     ``"complete": false``, and no busy share read from it, if it never
     recorded the step's launches).
+12. Train sampled: minibatch training (``train_sampled``, paper Fig. 3).
+    On the two blocks of one SAGE training batch (``reddit-like``, fan-out
+    (10, 10), batch 64, seed 0), each block's Gᵀ built from the draw (held
+    bit-equal to ``core.graph.reverse``; its build, work lists and first
+    launch timed) and the backward kernels on it: B1 at d = 64 unweighted
+    and d = 16 weighted, B4 ``copy_rhs`` at H = 4, against their plain
+    versions in float64, bit-identical over two calls, timed. Per app, one
+    step's grads on the kernel path (``strategy``, ``bwd_strategy`` =
+    "auto": B1 / B3 / B4 forward and on G / Gᵀ backward) against the plain
+    pull with autograd and with the gather backward, bit-identical over
+    two calls, launches exact (``TRAIN_SAMPLED_LAUNCHES``), none on the
+    plain paths. Then ``train_sampled`` at ``SAMPLED_RUNS`` (SAGE hidden
+    64 on ``products-like`` (15, 10) × 512 and ``reddit-like`` (10, 10) ×
+    64; GCN and GAT at the Fig. 2 widths), 2 epochs each, in turns kernel,
+    plain, plain, kernel: epoch 1's time with its sample / step split, the
+    loss (finite, falling), peak memory and launches; the first SAGE run's
+    spans exported. Last, one SAGE step on ``products-like`` under
+    ``torch.profiler``, as phase 11's.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -125,6 +149,8 @@ B4_LANES = (16, 32)           # lanes per segment of B4's sweep rows
 B5_SHAPES = [4, 1]
 B5_CAPS = (128, 256, 512)     # work-list caps K of B5's sweep rows
 B5_LANES = (16, 32)           # lanes per segment of B5's sweep rows
+# where span traces are exported (git-ignored, like the kernel builds)
+TRACE_DIR = os.path.join("build", "traces")
 SOURCES = {k: f"src/repro_torch/kernels/csrc/{k}.cu" for k in (
     "spmm_csr", "fused_attention_csr", "sddmm_csr", "binary_reduce_csr",
     "edge_softmax_csr")}
@@ -152,6 +178,29 @@ FORWARD_LAUNCHES = {"multipass": {"sddmm_csr": 6, "binary_reduce_csr": 2},
 TRAIN_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
                   "gat": {"sddmm_csr": 8, "sddmm_csr:copy": 2,
                           "binary_reduce_csr": 10}}
+# kernel launches per sampled training step (two blocks; forward and
+# backward), strategy and bwd_strategy "auto": the full-graph step's, now
+# on the block graphs and their Gᵀ (GAT's max and rank-3 sum run on the
+# uniform pull, with the gather backward in plain torch)
+TRAIN_SAMPLED_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
+                          "gat": {"sddmm_csr": 8, "sddmm_csr:copy": 2,
+                                  "binary_reduce_csr": 10}}
+# the sampled-training phase (benchmarks/fig3_sampled_sage.py's SWEEP rows
+# for SAGE at hidden 64; GCN and GAT at fig2_full_graph.py's widths):
+# (app, dataset, fan-outs, batch size, hidden width, batches per epoch)
+# (at batch 64 SAGE's loss climbs for its first ~20 batches, then falls:
+# an epoch of 30 batches puts the second epoch's mean below the first's)
+SAMPLED_RUNS = [("sage", "products-like", (15, 10), 512, 64, 8),
+                ("sage", "reddit-like", (10, 10), 64, 64, 30),
+                ("gcn", "reddit-like", (10, 10), 64, 16, 30),
+                ("gat", "reddit-like", (10, 10), 64, 16, 30)]
+SAMPLED_EPOCHS = 2
+# the block backward kernels on each block's Gᵀ of SAGE's reddit-like
+# training batch: B1 unweighted at d = 64 (SAGE's ∂h, 1/deg folded into
+# the cotangent) and weighted at d = 16 (GCN's ∂h), B4 copy_rhs at H = 4
+# (∂u of GAT's layer-0 logits)
+SAMPLED_B1 = [(64, "copy_sum"), (16, "sum")]
+SAMPLED_B4 = [("copy_rhs", 4, 4, "sum")]
 # the training phase: hidden width and epochs; per-parameter grads of the
 # kernel path against the plain one are held to TRAIN_GRAD_RTOL of the
 # parameter's largest plain grad (+ 1e-6): a weight's grad sums up to
@@ -616,20 +665,46 @@ def check_launches(what: str, launches: dict, per_run: dict,
                              f"run(s); expected {want}")
 
 
+def span_table(events, export: str = None) -> dict:
+    """Per span name of ``events``: count, total and median ms; the share
+    of the window the top-level spans cover (``span_coverage``). With
+    ``export``, the events are also written as a Chrome trace to
+    ``build/traces/trace_<export>.json``."""
+    from repro_torch import obs
+
+    names = sorted({e["name"] for e in events})
+    table = {n: [e["dur"] / 1e3 for e in events if e["name"] == n]
+             for n in names}
+    out = {"by_name": {n: {"count": len(v), "total_ms": sum(v),
+                           "median_ms": statistics.median(v)}
+                       for n, v in table.items()},
+           "coverage": obs.span_coverage(events)}
+    if export:
+        os.makedirs(TRACE_DIR, exist_ok=True)
+        out["exported"] = obs.export_chrome_trace(
+            os.path.join(TRACE_DIR, f"trace_{export}.json"))
+    return out
+
+
 def serve_app(app: str):
     """Serve ``app`` through ``build_server`` and check it; returns the
     row and the server (its model feeds the forward phase)."""
     from repro_torch.launch.serve_gnn import build_server, run_session
     from repro_torch.models.gnn import gat, gcn, sage
 
+    from repro_torch import obs
+
     t0 = time.perf_counter()
     srv = build_server(app, "reddit-like", device="cuda")
     setup_s = time.perf_counter() - t0
     n = srv.g.n_src
+    obs.clear_trace()
     reset_counts()
     res = run_session(srv, n_clients=4, requests_per_client=25,
                       ids_fn=lambda rng: rng.integers(0, n, 4))
     launches = read_counts()
+    spans = span_table(obs.trace_events(),
+                       f"serve_{app}" if app == "sage" else None)
     refreshes = srv.refreshes
     check_launches(app, launches, SERVE_LAUNCHES[app], refreshes)
     if res["recompiles_steady"] != 0:
@@ -647,7 +722,8 @@ def serve_app(app: str):
         served_err = max(served_err, float(np.abs(rows - ref[ids]).max()))
     if not served_err <= 1e-4:
         raise AssertionError(f"{app}: served rows off by {served_err}")
-    table = mod.infer(srv.model, srv.bundle, srv.x_device).cpu().numpy()
+    table = bit_identical(f"{app} refresh", lambda: mod.infer(
+        srv.model, srv.bundle, srv.x_device)).cpu().numpy()
     table_err = float(np.abs(table - ref).max())
     if not table_err <= 1e-4:
         raise AssertionError(f"{app}: kernel forward off by {table_err}")
@@ -664,7 +740,8 @@ def serve_app(app: str):
            "recompiles_steady": res["recompiles_steady"],
            "refreshes": refreshes, "launches": launches,
            "served_max_abs_err": served_err,
-           "table_max_abs_err": table_err,
+           "table_max_abs_err": table_err, "refresh_bit_identical": True,
+           "spans": spans,
            "refresh_forward_ms": time_ms(kernel_forward, reps=5, warmup=1),
            "plain_forward_ms": time_ms(plain_forward, reps=5, warmup=1),
            "setup_s": setup_s}
@@ -837,46 +914,66 @@ FANOUT_PHASES = ("sample", "block_graphs", "feature_rows", "forward",
 
 
 def instrument_fanout(srv) -> dict:
-    """Time each phase of every fan-out batch ``srv`` serves from now on
-    (ms, host clock): the host draw, the block graphs' build and upload,
-    the feature rows through the cache and their upload, and the forward
-    with its copy back, which builds the kernels' per-graph structures
-    (work lists, index checks) at its first launch on each new block
-    graph. The forward then runs once more on the same blocks, their
-    structures cached (``forward_again``); its answer is dropped. It
-    wraps, on this instance only, the pieces the server's own
-    ``_serve_fanout`` calls; each phase ends in a host wait for the
-    device already (an upload, a work-list count, the copy back). The
-    second forward makes the session slower, so the serving metrics come
-    from a session before this."""
-    times = {k: [] for k in FANOUT_PHASES}
+    """Time, on this instance only, the two phases of every fan-out batch
+    ``srv`` serves from now on that no span covers (ms, host clock): the
+    block graphs' build and upload (``build``, inside the ``serve.sample``
+    span, after the host draw), and the forward run once more on the same
+    blocks, their kernel structures cached (``forward_again``, fenced like
+    ``serve.infer``; its answer is dropped). The second forward makes the
+    session slower, so the serving metrics come from a session before
+    this. :func:`fanout_phases` reads the rest from the spans."""
+    from repro_torch import obs
 
-    def timed(name, fn):
-        def wrapped(*args, **kw):
-            t0 = time.perf_counter()
-            out = fn(*args, **kw)
-            times[name].append((time.perf_counter() - t0) * 1e3)
-            return out
-        return wrapped
-
+    times = {"block_graphs": [], "forward_again": []}
     make_sampler, infer = srv._sampler, srv._infer_blocks
 
     def sampler(cls):
         s = make_sampler(cls)
-        if "draw" not in vars(s):
-            s.draw = timed("sample", s.draw)
-            s.build = timed("block_graphs", s.build)
+        if "build" not in vars(s):
+            build = s.build
+
+            def timed_build(hb):
+                t0 = time.perf_counter()
+                out = build(hb)
+                times["block_graphs"].append(
+                    (time.perf_counter() - t0) * 1e3)
+                return out
+            s.build = timed_build
         return s
 
     def infer_blocks(mb, x):
-        out = timed("forward", infer)(mb, x)
-        timed("forward_again", infer)(mb, x)
+        out = infer(mb, x)
+        t0 = time.perf_counter()
+        obs.fence(srv._blocks_fn(srv.model, mb.blocks, x))
+        times["forward_again"].append((time.perf_counter() - t0) * 1e3)
         return out
 
     srv._sampler = sampler
-    srv._feature_rows = timed("feature_rows", srv._feature_rows)
     srv._infer_blocks = infer_blocks
     return times
+
+
+def fanout_phases(events, times: dict) -> dict:
+    """Per fan-out batch, each phase in ms: from the spans ``serve.sample``
+    (the host draw: the span less the block graphs' build), ``serve.
+    cache_lookup`` of the feature cache (``feature_rows``) and
+    ``serve.infer`` (``forward``, with the kernels' per-graph structures
+    built at their first launch on each new block graph); from
+    :func:`instrument_fanout`, ``block_graphs`` and ``forward_again``."""
+    def durs(name, **args):
+        return [e["dur"] / 1e3 for e in events if e["name"] == name
+                and all(e["args"].get(k) == v for k, v in args.items())]
+
+    out = {"sample": [a - b for a, b in zip(durs("serve.sample"),
+                                            times["block_graphs"])],
+           "block_graphs": times["block_graphs"],
+           "feature_rows": durs("serve.cache_lookup", cache="feat"),
+           "forward": durs("serve.infer"),
+           "forward_again": times["forward_again"]}
+    if len({len(v) for v in out.values()}) != 1:
+        raise AssertionError(f"fan-out phases of unequal counts: "
+                             f"{ {k: len(v) for k, v in out.items()} }")
+    return out
 
 
 def check_session(app: str, res: dict, n_out: int) -> None:
@@ -898,6 +995,7 @@ def serve_fanout_app(app: str) -> dict:
     from repro_torch.data.sampler import NeighborSampler
     from repro_torch.launch.serve_gnn import build_server, run_session
     from repro_torch.models.gnn import gat, gcn, sage
+    from repro_torch import obs
     from repro_torch.models.gnn.common import block_features, pad_features
 
     mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
@@ -922,7 +1020,9 @@ def serve_fanout_app(app: str) -> dict:
     fc = res["stats"]["feat_cache"]
     # a second session, instrumented, for the per-batch phase times
     times = instrument_fanout(srv)
+    obs.clear_trace()
     check_session(app, session(), 41)
+    times = fanout_phases(obs.trace_events(), times)
     # the kernels against the uniform pull on one fixed minibatch
     ids = np.random.default_rng(1).permutation(n)[:128]
     mb = NeighborSampler(srv.g, [FANOUT] * 2, 128, seed=0,
@@ -1241,7 +1341,7 @@ def train_app(app: str, data) -> dict:
                         "bit_identical": torch.equal(k, a),
                         "again_max_abs_diff": float((k - a).abs().max())}
     bad = {n: r for n, r in grad_rows.items() if r["max_abs_err"] > r["tol"]
-           or (app != "gat" and not r["bit_identical"])}
+           or not r["bit_identical"]}
     if bad:
         raise AssertionError(f"{app} train grads: {bad}")
 
@@ -1350,6 +1450,275 @@ def train_app(app: str, data) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# 12. sampled minibatch training
+# --------------------------------------------------------------------- #
+def sampled_batch(g, labels, train_mask, fanouts, batch: int):
+    """The first batch ``train_sampled`` (seed 0) trains on, each block
+    built with its Gᵀ."""
+    from repro_torch.data.sampler import NeighborSampler
+
+    sampler = NeighborSampler(g, list(fanouts), batch, seed=0,
+                              device="cuda", reverse=True)
+    ids = np.nonzero(train_mask)[0]
+    return next(sampler.batches(ids, labels[ids], drop_last=False))
+
+
+def sampled_block_kernels(mb, gen, rows: dict) -> list:
+    """On each block of the training batch ``mb``: its Gᵀ against
+    ``core.graph.reverse`` of the same graph (bit-equal), the time to
+    build it from the block's caller-order edges (the draw's order) and
+    its work lists, the first B1 launch on it; then B1 and B4 on it at
+    ``SAMPLED_B1`` / ``SAMPLED_B4``, held against their plain versions in
+    float64, bit-identical over two calls and timed."""
+    from repro_torch.core.graph import from_coo, reverse, reverse_from_draw
+    from repro_torch.kernels.binary_reduce.ops import BR_SEGMENT_EDGES
+    from repro_torch.kernels.rowsplit import SEGMENT_EDGES, row_split
+    from repro_torch.kernels.spmm.ops import spmm_csr
+
+    out = []
+    for li, blk in enumerate(mb.blocks):
+        g, label = blk.bg.g, f"block{li}_T"
+        src, dst = g.host.src[g.host.eid_inv], g.host.dst[g.host.eid_inv]
+        fresh = reverse(from_coo(src, dst, n_src=g.n_src, n_dst=g.n_dst,
+                                 device="cuda"))
+        gt = reverse(g)
+        same = all(torch.equal(getattr(gt, f), getattr(fresh, f))
+                   for f in ("src", "dst", "eid", "indptr_dst",
+                             "indptr_src", "perm_src", "eid_inv"))
+        if not same:
+            raise AssertionError(f"{label}: Gᵀ from the draw differs from "
+                                 f"reverse(g)")
+        B = torch.randn(gt.n_src, 64, generator=gen).cuda()
+        t = {"build": [], "work_list_b1": [], "work_list_b4": [],
+             "first_b1": [], "warm_b1": []}
+        for _ in range(5):       # each on a new Gᵀ, with no structures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gt = reverse_from_draw(g, src, dst)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            row_split(gt, SEGMENT_EDGES)
+            t2 = time.perf_counter()
+            row_split(gt, BR_SEGMENT_EDGES)
+            t3 = time.perf_counter()
+            spmm_csr(gt, B, None, False)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            spmm_csr(gt, B, None, False)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+            for k, a, b in (("build", t0, t1), ("work_list_b1", t1, t2),
+                            ("work_list_b4", t2, t3), ("first_b1", t3, t4),
+                            ("warm_b1", t4, t5)):
+                t[k].append((b - a) * 1e3)
+        n_real = int(blk.bg.real_deg.sum())
+        row = {"phase": "train_sampled_blocks", "graph": label,
+               "n_src": gt.n_src, "n_dst": gt.n_dst, "edges": gt.n_edges,
+               "real_edges": n_real,
+               "dummy_source_degree": int(gt.host.in_degrees[-1]),
+               "gt_bit_equal_reverse": same,
+               **{f"{k}_ms_median": statistics.median(v)
+                  for k, v in t.items()}}
+        emit(row)
+        w = blk.gcn_norm.index_select(0, gt.long("eid")).contiguous()
+        check_b1(gt, w, gen, label, rows["spmm_csr"], SAMPLED_B1, fp64=True)
+        check_b4(gt, gen, label, rows["binary_reduce_csr"], SAMPLED_B4,
+                 sweep=False, fp64=True)
+        out.append(row)
+    return out
+
+
+def sampled_model(app: str, d_in: int, hidden: int, n_classes: int):
+    from repro_torch.models.gnn import gat, gcn, sage
+
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    return mod, mod.init(torch.Generator().manual_seed(0), d_in, hidden,
+                         n_classes, device="cuda")
+
+
+def sampled_grads(app: str, hidden: int, mb, feats_pad, n_classes) -> dict:
+    """One sampled step's per-parameter grads of ``app`` on ``mb``: the
+    kernel path (``strategy="auto"``, ``bwd_strategy="auto"``: gather)
+    against the plain path (``"ell"``, ``"scatter"``) and the plain gather
+    (``"ell"``, ``"gather"``), one dropout generator, within
+    ``TRAIN_GRAD_RTOL`` of the largest plain grad (+ 1e-6); bit-identical
+    over two calls on the kernel path; the kernel launches of the step
+    exact (``TRAIN_SAMPLED_LAUNCHES``), none on either plain path."""
+    from repro_torch.models.gnn.common import block_features
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    mod, model = sampled_model(app, feats_pad.shape[1], hidden, n_classes)
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    x = block_features(feats_pad, mb.input_ids)
+
+    def grads(strategy, bwd):
+        logits = mod.forward_blocks(
+            model, mb.blocks, x, strategy=strategy, bwd_strategy=bwd,
+            train=True, gen=torch.Generator(device="cuda").manual_seed(0))
+        out = torch.autograd.grad(
+            cross_entropy_loss(logits, mb.labels, mb.label_mask), params)
+        torch.cuda.synchronize()
+        return out
+
+    grads("auto", "auto")       # the blocks' per-graph kernel structures
+    reset_counts()
+    kernel = grads("auto", "auto")
+    step_launches = read_counts()
+    check_launches(f"{app} sampled step", step_launches,
+                   TRAIN_SAMPLED_LAUNCHES[app], 1)
+    again = grads("auto", "auto")
+    plain = {}
+    for path, args in (("plain", ("ell", "scatter")),
+                       ("plain_gather", ("ell", "gather"))):
+        reset_counts()
+        plain[path] = grads(*args)
+        check_launches(f"{app} sampled {path}", read_counts(), {}, 1)
+    gather_again = grads("ell", "gather")
+    rows = {}
+    for i, n in enumerate(names):
+        r = {"bit_identical": torch.equal(kernel[i], again[i]),
+             "plain_gather_bit_identical": torch.equal(
+                 plain["plain_gather"][i], gather_again[i])}
+        for path, p in plain.items():
+            tol = 1e-6 + TRAIN_GRAD_RTOL * float(p[i].abs().max())
+            r[path] = {"max_abs_err": max_err(kernel[i], p[i]), "tol": tol,
+                       "max_abs_plain": float(p[i].abs().max())}
+        rows[n] = r
+    bad = {n: r for n, r in rows.items() if not r["bit_identical"] or any(
+        r[p]["max_abs_err"] > r[p]["tol"] for p in plain)}
+    row = {"phase": "train_sampled_grads", "app": app, "hidden": hidden,
+           "step_launches": step_launches, "grads": rows,
+           "grads_bit_identical": all(r["bit_identical"]
+                                      for r in rows.values())}
+    emit(row)
+    if bad:
+        raise AssertionError(f"{app} sampled grads: {bad}")
+    return row
+
+
+def sampled_runs(app: str, dataset: str, data, fanouts, batch: int,
+                 hidden: int, max_batches: int, export: str = None) -> dict:
+    """``train_sampled`` of ``app`` for ``SAMPLED_EPOCHS`` epochs of
+    ``max_batches`` batches, in turns kernel, plain, plain, kernel:
+    epoch 1's time and its sample / step split (epoch 0 pays the first
+    batches' structures), the loss (finite, lower in the last epoch than
+    in the first), peak device memory, the launches (per batch the
+    step's, plus one drift probe — a step and a forward — per run on the
+    kernel path; none on the plain one). Then one more kernel run with
+    telemetry off (``obs.set_enabled(False)``: no span, no fenced block
+    op, no drift probe), the cost of the telemetry. With ``export``, the
+    first kernel run's spans: their time per name, coverage and a Chrome
+    trace."""
+    import copy
+
+    from repro_torch import obs
+    from repro_torch.models.gnn.train import train_sampled
+
+    g, feats, labels, train_mask, n_classes = data
+    mod, model = sampled_model(app, feats.shape[1], hidden, n_classes)
+    ids = np.nonzero(train_mask)[0]
+    paths = {"kernel": ("auto", "auto"), "plain": ("ell", "scatter"),
+             "kernel_telemetry_off": ("auto", "auto")}
+    runs = {"kernel": [], "plain": [], "kernel_telemetry_off": []}
+    spans = None
+    for path in ("kernel", "plain", "plain", "kernel",
+                 "kernel_telemetry_off"):
+        telemetry = obs.set_enabled(path != "kernel_telemetry_off")
+        m = copy.deepcopy(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        obs.clear_trace()
+        reset_counts()
+        _, hist = train_sampled(
+            mod.forward_blocks, m, g, feats, labels, ids, fanouts=fanouts,
+            batch_size=batch, strategy=paths[path][0],
+            bwd_strategy=paths[path][1], epochs=SAMPLED_EPOCHS, seed=0,
+            max_batches=max_batches)
+        launches = read_counts()
+        probe = obs.enabled()
+        obs.set_enabled(telemetry)
+        if export and spans is None and path == "kernel":
+            spans = span_table(obs.trace_events(), export)
+        loss = hist["loss"]
+        if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+            raise AssertionError(f"{app} {dataset} {path}: loss {loss}")
+        n = sum(hist["n_batches"])
+        per = TRAIN_SAMPLED_LAUNCHES[app]
+        want = {k: (per.get(k, 0) * (n + probe)
+                    + SERVE_LAUNCHES[app].get(k, 0) * probe)
+                if path != "plain" else 0 for k in launches}
+        if n != SAMPLED_EPOCHS * max_batches or launches != want:
+            raise AssertionError(f"{app} {dataset} {path}: {n} batches, "
+                                 f"launches {launches}; expected {want}")
+        runs[path].append({
+            "epoch_ms": [t * 1e3 for t in hist["epoch_time"]],
+            "sample_ms": [t * 1e3 for t in hist["sample_time"]],
+            "step_ms": [t * 1e3 for t in hist["step_time"]],
+            "n_batches": hist["n_batches"], "loss": loss,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches})
+
+    def pooled(rs):
+        e1 = [r["epoch_ms"][1] for r in rs]
+        return {"epoch1_ms": e1,
+                "epoch1_ms_per_batch": [t / max_batches for t in e1],
+                "sample1_ms": [r["sample_ms"][1] for r in rs],
+                "step1_ms": [r["step_ms"][1] for r in rs],
+                "epoch0_ms": [r["epoch_ms"][0] for r in rs],
+                "loss": rs[0]["loss"],
+                "max_memory_allocated_bytes": max(
+                    r["max_memory_allocated_bytes"] for r in rs),
+                "launches": {k: sum(r["launches"][k] for r in rs)
+                             for k in rs[0]["launches"]}}
+
+    row = {"phase": "train_sampled", "app": app, "dataset": dataset,
+           "fanouts": list(fanouts), "batch_size": batch, "hidden": hidden,
+           "epochs": SAMPLED_EPOCHS, "batches_per_epoch": max_batches,
+           "launches_per_batch": TRAIN_SAMPLED_LAUNCHES[app],
+           "kernel": pooled(runs["kernel"]), "plain": pooled(runs["plain"]),
+           "kernel_telemetry_off": pooled(runs["kernel_telemetry_off"]),
+           "spans": spans}
+    row["launches"] = {k: v + row["kernel_telemetry_off"]["launches"][k]
+                       for k, v in row["kernel"]["launches"].items()}
+    emit(row)
+    return row
+
+
+def trace_sampled_step(data, fanouts, batch: int, hidden: int) -> dict:
+    """One SAGE sampled step on the kernel path under :func:`trace`, on
+    the first training batch, taken again (up to three times in all) if it
+    lost launches; ``"complete": false`` and no busy share if none
+    recorded them all."""
+    from repro_torch.models.gnn import sage
+    from repro_torch.models.gnn.common import pad_features
+    from repro_torch.models.gnn.train import make_sampled_train_step
+
+    g, feats, labels, train_mask, n_classes = data
+    mb = sampled_batch(g, labels, train_mask, fanouts, batch)
+    _, model = sampled_model("sage", feats.shape[1], hidden, n_classes)
+    feats_pad = pad_features(feats, "cuda")
+    opt_init, step = make_sampled_train_step(sage.forward_blocks, "auto")
+    state = opt_init(model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for attempt in range(1, 4):
+        traced = trace(lambda: float(step(model, state, 0, mb, feats_pad,
+                                          gen)[1]))
+        traced["attempt"] = attempt
+        traced["complete"] = (traced["port_launches"]
+                              == sum(TRAIN_SAMPLED_LAUNCHES["sage"].values()))
+        if traced["complete"]:
+            break
+    if not traced["complete"]:
+        traced["device_busy_share_profiled"] = None
+    row = {"phase": "train_sampled_trace", "app": "sage",
+           "fanouts": list(fanouts), "batch_size": batch, "hidden": hidden,
+           **traced}
+    emit(row)
+    return row
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -1384,7 +1753,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.edge_softmax.ops import SOFTMAX_SEGMENT_EDGES
     from repro_torch.kernels.rowsplit import SEGMENT_EDGES, row_split
-    from repro_torch.models.gnn.common import make_bundle
+    from repro_torch.models.gnn.common import make_bundle, pad_features
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -1480,13 +1849,41 @@ def main() -> int:
             *(torch.from_numpy(a).cuda()
               for a in (feats, labels, train_mask, val_mask)), n_classes)
     trained = [train_app(app, data) for app in ("gcn", "sage", "gat")]
+    del data
+    torch.cuda.empty_cache()
     emit({"phase": "train_done", "seconds": time.perf_counter() - t0})
+
+    # 12. sampled minibatch training: the block backward kernels on one
+    # training batch's Gᵀ, each app's step grads, train_sampled's runs,
+    # one profiled SAGE step
+    t0 = time.perf_counter()
+    sampled_rows = {"spmm_csr": {}, "binary_reduce_csr": {}}
+    mb = sampled_batch(g_loops, labels, train_mask, (10, 10), 64)
+    sampled_block_kernels(mb, gen, sampled_rows)
+    feats_pad = pad_features(feats, "cuda")
+    sampled_steps = [sampled_grads(app, hidden, mb, feats_pad, n_classes)
+                     for app, hidden in (("sage", 64), ("gcn", 16),
+                                         ("gat", 16))]
+    del feats_pad, mb
+    torch.cuda.empty_cache()
+    prod = make_node_dataset("products-like", device="cuda")
+    sets = {"reddit-like": (g_loops, feats, labels, train_mask, n_classes),
+            "products-like": (prod[0], prod[1], prod[2], prod[3], prod[5])}
+    sampled = [sampled_runs(app, ds, sets[ds], fo, b, h, nb,
+                            "train_sampled_sage" if i == 0 else None)
+               for i, (app, ds, fo, b, h, nb) in enumerate(SAMPLED_RUNS)]
+    trace_sampled_step(sets["products-like"], *SAMPLED_RUNS[0][2:5])
+    del prod, sets
+    torch.cuda.empty_cache()
+    emit({"phase": "train_sampled_done",
+          "seconds": time.perf_counter() - t0})
 
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
-            + auto + trained
-            + [{"launches": r["step_launches"]} for r in trained])
+            + auto + trained + sampled
+            + [{"launches": r["step_launches"]}
+               for r in trained + sampled_steps])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     # the main path's shapes: serving's, and training's backward ones (B3
@@ -1511,6 +1908,8 @@ def main() -> int:
              "binary_reduce_csr": b4_rows, "edge_softmax_csr": b5_rows}
     blocks = {k: list(v.values()) for k, v in block_rows.items()}
     blocks["sddmm_csr:copy"] = []
+    for k, v in sampled_rows.items():      # the block Gᵀ rows
+        blocks[k] += list(v.values())
     emit({"kernels": [
         summary(name, SOURCES[name.split(":")[0]], REPLACES[name],
                 main[name], list(every[name].values()) + blocks[name],

@@ -28,8 +28,16 @@ Strategies of :func:`gsddmm` (edge outputs):
 The JAX package's other strategies are queued; asking for them raises
 ``NotImplementedError`` naming the item.
 
-Gradients. The segment, canonical and gather routes differentiate by
-plain autograd: they are the reference. Each kernel route is a
+Gradients. The canonical and gather routes differentiate by plain
+autograd: they are the reference. The segment route's sum and mean have
+the JAX package's scatter-free adjoint (:func:`_pull_grads`): per-edge
+cotangent products, then one sorted segment reduce — over the src-sorted
+view ``perm_src``, which is Gᵀ's canonical order, for a ``u`` operand;
+over G's canonical order for a ``v`` operand; none for an ``e`` operand,
+whose rows are its edges — so, with ``pull_segment``'s sorted sums, the
+segment route is bit-identical from call to call on the card (its max,
+min and prod keep autograd: their adjoint onto an edge operand is one
+row per edge). Each kernel route is a
 ``torch.autograd.Function`` whose backward runs the port's own kernels,
 because every adjoint of a spec they compute forward is again an
 operator they compute (the kernel wrappers take no autograd input, so
@@ -189,6 +197,10 @@ def _unbroadcast(grad: torch.Tensor, feat_shape: Tuple[int, ...]
     return grad
 
 
+# ⊗-adjoint factors: which operand values the partial derivative needs
+_NEEDS_OTHER = ("mul", "div", "dot")
+
+
 def _dmsg(op: str, side: str, lhs_val, rhs_val, ct_e):
     """Per-edge cotangent of ``msg = lhs ⊗ rhs`` w.r.t. one side."""
     if op in ("copy", "add"):
@@ -243,6 +255,8 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
         out = (_KernelGspmm.apply(g, spec, lhs_data, rhs_data)
                if _needs_grad(lhs_data, rhs_data)
                else gspmm_kernel(g, spec, lhs_data, rhs_data))
+    elif spec.reduce in ("sum", "mean") and _needs_grad(lhs_data, rhs_data):
+        out = _SegmentGspmm.apply(g, spec, lhs_data, rhs_data)
     else:
         out = _execute_segment(g, spec, lhs_data, rhs_data)
     # node outputs keep the feature operand's floating dtype
@@ -334,6 +348,102 @@ def copy_reduce(g, x: torch.Tensor, reduce: str = "sum",
     """CR: ``u_copy_<reduce>_v`` (paper Eq. 3/4)."""
     red = {"sum": "add", "prod": "mul"}.get(reduce, reduce)
     return gspmm(g, f"u_copy_{red}_v", u=x, strategy=strategy)
+
+
+# --------------------------------------------------------------------- #
+# the segment route's backward (module docstring: "Gradients")
+# --------------------------------------------------------------------- #
+def edge_order(g, order: str) -> Tuple[torch.Tensor, torch.Tensor,
+                                       Optional[torch.Tensor]]:
+    """int64 ``(src, dst, eid)`` of ``g``'s edges in ``order``:
+    ``"canon"`` (G's canonical, dst-sorted order), ``"srcsort"`` (sorted
+    by source through ``perm_src``: Gᵀ's canonical order, and a block's
+    reverse table) or ``"caller"`` (caller edge order; ``eid`` is then
+    None, the identity). Made once per graph."""
+    if order == "canon":
+        return g.long("src"), g.long("dst"), g.long("eid")
+    key = f"{order}_order"
+    t = g._derived.get(key)
+    if t is None:
+        slots = g.long("perm_src" if order == "srcsort" else "eid_inv")
+        src, dst = (g.long(n).index_select(0, slots) for n in ("src", "dst"))
+        t = (src, dst, g.long("eid").index_select(0, slots)
+             if order == "srcsort" else None)
+        g._derived[key] = t
+    return t
+
+
+def _pull_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool],
+                select: Optional[Callable] = None):
+    """Scatter-free (∂lhs, ∂rhs) of a node-output sum or mean BR on the
+    plain path (the JAX package's ``_sddmm_grads`` / block
+    ``_reverse_grads``): the per-edge cotangent ``ct[out_e]`` (a mean's
+    1/deg folded in first) times the other operand's value by ``_dmsg``,
+    then one sorted reduce onto the operand's target — ``pull_segment``
+    over the src-sorted order for ``u``, the canonical order for ``v`` —
+    or, for ``e``, the rows in caller order as they are. ``select(order)``
+    (the extrema backward of a block) masks the per-edge cotangent in
+    ``order`` to each output element's winning edge. Only the grads
+    ``needs`` asks for."""
+    out_v = spec.out == "v"
+    if spec.reduce == "mean":
+        deg = g.in_degrees if out_v else g.out_degrees
+        ct = ct / deg.clamp(min=1).to(ct.dtype).reshape(
+            (-1,) + (1,) * (ct.ndim - 1))
+    data = {"l": lhs, "r": rhs}
+    targets = {"l": spec.lhs, "r": spec.rhs}
+
+    def fetch(target, x, src, dst, eid):
+        if target == "u":
+            return x.index_select(0, src)
+        if target == "v":
+            return x.index_select(0, dst)
+        return x if eid is None else x.index_select(0, eid)
+
+    def grad_for(side: str):
+        target, x = targets[side], data[side]
+        order = {"u": "srcsort", "v": "canon", "e": "caller"}[target]
+        src, dst, eid = edge_order(g, order)
+        ct_e = ct.index_select(0, dst if out_v else src)
+        if select is not None:
+            ct_e = torch.where(select(order), ct_e, ct_e.new_zeros(()))
+        lhs_val = rhs_val = None
+        if spec.op in _NEEDS_OTHER:
+            other = "r" if side == "l" else "l"
+            val = fetch(targets[other], data[other], src, dst, eid)
+            lhs_val, rhs_val = (None, val) if side == "l" else (val, None)
+            if spec.op == "div" and side == "r":
+                rhs_val = fetch(target, x, src, dst, eid)  # d/dr needs both
+        gmsg = _unbroadcast(_dmsg(spec.op, side, lhs_val, rhs_val, ct_e),
+                            tuple(x.shape[1:]))
+        if target == "e":
+            return gmsg.to(x.dtype)
+        if target == "u":
+            out = S.pull_segment(gmsg, src, g.n_src, "sum", g.out_degrees)
+        else:
+            out = S.pull_segment(gmsg, dst, g.n_dst, "sum", g.in_degrees)
+        return out.to(x.dtype)
+
+    return tuple(grad_for(side) if n else None
+                 for side, n in zip("lr", needs))
+
+
+class _SegmentGspmm(torch.autograd.Function):
+    """gspmm's segment route for a sum or mean, with the scatter-free
+    backward of :func:`_pull_grads`."""
+
+    @staticmethod
+    def forward(ctx, g, spec, lhs, rhs):
+        ctx.g, ctx.spec = g, spec
+        ctx.save_for_backward(lhs, rhs)
+        return _execute_segment(g, spec, lhs, rhs)
+
+    @staticmethod
+    def backward(ctx, ct):
+        lhs, rhs = ctx.saved_tensors
+        return (None, None) + _pull_grads(ctx.g, ctx.spec, lhs, rhs,
+                                          ct.contiguous(),
+                                          ctx.needs_input_grad[2:])
 
 
 # --------------------------------------------------------------------- #

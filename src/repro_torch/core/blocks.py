@@ -1,5 +1,4 @@
-"""Minibatch block-graph execution, forward (port of
-``repro/core/blocks.py``).
+"""Minibatch block-graph execution (port of ``repro/core/blocks.py``).
 
 A *block* is the bipartite graph of one message-passing layer of a
 sampled minibatch: sources are the layer-l frontier nodes, destinations
@@ -25,20 +24,48 @@ Strategies of :func:`block_gspmm` (node outputs, real rows only):
 * ``"push"`` is queued (ROADMAP A3).
 
 Edge outputs go to :func:`~repro_torch.core.binary_reduce.gsddmm` on
-``bg.g``. The reverse table (``rev_src`` / ``rev_dst`` / ``rev_eid``),
-built on first use, is for the block VJP of sampled training (ROADMAP
-A10, queue A item 4); full-graph training differentiates on G and Gᵀ.
+``bg.g``.
+
+Training (the block VJP). ``bwd_strategy`` picks how a node output is
+differentiated, planned per shape signature by
+:func:`~repro_torch.core.planner.plan_block_vjp`:
+
+* ``"gather"`` — the JAX reverse-table VJP: an operand's adjoint is a
+  masked pull that gathers the (mean-scaled, zero-padded) cotangents at
+  each edge's destination and reduces each sorted segment — over the
+  block's Gᵀ for a ``u`` operand (:func:`_reverse_grads`: plain torch,
+  ``strategies.pull_segment``, no scatter). A kernel forward's gather
+  backward runs on the kernels instead (``binary_reduce._gspmm_grads``):
+  B1 on Gᵀ for ∂u, B3 per edge, B4 for ∂ of a vector ``mul`` / ``div``.
+  Gᵀ is the one the trainer's sampler built from its draw
+  (``core/graph.reverse_from_draw``), or is made on first use. Every pad
+  edge leaves the dummy destination row, whose cotangent is zero, so no
+  pad value reaches a real gradient. For max / min the forward records
+  the winning slot per output element (:func:`_block_arg_extrema`) and
+  the pull zeroes every other edge's cotangent.
+* ``"scatter"`` — autograd of the plain forward (the baseline); a kernel
+  forward has only its gather backward.
+* ``"auto"`` — ``gather`` wherever it applies on CUDA; on the CPU the
+  JAX cost model's choice.
+
+Eager calls are timed through :func:`repro_torch.obs.events.timed` as
+``block:<op>`` (the forward) and ``block_bwd:<op>`` (its backward).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.dispatch import kernel_supports
-from .binary_reduce import BINARY_OPS, BRSpec, _as2d, gspmm, gsddmm, parse_op
-from .graph import Graph
+from ..kernels.dispatch import gspmm_kernel, kernel_supports
+from ..obs.events import timed as _timed
+from . import planner
+from .binary_reduce import (BINARY_OPS, BRSpec, _as2d, _detach,
+                            _gspmm_grads, _needs_grad, _pull_grads,
+                            edge_order, gspmm, gsddmm, parse_op)
+from .graph import Graph, reverse, reverse_built
 from .strategies import REDUCE_IDENTITY
 
 __all__ = ["BlockGraph", "BLOCK_STRATEGIES", "SDDMM_FOR_BLOCK",
@@ -79,9 +106,10 @@ class BlockGraph:
     destination ``j``'s k-th sampled in-edge (pad slots point at the
     dummy source and are masked out), ``nbr_eid[j, k]`` the matching
     caller-order edge id, ``real_deg[j]`` the number of real sampled
-    in-edges. The reverse table views the same edges sorted by source
-    slot (pad edges last, pointing at the dummy row); it is built on
-    first use from ``g``'s caller-order endpoints.
+    in-edges. The reverse table (``rev_src`` / ``rev_dst`` / ``rev_eid``)
+    views the same edges sorted by source slot, pad edges last, pointing
+    at the dummy row: it is Gᵀ's canonical order (``reverse(g)``, built
+    by the trainer's sampler or on first use).
     """
     g: Graph
     nbr: torch.Tensor        # (n_dst_real, fanout) int32 source slots
@@ -91,8 +119,6 @@ class BlockGraph:
     n_dst_real: int
     fanout: int
     _long: Dict[str, torch.Tensor] = dataclasses.field(
-        default_factory=dict, repr=False)
-    _rev: Dict[str, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
     @property
@@ -109,29 +135,25 @@ class BlockGraph:
         return t
 
     @property
+    def has_reverse(self) -> bool:
+        """Is the block's Gᵀ (and so its reverse table) built already?
+        Serving never builds it."""
+        return reverse_built(self.g)
+
+    @property
     def rev_src(self) -> torch.Tensor:
         """(n_edges,) int32 source slot of each edge, sorted by source."""
-        return self._reverse()["src"]
+        return reverse(self.g).dst
 
     @property
     def rev_dst(self) -> torch.Tensor:
         """(n_edges,) int32 destination row of each ``rev_src`` edge."""
-        return self._reverse()["dst"]
+        return reverse(self.g).src
 
     @property
     def rev_eid(self) -> torch.Tensor:
         """(n_edges,) int32 caller edge id of each ``rev_src`` edge."""
-        return self._reverse()["eid"]
-
-    def _reverse(self) -> Dict[str, torch.Tensor]:
-        """The reverse table, built on first use: caller-order edges
-        stably sorted by source slot, so pad edges (dummy source = last
-        slot) sort last. Serving never reads it."""
-        if not self._rev:
-            src, order = torch.sort(self.g.src_caller, stable=True)
-            self._rev.update(src=src, eid=order.int(),
-                             dst=self.g.dst_caller.index_select(0, order))
-        return self._rev
+        return reverse(self.g).eid
 
     def __repr__(self):
         return (f"BlockGraph(n_src={self.g.n_src}, "
@@ -204,17 +226,26 @@ def block_gspmm(bg: BlockGraph, op_name: str, *,
                 u: Optional[torch.Tensor] = None,
                 v: Optional[torch.Tensor] = None,
                 e: Optional[torch.Tensor] = None,
-                strategy: str = "auto") -> torch.Tensor:
+                strategy: str = "auto",
+                bwd_strategy: str = "auto") -> torch.Tensor:
     """Generalized sparse aggregation over one sampled block.
 
     Operand conventions are :func:`~repro_torch.core.binary_reduce.gspmm`'s
     on ``bg.g``: ``u`` (n_src_pad, d), ``v`` (n_dst_real + 1, d) (callers
     pad one dummy row), ``e`` (n_edges_pad, d) in caller edge order. Node
     outputs are returned for REAL destination rows only, (n_dst_real,
-    d); edge outputs for every edge of ``bg.g``.
+    d); edge outputs for every edge of ``bg.g`` (``bwd_strategy`` does not
+    apply: their autograd is gather-shaped already). ``bwd_strategy``
+    ('auto' | 'gather' | 'scatter') picks the differentiation path of a
+    node output (module docstring).
     """
     spec = parse_op(op_name)
     check_block_strategy(strategy)
+    if bwd_strategy != "auto" and \
+            bwd_strategy not in planner.BLOCK_BWD_STRATEGIES:
+        raise ValueError(
+            f"unknown block backward strategy {bwd_strategy!r}; expected "
+            f"one of {planner.BLOCK_BWD_STRATEGIES + ('auto',)}")
     data = {"u": u, "v": v, "e": e}
     if data[spec.lhs] is None:
         raise ValueError(f"{op_name}: operand {spec.lhs!r} missing")
@@ -235,7 +266,149 @@ def block_gspmm(bg: BlockGraph, op_name: str, *,
         strategy = ("kernel" if lhs_data.device.type == "cuda"
                     and kernel_supports(spec, lhs_data, rhs_data)
                     else "ell")
-    if strategy == "ell":
+    name = f"block:{spec.name}"
+    if not _needs_grad(lhs_data, rhs_data):
+        return _timed(name, lambda: _block_execute(bg, spec, lhs_data,
+                                                   rhs_data, strategy))
+    bwd = planner.plan_block_vjp(
+        bg.signature, spec, math.prod(lhs_data.shape[1:]),
+        requested=bwd_strategy, device=lhs_data.device.type)
+    fn = (_BlockGather if bwd == "gather" or strategy == "kernel"
+          else _BlockScatter)
+    return _timed(name, lambda: fn.apply(bg, spec, strategy, lhs_data,
+                                         rhs_data))
+
+
+def _block_execute(bg: BlockGraph, spec: BRSpec, lhs_data, rhs_data,
+                   chosen: str) -> torch.Tensor:
+    """Run one block aggregation with a resolved strategy; real rows."""
+    if chosen == "ell":
         return _block_pull(bg, spec, lhs_data, rhs_data)
-    out = gspmm(bg.g, op_name, u=u, v=v, e=e, strategy=strategy)
+    if chosen == "kernel":
+        out = gspmm_kernel(bg.g, spec, lhs_data, rhs_data)
+    else:
+        operands = {spec.lhs: lhs_data}
+        if spec.rhs is not None:
+            operands[spec.rhs] = rhs_data
+        out = gspmm(bg.g, spec.name, strategy=chosen, **operands)
     return out[: bg.n_dst_real]
+
+
+# --------------------------------------------------------------------- #
+# the block VJP (module docstring: "Training")
+# --------------------------------------------------------------------- #
+def _slot_of_edge(bg: BlockGraph) -> torch.Tensor:
+    """(n_edges,) int64: each caller edge's slot ``k`` on the neighbor
+    grid (``nbr[dst, k]``), -1 for pad edges. Made once per block."""
+    k_of = bg._long.get("slot_of_edge")
+    if k_of is None:
+        nd, fanout = bg.nbr.shape
+        mask = bg.nbr_mask.reshape(-1)
+        slots = torch.arange(fanout, device=mask.device).repeat(nd)
+        k_of = torch.full((bg.g.n_edges,), -1, dtype=torch.long,
+                          device=mask.device)
+        k_of[bg.long("nbr_eid").reshape(-1)[mask]] = slots[mask]
+        bg._long["slot_of_edge"] = k_of
+    return k_of
+
+
+def _block_arg_extrema(bg: BlockGraph, spec: BRSpec, lhs_data, rhs_data
+                       ) -> torch.Tensor:
+    """Winning slot per (destination row, feature element) of a max / min
+    reduce on the neighbor grid (the first, on ties); -1 for rows with no
+    real in-edge."""
+    lhs_val = _nbr_fetch(bg, spec.lhs, lhs_data)
+    rhs_val = (_nbr_fetch(bg, spec.rhs, rhs_data)
+               if spec.rhs is not None else None)
+    msg = BINARY_OPS[spec.op](lhs_val, rhs_val)      # (nd, F, *feat)
+    mask = bg.nbr_mask.reshape(bg.nbr_mask.shape + (1,) * (msg.ndim - 2))
+    msg = torch.where(mask, msg,
+                      msg.new_full((), REDUCE_IDENTITY[spec.reduce]))
+    arg = (torch.argmax if spec.reduce == "max" else torch.argmin)(msg, 1)
+    has = (bg.real_deg > 0).reshape((arg.shape[0],) + (1,) * (arg.ndim - 1))
+    return torch.where(has, arg, arg.new_full((), -1))
+
+
+def _reverse_grads(bg: BlockGraph, spec: BRSpec, lhs_data, rhs_data,
+                   ct_pad, needs: Sequence[bool], arg=None):
+    """Gather-based adjoints of one block aggregation on the plain path,
+    from ``ct_pad``, the cotangent with a zero row for the dummy
+    destination (pad edges, and only they, point at it):
+    :func:`~repro_torch.core.binary_reduce._pull_grads` on ``bg.g`` —
+    ∂u a sorted pull over the reverse table, ∂v over the canonical order,
+    ∂e per edge. With ``arg`` (max / min) only the winning slot's edge
+    keeps its cotangent: the dummy row's arg is -1 and pad edges carry
+    slot -1, so they select each other, with a zero cotangent."""
+    select = None
+    if arg is not None:
+        k_of = _slot_of_edge(bg)
+        arg_pad = torch.cat([arg, arg.new_full((1,) + tuple(arg.shape[1:]),
+                                               -1)])
+        lead = (1,) * (arg_pad.ndim - 1)
+
+        def select(order):
+            _, dst, eid = edge_order(bg.g, order)
+            k_e = k_of if eid is None else k_of.index_select(0, eid)
+            return (arg_pad.index_select(0, dst)
+                    == k_e.reshape((-1,) + lead))
+
+    return _pull_grads(bg.g, spec, lhs_data, rhs_data, ct_pad, needs,
+                       select)
+
+
+class _BlockGather(torch.autograd.Function):
+    """A block aggregation with the gather backward: on the kernels for a
+    kernel forward (B1 / B3 / B4 over the block's G and Gᵀ), else
+    :func:`_reverse_grads`; timed as ``block_bwd:<op>``."""
+
+    @staticmethod
+    def forward(ctx, bg, spec, chosen, lhs, rhs):
+        ctx.bg, ctx.spec, ctx.chosen = bg, spec, chosen
+        ctx.save_for_backward(lhs, rhs)
+        lhs, rhs = lhs.detach(), _detach(rhs)   # the wrappers take no grad
+        out = _block_execute(bg, spec, lhs, rhs, chosen)
+        ctx.arg = (_block_arg_extrema(bg, spec, lhs, rhs)
+                   if spec.reduce in ("max", "min") else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        lhs, rhs = (_detach(t) for t in ctx.saved_tensors)
+        bg, spec, arg = ctx.bg, ctx.spec, ctx.arg
+        needs = ctx.needs_input_grad[3:]
+
+        def grads():
+            ct_pad = torch.cat([ct, ct.new_zeros((1,) + tuple(ct.shape[1:]))])
+            if ctx.chosen == "kernel":
+                return _gspmm_grads(bg.g, spec, lhs, rhs, ct_pad, needs)
+            return _reverse_grads(bg, spec, lhs, rhs, ct_pad, needs, arg)
+
+        return (None, None, None) + tuple(
+            _timed(f"block_bwd:{spec.name}", grads))
+
+
+class _BlockScatter(torch.autograd.Function):
+    """A plain block aggregation differentiated by autograd of its
+    forward (the 'scatter' baseline), replayed inside ``timed`` so its
+    backward is measured as ``block_bwd:<op>`` like the gather one."""
+
+    @staticmethod
+    def forward(ctx, bg, spec, chosen, lhs, rhs):
+        need = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip((lhs, rhs), need)]
+            out = _block_execute(bg, spec, ins[0], ins[1], chosen)
+        ctx.spec, ctx.out = spec, out
+        ctx.ins = [t if n else None for t, n in zip(ins, need)]
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, ct):
+        ins, out = ctx.ins, ctx.out
+        del ctx.ins, ctx.out
+        wrt = [t for t in ins if t is not None]
+        got = iter(_timed(f"block_bwd:{ctx.spec.name}",
+                          lambda: torch.autograd.grad(out, wrt, ct)))
+        return (None, None, None) + tuple(
+            None if t is None else next(got) for t in ins)

@@ -29,9 +29,12 @@ runs :func:`_attention_grads` (the JAX adjoint, plain torch).
 The block forms run the same operators on one sampled block
 (:class:`~repro_torch.core.blocks.BlockGraph`): :func:`block_edge_softmax`
 composes the chain on ``bg.g`` (B3 and B4 on the card, the max on the
-uniform pull), :func:`block_fused_attention` runs the fused pipeline on
-``bg.g`` (B2) and slices off the dummy row. Their backward comes with
-sampled training, and the partitioned variant with A12 (ROADMAP A).
+uniform pull), its two node-output reductions differentiated as
+``bwd_strategy`` says (the block VJP of ``core/blocks.py``: the max by
+its arg-extremum table under ``gather``); :func:`block_fused_attention`
+runs the fused pipeline on ``bg.g`` (B2), differentiates through
+``_FusedAttentionKernel`` there, and slices off the dummy row. The
+partitioned variant comes with A12 (ROADMAP A).
 """
 from __future__ import annotations
 
@@ -90,7 +93,8 @@ def edge_softmax(g, logits: torch.Tensor,
 
 
 def block_edge_softmax(bg: BlockGraph, logits: torch.Tensor,
-                       strategy: str = "auto") -> torch.Tensor:
+                       strategy: str = "auto",
+                       bwd_strategy: str = "auto") -> torch.Tensor:
     """Edge softmax over one sampled block's real in-edges.
 
     The chain of :func:`edge_softmax` on ``bg.g``: the two node-output
@@ -100,6 +104,7 @@ def block_edge_softmax(bg: BlockGraph, logits: torch.Tensor,
     and divide through gSDDMM (B3). Pad edges live in the dummy
     destination row, so real rows see exactly their real edges; the
     dummy row's sum is set to 1 so pad edges divide by a finite value.
+    ``bwd_strategy`` goes to both reductions (``block_gspmm``).
     """
     check_block_strategy(strategy)
     x = logits[:, None] if logits.ndim == 1 else logits
@@ -107,11 +112,12 @@ def block_edge_softmax(bg: BlockGraph, logits: torch.Tensor,
     pad = x.new_zeros((1,) + tuple(x.shape[1:]))
     maxv = block_gspmm(bg, "e_copy_max_v", e=x,
                        strategy="segment" if strategy == "segment"
-                       else "ell")
+                       else "ell", bwd_strategy=bwd_strategy)
     shifted = gsddmm(bg.g, "e_sub_v_copy_e", e=x,
                      v=torch.cat([maxv, pad], dim=0), strategy=sddmm)
     ex = torch.exp(shifted)
-    z = block_gspmm(bg, "e_copy_add_v", e=ex, strategy=strategy)
+    z = block_gspmm(bg, "e_copy_add_v", e=ex, strategy=strategy,
+                    bwd_strategy=bwd_strategy)
     # dummy row gets z = 1 so pad edges divide by a finite value; every
     # real edge's destination has >= 1 real edge, so z > 0 on real rows
     zp = torch.cat([z, torch.ones_like(pad)], dim=0)

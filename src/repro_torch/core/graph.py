@@ -14,7 +14,8 @@ construction, exactly as the JAX package does, and exposes
 
 :func:`reverse` gives the graph with every edge reversed (Gᵀ), keeping
 the caller's edge ids, so one caller-order edge operand lines up on G
-and on Gᵀ; the backward passes pull over it.
+and on Gᵀ; the backward passes pull over it. :func:`reverse_from_draw`
+builds the same Gᵀ of a sampled block from the sampler's draw.
 
 Every index array lives twice: as host numpy (``g.host``) and as an
 int32 tensor on ``g.device``, the dtype the kernels take. The plain
@@ -33,7 +34,8 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["Graph", "HostIndex", "from_coo", "reverse", "add_self_loops"]
+__all__ = ["Graph", "HostIndex", "from_coo", "reverse", "reverse_from_draw",
+           "reverse_built", "add_self_loops"]
 
 _INDEX_FIELDS = ("src", "dst", "eid", "indptr_dst", "indptr_src",
                  "perm_src", "eid_inv")
@@ -225,6 +227,44 @@ def reverse(g: Graph) -> Graph:
             rg = _from_host(rh, g.n_dst, g.n_src, g.device)
             _reversed[g] = rg
         return rg
+
+
+def reverse_from_draw(g: Graph, src: np.ndarray, dst: np.ndarray) -> Graph:
+    """Gᵀ of ``g`` from its caller-order host edges ``src`` / ``dst``
+    when ``dst`` is non-decreasing, as a sampler's draw emits a block's
+    edges (real edges row by row, pad edges last, in the dummy row).
+    Then one stable sort by source is Gᵀ's canonical order — the JAX
+    sampler's reverse table ``rev_eid`` — and every other index follows
+    from it and ``g.host`` with no further sort. Bit-equal to
+    :func:`reverse`; kept as ``g``'s Gᵀ (what :func:`reverse` returns
+    from now on) and returned."""
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    if src.shape != (g.n_edges,) or dst.shape != (g.n_edges,):
+        raise ValueError("src/dst must hold one entry per edge of g")
+    if g.n_edges and (np.diff(dst) < 0).any():
+        raise ValueError("reverse_from_draw needs dst in non-decreasing "
+                         "order; use reverse(g)")
+    h = g.host
+    eid = np.argsort(src, kind="stable").astype(np.int32)
+    eid_inv = np.empty_like(eid)
+    eid_inv[eid] = np.arange(eid.shape[0], dtype=np.int32)
+    indptr_dst = np.zeros(g.n_src + 1, np.int32)
+    np.cumsum(np.bincount(src, minlength=g.n_src), out=indptr_dst[1:])
+    rh = HostIndex(src=dst[eid].astype(np.int32),
+                   dst=src[eid].astype(np.int32), eid=eid,
+                   indptr_dst=indptr_dst, indptr_src=h.indptr_dst,
+                   # G's canonical order is Gᵀ's sorted by its source
+                   perm_src=eid_inv[h.eid], eid_inv=eid_inv)
+    rg = _from_host(rh, g.n_dst, g.n_src, g.device)
+    with _reverse_lock:
+        _reversed[g] = rg
+    return rg
+
+
+def reverse_built(g: Graph) -> bool:
+    """Has ``g``'s Gᵀ been built (or set) already?"""
+    return _reversed.get(g) is not None
 
 
 def add_self_loops(src, dst, n: int):

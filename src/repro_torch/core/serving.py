@@ -18,12 +18,19 @@
 
 Each class resolves to a mode once, via
 :func:`~repro_torch.core.planner.plan_serve`, as the JAX server resolves
-it. R-GCN is ROADMAP A11; the spans, metrics and drift hooks of the JAX
-server are A8.
+it. The server reports through ``repro_torch.obs`` as the JAX server
+does: the spans ``serve.intake`` / ``serve.handle`` (the two top-level
+spans of :meth:`GNNServer.run`, which tile a session), ``serve.batching``,
+``serve.refresh``, ``serve.cache_lookup``, ``serve.sample``,
+``serve.infer`` and ``serve.respond``; the ``serve.batch_seconds``
+histogram with the measured ``serve:infer`` event per batch; and each
+cache's hit / miss / eviction counters (``serve.cache.<name>.*``). R-GCN
+is ROADMAP A11.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -35,7 +42,10 @@ from ..data.sampler import MiniBatch, NeighborSampler
 from ..device import DeviceLike, resolve_device
 from ..models.gnn import gat, gcn, sage
 from ..models.gnn.common import make_bundle
+from ..obs import metrics as _obs_metrics
+from ..obs.events import measured_event
 from ..obs.signatures import SignatureTracker
+from ..obs.spans import span
 from . import planner
 from .blocks import serve_block_signature
 
@@ -86,11 +96,14 @@ class FeatureCache:
     else goes through an LRU of at most ``capacity`` rows. Duplicate ids
     inside one lookup hit on the second occurrence. :meth:`update`
     writes the store AND refreshes any resident copy, so a stale row is
-    never served.
+    never served. A ``name`` reports each lookup's hits, misses and
+    evictions to the registry counters ``serve.cache.<name>.*``.
     """
 
     def __init__(self, store: np.ndarray, capacity: int,
-                 pinned: Optional[np.ndarray] = None):
+                 pinned: Optional[np.ndarray] = None,
+                 name: Optional[str] = None):
+        self.name = name
         self.store = np.asarray(store)
         if self.store.ndim < 1:
             raise ValueError("store must be at least 1-D (rows)")
@@ -121,6 +134,7 @@ class FeatureCache:
         ids = np.asarray(ids).reshape(-1)
         out = np.empty((ids.shape[0],) + self.store.shape[1:],
                        self.store.dtype)
+        h0, m0, e0 = self.hits, self.misses, self.evictions
         for j, raw in enumerate(ids):
             i = int(raw)
             row = self._pinned.get(i)
@@ -143,6 +157,12 @@ class FeatureCache:
                 if len(self._lru) > self.capacity:
                     self._lru.popitem(last=False)
                     self.evictions += 1
+        if self.name is not None:
+            pre = f"serve.cache.{self.name}"
+            _obs_metrics.counter(f"{pre}.hits").inc(self.hits - h0)
+            _obs_metrics.counter(f"{pre}.misses").inc(self.misses - m0)
+            _obs_metrics.counter(
+                f"{pre}.evictions").inc(self.evictions - e0)
         return out
 
     def update(self, ids, rows) -> None:
@@ -398,12 +418,14 @@ class GNNServer:
         """Recompute the output table (each layer once, for all nodes, on
         the server's device) and push it through the hot-node cache
         without dropping counters."""
-        logits = self._full_fn(self.model, self.bundle, self.x_device)
-        store = logits.cpu().numpy()          # waits for the device
+        with span("serve.refresh") as sp:
+            logits = self._full_fn(self.model, self.bundle, self.x_device)
+            sp.fence(logits)
+        store = logits.cpu().numpy()
         self.refreshes += 1
         if self._out_cache is None:
             self._out_cache = FeatureCache(store, self.cache_rows,
-                                           pinned=self._hot)
+                                           pinned=self._hot, name="out")
         else:
             self._out_cache.replace_store(store)
         return self._out_cache.stats()
@@ -438,22 +460,26 @@ class GNNServer:
         hot-node cache (-1 pads read as zero rows), on the device."""
         if self._feat_cache is None:
             self._feat_cache = FeatureCache(self.feats, self.cache_rows,
-                                            pinned=self._hot)
+                                            pinned=self._hot, name="feat")
         ids = np.asarray(ids)
         x = np.zeros((ids.shape[0], self.feats.shape[1]), np.float32)
         real = ids >= 0
         if real.any():
-            x[real] = self._feat_cache.lookup(ids[real])
+            with span("serve.cache_lookup", args={"cache": "feat"}):
+                x[real] = self._feat_cache.lookup(ids[real])
         return torch.from_numpy(x).to(self.device)
 
     def _infer_blocks(self, mb: MiniBatch, x: torch.Tensor) -> np.ndarray:
-        out = self._blocks_fn(self.model, mb.blocks, x)
-        return out.cpu().numpy()              # waits for the device
+        with span("serve.infer", args={"cls": mb.seed_ids.shape[0]}) as sp:
+            out = self._blocks_fn(self.model, mb.blocks, x)
+            sp.fence(out)
+        return out.cpu().numpy()
 
     def _serve_fanout(self, batch: MicroBatch) -> np.ndarray:
         sampler = self._sampler(batch.cls)
-        mb = sampler.sample(batch.ids[:batch.n_real],
-                            np.zeros(batch.n_real, np.int64))
+        with span("serve.sample", args={"cls": batch.cls}):
+            mb = sampler.sample(batch.ids[:batch.n_real],
+                                np.zeros(batch.n_real, np.int64))
         x = self._feature_rows(mb.input_ids_host)
         self._observe(("fanout", batch.cls) + mb.shape_signature())
         return self._infer_blocks(mb, x)[:batch.n_real]
@@ -465,28 +491,37 @@ class GNNServer:
 
     def serve_batch(self, batch: MicroBatch) -> np.ndarray:
         """(n_real, n_out) predictions for one coalesced batch."""
+        t0 = time.perf_counter()
         mode = self.mode_for_class(batch.cls)
         if mode == "layerwise":
             if self._out_cache is None:
                 self.refresh()
             self._observe(("layerwise", batch.cls))
-            out = self._out_cache.lookup(batch.ids[:batch.n_real])
+            with span("serve.cache_lookup", args={"cache": "out",
+                                                  "cls": batch.cls}):
+                out = self._out_cache.lookup(batch.ids[:batch.n_real])
         else:
             out = self._serve_fanout(batch)
         self.served_batches += 1
         self.mode_batches[mode] += 1
+        # the batch latency (out is on the host here: nothing in flight)
+        dt = time.perf_counter() - t0
+        measured_event("serve:infer", dt)
+        _obs_metrics.histogram("serve.batch_seconds").observe(dt)
         return out
 
     def serve(self, requests: Sequence[Tuple[int, Sequence[int]]]
               ) -> Dict[int, np.ndarray]:
         """Serve ``(rid, node_ids)`` requests; returns rid → (len(ids),
         n_out) predictions, padded rows never included."""
-        batches = self.batcher.coalesce(requests)
+        with span("serve.batching"):
+            batches = self.batcher.coalesce(requests)
         results: Dict[int, List[np.ndarray]] = {}
         for batch in batches:
             vals = self.serve_batch(batch)
-            for rid, rows in self.batcher.unpack(batch, vals).items():
-                results.setdefault(rid, []).append(rows)
+            with span("serve.respond"):
+                for rid, rows in self.batcher.unpack(batch, vals).items():
+                    results.setdefault(rid, []).append(rows)
         self.served_requests += len(results)
         # a request split across largest-class chunks re-assembles here
         return {rid: parts[0] if len(parts) == 1
@@ -511,10 +546,14 @@ class GNNServer:
         it = iter(prefetch(request_queue, depth=depth))
         sentinel = object()
         while True:
-            reqs = next(it, sentinel)
+            # intake (blocking on the coalescing window) and handling are
+            # the two top-level spans: together they tile the session
+            with span("serve.intake"):
+                reqs = next(it, sentinel)
             if reqs is sentinel:
                 break
-            self.serve_requests(reqs)
+            with span("serve.handle"):
+                self.serve_requests(reqs)
 
     def warmup(self) -> None:
         """Serve one batch of every signature class, so steady state

@@ -3,8 +3,11 @@
 This slice ports the plain one: ``pull_segment``, a destination-sorted
 segment reduction (paper Alg. 2), for every reducer of the lattice (sum,
 mean, max, min, prod). It is the reference every CUDA kernel of the port
-is held against. The push, blocked-ELL and one-hot strategies are queued
-as ROADMAP item A3.
+is held against. A sum walks the sorted stream with one owner per output
+row (``torch.segment_reduce``), so it is bit-identical from call to call
+on the card too, where an ``index_add_`` adds by atomics in whatever
+order the threads arrive. The push, blocked-ELL and one-hot strategies
+are queued as ROADMAP item A3.
 """
 from __future__ import annotations
 
@@ -40,7 +43,9 @@ def pull_segment(msg: torch.Tensor, tgt_sorted: torch.Tensor, n_tgt: int,
                  reduce_op: str, deg: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
     """Segment reduction of per-edge messages ``msg`` (E, *feat) onto
-    ``n_tgt`` rows; ``tgt_sorted`` is the int64 target of each edge.
+    ``n_tgt`` rows; ``tgt_sorted`` is the int64 target of each edge, in
+    non-decreasing order, and ``deg`` (when given) the number of edges of
+    each target row — the segment lengths of a sum or mean.
 
     As in the JAX package, an extremum that is not finite (an empty row's
     identity, or an infinite message) becomes 0, and with ``deg`` given
@@ -48,8 +53,11 @@ def pull_segment(msg: torch.Tensor, tgt_sorted: torch.Tensor, n_tgt: int,
     """
     shape = (n_tgt,) + tuple(msg.shape[1:])
     if reduce_op in ("sum", "mean"):
-        out = torch.zeros(shape, dtype=msg.dtype, device=msg.device)
-        out.index_add_(0, tgt_sorted, msg)
+        lengths = (torch.bincount(tgt_sorted, minlength=n_tgt)
+                   if deg is None else deg.long())
+        # the lengths are a graph's degrees, right by construction:
+        # ``unsafe`` skips the checks that read them back to the host
+        out = torch.segment_reduce(msg, "sum", lengths=lengths, unsafe=True)
         if reduce_op == "mean":
             d = deg.clamp(min=1).to(msg.dtype)
             out = out / d.reshape((n_tgt,) + (1,) * (msg.ndim - 1))

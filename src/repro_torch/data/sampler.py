@@ -11,10 +11,13 @@ pads them:
   in-degrees — and therefore mean aggregation — are untouched.
 
 Each block carries the dense uniform neighbor table of
-:class:`repro_torch.core.blocks.BlockGraph`, the per-edge GCN weights
-from the FULL graph's degrees (0 on pad edges) and, built on first
-use, the src-sorted *reverse table* (for the block VJP of the training
-slice).
+:class:`repro_torch.core.blocks.BlockGraph` and the per-edge GCN weights
+from the FULL graph's degrees (0 on pad edges). A sampler made with
+``reverse=True`` (the trainer's) also builds each block's Gᵀ in
+:meth:`~NeighborSampler.build`, on the host, from the draw's own edge
+order (``core/graph.reverse_from_draw``; its canonical order is the JAX
+sampler's reverse table): the block VJP pulls over it. A serving sampler
+builds none; a block's Gᵀ is then made on first use.
 
 The draw (``_sample_layer``) and the slot numbering are the JAX
 sampler's, line for line, on host numpy: one seed gives bit-identical
@@ -36,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core.blocks import BlockGraph
-from ..core.graph import Graph, from_coo
+from ..core.graph import Graph, from_coo, reverse_from_draw
 from ..device import DeviceLike, resolve_device
 
 __all__ = ["SampledBlock", "MiniBatch", "NeighborSampler"]
@@ -117,13 +120,16 @@ class NeighborSampler:
     """Uniform without-replacement neighbor sampler over incoming edges.
 
     ``g`` is the port's :class:`~repro_torch.core.graph.Graph` (its host
-    index arrays are read); blocks are built on ``device``. The stream is
+    index arrays are read); blocks are built on ``device``, with each
+    block's Gᵀ when ``reverse`` (for training). The stream is
     deterministic per seed, and draws the JAX sampler's numbers.
     """
 
     def __init__(self, g: Graph, fanouts: Sequence[int], batch_size: int,
-                 seed: int = 0, edge_rel=None, device: DeviceLike = "cuda"):
+                 seed: int = 0, edge_rel=None, device: DeviceLike = "cuda",
+                 reverse: bool = False):
         self.device = resolve_device(device)
+        self.reverse = bool(reverse)
         host = g.host
         self.indptr = np.asarray(host.indptr_dst, np.int64)
         self.src = np.asarray(host.src, np.int64)
@@ -287,8 +293,8 @@ class NeighborSampler:
 
     def build(self, hb: HostMiniBatch) -> MiniBatch:
         """The device half of :meth:`sample`: each block's
-        :class:`~repro_torch.core.graph.Graph` and tensors on
-        ``self.device``, outermost hop first."""
+        :class:`~repro_torch.core.graph.Graph` (and, with ``reverse``,
+        its Gᵀ) and tensors on ``self.device``, outermost hop first."""
         dev = self.device
 
         def put(a: np.ndarray) -> torch.Tensor:
@@ -298,6 +304,8 @@ class NeighborSampler:
         for hl in reversed(hb.layers):
             g = from_coo(hl.srcs, hl.dsts, n_src=hl.n_src_pad,
                          n_dst=hl.n_dst + 1, device=dev)
+            if self.reverse:
+                reverse_from_draw(g, hl.srcs, hl.dsts)
             bg = BlockGraph(g=g, nbr=put(hl.nbr), nbr_eid=put(hl.nbr_eid),
                             nbr_mask=put(hl.nbr_mask),
                             real_deg=put(hl.real_deg), n_dst_real=hl.n_dst,

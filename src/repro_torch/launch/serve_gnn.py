@@ -17,7 +17,6 @@ Usage (on the card; ``--device cpu`` runs the plain versions):
 from __future__ import annotations
 
 import argparse
-import math
 import threading
 import time
 from typing import Callable, Dict, List, Optional
@@ -29,18 +28,9 @@ from ..core.serving import SERVE_APPS, SERVE_MODES, GNNServer
 from ..data import RequestQueue, make_node_dataset
 from ..device import DeviceLike, resolve_device
 from ..models.gnn import gat, gcn, sage
+from ..obs.metrics import percentile_nearest_rank
 
 __all__ = ["build_server", "run_session", "percentile_nearest_rank", "main"]
-
-
-def percentile_nearest_rank(values, p: float) -> float:
-    """``sorted(values)[ceil(p/100 * n) - 1]`` over the full sample."""
-    if not 0 < p <= 100:
-        raise ValueError(f"percentile p must be in (0, 100], got {p}")
-    xs = sorted(values)
-    if not xs:
-        raise ValueError("percentile of empty sample")
-    return xs[max(0, math.ceil(p / 100.0 * len(xs)) - 1)]
 
 
 def build_server(app: str, dataset: str, *, mode: str = "auto",

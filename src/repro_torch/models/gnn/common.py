@@ -11,7 +11,7 @@ The partitioned bundle is ROADMAP A12.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ from torch import nn
 
 from ...core.graph import Graph
 from ...device import DeviceLike, resolve_device
+from ...substrate.nn import dropout
 
 __all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params",
            "to_jax_params", "pad_features", "block_features", "run_blocks"]
@@ -108,22 +109,30 @@ def block_features(feats_padded: torch.Tensor, ids) -> torch.Tensor:
 
 def run_blocks(block_layer: Callable, layers: Sequence, blocks: Sequence,
                h: torch.Tensor, *, strategy: str = "auto",
-               activation: Callable = torch.relu) -> torch.Tensor:
+               bwd_strategy: str = "auto",
+               activation: Callable = torch.relu, train: bool = False,
+               gen: Optional[torch.Generator] = None,
+               drop: float = 0.0) -> torch.Tensor:
     """Drive a per-app layer function over a minibatch's blocks.
 
-    ``block_layer(lyr, blk, h, strategy=...)`` maps the layer-l frontier
-    features ``h`` (n_src_pad, d) to destination features (n_dst_real,
-    d'). With the sampler's dst-first source numbering the next block's
-    frontier IS this block's destination set, so the loop chains layers;
-    the last block's destinations are the seeds, so the result is
-    (batch_size, d_out). The block path takes no dropout yet: it comes
-    with sampled training (ROADMAP A item 4).
+    ``block_layer(lyr, blk, h, strategy=..., bwd_strategy=...)`` maps the
+    layer-l frontier features ``h`` (n_src_pad, d) to destination features
+    (n_dst_real, d'). With the sampler's dst-first source numbering the
+    next block's frontier IS this block's destination set, so the loop
+    chains layers; the last block's destinations are the seeds, so the
+    result is (batch_size, d_out). ``bwd_strategy`` (the block VJP,
+    ``core/blocks.py``) goes to every ``block_gspmm``. With ``train``, a
+    generator ``gen`` on the features' device and ``drop`` > 0, each
+    layer's input is dropped out first, as in the full-graph forwards.
     """
     if len(layers) != len(blocks):
         raise ValueError(f"{len(layers)} layers but {len(blocks)} blocks: "
                          f"sampler fanouts must match model depth")
     for i, (lyr, blk) in enumerate(zip(layers, blocks)):
-        h = block_layer(lyr, blk, h, strategy=strategy)
+        if train and gen is not None and drop > 0.0:
+            h = dropout(gen, h, drop, train)
+        h = block_layer(lyr, blk, h, strategy=strategy,
+                        bwd_strategy=bwd_strategy)
         if i < len(layers) - 1:
             h = activation(h)
     return h

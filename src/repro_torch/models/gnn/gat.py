@@ -31,7 +31,9 @@ block edge softmax (B3 + B4, its max on the uniform pull) and the rank-3
 aggregation on the uniform pull; softmax-fused with B5 on ``bg.g`` (pad
 edges get the dummy row's own softmax, which no real row reads); the
 fused modes as B2. ``strategy='ell'`` pins the JAX block path's plain
-pulls.
+pulls. Sampled training differentiates the block ops as ``bwd_strategy``
+says (``core/blocks.py``): on the card the max and the rank-3 sum by the
+gather pull in plain torch, the rest on the kernels.
 """
 from __future__ import annotations
 
@@ -184,8 +186,8 @@ def infer(model: GAT, bundle: GraphBundle, x: torch.Tensor, *,
 
 
 def block_layer(lyr: GATLayer, blk, h: torch.Tensor, *,
-                strategy: str = "auto", attn: str = "multipass"
-                ) -> torch.Tensor:
+                strategy: str = "auto", bwd_strategy: str = "auto",
+                attn: str = "multipass") -> torch.Tensor:
     """One GAT layer on a sampled block.
 
     Logits are per sampled edge; the destination term uses
@@ -211,18 +213,25 @@ def block_layer(lyr: GATLayer, blk, h: torch.Tensor, *,
         alpha = edge_softmax_fused(bg.g, logits,
                                    strategy=_BLOCK_SINGLE_PASS[strategy])
     else:
-        alpha = block_edge_softmax(bg, logits, strategy=strategy)
+        alpha = block_edge_softmax(bg, logits, strategy=strategy,
+                                   bwd_strategy=bwd_strategy)
     out_feat = block_gspmm(bg, "u_mul_e_add_v", u=z, e=alpha[:, :, None],
-                           strategy=_BLOCK_RANK3[strategy])  # (nd, H, F)
+                           strategy=_BLOCK_RANK3[strategy],
+                           bwd_strategy=bwd_strategy)        # (nd, H, F)
     return out_feat.reshape(nd, heads * out)
 
 
 def forward_blocks(model: GAT, blocks, x: torch.Tensor, *,
-                   strategy: str = "auto",
+                   strategy: str = "auto", bwd_strategy: str = "auto",
+                   train: bool = False,
+                   gen: Optional[torch.Generator] = None, drop: float = 0.4,
                    attn: Optional[str] = None) -> torch.Tensor:
     """Sampled mini-batch forward on the shared block path; ``attn=None``
     is multipass, as in JAX. ``strategy``: one of
-    :data:`~repro_torch.core.blocks.BLOCK_STRATEGIES`."""
+    :data:`~repro_torch.core.blocks.BLOCK_STRATEGIES`; ``bwd_strategy``:
+    the block VJP (``core/blocks.py``). With ``train`` and a generator
+    ``gen`` on the features' device, dropout at rate ``drop`` before each
+    layer."""
     attn = _resolve_attn(attn, False)
     check_block_strategy(strategy)
 
@@ -230,7 +239,8 @@ def forward_blocks(model: GAT, blocks, x: torch.Tensor, *,
         return block_layer(lyr, blk, h, attn=attn, **kw)
 
     return run_blocks(layer, model.layers, blocks, x, strategy=strategy,
-                      activation=F.elu)
+                      bwd_strategy=bwd_strategy, activation=F.elu,
+                      train=train, gen=gen, drop=drop)
 
 
 def infer_blocks(model: GAT, blocks, x: torch.Tensor, *,

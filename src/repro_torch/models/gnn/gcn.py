@@ -80,20 +80,29 @@ def infer(model: GCN, bundle: GraphBundle, x: torch.Tensor, *,
 
 
 def block_layer(lyr: Linear, blk, h: torch.Tensor, *,
-                strategy: str = "auto") -> torch.Tensor:
+                strategy: str = "auto",
+                bwd_strategy: str = "auto") -> torch.Tensor:
     """One GCN layer on a sampled block: linear, then the weighted sum
     ``u_mul_e_add_v`` with the FULL graph's symmetric normalization
     gathered per sampled edge (``blk.gcn_norm``; pad edges weigh 0).
     With fanout ≥ max in-degree this is exactly the full-graph layer."""
     return block_gspmm(blk.bg, "u_mul_e_add_v", u=lyr(h),
-                       e=blk.gcn_norm[:, None], strategy=strategy)
+                       e=blk.gcn_norm[:, None], strategy=strategy,
+                       bwd_strategy=bwd_strategy)
 
 
 def forward_blocks(model: GCN, blocks, x: torch.Tensor, *,
-                   strategy: str = "auto") -> torch.Tensor:
-    """Sampled mini-batch forward on the shared block path."""
+                   strategy: str = "auto", bwd_strategy: str = "auto",
+                   train: bool = False,
+                   gen: Optional[torch.Generator] = None,
+                   drop: float = 0.5) -> torch.Tensor:
+    """Sampled mini-batch forward on the shared block path; with ``train`` and a generator ``gen`` on the features'
+    device, dropout at rate ``drop`` before each layer. ``bwd_strategy``:
+    the block VJP (``core/blocks.py``)."""
     return run_blocks(block_layer, model.layers, blocks, x,
-                      strategy=strategy, activation=torch.relu)
+                      strategy=strategy, bwd_strategy=bwd_strategy,
+                      activation=torch.relu, train=train, gen=gen,
+                      drop=drop)
 
 
 def infer_blocks(model: GCN, blocks, x: torch.Tensor, *,

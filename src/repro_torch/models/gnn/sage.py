@@ -78,20 +78,29 @@ def infer(model: SAGE, bundle: GraphBundle, x: torch.Tensor, *,
 
 
 def block_layer(lyr: Linear, blk, h: torch.Tensor, *,
-                strategy: str = "auto") -> torch.Tensor:
+                strategy: str = "auto",
+                bwd_strategy: str = "auto") -> torch.Tensor:
     """One SAGE layer on a sampled block: the mean over sampled in-edges
     (pad slots contribute zero) concat the destination's own features
     (dst-first numbering: ``h[:n_dst_real]``)."""
     bg = blk.bg
-    hn = block_gspmm(bg, "u_copy_mean_v", u=h, strategy=strategy)
+    hn = block_gspmm(bg, "u_copy_mean_v", u=h, strategy=strategy,
+                     bwd_strategy=bwd_strategy)
     return lyr(torch.cat([h[: bg.n_dst_real], hn], dim=-1))
 
 
 def forward_blocks(model: SAGE, blocks, x: torch.Tensor, *,
-                   strategy: str = "auto") -> torch.Tensor:
-    """Sampled mini-batch forward (paper Fig. 3) on the shared path."""
+                   strategy: str = "auto", bwd_strategy: str = "auto",
+                   train: bool = False,
+                   gen: Optional[torch.Generator] = None,
+                   drop: float = 0.5) -> torch.Tensor:
+    """Sampled mini-batch forward (paper Fig. 3) on the shared path; with ``train`` and a generator ``gen`` on the features'
+    device, dropout at rate ``drop`` before each layer. ``bwd_strategy``:
+    the block VJP (``core/blocks.py``)."""
     return run_blocks(block_layer, model.layers, blocks, x,
-                      strategy=strategy, activation=torch.relu)
+                      strategy=strategy, bwd_strategy=bwd_strategy,
+                      activation=torch.relu, train=train, gen=gen,
+                      drop=drop)
 
 
 def infer_blocks(model: SAGE, blocks, x: torch.Tensor, *,

@@ -2,11 +2,13 @@
 
 PyTorch runs eagerly, so no step recompiles; the tracker keeps the serve
 tier's contract anyway — every served batch lands on one of a bounded
-set of static signatures — and fails loudly when that bound breaks. The
-metrics-registry counter the JAX tracker bumps comes with ``obs``
-metrics (ROADMAP A8).
+set of static signatures — and fails loudly when that bound breaks. A
+new signature bumps the registry counter ``signatures.<name>.compiles``,
+as in JAX, so signature counts appear in metrics snapshots.
 """
 from typing import Set, Tuple
+
+from . import metrics as _metrics
 
 __all__ = ["SignatureTracker"]
 
@@ -23,6 +25,8 @@ class SignatureTracker:
         """Record a signature; True if it is new."""
         new = signature not in self.seen
         self.seen.add(signature)
+        if new:
+            _metrics.counter(f"signatures.{self.name}.compiles").inc()
         return new
 
     def assert_bounded(self) -> None:

@@ -180,14 +180,20 @@ def test_blocks_exact_above_max_in_degree():
 @pytest.mark.parametrize("seed", [0, 1])
 def test_reverse_table_built_on_first_use(seed):
     """Sampling builds no reverse table (serving never reads one); the
-    first read builds JAX's, bit for bit, and later reads reuse it."""
+    first read builds JAX's, bit for bit, and later reads reuse it. The
+    trainer's sampler (``reverse=True``) builds it with each block."""
     jg, tg, _ = _graph(seed=7)
     seeds, lab = np.arange(0, 40, 5), np.zeros(8, np.int64)
     got = NeighborSampler(tg, [3, 5], 8, seed=seed,
                           device="cpu").sample(seeds, lab)
     ref = JaxSampler(jg, [3, 5], 8, seed=seed).sample(seeds, lab)
-    for b, r in zip(got.blocks, ref.blocks):
-        assert not b.bg._rev
+    built = NeighborSampler(tg, [3, 5], 8, seed=seed, device="cpu",
+                            reverse=True).sample(seeds, lab)
+    for b, r, t in zip(got.blocks, ref.blocks, built.blocks):
+        assert not b.bg.has_reverse and t.bg.has_reverse
+        for f in ("rev_src", "rev_dst", "rev_eid"):
+            np.testing.assert_array_equal(_np(getattr(t.bg, f)),
+                                          _np(getattr(r.bg, f)), err_msg=f)
         first = b.bg.rev_eid
         for f in ("rev_src", "rev_dst", "rev_eid"):
             assert getattr(b.bg, f).dtype == torch.int32
