@@ -99,6 +99,30 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     loss (finite, falling), peak memory and launches; the first SAGE run's
     spans exported. Last, one SAGE step on ``products-like`` under
     ``torch.profiler``, as phase 11's.
+13. Relational: ``hetero_gspmm`` alone at ``benchmarks/fig_hetero.py``'s
+    100-relation shape (4,000 nodes, 100 relations × 350 edges, d 32 → 16,
+    4 bases) for each operand form (``w``; ``basis`` / ``coeff``; 3-D
+    ``u`` with ``e``; plain ``u`` with the mean): the kernel route (B1
+    over the relation-expanded graph) against the float64 fused route
+    within 1e-4·max|ref| + 1e-6, bit-identical over two calls, one B1
+    launch a call, timed beside the fused route; B1 alone on each graph.
+    Then each relational app's forward through its entry point at its
+    benchmark's shape — R-GCN on ``bench_rgcn``'s BGS-like graph (5,000
+    nodes, 8 × 25,000 edges, 32 → 32 → 4), GC-MC at ``bench_gcmc``'s
+    ML-1M-like shape (2,000 × 1,500, 60,000 ratings, 5 levels), MoNet on
+    ``pubmed-like`` (hidden 16, K = 2), LGNN on ``bench_lgnn``'s SBM (800
+    nodes, three layers): against the float64 plain forward at the same
+    tolerance, bit-identical, launches exact (``RELATIONAL_LAUNCHES``),
+    timed; and its kernels alone at the forward's shapes (B1 on each
+    relation-expanded graph, B3 ``dot`` / ``add`` / ``copy``). Last,
+    R-GCN served through ``build_server`` (4,096 nodes, 8 relations, 32 →
+    32 → 8): a layer-wise session (rows against the plain forward, B1 × 2
+    a refresh, the refresh bit-identical and timed), a fan-out session at
+    fan-out 10 (B4 once per block a batch, the kernels against the
+    uniform pull, B4 alone on the two blocks), the exact check (default
+    fan-out = layer-wise rows), and ``mode="auto"`` on the BGS-like graph
+    at fan-out 3 (class→mode map of the planner's formula, both modes
+    served, a row of each against its reference).
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -185,6 +209,45 @@ TRAIN_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
 TRAIN_SAMPLED_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
                           "gat": {"sddmm_csr": 8, "sddmm_csr:copy": 2,
                                   "binary_reduce_csr": 10}}
+# kernel launches per forward of each relational app on the kernel route
+# (the relational phase): R-GCN B1 × 2 (one fused aggregation a layer, on
+# the relation-expanded graph); GC-MC B1 × 2 (the two encoder directions)
+# and B3 dot × 5 (a decoder score per rating level); MoNet B3 copy × 2 (the
+# pseudo-coordinates) and B1 × 2; LGNN, three layers, B3 add (Pᵀx) and B1
+# (its three streams fused) × 3. A fan-out R-GCN batch launches B4 once
+# per block (RGCN_FANOUT_LAUNCHES)
+RELATIONAL_LAUNCHES = {"rgcn": {"spmm_csr": 2},
+                       "gcmc": {"spmm_csr": 2, "sddmm_csr": 5},
+                       "monet": {"spmm_csr": 2, "sddmm_csr:copy": 2},
+                       "lgnn": {"spmm_csr": 3, "sddmm_csr": 3}}
+RGCN_FANOUT_LAUNCHES = {"binary_reduce_csr": 2}
+# the relational phase's shapes, the repo's own benchmarks'. hetero_gspmm
+# alone at benchmarks/fig_hetero.py's 100-relation BGS_SWEEP row (nodes,
+# relations, edges per relation; d_in → d_out, bases), one operand form a
+# row: (form, reduce, with an e operand)
+HETERO_SHAPE = (4000, 100, 350)
+HETERO_DIMS = (32, 16, 4)
+HETERO_FORMS = [("w", "mean", False), ("basis", "mean", False),
+                ("u3", "sum", True), ("plain", "mean", False)]
+# R-GCN on benchmarks/fig2_full_graph.py::bench_rgcn's BGS-like graph
+# (nodes, relations, edges per relation; 32 → 32 → 4, 4 bases); served in
+# mode auto there at fan-out RGCN_AUTO_FANOUT, where the planner's formula
+# puts classes 8 and 32 on fan-out and 128 layer-wise
+RGCN_BGS = (5000, 8, 25_000)
+RGCN_AUTO_FANOUT = 3
+# R-GCN's layer-wise, fan-out and exact sessions: build_server's typed
+# graph for any dataset but "tiny" (4096 nodes, 8 relations, 32 → 32 → 8)
+RGCN_SERVE_DATASET = "bgs-like"
+# GC-MC at bench_gcmc's ML-1M-like shape (users, items, ratings, levels;
+# d_user, d_item, d_hidden, d_out)
+GCMC_SHAPE = (2000, 1500, 60_000, 5)
+GCMC_DIMS = (64, 64, 64, 32)
+# MoNet on pubmed-like, hidden 16, K = 2 mixture kernels
+MONET_DATASET, MONET_HIDDEN, MONET_K = "pubmed-like", 16, 2
+# LGNN on bench_lgnn's SBM (nodes, communities, p_in, p_out; d_emb,
+# d_hidden; three layers)
+LGNN_SBM = (800, 2, 0.06, 0.003)
+LGNN_DIMS = (16, 16)
 # the sampled-training phase (benchmarks/fig3_sampled_sage.py's SWEEP rows
 # for SAGE at hidden 64; GCN and GAT at fig2_full_graph.py's widths):
 # (app, dataset, fan-outs, batch size, hidden width, batches per epoch)
@@ -1719,6 +1782,430 @@ def trace_sampled_step(data, fanouts, batch: int, hidden: int) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# 13. the relational apps
+# --------------------------------------------------------------------- #
+def relational_tol(ref: torch.Tensor) -> float:
+    """The relational phase's tolerance: 1e-4·max|ref| + 1e-6."""
+    return 1e-4 * float(ref.abs().max()) + 1e-6
+
+
+def check_forward(app: str, run, extra: dict) -> dict:
+    """One relational forward through the entry point a user calls:
+    ``run(strategy, fp64)`` runs it on the kernel route (``"auto"``) or
+    the plain one (``"fused"``), in fp32 or on a float64 copy of the
+    model and inputs. Launches of one kernel forward
+    (``RELATIONAL_LAUNCHES``), bit-identical over two calls, within
+    ``relational_tol`` of the float64 plain forward, and timed."""
+    reset_counts()
+    got = run("auto", False)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_launches(f"{app} forward", launches, RELATIONAL_LAUNCHES[app], 1)
+    again = run("auto", False)
+    if not torch.equal(got, again):
+        raise AssertionError(f"{app}: two forwards differ by "
+                             f"{float((got - again).abs().max())}")
+    ref = run("fused", True)
+    err = max_err(got, ref)
+    tol = relational_tol(ref)
+    row = {"phase": "relational", "app": app, **extra,
+           "out_shape": list(got.shape), "max_abs_err": err, "tol": tol,
+           "reference": "fp64 plain (fused)",
+           "plain_fp32_max_abs_err": max_err(run("fused", False), ref),
+           "bit_identical": True, "launches": launches,
+           "forward_ms": time_ms(lambda: run("auto", False), reps=10,
+                                 warmup=1),
+           "plain_forward_ms": time_ms(lambda: run("fused", False), reps=5,
+                                       warmup=1)}
+    emit(row)
+    if not err <= tol:
+        raise AssertionError(f"{app}: kernel forward off the plain one: "
+                             f"{row}")
+    return row
+
+
+def canonical_weights(rg, g, e=None, mean: bool = False) -> torch.Tensor:
+    """The B1 weight the hetero kernel route hands ``g`` (``rg``'s graph or
+    its expansion, one caller edge order): ``e`` and / or the per-relation
+    mean weight, in ``g``'s canonical order."""
+    s = torch.ones(rg.n_edges, device=rg.device) if e is None else e
+    if mean:
+        s = s * rg.mean_norm_caller
+    return s.index_select(0, g.long("eid")).contiguous()
+
+
+def hetero_forms(gen, b1_rows: dict) -> list:
+    """``hetero_gspmm`` alone at ``HETERO_SHAPE`` for each operand form of
+    ``HETERO_FORMS``: the kernel route (B1 over the relation-expanded
+    graph; the fused graph for plain ``u``) against the float64 fused
+    route, bit-identical over two calls, one launch a call, timed beside
+    the fused route; then B1 alone on that graph with that weight
+    (``check_b1``)."""
+    from repro_torch.core.hetero import from_rels, hetero_gspmm
+    from repro_torch.data.synthetic import relational_graph
+    from repro_torch.kernels.spmm.ops import spmm_csr
+
+    n, R, epr = HETERO_SHAPE
+    d_in, d_out, n_bases = HETERO_DIMS
+    t0 = time.perf_counter()
+    rg = from_rels(relational_graph(n, R, epr, seed=0), n_src=n, n_dst=n,
+                   device="cuda")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gx = rg.expanded()
+    expand_s = time.perf_counter() - t0
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    rows = []
+    for form, reduce, with_e in HETERO_FORMS:
+        kw = {"u": rnd(n, R, d_out) if form == "u3" else rnd(n, d_in)}
+        if form == "w":
+            kw["w"] = rnd(R, d_in, d_out, scale=0.2)
+        if form == "basis":
+            kw["basis"] = rnd(n_bases, d_in, d_out, scale=0.2)
+            kw["coeff"] = rnd(R, n_bases, scale=0.3)
+        if with_e:
+            kw["e"] = (torch.rand(rg.n_edges, generator=gen) + 0.5).cuda()
+
+        def route(strategy, ops=kw):
+            return hetero_gspmm(rg, **ops, reduce=reduce, strategy=strategy)
+
+        n0 = spmm_csr.launches
+        got = bit_identical(f"hetero_gspmm {form}", lambda: route("kernel"))
+        calls = spmm_csr.launches - n0
+        if calls != 2:
+            raise AssertionError(f"hetero {form}: {calls} B1 launches in two "
+                                 f"calls")
+        ref = route("fused", {k: v.double() for k, v in kw.items()})
+        err = max_err(got, ref)
+        tol = relational_tol(ref)
+        g = rg.g if form == "plain" else gx
+        table = (0 if form in ("plain", "u3")
+                 else 4 * n * R * d_out / 2 ** 20)
+        row = {"phase": "relational", "op": "hetero_gspmm", "form": form,
+               "reduce": reduce, "e": with_e, "n": n, "n_rel": R,
+               "n_edges": rg.n_edges, "d_in": d_in, "d_out": d_out,
+               "b1_graph": {"n_src": g.n_src, "n_dst": g.n_dst,
+                            "n_edges": g.n_edges},
+               "table_mb": table, "max_abs_err": err, "tol": tol,
+               "reference": "fp64 plain (fused)",
+               "plain_fp32_max_abs_err": max_err(route("fused"), ref),
+               "bit_identical": True, "b1_launches_per_call": calls // 2,
+               "kernel_route_ms": time_ms(lambda: route("kernel")),
+               "fused_ms": time_ms(lambda: route("fused")),
+               "relgraph_build_s": build_s, "expanded_build_s": expand_s}
+        emit(row)
+        if not err <= tol:
+            raise AssertionError(f"hetero {form}: kernel route off: {row}")
+        rows.append(row)
+        check_b1(g, canonical_weights(rg, g, kw.get("e"), reduce == "mean"),
+                 gen, f"hetero_{form}", b1_rows,
+                 [(d_in if form == "plain" else d_out, "sum")])
+    return rows
+
+
+def relational_forwards(gen, b1_rows: dict, b3_rows: dict) -> list:
+    """Each relational app's forward at its benchmark's shape
+    (``check_forward``), then its kernels alone at the forward's shapes:
+    B1 on each relation-expanded graph, B3 on the plain graph."""
+    import copy
+
+    from repro_torch.core.graph import from_coo
+    from repro_torch.data.synthetic import (bipartite_ratings,
+                                            make_node_dataset,
+                                            relational_graph, sbm_graph)
+    from repro_torch.models.gnn import gcmc, lgnn, monet, rgcn
+    from repro_torch.models.gnn.common import make_bundle
+
+    def seeded():
+        return torch.Generator().manual_seed(0)
+
+    def runner(fwd, model, *inputs):
+        model64 = copy.deepcopy(model).double()
+        inputs64 = [x.double() for x in inputs]
+
+        def run(strategy, fp64):
+            with torch.no_grad():
+                return fwd(model64 if fp64 else model,
+                           *(inputs64 if fp64 else inputs), strategy)
+        return run
+
+    rows = []
+    # R-GCN on the BGS-like typed graph
+    n, R, epr = RGCN_BGS
+    t0 = time.perf_counter()
+    rg = rgcn.build_relgraph(relational_graph(n, R, epr, seed=0), n, "cuda")
+    gx = rg.expanded()
+    build_s = time.perf_counter() - t0
+    model = rgcn.init(seeded(), 32, 32, 4, R, device="cuda")
+    x = torch.randn(n, 32, generator=gen).cuda()
+    rows.append(check_forward("rgcn", runner(
+        lambda m, h, st: rgcn.forward(m, rg, h, strategy=st), model, x),
+        {"graph": "bgs-like", "n": n, "n_rel": R, "n_edges": rg.n_edges,
+         "widths": [32, 32, 4], "n_bases": 4, "build_s": build_s}))
+    check_b1(gx, canonical_weights(rg, gx, mean=True), gen, "rgcn_expanded",
+             b1_rows, [(32, "sum"), (4, "sum")])
+
+    # GC-MC at the ML-1M-like shape
+    nu, ni, nr, levels = GCMC_SHAPE
+    du, di, dh, do = GCMC_DIMS
+    u, i, r = bipartite_ratings(nu, ni, nr, levels, seed=0)
+    fwd, bwd = gcmc.build_level_relgraphs(u, i, r, nu, ni, levels, "cuda")
+    g_all = from_coo(u, i, n_src=nu, n_dst=ni, device="cuda")
+    model = gcmc.init(seeded(), du, di, dh, do, levels, device="cuda")
+    xu = torch.randn(nu, du, generator=gen).cuda()
+    xi = torch.randn(ni, di, generator=gen).cuda()
+    rows.append(check_forward("gcmc", runner(
+        lambda m, a, b, st: gcmc.forward(m, (fwd, bwd, g_all), a, b,
+                                         strategy=st), model, xu, xi),
+        {"graph": "ml1m-like", "n_users": nu, "n_items": ni,
+         "n_ratings": nr, "levels": levels, "dims": list(GCMC_DIMS)}))
+    for label, rel in (("gcmc_user_item", fwd), ("gcmc_item_user", bwd)):
+        g = rel.expanded()
+        check_b1(g, canonical_weights(rel, g, mean=True), gen, label,
+                 b1_rows, [(dh, "sum")])
+    check_b3(g_all, gen, "gcmc_ratings", b3_rows, [("dot", "u", "v", do)])
+
+    # MoNet on pubmed-like
+    g, feats, *_, n_classes = make_node_dataset(MONET_DATASET, device="cuda")
+    bundle = make_bundle(g, krel=MONET_K)
+    model = monet.init(seeded(), feats.shape[1], MONET_HIDDEN, n_classes,
+                       n_kernels=MONET_K, device="cuda")
+    rows.append(check_forward("monet", runner(
+        lambda m, h, st: monet.forward(m, bundle, h, strategy=st), model,
+        torch.from_numpy(feats).cuda()),
+        {"graph": MONET_DATASET, "n": g.n_dst, "n_edges": g.n_edges,
+         "max_in_degree": int(g.host.in_degrees.max()),
+         "hidden": MONET_HIDDEN, "kernels": MONET_K}))
+    krel = bundle.krel(MONET_K)
+    gk = krel.expanded()
+    e = (torch.rand(krel.n_edges, generator=gen) + 0.5).cuda()
+    check_b1(gk, canonical_weights(krel, gk, e), gen, "monet_krel", b1_rows,
+             [(MONET_HIDDEN, "sum"), (n_classes, "sum")])
+    check_b3(g, gen, "monet_pseudo", b3_rows,
+             [("copy", "u", None, 1), ("copy", "v", None, 1)])
+    del bundle, krel, gk, feats
+
+    # LGNN on the SBM
+    n, k, p_in, p_out = LGNN_SBM
+    d_emb, d_hidden = LGNN_DIMS
+    src, dst, _ = sbm_graph(n, k, p_in, p_out, seed=0)
+    g = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
+    t0 = time.perf_counter()
+    lg = lgnn.build_line_graph(g)
+    line_s = time.perf_counter() - t0
+    rel = lgnn.build_relgraph(g, lg)
+    model = lgnn.init(seeded(), n, d_emb, d_hidden, k, device="cuda")
+    rows.append(check_forward("lgnn", runner(
+        lambda m, st: lgnn.forward(m, g, lg, rg=rel, strategy=st)[0],
+        model),
+        {"graph": "sbm", "n": n, "n_edges": g.n_edges,
+         "line_edges": lg.n_edges, "relgraph_edges": rel.n_edges,
+         "dims": [d_emb, d_hidden, k], "train": True,
+         "line_graph_build_s": line_s}))
+    gl = rel.expanded()
+    check_b1(gl, canonical_weights(rel, gl), gen, "lgnn_expanded", b1_rows,
+             [(d_hidden, "copy_sum"), (k, "copy_sum")])
+    check_b3(g, gen, "lgnn_sbm", b3_rows,
+             [("add", "u", "v", d_emb + 1), ("add", "u", "v", d_hidden)])
+    return rows
+
+
+def rgcn_sessions(gen, b4_rows: dict) -> list:
+    """R-GCN served through ``build_server`` (its typed graph, 32 → 32 →
+    8): a layer-wise session (launches per refresh, served rows against
+    the plain forward, the refresh bit-identical and timed) and a fan-out
+    one at ``FANOUT`` (B4 once per block a batch, no refresh, the kernels
+    against the uniform pull on one minibatch, B4 alone on its blocks);
+    rows served at the default fan-out equal to the layer-wise rows
+    (``serve_exact``); and ``mode="auto"`` on the BGS-like graph at
+    ``RGCN_AUTO_FANOUT`` (the class→mode map of the planner's formula,
+    both modes served, one row of each against its reference)."""
+    from repro_torch.core.serving import GNNServer
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.data.synthetic import relational_graph
+    from repro_torch.launch.serve_gnn import build_server, run_session
+    from repro_torch.models.gnn import rgcn
+    from repro_torch.models.gnn.common import block_features, pad_features
+
+    def session(srv, ids_fn=None):
+        n = srv.g.n_src
+        return run_session(srv, n_clients=4, requests_per_client=25,
+                           ids_fn=ids_fn or (lambda rng: rng.integers(
+                               0, n, 4)))
+
+    def pull(srv, ids, cls):
+        """(kernel rows, uniform-pull rows, blocks) of one fan-out batch,
+        sampled as the class-``cls`` sampler draws its first batch."""
+        mb = NeighborSampler(srv.g, [srv.fanout] * srv.n_layers, cls,
+                             seed=srv.seed, edge_rel=srv.edge_rel,
+                             device="cuda").sample(
+            ids, np.zeros(len(ids), np.int64))
+        x = block_features(pad_features(srv.feats, "cuda"), mb.input_ids)
+        got = rgcn.infer_blocks(srv.model, mb.blocks, x)
+        ref = rgcn.infer_blocks(srv.model, mb.blocks, x, strategy="ell")
+        torch.cuda.synchronize()
+        return got, ref, mb
+
+    rows = []
+    # layer-wise
+    srv = build_server("rgcn", RGCN_SERVE_DATASET, mode="layerwise",
+                       device="cuda")
+    reset_counts()
+    res = session(srv)
+    launches = read_counts()
+    check_launches("rgcn layerwise", launches, RELATIONAL_LAUNCHES["rgcn"],
+                   srv.refreshes)
+    check_session("rgcn", res, 8)
+    ref = rgcn.infer(srv.model, srv.rg, srv.x_device,
+                     strategy="fused").cpu().numpy()
+    served_err = max(float(np.abs(rows_ - ref[ids]).max())
+                     for ids, rows_ in res["responses"])
+    table = bit_identical("rgcn refresh", lambda: rgcn.infer(
+        srv.model, srv.rg, srv.x_device)).cpu().numpy()
+    table_err = float(np.abs(table - ref).max())
+    row = {"phase": "relational_serve", "app": "rgcn", "mode": "layerwise",
+           "n_nodes": srv.g.n_src, "n_edges": srv.g.n_edges,
+           "n_rel": srv.rg.n_rel, "n_samples": res["n_samples"],
+           "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+           "throughput_rps": res["throughput_rps"],
+           "recompiles_steady": res["recompiles_steady"],
+           "refreshes": srv.refreshes, "launches": launches,
+           "served_max_abs_err": served_err, "table_max_abs_err": table_err,
+           "refresh_bit_identical": True,
+           "refresh_forward_ms": time_ms(lambda: rgcn.infer(
+               srv.model, srv.rg, srv.x_device), reps=5, warmup=1),
+           "plain_forward_ms": time_ms(lambda: rgcn.infer(
+               srv.model, srv.rg, srv.x_device, strategy="fused"), reps=5,
+               warmup=1)}
+    emit(row)
+    if not (served_err <= 1e-4 and table_err <= 1e-4):
+        raise AssertionError(f"rgcn layerwise: rows off {row}")
+    rows.append(row)
+
+    # fan-out
+    srv = build_server("rgcn", RGCN_SERVE_DATASET, mode="fanout",
+                       fanout=FANOUT, device="cuda")
+    reset_counts()
+    res = session(srv)
+    launches = read_counts()
+    check_launches("rgcn fanout", launches, RGCN_FANOUT_LAUNCHES,
+                   srv.served_batches)
+    check_session("rgcn", res, 8)
+    if srv.refreshes or srv.mode_batches["layerwise"]:
+        raise AssertionError("rgcn: mode fanout refreshed a table")
+    got, ref, mb = pull(srv, np.random.default_rng(1).permutation(
+        srv.g.n_src)[:128], 128)
+    err = max_err(got, ref)
+    for li, (blk, d) in enumerate(zip(mb.blocks, (32, 8))):
+        check_b4(blk.bg.g, gen, f"rgcn_block{li}", b4_rows,
+                 [("copy_rhs", d, d, "sum")], sweep=False, fp64=True)
+    row = {"phase": "relational_serve", "app": "rgcn", "mode": "fanout",
+           "fanout": FANOUT, "n_samples": res["n_samples"],
+           "p50_ms": res["p50_ms"], "p99_ms": res["p99_ms"],
+           "throughput_rps": res["throughput_rps"],
+           "recompiles_steady": res["recompiles_steady"],
+           "served_batches": srv.served_batches, "launches": launches,
+           "signatures": sorted(map(list, srv.tracker.seen)),
+           "kernels_vs_pull_max_abs_err": err}
+    emit(row)
+    if not err <= 1e-4:
+        raise AssertionError(f"rgcn fanout: kernels off the pull by {err}")
+    rows.append(row)
+
+    # exact: the default fan-out keeps every in-edge
+    fo = build_server("rgcn", RGCN_SERVE_DATASET, mode="fanout",
+                      device="cuda")
+    lw = build_server("rgcn", RGCN_SERVE_DATASET, mode="layerwise",
+                      device="cuda")
+    req_ids = np.random.default_rng(1).integers(0, fo.g.n_src, 300)
+    requests = [[(0, req_ids[:6])], [(1, req_ids[6:26])],
+                [(2, req_ids[26:126])], [(3, req_ids)]]
+    reset_counts()
+    got = [fo.serve(r) for r in requests]
+    launches = read_counts()
+    check_launches("rgcn exact", launches, RGCN_FANOUT_LAUNCHES,
+                   fo.served_batches)
+    want = [lw.serve(r) for r in requests]
+    err = max(float(np.abs(a[rid] - b[rid]).max())
+              for r, a, b in zip(requests, got, want) for rid, _ in r)
+    row = {"phase": "relational_serve", "app": "rgcn", "mode": "exact",
+           "fanout": fo.fanout,
+           "max_in_degree": int(fo.g.host.in_degrees.max()),
+           "served_batches": fo.served_batches, "launches": launches,
+           "fanout_vs_layerwise_max_abs_err": err}
+    emit(row)
+    if fo.fanout != row["max_in_degree"] or not err <= 1e-4:
+        raise AssertionError(f"rgcn exact: {row}")
+    rows.append(row)
+    del fo, lw
+
+    # auto, on the BGS-like graph
+    n, R, epr = RGCN_BGS
+    feats = np.random.default_rng(0).standard_normal((n, 32)).astype(
+        np.float32)
+    srv = GNNServer("rgcn", rgcn.init(torch.Generator().manual_seed(0), 32,
+                                      32, 4, R, device="cuda"), None, feats,
+                    rels=relational_graph(n, R, epr, seed=0), mode="auto",
+                    fanout=RGCN_AUTO_FANOUT, device="cuda")
+    classes = srv.batcher.classes
+    modes = {c: srv.mode_for_class(c) for c in classes}
+    want = expected_modes(srv.g.n_edges, srv.n_layers, RGCN_AUTO_FANOUT,
+                          classes, srv.refresh_batches)
+    if modes != want or want != {8: "fanout", 32: "fanout",
+                                 128: "layerwise"}:
+        raise AssertionError(f"rgcn auto: class→mode {modes}, formula "
+                             f"{want}")
+    reset_counts()
+    res = session(srv, lambda rng: rng.integers(
+        0, n, 1 if rng.random() < 0.75 else 40))
+    launches = read_counts()
+    per_mode = dict(srv.mode_batches)
+    want_launches = {k: 0 for k in launches}
+    want_launches["spmm_csr"] = (RELATIONAL_LAUNCHES["rgcn"]["spmm_csr"]
+                                 * srv.refreshes)
+    want_launches["binary_reduce_csr"] = (
+        RGCN_FANOUT_LAUNCHES["binary_reduce_csr"] * per_mode["fanout"])
+    if launches != want_launches:
+        raise AssertionError(f"rgcn auto: launches {launches}, expected "
+                             f"{want_launches}")
+    check_session("rgcn", res, 4)
+    session_batches = {m: k - list(modes.values()).count(m)
+                       for m, k in per_mode.items()}
+    if not (session_batches["fanout"] and session_batches["layerwise"]):
+        raise AssertionError(f"rgcn auto: one mode served nothing "
+                             f"{session_batches}")
+    ids4 = np.random.default_rng(2).integers(0, n, 4)
+    srv._sampler(8).reset()
+    got8 = srv.serve([(0, ids4)])[0]
+    _, ref8, _ = pull(srv, ids4, 8)
+    err_fanout = float(np.abs(got8 - ref8[:4].cpu().numpy()).max())
+    ids40 = np.random.default_rng(3).integers(0, n, 40)
+    got128 = srv.serve([(1, ids40)])[1]
+    full = rgcn.infer(srv.model, srv.rg, srv.x_device,
+                      strategy="fused").cpu().numpy()
+    err_lw = float(np.abs(got128 - full[ids40]).max())
+    row = {"phase": "relational_serve", "app": "rgcn", "mode": "auto",
+           "graph": "bgs-like", "fanout": RGCN_AUTO_FANOUT,
+           "refresh_batches": srv.refresh_batches,
+           "class_modes": {str(c): m for c, m in modes.items()},
+           "n_samples": res["n_samples"], "p50_ms": res["p50_ms"],
+           "p99_ms": res["p99_ms"], "throughput_rps": res["throughput_rps"],
+           "recompiles_steady": res["recompiles_steady"],
+           "mode_batches": per_mode, "session_mode_batches": session_batches,
+           "refreshes": srv.refreshes, "launches": launches,
+           "fanout_row_max_abs_err": err_fanout,
+           "layerwise_row_max_abs_err": err_lw}
+    emit(row)
+    if not (err_fanout <= 1e-4 and err_lw <= 1e-4):
+        raise AssertionError(f"rgcn auto: rows off {row}")
+    rows.append(row)
+    return rows
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -1878,10 +2365,23 @@ def main() -> int:
     emit({"phase": "train_sampled_done",
           "seconds": time.perf_counter() - t0})
 
+    # 13. the relational apps: hetero_gspmm alone per operand form, each
+    # app's forward, R-GCN served in every mode
+    t0 = time.perf_counter()
+    rel_rows = {"spmm_csr": {}, "sddmm_csr": {}, "binary_reduce_csr": {}}
+    hetero_forms(gen, rel_rows["spmm_csr"])
+    n_forms = len(rel_rows["spmm_csr"])
+    relational = relational_forwards(gen, rel_rows["spmm_csr"],
+                                     rel_rows["sddmm_csr"])
+    torch.cuda.empty_cache()
+    relational += rgcn_sessions(gen, rel_rows["binary_reduce_csr"])
+    torch.cuda.empty_cache()
+    emit({"phase": "relational_done", "seconds": time.perf_counter() - t0})
+
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
-            + auto + trained + sampled
+            + auto + trained + sampled + relational
             + [{"launches": r["step_launches"]}
                for r in trained + sampled_steps])
     launches = {k: sum(r["launches"][k] for r in runs)
@@ -1900,12 +2400,24 @@ def main() -> int:
         "binary_reduce_csr": [b4_rows[("self_loops",) + k] for k in B4_MAIN]
         + [b4_rows[("reverse",) + k] for k in TRAIN_B4],
         "edge_softmax_csr": [b5_rows[("self_loops", H)] for H in B5_SHAPES]}
-    every = {"spmm_csr": b1_rows, "fused_attention_csr": b2_rows,
-             "sddmm_csr": {k: r for k, r in b3_rows.items()
+    # and the relational forwards' and R-GCN fan-out's (B1 on the
+    # relation-expanded graphs, B3 dot / add / copy, B4 on its blocks);
+    # the hetero_gspmm rows alone (the first n_forms) are checks only
+    rel_b3 = list(rel_rows["sddmm_csr"].values())
+    main["spmm_csr"] += list(rel_rows["spmm_csr"].values())[n_forms:]
+    main["sddmm_csr"] += [r for r in rel_b3 if r["op"] != "copy"]
+    main["sddmm_csr:copy"] += [r for r in rel_b3 if r["op"] == "copy"]
+    main["binary_reduce_csr"] += list(rel_rows["binary_reduce_csr"].values())
+    b3_all = {**b3_rows, **rel_rows["sddmm_csr"]}
+    every = {"spmm_csr": {**b1_rows, **rel_rows["spmm_csr"]},
+             "fused_attention_csr": b2_rows,
+             "sddmm_csr": {k: r for k, r in b3_all.items()
                            if r["op"] != "copy"},
-             "sddmm_csr:copy": {k: r for k, r in b3_rows.items()
+             "sddmm_csr:copy": {k: r for k, r in b3_all.items()
                                 if r["op"] == "copy"},
-             "binary_reduce_csr": b4_rows, "edge_softmax_csr": b5_rows}
+             "binary_reduce_csr": {**b4_rows,
+                                   **rel_rows["binary_reduce_csr"]},
+             "edge_softmax_csr": b5_rows}
     blocks = {k: list(v.values()) for k, v in block_rows.items()}
     blocks["sddmm_csr:copy"] = []
     for k, v in sampled_rows.items():      # the block Gᵀ rows

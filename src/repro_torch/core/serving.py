@@ -24,8 +24,10 @@ spans of :meth:`GNNServer.run`, which tile a session), ``serve.batching``,
 ``serve.refresh``, ``serve.cache_lookup``, ``serve.sample``,
 ``serve.infer`` and ``serve.respond``; the ``serve.batch_seconds``
 histogram with the measured ``serve:infer`` event per batch; and each
-cache's hit / miss / eviction counters (``serve.cache.<name>.*``). R-GCN
-is ROADMAP A11.
+cache's hit / miss / eviction counters (``serve.cache.<name>.*``).
+R-GCN serves over its typed graph, as the JAX server serves it: a
+refresh runs ``rgcn.infer`` on the :class:`~repro_torch.core.hetero.RelGraph`,
+and fan-out samples the merged graph with each edge's relation.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 from ..data.pipeline import prefetch
 from ..data.sampler import MiniBatch, NeighborSampler
 from ..device import DeviceLike, resolve_device
-from ..models.gnn import gat, gcn, sage
+from ..models.gnn import gat, gcn, rgcn, sage
 from ..models.gnn.common import make_bundle
 from ..obs import metrics as _obs_metrics
 from ..obs.events import measured_event
@@ -313,17 +315,19 @@ class MicroBatcher:
 # --------------------------------------------------------------------- #
 # the server
 # --------------------------------------------------------------------- #
-SERVE_APPS = ("gcn", "sage", "gat")
+SERVE_APPS = ("gcn", "sage", "gat", "rgcn")
 SERVE_MODES = planner.SERVE_MODES
 
 
 class GNNServer:
-    """Micro-batched GNN inference over one graph.
+    """Micro-batched GNN inference over one (plain or typed) graph.
 
-    ``app``: 'gcn' | 'sage' | 'gat'; ``model`` is the app's module
-    (``init`` or ``from_jax_params``); ``g`` the graph and ``feats`` the
-    (n, d) host feature array. The graph, model and features are placed
-    on ``device``; a CUDA device runs both modes through the kernels.
+    ``app``: 'gcn' | 'sage' | 'gat' with the graph ``g``, or 'rgcn' with
+    ``rels`` — per-relation ``(src, dst)`` host pairs — and ``g`` None
+    (or a graph whose ``n_src`` gives the node count); ``model`` is the
+    app's module (``init`` or ``from_jax_params``) and ``feats`` the (n,
+    d) host feature array. The graph, model and features are placed on
+    ``device``; a CUDA device runs both modes through the kernels.
 
     Each class resolves to a mode once (``mode='auto'``: the cheaper by
     :func:`~repro_torch.core.planner.plan_serve`):
@@ -341,23 +345,19 @@ class GNNServer:
     mode.
     """
 
-    def __init__(self, app: str, model, g, feats, *, mode: str = "auto",
+    def __init__(self, app: str, model, g, feats, *,
+                 rels: Optional[Sequence] = None, mode: str = "auto",
                  classes: Sequence[int] = (8, 32, 128),
                  fanout: Optional[int] = None,
                  cache_rows: int = 4096, pin_hot: int = 256,
                  refresh_batches: int = 1024, seed: int = 0,
                  device: DeviceLike = "cuda"):
-        if app == "rgcn":
-            raise NotImplementedError(
-                "app 'rgcn' is not ported yet: ROADMAP A11 (relational apps)")
         if app not in SERVE_APPS:
             raise ValueError(f"unknown serve app {app!r}; expected one of "
                              f"{SERVE_APPS}")
         if mode not in ("auto",) + SERVE_MODES:
             raise ValueError(f"unknown serve mode {mode!r}; expected 'auto' "
                              f"or one of {SERVE_MODES}")
-        if g is None:
-            raise ValueError("plain-graph apps need g")
         self.device = resolve_device(device)
         self.app = app
         self.model = model.to(self.device)
@@ -365,9 +365,23 @@ class GNNServer:
         self.batcher = MicroBatcher(classes)
         self.refresh_batches = int(refresh_batches)
         self.seed = int(seed)
-        self.g = g.to(self.device)
-        self.bundle = make_bundle(self.g)
-        mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+        self.edge_rel = None
+        self.bundle = self.rg = None
+        if app == "rgcn":
+            if rels is None:
+                raise ValueError("app='rgcn' needs rels=[(src, dst), ...]")
+            n = int(g.n_src) if g is not None else int(max(
+                max(np.max(s), np.max(d)) for s, d in rels)) + 1
+            self.g, self.edge_rel = rgcn.merged_graph(rels, n, self.device)
+            self.rg = rgcn.build_relgraph(rels, n, self.device)
+            self._graph_arg = self.rg
+            mod = rgcn
+        else:
+            if g is None:
+                raise ValueError("plain-graph apps need g")
+            self.g = g.to(self.device)
+            self.bundle = self._graph_arg = make_bundle(self.g)
+            mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
         self._full_fn = mod.infer
         self._blocks_fn = mod.infer_blocks
         self.feats = np.asarray(feats, np.float32)
@@ -419,7 +433,8 @@ class GNNServer:
         the server's device) and push it through the hot-node cache
         without dropping counters."""
         with span("serve.refresh") as sp:
-            logits = self._full_fn(self.model, self.bundle, self.x_device)
+            logits = self._full_fn(self.model, self._graph_arg,
+                                   self.x_device)
             sp.fence(logits)
         store = logits.cpu().numpy()
         self.refreshes += 1
@@ -451,7 +466,7 @@ class GNNServer:
         if s is None:
             s = NeighborSampler(self.g, [self.fanout] * self.n_layers,
                                 batch_size=cls, seed=self.seed,
-                                device=self.device)
+                                edge_rel=self.edge_rel, device=self.device)
             self._samplers[cls] = s
         return s
 

@@ -2,10 +2,10 @@
 ``repro/data/synthetic.py``, the R-MAT node presets).
 
 The generators are host numpy, identical to the JAX package's, so a seed
-gives the same arrays in both packages. ``planted_node_labels`` smooths
+gives the same arrays in both packages: the R-MAT node presets, and the
+SBM (LGNN), bipartite rating (GC-MC) and typed multigraph (R-GCN)
+generators of the relational apps. ``planted_node_labels`` smooths
 features through the port's own ``copy_reduce`` on the graph's device.
-The SBM, bipartite and relational generators come with their apps
-(ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ from ..core.binary_reduce import copy_reduce
 from ..core.graph import Graph, add_self_loops, from_coo
 from ..device import DeviceLike
 
-__all__ = ["rmat_graph", "planted_node_labels", "DATASETS",
+__all__ = ["rmat_graph", "sbm_graph", "bipartite_ratings",
+           "relational_graph", "planted_node_labels", "DATASETS",
            "make_node_dataset"]
 
 
@@ -43,6 +44,45 @@ def rmat_graph(n_log2: int, n_edges: int, seed: int = 0,
     src, dst = src[keep], dst[keep]
     pairs = np.unique(src * n + dst)
     return (pairs // n, pairs % n, n)
+
+
+def sbm_graph(n: int, k: int, p_in: float, p_out: float, seed: int = 0
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stochastic block model. Returns (src, dst, communities)."""
+    rng = np.random.default_rng(seed)
+    comm = rng.integers(0, k, n)
+    # dense Bernoulli is fine at LGNN scales (n <= few thousand)
+    probs = np.where(comm[:, None] == comm[None, :], p_in, p_out)
+    adj = rng.random((n, n)) < probs
+    np.fill_diagonal(adj, False)
+    src, dst = np.nonzero(adj)
+    return src.astype(np.int64), dst.astype(np.int64), comm
+
+
+def bipartite_ratings(n_users: int, n_items: int, n_ratings: int,
+                      levels: int = 5, seed: int = 0):
+    """MovieLens-like random bipartite rating graph, ratings planted from
+    latent user / item factors. Returns (u, i, r) with r in [0, levels)."""
+    rng = np.random.default_rng(seed)
+    pairs = rng.choice(n_users * n_items, size=n_ratings, replace=False)
+    u, i = pairs // n_items, pairs % n_items
+    fu = rng.normal(size=(n_users, 8))
+    fi = rng.normal(size=(n_items, 8))
+    score = np.einsum("ud,ud->u", fu[u], fi[i])
+    edges = np.quantile(score, np.linspace(0, 1, levels + 1)[1:-1])
+    r = np.digitize(score, edges)
+    return u.astype(np.int64), i.astype(np.int64), r.astype(np.int64)
+
+
+def relational_graph(n: int, n_rel: int, edges_per_rel: int, seed: int = 0):
+    """BGS-like typed multigraph: list of (src, dst) per relation."""
+    rng = np.random.default_rng(seed)
+    rels = []
+    for _ in range(n_rel):
+        src = rng.integers(0, n, edges_per_rel)
+        dst = rng.integers(0, n, edges_per_rel)
+        rels.append((src, dst))
+    return rels
 
 
 def planted_node_labels(g: Graph, feats: np.ndarray, n_classes: int,

@@ -13,6 +13,8 @@ Usage (on the card; ``--device cpu`` runs the plain versions):
       --dataset reddit-like --clients 4 --requests 25
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --app gat \\
       --dataset tiny --mode fanout --fanout 10 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --app rgcn \\
+      --dataset tiny --mode fanout --device cpu
 """
 from __future__ import annotations
 
@@ -25,9 +27,9 @@ import numpy as np
 import torch
 
 from ..core.serving import SERVE_APPS, SERVE_MODES, GNNServer
-from ..data import RequestQueue, make_node_dataset
+from ..data import RequestQueue, make_node_dataset, relational_graph
 from ..device import DeviceLike, resolve_device
-from ..models.gnn import gat, gcn, sage
+from ..models.gnn import gat, gcn, rgcn, sage
 from ..obs.metrics import percentile_nearest_rank
 
 __all__ = ["build_server", "run_session", "percentile_nearest_rank", "main"]
@@ -42,11 +44,22 @@ def build_server(app: str, dataset: str, *, mode: str = "auto",
     ``device``, ready to serve. ``fanout`` is the fan-out mode's per-layer
     sample size (None: the max in-degree, exact). Serving correctness
     does not depend on the weights: served rows are held to the full
-    forward under the same model."""
+    forward under the same model. R-GCN serves a BGS-like typed graph of
+    the JAX entry point's shape (``tiny``: 256 nodes, 4 relations; any
+    other dataset: 4096 nodes, 8 relations; n/2 edges per relation),
+    32 input features, 8 classes."""
     dev = resolve_device(device)
     if app == "rgcn":
-        raise NotImplementedError(
-            "app 'rgcn' is not ported yet: ROADMAP A11 (relational apps)")
+        n, n_rel = (256, 4) if dataset == "tiny" else (4096, 8)
+        rels = relational_graph(n, n_rel, max(n // 2, 64), seed=seed)
+        feats = np.random.default_rng(seed).standard_normal(
+            (n, 32)).astype(np.float32)
+        model = rgcn.init(torch.Generator().manual_seed(seed), 32, d_hidden,
+                          8, n_rel, device=dev)
+        return GNNServer("rgcn", model, None, feats, rels=rels, mode=mode,
+                         classes=classes, fanout=fanout,
+                         cache_rows=cache_rows, pin_hot=pin_hot, seed=seed,
+                         device=dev)
     if app not in SERVE_APPS:
         raise ValueError(f"unknown serve app {app!r}; expected one of "
                          f"{SERVE_APPS}")

@@ -1,10 +1,11 @@
 """Shared GNN plumbing (port of ``repro/models/gnn/common.py``): the
 graph bundle with its per-edge normalizations, which serving and
 training share (a kernel route's backward builds Gᵀ itself, once per
-graph: ``core/graph.reverse``); the loaders that carry parameters
-between the JAX package and the port (:func:`from_jax_params`,
-:func:`to_jax_params`); and the one code path every app's
-sampled-minibatch forward runs on (:func:`run_blocks`).
+graph: ``core/graph.reverse``), and with MoNet's K-relation
+:class:`~repro_torch.core.hetero.RelGraph` when asked for one; the
+loaders that carry parameters between the JAX package and the port
+(:func:`from_jax_params`, :func:`to_jax_params`); and the one code path
+every app's sampled-minibatch forward runs on (:func:`run_blocks`).
 
 The partitioned bundle is ROADMAP A12.
 """
@@ -18,6 +19,7 @@ import torch
 from torch import nn
 
 from ...core.graph import Graph
+from ...core.hetero import RelGraph, caller_coo, from_rels
 from ...device import DeviceLike, resolve_device
 from ...substrate.nn import dropout
 
@@ -31,11 +33,20 @@ class GraphBundle:
     graph's device, in CALLER edge order.
 
     ``gcn_norm``: 1/sqrt(deg_out(u)·deg_in(v)); ``mean_norm``:
-    1/deg_in(v) — mean aggregation as a weighted Copy-Reduce.
+    1/deg_in(v) — mean aggregation as a weighted Copy-Reduce. ``krels``:
+    the K-relation RelGraphs :func:`make_bundle` built, by K.
     """
     g: Graph
     gcn_norm: torch.Tensor   # (n_edges,)
     mean_norm: torch.Tensor  # (n_edges,)
+    krels: Dict[int, RelGraph] = dataclasses.field(default_factory=dict)
+
+    def krel(self, n_rel: int) -> Optional[RelGraph]:
+        """The K-relation RelGraph of ``g`` (the edge set once per
+        relation, MoNet's per-kernel aggregation) that :func:`make_bundle`
+        built for ``krel=n_rel``, or None — the JAX ``PlanCache.krel``
+        inside a jitted step, which only a prebuilt one reaches."""
+        return self.krels.get(int(n_rel))
 
 
 def edge_norms(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
@@ -54,21 +65,33 @@ def edge_norms(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
     return w_caller.astype(np.float32), m_caller.astype(np.float32)
 
 
-def make_bundle(g: Graph) -> GraphBundle:
-    """Assemble a bundle on ``g``'s device."""
+def make_bundle(g: Graph, *, krel: Optional[int] = None) -> GraphBundle:
+    """Assemble a bundle on ``g``'s device; ``krel=K`` also builds the
+    K-relation RelGraph (:meth:`GraphBundle.krel`), on the host, once."""
     w_caller, m_caller = edge_norms(g)
+    krels = {}
+    if krel is not None:
+        src, dst = caller_coo(g)
+        krels[int(krel)] = from_rels([(src, dst)] * int(krel),
+                                     n_src=g.n_src, n_dst=g.n_dst,
+                                     device=g.device)
     return GraphBundle(g=g,
                        gcn_norm=torch.from_numpy(w_caller).to(g.device),
-                       mean_norm=torch.from_numpy(m_caller).to(g.device))
+                       mean_norm=torch.from_numpy(m_caller).to(g.device),
+                       krels=krels)
 
 
 def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:
-    """The port's model for ``app`` ('gcn' | 'sage' | 'gat') holding the
-    JAX params pytree ``tree`` (leaves as numpy arrays), computing the
-    same function as the JAX model with those params."""
-    from . import gat, gcn, sage
+    """The port's model for ``app`` ('gcn' | 'sage' | 'gat' | 'rgcn' |
+    'gcmc' | 'monet' | 'lgnn') holding the JAX params pytree ``tree``
+    (leaves as numpy arrays), computing the same function as the JAX
+    model with those params. LGNN's BatchNorm running statistics become
+    buffers."""
+    from . import gat, gcmc, gcn, lgnn, monet, rgcn, sage
 
-    mods = {"gcn": gcn.GCN, "sage": sage.SAGE, "gat": gat.GAT}
+    mods = {"gcn": gcn.GCN, "sage": sage.SAGE, "gat": gat.GAT,
+            "rgcn": rgcn.RGCN, "gcmc": gcmc.GCMC, "monet": monet.MoNet,
+            "lgnn": lgnn.LGNN}
     if app not in mods:
         raise ValueError(f"unknown app {app!r}; expected one of "
                          f"{tuple(mods)}")
@@ -76,16 +99,34 @@ def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:
 
 
 def to_jax_params(model: nn.Module, grads: bool = False) -> Dict:
-    """The inverse of :func:`from_jax_params`: the JAX params pytree
-    (``{"layers": [{leaf: numpy array}, ...]}``) of ``model``'s parameters
-    or, with ``grads``, of their ``.grad`` — so a test can hold the port's
+    """The inverse of :func:`from_jax_params`: the JAX params pytree of
+    ``model`` — its parameters and buffers (LGNN's running statistics) as
+    numpy arrays, nested by their dotted names (a numeric name is a list
+    index: ``layers.0.w`` → ``{"layers": [{"w": ...}]}``) — or, with
+    ``grads``, the parameters' ``.grad``, so a test can hold the port's
     gradients against ``jax.grad`` leaf by leaf."""
-    layers: Dict[int, Dict] = {}
-    for name, p in model.named_parameters():
-        _, i, leaf = name.split(".")        # "layers.<i>.<leaf>"
-        t = p.grad if grads else p
-        layers.setdefault(int(i), {})[leaf] = t.detach().cpu().numpy()
-    return {"layers": [layers[i] for i in sorted(layers)]}
+    leaves = [(n, p.grad if grads else p)
+              for n, p in model.named_parameters()]
+    if not grads:
+        leaves += list(model.named_buffers())
+    tree: Dict = {}
+    for name, t in leaves:
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().cpu().numpy()
+    return _listify(tree)
+
+
+def _listify(node):
+    """Dicts keyed "0", "1", … become lists, recursively."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _listify(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[k] for k in sorted(out, key=int)]
+    return out
 
 
 # --------------------------------------------------------------------- #

@@ -149,4 +149,4 @@ def test_init_from_generator_is_deterministic():
 
 def test_from_jax_params_rejects_unknown_app():
     with pytest.raises(ValueError):
-        from_jax_params("rgcn", {"layers": []}, device="cpu")
+        from_jax_params("gin", {"layers": []}, device="cpu")

@@ -238,16 +238,19 @@ def test_update_features_refreshes_the_table():
 
 
 def test_queued_modes_and_apps_raise():
-    """Fan-out serving is ported (tests/test_torch_serving_fanout.py);
-    an unknown mode raises, and R-GCN is still queued (A11)."""
+    """Fan-out serving and R-GCN are ported (tests/test_torch_serving_fanout.py,
+    test_torch_serving_rgcn.py): an unknown mode or app raises, and R-GCN
+    without its relations."""
     _, tsrv = _setup("gcn")
     with pytest.raises(ValueError, match="unknown serve mode"):
         GNNServer("gcn", tsrv.model, tsrv.g, tsrv.feats, mode="push",
                   device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="rels"):
         GNNServer("rgcn", tsrv.model, tsrv.g, tsrv.feats, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        build_server("rgcn", "tiny", device="cpu")
+    with pytest.raises(ValueError, match="unknown serve app"):
+        GNNServer("gin", tsrv.model, tsrv.g, tsrv.feats, device="cpu")
+    with pytest.raises(ValueError, match="unknown serve app"):
+        build_server("gin", "tiny", device="cpu")
 
 
 def test_percentile_nearest_rank():
