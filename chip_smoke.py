@@ -123,6 +123,30 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     fan-out = layer-wise rows), and ``mode="auto"`` on the BGS-like graph
     at fan-out 3 (class→mode map of the planner's formula, both modes
     served, a row of each against its reference).
+14. Train relational: full-graph training of the four relational apps at
+    phase 13's shapes — R-GCN (random labels from seed 1, as
+    ``bench_rgcn``) and MoNet through ``train_full_graph``, GC-MC
+    (``rating_loss``) and LGNN (``train_loss``, BatchNorm in train mode)
+    through ``train.make_loss_step`` — and sampled R-GCN on the BGS-like
+    merged graph (fan-out (10, 10), batch 64). First the backward kernels
+    at the steps' shapes against their float64 plain versions,
+    bit-identical over two calls, timed: B1 on the reverse of each
+    relation-expanded graph (R-GCN d = 32 / 4, GC-MC both directions d =
+    64, MoNet d = 16 / 3, LGNN d = 16 / 2), B3 ``dot`` for MoNet's ∂e, and
+    B1 over each sampled block's relation-expanded Gᵀ (d = 32 / 4). Per
+    app, one step's grads on the kernel route (``strategy="auto"``)
+    against the plain fused route, per parameter, within
+    ``TRAIN_GRAD_RTOL``·max|plain| + 1e-6, both routes bit-identical over
+    two calls, the kernel launches of one step exact
+    (``RELATIONAL_TRAIN_LAUNCHES``), none on the plain route; LGNN's
+    running statistics changed by a step; 10 epochs a route in turns
+    kernel, plain, plain, kernel (epoch median and p90, loss finite and
+    falling, peak memory, launches); one R-GCN step under
+    ``torch.profiler``. Sampled R-GCN: its step's grads with the gather
+    backward (B1 over the blocks' expanded Gᵀ) against the plain pull with
+    the scatter and with the gather backward (both gathers bit-identical),
+    then ``train_sampled`` 2 epochs a run in turns: epoch 1 with its
+    sample / step split, loss, memory, launches.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -221,6 +245,23 @@ RELATIONAL_LAUNCHES = {"rgcn": {"spmm_csr": 2},
                        "monet": {"spmm_csr": 2, "sddmm_csr:copy": 2},
                        "lgnn": {"spmm_csr": 3, "sddmm_csr": 3}}
 RGCN_FANOUT_LAUNCHES = {"binary_reduce_csr": 2}
+# kernel launches per training step (forward and backward) of each
+# relational app, strategy "auto": the forward's (RELATIONAL_LAUNCHES),
+# then backward R-GCN B1 × 2 (∂ of each layer's message table, B1 on the
+# relation-expanded graph's reverse); GC-MC B1 × 2 (the two encoder
+# tables) and, per rating level, B3 mul × 2 (ct times the other node
+# operand) and B4 copy_rhs × 2 (the per-edge rows summed onto users over
+# Gᵀ and onto items over G); MoNet B1 × 2 and B3 dot × 2 (∂ of the
+# kernel weights); LGNN per layer B1 × 1 and, but for the last layer
+# (whose line-graph output the loss does not read), B4 × 2 (Pᵀx's ∂u over
+# Gᵀ, ∂v over G). A sampled R-GCN step: B4 a block forward, B1 over each
+# block's relation-expanded Gᵀ backward
+RELATIONAL_TRAIN_LAUNCHES = {
+    "rgcn": {"spmm_csr": 4},
+    "gcmc": {"spmm_csr": 4, "sddmm_csr": 15, "binary_reduce_csr": 10},
+    "monet": {"spmm_csr": 4, "sddmm_csr": 2, "sddmm_csr:copy": 2},
+    "lgnn": {"spmm_csr": 6, "sddmm_csr": 3, "binary_reduce_csr": 4},
+    "rgcn_sampled": {"spmm_csr": 2, "binary_reduce_csr": 2}}
 # the relational phase's shapes, the repo's own benchmarks'. hetero_gspmm
 # alone at benchmarks/fig_hetero.py's 100-relation BGS_SWEEP row (nodes,
 # relations, edges per relation; d_in → d_out, bases), one operand form a
@@ -248,6 +289,10 @@ MONET_DATASET, MONET_HIDDEN, MONET_K = "pubmed-like", 16, 2
 # d_hidden; three layers)
 LGNN_SBM = (800, 2, 0.06, 0.003)
 LGNN_DIMS = (16, 16)
+# sampled R-GCN training on the BGS-like merged graph (phase 14): fan-outs,
+# batch size, batches per epoch (SAMPLED_EPOCHS epochs; 20, not the 30 of
+# the plain apps' runs, keeps the phase near 20 s of the script)
+SAMPLED_RGCN = ((10, 10), 64, 20)
 # the sampled-training phase (benchmarks/fig3_sampled_sage.py's SWEEP rows
 # for SAGE at hidden 64; GCN and GAT at fig2_full_graph.py's widths):
 # (app, dataset, fan-outs, batch size, hidden width, batches per epoch)
@@ -504,7 +549,10 @@ def b3_operands(g, gen, op: str, lt: str, rt, d: int) -> tuple:
     return args
 
 
-def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES) -> None:
+def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
+             fp64: bool = False) -> None:
+    """B3 at ``shapes`` against its plain version (with ``fp64``, the
+    float64 plain version, and bit-identical over two calls), timed."""
     from benchmarks.torch_sddmm_walks import sddmm_canonical
     from repro_torch.kernels.sddmm.ops import (CALLER_INDEX, sddmm_csr,
                                                sddmm_plain)
@@ -515,11 +563,13 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES) -> None:
         args = b3_operands(g, gen, op, lt, rt, d)
         lhs = args[3]
         n0 = sddmm_csr.launches
-        got = sddmm_csr(*args)
-        ref = sddmm_plain(*args)
+        got = (bit_identical(f"sddmm_csr {op} d={d}",
+                             lambda: sddmm_csr(*args)) if fp64
+               else sddmm_csr(*args))
+        ref = plain_reference(sddmm_plain, *args, fp64=fp64)
         torch.cuda.synchronize()
         err = max_err(got, ref)
-        if op == "dot":
+        if op == "dot" or fp64:
             tol = 1e-5 + 1e-5 * float(ref.abs().max())
             why = "fma chain vs torch.sum: another summation order"
         else:
@@ -549,7 +599,9 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES) -> None:
         b_ms, b_by = bound(nbytes, g.n_edges * d)
         row = {"phase": "kernel", "kernel": "sddmm_csr", "graph": label,
                "op": op, "lhs": lt, "rhs": rt, "d": d, "max_abs_err": err,
-               "tol": tol, "tol_reason": why, "kernel_ms": k_ms,
+               "tol": tol, "tol_reason": why,
+               **reference_fields(ref, sddmm_plain, args, fp64),
+               "kernel_ms": k_ms,
                "plain_ms": p_ms, "library_ms": lib_ms,
                "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
                "library_device_ms": lib_dev[0],
@@ -908,6 +960,72 @@ def trace(fn, top: int = 10) -> dict:
                          for e in host[:top]],
             "port_launches": sum(e.count for e in port
                                  if "combine" not in e.key)}
+
+
+def trace_step(fn, launches: int) -> dict:
+    """:func:`trace` of one training step ``fn`` that launches
+    ``launches`` of the port's kernels. A trace that lost launches (fewer
+    of the port's than the step makes) is taken again, up to three times
+    in all; if none recorded them all, it is marked incomplete and no
+    busy share is read from it."""
+    for attempt in range(1, 4):
+        traced = trace(fn)
+        traced["attempt"] = attempt
+        traced["complete"] = traced["port_launches"] == launches
+        if traced["complete"]:
+            break
+    if not traced["complete"]:
+        traced["device_busy_share_profiled"] = None
+    return traced
+
+
+def epoch_runs(what: str, model, run, strategy: dict, want: dict) -> dict:
+    """``run(model, strategy)`` (a training history: per-epoch ``loss``,
+    ``epoch_time`` and perhaps ``val_acc``) on a copy of ``model``, on
+    each path of ``strategy`` (``{"kernel": ..., "plain": ...}``), in
+    turns kernel, plain, plain, kernel. Per path: epoch time median and
+    p90 over the pooled epochs, the loss (finite and falling, or raise),
+    peak device memory, the launches — ``want`` in a kernel run, none in
+    a plain one, or raise."""
+    import copy
+
+    runs = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        m = copy.deepcopy(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        hist = run(m, strategy[path])
+        launches = read_counts()
+        loss = hist["loss"]
+        if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+            raise AssertionError(f"{what} {path}: loss {loss}")
+        expect = {k: want.get(k, 0) if path == "kernel" else 0
+                  for k in launches}
+        if launches != expect:
+            raise AssertionError(f"{what} {path} training launched "
+                                 f"{launches}; expected {expect}")
+        runs[path].append({
+            "epoch_ms": [t * 1e3 for t in hist["epoch_time"]],
+            "loss": loss, "val_acc": hist.get("val_acc"),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": launches})
+
+    def pooled(rs):
+        ep = [t for r in rs for t in r["epoch_ms"]]
+        return {"epoch_ms_median": statistics.median(ep),
+                "epoch_ms_p90": statistics.quantiles(ep, n=10,
+                                                     method="inclusive")[-1],
+                "run_medians_ms": [statistics.median(r["epoch_ms"])
+                                   for r in rs],
+                "epoch_ms": [r["epoch_ms"] for r in rs],
+                "loss": rs[0]["loss"], "val_acc": rs[0]["val_acc"],
+                "max_memory_allocated_bytes": max(
+                    r["max_memory_allocated_bytes"] for r in rs),
+                "launches": {k: sum(r["launches"][k] for r in rs)
+                             for k in rs[0]["launches"]}}
+
+    return {path: pooled(rs) for path, rs in runs.items()}
 
 
 def trace_gat_refresh(srv, top: int = 10) -> dict:
@@ -1408,51 +1526,15 @@ def train_app(app: str, data) -> dict:
     if bad:
         raise AssertionError(f"{app} train grads: {bad}")
 
-    # 10 epochs per run, in turns: kernel, plain, plain, kernel
+    # 10 epochs per run, in turns: kernel, plain, plain, kernel; a step
+    # per epoch and the warm-up, a forward per validation
     strategy = {"kernel": "auto", "plain": "segment"}
-    runs = {"kernel": [], "plain": []}
-    for path in ("kernel", "plain", "plain", "kernel"):
-        m = copy.deepcopy(model)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        _, hist = train_full_graph(
-            mod.forward, m, bundle, x, labels, train_mask,
-            strategy=strategy[path], epochs=TRAIN_EPOCHS, seed=0,
-            val_mask=val_mask)
-        launches = read_counts()
-        loss = hist["loss"]
-        if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
-            raise AssertionError(f"{app} {path}: loss {loss}")
-        # a step per epoch and the warm-up, a forward per validation
-        want = {k: TRAIN_LAUNCHES[app].get(k, 0) * (TRAIN_EPOCHS + 1)
-                + SERVE_LAUNCHES[app].get(k, 0) * TRAIN_EPOCHS
-                if path == "kernel" else 0 for k in launches}
-        if launches != want:
-            raise AssertionError(f"{app} {path} training launched "
-                                 f"{launches}; expected {want}")
-        runs[path].append({
-            "epoch_ms": [t * 1e3 for t in hist["epoch_time"]],
-            "loss": loss, "val_acc": hist["val_acc"],
-            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-            "launches": launches})
-
-    def pooled(path):
-        rs = runs[path]
-        ep = [t for r in rs for t in r["epoch_ms"]]
-        return {"epoch_ms_median": statistics.median(ep),
-                "epoch_ms_p90": statistics.quantiles(ep, n=10,
-                                                     method="inclusive")[-1],
-                "run_medians_ms": [statistics.median(r["epoch_ms"])
-                                   for r in rs],
-                "epoch_ms": [r["epoch_ms"] for r in rs],
-                "loss": rs[0]["loss"], "val_acc": rs[0]["val_acc"],
-                "max_memory_allocated_bytes": max(
-                    r["max_memory_allocated_bytes"] for r in rs),
-                "launches": {k: sum(r["launches"][k] for r in rs)
-                             for k in rs[0]["launches"]}}
-
-    runs = {path: pooled(path) for path in runs}
+    runs = epoch_runs(app, model, lambda m, st: train_full_graph(
+        mod.forward, m, bundle, x, labels, train_mask, strategy=st,
+        epochs=TRAIN_EPOCHS, seed=0, val_mask=val_mask)[1], strategy,
+        {k: TRAIN_LAUNCHES[app].get(k, 0) * (TRAIN_EPOCHS + 1)
+         + SERVE_LAUNCHES[app].get(k, 0) * TRAIN_EPOCHS
+         for k in read_counts()})
 
     # per path: the host's time to run a step's Python and launches
     # (forward, backward, clip, update) against its wait for the device
@@ -1481,24 +1563,14 @@ def train_app(app: str, data) -> dict:
     m = copy.deepcopy(model)
     state = opt_init(m)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # a trace that lost launches (fewer of the port's than a step makes)
-    # is taken again, up to three times in all; if none recorded them
-    # all, it is marked incomplete and no busy share is read from it
-    for attempt in range(1, 4):
-        traced = trace(lambda: float(step(m, state, 0, bundle, x, labels,
-                                          train_mask, gen)[1]))
-        traced["attempt"] = attempt
-        traced["complete"] = (traced["port_launches"]
-                              == sum(TRAIN_LAUNCHES[app].values()))
-        if traced["complete"]:
-            break
+    traced = trace_step(lambda: float(step(m, state, 0, bundle, x, labels,
+                                           train_mask, gen)[1]),
+                        sum(TRAIN_LAUNCHES[app].values()))
     # the traced step's device time over the epoch median of the untraced
     # kernel-path runs above (a separate run of the same step)
     traced["device_busy_share_vs_epoch_median"] = (
         traced["device_us_total"] / 1e3 / runs["kernel"]["epoch_ms_median"]
         if traced["complete"] else None)
-    if not traced["complete"]:
-        traced["device_busy_share_profiled"] = None
     row = {"phase": "train", "app": app, "dataset": "reddit-like",
            "hidden": TRAIN_HIDDEN, "epochs": TRAIN_EPOCHS,
            "step_launches": step_launches,
@@ -1765,16 +1837,9 @@ def trace_sampled_step(data, fanouts, batch: int, hidden: int) -> dict:
     opt_init, step = make_sampled_train_step(sage.forward_blocks, "auto")
     state = opt_init(model)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for attempt in range(1, 4):
-        traced = trace(lambda: float(step(model, state, 0, mb, feats_pad,
-                                          gen)[1]))
-        traced["attempt"] = attempt
-        traced["complete"] = (traced["port_launches"]
-                              == sum(TRAIN_SAMPLED_LAUNCHES["sage"].values()))
-        if traced["complete"]:
-            break
-    if not traced["complete"]:
-        traced["device_busy_share_profiled"] = None
+    traced = trace_step(lambda: float(step(model, state, 0, mb, feats_pad,
+                                           gen)[1]),
+                        sum(TRAIN_SAMPLED_LAUNCHES["sage"].values()))
     row = {"phase": "train_sampled_trace", "app": "sage",
            "fanouts": list(fanouts), "batch_size": batch, "hidden": hidden,
            **traced}
@@ -1785,6 +1850,51 @@ def trace_sampled_step(data, fanouts, batch: int, hidden: int) -> dict:
 # --------------------------------------------------------------------- #
 # 13. the relational apps
 # --------------------------------------------------------------------- #
+def bgs_relations():
+    """``bench_rgcn``'s BGS-like typed graph, as per-relation pairs."""
+    from repro_torch.data.synthetic import relational_graph
+
+    n, R, epr = RGCN_BGS
+    return relational_graph(n, R, epr, seed=0)
+
+
+def bgs_inputs():
+    """``bench_rgcn``'s inputs: features (n, 32) and random labels over
+    the 4 classes, both from numpy seed 1."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(RGCN_BGS[0], 32)).astype(np.float32)
+    return x, rng.integers(0, 4, RGCN_BGS[0])
+
+
+def ml1m_graphs():
+    """GC-MC's structures at ``GCMC_SHAPE``: the two level RelGraphs, the
+    rating graph and the ratings (seed 0, as ``bench_gcmc``)."""
+    from repro_torch.core.graph import from_coo
+    from repro_torch.data.synthetic import bipartite_ratings
+    from repro_torch.models.gnn import gcmc
+
+    nu, ni, nr, levels = GCMC_SHAPE
+    u, i, r = bipartite_ratings(nu, ni, nr, levels, seed=0)
+    fwd, bwd = gcmc.build_level_relgraphs(u, i, r, nu, ni, levels, "cuda")
+    return fwd, bwd, from_coo(u, i, n_src=nu, n_dst=ni, device="cuda"), r
+
+
+def sbm_graphs():
+    """LGNN's graphs at ``LGNN_SBM`` (seed 0): G, its line graph L (and
+    the seconds L took), the fused RelGraph, the community labels."""
+    from repro_torch.core.graph import from_coo
+    from repro_torch.data.synthetic import sbm_graph
+    from repro_torch.models.gnn import lgnn
+
+    n, k, p_in, p_out = LGNN_SBM
+    src, dst, comm = sbm_graph(n, k, p_in, p_out, seed=0)
+    g = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
+    t0 = time.perf_counter()
+    lg = lgnn.build_line_graph(g)
+    line_s = time.perf_counter() - t0
+    return g, lg, line_s, lgnn.build_relgraph(g, lg), comm
+
+
 def relational_tol(ref: torch.Tensor) -> float:
     """The relational phase's tolerance: 1e-4·max|ref| + 1e-6."""
     return 1e-4 * float(ref.abs().max()) + 1e-6
@@ -1913,10 +2023,7 @@ def relational_forwards(gen, b1_rows: dict, b3_rows: dict) -> list:
     B1 on each relation-expanded graph, B3 on the plain graph."""
     import copy
 
-    from repro_torch.core.graph import from_coo
-    from repro_torch.data.synthetic import (bipartite_ratings,
-                                            make_node_dataset,
-                                            relational_graph, sbm_graph)
+    from repro_torch.data.synthetic import make_node_dataset
     from repro_torch.models.gnn import gcmc, lgnn, monet, rgcn
     from repro_torch.models.gnn.common import make_bundle
 
@@ -1935,9 +2042,9 @@ def relational_forwards(gen, b1_rows: dict, b3_rows: dict) -> list:
 
     rows = []
     # R-GCN on the BGS-like typed graph
-    n, R, epr = RGCN_BGS
+    n, R, _ = RGCN_BGS
     t0 = time.perf_counter()
-    rg = rgcn.build_relgraph(relational_graph(n, R, epr, seed=0), n, "cuda")
+    rg = rgcn.build_relgraph(bgs_relations(), n, "cuda")
     gx = rg.expanded()
     build_s = time.perf_counter() - t0
     model = rgcn.init(seeded(), 32, 32, 4, R, device="cuda")
@@ -1952,9 +2059,7 @@ def relational_forwards(gen, b1_rows: dict, b3_rows: dict) -> list:
     # GC-MC at the ML-1M-like shape
     nu, ni, nr, levels = GCMC_SHAPE
     du, di, dh, do = GCMC_DIMS
-    u, i, r = bipartite_ratings(nu, ni, nr, levels, seed=0)
-    fwd, bwd = gcmc.build_level_relgraphs(u, i, r, nu, ni, levels, "cuda")
-    g_all = from_coo(u, i, n_src=nu, n_dst=ni, device="cuda")
+    fwd, bwd, g_all, _ = ml1m_graphs()
     model = gcmc.init(seeded(), du, di, dh, do, levels, device="cuda")
     xu = torch.randn(nu, du, generator=gen).cuda()
     xi = torch.randn(ni, di, generator=gen).cuda()
@@ -1990,14 +2095,9 @@ def relational_forwards(gen, b1_rows: dict, b3_rows: dict) -> list:
     del bundle, krel, gk, feats
 
     # LGNN on the SBM
-    n, k, p_in, p_out = LGNN_SBM
+    n, k = LGNN_SBM[:2]
     d_emb, d_hidden = LGNN_DIMS
-    src, dst, _ = sbm_graph(n, k, p_in, p_out, seed=0)
-    g = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
-    t0 = time.perf_counter()
-    lg = lgnn.build_line_graph(g)
-    line_s = time.perf_counter() - t0
-    rel = lgnn.build_relgraph(g, lg)
+    g, lg, line_s, rel, _ = sbm_graphs()
     model = lgnn.init(seeded(), n, d_emb, d_hidden, k, device="cuda")
     rows.append(check_forward("lgnn", runner(
         lambda m, st: lgnn.forward(m, g, lg, rg=rel, strategy=st)[0],
@@ -2026,7 +2126,6 @@ def rgcn_sessions(gen, b4_rows: dict) -> list:
     both modes served, one row of each against its reference)."""
     from repro_torch.core.serving import GNNServer
     from repro_torch.data.sampler import NeighborSampler
-    from repro_torch.data.synthetic import relational_graph
     from repro_torch.launch.serve_gnn import build_server, run_session
     from repro_torch.models.gnn import rgcn
     from repro_torch.models.gnn.common import block_features, pad_features
@@ -2144,12 +2243,12 @@ def rgcn_sessions(gen, b4_rows: dict) -> list:
     del fo, lw
 
     # auto, on the BGS-like graph
-    n, R, epr = RGCN_BGS
+    n, R, _ = RGCN_BGS
     feats = np.random.default_rng(0).standard_normal((n, 32)).astype(
         np.float32)
     srv = GNNServer("rgcn", rgcn.init(torch.Generator().manual_seed(0), 32,
                                       32, 4, R, device="cuda"), None, feats,
-                    rels=relational_graph(n, R, epr, seed=0), mode="auto",
+                    rels=bgs_relations(), mode="auto",
                     fanout=RGCN_AUTO_FANOUT, device="cuda")
     classes = srv.batcher.classes
     modes = {c: srv.mode_for_class(c) for c in classes}
@@ -2204,6 +2303,361 @@ def rgcn_sessions(gen, b4_rows: dict) -> list:
         raise AssertionError(f"rgcn auto: rows off {row}")
     rows.append(row)
     return rows
+
+
+# --------------------------------------------------------------------- #
+# 14. relational training
+# --------------------------------------------------------------------- #
+def relational_grads(app: str, model, grads_fn, plains: dict,
+                     launches: dict, kernel_args=("auto",)) -> dict:
+    """One step's per-parameter grads of ``app``: ``grads_fn(*args)`` on
+    the kernel path (``kernel_args``) against each plain path of
+    ``plains`` (name → (args, whether it must be bit-identical over two
+    calls)), within ``TRAIN_GRAD_RTOL`` of the largest plain grad
+    (+ 1e-6); the kernel path bit-identical over two calls and its
+    launches exactly ``launches``; no launch on a plain path."""
+    names = [n for n, _ in model.named_parameters()]
+    grads_fn(*kernel_args)          # per-graph structures, Gᵀs included
+    reset_counts()
+    kernel = grads_fn(*kernel_args)
+    step_launches = read_counts()
+    check_launches(f"{app} train step", step_launches, launches, 1)
+    again = grads_fn(*kernel_args)
+    plain, plain_bits = {}, {}
+    for path, (args, must) in plains.items():
+        reset_counts()
+        plain[path] = grads_fn(*args)
+        check_launches(f"{app} {path} step", read_counts(), {}, 1)
+        if must:
+            plain_bits[path] = [torch.equal(a, b) for a, b in
+                                zip(plain[path], grads_fn(*args))]
+    rows = {}
+    for i, n in enumerate(names):
+        r = {"bit_identical": torch.equal(kernel[i], again[i]),
+             **{f"{p}_bit_identical": b[i] for p, b in plain_bits.items()}}
+        for path, pg in plain.items():
+            mx = float(pg[i].abs().max())
+            r[path] = {"max_abs_err": max_err(kernel[i], pg[i]),
+                       "tol": 1e-6 + TRAIN_GRAD_RTOL * mx,
+                       "max_abs_plain": mx}
+        rows[n] = r
+    bad = {n: r for n, r in rows.items()
+           if not all(v for k, v in r.items() if k.endswith("bit_identical"))
+           or any(r[p]["max_abs_err"] > r[p]["tol"] for p in plain)}
+    row = {"phase": "train_relational_grads", "app": app,
+           "step_launches": step_launches, "grads": rows,
+           "grads_bit_identical": all(r["bit_identical"]
+                                      for r in rows.values())}
+    emit(row)
+    if bad:
+        raise AssertionError(f"{app} relational grads: {bad}")
+    return row
+
+
+def loss_step_epochs(loss, model, strategy: str, epochs: int) -> dict:
+    """GC-MC's and LGNN's training: ``epochs`` steps of
+    ``train.make_loss_step`` on ``loss(model, strategy=...)``, each timed
+    to its loss read, after one warm-up step on a copy of the model (its
+    result discarded, as ``train_full_graph``'s), which builds the
+    per-graph structures of every kernel of the step."""
+    import copy
+    import functools
+
+    from repro_torch.models.gnn.train import make_loss_step
+
+    init, step = make_loss_step(functools.partial(loss, strategy=strategy))
+    warm = copy.deepcopy(model)
+    float(step(warm, init(warm), 0)[1])
+    del warm
+    opt, hist = init(model), {"loss": [], "epoch_time": []}
+    for e in range(epochs):
+        t0 = time.perf_counter()
+        opt, loss_e = step(model, opt, e)
+        loss_e = float(loss_e)
+        hist["epoch_time"].append(time.perf_counter() - t0)
+        hist["loss"].append(loss_e)
+    return hist
+
+
+def relational_train_kernels(gen, rows: dict, graphs: dict) -> None:
+    """The backward kernels at the training steps' shapes, each against
+    its float64 plain version, bit-identical over two calls, timed: B1 on
+    the reverse of each relation-expanded graph (``graphs``: label →
+    (RelGraph, widths, e-weight or None, mean)), and B3 ``dot`` for
+    MoNet's ∂e on its expansion (the message table against ∂out)."""
+    from repro_torch.core.graph import reverse
+
+    for label, (rel, widths, e, mean) in graphs.items():
+        gx = rel.expanded()
+        gt = reverse(gx)
+        weighted = e is not None or mean
+        check_b1(gt, canonical_weights(rel, gt, e, mean) if weighted
+                 else None, gen, f"{label}_T", rows["spmm_csr"],
+                 [(d, "sum" if weighted else "copy_sum") for d in widths],
+                 fp64=True)
+        if label == "monet_krel":
+            check_b3(gx, gen, label, rows["sddmm_csr"],
+                     [("dot", "u", "v", d) for d in widths], fp64=True)
+
+
+def train_relational(gen, rows: dict) -> list:
+    """Phase 14: full-graph training of R-GCN (``train_full_graph`` on its
+    RelGraph), MoNet (on ``make_bundle(g, krel=2)``), GC-MC and LGNN
+    (``make_loss_step`` on ``rating_loss`` / ``train_loss``), each at its
+    benchmark's shape — the backward kernels at the step's shapes, one
+    step's grads on the kernel route against the plain fused route,
+    launches per step, 10 epochs a route — and one R-GCN step under
+    ``torch.profiler``."""
+    import copy
+
+    from repro_torch.models.gnn import gcmc, lgnn, monet, rgcn
+    from repro_torch.models.gnn.common import make_bundle
+    from repro_torch.models.gnn.train import make_train_step, train_full_graph
+    from repro_torch.data.synthetic import make_node_dataset
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    def seeded():
+        return torch.Generator().manual_seed(0)
+
+    out = []
+    # R-GCN and MoNet: the full-graph trainer
+    n, R, _ = RGCN_BGS
+    rg = rgcn.build_relgraph(bgs_relations(), n, "cuda")
+    x, y = (torch.from_numpy(a).cuda() for a in bgs_inputs())
+    everyone = torch.ones(n, dtype=torch.bool, device="cuda")
+    g, feats, labels, train_mask, _, n_classes = make_node_dataset(
+        MONET_DATASET, device="cuda")
+    bundle = make_bundle(g, krel=MONET_K)
+    feats, labels, train_mask = (torch.from_numpy(a).cuda() for a in
+                                 (feats, labels, train_mask))
+    fwd, bwd, g_all, ratings = ml1m_graphs()
+    du, di, dh, do = GCMC_DIMS
+    rng = np.random.default_rng(0)      # bench_gcmc's inputs
+    xu, xi = (torch.from_numpy(rng.normal(size=(m, d)).astype(
+        np.float32)).cuda() for m, d in ((GCMC_SHAPE[0], du),
+                                         (GCMC_SHAPE[1], di)))
+    ratings = torch.from_numpy(ratings).cuda()
+    g_sbm, lg, line_s, rel_sbm, comm = sbm_graphs()
+    comm = torch.from_numpy(comm).cuda()
+    d_emb, d_hidden = LGNN_DIMS
+    relational_train_kernels(gen, rows, {
+        "rgcn_expanded": (rg, (32, 4), None, True),
+        "gcmc_user_item": (fwd, (dh,), None, True),
+        "gcmc_item_user": (bwd, (dh,), None, True),
+        "monet_krel": (bundle.krel(MONET_K), (MONET_HIDDEN, n_classes),
+                       (torch.rand(bundle.krel(MONET_K).n_edges,
+                                   generator=gen) + 0.5).cuda(), False),
+        "lgnn_expanded": (rel_sbm, (d_hidden, LGNN_SBM[1]), None, False)})
+
+    def full_graph(mod, data, mask):
+        def loss(m, strategy):
+            return cross_entropy_loss(mod.forward(m, data[0], data[1],
+                                                  strategy=strategy),
+                                      data[2], mask)
+
+        def run(m, strategy, epochs):
+            return train_full_graph(mod.forward, m, data[0], data[1],
+                                    data[2], mask, strategy=strategy,
+                                    epochs=epochs, seed=0)[1]
+        return loss, run
+
+    apps = {
+        "rgcn": (rgcn.init(seeded(), 32, 32, 4, R, device="cuda"),
+                 *full_graph(rgcn, (rg, x, y), everyone),
+                 {"graph": "bgs-like", "n": n, "n_rel": R,
+                  "n_edges": rg.n_edges, "widths": [32, 32, 4],
+                  "n_bases": 4}),
+        "monet": (monet.init(seeded(), feats.shape[1], MONET_HIDDEN,
+                             n_classes, n_kernels=MONET_K, device="cuda"),
+                  *full_graph(monet, (bundle, feats, labels), train_mask),
+                  {"graph": MONET_DATASET, "n": g.n_dst,
+                   "n_edges": g.n_edges, "hidden": MONET_HIDDEN,
+                   "kernels": MONET_K}),
+    }
+
+    def gcmc_loss(m, strategy):
+        return gcmc.rating_loss(m, (fwd, bwd, g_all), xu, xi, ratings,
+                                strategy=strategy)
+
+    def lgnn_loss(m, strategy):
+        return lgnn.train_loss(m, g_sbm, lg, comm, rg=rel_sbm,
+                               strategy=strategy)
+
+    apps["gcmc"] = (
+        gcmc.init(seeded(), du, di, dh, do, GCMC_SHAPE[3], device="cuda"),
+        gcmc_loss, lambda m, st, ep: loss_step_epochs(gcmc_loss, m, st, ep),
+        {"graph": "ml1m-like", "n_users": GCMC_SHAPE[0],
+         "n_items": GCMC_SHAPE[1], "n_ratings": GCMC_SHAPE[2],
+         "levels": GCMC_SHAPE[3], "dims": list(GCMC_DIMS)})
+    apps["lgnn"] = (
+        lgnn.init(seeded(), LGNN_SBM[0], d_emb, d_hidden, LGNN_SBM[1],
+                  device="cuda"),
+        lgnn_loss, lambda m, st, ep: loss_step_epochs(lgnn_loss, m, st, ep),
+        {"graph": "sbm", "n": LGNN_SBM[0], "n_edges": g_sbm.n_edges,
+         "line_edges": lg.n_edges, "relgraph_edges": rel_sbm.n_edges,
+         "dims": [d_emb, d_hidden, LGNN_SBM[1]],
+         "line_graph_build_s": line_s})
+
+    for app, (model, loss, run, extra) in apps.items():
+        params = list(model.parameters())
+        m1 = copy.deepcopy(model)     # LGNN's loss writes its BN state
+
+        def grads(strategy):
+            got = torch.autograd.grad(loss(m1, strategy), list(
+                m1.parameters()), allow_unused=True)
+            torch.cuda.synchronize()
+            return [torch.zeros_like(p) if gr is None else gr
+                    for p, gr in zip(params, got)]
+
+        per_step = RELATIONAL_TRAIN_LAUNCHES[app]
+        grad_row = relational_grads(app, model, grads,
+                                    {"plain": (("fused",), True)}, per_step)
+        bn_changed = None
+        if app == "lgnn":             # one step writes the running stats
+            m2 = copy.deepcopy(model)
+            before = [b.clone() for b in m2.buffers()]
+            loss_step_epochs(lgnn_loss, m2, "auto", 1)
+            bn_changed = [not torch.equal(a, b)
+                          for a, b in zip(before, m2.buffers())]
+            if not all(bn_changed):
+                raise AssertionError(f"lgnn: a step left BatchNorm "
+                                     f"statistics unchanged: {bn_changed}")
+        runs = epoch_runs(
+            app, model, lambda m, st: run(m, st, TRAIN_EPOCHS),
+            {"kernel": "auto", "plain": "fused"},
+            {k: v * (TRAIN_EPOCHS + 1) for k, v in per_step.items()})
+        row = {"phase": "train_relational", "app": app, **extra,
+               "epochs": TRAIN_EPOCHS,
+               "step_launches": grad_row["step_launches"],
+               "launches": runs["kernel"]["launches"],
+               "grads_max_abs_err": max(r["plain"]["max_abs_err"]
+                                        for r in grad_row["grads"].values()),
+               "grads_bit_identical": grad_row["grads_bit_identical"],
+               "bn_stats_changed": bn_changed,
+               "kernel": runs["kernel"], "plain": runs["plain"],
+               "epoch_speedup_median": (runs["plain"]["epoch_ms_median"]
+                                        / runs["kernel"]["epoch_ms_median"])}
+        if app == "rgcn":
+            opt_init, step = make_train_step(rgcn.forward)
+            m = copy.deepcopy(model)
+            state = opt_init(m)
+            tgen = torch.Generator(device="cuda").manual_seed(0)
+            row["trace"] = trace_step(lambda: float(step(
+                m, state, 0, rg, x, y, everyone, tgen)[1]),
+                sum(per_step.values()))
+        emit(row)
+        out.append(row)
+    return out
+
+
+def train_relational_sampled(gen, rows: dict) -> list:
+    """Phase 14, sampled R-GCN on the BGS-like merged graph at
+    ``SAMPLED_RGCN``: B1 over each block's relation-expanded Gᵀ of the
+    first training batch (float64 plain, bit-identical, timed); one
+    step's grads on the kernel path (B4 forward, the gather backward on
+    B1) against the plain pull with autograd (scatter) and with the
+    gather backward, both gathers bit-identical over two calls; then
+    ``train_sampled`` in turns kernel, plain, plain, kernel: epoch 1 with
+    its sample / step split, the loss (finite, falling), launches."""
+    import copy
+
+    from repro_torch.core.hetero import block_expanded_reverse
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.models.gnn import rgcn
+    from repro_torch.models.gnn.common import block_features, pad_features
+    from repro_torch.models.gnn.train import train_sampled
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    n, R, _ = RGCN_BGS
+    fanouts, batch, max_batches = SAMPLED_RGCN
+    gm, rel_ids = rgcn.merged_graph(bgs_relations(), n, "cuda")
+    x, y = bgs_inputs()
+    ids = np.arange(n)
+    model = rgcn.init(torch.Generator().manual_seed(0), 32, 32, 4, R,
+                      device="cuda")
+
+    def sampler():
+        return NeighborSampler(gm, list(fanouts), batch, seed=0,
+                               edge_rel=rel_ids, device="cuda",
+                               reverse=True)
+
+    mb = next(sampler().batches(ids, y, drop_last=False))
+    for li, blk in enumerate(mb.blocks):
+        gx = block_expanded_reverse(blk.bg, blk.rel, R)
+        check_b1(gx, blk.rel_norm.index_select(0, gx.long("eid"))
+                 .contiguous(), gen, f"rgcn_block{li}_xT", rows["spmm_csr"],
+                 [(32 if li == 0 else 4, "sum")], fp64=True)
+    feats_pad = pad_features(x, "cuda")
+    xb = block_features(feats_pad, mb.input_ids)
+
+    def grads(strategy, bwd):
+        logits = rgcn.forward_blocks(model, mb.blocks, xb,
+                                     strategy=strategy, bwd_strategy=bwd)
+        got = torch.autograd.grad(cross_entropy_loss(
+            logits, mb.labels, mb.label_mask), list(model.parameters()))
+        torch.cuda.synchronize()
+        return got
+
+    per_step = RELATIONAL_TRAIN_LAUNCHES["rgcn_sampled"]
+    grad_row = relational_grads(
+        "rgcn_sampled", model, grads,
+        {"plain_scatter": (("ell", "scatter"), False),
+         "plain_gather": (("ell", "gather"), True)}, per_step,
+        kernel_args=("auto", "auto"))
+
+    paths = {"kernel": ("auto", "auto"), "plain": ("ell", "scatter")}
+    runs = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        m = copy.deepcopy(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        _, hist = train_sampled(
+            rgcn.forward_blocks, m, gm, x, y, ids, fanouts=fanouts,
+            batch_size=batch, strategy=paths[path][0],
+            bwd_strategy=paths[path][1], epochs=SAMPLED_EPOCHS, seed=0,
+            max_batches=max_batches, sampler=sampler())
+        got = read_counts()
+        loss = hist["loss"]
+        if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+            raise AssertionError(f"rgcn sampled {path}: loss {loss}")
+        nb = sum(hist["n_batches"])
+        # a step per batch and one drift probe (a step and a forward)
+        want = {k: per_step.get(k, 0) * (nb + 1)
+                + RGCN_FANOUT_LAUNCHES.get(k, 0)
+                if path == "kernel" else 0 for k in got}
+        if nb != SAMPLED_EPOCHS * max_batches or got != want:
+            raise AssertionError(f"rgcn sampled {path}: {nb} batches, "
+                                 f"launches {got}; expected {want}")
+        runs[path].append({
+            "epoch1_ms": hist["epoch_time"][1] * 1e3,
+            "sample1_ms": hist["sample_time"][1] * 1e3,
+            "step1_ms": hist["step_time"][1] * 1e3,
+            "epoch0_ms": hist["epoch_time"][0] * 1e3, "loss": loss,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": got})
+
+    def pooled(rs):
+        return {**{k: [r[k] for r in rs] for k in (
+            "epoch1_ms", "sample1_ms", "step1_ms", "epoch0_ms")},
+                "epoch1_ms_per_batch": [r["epoch1_ms"] / max_batches
+                                        for r in rs],
+                "loss": rs[0]["loss"],
+                "max_memory_allocated_bytes": max(
+                    r["max_memory_allocated_bytes"] for r in rs),
+                "launches": {k: sum(r["launches"][k] for r in rs)
+                             for k in rs[0]["launches"]}}
+
+    row = {"phase": "train_relational_sampled", "app": "rgcn",
+           "graph": "bgs-like", "fanouts": list(fanouts),
+           "batch_size": batch, "batches_per_epoch": max_batches,
+           "epochs": SAMPLED_EPOCHS,
+           "step_launches": grad_row["step_launches"],
+           "grads_bit_identical": grad_row["grads_bit_identical"],
+           "kernel": pooled(runs["kernel"]), "plain": pooled(runs["plain"])}
+    row["launches"] = row["kernel"]["launches"]
+    emit(row)
+    return [row]
 
 
 def summary(name, source, replaces, main_rows, all_rows, launches,
@@ -2378,12 +2832,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "relational_done", "seconds": time.perf_counter() - t0})
 
+    # 14. relational training: the backward kernels at the steps' shapes,
+    # each app's step grads and epochs, sampled R-GCN
+    t0 = time.perf_counter()
+    train_rel_rows = {"spmm_csr": {}, "sddmm_csr": {}}
+    rel_trained = train_relational(gen, train_rel_rows)
+    torch.cuda.empty_cache()
+    rel_trained += train_relational_sampled(gen, train_rel_rows)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_relational_done",
+          "seconds": time.perf_counter() - t0})
+
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
-            + auto + trained + sampled + relational
+            + auto + trained + sampled + relational + rel_trained
             + [{"launches": r["step_launches"]}
-               for r in trained + sampled_steps])
+               for r in trained + sampled_steps + rel_trained])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     # the main path's shapes: serving's, and training's backward ones (B3
@@ -2408,8 +2873,14 @@ def main() -> int:
     main["sddmm_csr"] += [r for r in rel_b3 if r["op"] != "copy"]
     main["sddmm_csr:copy"] += [r for r in rel_b3 if r["op"] == "copy"]
     main["binary_reduce_csr"] += list(rel_rows["binary_reduce_csr"].values())
-    b3_all = {**b3_rows, **rel_rows["sddmm_csr"]}
-    every = {"spmm_csr": {**b1_rows, **rel_rows["spmm_csr"]},
+    # and relational training's (B1 on the expansions' reverses and on
+    # each sampled block's expanded Gᵀ, B3 dot for MoNet's ∂e)
+    main["spmm_csr"] += list(train_rel_rows["spmm_csr"].values())
+    main["sddmm_csr"] += list(train_rel_rows["sddmm_csr"].values())
+    b3_all = {**b3_rows, **rel_rows["sddmm_csr"],
+              **train_rel_rows["sddmm_csr"]}
+    every = {"spmm_csr": {**b1_rows, **rel_rows["spmm_csr"],
+                          **train_rel_rows["spmm_csr"]},
              "fused_attention_csr": b2_rows,
              "sddmm_csr": {k: r for k, r in b3_all.items()
                            if r["op"] != "copy"},

@@ -28,16 +28,17 @@ Strategies of :func:`gsddmm` (edge outputs):
 The JAX package's other strategies are queued; asking for them raises
 ``NotImplementedError`` naming the item.
 
-Gradients. The canonical and gather routes differentiate by plain
-autograd: they are the reference. The segment route's sum and mean have
-the JAX package's scatter-free adjoint (:func:`_pull_grads`): per-edge
-cotangent products, then one sorted segment reduce — over the src-sorted
-view ``perm_src``, which is Gᵀ's canonical order, for a ``u`` operand;
-over G's canonical order for a ``v`` operand; none for an ``e`` operand,
-whose rows are its edges — so, with ``pull_segment``'s sorted sums, the
-segment route is bit-identical from call to call on the card (its max,
-min and prod keep autograd: their adjoint onto an edge operand is one
-row per edge). Each kernel route is a
+Gradients. The gather route differentiates by plain autograd: it is the
+reference. The segment route's sum and mean, and the canonical route of
+``gsddmm``, have the JAX package's scatter-free adjoint
+(:func:`_pull_grads`): per-edge cotangent products, then one sorted
+segment reduce — over the src-sorted view ``perm_src``, which is Gᵀ's
+canonical order, for a ``u`` operand; over G's canonical order for a
+``v`` operand; none for an ``e`` operand, whose rows are its edges — so,
+with ``pull_segment``'s sorted sums, both routes are bit-identical from
+call to call on the card, where autograd's ``index_add_`` adds by
+atomics (the segment route's max, min and prod keep autograd: their
+adjoint onto an edge operand is one row per edge). Each kernel route is a
 ``torch.autograd.Function`` whose backward runs the port's own kernels,
 because every adjoint of a spec they compute forward is again an
 operator they compute (the kernel wrappers take no autograd input, so
@@ -325,6 +326,8 @@ def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
         if _needs_grad(lhs_data, rhs_data):
             return _KernelGsddmm.apply(g, spec, lhs_data, rhs_data)
         return _sddmm_kernel(g, spec, lhs_data, rhs_data)
+    if strategy == "canonical" and _needs_grad(lhs_data, rhs_data):
+        return _CanonicalGsddmm.apply(g, spec, lhs_data, rhs_data)
     if strategy == "gather":
         # caller-order view of the endpoints, one gather per operand
         def fetch(target, x):
@@ -375,10 +378,11 @@ def edge_order(g, order: str) -> Tuple[torch.Tensor, torch.Tensor,
 
 def _pull_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool],
                 select: Optional[Callable] = None):
-    """Scatter-free (∂lhs, ∂rhs) of a node-output sum or mean BR on the
-    plain path (the JAX package's ``_sddmm_grads`` / block
-    ``_reverse_grads``): the per-edge cotangent ``ct[out_e]`` (a mean's
-    1/deg folded in first) times the other operand's value by ``_dmsg``,
+    """Scatter-free (∂lhs, ∂rhs) of a node-output sum or mean BR, or of
+    an edge-output BR, on the plain path (the JAX package's
+    ``_sddmm_grads`` / block ``_reverse_grads``): the per-edge cotangent
+    — ``ct[out_e]`` (a mean's 1/deg folded in first), or an edge
+    output's own row — times the other operand's value by ``_dmsg``,
     then one sorted reduce onto the operand's target — ``pull_segment``
     over the src-sorted order for ``u``, the canonical order for ``v`` —
     or, for ``e``, the rows in caller order as they are. ``select(order)``
@@ -386,7 +390,8 @@ def _pull_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool],
     ``order`` to each output element's winning edge. Only the grads
     ``needs`` asks for."""
     out_v = spec.out == "v"
-    if spec.reduce == "mean":
+    out_e = spec.out == "e"
+    if spec.reduce == "mean" and not out_e:
         deg = g.in_degrees if out_v else g.out_degrees
         ct = ct / deg.clamp(min=1).to(ct.dtype).reshape(
             (-1,) + (1,) * (ct.ndim - 1))
@@ -404,7 +409,10 @@ def _pull_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool],
         target, x = targets[side], data[side]
         order = {"u": "srcsort", "v": "canon", "e": "caller"}[target]
         src, dst, eid = edge_order(g, order)
-        ct_e = ct.index_select(0, dst if out_v else src)
+        if out_e:                   # ct is per edge, in caller order
+            ct_e = ct if eid is None else ct.index_select(0, eid)
+        else:
+            ct_e = ct.index_select(0, dst if out_v else src)
         if select is not None:
             ct_e = torch.where(select(order), ct_e, ct_e.new_zeros(()))
         lhs_val = rhs_val = None
@@ -437,6 +445,24 @@ class _SegmentGspmm(torch.autograd.Function):
         ctx.g, ctx.spec = g, spec
         ctx.save_for_backward(lhs, rhs)
         return _execute_segment(g, spec, lhs, rhs)
+
+    @staticmethod
+    def backward(ctx, ct):
+        lhs, rhs = ctx.saved_tensors
+        return (None, None) + _pull_grads(ctx.g, ctx.spec, lhs, rhs,
+                                          ct.contiguous(),
+                                          ctx.needs_input_grad[2:])
+
+
+class _CanonicalGsddmm(torch.autograd.Function):
+    """gsddmm's canonical route (B3's plain version) with the
+    scatter-free backward of :func:`_pull_grads`."""
+
+    @staticmethod
+    def forward(ctx, g, spec, lhs, rhs):
+        ctx.g, ctx.spec = g, spec
+        ctx.save_for_backward(lhs, rhs)
+        return sddmm_plain(g, spec.op, spec.lhs, lhs, spec.rhs, rhs)
 
     @staticmethod
     def backward(ctx, ct):

@@ -54,11 +54,20 @@ against n·R·d·o for composing ``W_r = coeff @ basis`` first. At the
 table holds 4000·100·16 floats = 25.6 MB (``hb`` 1.0 MB); 3-D ``u`` is
 its own table, reshaped without a copy.
 
-Plain routes differentiate by autograd. Eager calls are timed through
-:func:`repro_torch.obs.events.timed` as ``hetero:<op>``, the JAX plan-log
-key. :func:`hetero_block_gspmm` is the relational block layer: per-edge
-``u[src] @ w[rel]`` messages in caller order, reduced by ``block_gspmm``'s
-``e_copy_add_v`` (B4 ``copy_rhs`` on the card).
+Gradients, per route: the kernel route through ``_KernelGspmm`` (B1 on
+the expansion's reverse for ∂table — the table's einsum stays outside,
+so autograd carries ∂table on to ``u``, ``w``, ``basis``, ``coeff`` —
+and B3 ``u_dot_v`` for ∂e); ``fused`` with a sum or mean through
+:class:`_HeteroFusedRev`, JAX's gather VJP (``_hetero_fused_rev``): one
+sorted segment reduce over the (src, rel) reverse table, then dense
+einsums, no scatter, so it is bit-identical from call to call on the
+card; ``loop``, max and min by autograd, as in JAX. Eager calls are
+timed through :func:`repro_torch.obs.events.timed` as ``hetero:<op>``,
+the JAX plan-log key. :func:`hetero_block_gspmm` is the relational
+block layer: per-edge ``u[src] @ w[rel]`` messages in caller order,
+reduced as ``block_gspmm``'s ``e_copy_add_v`` (B4 ``copy_rhs`` on the
+card), with JAX's relational block VJP (its docstring says which
+backward each route takes).
 """
 from __future__ import annotations
 
@@ -68,16 +77,18 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import planner
 from . import strategies as S
-from .binary_reduce import gspmm
-from .blocks import block_gspmm
+from .binary_reduce import _needs_grad, edge_order, gspmm, parse_op
+from .blocks import _block_execute, block_gspmm, check_block_strategy
 from .graph import Graph, from_coo
 from ..device import DeviceLike, resolve_device
+from ..kernels.spmm.ops import spmm
 from ..obs.events import timed as _timed
 
 __all__ = ["RelGraph", "from_typed", "from_rels", "caller_coo",
-           "hetero_gspmm", "hetero_block_gspmm", "HETERO_STRATEGIES",
-           "node_strategy", "edge_strategy"]
+           "hetero_gspmm", "hetero_block_gspmm", "block_expanded_reverse",
+           "HETERO_STRATEGIES", "node_strategy", "edge_strategy"]
 
 HETERO_STRATEGIES = ("auto", "fused", "loop", "kernel")
 _QUEUED = ("ROADMAP A9 (plan_hetero with hetero's ell / push / skew-class "
@@ -174,6 +185,19 @@ class RelGraph:
                             n_src=self.n_src * self.n_rel,
                             n_dst=self.n_dst, device=self.device)
         return self._memo("expanded", build)
+
+    def rev_segments(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """int64 ``(key, lengths)`` of the reverse table's (src, rel)
+        segments: ``key = rev_src·R + rev_rel`` per reverse slot (sorted)
+        and the length of each of the n_src·R segments, made once on the
+        host — what the gather backward's one sorted reduce reads."""
+        def build():
+            key = (self.host["rev_src"].astype(np.int64) * self.n_rel
+                   + self.host["rev_rel"])
+            lengths = np.bincount(key, minlength=self.n_src * self.n_rel)
+            return (torch.from_numpy(key).to(self.device),
+                    torch.from_numpy(lengths).to(self.device))
+        return self._memo("rev_segments", build)
 
     def _memo(self, key: str, build):
         got = self._derived.get(key)
@@ -389,6 +413,84 @@ def _exec_plain(rg: RelGraph, u, w, basis, coeff, e, reduce: str,
 
 
 # --------------------------------------------------------------------- #
+# the plain fused route's gather backward (repro/core/hetero.py:503-582)
+# --------------------------------------------------------------------- #
+def _hetero_grads(rg: RelGraph, u, w, basis, coeff, s, ct, needs):
+    """Gather-based adjoints of the fused sum: ONE sorted segment reduce
+    over the (src, rel)-sorted reverse table, C[s, r] = Σ_{e∈E_r: src=s}
+    s_e·ct[dst_e], then dense einsums — ∂u = Σ_r C[·,r] W_rᵀ, ∂W_r = uᵀ
+    C[·,r], or with the basis kept factored the same contractions against
+    Cb = C·coeff. No scatter. ``needs`` = (∂u, ∂w, ∂basis, ∂coeff)."""
+    ct_rev = ct.index_select(0, rg.long("rev_dst"))
+    if s is not None:
+        ct_rev = ct_rev * s.index_select(0, rg.long("rev_perm"))[:, None]
+    n, R = rg.n_src, rg.n_rel
+    need_u, need_w, need_b, need_c = needs
+    if u.ndim == 2 and w is None and basis is None:
+        du = S.pull_segment(ct_rev, rg.long("rev_src"), n, "sum",
+                            deg=rg.g.out_degrees)
+        return du.to(u.dtype), None, None, None
+    key, lengths = rg.rev_segments()
+    C = S.pull_segment(ct_rev, key, n * R, "sum", deg=lengths)
+    if u.ndim == 3:
+        return C.reshape(u.shape).to(u.dtype), None, None, None
+    C = C.reshape(n, R, ct.shape[-1])
+    du = dw = dbasis = dcoeff = None
+    if basis is not None:
+        Cb = torch.einsum("nro,rb->nbo", C, coeff)
+        if need_u:
+            du = torch.einsum("nbo,bdo->nd", Cb, basis).to(u.dtype)
+        if need_b:
+            dbasis = torch.einsum("nbo,nd->bdo", Cb, u).to(basis.dtype)
+        if need_c:
+            hb = torch.einsum("nd,bdo->nbo", u, basis)
+            dcoeff = torch.einsum("nro,nbo->rb", C, hb).to(coeff.dtype)
+        return du, None, dbasis, dcoeff
+    if need_u:
+        du = torch.einsum("nro,rdo->nd", C, w).to(u.dtype)
+    if need_w:
+        dw = torch.einsum("nro,nd->rdo", C, u).to(w.dtype)
+    return du, dw, None, None
+
+
+def _hetero_de(rg: RelGraph, u, w, basis, coeff, norm, ct) -> torch.Tensor:
+    """∂(e operand): per edge ⟨unscaled message, ct[dst]⟩ (the mean's
+    weight folded in, ``e`` not), in caller order."""
+    g = rg.g
+    base = _messages(rg, u, w, basis, coeff, norm)
+    ds = (base * ct.index_select(0, g.long("dst"))).sum(-1)
+    return ds.index_select(0, g.long("eid_inv"))
+
+
+class _HeteroFusedRev(torch.autograd.Function):
+    """The fused route's sum / mean with JAX's gather VJP
+    (``_hetero_fused_rev``): :func:`_hetero_grads` for the operands,
+    :func:`_hetero_de` for ``e``, whichever message branch the forward
+    took."""
+
+    @staticmethod
+    def forward(ctx, rg, reduce, u, w, basis, coeff, e):
+        ctx.rg, ctx.reduce = rg, reduce
+        ctx.save_for_backward(u, w, basis, coeff, e)
+        return _exec_plain(rg, u, w, basis, coeff, e, reduce, "fused")
+
+    @staticmethod
+    def backward(ctx, ct):
+        u, w, basis, coeff, e = ctx.saved_tensors
+        rg, reduce = ctx.rg, ctx.reduce
+        needs = ctx.needs_input_grad[2:]
+        ct = ct.contiguous()
+        grads = _hetero_grads(rg, u, w, basis, coeff,
+                              _scale(rg, e, reduce), ct, needs[:4])
+        de = None
+        if needs[4]:
+            norm = rg.mean_norm if reduce == "mean" else None
+            de = _hetero_de(rg, u, w, basis, coeff, norm, ct).to(e.dtype)
+            de = de.reshape(e.shape)
+        return (None, None) + grads + (de,)
+
+
+# --------------------------------------------------------------------- #
 # the kernel route (module docstring)
 # --------------------------------------------------------------------- #
 def _table(rg: RelGraph, u, w, basis, coeff) -> torch.Tensor:
@@ -492,6 +594,10 @@ def hetero_gspmm(rg: RelGraph, u: torch.Tensor, *,
     if chosen == "kernel":
         return _timed(f"hetero:{op_name}", lambda: _exec_kernel(
             rg, u, w, basis, coeff, e, reduce))
+    if (chosen == "fused" and reduce in ("sum", "mean")
+            and _needs_grad(u, w, basis, coeff, e)):
+        return _timed(f"hetero:{op_name}", lambda: _HeteroFusedRev.apply(
+            rg, reduce, u, w, basis, coeff, e))
     return _timed(f"hetero:{op_name}", lambda: _exec_plain(
         rg, u, w, basis, coeff, e, reduce, chosen))
 
@@ -499,6 +605,9 @@ def hetero_gspmm(rg: RelGraph, u: torch.Tensor, *,
 # --------------------------------------------------------------------- #
 # relational blocks (sampled R-GCN)
 # --------------------------------------------------------------------- #
+_BLOCK_SPEC = parse_op("e_copy_add_v")
+
+
 def hetero_block_gspmm(bg, rel: torch.Tensor, u: torch.Tensor,
                        w: torch.Tensor, *,
                        norm: Optional[torch.Tensor] = None,
@@ -510,12 +619,40 @@ def hetero_block_gspmm(bg, rel: torch.Tensor, u: torch.Tensor,
     per-(dst, relation) mean weight, both in caller edge order (the
     relational sampler emits them; pad edges carry norm 0 and point at
     the dummy row). Messages ``u[src] @ w[rel]`` (:func:`_block_messages`)
-    are reduced by ``block_gspmm(bg, "e_copy_add_v", e=msg)`` — B4
-    ``copy_rhs`` on the card — under ``strategy`` / ``bwd_strategy``.
-    Returns (n_dst_real, d_out).
+    are reduced as ``block_gspmm(bg, "e_copy_add_v", e=msg)`` reduces
+    them — B4 ``copy_rhs`` on the card — under ``strategy``. Returns
+    (n_dst_real, d_out).
+
+    The backward is planned by ``planner.plan_block_vjp`` (gather
+    available when the block has its Gᵀ, as in JAX):
+
+    * ``"gather"`` — :class:`_HeteroBlockGather`, JAX's
+      ``_hetero_block_rev``. After a kernel forward: B1 over the block's
+      relation-expanded Gᵀ (:func:`block_expanded_reverse`) gives
+      C[s, r] = Σ_{e: src=s, rel=r} norm_e·ct[dst_e], then ∂u = Σ_r
+      C[·,r]·w_rᵀ and ∂w_r = uᵀ·C[·,r] are two einsums — JAX's
+      ``_hetero_grads`` on a block, with no per-edge (d_in, d_out) outer
+      product and no atomics. After a plain forward: ∂u a sorted pull
+      over the block's reverse table, ∂w a per-relation sorted sum of
+      the per-edge outer products (:func:`_block_rev_grads`).
+    * ``"scatter"`` — autograd of the messages, the reduce through
+      ``block_gspmm``'s own VJP.
     """
+    check_block_strategy(strategy)
+    if strategy == "auto":
+        strategy = "kernel" if _kernel_ok(u, w, norm) else "ell"
+    if _needs_grad(u, w):
+        bwd = planner.plan_block_vjp(
+            bg.signature, _BLOCK_SPEC, int(w.shape[-1]),
+            requested=bwd_strategy, gather_available=bg.has_reverse,
+            device=u.device.type)
+        if bwd == "gather":
+            return _timed(f"block:{_BLOCK_SPEC.name}", lambda:
+                          _HeteroBlockGather.apply(bg, strategy, rel, norm,
+                                                   u, w))
+        bwd_strategy = "scatter"
     msg = _block_messages(bg, rel, u, w, norm)
-    return block_gspmm(bg, "e_copy_add_v", e=msg, strategy=strategy,
+    return block_gspmm(bg, _BLOCK_SPEC.name, e=msg, strategy=strategy,
                        bwd_strategy=bwd_strategy)
 
 
@@ -528,6 +665,103 @@ def _block_messages(bg, rel, u, w, norm) -> torch.Tensor:
     if norm is not None:
         msg = msg * norm[:, None]
     return msg
+
+
+def block_expanded_reverse(bg, rel: torch.Tensor, n_rel: int,
+                           draw=None) -> Graph:
+    """The block's relation-expanded Gᵀ: one edge per block edge, from its
+    destination slot to row ``src·R + rel`` (n_src_pad·R rows, the
+    n_dst_real + 1 destination slots as columns), caller edge order
+    kept. B1 over it with the weight ``norm`` gives the gather backward's
+    C[s, r]; pad edges leave the dummy destination row, whose cotangent
+    is zero. Kept on ``bg.g`` for this ``rel`` and ``n_rel``. ``draw`` =
+    the host ``(src, dst, rel)`` caller-order arrays of the sampler's
+    draw, which it builds from; without them the arrays come from
+    ``bg.g.host`` and ``rel`` (a device read, once)."""
+    got = bg.g._derived.get(("rel_reverse", n_rel))
+    if got is not None and got[0] is rel:
+        return got[1]
+    if draw is None:
+        src, dst = caller_coo(bg.g)
+        rel_h = rel.cpu().numpy()
+    else:
+        src, dst, rel_h = draw
+    gx = from_coo(np.asarray(dst, np.int64),
+                  np.asarray(src, np.int64) * n_rel + np.asarray(rel_h,
+                                                                 np.int64),
+                  n_src=bg.g.n_dst, n_dst=bg.g.n_src * n_rel,
+                  device=bg.g.device)
+    bg.g._derived[("rel_reverse", n_rel)] = (rel, gx)
+    return gx
+
+
+def _block_table_grads(bg, rel, norm, u, w, ct_pad, needs):
+    """(∂u, ∂w) after a kernel forward: C by B1 over the block's
+    relation-expanded Gᵀ, then two einsums."""
+    n, R, d_out = bg.g.n_src, w.shape[0], w.shape[-1]
+    gx = block_expanded_reverse(bg, rel, R)
+    C = spmm(gx, ct_pad, "sum", weight=norm).reshape(n, R, d_out)
+    du = torch.einsum("nro,rdo->nd", C, w) if needs[0] else None
+    dw = torch.einsum("nro,nd->rdo", C, u) if needs[1] else None
+    return du, dw
+
+
+def _block_rev_grads(bg, rel, norm, u, w, ct_pad, needs):
+    """(∂u, ∂w) after a plain forward, as JAX's ``_hetero_block_rev_bwd``:
+    ∂u a sorted pull over the src-sorted reverse table; ∂w the per-edge
+    outer products u[src]⊗(norm·ct[dst]) summed per relation, sorted by
+    relation first (JAX's ``segment_sum`` over ``rel`` is unsorted)."""
+    g = bg.g
+    du = dw = None
+    if needs[0]:
+        src, dst, eid = edge_order(g, "srcsort")
+        ct_rev = ct_pad.index_select(0, dst)
+        if norm is not None:
+            ct_rev = ct_rev * norm.index_select(0, eid)[:, None]
+        w_rev = w.index_select(0, rel.long().index_select(0, eid))
+        du = S.pull_segment(torch.einsum("eo,edo->ed", ct_rev, w_rev), src,
+                            g.n_src, "sum", deg=g.out_degrees)
+    if needs[1]:
+        ct_e = ct_pad.index_select(0, g.dst_caller.long())
+        if norm is not None:
+            ct_e = ct_e * norm[:, None]
+        outer = torch.einsum("ed,eo->edo",
+                             u.index_select(0, g.src_caller.long()), ct_e)
+        rel_l = rel.long()
+        order = torch.argsort(rel_l, stable=True)
+        dw = S.pull_segment(outer.index_select(0, order),
+                            rel_l.index_select(0, order), w.shape[0], "sum")
+    return du, dw
+
+
+class _HeteroBlockGather(torch.autograd.Function):
+    """:func:`hetero_block_gspmm` with the gather backward (its
+    docstring), timed as ``block_bwd:e_copy_add_v``. ``rel`` and
+    ``norm`` are the sampler's: no gradient flows to them, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, bg, chosen, rel, norm, u, w):
+        ctx.bg, ctx.chosen = bg, chosen
+        ctx.save_for_backward(rel, norm, u, w)
+        msg = _block_messages(bg, rel, u.detach(), w.detach(), norm)
+        return _block_execute(bg, _BLOCK_SPEC, msg, None, chosen)
+
+    @staticmethod
+    def backward(ctx, ct):
+        rel, norm, u, w = ctx.saved_tensors
+        bg, needs = ctx.bg, ctx.needs_input_grad[4:]
+        grads_fn = (_block_table_grads if ctx.chosen == "kernel"
+                    else _block_rev_grads)
+
+        def grads():
+            # the dummy destination row's cotangent is zero: pad edges,
+            # and only they, read it
+            ct_pad = torch.cat([ct, ct.new_zeros((1,) + tuple(ct.shape[1:]))])
+            return grads_fn(bg, rel, norm, u.detach(), w.detach(),
+                            ct_pad.contiguous(), needs)
+
+        du, dw = _timed(f"block_bwd:{_BLOCK_SPEC.name}", grads)
+        return None, None, None, None, du, dw
 
 
 # --------------------------------------------------------------------- #

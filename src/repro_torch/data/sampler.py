@@ -16,8 +16,11 @@ from the FULL graph's degrees (0 on pad edges). A sampler made with
 ``reverse=True`` (the trainer's) also builds each block's Gᵀ in
 :meth:`~NeighborSampler.build`, on the host, from the draw's own edge
 order (``core/graph.reverse_from_draw``; its canonical order is the JAX
-sampler's reverse table): the block VJP pulls over it. A serving sampler
-builds none; a block's Gᵀ is then made on first use.
+sampler's reverse table): the block VJP pulls over it. With ``edge_rel``
+it also builds each block's relation-expanded Gᵀ there
+(``core/hetero.block_expanded_reverse``), which the relational block
+VJP's kernel backward runs B1 over. A serving sampler builds none; a
+block's Gᵀ is then made on first use.
 
 The draw (``_sample_layer``) and the slot numbering are the JAX
 sampler's, line for line, on host numpy: one seed gives bit-identical
@@ -40,6 +43,7 @@ import torch
 
 from ..core.blocks import BlockGraph
 from ..core.graph import Graph, from_coo, reverse_from_draw
+from ..core.hetero import block_expanded_reverse
 from ..device import DeviceLike, resolve_device
 
 __all__ = ["SampledBlock", "MiniBatch", "NeighborSampler"]
@@ -310,10 +314,13 @@ class NeighborSampler:
                             nbr_mask=put(hl.nbr_mask),
                             real_deg=put(hl.real_deg), n_dst_real=hl.n_dst,
                             fanout=hl.fanout)
+            rel = None if hl.rel is None else put(hl.rel)
+            if self.reverse and rel is not None:
+                block_expanded_reverse(bg, rel, self.n_rel,
+                                       (hl.srcs, hl.dsts, hl.rel))
             blocks.append(SampledBlock(
                 bg=bg, src_ids=put(hl.src_ids.astype(np.int32)),
-                src_ids_host=hl.src_ids, gcn_norm=put(hl.norms),
-                rel=None if hl.rel is None else put(hl.rel),
+                src_ids_host=hl.src_ids, gcn_norm=put(hl.norms), rel=rel,
                 rel_norm=None if hl.rel_norm is None else put(hl.rel_norm)))
         label_mask = self._mask_cache.get(hb.n_real_seeds)
         if label_mask is None:

@@ -10,6 +10,12 @@ as the relation-indexed weight stack (B1 over each relation-expanded
 graph on the card). Decoder: a bilinear score per observed edge and
 level, ``u_dot_v_add_e`` (B3 ``dot``). :func:`encode_loop` keeps the
 per-level loop as the baseline and differential reference.
+
+Training: :func:`rating_loss` (the per-rating cross-entropy the JAX
+package's tests train by) with ``train.make_loss_step``. Its gradients
+run the kernel routes' backwards: B3 ``mul`` per rating and B4 on G and
+Gᵀ for the decoder, B1 on each relation-expanded graph's reverse for
+the encoder.
 """
 from __future__ import annotations
 
@@ -23,10 +29,10 @@ from ...core.binary_reduce import gsddmm, gspmm
 from ...core.graph import Graph, from_coo, reverse
 from ...core.hetero import RelGraph, edge_strategy, from_rels, hetero_gspmm
 from ...device import DeviceLike
-from ...substrate.nn import Linear, from_numpy, glorot
+from ...substrate.nn import Linear, cross_entropy_loss, from_numpy, glorot
 
 __all__ = ["GCMC", "init", "build_level_relgraphs", "build_level_graphs",
-           "encode", "encode_loop", "decode", "forward"]
+           "encode", "encode_loop", "decode", "forward", "rating_loss"]
 
 
 class GCMC(nn.Module):
@@ -146,3 +152,12 @@ def forward(model: GCMC, graphs, x_user: torch.Tensor, x_item: torch.Tensor,
         hu, hi = encode_loop(model, fwd, bwd, x_user, x_item,
                              strategy=strategy)
     return decode(model, g_all, hu, hi, strategy=strategy)
+
+
+def rating_loss(model: GCMC, graphs, x_user: torch.Tensor,
+                x_item: torch.Tensor, ratings: torch.Tensor, *,
+                strategy: str = "auto") -> torch.Tensor:
+    """Mean cross-entropy of :func:`forward`'s per-edge logits against
+    each observed edge's rating level (caller edge order)."""
+    return cross_entropy_loss(forward(model, graphs, x_user, x_item,
+                                      strategy=strategy), ratings)

@@ -22,7 +22,11 @@ differential reference.
 :func:`forward` returns ``(logits, bn_state)``: the BatchNorm states the
 layers computed (with ``train``, the updated running statistics), as the
 JAX forward returns its params with them; :meth:`LGNN.load_bn_state`
-writes them into the model's buffers.
+writes them into the model's buffers. :func:`train_loss` is the training
+loss (for ``train.make_loss_step``): the train-mode forward, its
+BatchNorm state written back, the node cross-entropy. Its gradient
+reaches the embedding table through the lookup's sorted-segment
+backward.
 """
 from __future__ import annotations
 
@@ -39,10 +43,10 @@ from ...core.hetero import (RelGraph, caller_coo, edge_strategy, from_rels,
 from ...device import DeviceLike
 from ...substrate.batchnorm import BatchNorm1d, batchnorm1d_init
 from ...substrate.embedding import embedding_init, embedding_lookup
-from ...substrate.nn import from_numpy, glorot
+from ...substrate.nn import cross_entropy_loss, from_numpy, glorot
 
 __all__ = ["LGNN", "LGNNLayer", "init", "build_line_graph",
-           "build_relgraph", "forward"]
+           "build_relgraph", "forward", "train_loss"]
 
 _WEIGHTS = ("t1", "t2", "t3", "t4", "p1", "p2", "p3", "p4")
 
@@ -200,3 +204,16 @@ def forward(model: LGNN, g: Graph, lg: Graph, *,
         bn_state.append({"bn_x": bn_x, "bn_y": bn_y})
         x, y = xn, yn
     return x, bn_state
+
+
+def train_loss(model: LGNN, g: Graph, lg: Graph, labels: torch.Tensor, *,
+               rg: Optional[RelGraph] = None,
+               strategy: str = "auto") -> torch.Tensor:
+    """Cross-entropy of the train-mode forward's node logits against
+    ``labels``. The forward's new running statistics are written into
+    the model's BatchNorm buffers here, so a training step leaves the
+    state that JAX's forward returns in its params."""
+    logits, bn_state = forward(model, g, lg, rg=rg, strategy=strategy,
+                               train=True)
+    model.load_bn_state(bn_state)
+    return cross_entropy_loss(logits, labels)

@@ -43,8 +43,8 @@ from ...optim import adamw, apply_updates, clip_by_global_norm
 from ...substrate.nn import accuracy, cross_entropy_loss
 from .common import block_features, pad_features
 
-__all__ = ["make_train_step", "train_full_graph", "make_sampled_train_step",
-           "train_sampled"]
+__all__ = ["make_loss_step", "make_train_step", "train_full_graph",
+           "make_sampled_train_step", "train_sampled"]
 
 
 def _check_precision(precision) -> None:
@@ -54,32 +54,52 @@ def _check_precision(precision) -> None:
             f"fp32 only (mixed precision is ROADMAP A12)")
 
 
-def make_train_step(forward_fn: Callable, strategy: str = "auto",
-                    lr: float = 1e-2, weight_decay: float = 5e-4,
-                    clip: float = 5.0, precision=None):
-    """Returns ``(opt_init, step)``. ``opt_init(model)`` gives the AdamW
-    state of ``model``'s parameters; ``step(model, opt_state, step_i,
-    bundle, x, labels, mask, gen)`` updates the parameters in place and
-    returns ``(opt_state, loss)`` with ``loss`` a device scalar."""
-    _check_precision(precision)
+def make_loss_step(loss_fn: Callable, lr: float = 1e-2,
+                   weight_decay: float = 5e-4, clip: float = 5.0):
+    """Returns ``(opt_init, step)`` around any scalar loss — the one step
+    body of every trainer here, and the training step of the apps with no
+    trainer (GC-MC's per-rating loss, LGNN's, whose loss also writes its
+    BatchNorm state back). ``opt_init(model)`` gives the AdamW state of
+    ``model``'s parameters; ``step(model, opt_state, step_i, *args)``
+    takes ``loss_fn(model, *args)``, its gradients by
+    ``torch.autograd.grad`` (zero for a parameter the loss does not
+    reach), clips them by global norm and updates the
+    parameters in place; it returns ``(opt_state, loss)`` with ``loss`` a
+    device scalar."""
     opt_init, opt_update = adamw(lr, weight_decay=weight_decay)
 
     def init(model: nn.Module):
         return opt_init(list(model.parameters()))
 
-    def step(model: nn.Module, opt_state, step_i: int, bundle, x, labels,
-             mask, gen: torch.Generator):
+    def step(model: nn.Module, opt_state, step_i: int, *args):
         params = list(model.parameters())
-        logits = forward_fn(model, bundle, x, strategy=strategy, train=True,
-                            gen=gen)
-        loss = cross_entropy_loss(logits, labels, mask)
-        grads = torch.autograd.grad(loss, params)
+        loss = loss_fn(model, *args)
+        # a parameter the loss does not reach (LGNN's last line-graph
+        # update) has a zero gradient, as under jax.grad
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            params, torch.autograd.grad(loss, params, allow_unused=True))]
         grads, _ = clip_by_global_norm(grads, clip)
         ups, opt_state = opt_update(grads, opt_state, params, step_i)
         apply_updates(params, ups)
         return opt_state, loss.detach()
 
     return init, step
+
+
+def make_train_step(forward_fn: Callable, strategy: str = "auto",
+                    lr: float = 1e-2, weight_decay: float = 5e-4,
+                    clip: float = 5.0, precision=None):
+    """Returns ``(opt_init, step)`` (:func:`make_loss_step` on the masked
+    cross-entropy of ``forward_fn``'s logits): ``step(model, opt_state,
+    step_i, bundle, x, labels, mask, gen)``."""
+    _check_precision(precision)
+
+    def loss_fn(model, bundle, x, labels, mask, gen):
+        logits = forward_fn(model, bundle, x, strategy=strategy, train=True,
+                            gen=gen)
+        return cross_entropy_loss(logits, labels, mask)
+
+    return make_loss_step(loss_fn, lr, weight_decay, clip)
 
 
 def train_full_graph(forward_fn: Callable, model: nn.Module, bundle, x,
@@ -133,35 +153,23 @@ def make_sampled_train_step(forward_blocks_fn: Callable, strategy: str,
                             weight_decay: float = 5e-4, clip: float = 5.0,
                             precision=None):
     """Returns ``(opt_init, step)`` over one
-    :class:`~repro_torch.data.MiniBatch`: ``step(model, opt_state, step_i,
-    mb, feats_pad, gen)`` gathers the batch's input rows from
-    ``feats_pad`` (``common.pad_features``), runs ``forward_blocks_fn``
-    with ``train=True`` and dropout from ``gen``, takes the cross-entropy
-    on the real seeds (``mb.label_mask``), clips and applies AdamW in
-    place; it returns ``(opt_state, loss)`` with ``loss`` a device
-    scalar. ``bwd_strategy`` is the block VJP ('auto' takes the gather
-    pull on the card)."""
+    :class:`~repro_torch.data.MiniBatch` (:func:`make_loss_step`):
+    ``step(model, opt_state, step_i, mb, feats_pad, gen)`` gathers the
+    batch's input rows from ``feats_pad`` (``common.pad_features``), runs
+    ``forward_blocks_fn`` with ``train=True`` and dropout from ``gen``,
+    and takes the cross-entropy on the real seeds (``mb.label_mask``).
+    ``bwd_strategy`` is the block VJP ('auto' takes the gather pull on
+    the card)."""
     _check_precision(precision)
-    opt_init, opt_update = adamw(lr, weight_decay=weight_decay)
 
-    def init(model: nn.Module):
-        return opt_init(list(model.parameters()))
-
-    def step(model: nn.Module, opt_state, step_i: int, mb, feats_pad,
-             gen: torch.Generator):
-        params = list(model.parameters())
+    def loss_fn(model, mb, feats_pad, gen):
         x = block_features(feats_pad, mb.input_ids)
         logits = forward_blocks_fn(model, mb.blocks, x, strategy=strategy,
                                    bwd_strategy=bwd_strategy, train=True,
                                    gen=gen)
-        loss = cross_entropy_loss(logits, mb.labels, mb.label_mask)
-        grads = torch.autograd.grad(loss, params)
-        grads, _ = clip_by_global_norm(grads, clip)
-        ups, opt_state = opt_update(grads, opt_state, params, step_i)
-        apply_updates(params, ups)
-        return opt_state, loss.detach()
+        return cross_entropy_loss(logits, mb.labels, mb.label_mask)
 
-    return init, step
+    return make_loss_step(loss_fn, lr, weight_decay, clip)
 
 
 def _drift_probe(forward_blocks_fn: Callable, model: nn.Module, mb,
