@@ -147,6 +147,27 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     the scatter and with the gather backward (both gathers bit-identical),
     then ``train_sampled`` 2 epochs a run in turns: epoch 1 with its
     sample / step split, loss, memory, launches.
+15. Strategies: the lattice's layout routes, plain PyTorch, on
+    ``reddit-like``, each held against the kernel route (B1 / B2 / B4)
+    within ``STRATEGY_TOL`` and timed beside it (CUDA events, host and
+    device-only, and peak memory over the call), launching no kernel
+    itself. First the host build of each pack (the ELL pack of G and of
+    Gᵀ, the ragged ELL, the tile pack, the skew classes). Then ``gspmm``
+    under ``push``, ``ell`` and ``onehot`` at ``STRATEGY_ROUTES``, the max
+    under ``push`` and ``ell`` against the segment route, and a broadcast
+    ``u_dot_v`` through the segment backward (ROADMAP C6) against float64
+    autograd of ``push``. Then ``STRATEGY_STEPS`` full-graph steps of GCN
+    and SAGE at the fig. 2 widths under ``"ell"`` (the ELL pull both ways,
+    no launch) and ``"kernel"`` (launches exact) from one init: per step
+    the loss and every grad of ``"ell"`` against ``"kernel"`` at the same
+    parameters within ``TRAIN_GRAD_RTOL``·max|kernel| + 1e-6, both
+    trajectories' losses alike, step time and peak memory. Then
+    ``block_gspmm`` under ``push`` on the block phase's class-128 batch
+    against the block kernel route; ``hetero_gspmm`` under ``ell`` (with
+    its skew classes) and ``push`` on ``HETERO_SKEW`` against its kernel
+    route, the max against ``fused``; and GAT's attention grads through
+    the ragged-pack backward against ``_attention_grads``, alone and
+    through ``fused_attention``'s B2 route.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
@@ -327,6 +348,27 @@ TRAIN_B1 = {"reverse": [(16, "sum"), (41, "sum"), (16, "copy_sum")],
 TRAIN_B3 = [("copy", "v", None, 4), ("copy", "v", None, 1),
             ("dot", "u", "v", 16), ("dot", "u", "v", 41)]
 TRAIN_B4 = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
+# the strategies phase (15) on reddit-like: each layout route of gspmm
+# against the kernel route — (op, width, routes): GCN's weighted sum at
+# d = 16, SAGE's mean at d = 602, and the one-hot route's mean at d = 32
+# (its one-hot gathered rows take ≈ 47 GB at d = 602); the max against
+# the segment route (no kernel computes a max). Every route is held to
+# STRATEGY_TOL·max|ref| + STRATEGY_TOL
+STRATEGY_ROUTES = [("u_mul_e_add_v", 16, ("push", "ell", "onehot")),
+                   ("u_copy_mean_v", 602, ("push", "ell")),
+                   ("u_copy_mean_v", 32, ("onehot",))]
+STRATEGY_MAX = [("u_copy_max_v", 16, ("push", "ell"))]
+STRATEGY_TOL = 1e-5
+# full-graph steps of GCN and SAGE under "ell" and "kernel" (fig. 2
+# widths: 602 → 16 → 41)
+STRATEGY_STEPS = 3
+# hetero's ell and push routes on a BGS-like skewed relational graph:
+# nodes and per-relation edge counts (200,000 edges as bench_rgcn's, half
+# in one relation; max / median 10, seven log2 size classes), d 32 → 16
+HETERO_SKEW = (5000, (100_000, 50_000, 20_000, 12_000, 8_000, 5_000,
+                      3_000, 2_000))
+# the ragged attention backward at GAT's layer-0 shape (heads, features)
+RAGGED_ATTN = (4, 16)
 # the fan-out serving phases: fan-out per layer (benchmarks/fig_serve.py's
 # CMP_FANOUT). A served fan-out batch runs one block per layer, so it
 # launches what a refresh launches: SERVE_LAUNCHES, per batch
@@ -2660,6 +2702,353 @@ def train_relational_sampled(gen, rows: dict) -> list:
     return [row]
 
 
+# --------------------------------------------------------------------- #
+# 15. the lattice's layout routes
+# --------------------------------------------------------------------- #
+def peak_mb(fn) -> float:
+    """Device memory (MiB) one call of ``fn`` holds above what was
+    allocated before it, at its peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def launched() -> int:
+    return sum(read_counts().values())
+
+
+def route_vs(what: str, fn, ref_fn, ref_name: str, extra: dict) -> dict:
+    """Hold ``fn`` (a plain route, which must launch no kernel) against
+    ``ref_fn`` within ``STRATEGY_TOL``; time both (host, device-only)
+    and read their peak memory. One row, emitted."""
+    ref = ref_fn()
+    reset_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    if launched():
+        raise AssertionError(f"{what}: the plain route launched "
+                             f"{read_counts()}")
+    err = max_err(got, ref)
+    tol = STRATEGY_TOL + STRATEGY_TOL * float(ref.abs().max())
+    row = {"phase": "strategies", "check": what, **extra,
+           "reference": ref_name, "max_abs_err": err, "tol": tol,
+           "ms": time_ms(fn, reps=10, warmup=2),
+           "device_ms": time_device_ms(fn, False, reps=10, warmup=2),
+           "peak_mb": peak_mb(fn),
+           "ref_ms": time_ms(ref_fn, reps=10, warmup=2),
+           "ref_device_ms": time_device_ms(ref_fn, False, reps=10,
+                                           warmup=2),
+           "ref_peak_mb": peak_mb(ref_fn)}
+    emit(row)
+    if not err <= tol:
+        raise AssertionError(f"{what} disagrees: {row}")
+    return row
+
+
+def timed_build(name: str, fn, builds: dict):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    builds[name] = {"build_s": time.perf_counter() - t0}
+    return out
+
+
+def skewed_relgraph():
+    """``HETERO_SKEW``'s relational graph: per relation uniform random
+    edges over its nodes, numpy seed 0."""
+    from repro_torch.core.hetero import from_rels
+
+    n, sizes = HETERO_SKEW
+    rng = np.random.default_rng(0)
+    rels = [(rng.integers(0, n, m), rng.integers(0, n, m)) for m in sizes]
+    return from_rels(rels, n_src=n, n_dst=n, device="cuda")
+
+
+def strategy_packs(g, rg) -> dict:
+    """The host build (and upload) of each pack of the phase, timed at
+    its first use, with its size."""
+    from repro_torch.core import hetero
+    from repro_torch.core.graph import reverse
+    from repro_torch.core.planner import get_plan_cache
+
+    builds = {}
+    cache = get_plan_cache(g)
+    ell = timed_build("ell", cache.ell, builds)
+    rev = reverse(g)
+    ell_rev = timed_build("ell_rev", get_plan_cache(rev).ell, builds)
+    rag = timed_build("ell_ragged", cache.ell_ragged, builds)
+    tiles = timed_build("tiles", cache.tiles, builds)
+    classes = timed_build("skew_classes",
+                          lambda: hetero._skew_classes(rg), builds)
+    if classes is None or len(classes) < 2:
+        raise AssertionError("the skewed relational graph formed no skew "
+                             "classes: the ell route would check only its "
+                             "global pack")
+    for name, pack in (("ell", ell), ("ell_rev", ell_rev),
+                       ("ell_ragged", rag)):
+        builds[name].update(classes=[c.width for c in pack.classes],
+                            slots=pack.slots)
+    builds["tiles"].update(buckets=tiles.n_buckets, eb=tiles.eb,
+                           bm=tiles.bm, bk=tiles.bk)
+    builds["skew_classes"].update(
+        classes=len(classes),
+        class_edges=[cg.n_edges for cg, _ in classes],
+        class_ell_slots=[get_plan_cache(cg).peek("ell").slots
+                         for cg, _ in classes])
+    emit({"phase": "strategies", "check": "pack_builds",
+          "n_edges": g.n_edges, "relational_edges": rg.n_edges,
+          "packs": builds})
+    return builds
+
+
+def strategy_gspmm(g, gen) -> list:
+    """``gspmm`` under each layout route against the kernel route (the
+    max against segment), and C6's broadcast ``u_dot_v`` through the
+    segment backward against float64 autograd of ``push``."""
+    from repro_torch.core import gspmm
+    from repro_torch.models.gnn.common import make_bundle
+
+    w = make_bundle(g).gcn_norm[:, None]
+    rows = []
+    for specs, ref in ((STRATEGY_ROUTES, "kernel"), (STRATEGY_MAX,
+                                                     "segment")):
+        for op, d, routes in specs:
+            kw = {"u": torch.randn(g.n_src, d, generator=gen).cuda()}
+            if "_e_" in op:
+                kw["e"] = w
+            for route in routes:
+                rows.append(route_vs(
+                    f"gspmm {route}",
+                    lambda: gspmm(g, op, strategy=route, **kw),
+                    lambda: gspmm(g, op, strategy=ref, **kw), ref,
+                    {"op": op, "d": d, "route": route}))
+    # C6 on the card: u (n, 16) · v (n, 1), the grads at their shapes
+    u = torch.randn(g.n_src, 16, generator=gen).cuda().requires_grad_()
+    v = torch.randn(g.n_dst, 1, generator=gen).cuda().requires_grad_()
+    ct = torch.randn(g.n_dst, 1, generator=gen).cuda()
+    got = torch.autograd.grad(gspmm(g, "u_dot_v_add_v", u=u, v=v,
+                                    strategy="segment"), (u, v), ct)
+    ud, vd = (t.detach().double().requires_grad_() for t in (u, v))
+    ref = torch.autograd.grad(gspmm(g, "u_dot_v_add_v", u=ud, v=vd,
+                                    strategy="push"), (ud, vd), ct.double())
+    errs = [max_err(a.double(), b) for a, b in zip(got, ref)]
+    tols = [STRATEGY_TOL + STRATEGY_TOL * float(b.abs().max()) for b in ref]
+    row = {"phase": "strategies", "check": "segment_broadcast_dot_grads",
+           "op": "u_dot_v_add_v", "widths": [16, 1],
+           "shapes": [list(t.shape) for t in got],
+           "reference": "float64 push autograd", "max_abs_err": errs,
+           "tol": tols}
+    emit(row)
+    if ([t.shape for t in got] != [u.shape, v.shape]
+            or any(e > t for e, t in zip(errs, tols))):
+        raise AssertionError(f"C6 on the card: {row}")
+    rows.append(row)
+    return rows
+
+
+def strategy_train(g, dataset) -> list:
+    """``STRATEGY_STEPS`` full-graph steps of GCN and SAGE under ``"ell"``
+    and ``"kernel"`` from one init: at each step of the ``"ell"``
+    trajectory, the loss and grads of both routes at its parameters;
+    then each route's own trajectory (step time, peak memory, loss;
+    launches: none under ``"ell"``, exact under ``"kernel"``)."""
+    import copy
+
+    from repro_torch.models.gnn import gcn, sage
+    from repro_torch.models.gnn.common import make_bundle
+    from repro_torch.models.gnn.train import make_train_step
+    from repro_torch.optim import adamw, apply_updates, clip_by_global_norm
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    _, feats, labels, train_mask, _, n_classes = dataset
+    x, y, mask = (torch.from_numpy(a).cuda() for a in (feats, labels,
+                                                       train_mask))
+    y = y.long()
+    bundle = make_bundle(g, training=True)
+    if not bundle.use_training_graph("ell", TRAIN_HIDDEN):
+        raise AssertionError("the training bundle has no ELL packs")
+    rows = []
+    for app, mod in (("gcn", gcn), ("sage", sage)):
+        model = mod.init(torch.Generator().manual_seed(0), x.shape[1],
+                         TRAIN_HIDDEN, n_classes, device="cuda")
+
+        def loss_grads(m, strategy, seed):
+            logits = mod.forward(
+                m, bundle, x, strategy=strategy, train=True,
+                gen=torch.Generator(device="cuda").manual_seed(seed))
+            loss = cross_entropy_loss(logits, y, mask)
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            return loss.detach(), grads
+
+        # the grads of both routes at the "ell" trajectory's parameters
+        m = copy.deepcopy(model)
+        opt_init, opt_update = adamw(1e-2, weight_decay=5e-4)
+        state = opt_init(list(m.parameters()))
+        per_step = []
+        for i in range(STRATEGY_STEPS):
+            reset_counts()
+            l_ell, g_ell = loss_grads(m, "ell", i)
+            torch.cuda.synchronize()
+            if launched():
+                raise AssertionError(f"{app} ell step launched "
+                                     f"{read_counts()}")
+            l_k, g_k = loss_grads(m, "kernel", i)
+            errs = {n: max_err(a, b) for (n, _), a, b in zip(
+                m.named_parameters(), g_ell, g_k)}
+            tols = {n: 1e-6 + TRAIN_GRAD_RTOL * float(b.abs().max())
+                    for (n, _), b in zip(m.named_parameters(), g_k)}
+            loss_err = abs(float(l_ell) - float(l_k))
+            loss_tol = 1e-6 + TRAIN_GRAD_RTOL * abs(float(l_k))
+            per_step.append({"loss_ell": float(l_ell),
+                             "loss_kernel": float(l_k),
+                             "loss_abs_err": loss_err,
+                             "grads_max_abs_err": errs, "tol": tols})
+            if loss_err > loss_tol or any(errs[n] > tols[n] for n in errs):
+                raise AssertionError(f"{app} step {i} ell vs kernel: "
+                                     f"{per_step[-1]}")
+            grads, _ = clip_by_global_norm(list(g_ell), 5.0)
+            ups, state = opt_update(grads, state, list(m.parameters()), i)
+            apply_updates(list(m.parameters()), ups)
+        # each route's own trajectory
+        runs = {}
+        for route in ("ell", "kernel"):
+            opt_init, step = make_train_step(mod.forward, route)
+            mr = copy.deepcopy(model)
+            st = opt_init(mr)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            step(copy.deepcopy(mr), opt_init(mr), 0, bundle, x, y, mask,
+                 gen)                   # warm-up, as train_full_graph's
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            times, mems, losses = [], [], []
+            torch.cuda.synchronize()
+            reset_counts()
+            for i in range(STRATEGY_STEPS):
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                st, loss = step(mr, st, i, bundle, x, y, mask, gen)
+                losses.append(float(loss))
+                times.append((time.perf_counter() - t0) * 1e3)
+                mems.append((torch.cuda.max_memory_allocated() - base)
+                            / 2**20)
+            runs[route] = {"step_ms": times, "step_peak_mb": mems,
+                           "loss": losses, "launches": read_counts()}
+        if sum(runs["ell"]["launches"].values()):
+            raise AssertionError(f"{app} ell trajectory launched "
+                                 f"{runs['ell']['launches']}")
+        check_launches(f"{app} kernel trajectory", runs["kernel"]["launches"],
+                       TRAIN_LAUNCHES[app], STRATEGY_STEPS)
+        for a, b in zip(runs["ell"]["loss"], runs["kernel"]["loss"]):
+            if not abs(a - b) <= 1e-6 + TRAIN_GRAD_RTOL * abs(b):
+                raise AssertionError(f"{app} trajectories: {runs}")
+        row = {"phase": "strategies", "check": "train_ell", "app": app,
+               "widths": [int(x.shape[1]), TRAIN_HIDDEN, n_classes],
+               "steps": per_step, "ell": runs["ell"],
+               "kernel": runs["kernel"],
+               "launches": runs["kernel"]["launches"]}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def strategy_blocks(g, gen) -> list:
+    """``block_gspmm`` under ``push`` on the block phase's class-128
+    batch (fan-out ``FANOUT``, seed 0) against the block kernel route,
+    at the B1 shapes of ``BLOCK_SHAPES``."""
+    from repro_torch.core.blocks import block_gspmm
+    from repro_torch.data.sampler import NeighborSampler
+
+    seeds = np.random.default_rng(0).permutation(g.n_dst)[:128]
+    mb = NeighborSampler(g, [FANOUT, FANOUT], 128, seed=0,
+                         device="cuda").sample(seeds, np.zeros(128, np.int64))
+    rows = []
+    for li, (blk, shapes) in enumerate(zip(mb.blocks, BLOCK_SHAPES)):
+        for d, red in shapes["b1"]:
+            op = "u_mul_e_add_v" if red == "sum" else "u_copy_mean_v"
+            kw = {"u": torch.randn(blk.bg.g.n_src, d, generator=gen).cuda()}
+            if red == "sum":
+                kw["e"] = blk.gcn_norm[:, None]
+            rows.append(route_vs(
+                "block_gspmm push",
+                lambda: block_gspmm(blk.bg, op, strategy="push", **kw),
+                lambda: block_gspmm(blk.bg, op, strategy="kernel", **kw),
+                "kernel", {"graph": f"block{li}", "op": op, "d": d,
+                           "route": "push"}))
+    return rows
+
+
+def strategy_hetero(rg, gen) -> list:
+    """``hetero_gspmm`` under ``ell`` (the skew classes' packs) and
+    ``push`` against its kernel route, and the max under both against
+    ``fused``."""
+    from repro_torch.core import hetero
+
+    n = rg.n_src
+    u = torch.randn(n, 32, generator=gen).cuda()
+    w = torch.randn(rg.n_rel, 32, 16, generator=gen).cuda() / 32 ** 0.5
+    u16 = torch.randn(n, 16, generator=gen).cuda()
+    rows = []
+    cases = [(red, route, "kernel", {"u": u, "w": w})
+             for red in ("mean", "sum") for route in ("ell", "push")]
+    cases += [("max", route, "fused", {"u": u16})
+              for route in ("ell", "push")]
+    for red, route, ref, kw in cases:
+        rows.append(route_vs(
+            "hetero_gspmm", lambda: hetero.hetero_gspmm(
+                rg, strategy=route, reduce=red, **kw),
+            lambda: hetero.hetero_gspmm(rg, strategy=ref, reduce=red, **kw),
+            ref, {"route": route, "reduce": red,
+                  "form": "w" if "w" in kw else "plain",
+                  "skew_classes": len(hetero._skew_classes(rg))}))
+    return rows
+
+
+def strategy_attention(g, gen) -> list:
+    """GAT's attention grads (``RAGGED_ATTN`` heads × features) through
+    the ragged-pack backward against ``_attention_grads``: the adjoints
+    alone, then through ``fused_attention``'s B2 route, whose backward
+    takes the pack built earlier in the phase."""
+    import importlib
+
+    from repro_torch.core.planner import get_plan_cache
+
+    es = importlib.import_module("repro_torch.core.edge_softmax")
+    pack = get_plan_cache(g).peek("ell_ragged")
+    if pack is None:
+        raise AssertionError("the ragged pack was not built")
+    H, F = RAGGED_ATTN
+    el = torch.randn(g.n_src, H, generator=gen).cuda()
+    er = torch.randn(g.n_dst, H, generator=gen).cuda()
+    z = torch.randn(g.n_src, H, F, generator=gen).cuda()
+    ct = torch.randn(g.n_dst, H, F, generator=gen).cuda()
+    needs = (True, True, True)
+    rows = []
+    for i, name in enumerate(("el", "er", "z")):
+        rows.append(route_vs(
+            "attention_grads_ragged",
+            lambda: es._attention_grads_ragged(pack, el, er, z, 0.2, ct,
+                                               needs)[i],
+            lambda: es._attention_grads(g, el, er, z, 0.2, ct, needs)[i],
+            "_attention_grads", {"grad": name, "H": H, "F": F}))
+    ins = [t.clone().requires_grad_() for t in (el, er, z)]
+    got = torch.autograd.grad(es.fused_attention(g, *ins, strategy="kernel"),
+                              ins, ct)
+    want = es._attention_grads(g, el, er, z, 0.2, ct, needs)
+    errs = [max_err(a, b) for a, b in zip(got, want)]
+    tols = [STRATEGY_TOL + STRATEGY_TOL * float(b.abs().max()) for b in want]
+    row = {"phase": "strategies", "check": "fused_attention_ragged_backward",
+           "H": H, "F": F, "max_abs_err": errs, "tol": tols}
+    emit(row)
+    if any(e > t for e, t in zip(errs, tols)):
+        raise AssertionError(f"ragged backward through B2: {row}")
+    rows.append(row)
+    return rows
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -2843,10 +3232,27 @@ def main() -> int:
     emit({"phase": "train_relational_done",
           "seconds": time.perf_counter() - t0})
 
+    # 15. the layout routes: pack builds, gspmm's routes, training under
+    # "ell", block push, hetero's ell / push, the ragged attention grads
+    t0 = time.perf_counter()
+    rg_skew = skewed_relgraph()
+    strategy_packs(g_loops, rg_skew)
+    strategy_gspmm(g_loops, gen)
+    torch.cuda.empty_cache()
+    ell_trained = strategy_train(g_loops, dataset)
+    torch.cuda.empty_cache()
+    strategy_blocks(g_loops, gen)
+    strategy_hetero(rg_skew, gen)
+    strategy_attention(g_loops, gen)
+    del rg_skew
+    torch.cuda.empty_cache()
+    emit({"phase": "strategies_done", "seconds": time.perf_counter() - t0})
+
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
             + auto + trained + sampled + relational + rel_trained
+            + ell_trained
             + [{"launches": r["step_launches"]}
                for r in trained + sampled_steps + rel_trained])
     launches = {k: sum(r["launches"][k] for r in runs)

@@ -10,11 +10,24 @@ Strategies of :func:`gspmm` (node outputs):
 
 * ``"segment"`` — per-edge messages, then the plain segment reduction
   (``strategies.pull_segment``), every reducer. The reference.
+* ``"push"`` — the same messages scatter-reduced into an identity-filled
+  output (``strategies.push_scatter``, paper Alg. 1), every reducer.
+* ``"ell"`` — the blocked pull (paper Alg. 3) over the graph's
+  degree-bucketed ELL pack (``planner.get_plan_cache(g).ell()``), the ⊗
+  fused into each class's chunk gather; destination outputs only.
+* ``"onehot"`` — the one-hot formulation over the graph's ``TilePack``
+  (``strategies.onehot_spmm``): ``u_copy`` or ``u_mul_e`` with a scalar
+  edge weight, rank-2 operands, sum or mean, destination outputs.
 * ``"kernel"`` — the CUDA Copy-Reduce (B1) or Binary-Reduce (B4) kernel
   through ``kernels/dispatch.py``; raises for a spec neither covers.
 * ``"auto"`` — the kernel for a CUDA tensor whose spec a kernel covers,
   segment otherwise. Without the planner (ROADMAP A9) there is no cost
   model to consult.
+
+A pinned strategy that cannot run a spec raises ``ValueError`` (the JAX
+planner's fallback chain is A9's); the packs are built once per graph,
+on the host, at first use. ``push``, ``ell`` and ``onehot`` are plain
+PyTorch: ELL and tiles are TPU layouts, and the kernels walk the CSR.
 
 Strategies of :func:`gsddmm` (edge outputs):
 
@@ -25,12 +38,13 @@ Strategies of :func:`gsddmm` (edge outputs):
 * ``"auto"`` — the kernel for a CUDA operand that B3 covers, canonical
   otherwise.
 
-The JAX package's other strategies are queued; asking for them raises
-``NotImplementedError`` naming the item.
+``"pallas"`` and ``"ring"`` raise ``NotImplementedError`` naming where
+they went (the kernel route, ROADMAP A12).
 
-Gradients. The gather route differentiates by plain autograd: it is the
-reference. The segment route's sum and mean, and the canonical route of
-``gsddmm``, have the JAX package's scatter-free adjoint
+Gradients. The gather, push, ell and onehot routes differentiate by
+plain autograd, as the JAX package takes them by autodiff. The segment
+route's sum and mean, and the canonical route of ``gsddmm``, have the JAX
+package's scatter-free adjoint
 (:func:`_pull_grads`): per-edge cotangent products, then one sorted
 segment reduce — over the src-sorted view ``perm_src``, which is Gᵀ's
 canonical order, for a ``u`` operand; over G's canonical order for a
@@ -70,6 +84,7 @@ import torch
 
 from . import strategies as S
 from .graph import reverse
+from .planner import get_plan_cache
 from ..kernels.binary_reduce.ops import binary_reduce_csr
 from ..kernels.dispatch import (gspmm_kernel, kernel_supports,
                                 sddmm_kernel_supports)
@@ -78,8 +93,8 @@ from ..kernels.sddmm.ops import (CALLER_INDEX, TARGET_INDEX, sddmm_csr,
 from ..kernels.spmm.ops import spmm
 
 __all__ = ["BRSpec", "parse_op", "gspmm", "gsddmm", "copy_reduce",
-           "BINARY_OPS", "REDUCE_OPS", "OP_TARGETS", "STRATEGIES",
-           "SDDMM_STRATEGIES", "SDDMM_FOR"]
+           "binary_reduce", "onehot_supports", "BINARY_OPS", "REDUCE_OPS",
+           "OP_TARGETS", "STRATEGIES", "SDDMM_STRATEGIES", "SDDMM_FOR"]
 
 OP_TARGETS = ("u", "v", "e")
 
@@ -97,22 +112,18 @@ REDUCE_OPS: Dict[str, str] = {
     "mul": "prod", "prod": "prod", "mean": "mean", "copy": "none",
 }
 
-STRATEGIES = ("auto", "segment", "kernel")
+STRATEGIES = ("auto", "segment", "push", "ell", "onehot", "kernel")
 SDDMM_STRATEGIES = ("auto", "canonical", "gather", "kernel")
 # a gspmm strategy name pinned on an edge output, as the sddmm lattice
 # reads it (repro/core/binary_reduce.py:195-199 in port names): the
-# baseline pins the caller-order gather (the JAX package's other names,
-# not ported, pin the canonical stream)
-SDDMM_FOR = {"auto": "auto", "kernel": "kernel", "segment": "gather"}
+# baselines pin the caller-order gather, the optimized names the
+# canonical stream
+SDDMM_FOR = {"auto": "auto", "kernel": "kernel", "segment": "gather",
+             "push": "gather", "ell": "canonical", "onehot": "canonical"}
 
-# the JAX package's strategy names this slice does not run, and where
-# each one is queued
+# the JAX package's strategy names the port does not run, and where each
+# one went
 _QUEUED = {
-    "push": "ROADMAP A3 (push-scatter strategy)",
-    "ell": "the uniform pull runs on sampled blocks "
-           "(core/blocks.block_gspmm, strategy='ell'); the full-graph ELL "
-           "pack and its blocked pull are ROADMAP A2/A3",
-    "onehot": "ROADMAP A2/A3 (TilePack and the one-hot strategy)",
     "ring": "ROADMAP A12 (partitioned ring execution)",
     "pallas": "ROADMAP B1 (the TPU kernel's port is strategy='kernel')",
 }
@@ -256,6 +267,16 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
         out = (_KernelGspmm.apply(g, spec, lhs_data, rhs_data)
                if _needs_grad(lhs_data, rhs_data)
                else gspmm_kernel(g, spec, lhs_data, rhs_data))
+    elif strategy == "ell":
+        if spec.out != "v":
+            raise ValueError(f"strategy 'ell' pulls onto destinations; "
+                             f"{op_name} reduces onto {spec.out!r}")
+        out = _gspmm_ell(g, spec, get_plan_cache(g).ell(), lhs_data,
+                         rhs_data)
+    elif strategy == "onehot":
+        out = _gspmm_onehot(g, spec, lhs_data, rhs_data)
+    elif strategy == "push":
+        out = _execute_segment(g, spec, lhs_data, rhs_data, push=True)
     elif spec.reduce in ("sum", "mean") and _needs_grad(lhs_data, rhs_data):
         out = _SegmentGspmm.apply(g, spec, lhs_data, rhs_data)
     else:
@@ -267,8 +288,10 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
     return out
 
 
-def _execute_segment(g, spec: BRSpec, lhs_data, rhs_data) -> torch.Tensor:
-    """Per-edge messages, then the plain segment reduction."""
+def _execute_segment(g, spec: BRSpec, lhs_data, rhs_data,
+                     push: bool = False) -> torch.Tensor:
+    """Per-edge messages, then the plain segment reduction (with
+    ``push``, the scatter of ``strategies.push_scatter``)."""
     lhs_val = _edge_val(g, spec.lhs, lhs_data)
     rhs_val = (_edge_val(g, spec.rhs, rhs_data)
                if spec.rhs is not None else None)
@@ -280,7 +303,61 @@ def _execute_segment(g, spec: BRSpec, lhs_data, rhs_data) -> torch.Tensor:
         msg = msg.index_select(0, perm)
         tgt = g.long("src").index_select(0, perm)
         n_tgt, deg = g.n_src, g.out_degrees
-    return S.pull_segment(msg, tgt, n_tgt, spec.reduce, deg)
+    reduce = S.push_scatter if push else S.pull_segment
+    return reduce(msg, tgt, n_tgt, spec.reduce, deg)
+
+
+def _gspmm_ell(g, spec: BRSpec, pack, lhs_data, rhs_data,
+               raw: bool = False) -> torch.Tensor:
+    """Blocked pull with the ⊗ fused into each class's chunk gather
+    (``repro/core/binary_reduce.py:520``); ``raw`` as in
+    ``strategies.pull_ell_reduce``."""
+    def chunk_fetch(cls, target: str, data):
+        if target == "v":           # the row's own value, broadcast on W
+            return data.index_select(0, cls.long("chunk_row")).unsqueeze(1)
+        idx = cls.long("chunk_cols" if target == "u" else "chunk_eids")
+        return data.index_select(0, idx.reshape(-1)).reshape(
+            tuple(idx.shape) + tuple(data.shape[1:]))     # (C, W, *feat)
+
+    def msg_fn(cls):
+        lhs_val = chunk_fetch(cls, spec.lhs, lhs_data)
+        rhs_val = (chunk_fetch(cls, spec.rhs, rhs_data)
+                   if spec.rhs is not None else None)
+        return BINARY_OPS[spec.op](lhs_val, rhs_val)
+
+    return S.pull_ell_reduce(pack, msg_fn, spec.reduce, deg=g.in_degrees,
+                             raw=raw)
+
+
+def onehot_supports(spec: BRSpec, lhs_data, rhs_data) -> bool:
+    """Can the one-hot route compute this spec (the JAX planner's
+    ``supports("onehot", ...)``)? A destination output, a sum or mean,
+    rank-2 operands, lhs on ``u``, and ⊗ ``copy`` or ``mul`` by a scalar
+    edge weight."""
+    return (spec.out == "v" and spec.reduce in ("sum", "mean")
+            and spec.lhs == "u" and lhs_data.ndim == 2
+            and (spec.op == "copy"
+                 or (spec.op == "mul" and spec.rhs == "e"
+                     and rhs_data.ndim == 2 and rhs_data.shape[-1] == 1)))
+
+
+def _gspmm_onehot(g, spec: BRSpec, lhs_data, rhs_data) -> torch.Tensor:
+    """The one-hot route over the graph's default ``TilePack``
+    (``repro/core/binary_reduce.py:542``)."""
+    if not onehot_supports(spec, lhs_data, rhs_data):
+        raise ValueError(
+            f"strategy 'onehot' computes u_copy / u_mul_e (scalar edge "
+            f"weight) with a sum or mean onto destinations, rank-2 "
+            f"operands; not {spec.name} on shapes "
+            f"{tuple(lhs_data.shape)}, "
+            f"{None if rhs_data is None else tuple(rhs_data.shape)}")
+    tiles = get_plan_cache(g).tiles()
+    w = None
+    if spec.op == "mul":
+        w = rhs_data[:, 0].index_select(0, tiles.long("eids").reshape(-1)
+                                        ).reshape(tiles.eids.shape)
+    return S.onehot_spmm(tiles, lhs_data, spec.reduce, edge_weight=w,
+                         deg=g.in_degrees)
 
 
 def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
@@ -353,6 +430,22 @@ def copy_reduce(g, x: torch.Tensor, reduce: str = "sum",
     return gspmm(g, f"u_copy_{red}_v", u=x, strategy=strategy)
 
 
+def binary_reduce(g, op_name: str, lhs: torch.Tensor,
+                  rhs: Optional[torch.Tensor] = None,
+                  strategy: str = "auto") -> torch.Tensor:
+    """Positional-operand flavour of :func:`gspmm`: ``lhs`` and ``rhs``
+    go to the targets the op name gives them."""
+    spec = parse_op(op_name)
+    ops: Dict[str, torch.Tensor] = {spec.lhs: lhs}
+    if spec.rhs is not None:
+        if rhs is None:
+            raise ValueError(f"{op_name} needs two operands")
+        if spec.rhs == spec.lhs:
+            raise ValueError(f"{op_name}: operands share a target; use gspmm")
+        ops[spec.rhs] = rhs
+    return gspmm(g, op_name, strategy=strategy, **ops)
+
+
 # --------------------------------------------------------------------- #
 # the segment route's backward (module docstring: "Gradients")
 # --------------------------------------------------------------------- #
@@ -422,8 +515,12 @@ def _pull_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool],
             lhs_val, rhs_val = (None, val) if side == "l" else (val, None)
             if spec.op == "div" and side == "r":
                 rhs_val = fetch(target, x, src, dst, eid)  # d/dr needs both
-        gmsg = _unbroadcast(_dmsg(spec.op, side, lhs_val, rhs_val, ct_e),
-                            tuple(x.shape[1:]))
+        gmsg = _dmsg(spec.op, side, lhs_val, rhs_val, ct_e)
+        # a dot's cotangent has width 1: broadcast it to the operand's
+        # per-edge shape first, so the wider side gets its full rows
+        gmsg = _unbroadcast(gmsg.expand(torch.broadcast_shapes(
+            gmsg.shape, (gmsg.shape[0],) + tuple(x.shape[1:]))),
+            tuple(x.shape[1:]))
         if target == "e":
             return gmsg.to(x.dtype)
         if target == "u":

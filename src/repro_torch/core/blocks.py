@@ -16,12 +16,16 @@ Strategies of :func:`block_gspmm` (node outputs, real rows only):
 * ``"ell"`` — the uniform masked pull over the neighbor table, plain
   PyTorch;
 * ``"segment"`` — ``gspmm(bg.g, ..., "segment")`` on the padded graph;
+* ``"push"`` — ``gspmm(bg.g, ..., "push")``, the scatter baseline, on the
+  padded graph (the JAX package's generic COO path);
 * ``"kernel"`` — B1 / B4 (``kernels/dispatch.gspmm_kernel``) on the
   padded graph ``bg.g``, whose dummy row soaks up every pad edge;
 * ``"auto"`` — the kernel for a CUDA operand a kernel covers, ``"ell"``
   otherwise (``e_copy_max_v`` and GAT's rank-3 ``u_mul_e_add_v`` among
-  them, as the JAX planner keeps those off its kernels);
-* ``"push"`` is queued (ROADMAP A3).
+  them, as the JAX planner keeps those off its kernels).
+
+``"onehot"`` is no block strategy, as in JAX: a tile pack is built on
+the host per graph, and blocks change every batch.
 
 Edge outputs go to :func:`~repro_torch.core.binary_reduce.gsddmm` on
 ``bg.g``.
@@ -72,11 +76,11 @@ __all__ = ["BlockGraph", "BLOCK_STRATEGIES", "SDDMM_FOR_BLOCK",
            "block_gspmm", "block_supports", "check_block_strategy",
            "serve_block_signature"]
 
-BLOCK_STRATEGIES = ("auto", "ell", "segment", "kernel")
+BLOCK_STRATEGIES = ("auto", "ell", "segment", "push", "kernel")
 # the gsddmm strategy an edge output of a block runs under each block
-# strategy: the plain pulls keep the canonical-order reference
+# strategy: the plain routes keep the canonical-order reference
 SDDMM_FOR_BLOCK = {"auto": "auto", "kernel": "kernel", "ell": "canonical",
-                   "segment": "canonical"}
+                   "segment": "canonical", "push": "canonical"}
 
 
 def serve_block_signature(batch_size: int, fanouts, n_layers=None):
@@ -166,15 +170,11 @@ def block_supports(strategy: str, spec: BRSpec) -> bool:
     :func:`~repro_torch.kernels.dispatch.kernel_supports` covers."""
     if spec.out != "v" or spec.reduce == "none":
         return False
-    return strategy in ("ell", "segment", "kernel")
+    return strategy in ("ell", "segment", "push", "kernel")
 
 
 def check_block_strategy(strategy: str) -> None:
     """Raise unless ``strategy`` is one of :data:`BLOCK_STRATEGIES`."""
-    if strategy == "push":
-        raise NotImplementedError(
-            "block strategy 'push' is not ported yet: ROADMAP A3 "
-            "(push-scatter strategy)")
     if strategy not in BLOCK_STRATEGIES:
         raise ValueError(f"unknown block strategy {strategy!r}; expected "
                          f"one of {BLOCK_STRATEGIES}")

@@ -24,7 +24,11 @@ autograd. The kernel routes are ``torch.autograd.Function``s:
 ``edge_softmax_fused``'s B5 route has ∂logits = α ⊙ (ct − Σ_row α·ct)
 with the row sums on B4 and the broadcast subtract on B3;
 ``fused_attention``'s B2 route recomputes α on the canonical stream and
-runs :func:`_attention_grads` (the JAX adjoint, plain torch).
+runs :func:`_attention_grads` (the JAX adjoint, plain torch) — or, when
+the graph's pack cache already holds its row-complete ragged ELL pack
+(``planner.get_plan_cache(g).ell_ragged()``, never built here),
+:func:`_attention_grads_ragged`, the adjoint recomputed per degree class
+on that pack, as the JAX package's TPU route does.
 
 The block forms run the same operators on one sampled block
 (:class:`~repro_torch.core.blocks.BlockGraph`): :func:`block_edge_softmax`
@@ -49,6 +53,7 @@ from ..kernels.sddmm.ops import sddmm_csr
 from .binary_reduce import _needs_grad, gsddmm, gspmm
 from .blocks import (SDDMM_FOR_BLOCK, BlockGraph, block_gspmm,
                      check_block_strategy)
+from .planner import get_plan_cache
 
 __all__ = ["edge_softmax", "edge_softmax_fused", "fused_attention",
            "block_edge_softmax", "block_fused_attention", "ATTN_STRATEGIES"]
@@ -225,9 +230,53 @@ def _attention_grads(g, el, er, z, slope: float, ct, needs):
     return d_el, d_er, dz
 
 
+def _attention_grads_ragged(pack, el, er, z, slope: float, ct, needs):
+    """Adjoints of the fused pipeline recomputed on the row-complete
+    ragged ELL pack (port of ``repro/core/edge_softmax.py:160``): per
+    degree class a masked max / sum over the width axis replaces the
+    segment-reduce chain. Pad slots carry α = 0 exactly (masked exp), so
+    the source-side sums index ``chunk_cols`` directly — pads add zeros —
+    and ∂z and ∂el ride one ``index_add`` with an (H, F+1) payload. Rows
+    are disjoint across classes, so ∂er is a row update. Only the grads
+    ``needs`` asks for (el, er, z) come back."""
+    F = z.shape[-1]
+    acc = z.new_zeros(tuple(z.shape[:-1]) + (F + 1,),
+                      dtype=torch.promote_types(z.dtype, ct.dtype))
+    d_er = torch.zeros_like(er)
+    for cls in pack.classes:
+        cols, row = cls.long("chunk_cols"), cls.long("chunk_row")
+        C, W = cols.shape
+        el_t = el.index_select(0, cols.reshape(-1)).reshape(C, W, -1)
+        m_raw = el_t + er.index_select(0, row)[:, None]       # (C, W, H)
+        m = torch.where(m_raw >= 0, m_raw, slope * m_raw)
+        mk = cls.chunk_mask[..., None]
+        mx = torch.where(mk, m, m.new_full((), -float("inf"))).amax(
+            1, keepdim=True)
+        mx = torch.where(torch.isfinite(mx), mx, mx.new_zeros(()))
+        ex = torch.where(mk, torch.exp(m - mx), m.new_zeros(()))
+        alpha = ex / ex.sum(1, keepdim=True).clamp(min=1e-38)
+        ct_t = ct.index_select(0, row)                         # (C, H, F)
+        z_t = z.index_select(0, cols.reshape(-1)).reshape(
+            (C, W) + tuple(z.shape[1:]))                       # (C, W, H, F)
+        g_alpha = torch.einsum("chf,cwhf->cwh", ct_t, z_t)
+        s_dot = (alpha * g_alpha).sum(1, keepdim=True)
+        g_m = alpha * (g_alpha - s_dot)
+        g_m = g_m * torch.where(m_raw >= 0, 1.0, slope).to(g_m.dtype)
+        d_er = d_er.index_add(0, row, g_m.sum(1).to(er.dtype))
+        payload = torch.cat([alpha[..., None] * ct_t[:, None],
+                             g_m[..., None]], dim=-1)
+        acc = acc.index_add(0, cols.reshape(-1), payload.reshape(
+            (C * W,) + tuple(payload.shape[2:])).to(acc.dtype))
+    return (acc[..., F].to(el.dtype) if needs[0] else None,
+            d_er if needs[1] else None,
+            acc[..., :F].to(z.dtype) if needs[2] else None)
+
+
 class _FusedAttentionKernel(torch.autograd.Function):
-    """B2 forward; :func:`_attention_grads` backward (plain torch: the
-    JAX package has no backward kernel, ROADMAP queue B's leads)."""
+    """B2 forward; backward :func:`_attention_grads_ragged` when the
+    graph's ragged pack is built, else :func:`_attention_grads` (plain
+    torch: the JAX package has no backward kernel, ROADMAP queue B's
+    leads). The backward only reads the pack cache."""
 
     @staticmethod
     def forward(ctx, g, slope, el, er, z):
@@ -240,5 +289,10 @@ class _FusedAttentionKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         el, er, z = (t.detach() for t in ctx.saved_tensors)
-        return (None, None) + _attention_grads(
-            ctx.g, el, er, z, ctx.slope, ct, ctx.needs_input_grad[2:])
+        needs = ctx.needs_input_grad[2:]
+        pack = get_plan_cache(ctx.g).peek("ell_ragged")
+        if pack is not None:
+            return (None, None) + _attention_grads_ragged(
+                pack, el, er, z, ctx.slope, ct, needs)
+        return (None, None) + _attention_grads(ctx.g, el, er, z, ctx.slope,
+                                               ct, needs)

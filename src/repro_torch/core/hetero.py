@@ -20,8 +20,19 @@ Strategies of :func:`hetero_gspmm`:
   JAX does), then one sorted segment reduce (``pull_segment``). Every
   reducer. The reference.
 * ``"loop"`` — one aggregation per relation over the relation-sorted
-  view, the pre-fusion baseline (``"segment"``, a plain gspmm name, pins
-  it, as in JAX).
+  view, the pre-fusion baseline. As in the JAX ``plan_hetero``, a plain
+  gspmm name pins it: ``"segment"``, ``"onehot"``, ``"pallas"`` and
+  ``"ring"`` the loop's segment form, ``"push"`` the loop with each
+  relation scatter-reduced (``strategies.push_scatter``, the fig. 2
+  baseline).
+* ``"ell"`` — the fused messages reduced by the fused graph's blocked
+  pull (``binary_reduce._gspmm_ell`` over its ELL pack). When relation
+  sizes are skewed (:func:`_build_skew_classes`: at least 3 non-empty
+  relations, the largest ≥ 8× the median, two or more log2 size
+  classes) the sum, max and min split the edge set per size class, each
+  class with its own sub-graph and ELL pack, so one giant relation does
+  not set the pad width of every small one; the class partials combine
+  (sum, or ±inf-kept extrema finalized once).
 * ``"kernel"`` — B1 (``spmm_csr``) with a per-edge scalar weight, sum and
   mean only. Every relational message is a row of a per-(src, rel) table
   (``u @ W_r``, MoNet's 3-D ``u``, the basis-composed ``W_r``) or a plain
@@ -41,8 +52,9 @@ Strategies of :func:`hetero_gspmm`:
 * ``"auto"`` — the kernel for a float32 CUDA operand with a sum or mean,
   ``"fused"`` otherwise (no ``plan_hetero`` cost model yet).
 
-``"ell"``, ``"push"`` and the skew-class packs raise
-``NotImplementedError`` (ROADMAP A9, with ``plan_hetero``).
+The packs and the skew classes are built on the host at first use and
+kept (the classes on the RelGraph, each pack in its graph's PlanCache);
+a backward only reads them.
 
 The kernel route's table, and its memory: a (n_src·R, d_out) fp32 tensor.
 The ``w`` form is one relation-batched product ``einsum(u, W)``. The basis
@@ -57,13 +69,14 @@ its own table, reshaped without a copy.
 Gradients, per route: the kernel route through ``_KernelGspmm`` (B1 on
 the expansion's reverse for ∂table — the table's einsum stays outside,
 so autograd carries ∂table on to ``u``, ``w``, ``basis``, ``coeff`` —
-and B3 ``u_dot_v`` for ∂e); ``fused`` with a sum or mean through
-:class:`_HeteroFusedRev`, JAX's gather VJP (``_hetero_fused_rev``): one
-sorted segment reduce over the (src, rel) reverse table, then dense
-einsums, no scatter, so it is bit-identical from call to call on the
-card; ``loop``, max and min by autograd, as in JAX. Eager calls are
-timed through :func:`repro_torch.obs.events.timed` as ``hetero:<op>``,
-the JAX plan-log key. :func:`hetero_block_gspmm` is the relational
+and B3 ``u_dot_v`` for ∂e); ``fused`` and ``ell`` with a sum or mean
+through :class:`_HeteroFusedRev`, JAX's gather VJP
+(``_hetero_fused_rev``): one sorted segment reduce over the (src, rel)
+reverse table, then dense einsums, no scatter, so it is bit-identical
+from call to call on the card; ``loop``, ``push``, max and min by
+autograd, as in JAX. Eager calls are timed through
+:func:`repro_torch.obs.events.timed` as ``hetero:<op>``, the JAX plan-log
+key. :func:`hetero_block_gspmm` is the relational
 block layer: per-edge ``u[src] @ w[rel]`` messages in caller order,
 reduced as ``block_gspmm``'s ``e_copy_add_v`` (B4 ``copy_rhs`` on the
 card), with JAX's relational block VJP (its docstring says which
@@ -79,9 +92,11 @@ import torch
 
 from . import planner
 from . import strategies as S
-from .binary_reduce import _needs_grad, edge_order, gspmm, parse_op
+from .binary_reduce import (_gspmm_ell, _needs_grad, edge_order, gspmm,
+                            parse_op)
 from .blocks import _block_execute, block_gspmm, check_block_strategy
 from .graph import Graph, from_coo
+from .planner import get_plan_cache
 from ..device import DeviceLike, resolve_device
 from ..kernels.spmm.ops import spmm
 from ..obs.events import timed as _timed
@@ -90,9 +105,11 @@ __all__ = ["RelGraph", "from_typed", "from_rels", "caller_coo",
            "hetero_gspmm", "hetero_block_gspmm", "block_expanded_reverse",
            "HETERO_STRATEGIES", "node_strategy", "edge_strategy"]
 
-HETERO_STRATEGIES = ("auto", "fused", "loop", "kernel")
-_QUEUED = ("ROADMAP A9 (plan_hetero with hetero's ell / push / skew-class "
-           "routes)")
+HETERO_STRATEGIES = ("auto", "fused", "loop", "ell", "kernel")
+# plain gspmm names that pin the per-relation loop's segment form (JAX's
+# plan_hetero, repro/core/planner.py:1175-1179); "push" pins the loop
+# with a scatter inner reduce
+_LOOP_PINS = ("segment", "onehot", "pallas", "ring")
 
 _HOST_FIELDS = ("rel", "mean_norm", "perm_rel", "rev_perm", "rev_src",
                 "rev_dst", "rev_rel")
@@ -344,21 +361,12 @@ def _messages(rg: RelGraph, u, w, basis, coeff, s) -> torch.Tensor:
     return msg
 
 
-def _raw_extremum(msg: torch.Tensor, tgt: torch.Tensor, n_tgt: int,
-                  base: str) -> torch.Tensor:
-    """Segment max / min keeping the ±inf identity on empty rows, so a
-    combine across relations never meets a zero fill."""
-    out = torch.full((n_tgt,) + tuple(msg.shape[1:]),
-                     S.REDUCE_IDENTITY[base], dtype=msg.dtype,
-                     device=msg.device)
-    idx = tgt.reshape((-1,) + (1,) * (msg.ndim - 1)).expand_as(msg)
-    return out.scatter_reduce(0, idx, msg, "amax" if base == "max"
-                              else "amin", include_self=True)
-
-
-def _exec_loop(rg: RelGraph, u, w, s, reduce: str) -> torch.Tensor:
+def _exec_loop(rg: RelGraph, u, w, s, reduce: str,
+               inner: str = "segment") -> torch.Tensor:
     """The pre-fusion baseline: one aggregation per relation over the
-    relation-sorted slices, combined across relations."""
+    relation-sorted slices, combined across relations; ``inner="push"``
+    scatter-reduces each relation instead (identity fill kept, so the
+    combine stays right on negative extrema)."""
     g = rg.g
     base = "sum" if reduce in ("sum", "mean") else reduce
     ptr = rg.rel_ptr
@@ -379,10 +387,12 @@ def _exec_loop(rg: RelGraph, u, w, s, reduce: str) -> torch.Tensor:
                 msg = msg @ w[r]
         if s is not None:
             msg = msg * s.index_select(0, slots)[:, None]
-        if base == "sum":
+        if base == "sum" and inner != "push":
             part = S.pull_segment(msg, dst_r, g.n_dst, "sum")
         else:
-            part = _raw_extremum(msg, dst_r, g.n_dst, base)
+            # without degrees an extremum keeps its ±inf identity on the
+            # rows the relation misses, so no zero fill reaches the combine
+            part = S.push_scatter(msg, dst_r, g.n_dst, base)
         if out is None:
             out = part
         elif base == "sum":
@@ -402,14 +412,99 @@ def _exec_loop(rg: RelGraph, u, w, s, reduce: str) -> torch.Tensor:
 def _exec_plain(rg: RelGraph, u, w, basis, coeff, e, reduce: str,
                 strategy: str) -> torch.Tensor:
     s = _scale(rg, e, reduce)
-    if strategy == "loop":
+    if strategy in ("loop", "push"):
         if basis is not None:       # the pre-fusion form materializes W
             w = torch.einsum("rb,bdo->rdo", coeff, basis)
-        return _exec_loop(rg, u, w, s, reduce)
+        return _exec_loop(rg, u, w, s, reduce,
+                          inner="push" if strategy == "push" else "segment")
     base = "sum" if reduce in ("sum", "mean") else reduce
+    msg = _messages(rg, u, w, basis, coeff, s)
+    if strategy == "ell":
+        return _reduce_ell(rg, msg, base)
     g = rg.g
-    return S.pull_segment(_messages(rg, u, w, basis, coeff, s),
-                          g.long("dst"), g.n_dst, base, deg=g.in_degrees)
+    return S.pull_segment(msg, g.long("dst"), g.n_dst, base,
+                          deg=g.in_degrees)
+
+
+# --------------------------------------------------------------------- #
+# the ell route and its size-skew classes (repro/core/hetero.py:286-425)
+# --------------------------------------------------------------------- #
+_SKEW_RATIO = 8.0       # max relation size / median — below this, skip
+_SKEW_MIN_RELS = 3      # fewer relations: bucketing can't help
+_NOT_SKEWED = "not skewed"
+
+
+def _build_skew_classes(rg: RelGraph):
+    """Relations bucketed by ⌊log2(edge count)⌋, built on the host:
+    ``((class_graph, canonical_slots), ...)`` — the slots index the fused
+    graph's canonical edge order and are the class graph's caller edge
+    order, each class graph's ELL pack built — or None when the sizes do
+    not warrant a split (skew below the ratio, fewer than 3 non-empty
+    relations, or one size class)."""
+    sizes = np.asarray(rg.rel_sizes, np.int64)
+    nz = sizes[sizes > 0]
+    if nz.size < _SKEW_MIN_RELS:
+        return None
+    med = max(float(np.median(nz)), 1.0)
+    if float(nz.max()) / med < _SKEW_RATIO:
+        return None
+    band = np.where(sizes > 0,
+                    np.floor(np.log2(np.maximum(sizes, 1))), -1.0)
+    band = band.astype(np.int64)
+    distinct = sorted({int(b) for b in band if b >= 0})
+    if len(distinct) < 2:
+        return None
+    h = rg.g.host
+    perm = rg.host["perm_rel"]
+    ptr = rg.rel_ptr
+    classes = []
+    for b in distinct:
+        slots = np.concatenate([perm[ptr[r]:ptr[r + 1]]
+                                for r in range(rg.n_rel) if band[r] == b])
+        cg = from_coo(h.src[slots], h.dst[slots], n_src=rg.n_src,
+                      n_dst=rg.n_dst, device=rg.device)
+        get_plan_cache(cg).ell()        # the class's own pad width
+        classes.append((cg, torch.from_numpy(slots.astype(np.int64)).to(
+            rg.device)))
+    return tuple(classes)
+
+
+def _skew_classes(rg: RelGraph):
+    """The skew classes of ``rg`` (None: use the fused graph's one pack),
+    built once and kept on ``rg`` — a None too: not skewed is final."""
+    got = rg._derived.get("skew_classes")
+    if got is None:
+        got = rg._derived["skew_classes"] = (_build_skew_classes(rg)
+                                             or _NOT_SKEWED)
+    return None if got is _NOT_SKEWED else got
+
+
+def _reduce_ell(rg: RelGraph, msg: torch.Tensor, base: str) -> torch.Tensor:
+    """The canonical-order messages ``msg`` reduced by blocked pulls:
+    per skew class when there are classes, else over the fused graph's
+    ELL pack (``_gspmm_ell``'s ``e_copy_<base>_v``)."""
+    g = rg.g
+    spec = parse_op(f"e_copy_{'add' if base == 'sum' else base}_v")
+    classes = _skew_classes(rg)
+    if classes is not None:
+        # a sum's class partials add exactly; an extremum's stay RAW (±inf
+        # on a class's empty rows, so no zero fill clobbers another
+        # class's negative extremum) and are finalized once, combined
+        comb = {"sum": torch.add, "max": torch.maximum,
+                "min": torch.minimum}[base]
+        out = None
+        for cg, slots in classes:
+            part = _gspmm_ell(cg, spec, get_plan_cache(cg).ell(),
+                              msg.index_select(0, slots), None,
+                              raw=base != "sum")
+            out = part if out is None else comb(out, part)
+        if base == "sum":
+            return out
+        out = torch.where(torch.isfinite(out), out, out.new_zeros(()))
+        return S.finalize_empty_rows(out, g.in_degrees, base)
+    # the e operand of the fused graph is in caller order
+    return _gspmm_ell(g, spec, get_plan_cache(g).ell(),
+                      msg.index_select(0, g.long("eid_inv")), None)
 
 
 # --------------------------------------------------------------------- #
@@ -463,22 +558,22 @@ def _hetero_de(rg: RelGraph, u, w, basis, coeff, norm, ct) -> torch.Tensor:
 
 
 class _HeteroFusedRev(torch.autograd.Function):
-    """The fused route's sum / mean with JAX's gather VJP
-    (``_hetero_fused_rev``): :func:`_hetero_grads` for the operands,
-    :func:`_hetero_de` for ``e``, whichever message branch the forward
-    took."""
+    """The fused or ell route's sum / mean (``strategy``) with JAX's
+    gather VJP (``_hetero_fused_rev``): :func:`_hetero_grads` for the
+    operands, :func:`_hetero_de` for ``e``, whichever message branch the
+    forward took."""
 
     @staticmethod
-    def forward(ctx, rg, reduce, u, w, basis, coeff, e):
+    def forward(ctx, rg, reduce, strategy, u, w, basis, coeff, e):
         ctx.rg, ctx.reduce = rg, reduce
         ctx.save_for_backward(u, w, basis, coeff, e)
-        return _exec_plain(rg, u, w, basis, coeff, e, reduce, "fused")
+        return _exec_plain(rg, u, w, basis, coeff, e, reduce, strategy)
 
     @staticmethod
     def backward(ctx, ct):
         u, w, basis, coeff, e = ctx.saved_tensors
         rg, reduce = ctx.rg, ctx.reduce
-        needs = ctx.needs_input_grad[2:]
+        needs = ctx.needs_input_grad[3:]
         ct = ct.contiguous()
         grads = _hetero_grads(rg, u, w, basis, coeff,
                               _scale(rg, e, reduce), ct, needs[:4])
@@ -487,7 +582,7 @@ class _HeteroFusedRev(torch.autograd.Function):
             norm = rg.mean_norm if reduce == "mean" else None
             de = _hetero_de(rg, u, w, basis, coeff, norm, ct).to(e.dtype)
             de = de.reshape(e.shape)
-        return (None, None) + grads + (de,)
+        return (None, None, None) + grads + (de,)
 
 
 # --------------------------------------------------------------------- #
@@ -536,17 +631,18 @@ def _kernel_ok(*ts: Optional[torch.Tensor]) -> bool:
 
 
 def _resolve(strategy: str, reduce: str, operands) -> str:
+    """The route ``strategy`` names (module docstring): a hetero name is
+    itself, ``"push"`` the loop with a scatter inner reduce (resolved as
+    ``"push"``), every other plain gspmm name the loop."""
     if strategy == "auto":
         return ("kernel" if reduce in ("sum", "mean") and _kernel_ok(
             *operands) else "fused")
-    if strategy == "segment":       # a plain gspmm name pins the loop
+    if strategy in _LOOP_PINS:
         return "loop"
-    if strategy in ("ell", "push"):
-        raise NotImplementedError(
-            f"hetero strategy {strategy!r} is not ported yet: {_QUEUED}")
-    if strategy not in HETERO_STRATEGIES:
+    if strategy not in HETERO_STRATEGIES + ("push",):
+        names = HETERO_STRATEGIES + ("push",) + _LOOP_PINS
         raise ValueError(f"unknown hetero strategy {strategy!r}; expected "
-                         f"one of {HETERO_STRATEGIES + ('segment',)}")
+                         f"one of {names}")
     if strategy == "kernel" and reduce not in ("sum", "mean"):
         raise NotImplementedError(
             f"the hetero kernel route (B1) reduces by sum or mean only; "
@@ -594,10 +690,10 @@ def hetero_gspmm(rg: RelGraph, u: torch.Tensor, *,
     if chosen == "kernel":
         return _timed(f"hetero:{op_name}", lambda: _exec_kernel(
             rg, u, w, basis, coeff, e, reduce))
-    if (chosen == "fused" and reduce in ("sum", "mean")
+    if (chosen in ("fused", "ell") and reduce in ("sum", "mean")
             and _needs_grad(u, w, basis, coeff, e)):
         return _timed(f"hetero:{op_name}", lambda: _HeteroFusedRev.apply(
-            rg, reduce, u, w, basis, coeff, e))
+            rg, reduce, chosen, u, w, basis, coeff, e))
     return _timed(f"hetero:{op_name}", lambda: _exec_plain(
         rg, u, w, basis, coeff, e, reduce, chosen))
 

@@ -24,14 +24,26 @@ alike there; on CUDA it takes ``gather`` wherever
 row yet). The plan log (``serve:<op>``, ``block_bwd:<op>`` rows with
 predicted costs) and the kernel-strategy rows come with the rest of the
 planner (ROADMAP A9).
+
+:class:`PlanCache` is the pack half of the JAX ``PlanCache``: one per
+graph (:func:`get_plan_cache`), it builds each blocked pack
+(``core/tiling.py``) at most once, on the host, at first use. The graph
+statistics and the cost model that read them are A9's.
 """
 from __future__ import annotations
 
+import threading
 import warnings
-from typing import Dict, Set, Tuple
+import weakref
+from collections import Counter
+from typing import Dict, Optional, Set, Tuple
+
+from .tiling import (ELLClass, ELLPack, TilePack, build_ell, build_ell_ragged,
+                     build_ell_uniform, build_tiles)
 
 __all__ = ["SERVE_MODES", "plan_serve", "BLOCK_BWD_STRATEGIES",
-           "block_bwd_supports", "plan_block_vjp"]
+           "block_bwd_supports", "plan_block_vjp", "PlanCache",
+           "get_plan_cache", "pack_build_totals"]
 
 SERVE_MODES = ("layerwise", "fanout")
 
@@ -159,3 +171,119 @@ def plan_block_vjp(signature: Tuple[int, int, int, int], spec, d: int,
         _warn_fallback(f"block_bwd:{spec.name}", requested, chosen)
     _BLOCK_BWD_PLANS[key] = chosen
     return chosen
+
+
+# --------------------------------------------------------------------- #
+# the per-graph pack cache (repro/core/planner.py:204-419, its packs)
+# --------------------------------------------------------------------- #
+_DEFAULT_ELL_CAP = 64
+_DEFAULT_TILE_GEOM = (128, 128, 256)    # (bm, bk, eb), build_tiles' own
+_PACK_BUILDS: Counter = Counter()
+
+
+def pack_build_totals() -> Dict[str, int]:
+    """How many packs of each kind were built (not reused) so far."""
+    return dict(_PACK_BUILDS)
+
+
+class PlanCache:
+    """The blocked packs of one graph, each built on first use and kept.
+
+    ``ell(cap)``, ``tiles(bm, bk, eb)``, ``ell_uniform(width)`` and
+    ``ell_ragged()`` build from the graph's host index and upload once;
+    :meth:`peek` returns a default-geometry pack only if it was built.
+    The graph is held weakly, as in JAX: a cache never keeps its graph
+    alive."""
+
+    def __init__(self, graph, ell_cap: int = _DEFAULT_ELL_CAP):
+        self._gref = weakref.ref(graph)
+        self.ell_cap = int(ell_cap)
+        self._ell: Optional[ELLPack] = None
+        self._tiles: Optional[TilePack] = None
+        self._ragged: Optional[ELLPack] = None
+        self._ell_by_cap: Dict[int, ELLPack] = {}
+        self._tiles_by_geom: Dict[Tuple[int, int, int], TilePack] = {}
+        self._uniform: Dict[int, ELLClass] = {}
+
+    def _graph(self):
+        g = self._gref()
+        if g is None:
+            raise ReferenceError("the PlanCache's graph is gone")
+        return g
+
+    def peek(self, kind: str):
+        """The built default pack of ``kind`` ('ell' | 'tiles' |
+        'ell_ragged'), or None; never builds."""
+        return {"ell": self._ell, "tiles": self._tiles,
+                "ell_ragged": self._ragged}[kind]
+
+    def set_ell_cap(self, cap: int) -> None:
+        """Change the default ELL width cap. A pack built at the old cap
+        moves to the keyed memo, and one built earlier at the new cap (if
+        any) becomes the default, so no call ever gets a pack with the
+        wrong blocking."""
+        cap = int(cap)
+        if cap == self.ell_cap:
+            return
+        if self._ell is not None:
+            self._ell_by_cap[self.ell_cap] = self._ell
+        self._ell = self._ell_by_cap.pop(cap, None)
+        self.ell_cap = cap
+
+    def ell(self, width_cap: Optional[int] = None) -> ELLPack:
+        cap = self.ell_cap if width_cap is None else int(width_cap)
+        if cap == self.ell_cap:
+            if self._ell is None:
+                self._ell = _built("ell", build_ell(self._graph(), cap))
+            return self._ell
+        if cap not in self._ell_by_cap:
+            self._ell_by_cap[cap] = _built("ell",
+                                           build_ell(self._graph(), cap))
+        return self._ell_by_cap[cap]
+
+    def tiles(self, bm: int = 128, bk: int = 128, eb: int = 256) -> TilePack:
+        geom = (int(bm), int(bk), int(eb))
+        if geom == _DEFAULT_TILE_GEOM:
+            if self._tiles is None:
+                self._tiles = _built("tiles",
+                                     build_tiles(self._graph(), *geom))
+            return self._tiles
+        if geom not in self._tiles_by_geom:
+            self._tiles_by_geom[geom] = _built(
+                "tiles", build_tiles(self._graph(), *geom))
+        return self._tiles_by_geom[geom]
+
+    def ell_uniform(self, width: int) -> ELLClass:
+        if width not in self._uniform:
+            self._uniform[width] = _built(
+                "ell_uniform", build_ell_uniform(self._graph(), width))
+        return self._uniform[width]
+
+    def ell_ragged(self) -> ELLPack:
+        """Row-complete ragged ELL (``build_ell_ragged``): the fused
+        attention's backward reads it (``core/edge_softmax.py``)."""
+        if self._ragged is None:
+            self._ragged = _built("ell_ragged",
+                                  build_ell_ragged(self._graph()))
+        return self._ragged
+
+
+def _built(kind: str, pack):
+    _PACK_BUILDS[kind] += 1
+    return pack
+
+
+_CACHES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_CACHES_LOCK = threading.Lock()
+
+
+def get_plan_cache(g) -> PlanCache:
+    """The process-wide :class:`PlanCache` of graph ``g``, made once and
+    kept for as long as ``g`` lives."""
+    cache = _CACHES.get(g)
+    if cache is None:
+        with _CACHES_LOCK:
+            cache = _CACHES.get(g)
+            if cache is None:
+                cache = _CACHES[g] = PlanCache(g)
+    return cache

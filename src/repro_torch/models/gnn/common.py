@@ -1,8 +1,9 @@
 """Shared GNN plumbing (port of ``repro/models/gnn/common.py``): the
 graph bundle with its per-edge normalizations, which serving and
 training share (a kernel route's backward builds Gᵀ itself, once per
-graph: ``core/graph.reverse``), and with MoNet's K-relation
-:class:`~repro_torch.core.hetero.RelGraph` when asked for one; the
+graph: ``core/graph.reverse``), its graph's pack cache and, when asked
+for, the blocked packs and the ELL training graph, and MoNet's
+K-relation :class:`~repro_torch.core.hetero.RelGraph`; the
 loaders that carry parameters between the JAX package and the port
 (:func:`from_jax_params`, :func:`to_jax_params`); and the one code path
 every app's sampled-minibatch forward runs on (:func:`run_blocks`).
@@ -20,6 +21,9 @@ from torch import nn
 
 from ...core.graph import Graph
 from ...core.hetero import RelGraph, caller_coo, from_rels
+from ...core.planner import PlanCache, get_plan_cache
+from ...core.tiling import ELLPack, TilePack
+from ...core.training_ops import TrainingGraph, make_training_graph
 from ...device import DeviceLike, resolve_device
 from ...substrate.nn import dropout
 
@@ -34,12 +38,35 @@ class GraphBundle:
 
     ``gcn_norm``: 1/sqrt(deg_out(u)·deg_in(v)); ``mean_norm``:
     1/deg_in(v) — mean aggregation as a weighted Copy-Reduce. ``krels``:
-    the K-relation RelGraphs :func:`make_bundle` built, by K.
+    the K-relation RelGraphs :func:`make_bundle` built, by K. ``cache``:
+    the graph's :class:`~repro_torch.core.planner.PlanCache`; ``tg`` the
+    ELL training graph (packs of G and Gᵀ) when :func:`make_bundle` built
+    one, which GCN and SAGE pull through under ``strategy="ell"``.
     """
     g: Graph
     gcn_norm: torch.Tensor   # (n_edges,)
     mean_norm: torch.Tensor  # (n_edges,)
     krels: Dict[int, RelGraph] = dataclasses.field(default_factory=dict)
+    cache: Optional[PlanCache] = None
+    tg: Optional[TrainingGraph] = None
+
+    # views onto the cache (never build)
+    @property
+    def ell(self) -> Optional[ELLPack]:
+        return None if self.cache is None else self.cache.peek("ell")
+
+    @property
+    def tiles(self) -> Optional[TilePack]:
+        return None if self.cache is None else self.cache.peek("tiles")
+
+    def use_training_graph(self, strategy: str, d: int) -> bool:
+        """Route the weighted aggregation through the ELL pull, forward
+        and backward (``core/training_ops.weighted_copy_reduce``)? When
+        ``ell`` is pinned and the bundle has its training graph. Under
+        ``auto`` the JAX bundle asks its cost model (``prefers_ell`` at
+        width ``d``); the port has none until the planner (ROADMAP A9),
+        so ``auto`` keeps its kernel / segment choice."""
+        return self.tg is not None and strategy == "ell"
 
     def krel(self, n_rel: int) -> Optional[RelGraph]:
         """The K-relation RelGraph of ``g`` (the edge set once per
@@ -65,10 +92,25 @@ def edge_norms(g: Graph) -> Tuple[np.ndarray, np.ndarray]:
     return w_caller.astype(np.float32), m_caller.astype(np.float32)
 
 
-def make_bundle(g: Graph, *, krel: Optional[int] = None) -> GraphBundle:
-    """Assemble a bundle on ``g``'s device; ``krel=K`` also builds the
+def make_bundle(g: Graph, *, ell: bool = False, tiles: bool = False,
+                ell_width: int = 64, training: bool = False,
+                krel: Optional[int] = None) -> GraphBundle:
+    """Assemble a bundle on ``g``'s device. The packs come from (and stay
+    in) the graph's PlanCache, built at most once per graph even across
+    bundles and direct ``gspmm`` calls: ``ell`` builds the ELL pack at
+    width cap ``ell_width``, ``tiles`` the default TilePack, ``training``
+    the ELL training graph (Gᵀ and both packs). The JAX bundle builds the
+    ELL pack and the training graph by default; the port's builds none,
+    since only a pinned ``"ell"`` reads them. ``krel=K`` also builds the
     K-relation RelGraph (:meth:`GraphBundle.krel`), on the host, once."""
     w_caller, m_caller = edge_norms(g)
+    cache = get_plan_cache(g)
+    cache.set_ell_cap(ell_width)
+    if ell or training:
+        cache.ell()
+    if tiles:
+        cache.tiles()
+    tg = make_training_graph(g, ell_width) if training else None
     krels = {}
     if krel is not None:
         src, dst = caller_coo(g)
@@ -78,7 +120,7 @@ def make_bundle(g: Graph, *, krel: Optional[int] = None) -> GraphBundle:
     return GraphBundle(g=g,
                        gcn_norm=torch.from_numpy(w_caller).to(g.device),
                        mean_norm=torch.from_numpy(m_caller).to(g.device),
-                       krels=krels)
+                       krels=krels, cache=cache, tg=tg)
 
 
 def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:

@@ -31,8 +31,9 @@ block edge softmax (B3 + B4, its max on the uniform pull) and the rank-3
 aggregation on the uniform pull; softmax-fused with B5 on ``bg.g`` (pad
 edges get the dummy row's own softmax, which no real row reads); the
 fused modes as B2. ``strategy='ell'`` pins the JAX block path's plain
-pulls. Sampled training differentiates the block ops as ``bwd_strategy``
-says (``core/blocks.py``): on the card the max and the rank-3 sum by the
+pulls, ``'push'`` its scatter baseline for the node reductions. Sampled
+training differentiates the block ops as ``bwd_strategy`` says
+(``core/blocks.py``): on the card the max and the rank-3 sum by the
 gather pull in plain torch, the rest on the kernels.
 """
 from __future__ import annotations
@@ -64,9 +65,9 @@ _SINGLE_PASS = {"segment": "fused", "kernel": "kernel", "auto": "auto"}
 _FUSED_STRATEGY = {"auto": "auto", "fused": "fused", "pallas": "kernel"}
 # on a block: the single-pass forms under each block strategy, and the
 # rank-3 aggregation (no kernel takes it) on the uniform pull
-_BLOCK_SINGLE_PASS = dict(_SINGLE_PASS, ell="fused")
+_BLOCK_SINGLE_PASS = dict(_SINGLE_PASS, ell="fused", push="fused")
 _BLOCK_RANK3 = {"auto": "ell", "kernel": "ell", "ell": "ell",
-                "segment": "segment"}
+                "segment": "segment", "push": "push"}
 
 
 def _resolve_attn(attn: Optional[str], fused_softmax: bool) -> str:

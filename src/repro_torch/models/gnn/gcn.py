@@ -8,7 +8,10 @@ The symmetric normalization is folded into per-edge scalar weights
 edge operand — the weighted Copy-Reduce kernel (B1) on the card, on the
 full graph and on each sampled block (:func:`forward_blocks`); its
 backward is B1 on Gᵀ with the same weights (the JAX package's
-``weighted_copy_reduce``). ``train=True`` drops out each layer's input,
+``weighted_copy_reduce``). Under ``strategy="ell"`` with a bundle that
+has its training graph (``make_bundle(g, training=True)``) the layer
+pulls through ``weighted_copy_reduce``'s ELL route instead, both ways,
+as the JAX forward does. ``train=True`` drops out each layer's input,
 as in JAX.
 """
 from __future__ import annotations
@@ -20,6 +23,7 @@ from torch import nn
 
 from ...core.binary_reduce import gspmm
 from ...core.blocks import block_gspmm
+from ...core.training_ops import weighted_copy_reduce
 from ...device import DeviceLike
 from ...substrate.nn import Linear, dropout
 from .common import GraphBundle, run_blocks
@@ -47,8 +51,15 @@ class GCN(nn.Module):
         for i, lyr in enumerate(self.layers):
             if train and gen is not None:
                 h = dropout(gen, h, drop, train)
-            h = gspmm(bundle.g, "u_mul_e_add_v", u=lyr(h),
-                      e=bundle.gcn_norm[:, None], strategy=strategy)
+            h = lyr(h)
+            if bundle.use_training_graph(strategy, h.shape[-1]):
+                # the ELL pull forward and backward (its custom VJP over
+                # Gᵀ's pack)
+                h = weighted_copy_reduce(bundle.tg, h,
+                                         bundle.gcn_norm[:, None], "ell")
+            else:
+                h = gspmm(bundle.g, "u_mul_e_add_v", u=h,
+                          e=bundle.gcn_norm[:, None], strategy=strategy)
             if i < len(self.layers) - 1:
                 h = torch.relu(h)
         return h

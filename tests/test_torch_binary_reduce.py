@@ -24,7 +24,7 @@ from repro.core.graph import from_coo as jax_from_coo
 from repro.kernels.binary_reduce.ops import binary_reduce as jax_br_pallas
 from repro.kernels.binary_reduce.ref import binary_reduce_ref
 from repro_torch.core import from_coo, gspmm, parse_op
-from repro_torch.core.binary_reduce import STRATEGIES
+from repro_torch.core.binary_reduce import STRATEGIES, onehot_supports
 from repro_torch.core.strategies import pull_segment
 from repro_torch.data.synthetic import rmat_graph
 from repro_torch.kernels import dispatch
@@ -118,7 +118,12 @@ def test_gspmm_routes_like_jax_dispatch(graph, op, de, kernel, monkeypatch):
     kw_t = {t: torch.from_numpy(data[t]) for t in names}
     refs = [np.asarray(jax_gspmm(jg, op, strategy=s, **kw_j))
             for s in ("segment", "pallas")]
+    lhs, rhs = (kw_t.get(t) for t in (spec.lhs, spec.rhs))
     for strategy in STRATEGIES:
+        if strategy == "onehot" and not onehot_supports(spec, lhs, rhs):
+            with pytest.raises(ValueError, match="onehot"):
+                gspmm(tg, op, strategy=strategy, **kw_t)
+            continue
         got = gspmm(tg, op, strategy=strategy, **kw_t).numpy()
         for ref in refs:
             np.testing.assert_allclose(got, ref, rtol=_tol(spec.op),

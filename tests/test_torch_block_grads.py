@@ -324,3 +324,36 @@ def test_segment_route_grads_match_jax(op, ls, rs):
     for k, g in zip(targs, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(ref[k]), rtol=TOL,
                                    atol=TOL, err_msg=f"d{k} of {op}")
+
+
+# --------------------------------------------------------------------- #
+# C6 on blocks: a dot whose operand widths broadcast
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("red", ["add", "mean"])
+@pytest.mark.parametrize("pair", [("u", "v"), ("v", "u"), ("u", "e"),
+                                  ("e", "v")], ids="".join)
+@pytest.mark.parametrize("widths", [((4,), (1,)), ((1,), (4,)),
+                                    ((2, 3), (2, 1))],
+                         ids=["4-1", "1-4", "23-21"])
+def test_block_segment_broadcast_dot_grads_match_jax(widths, pair, red):
+    """ROADMAP C6 on a sampled block: ``block_gspmm(strategy="segment",
+    bwd_strategy="scatter")`` on ``<l>_dot_<r>`` with widths that
+    broadcast matches ``jax.grad`` of the JAX block route at 1e-5, each
+    grad at its operand's shape."""
+    jblk, tblk = _block()
+    bg = jblk.bg
+    name = f"{pair[0]}_dot_{pair[1]}_{red}_v"
+    rows = {"u": bg.g.n_src, "v": bg.g.n_dst, "e": bg.g.n_edges}
+    rng = np.random.default_rng(21)
+    args = {t: rng.normal(size=(rows[t],) + w).astype(np.float32)
+            for t, w in zip(pair, widths)}
+    ct = rng.normal(size=(bg.n_dst_real,) + widths[0][:-1] + (1,)
+                    ).astype(np.float32)
+    ref, ref_g = _jax_value_and_grads(bg, name, args, ct)
+    out, got = _port_value_and_grads(tblk.bg, name, args, ct, "segment",
+                                     "scatter")
+    np.testing.assert_allclose(out, ref, rtol=TOL, atol=TOL)
+    for k in ref_g:
+        assert got[k].shape == args[k].shape
+        np.testing.assert_allclose(got[k], ref_g[k], rtol=TOL, atol=TOL,
+                                   err_msg=f"d{k}: {name}")

@@ -144,7 +144,8 @@ def test_block_gspmm_matches_jax(op, widths, li):
     rhs = None if spec.rhs is None else targs[spec.rhs]
     kernel = (sddmm_kernel_supports if spec.out == "e"
               else kernel_supports)(spec, lhs, rhs)
-    for s in ("auto", "ell", "segment") + (("kernel",) if kernel else ()):
+    for s in (("auto", "ell", "segment", "push")
+              + (("kernel",) if kernel else ())):
         got = block_gspmm(tbg, op, strategy=s, **targs)
         assert got.shape == ref.shape, (s, got.shape, ref.shape)
         np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL,
@@ -155,18 +156,16 @@ def test_block_gspmm_strategies_raise():
     _, tmb = _minibatch([3, 4])
     bg = tmb.blocks[1].bg
     u = torch.zeros(bg.g.n_src, 2)
-    with pytest.raises(NotImplementedError, match="A3"):
-        block_gspmm(bg, "u_copy_add_v", u=u, strategy="push")
     with pytest.raises(ValueError, match="unknown block strategy"):
         block_gspmm(bg, "u_copy_add_v", u=u, strategy="onehot")
     with pytest.raises(NotImplementedError, match="no kernel computes"):
         block_gspmm(bg, "u_copy_max_v", u=u, strategy="kernel")
     with pytest.raises(ValueError, match="missing"):
         block_gspmm(bg, "u_mul_e_add_v", u=u)
-    for s in ("ell", "segment", "kernel"):
+    for s in ("ell", "segment", "push", "kernel"):
         assert block_supports(s, parse_op("u_copy_max_v"))
         assert not block_supports(s, parse_op("u_add_v_copy_e"))
-    assert not block_supports("push", parse_op("u_copy_add_v"))
+    assert not block_supports("onehot", parse_op("u_copy_add_v"))
 
 
 @pytest.mark.parametrize("H", [1, 3])
@@ -282,8 +281,8 @@ def test_run_blocks_checks_depth_and_gat_modes():
     _, gmodel = _models("gat")
     with pytest.raises(ValueError, match="unknown attn mode"):
         gat.infer_blocks(gmodel, tmb.blocks, x, attn="flash")
-    with pytest.raises(NotImplementedError, match="A3"):
-        gat.infer_blocks(gmodel, tmb.blocks, x, strategy="push")
+    with pytest.raises(ValueError, match="unknown block strategy"):
+        gat.infer_blocks(gmodel, tmb.blocks, x, strategy="onehot")
 
 
 def test_gcn_norm_on_blocks_is_the_full_graphs():

@@ -407,3 +407,47 @@ def test_kernel_routes_are_autograd_functions():
     with torch.no_grad():       # no graph: the wrappers are called directly
         assert gspmm(tg, "u_copy_add_v", u=u, strategy="kernel").grad_fn \
             is None
+
+
+# --------------------------------------------------------------------- #
+# C6: a dot whose operand widths broadcast, on the segment route
+# --------------------------------------------------------------------- #
+def _c6_graph():
+    """40 edges, 13 sources × 11 destinations: destinations 8–10 have
+    no in-edge, and one edge is there 5 times (``default_rng(1)``)."""
+    rng = np.random.default_rng(1)
+    src = np.concatenate([rng.integers(0, 13, 35), np.full(5, 3)])
+    dst = np.concatenate([rng.integers(0, 8, 35), np.full(5, 6)])
+    return (jax_from_coo(src, dst, n_src=13, n_dst=11),
+            from_coo(src, dst, n_src=13, n_dst=11, device="cpu"))
+
+
+C6_WIDTHS = [((4,), (1,)), ((1,), (4,)), ((2, 3), (2, 1))]
+C6_PAIRS = [("u", "v"), ("v", "u"), ("u", "e"), ("e", "u"), ("v", "e"),
+            ("e", "v")]
+
+
+@pytest.mark.parametrize("out", ["v", "u"])
+@pytest.mark.parametrize("red", ["add", "mean"])
+@pytest.mark.parametrize("pair", C6_PAIRS, ids="".join)
+@pytest.mark.parametrize("widths", C6_WIDTHS,
+                         ids=["4-1", "1-4", "23-21"])
+def test_segment_broadcast_dot_grads_match_jax(widths, pair, red, out):
+    """ROADMAP C6: ``gspmm(strategy="segment")`` on ``<l>_dot_<r>`` with
+    operand widths that broadcast returns each operand's grad at its own
+    shape, within 1e-5 of ``jax.grad`` of the JAX segment route (before
+    the fix the segment backward raised on the wider operand)."""
+    jg, tg = _c6_graph()
+    op = f"{pair[0]}_dot_{pair[1]}_{red}_{out}"
+    rows = {"u": 13, "v": 11, "e": 40}
+    rng = np.random.default_rng(7)
+    ops = [_normal(rng, rows[t], *w) for t, w in zip(pair, widths)]
+    jgr, tgr = _vjps(
+        lambda a, b: jax_gspmm(jg, op, strategy="segment",
+                               **dict(zip(pair, (a, b)))),
+        lambda a, b: gspmm(tg, op, strategy="segment",
+                           **dict(zip(pair, (a, b)))),
+        ops, (0, 1), rng)
+    for a, b, x in zip(tgr, jgr, ops):
+        assert a.shape == x.shape
+        _close(a, b, what=op)

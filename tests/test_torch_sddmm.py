@@ -144,7 +144,8 @@ def test_gspmm_delegates_edge_outputs_with_the_jax_name_mapping():
     """gspmm's edge outputs equal gsddmm's under the mapped strategy, and
     a pinned 'kernel' reaches the kernel path (which refuses rank 3)."""
     assert SDDMM_FOR == {"auto": "auto", "kernel": "kernel",
-                         "segment": "gather"}
+                         "segment": "gather", "push": "gather",
+                         "ell": "canonical", "onehot": "canonical"}
     _, tg, lhs, rhs = _case("random", "u", 4, "v", 4, "sub")
     u, v = torch.from_numpy(lhs), torch.from_numpy(rhs)
     for strategy, mapped in SDDMM_FOR.items():

@@ -130,13 +130,20 @@ def test_kernel_supports_exactly_the_b1_specs():
 
 def test_queued_strategies_and_outputs_raise():
     """The queued strategies still raise, naming their ROADMAP item, and
-    so does a spec no kernel covers under 'kernel'; edge outputs and the
-    max reducer, queued before, now compute."""
+    so does a spec no kernel covers under 'kernel'; edge outputs, the max
+    reducer and the push / ell / onehot routes, queued before, now
+    compute."""
     jg, tg, B, w = _case(30, 30, 400, 7)
     u = torch.from_numpy(B)
-    for strategy in ("push", "ell", "onehot", "ring", "pallas"):
+    for strategy in ("ring", "pallas"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             gspmm(tg, "u_copy_add_v", u=u, strategy=strategy)
+    ref = np.asarray(jax_gspmm(jg, "u_copy_add_v", u=jnp.asarray(B),
+                               strategy="segment"))
+    for strategy in ("push", "ell", "onehot"):
+        got = gspmm(tg, "u_copy_add_v", u=u, strategy=strategy).numpy()
+        np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL,
+                                   err_msg=strategy)
     with pytest.raises(NotImplementedError, match="no kernel computes"):
         gspmm(tg, "u_add_v_add_v", u=u, v=u, strategy="kernel")
     for op in ("u_add_v_copy_e", "u_copy_max_v"):
