@@ -169,6 +169,19 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     the ragged-pack backward against ``_attention_grads``, alone and
     through ``fused_attention``'s B2 route.
 
+16. Planner (``core/planner.py``): the ``cuda`` cost row's fit
+    (``benchmarks/torch_planner_fit.py``: each gspmm route's device time
+    and work on ``reddit-like`` at d = 16 / 32 / 602, each route's host
+    time on ``tiny``) beside the row the planner carries; for each op of
+    ``PLANNER_RANK`` / ``PLANNER_RANK_SDDMM`` every route it can run,
+    the cost model's ranking beside the measured device times, and
+    auto's choice; autotune on the card (gspmm at d = 16 and 602, a
+    sampled batch's block, GAT's logits), each winner held to the kernel
+    route within ``STRATEGY_TOL``; the plan log and the drift report
+    after a layer-wise serve, a full-graph step per app and a sampled
+    SAGE epoch. It fails if a plain route (pinned, autotuned or chosen
+    by auto) launches a kernel, or a kernel route launches none.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
@@ -369,6 +382,24 @@ HETERO_SKEW = (5000, (100_000, 50_000, 20_000, 12_000, 8_000, 5_000,
                       3_000, 2_000))
 # the ragged attention backward at GAT's layer-0 shape (heads, features)
 RAGGED_ATTN = (4, 16)
+# the planner phase (16) on reddit-like: each main-path op (op, width of
+# its node / edge operand, width of a second operand or None, lead dims)
+# with the routes it can run, the cost model's ranking beside the
+# measured device times (onehot only at d <= 32, as in phase 15)
+PLANNER_RANK = [("u_mul_e_add_v", 16, 1, ()),
+                ("u_copy_mean_v", 602, None, ()),
+                ("e_copy_add_v", 4, None, ()),
+                ("u_copy_max_v", 16, None, ()),
+                ("e_copy_max_v", 4, None, ()),
+                ("u_mul_e_add_v", 16, 1, (4,))]
+PLANNER_RANK_SDDMM = [("u_add_v_copy_e", 4), ("e_div_v_copy_e", 4)]
+PLANNER_ROUTES = ("kernel", "segment", "push", "ell", "onehot")
+# autotune on the card: gspmm at GCN's d = 16 and SAGE's mean at d = 602,
+# a sampled training batch's outer block (SAGE hidden 64), GAT's logits
+PLANNER_AUTOTUNE = [("u_mul_e_add_v", 16, 1), ("u_copy_mean_v", 602, None)]
+# the sampled epoch whose plan log and drift report phase 16 prints:
+# SAGE (10, 10) × 64 on reddit-like, hidden 64, its first batches
+PLANNER_SAMPLED = ((10, 10), 64, 64, 8)
 # the fan-out serving phases: fan-out per layer (benchmarks/fig_serve.py's
 # CMP_FANOUT). A served fan-out batch runs one block per layer, so it
 # launches what a refresh launches: SERVE_LAUNCHES, per batch
@@ -3049,6 +3080,207 @@ def strategy_attention(g, gen) -> list:
     return rows
 
 
+def launches_of(fn) -> int:
+    """Kernel launches of one call of ``fn`` (the counters reset)."""
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    return sum(read_counts().values())
+
+
+def check_route_launches(what: str, route: str, n: int) -> None:
+    """A kernel route launches some kernel, a plain route none."""
+    if (n > 0) != (route == "kernel"):
+        raise AssertionError(f"{what}: route {route!r} launched {n} "
+                             f"kernel(s)")
+
+
+def planner_fit(g, gen) -> dict:
+    """The cuda row's fit (benchmarks/torch_planner_fit.py) on this run's
+    card, printed beside the row the planner carries."""
+    from benchmarks.torch_planner_fit import fit_cuda_row
+    from repro_torch.core import planner
+    from repro_torch.data.synthetic import make_node_dataset
+
+    tiny = make_node_dataset("tiny", device="cuda")[0]
+    fit = fit_cuda_row(g, tiny, gen, emit=print)
+    row = {"phase": "planner_fit", **{k: fit[k] for k in (
+        "rate", "fixed", "ell_class", "unit_ms", "host_ms",
+        "reddit_stats")}, "device_ms": fit["device_ms"], "work": fit["work"],
+        "carried": {"rate": planner._THROUGHPUT["cuda"],
+                    "fixed": planner._FIXED["cuda"],
+                    "ell_class": planner._OVERHEAD["cuda"]["ell_class"]}}
+    emit(row)
+    return row
+
+
+def planner_rank(g, gen) -> list:
+    """Per main-path op: every route it can run, its predicted cost on
+    the cuda row and its measured device time, both rankings, auto's
+    choice; each route's launches checked (a kernel route launches, a
+    plain one not), and auto's."""
+    from repro_torch.core import gspmm, gsddmm, parse_op, planner
+
+    stats = planner.get_plan_cache(g).stats
+    out = []
+    for op, d, de, lead in PLANNER_RANK:
+        spec = parse_op(op)
+        nodes = g.n_edges if spec.lhs == "e" else g.n_src
+        lhs = torch.randn((nodes,) + lead + (d,), generator=gen).cuda()
+        rhs = None if de is None else torch.rand(
+            (g.n_edges,) + lead + (de,), generator=gen).cuda()
+        kw = {spec.lhs: lhs} if rhs is None else {spec.lhs: lhs, "e": rhs}
+        width = int(np.prod(lhs.shape[1:]))
+        routes = [r for r in PLANNER_ROUTES
+                  if planner.supports(r, spec, lhs, rhs)
+                  and (r != "onehot" or width <= 32)]
+        pred, meas = {}, {}
+        for r in routes:
+            pred[r] = planner.estimate_cost(r, stats, width, "cuda")
+            meas[r] = time_device_ms(lambda: gspmm(g, op, strategy=r, **kw),
+                                     cold=False, reps=10, warmup=2)
+            check_route_launches(f"{op} d={width}", r, launches_of(
+                lambda: gspmm(g, op, strategy=r, **kw)))
+        auto = planner.plan_gspmm(g, spec, lhs, rhs).strategy
+        check_route_launches(f"{op} d={width} auto", auto,
+                             launches_of(lambda: gspmm(g, op, **kw)))
+        row = {"phase": "planner_rank", "op": op, "d": width,
+               "predicted": pred, "device_ms": meas,
+               "predicted_order": sorted(pred, key=pred.get),
+               "measured_order": sorted(meas, key=meas.get), "auto": auto}
+        row["auto_is_fastest"] = auto == row["measured_order"][0]
+        emit(row)
+        out.append(row)
+        del lhs, rhs, kw
+    sig = (g.n_src, g.n_dst, g.n_edges)
+    for op, d in PLANNER_RANK_SDDMM:
+        spec = parse_op(op)
+        kw = {t: torch.randn(g.n_edges if t == "e" else g.n_src, d,
+                             generator=gen).cuda().abs_() + 0.5
+              for t in (spec.lhs, spec.rhs)}
+        pred, meas = {}, {}
+        for r in ("kernel", "canonical", "gather"):
+            pred[r] = planner._sddmm_cost(r, g.n_edges, d, "cuda")
+            meas[r] = time_device_ms(lambda: gsddmm(g, op, strategy=r, **kw),
+                                     cold=False, reps=10, warmup=2)
+            check_route_launches(f"sddmm {op}", r, launches_of(
+                lambda: gsddmm(g, op, strategy=r, **kw)))
+        auto = planner.plan_sddmm(sig, spec, d, lhs_data=kw[spec.lhs],
+                                  rhs_data=kw[spec.rhs])
+        check_route_launches(f"sddmm {op} auto", auto,
+                             launches_of(lambda: gsddmm(g, op, **kw)))
+        row = {"phase": "planner_rank", "op": f"sddmm:{op}", "d": d,
+               "predicted": pred, "device_ms": meas,
+               "predicted_order": sorted(pred, key=pred.get),
+               "measured_order": sorted(meas, key=meas.get), "auto": auto}
+        row["auto_is_fastest"] = auto == row["measured_order"][0]
+        emit(row)
+        out.append(row)
+    return out
+
+
+def planner_autotune(g, gen, mb) -> list:
+    """Autotune on the card: each candidate measured once (the times the
+    planner kept), the winner's output against the kernel route within
+    STRATEGY_TOL, and the winner's launches on a second, cached call."""
+    from repro_torch.core import block_gspmm, gspmm, gsddmm, parse_op
+    from repro_torch.core import planner
+
+    def check(what, got, ref, winner, again):
+        err = max_err(got, ref)
+        tol = STRATEGY_TOL + STRATEGY_TOL * float(ref.abs().max())
+        check_route_launches(f"autotune {what}", winner, launches_of(again))
+        row = {"phase": "planner_autotune", "op": what,
+               "times_s": planner.autotune_times(what.split(" ")[0]),
+               "winner": winner, "max_abs_err": err, "tol": tol}
+        emit(row)
+        if not err <= tol:
+            raise AssertionError(f"autotune {what}: {row}")
+        return row
+
+    out = []
+    planner.clear_block_plans()         # cost-mode decisions are memoized
+    planner.clear_sddmm_plans()
+    planner.set_mode("autotune")
+    try:
+        for op, d, de in PLANNER_AUTOTUNE:
+            u = torch.randn(g.n_src, d, generator=gen).cuda()
+            kw = {"u": u} if de is None else {
+                "u": u, "e": torch.rand(g.n_edges, de, generator=gen).cuda()}
+            ref = gspmm(g, op, strategy="kernel", **kw)
+            got = gspmm(g, op, **kw)
+            out.append(check(f"{op} d={d}", got, ref, planner.last_plan(op),
+                             lambda: gspmm(g, op, **kw)))
+            del u, kw, ref, got
+        bg = mb.blocks[0].bg
+        x = torch.randn(bg.g.n_src, 64, generator=gen).cuda()
+        ref = block_gspmm(bg, "u_copy_mean_v", u=x, strategy="kernel")
+        got = block_gspmm(bg, "u_copy_mean_v", u=x)
+        out.append(check("block:u_copy_mean_v d=64", got, ref,
+                         planner.last_plan("block:u_copy_mean_v"),
+                         lambda: block_gspmm(bg, "u_copy_mean_v", u=x)))
+        el, er = (torch.randn(g.n_src, 4, generator=gen).cuda()
+                  for _ in range(2))
+        ref = gsddmm(g, "u_add_v_copy_e", u=el, v=er, strategy="kernel")
+        got = gsddmm(g, "u_add_v_copy_e", u=el, v=er)
+        out.append(check("sddmm:u_add_v_copy_e d=4", got, ref,
+                         planner.last_plan("sddmm:u_add_v_copy_e"),
+                         lambda: gsddmm(g, "u_add_v_copy_e", u=el, v=er)))
+    finally:
+        planner.set_mode("cost")
+        planner.clear_block_plans()
+        planner.clear_sddmm_plans()
+        planner.get_plan_cache(g)._autotuned.clear()
+    return out
+
+
+def planner_drift(g, dataset) -> dict:
+    """The plan log and the drift report after one layer-wise serve (a
+    GCN server on ``g``, one request per class), one full-graph step
+    per app and one sampled SAGE epoch, all under auto."""
+    from repro_torch import obs
+    from repro_torch.core import planner
+    from repro_torch.core.serving import GNNServer
+    from repro_torch.models.gnn import gat, gcn, sage
+    from repro_torch.models.gnn.common import make_bundle
+    from repro_torch.models.gnn.train import make_train_step, train_sampled
+
+    _, feats, labels, train_mask, _, n_classes = dataset
+    init = torch.Generator().manual_seed(0)             # the weights
+    gen = torch.Generator(device="cuda").manual_seed(0)  # dropout
+    obs.clear_events()
+    planner.clear_plan_log()
+    t0 = time.perf_counter()
+    srv = GNNServer("gcn", gcn.init(init, feats.shape[1], 32, n_classes),
+                    g, feats, mode="layerwise", device="cuda")
+    srv.serve([(i, list(range(i, i + n))) for i, n in enumerate((8, 32,
+                                                                128))])
+    del srv
+    bundle = make_bundle(g)
+    x = torch.from_numpy(feats).cuda()
+    y = torch.from_numpy(labels).cuda().long()
+    mask = torch.from_numpy(train_mask).cuda()
+    for mod in (gcn, sage, gat):
+        model = mod.init(init, feats.shape[1], TRAIN_HIDDEN, n_classes)
+        opt_init, step = make_train_step(mod.forward, "auto")
+        float(step(model, opt_init(model), 0, bundle, x, y, mask, gen)[1])
+    fanouts, batch, hidden, n_batches = PLANNER_SAMPLED
+    model = sage.init(init, feats.shape[1], hidden, n_classes)
+    train_sampled(sage.forward_blocks, model, g, feats, labels,
+                  np.nonzero(train_mask)[0], fanouts=fanouts,
+                  batch_size=batch, epochs=1, max_batches=n_batches)
+    log = [{"op": op, "requested": req, "chosen": chosen}
+           for (op, req), chosen in sorted(planner.plan_log().items())]
+    drift = obs.drift_report()
+    row = {"phase": "planner_drift", "seconds": time.perf_counter() - t0,
+           "plan_log": log, "drift": drift,
+           "drifted": [r["op"] for r in drift if r["drifted"]]}
+    emit(row)
+    if not drift or not any(r["family"] == "block_bwd" for r in drift):
+        raise AssertionError("planner: the drift report lacks rows")
+    return row
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -3247,6 +3479,23 @@ def main() -> int:
     del rg_skew
     torch.cuda.empty_cache()
     emit({"phase": "strategies_done", "seconds": time.perf_counter() - t0})
+
+    # 16. the planner: the cuda row's fit, each main-path op's predicted
+    # and measured rankings, autotune on the card, the plan log and the
+    # drift report of a serve, a step per app and a sampled epoch
+    t0 = time.perf_counter()
+    planner_fit(g_loops, gen)
+    torch.cuda.empty_cache()
+    planner_rank(g_loops, gen)
+    torch.cuda.empty_cache()
+    mb = sampled_batch(g_loops, labels, train_mask, PLANNER_SAMPLED[0],
+                       PLANNER_SAMPLED[1])
+    planner_autotune(g_loops, gen, mb)
+    del mb
+    torch.cuda.empty_cache()
+    planner_drift(g_loops, dataset)
+    torch.cuda.empty_cache()
+    emit({"phase": "planner_done", "seconds": time.perf_counter() - t0})
 
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it

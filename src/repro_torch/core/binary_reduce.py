@@ -18,28 +18,33 @@ Strategies of :func:`gspmm` (node outputs):
 * ``"onehot"`` — the one-hot formulation over the graph's ``TilePack``
   (``strategies.onehot_spmm``): ``u_copy`` or ``u_mul_e`` with a scalar
   edge weight, rank-2 operands, sum or mean, destination outputs.
-* ``"kernel"`` — the CUDA Copy-Reduce (B1) or Binary-Reduce (B4) kernel
-  through ``kernels/dispatch.py``; raises for a spec neither covers.
-* ``"auto"`` — the kernel for a CUDA tensor whose spec a kernel covers,
-  segment otherwise. Without the planner (ROADMAP A9) there is no cost
-  model to consult.
+* ``"kernel"`` (JAX's ``"pallas"``, which names it here too) — the CUDA
+  Copy-Reduce (B1) or Binary-Reduce (B4) kernel through
+  ``kernels/dispatch.py``; on a CPU tensor, the kernels' plain versions.
+* ``"auto"`` — the planner's choice (``core/planner.plan_gspmm``): the
+  cost model's row for the operands' device, or a measured winner in
+  autotune mode.
 
-A pinned strategy that cannot run a spec raises ``ValueError`` (the JAX
-planner's fallback chain is A9's); the packs are built once per graph,
-on the host, at first use. ``push``, ``ell`` and ``onehot`` are plain
-PyTorch: ELL and tiles are TPU layouts, and the kernels walk the CSR.
+Every call goes through ``planner.plan_gspmm`` and its plan log. A pinned
+strategy that cannot run a spec falls back down the planner's chain
+(``kernel → onehot → ell → segment``; ``"ring"``, which waits for
+partitioning (ROADMAP A12), to ``ell``) with a one-time warning; a kernel
+that fails to build or launch still raises. The packs are built once per
+graph, on the host, at first use. ``push``, ``ell`` and ``onehot`` are
+plain PyTorch: ELL and tiles are TPU layouts, and the kernels walk the
+CSR. A call under ``torch.no_grad`` runs under ``obs.events.timed`` as
+``<op>`` (fenced); with grad mode on it is not timed, so a training
+step's ops gain no fence (JAX times an op only outside a trace).
 
-Strategies of :func:`gsddmm` (edge outputs):
+Strategies of :func:`gsddmm` (edge outputs), planned by
+``planner.plan_sddmm`` and timed as ``sddmm:<op>``:
 
 * ``"canonical"`` — gather in canonical (dst-sorted) order, ⊗, one
   un-permute by ``eid_inv`` (the B3 kernel's plain version);
 * ``"gather"`` — operands gathered straight into caller order;
-* ``"kernel"`` — the CUDA gSDDMM kernel (B3);
-* ``"auto"`` — the kernel for a CUDA operand that B3 covers, canonical
-  otherwise.
-
-``"pallas"`` and ``"ring"`` raise ``NotImplementedError`` naming where
-they went (the kernel route, ROADMAP A12).
+* ``"kernel"`` (or ``"pallas"``) — the CUDA gSDDMM kernel (B3); a spec or
+  operands it does not take fall back to ``"canonical"``;
+* ``"auto"`` — the planner's choice.
 
 Gradients. The gather, push, ell and onehot routes differentiate by
 plain autograd, as the JAX package takes them by autodiff. The segment
@@ -78,16 +83,18 @@ A backward computes only the grads ``ctx.needs_input_grad`` asks for.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from . import planner
 from . import strategies as S
 from .graph import reverse
 from .planner import get_plan_cache
 from ..kernels.binary_reduce.ops import binary_reduce_csr
-from ..kernels.dispatch import (gspmm_kernel, kernel_supports,
-                                sddmm_kernel_supports)
+from ..kernels.dispatch import gspmm_kernel
+from ..obs.events import timed as _timed
 from ..kernels.sddmm.ops import (CALLER_INDEX, TARGET_INDEX, sddmm_csr,
                                  sddmm_plain)
 from ..kernels.spmm.ops import spmm
@@ -116,17 +123,15 @@ STRATEGIES = ("auto", "segment", "push", "ell", "onehot", "kernel")
 SDDMM_STRATEGIES = ("auto", "canonical", "gather", "kernel")
 # a gspmm strategy name pinned on an edge output, as the sddmm lattice
 # reads it (repro/core/binary_reduce.py:195-199 in port names): the
-# baselines pin the caller-order gather, the optimized names the
-# canonical stream
+# baselines pin the caller-order gather, the optimized names (and any
+# other, as in JAX) the canonical stream
 SDDMM_FOR = {"auto": "auto", "kernel": "kernel", "segment": "gather",
              "push": "gather", "ell": "canonical", "onehot": "canonical"}
 
-# the JAX package's strategy names the port does not run, and where each
-# one went
-_QUEUED = {
-    "ring": "ROADMAP A12 (partitioned ring execution)",
-    "pallas": "ROADMAP B1 (the TPU kernel's port is strategy='kernel')",
-}
+
+def _kernel_name(strategy: str) -> str:
+    """JAX's name of the kernel route, ``"pallas"``, names the port's."""
+    return "kernel" if strategy == "pallas" else strategy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +197,17 @@ def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
+def _timed_eager(op: str, thunk):
+    """``thunk()`` timed as ``op`` (``obs.events.timed``, which fences)
+    under ``torch.no_grad`` / ``inference_mode`` only: with grad mode on,
+    autograd may be recording a training step — the port's analogue of
+    JAX's traced vjp, where JAX times nothing — so a step gains no fence
+    per op, not even for an op on inputs that need no grad."""
+    if torch.is_grad_enabled():
+        return thunk()
+    return _timed(op, thunk)
+
+
 # --------------------------------------------------------------------- #
 # ⊗-adjoint machinery (repro/core/binary_reduce.py:121-158)
 # --------------------------------------------------------------------- #
@@ -239,12 +255,10 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
     order. Returns features on ``spec.out`` (``'v'`` or ``'u'``).
     """
     spec = parse_op(op_name)
-    if strategy not in STRATEGIES:
-        if strategy in _QUEUED:
-            raise NotImplementedError(
-                f"strategy {strategy!r} is not ported yet: {_QUEUED[strategy]}")
+    strategy = _kernel_name(strategy)
+    if strategy != "auto" and strategy not in planner.STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; expected one of "
-                         f"{STRATEGIES}")
+                         f"{planner.STRATEGIES + ('auto',)}")
     data = {"u": u, "v": v, "e": e}
     if data[spec.lhs] is None:
         raise ValueError(f"{op_name}: operand {spec.lhs!r} missing")
@@ -252,40 +266,51 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
         raise ValueError(f"{op_name}: operand {spec.rhs!r} missing")
     if spec.out == "e":
         return gsddmm(g, op_name, u=u, v=v, e=e,
-                      strategy=SDDMM_FOR[strategy])
+                      strategy=SDDMM_FOR.get(strategy, "canonical"))
     if spec.reduce == "none":
         raise ValueError(f"{op_name}: copy-reduce to nodes needs a reducer")
 
     lhs_data = _as2d(data[spec.lhs])
     rhs_data = _as2d(data[spec.rhs]) if spec.rhs is not None else None
 
-    if strategy == "auto":
-        strategy = ("kernel" if lhs_data.device.type == "cuda"
-                    and kernel_supports(spec, lhs_data, rhs_data)
-                    else "segment")
-    if strategy == "kernel":
-        out = (_KernelGspmm.apply(g, spec, lhs_data, rhs_data)
-               if _needs_grad(lhs_data, rhs_data)
-               else gspmm_kernel(g, spec, lhs_data, rhs_data))
-    elif strategy == "ell":
-        if spec.out != "v":
-            raise ValueError(f"strategy 'ell' pulls onto destinations; "
-                             f"{op_name} reduces onto {spec.out!r}")
-        out = _gspmm_ell(g, spec, get_plan_cache(g).ell(), lhs_data,
-                         rhs_data)
-    elif strategy == "onehot":
-        out = _gspmm_onehot(g, spec, lhs_data, rhs_data)
-    elif strategy == "push":
-        out = _execute_segment(g, spec, lhs_data, rhs_data, push=True)
-    elif spec.reduce in ("sum", "mean") and _needs_grad(lhs_data, rhs_data):
-        out = _SegmentGspmm.apply(g, spec, lhs_data, rhs_data)
-    else:
-        out = _execute_segment(g, spec, lhs_data, rhs_data)
+    runner = None
+    if planner.get_mode() == "autotune" and strategy == "auto":
+        def runner(s):              # measures the forward alone
+            with torch.no_grad():
+                return gspmm(g, op_name, u=u, v=v, e=e, strategy=s)
+
+    plan = planner.plan_gspmm(g, spec, lhs_data, rhs_data,
+                              requested=strategy, runner=runner)
+    if plan.strategy == "ell":      # packs build outside the timing
+        get_plan_cache(g).ell()
+    elif plan.strategy == "onehot":
+        get_plan_cache(g).tiles()
+    out = _timed_eager(spec.name, lambda: _execute(
+        g, spec, lhs_data, rhs_data, plan.strategy))
     # node outputs keep the feature operand's floating dtype
     if (lhs_data.dtype.is_floating_point and out.dtype.is_floating_point
             and out.dtype != lhs_data.dtype):
         out = out.to(lhs_data.dtype)
     return out
+
+
+def _execute(g, spec: BRSpec, lhs_data, rhs_data,
+             chosen: str) -> torch.Tensor:
+    """Run one node-output BR with a strategy the planner resolved."""
+    if chosen == "kernel":
+        if _needs_grad(lhs_data, rhs_data):
+            return _KernelGspmm.apply(g, spec, lhs_data, rhs_data)
+        return gspmm_kernel(g, spec, lhs_data, rhs_data)
+    if chosen == "ell":
+        return _gspmm_ell(g, spec, get_plan_cache(g).ell(), lhs_data,
+                          rhs_data)
+    if chosen == "onehot":
+        return _gspmm_onehot(g, spec, lhs_data, rhs_data)
+    if chosen == "push":
+        return _execute_segment(g, spec, lhs_data, rhs_data, push=True)
+    if spec.reduce in ("sum", "mean") and _needs_grad(lhs_data, rhs_data):
+        return _SegmentGspmm.apply(g, spec, lhs_data, rhs_data)
+    return _execute_segment(g, spec, lhs_data, rhs_data)
 
 
 def _execute_segment(g, spec: BRSpec, lhs_data, rhs_data,
@@ -330,27 +355,16 @@ def _gspmm_ell(g, spec: BRSpec, pack, lhs_data, rhs_data,
 
 
 def onehot_supports(spec: BRSpec, lhs_data, rhs_data) -> bool:
-    """Can the one-hot route compute this spec (the JAX planner's
-    ``supports("onehot", ...)``)? A destination output, a sum or mean,
-    rank-2 operands, lhs on ``u``, and ⊗ ``copy`` or ``mul`` by a scalar
-    edge weight."""
-    return (spec.out == "v" and spec.reduce in ("sum", "mean")
-            and spec.lhs == "u" and lhs_data.ndim == 2
-            and (spec.op == "copy"
-                 or (spec.op == "mul" and spec.rhs == "e"
-                     and rhs_data.ndim == 2 and rhs_data.shape[-1] == 1)))
+    """Can the one-hot route compute this spec (``planner.supports``)? A
+    destination output, a sum or mean, rank-2 operands, lhs on ``u``,
+    and ⊗ ``copy`` or ``mul`` by a scalar edge weight."""
+    return planner.supports("onehot", spec, lhs_data, rhs_data)
 
 
 def _gspmm_onehot(g, spec: BRSpec, lhs_data, rhs_data) -> torch.Tensor:
     """The one-hot route over the graph's default ``TilePack``
-    (``repro/core/binary_reduce.py:542``)."""
-    if not onehot_supports(spec, lhs_data, rhs_data):
-        raise ValueError(
-            f"strategy 'onehot' computes u_copy / u_mul_e (scalar edge "
-            f"weight) with a sum or mean onto destinations, rank-2 "
-            f"operands; not {spec.name} on shapes "
-            f"{tuple(lhs_data.shape)}, "
-            f"{None if rhs_data is None else tuple(rhs_data.shape)}")
+    (``repro/core/binary_reduce.py:542``), on a spec the planner found it
+    supports."""
     tiles = get_plan_cache(g).tiles()
     w = None
     if spec.op == "mul":
@@ -375,13 +389,7 @@ def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
     if spec.out != "e":
         raise ValueError(f"{op_name}: gsddmm computes edge outputs "
                          f"(got out={spec.out!r}); use gspmm")
-    if strategy == "pallas":
-        raise NotImplementedError(
-            "sddmm strategy 'pallas' is the TPU kernel; its port is "
-            "strategy='kernel' (ROADMAP B3)")
-    if strategy not in SDDMM_STRATEGIES:
-        raise ValueError(f"unknown sddmm strategy {strategy!r}; expected "
-                         f"one of {SDDMM_STRATEGIES}")
+    strategy = _kernel_name(strategy)
     data = {"u": u, "v": v, "e": e}
     if data[spec.lhs] is None:
         raise ValueError(f"{op_name}: operand {spec.lhs!r} missing")
@@ -389,23 +397,36 @@ def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
         raise ValueError(f"{op_name}: operand {spec.rhs!r} missing")
     lhs_data = _as2d(data[spec.lhs])
     rhs_data = _as2d(data[spec.rhs]) if spec.rhs is not None else None
+    if spec.op == "dot":
+        d = 1
+    elif rhs_data is None:
+        d = math.prod(lhs_data.shape[1:])
+    else:
+        d = max(math.prod(lhs_data.shape[1:]), math.prod(rhs_data.shape[1:]))
 
-    if strategy == "auto":
-        strategy = ("kernel" if lhs_data.device.type == "cuda"
-                    and sddmm_kernel_supports(spec, lhs_data, rhs_data)
-                    else "canonical")
-    if strategy == "kernel":
-        if not sddmm_kernel_supports(spec, lhs_data, rhs_data):
-            raise NotImplementedError(
-                f"the sddmm kernel does not compute {spec.name} on these "
-                f"operands (rank-2 fp32, widths equal or 1); use "
-                f"strategy='canonical' or 'auto'")
+    runner = None
+    if planner.get_mode() == "autotune" and strategy == "auto":
+        def runner(s):
+            with torch.no_grad():
+                return _sddmm_execute(g, spec, lhs_data, rhs_data, s)
+
+    chosen = planner.plan_sddmm((g.n_src, g.n_dst, g.n_edges), spec, d,
+                                requested=strategy, lhs_data=lhs_data,
+                                rhs_data=rhs_data, runner=runner)
+    return _timed_eager(f"sddmm:{spec.name}", lambda: _sddmm_execute(
+        g, spec, lhs_data, rhs_data, chosen))
+
+
+def _sddmm_execute(g, spec: BRSpec, lhs_data, rhs_data,
+                   chosen: str) -> torch.Tensor:
+    """Run one edge-output BR with a strategy the planner resolved."""
+    if chosen == "kernel":
         if _needs_grad(lhs_data, rhs_data):
             return _KernelGsddmm.apply(g, spec, lhs_data, rhs_data)
         return _sddmm_kernel(g, spec, lhs_data, rhs_data)
-    if strategy == "canonical" and _needs_grad(lhs_data, rhs_data):
+    if chosen == "canonical" and _needs_grad(lhs_data, rhs_data):
         return _CanonicalGsddmm.apply(g, spec, lhs_data, rhs_data)
-    if strategy == "gather":
+    if chosen == "gather":
         # caller-order view of the endpoints, one gather per operand
         def fetch(target, x):
             name = CALLER_INDEX[target]

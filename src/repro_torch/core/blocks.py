@@ -15,17 +15,20 @@ Strategies of :func:`block_gspmm` (node outputs, real rows only):
 
 * ``"ell"`` — the uniform masked pull over the neighbor table, plain
   PyTorch;
-* ``"segment"`` — ``gspmm(bg.g, ..., "segment")`` on the padded graph;
-* ``"push"`` — ``gspmm(bg.g, ..., "push")``, the scatter baseline, on the
-  padded graph (the JAX package's generic COO path);
+* ``"segment"`` — the segment route on the padded graph ``bg.g``;
+* ``"push"`` — the push route on the padded graph, the scatter baseline
+  (the JAX package's generic COO path);
 * ``"kernel"`` — B1 / B4 (``kernels/dispatch.gspmm_kernel``) on the
-  padded graph ``bg.g``, whose dummy row soaks up every pad edge;
-* ``"auto"`` — the kernel for a CUDA operand a kernel covers, ``"ell"``
-  otherwise (``e_copy_max_v`` and GAT's rank-3 ``u_mul_e_add_v`` among
-  them, as the JAX planner keeps those off its kernels).
+  padded graph, whose dummy row soaks up every pad edge;
+* ``"auto"`` — the planner's choice (``planner.plan_block_gspmm``,
+  logged ``block:<op>``, memoized per shape signature): the cost model
+  on the operands' device row among ell, segment and — where it takes
+  the operands — the kernel.
 
-``"onehot"`` is no block strategy, as in JAX: a tile pack is built on
-the host per graph, and blocks change every batch.
+``"onehot"``, ``"pallas"`` and ``"ring"`` are no block strategy, as in
+JAX (a tile pack is built per graph, and blocks change every batch): a
+pinned one, or a pinned ``"kernel"`` on operands it does not take, falls
+back to ``"ell"`` with a one-time warning.
 
 Edge outputs go to :func:`~repro_torch.core.binary_reduce.gsddmm` on
 ``bg.g``.
@@ -49,8 +52,10 @@ differentiated, planned per shape signature by
   the pull zeroes every other edge's cotangent.
 * ``"scatter"`` — autograd of the plain forward (the baseline); a kernel
   forward has only its gather backward.
-* ``"auto"`` — ``gather`` wherever it applies on CUDA; on the CPU the
-  JAX cost model's choice.
+* ``"auto"`` — the planner's choice (``planner.plan_block_vjp``, logged
+  ``block_bwd:<op>``): JAX's cost model on the device's row. A kernel
+  forward has only its gather backward, so after one auto takes
+  ``gather``.
 
 Eager calls are timed through :func:`repro_torch.obs.events.timed` as
 ``block:<op>`` (the forward) and ``block_bwd:<op>`` (its backward).
@@ -63,12 +68,12 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.dispatch import gspmm_kernel, kernel_supports
+from ..kernels.dispatch import kernel_supports
 from ..obs.events import timed as _timed
 from . import planner
-from .binary_reduce import (BINARY_OPS, BRSpec, _as2d, _detach,
-                            _gspmm_grads, _needs_grad, _pull_grads,
-                            edge_order, gspmm, gsddmm, parse_op)
+from .binary_reduce import (BINARY_OPS, BRSpec, _as2d, _detach, _execute,
+                            _gspmm_grads, _kernel_name, _needs_grad,
+                            _pull_grads, edge_order, gsddmm, parse_op)
 from .graph import Graph, reverse, reverse_built
 from .strategies import REDUCE_IDENTITY
 
@@ -77,6 +82,9 @@ __all__ = ["BlockGraph", "BLOCK_STRATEGIES", "SDDMM_FOR_BLOCK",
            "serve_block_signature"]
 
 BLOCK_STRATEGIES = ("auto", "ell", "segment", "push", "kernel")
+# the gspmm names no block route runs: accepted, and planned as JAX plans
+# them on a block (a fallback to ell)
+_FALLBACK_NAMES = ("onehot", "pallas", "ring")
 # the gsddmm strategy an edge output of a block runs under each block
 # strategy: the plain routes keep the canonical-order reference
 SDDMM_FOR_BLOCK = {"auto": "auto", "kernel": "kernel", "ell": "canonical",
@@ -167,17 +175,19 @@ class BlockGraph:
 def block_supports(strategy: str, spec: BRSpec) -> bool:
     """Can ``strategy`` execute this spec on a block? Destination outputs
     with a reducer only; the kernel route also needs the operands
-    :func:`~repro_torch.kernels.dispatch.kernel_supports` covers."""
+    :func:`~repro_torch.kernels.dispatch.kernel_supports` covers, which
+    the planner checks."""
     if spec.out != "v" or spec.reduce == "none":
         return False
     return strategy in ("ell", "segment", "push", "kernel")
 
 
 def check_block_strategy(strategy: str) -> None:
-    """Raise unless ``strategy`` is one of :data:`BLOCK_STRATEGIES`."""
-    if strategy not in BLOCK_STRATEGIES:
+    """Raise unless ``strategy`` is one of :data:`BLOCK_STRATEGIES` or a
+    gspmm name the planner falls back from on a block."""
+    if strategy not in BLOCK_STRATEGIES + _FALLBACK_NAMES:
         raise ValueError(f"unknown block strategy {strategy!r}; expected "
-                         f"one of {BLOCK_STRATEGIES}")
+                         f"one of {BLOCK_STRATEGIES + _FALLBACK_NAMES}")
 
 
 def _nbr_fetch(bg: BlockGraph, target: str, data: torch.Tensor
@@ -252,8 +262,8 @@ def block_gspmm(bg: BlockGraph, op_name: str, *,
     if spec.rhs is not None and data[spec.rhs] is None:
         raise ValueError(f"{op_name}: operand {spec.rhs!r} missing")
     if spec.out == "e":
-        return gsddmm(bg.g, op_name, u=u, v=v, e=e,
-                      strategy=SDDMM_FOR_BLOCK[strategy])
+        how = SDDMM_FOR_BLOCK.get(_kernel_name(strategy), "canonical")
+        return gsddmm(bg.g, op_name, u=u, v=v, e=e, strategy=how)
     if spec.out != "v":
         raise ValueError(f"{op_name}: blocks only produce destination or "
                          f"edge outputs (got {spec.out!r})")
@@ -262,36 +272,61 @@ def block_gspmm(bg: BlockGraph, op_name: str, *,
 
     lhs_data = _as2d(data[spec.lhs])
     rhs_data = _as2d(data[spec.rhs]) if spec.rhs is not None else None
-    if strategy == "auto":
-        strategy = ("kernel" if lhs_data.device.type == "cuda"
-                    and kernel_supports(spec, lhs_data, rhs_data)
-                    else "ell")
+    d = math.prod(lhs_data.shape[1:])
+    device = planner.device_of(lhs_data)
+    autotune = planner.get_mode() == "autotune"
+    runner = None
+    if autotune and strategy == "auto":
+        def runner(s):
+            with torch.no_grad():
+                return _block_execute(bg, spec, lhs_data, rhs_data, s)
+
+    chosen = planner.plan_block_gspmm(
+        bg.signature, spec, d, requested=strategy, runner=runner,
+        dtype=lhs_data.dtype, device=device,
+        kernel_ok=kernel_supports(spec, lhs_data, rhs_data))
+
+    bwd_runner = None
+    if (autotune and bwd_strategy == "auto" and chosen != "kernel"
+            and lhs_data.is_floating_point()):
+        def bwd_runner(s):          # the differentiated call, as trained
+            with torch.enable_grad():
+                x = lhs_data.detach().requires_grad_()
+                fn = _BlockGather if s == "gather" else _BlockScatter
+                out = fn.apply(bg, spec, chosen, x, _detach(rhs_data))
+                return torch.autograd.grad(out.sum(), x)
+
+    bwd = planner.plan_block_vjp(
+        bg.signature, spec, d, requested=bwd_strategy, runner=bwd_runner,
+        dtype=lhs_data.dtype, device=device,
+        kernel_forward=chosen == "kernel",
+        scatter_available=chosen != "kernel")
+    return _run_block(bg, spec, chosen, bwd, lhs_data, rhs_data)
+
+
+def _run_block(bg: BlockGraph, spec: BRSpec, chosen: str, bwd: str,
+               lhs_data, rhs_data) -> torch.Tensor:
+    """One planned block aggregation, timed as ``block:<op>``; under
+    autograd through the block VJP ``bwd`` names (a kernel forward's is
+    the gather)."""
     name = f"block:{spec.name}"
     if not _needs_grad(lhs_data, rhs_data):
         return _timed(name, lambda: _block_execute(bg, spec, lhs_data,
-                                                   rhs_data, strategy))
-    bwd = planner.plan_block_vjp(
-        bg.signature, spec, math.prod(lhs_data.shape[1:]),
-        requested=bwd_strategy, device=lhs_data.device.type)
-    fn = (_BlockGather if bwd == "gather" or strategy == "kernel"
+                                                   rhs_data, chosen))
+    fn = (_BlockGather if bwd == "gather" or chosen == "kernel"
           else _BlockScatter)
-    return _timed(name, lambda: fn.apply(bg, spec, strategy, lhs_data,
+    return _timed(name, lambda: fn.apply(bg, spec, chosen, lhs_data,
                                          rhs_data))
 
 
 def _block_execute(bg: BlockGraph, spec: BRSpec, lhs_data, rhs_data,
                    chosen: str) -> torch.Tensor:
-    """Run one block aggregation with a resolved strategy; real rows."""
+    """Run one block aggregation with a resolved strategy; real rows. The
+    padded graph's routes run directly, not through ``gspmm``'s planner,
+    which would make a plan cache and stats for every per-batch graph."""
     if chosen == "ell":
         return _block_pull(bg, spec, lhs_data, rhs_data)
-    if chosen == "kernel":
-        out = gspmm_kernel(bg.g, spec, lhs_data, rhs_data)
-    else:
-        operands = {spec.lhs: lhs_data}
-        if spec.rhs is not None:
-            operands[spec.rhs] = rhs_data
-        out = gspmm(bg.g, spec.name, strategy=chosen, **operands)
-    return out[: bg.n_dst_real]
+    return _execute(bg.g, spec, lhs_data, rhs_data, chosen)[: bg.n_dst_real]
 
 
 # --------------------------------------------------------------------- #

@@ -13,8 +13,15 @@
 
 Strategies of the two single-pass forms (``ATTN_STRATEGIES``):
 ``"fused"`` is the plain PyTorch version in canonical order,
-``"kernel"`` the CUDA kernel (B5 / B2), ``"auto"`` the kernel for CUDA
-tensors and ``"fused"`` otherwise.
+``"kernel"`` (JAX's ``"pallas"``, which names it here too) the CUDA
+kernel (B5 / B2). Under ``"auto"`` :func:`fused_attention` asks the
+planner (``planner.plan_attention``, logged ``attn:fused``: JAX's cost
+rows, the kernel priced on the graph's row-complete ragged slot count),
+and a pinned ``"kernel"`` on operands B2 does not take falls back to
+``"fused"`` with a one-time warning; :func:`edge_softmax_fused`, which
+JAX does not plan, takes the kernel for CUDA tensors. The composed
+:func:`edge_softmax` hands its strategy to each of its five ops, as JAX
+does, so its node-output reductions go through gspmm's planner.
 
 Gradients. The composed chain differentiates through its ops (the kernel
 routes' backwards of ``core/binary_reduce.py``; the max stays on the
@@ -50,7 +57,9 @@ from ..kernels.edge_softmax.ops import (attention_alpha, edge_softmax_csr,
                                         fused_attention_csr,
                                         fused_attention_plain)
 from ..kernels.sddmm.ops import sddmm_csr
-from .binary_reduce import _needs_grad, gsddmm, gspmm
+from . import planner
+from .binary_reduce import (_kernel_name, _needs_grad, _timed_eager, gsddmm,
+                            gspmm)
 from .blocks import (SDDMM_FOR_BLOCK, BlockGraph, block_gspmm,
                      check_block_strategy)
 from .planner import get_plan_cache
@@ -61,12 +70,9 @@ __all__ = ["edge_softmax", "edge_softmax_fused", "fused_attention",
 ATTN_STRATEGIES = ("auto", "fused", "kernel")
 
 
-def _single_pass(strategy: str, x: torch.Tensor, kernel: str) -> str:
-    """Resolve a single-pass form's strategy for tensor ``x``."""
-    if strategy == "pallas":
-        raise NotImplementedError(
-            f"strategy 'pallas' is the TPU kernel; its port is "
-            f"strategy='kernel' (ROADMAP {kernel})")
+def _single_pass(strategy: str, x: torch.Tensor) -> str:
+    """Resolve :func:`edge_softmax_fused`'s strategy for tensor ``x``."""
+    strategy = _kernel_name(strategy)
     if strategy not in ATTN_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; expected one of "
                          f"{ATTN_STRATEGIES}")
@@ -82,11 +88,10 @@ def edge_softmax(g, logits: torch.Tensor,
 
     ``logits``: (n_edges, H) in the caller's edge order; returns the same
     shape and order ((n_edges, 1) for 1-D logits, as in JAX).
-    ``strategy`` ('auto' | 'segment' | 'kernel') goes to the four ops a
-    kernel covers; ``e_copy_max_v`` always runs on segment, where the JAX
-    planner's fallback chain lands it (no kernel computes a max).
+    ``strategy`` goes to each op; no kernel computes the max, so a pinned
+    ``'kernel'`` falls back there as the planner's chain says.
     """
-    maxv = gspmm(g, "e_copy_max_v", e=logits, strategy="segment")
+    maxv = gspmm(g, "e_copy_max_v", e=logits, strategy=strategy)
     # a zero-in-degree node's max is the reduce identity on any strategy
     # that skips the degree finalize — never let it reach the subtract
     maxv = torch.where(torch.isfinite(maxv), maxv,
@@ -104,8 +109,8 @@ def block_edge_softmax(bg: BlockGraph, logits: torch.Tensor,
 
     The chain of :func:`edge_softmax` on ``bg.g``: the two node-output
     reductions go through :func:`~repro_torch.core.blocks.block_gspmm`
-    (the sum on B4 under 'auto' / 'kernel'; the max always on the
-    uniform pull, or on segment when ``strategy='segment'``), the shift
+    (the block planner's choice, or the pinned route: B4 for the sum
+    under 'kernel', the max falling back to the uniform pull), the shift
     and divide through gSDDMM (B3). Pad edges live in the dummy
     destination row, so real rows see exactly their real edges; the
     dummy row's sum is set to 1 so pad edges divide by a finite value.
@@ -115,9 +120,8 @@ def block_edge_softmax(bg: BlockGraph, logits: torch.Tensor,
     x = logits[:, None] if logits.ndim == 1 else logits
     sddmm = SDDMM_FOR_BLOCK[strategy]
     pad = x.new_zeros((1,) + tuple(x.shape[1:]))
-    maxv = block_gspmm(bg, "e_copy_max_v", e=x,
-                       strategy="segment" if strategy == "segment"
-                       else "ell", bwd_strategy=bwd_strategy)
+    maxv = block_gspmm(bg, "e_copy_max_v", e=x, strategy=strategy,
+                       bwd_strategy=bwd_strategy)
     shifted = gsddmm(bg.g, "e_sub_v_copy_e", e=x,
                      v=torch.cat([maxv, pad], dim=0), strategy=sddmm)
     ex = torch.exp(shifted)
@@ -137,7 +141,7 @@ def edge_softmax_fused(g, logits: torch.Tensor,
     canonical-order PyTorch form (``edge_softmax_plain``), 'kernel' the
     B5 kernel, 'auto' the kernel for CUDA tensors."""
     x = logits[:, None] if logits.ndim == 1 else logits
-    if _single_pass(strategy, x, "B5") == "kernel":
+    if _single_pass(strategy, x) == "kernel":
         out = (_EdgeSoftmaxKernel.apply(g, x) if _needs_grad(x)
                else edge_softmax_csr(g, x.contiguous()))
     else:
@@ -155,15 +159,28 @@ def fused_attention(g, el: torch.Tensor, er: torch.Tensor, z: torch.Tensor,
     squeeze = el.ndim == 1
     if squeeze:
         el, er, z = el[:, None], er[:, None], z[:, None, :]
-    strategy = _single_pass(strategy, z, "B2")
+    strategy = _kernel_name(strategy)
+    stats = get_plan_cache(g).stats
+    chosen = planner.plan_attention(
+        (g.n_src, g.n_dst, g.n_edges), el.shape[-1], z.shape[-1],
+        requested=strategy,
+        kernel_ok=all(t.dtype == torch.float32 for t in (el, er, z)),
+        padded_slots=stats.ragged_padded_slots if g.n_edges else None,
+        dtype=z.dtype, device=planner.device_of(z))
+    if chosen == "ring":
+        raise NotImplementedError("strategy='ring' is the partitioned "
+                                  "attention: ROADMAP A12")
     slope = float(negative_slope)
-    if strategy == "kernel":
-        out = (_FusedAttentionKernel.apply(g, slope, el, er, z)
-               if _needs_grad(el, er, z)
-               else fused_attention_csr(g, el.contiguous(), er.contiguous(),
-                                        z.contiguous(), slope))
-    else:
-        out = fused_attention_plain(g, el, er, z, slope)
+
+    def run():
+        if chosen == "fused":
+            return fused_attention_plain(g, el, er, z, slope)
+        if _needs_grad(el, er, z):
+            return _FusedAttentionKernel.apply(g, slope, el, er, z)
+        return fused_attention_csr(g, el.contiguous(), er.contiguous(),
+                                   z.contiguous(), slope)
+
+    out = _timed_eager("attn:fused", run)
     return out[:, 0, :] if squeeze else out
 
 

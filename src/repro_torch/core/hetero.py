@@ -20,8 +20,8 @@ Strategies of :func:`hetero_gspmm`:
   JAX does), then one sorted segment reduce (``pull_segment``). Every
   reducer. The reference.
 * ``"loop"`` — one aggregation per relation over the relation-sorted
-  view, the pre-fusion baseline. As in the JAX ``plan_hetero``, a plain
-  gspmm name pins it: ``"segment"``, ``"onehot"``, ``"pallas"`` and
+  view, the pre-fusion baseline. As in JAX (``planner.plan_hetero``), a
+  plain gspmm name pins it: ``"segment"``, ``"onehot"``, ``"pallas"`` and
   ``"ring"`` the loop's segment form, ``"push"`` the loop with each
   relation scatter-reduced (``strategies.push_scatter``, the fig. 2
   baseline).
@@ -48,9 +48,13 @@ Strategies of :func:`hetero_gspmm`:
   It rides ``gspmm``'s kernel route, so it differentiates through
   ``_KernelGspmm``: B1 on the expanded graph's reverse, whose canonical
   order is the JAX (src, rel)-sorted reverse table, and B3 ``u_dot_v``
-  for an e operand. Max and min raise: they stay on ``"fused"``.
-* ``"auto"`` — the kernel for a float32 CUDA operand with a sum or mean,
-  ``"fused"`` otherwise (no ``plan_hetero`` cost model yet).
+  for an e operand. A pinned ``"kernel"`` on a max or min, or on
+  operands that are not float32, falls back to ``"fused"`` with a
+  one-time warning.
+* ``"auto"`` — the planner's choice (``planner.plan_hetero``, logged
+  ``hetero:<op>``): JAX's cost rows for fused, ell and loop, and a
+  kernel row (B1's rate over the fused edges plus its per-call cost) on
+  float32 sum / mean.
 
 The packs and the skew classes are built on the host at first use and
 kept (the classes on the RelGraph, each pack in its graph's PlanCache);
@@ -92,9 +96,10 @@ import torch
 
 from . import planner
 from . import strategies as S
+from . import planner
 from .binary_reduce import (_gspmm_ell, _needs_grad, edge_order, gspmm,
                             parse_op)
-from .blocks import _block_execute, block_gspmm, check_block_strategy
+from .blocks import _block_execute, _run_block, check_block_strategy
 from .graph import Graph, from_coo
 from .planner import get_plan_cache
 from ..device import DeviceLike, resolve_device
@@ -105,11 +110,7 @@ __all__ = ["RelGraph", "from_typed", "from_rels", "caller_coo",
            "hetero_gspmm", "hetero_block_gspmm", "block_expanded_reverse",
            "HETERO_STRATEGIES", "node_strategy", "edge_strategy"]
 
-HETERO_STRATEGIES = ("auto", "fused", "loop", "ell", "kernel")
-# plain gspmm names that pin the per-relation loop's segment form (JAX's
-# plan_hetero, repro/core/planner.py:1175-1179); "push" pins the loop
-# with a scatter inner reduce
-_LOOP_PINS = ("segment", "onehot", "pallas", "ring")
+HETERO_STRATEGIES = ("auto",) + planner.HETERO_STRATEGIES
 
 _HOST_FIELDS = ("rel", "mean_norm", "perm_rel", "rev_perm", "rev_src",
                 "rev_dst", "rev_rel")
@@ -626,28 +627,8 @@ def _exec_kernel(rg: RelGraph, u, w, basis, coeff, e,
 
 
 def _kernel_ok(*ts: Optional[torch.Tensor]) -> bool:
-    return all(t is None or (t.device.type == "cuda"
-                             and t.dtype == torch.float32) for t in ts)
-
-
-def _resolve(strategy: str, reduce: str, operands) -> str:
-    """The route ``strategy`` names (module docstring): a hetero name is
-    itself, ``"push"`` the loop with a scatter inner reduce (resolved as
-    ``"push"``), every other plain gspmm name the loop."""
-    if strategy == "auto":
-        return ("kernel" if reduce in ("sum", "mean") and _kernel_ok(
-            *operands) else "fused")
-    if strategy in _LOOP_PINS:
-        return "loop"
-    if strategy not in HETERO_STRATEGIES + ("push",):
-        names = HETERO_STRATEGIES + ("push",) + _LOOP_PINS
-        raise ValueError(f"unknown hetero strategy {strategy!r}; expected "
-                         f"one of {names}")
-    if strategy == "kernel" and reduce not in ("sum", "mean"):
-        raise NotImplementedError(
-            f"the hetero kernel route (B1) reduces by sum or mean only; "
-            f"{reduce!r} stays on strategy='fused'")
-    return strategy
+    """Do the kernel route's operands have its dtype (fp32)?"""
+    return all(t is None or t.dtype == torch.float32 for t in ts)
 
 
 # --------------------------------------------------------------------- #
@@ -683,19 +664,37 @@ def hetero_gspmm(rg: RelGraph, u: torch.Tensor, *,
         if w is not None or basis is not None:
             raise ValueError("3-D u is already per-relation; w/basis "
                              "must be None")
-    chosen = _resolve(strategy, reduce, (u, w, basis, coeff, e))
     projected = w is not None or basis is not None
     op_name = "u{}{}_{}_v".format("_w" if projected else "",
                                   "_e" if e is not None else "", reduce)
+    d_out = int(w.shape[-1] if w is not None
+                else basis.shape[-1] if basis is not None else u.shape[-1])
+    runner = None
+    if planner.get_mode() == "autotune" and strategy == "auto":
+        def runner(st):
+            with torch.no_grad():
+                return _exec(rg, u, w, basis, coeff, e, reduce, st)
+
+    chosen = planner.plan_hetero(
+        rg.signature, op_name, d_out, requested=strategy,
+        stats=get_plan_cache(rg.g).stats, runner=runner,
+        device=planner.device_of(u),
+        kernel_ok=(reduce in ("sum", "mean")
+                   and _kernel_ok(u, w, basis, coeff, e)))
+    return _timed(f"hetero:{op_name}", lambda: _exec(
+        rg, u, w, basis, coeff, e, reduce, chosen))
+
+
+def _exec(rg: RelGraph, u, w, basis, coeff, e, reduce: str,
+          chosen: str) -> torch.Tensor:
+    """Run one relational aggregation with a planned route."""
     if chosen == "kernel":
-        return _timed(f"hetero:{op_name}", lambda: _exec_kernel(
-            rg, u, w, basis, coeff, e, reduce))
+        return _exec_kernel(rg, u, w, basis, coeff, e, reduce)
     if (chosen in ("fused", "ell") and reduce in ("sum", "mean")
             and _needs_grad(u, w, basis, coeff, e)):
-        return _timed(f"hetero:{op_name}", lambda: _HeteroFusedRev.apply(
-            rg, reduce, chosen, u, w, basis, coeff, e))
-    return _timed(f"hetero:{op_name}", lambda: _exec_plain(
-        rg, u, w, basis, coeff, e, reduce, chosen))
+        return _HeteroFusedRev.apply(rg, reduce, chosen, u, w, basis, coeff,
+                                     e)
+    return _exec_plain(rg, u, w, basis, coeff, e, reduce, chosen)
 
 
 # --------------------------------------------------------------------- #
@@ -735,21 +734,19 @@ def hetero_block_gspmm(bg, rel: torch.Tensor, u: torch.Tensor,
       ``block_gspmm``'s own VJP.
     """
     check_block_strategy(strategy)
-    if strategy == "auto":
-        strategy = "kernel" if _kernel_ok(u, w, norm) else "ell"
-    if _needs_grad(u, w):
-        bwd = planner.plan_block_vjp(
-            bg.signature, _BLOCK_SPEC, int(w.shape[-1]),
-            requested=bwd_strategy, gather_available=bg.has_reverse,
-            device=u.device.type)
-        if bwd == "gather":
-            return _timed(f"block:{_BLOCK_SPEC.name}", lambda:
-                          _HeteroBlockGather.apply(bg, strategy, rel, norm,
-                                                   u, w))
-        bwd_strategy = "scatter"
+    d_out, device = int(w.shape[-1]), planner.device_of(u)
+    chosen = planner.plan_block_gspmm(
+        bg.signature, _BLOCK_SPEC, d_out, requested=strategy, dtype=u.dtype,
+        device=device, kernel_ok=_kernel_ok(u, w, norm))
+    bwd = planner.plan_block_vjp(
+        bg.signature, _BLOCK_SPEC, d_out, requested=bwd_strategy,
+        gather_available=bg.has_reverse, dtype=u.dtype, device=device,
+        kernel_forward=chosen == "kernel")
+    if bwd == "gather" and _needs_grad(u, w):
+        return _timed(f"block:{_BLOCK_SPEC.name}", lambda:
+                      _HeteroBlockGather.apply(bg, chosen, rel, norm, u, w))
     msg = _block_messages(bg, rel, u, w, norm)
-    return block_gspmm(bg, _BLOCK_SPEC.name, e=msg, strategy=strategy,
-                       bwd_strategy=bwd_strategy)
+    return _run_block(bg, _BLOCK_SPEC, chosen, bwd, msg, None)
 
 
 def _block_messages(bg, rel, u, w, norm) -> torch.Tensor:

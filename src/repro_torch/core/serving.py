@@ -423,7 +423,8 @@ class GNNServer:
                 (self.g.n_src, self.g.n_edges, int(cls), self.n_layers),
                 "infer", requested=self.mode,
                 expansion_edges=self._expansion_edges(cls),
-                refresh_batches=self.refresh_batches)
+                refresh_batches=self.refresh_batches,
+                device="cuda" if self.device.type == "cuda" else "cpu")
             self._mode_by_class[cls] = chosen
         return chosen
 

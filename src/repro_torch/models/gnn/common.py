@@ -62,11 +62,21 @@ class GraphBundle:
     def use_training_graph(self, strategy: str, d: int) -> bool:
         """Route the weighted aggregation through the ELL pull, forward
         and backward (``core/training_ops.weighted_copy_reduce``)? When
-        ``ell`` is pinned and the bundle has its training graph. Under
-        ``auto`` the JAX bundle asks its cost model (``prefers_ell`` at
-        width ``d``); the port has none until the planner (ROADMAP A9),
-        so ``auto`` keeps its kernel / segment choice."""
-        return self.tg is not None and strategy == "ell"
+        ``ell`` is pinned and the bundle has its training graph; under
+        ``auto`` when the cost model, on the graph's device row, ranks
+        the ELL pull at width ``d`` above every route auto would take
+        otherwise (``PlanCache.prefers_ell``, JAX's test) — the bundle
+        then builds its training graph, on the host, once."""
+        if strategy == "ell":
+            return self.tg is not None
+        cache = self.cache or get_plan_cache(self.g)
+        if strategy != "auto" or not cache.prefers_ell(
+                d, "cuda" if self.g.device.type == "cuda" else "cpu"):
+            return False
+        if self.tg is None:
+            object.__setattr__(self, "tg",
+                               make_training_graph(self.g, cache.ell_cap))
+        return True
 
     def krel(self, n_rel: int) -> Optional[RelGraph]:
         """The K-relation RelGraph of ``g`` (the edge set once per
@@ -100,9 +110,10 @@ def make_bundle(g: Graph, *, ell: bool = False, tiles: bool = False,
     bundles and direct ``gspmm`` calls: ``ell`` builds the ELL pack at
     width cap ``ell_width``, ``tiles`` the default TilePack, ``training``
     the ELL training graph (Gᵀ and both packs). The JAX bundle builds the
-    ELL pack and the training graph by default; the port's builds none,
-    since only a pinned ``"ell"`` reads them. ``krel=K`` also builds the
-    K-relation RelGraph (:meth:`GraphBundle.krel`), on the host, once."""
+    ELL pack and the training graph by default; the port's builds them
+    only when asked, or when ``"auto"`` picks the ELL pull. ``krel=K``
+    also builds the K-relation RelGraph (:meth:`GraphBundle.krel`), on the
+    host, once."""
     w_caller, m_caller = edge_norms(g)
     cache = get_plan_cache(g)
     cache.set_ell_cap(ell_width)

@@ -7,34 +7,36 @@ the attention pipeline fuses, with the JAX package's modes:
 
     'multipass'     — ``u_add_v_copy_e`` logits on gSDDMM (kernel B3),
                       leaky-relu, the composed 5-primitive edge softmax
-                      (B3 and B4 on the card, the max on segment), then
-                      ``u_mul_e_add_v`` with per-head α (rank 3, so it
-                      stays on segment) — the paper's layering;
+                      (B3 and B4 on the card, the max on a plain route),
+                      then ``u_mul_e_add_v`` with per-head α (rank 3, so
+                      no kernel takes it) — the paper's layering;
     'softmax-fused' — the same, with the single-pass edge softmax (B5);
     'fused'/'pallas'/'auto'
                     — the whole pipeline as ONE pass,
                       :func:`repro_torch.core.fused_attention` (B2):
                       'fused' its plain version, 'pallas' the kernel,
-                      'auto' the kernel for CUDA tensors.
+                      'auto' the planner's choice.
 
 ``attn=None`` means 'multipass' (or 'softmax-fused' under the older
 ``fused_softmax=True``), as in JAX; it is what ``infer``, the serving
 tier and training run. ``train=True`` drops out each layer's input (rate
 0.4 by default, as in JAX); every kernel route differentiates through
 its own backward (``core/binary_reduce.py``, ``core/edge_softmax.py``).
-``strategy='segment'`` pins the plain versions everywhere,
-``'kernel'`` the kernels for every op a kernel covers.
+Every op takes ``strategy`` as JAX's GAT hands it on: ``'auto'`` the
+planner's choice per op, ``'segment'`` the plain versions everywhere,
+``'kernel'`` the kernels for every op a kernel covers (the max and the
+rank-3 sum fall back down the planner's chain, with a warning).
 
 On a sampled block (:func:`block_layer`, :func:`forward_blocks`) the
 same modes run on the block graph ``bg.g``: multipass as B3 logits, the
-block edge softmax (B3 + B4, its max on the uniform pull) and the rank-3
-aggregation on the uniform pull; softmax-fused with B5 on ``bg.g`` (pad
+block edge softmax (B3 + B4, its max on a plain route) and the rank-3
+aggregation on a plain route; softmax-fused with B5 on ``bg.g`` (pad
 edges get the dummy row's own softmax, which no real row reads); the
 fused modes as B2. ``strategy='ell'`` pins the JAX block path's plain
 pulls, ``'push'`` its scatter baseline for the node reductions. Sampled
 training differentiates the block ops as ``bwd_strategy`` says
-(``core/blocks.py``): on the card the max and the rank-3 sum by the
-gather pull in plain torch, the rest on the kernels.
+(``core/blocks.py``): the max and the rank-3 sum as the block planner
+says, the rest on the kernels.
 """
 from __future__ import annotations
 
@@ -63,11 +65,8 @@ _STRATEGIES = ("auto", "segment", "kernel")
 # each model strategy; 'auto' fused attention keeps its attn name below
 _SINGLE_PASS = {"segment": "fused", "kernel": "kernel", "auto": "auto"}
 _FUSED_STRATEGY = {"auto": "auto", "fused": "fused", "pallas": "kernel"}
-# on a block: the single-pass forms under each block strategy, and the
-# rank-3 aggregation (no kernel takes it) on the uniform pull
+# on a block: the single-pass forms under each block strategy
 _BLOCK_SINGLE_PASS = dict(_SINGLE_PASS, ell="fused", push="fused")
-_BLOCK_RANK3 = {"auto": "ell", "kernel": "ell", "ell": "ell",
-                "segment": "segment", "push": "push"}
 
 
 def _resolve_attn(attn: Optional[str], fused_softmax: bool) -> str:
@@ -112,9 +111,9 @@ class GATLayer(nn.Module):
         else:
             alpha = edge_softmax(g, logits, strategy=strategy)  # (E, H)
         # u_mul_e_add_v with per-head scalar α is a rank-3 broadcast: no
-        # kernel takes it (the JAX planner keeps it off pallas too)
+        # kernel takes it, so the planner runs it on a plain route
         out_feat = gspmm(g, "u_mul_e_add_v", u=z, e=alpha[:, :, None],
-                         strategy="segment")
+                         strategy=strategy)
         return out_feat.reshape(-1, heads * out)
 
 
@@ -217,7 +216,7 @@ def block_layer(lyr: GATLayer, blk, h: torch.Tensor, *,
         alpha = block_edge_softmax(bg, logits, strategy=strategy,
                                    bwd_strategy=bwd_strategy)
     out_feat = block_gspmm(bg, "u_mul_e_add_v", u=z, e=alpha[:, :, None],
-                           strategy=_BLOCK_RANK3[strategy],
+                           strategy=strategy,
                            bwd_strategy=bwd_strategy)        # (nd, H, F)
     return out_feat.reshape(nd, heads * out)
 

@@ -9,9 +9,12 @@ edge operand — the weighted Copy-Reduce kernel (B1) on the card, on the
 full graph and on each sampled block (:func:`forward_blocks`); its
 backward is B1 on Gᵀ with the same weights (the JAX package's
 ``weighted_copy_reduce``). Under ``strategy="ell"`` with a bundle that
-has its training graph (``make_bundle(g, training=True)``) the layer
-pulls through ``weighted_copy_reduce``'s ELL route instead, both ways,
-as the JAX forward does. ``train=True`` drops out each layer's input,
+has its training graph (``make_bundle(g, training=True)``), or under
+``"auto"`` where the cost model prefers the ELL pull
+(``GraphBundle.use_training_graph``: on the CPU's row wherever the
+padding is low, on the card's never at these shapes), the layer pulls
+through ``weighted_copy_reduce``'s ELL route instead, both ways, as the
+JAX forward does. ``train=True`` drops out each layer's input,
 as in JAX.
 """
 from __future__ import annotations

@@ -7,10 +7,12 @@ full graph and on each sampled block (:func:`forward_blocks`); its
 backward is B1 on Gᵀ with 1/deg_in folded into the cotangent (the JAX
 package's ``weighted_copy_reduce`` with ``mean_norm``), skipped for
 layer 0, whose input needs no grad. Under ``strategy="ell"`` with a
-bundle that has its training graph (``make_bundle(g, training=True)``)
-the mean pulls through ``weighted_copy_reduce``'s ELL route, both ways,
-as in JAX. ``train=True`` drops out each layer's input. The partitioned
-variant is A12.
+bundle that has its training graph (``make_bundle(g, training=True)``),
+or under ``"auto"`` where the cost model prefers the ELL pull
+(``GraphBundle.use_training_graph``), the mean pulls through
+``weighted_copy_reduce``'s ELL route, both ways, as in JAX.
+``train=True`` drops out each layer's input. The partitioned variant is
+A12.
 """
 from __future__ import annotations
 

@@ -19,10 +19,10 @@ batch through the app's ``forward_blocks`` with ``bwd_strategy`` (the
 block VJP, ``core/blocks.py``). It records the JAX loop's spans
 (``train.epoch``, ``train.sample``, ``train.step``, ``train.drift_probe``)
 and, once per new batch signature, an eager probe of the block ops'
-forward and backward times (``obs.events``).
+forward and backward times (``obs.events``), which ``obs.drift_report``
+holds against the planner's predicted costs.
 
-fp32 only: mixed precision is ROADMAP A12. Partitioned training is queue
-A item 8.
+fp32 only: mixed precision and partitioned training are ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -177,8 +177,8 @@ def _drift_probe(forward_blocks_fn: Callable, model: nn.Module, mb,
     """Once per new batch signature: the block forward without autograd
     (its ops timed as ``block:<op>``), then forward and backward (the
     backward's ops timed as ``block_bwd:<op>``), grads dropped — the
-    measured side of the JAX drift report, whose predicted side comes
-    with the planner (ROADMAP A item 6)."""
+    measured side of the drift report (``obs.drift_report``), whose
+    predicted side the block planner records with each decision."""
     if not _metrics.enabled():
         return
     with span("train.drift_probe"):

@@ -8,15 +8,17 @@ accounting. One switch turns it all off (``REPRO_TELEMETRY=0``, or
 * :mod:`.spans` — ``with span("name") as sp: ...; sp.fence(out)``
   wall-time tracing that waits for the device at span exit, exportable
   as Chrome-trace JSON (:func:`export_chrome_trace`);
-* :mod:`.events` — measured wall time of eager op executions
-  (:func:`timed`); the planner's plan events and the drift report come
-  with the planner (ROADMAP queue A, item 6);
+* :mod:`.events` — the planner's plan events (predicted cost per
+  decision) and the measured wall time of eager op executions
+  (:func:`timed`), joined by :func:`drift_report`;
 * :mod:`.signatures` — :class:`SignatureTracker`.
 
 ``repro_torch.obs`` imports only torch and the standard library, so
 every other subpackage can report here without import cycles.
 """
-from .events import clear_events, measured_event, measured_events, timed
+from .events import (DRIFT_FIELDS, PLAN_EVENT_FIELDS, clear_events,
+                     drift_report, family_of, measured_event,
+                     measured_events, plan_event, plan_events, timed)
 from .metrics import (REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
                       counter, enabled, gauge, histogram,
                       percentile_nearest_rank, reset_metrics, set_enabled,
@@ -31,6 +33,8 @@ __all__ = [
     "enabled", "set_enabled", "percentile_nearest_rank",
     "Span", "span", "fence", "export_chrome_trace", "trace_events",
     "clear_trace", "span_coverage",
+    "PLAN_EVENT_FIELDS", "DRIFT_FIELDS", "plan_event", "plan_events",
+    "drift_report", "family_of",
     "measured_event", "timed", "measured_events", "clear_events",
     "SignatureTracker",
 ]

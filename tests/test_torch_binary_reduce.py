@@ -19,11 +19,12 @@ import pytest
 import torch
 
 from repro.core import gspmm as jax_gspmm
+from repro.core import planner as jax_planner
 from repro.core import strategies as jax_strategies
 from repro.core.graph import from_coo as jax_from_coo
 from repro.kernels.binary_reduce.ops import binary_reduce as jax_br_pallas
 from repro.kernels.binary_reduce.ref import binary_reduce_ref
-from repro_torch.core import from_coo, gspmm, parse_op
+from repro_torch.core import from_coo, gspmm, parse_op, planner
 from repro_torch.core.binary_reduce import STRATEGIES, onehot_supports
 from repro_torch.core.strategies import pull_segment
 from repro_torch.data.synthetic import rmat_graph
@@ -32,7 +33,8 @@ from repro_torch.kernels.binary_reduce.ops import (BINOPS, binary_reduce,
                                                    binary_reduce_csr,
                                                    binary_reduce_plain)
 from tests.graphgen import random_edges
-from tests.test_torch_harness import jax_c1_shim  # noqa: F401
+from tests.test_torch_harness import (fresh_fallback_warnings,  # noqa: F401
+                                      jax_c1_shim)
 
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
@@ -109,7 +111,8 @@ ROUTES = [("u_copy_add_v", 4, "spmm"), ("u_copy_mean_v", 4, "spmm"),
 
 @pytest.mark.parametrize("op,de,kernel", ROUTES)
 @pytest.mark.parametrize("graph", sorted(GRAPHS))
-def test_gspmm_routes_like_jax_dispatch(graph, op, de, kernel, monkeypatch):
+def test_gspmm_routes_like_jax_dispatch(graph, op, de, kernel, monkeypatch,
+                                        fresh_fallback_warnings):
     spec = parse_op(op)
     jg, tg, B, E = _case(graph, 4, de, spec.op, seed=2)
     data = {"u": B, "e": E}
@@ -121,8 +124,14 @@ def test_gspmm_routes_like_jax_dispatch(graph, op, de, kernel, monkeypatch):
     lhs, rhs = (kw_t.get(t) for t in (spec.lhs, spec.rhs))
     for strategy in STRATEGIES:
         if strategy == "onehot" and not onehot_supports(spec, lhs, rhs):
-            with pytest.raises(ValueError, match="onehot"):
-                gspmm(tg, op, strategy=strategy, **kw_t)
+            # the planner falls back down its chain, as JAX's does
+            with pytest.warns(UserWarning, match="falling back to 'ell'"):
+                got = gspmm(tg, op, strategy=strategy, **kw_t).numpy()
+            np.testing.assert_allclose(
+                got, np.asarray(jax_gspmm(jg, op, strategy="onehot", **kw_j)),
+                rtol=_tol(spec.op), atol=_tol(spec.op))
+            assert (planner.last_plan(op, "onehot")
+                    == jax_planner.last_plan(op, "onehot") == "ell")
             continue
         got = gspmm(tg, op, strategy=strategy, **kw_t).numpy()
         for ref in refs:
@@ -139,19 +148,30 @@ def test_gspmm_routes_like_jax_dispatch(graph, op, de, kernel, monkeypatch):
     assert calls == ["spmm" if kernel == "spmm" else "binary_reduce"]
 
 
-def test_e_op_u_flip_only_for_commutative_ops():
-    _, tg, B, E = _case("random", 4, 4, "sub")
+def test_e_op_u_flip_only_for_commutative_ops(fresh_fallback_warnings):
+    """No kernel takes e_sub_u / e_div_u / u_add_v: a pinned 'kernel'
+    falls back down the planner's chain with a warning, and 'auto' takes
+    a plain route — both as JAX's planner does (its 'pallas' pinned)."""
+    jg, tg, B, E = _case("random", 4, 4, "sub")
     u, e = torch.from_numpy(B), torch.from_numpy(E)
     v = torch.ones(tg.n_dst, 4)
     for op in ("e_sub_u_add_v", "e_div_u_add_v", "u_add_v_add_v"):
         spec = parse_op(op)
         kw = {"u": u, "v": v, "e": e}
+        kw_j = {k: jnp.asarray(t.numpy()) for k, t in kw.items()}
         assert not dispatch.kernel_supports(spec, kw[spec.lhs], kw[spec.rhs])
-        with pytest.raises(NotImplementedError, match="no kernel computes"):
-            gspmm(tg, op, strategy="kernel", **kw)
-        torch.testing.assert_close(   # auto takes the plain path instead
-            gspmm(tg, op, strategy="auto", **kw),
-            gspmm(tg, op, strategy="segment", **kw), rtol=0, atol=0)
+        for ours, theirs in (("kernel", "pallas"), ("auto", "auto")):
+            if ours == "kernel":
+                with pytest.warns(UserWarning, match="falling back"):
+                    got = gspmm(tg, op, strategy=ours, **kw)
+            else:
+                got = gspmm(tg, op, strategy=ours, **kw)
+            ref = jax_gspmm(jg, op, strategy=theirs, **kw_j)
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                       rtol=_tol(spec.op), atol=_tol(spec.op))
+            assert (planner.last_plan(op, ours)
+                    == jax_planner.last_plan(op, theirs))
+            assert planner.last_plan(op, ours) != "kernel"
 
 
 def test_wrapper_on_cpu_counts_nothing_and_checks_arguments():

@@ -18,6 +18,7 @@ import torch
 
 from repro.core import block_gspmm as jax_block_gspmm
 from repro.core import from_coo as jax_from_coo
+from repro.core import planner as jax_planner
 from repro.core import serve_block_signature as jax_signature
 from repro.core.edge_softmax import \
     block_edge_softmax as jax_block_edge_softmax
@@ -29,7 +30,7 @@ from repro.models.gnn import gcn as jax_gcn
 from repro.models.gnn import sage as jax_sage
 from repro.models.gnn.common import block_features as jax_block_features
 from repro.models.gnn.common import pad_features as jax_pad_features
-from repro_torch.core import from_coo, parse_op
+from repro_torch.core import from_coo, parse_op, planner
 from repro_torch.core.blocks import (block_gspmm, block_supports,
                                      serve_block_signature)
 from repro_torch.core.edge_softmax import (block_edge_softmax,
@@ -41,7 +42,8 @@ from repro_torch.models.gnn import gat, gcn, sage
 from repro_torch.models.gnn.common import (block_features, from_jax_params,
                                            make_bundle, pad_features,
                                            run_blocks)
-from tests.test_torch_harness import jax_c1_shim  # noqa: F401
+from tests.test_torch_harness import (fresh_fallback_warnings,  # noqa: F401
+                                      jax_c1_shim)
 
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
@@ -152,14 +154,27 @@ def test_block_gspmm_matches_jax(op, widths, li):
                                    err_msg=f"{op} {s}")
 
 
-def test_block_gspmm_strategies_raise():
-    _, tmb = _minibatch([3, 4])
-    bg = tmb.blocks[1].bg
-    u = torch.zeros(bg.g.n_src, 2)
+def test_block_gspmm_strategies_raise(fresh_fallback_warnings):
+    """An unknown name raises; a gspmm name no block route runs
+    ('onehot'), or 'kernel' on a spec no kernel computes, falls back to
+    the uniform pull with a warning, as JAX's block planner does (its
+    'pallas' in the kernel's place)."""
+    jmb, tmb = _minibatch([3, 4])
+    jbg, bg = jmb.blocks[1].bg, tmb.blocks[1].bg
+    x = np.random.default_rng(0).standard_normal(
+        (bg.g.n_src, 2)).astype(np.float32)
+    u = torch.from_numpy(x)
     with pytest.raises(ValueError, match="unknown block strategy"):
-        block_gspmm(bg, "u_copy_add_v", u=u, strategy="onehot")
-    with pytest.raises(NotImplementedError, match="no kernel computes"):
-        block_gspmm(bg, "u_copy_max_v", u=u, strategy="kernel")
+        block_gspmm(bg, "u_copy_add_v", u=u, strategy="nope")
+    for op, ours, theirs in (("u_copy_add_v", "onehot", "onehot"),
+                             ("u_copy_max_v", "kernel", "pallas")):
+        with pytest.warns(UserWarning, match="falling back to 'ell'"):
+            got = block_gspmm(bg, op, u=u, strategy=ours)
+        ref = jax_block_gspmm(jbg, op, u=jnp.asarray(x), strategy=theirs)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL,
+                                   atol=TOL)
+        assert (planner.last_plan(f"block:{op}", ours)
+                == jax_planner.last_plan(f"block:{op}", theirs) == "ell")
     with pytest.raises(ValueError, match="missing"):
         block_gspmm(bg, "u_mul_e_add_v", u=u)
     for s in ("ell", "segment", "push", "kernel"):
@@ -282,7 +297,7 @@ def test_run_blocks_checks_depth_and_gat_modes():
     with pytest.raises(ValueError, match="unknown attn mode"):
         gat.infer_blocks(gmodel, tmb.blocks, x, attn="flash")
     with pytest.raises(ValueError, match="unknown block strategy"):
-        gat.infer_blocks(gmodel, tmb.blocks, x, strategy="onehot")
+        gat.infer_blocks(gmodel, tmb.blocks, x, strategy="nope")
 
 
 def test_gcn_norm_on_blocks_is_the_full_graphs():

@@ -19,16 +19,19 @@ import torch
 
 from repro.core.edge_softmax import edge_softmax as jax_edge_softmax
 from repro.core.edge_softmax import edge_softmax_fused as jax_es_fused
+from repro.core import planner as jax_planner
 from repro.core.graph import from_coo as jax_from_coo
 from repro.kernels.edge_softmax.ops import edge_softmax as jax_es_pallas
 from repro.kernels.edge_softmax.ref import edge_softmax_ref
-from repro_torch.core import edge_softmax, edge_softmax_fused, from_coo
+from repro_torch.core import (edge_softmax, edge_softmax_fused, from_coo,
+                              planner)
 from repro_torch.core.edge_softmax import ATTN_STRATEGIES
 from repro_torch.data.synthetic import rmat_graph
 from repro_torch.kernels.edge_softmax.ops import (edge_softmax_csr,
                                                   edge_softmax_plain)
 from tests.graphgen import random_edges
-from tests.test_torch_harness import jax_c1_shim  # noqa: F401
+from tests.test_torch_harness import (fresh_fallback_warnings,  # noqa: F401
+                                      jax_c1_shim)
 
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
@@ -103,18 +106,27 @@ def test_composed_and_fused_match_jax(graph, H):
                                    err_msg=f"fused/{strategy}")
 
 
-def test_composed_max_runs_on_segment_under_kernel(monkeypatch):
-    """'kernel' goes to the four ops a kernel covers; the max stays on
-    segment, and so never raises."""
+def test_composed_max_runs_on_segment_under_kernel(monkeypatch,
+                                                  fresh_fallback_warnings):
+    """'kernel' goes to all five ops, as JAX hands its strategy on; no
+    kernel computes the max, so it falls back down the planner's chain
+    (to the blocked pull, where JAX's 'pallas' lands it) with a warning,
+    and never raises."""
     mod = importlib.import_module("repro_torch.core.edge_softmax")
-    _, tg, x = _case("random", 4)
+    jg, tg, x = _case("random", 4)
     seen = []
     real = mod.gspmm
     monkeypatch.setattr(mod, "gspmm", lambda g, op, **kw: seen.append(
         (op, kw["strategy"])) or real(g, op, **kw))
-    edge_softmax(tg, torch.from_numpy(x), strategy="kernel")
-    assert seen == [("e_copy_max_v", "segment"), ("e_sub_v_copy_e", "kernel"),
+    with pytest.warns(UserWarning, match="falling back"):
+        got = edge_softmax(tg, torch.from_numpy(x), strategy="kernel")
+    assert seen == [("e_copy_max_v", "kernel"), ("e_sub_v_copy_e", "kernel"),
                     ("e_copy_add_v", "kernel"), ("e_div_v_copy_e", "kernel")]
+    ref = jax_edge_softmax(jg, jnp.asarray(x), strategy="pallas")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL,
+                               atol=TOL)
+    assert (planner.last_plan("e_copy_max_v", "kernel")
+            == jax_planner.last_plan("e_copy_max_v", "pallas") == "ell")
 
 
 def test_wrapper_on_cpu_counts_nothing_and_pallas_name_raises():
@@ -124,7 +136,8 @@ def test_wrapper_on_cpu_counts_nothing_and_pallas_name_raises():
     torch.testing.assert_close(edge_softmax_csr(tg, xt),
                                edge_softmax_plain(tg, xt), rtol=0, atol=0)
     assert edge_softmax_csr.launches == before
-    with pytest.raises(NotImplementedError, match="B5"):
-        edge_softmax_fused(tg, xt, strategy="pallas")
+    torch.testing.assert_close(   # 'pallas' names the kernel route
+        edge_softmax_fused(tg, xt, strategy="pallas"),
+        edge_softmax_fused(tg, xt, strategy="kernel"), rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown strategy"):
         edge_softmax_fused(tg, xt, strategy="segment")

@@ -8,6 +8,9 @@
   suite's own tests run exactly as they would without the port.
   Other test files import the fixture and apply it with
   ``pytestmark = pytest.mark.usefixtures("jax_c1_shim")``.
+* :func:`fresh_fallback_warnings` — both planners warn once per (op,
+  requested) about a fallback, process-wide; this fixture gives ONE test
+  empty "warned" sets, so the test sees its warnings whatever ran before.
 * The no-JAX guard: the port imports neither ``jax`` nor ``repro``.
 """
 import contextlib
@@ -41,6 +44,15 @@ def c1_shim():
 def jax_c1_shim():
     with c1_shim():
         yield
+
+
+@pytest.fixture
+def fresh_fallback_warnings(monkeypatch):
+    from repro.core import planner as jax_planner
+    from repro_torch.core import planner
+
+    monkeypatch.setattr(planner, "_WARNED", set())
+    monkeypatch.setattr(jax_planner, "_WARNED", set())
 
 
 def test_shim_installs_and_restores():

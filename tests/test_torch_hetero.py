@@ -34,7 +34,8 @@ from repro_torch.core.hetero import (caller_coo, from_rels, from_typed,
                                      hetero_block_gspmm, hetero_gspmm)
 from repro_torch.data import NeighborSampler
 from repro_torch.kernels.spmm import ops as spmm_ops
-from tests.test_torch_harness import jax_c1_shim  # noqa: F401
+from tests.test_torch_harness import (fresh_fallback_warnings,  # noqa: F401
+                                      jax_c1_shim)
 
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
@@ -173,12 +174,17 @@ def test_to_device_keeps_arrays():
 @pytest.mark.parametrize("reduce", REDUCES)
 @pytest.mark.parametrize("with_e", [False, True])
 @pytest.mark.parametrize("form", FORMS)
-def test_hetero_gspmm_matches_jax(form, with_e, reduce, strategy):
+def test_hetero_gspmm_matches_jax(form, with_e, reduce, strategy,
+                                  fresh_fallback_warnings):
     jrg, trg = _pair()
     ops = _operands(form, with_e, trg.n_rel, trg.n_edges)
     if strategy == "kernel" and reduce in ("max", "min"):
-        with pytest.raises(NotImplementedError):
-            _port_out(trg, ops, reduce, strategy)
+        # no kernel computes an extremum: the planner falls back to
+        # fused, with its one-time warning
+        with pytest.warns(UserWarning, match="falling back to 'fused'"):
+            got = _port_out(trg, ops, reduce, strategy)
+        np.testing.assert_allclose(got, _jax_out(jrg, ops, reduce, "fused"),
+                                   rtol=TOL, atol=TOL)
         return
     ref = _jax_out(jrg, ops, reduce, "loop" if strategy == "loop"
                    else "fused")
@@ -243,11 +249,27 @@ def test_kernel_route_runs_b1_on_the_expanded_graph(form, monkeypatch):
     assert graphs == [trg.g if form == "plain" else trg.expanded()]
 
 
-def test_strategy_errors():
-    _, trg = _pair()
+def test_strategy_errors(fresh_fallback_warnings):
+    """Unknown names and malformed operands raise; a pinned 'kernel' the
+    kernel cannot take (an extremum, a float64 operand) falls back to
+    'fused' with the planner's one-time warning — JAX has no kernel
+    route, and its 'fused' gives the same rows."""
+    jrg, trg = _pair()
     u = torch.zeros(N, D_IN)
     with pytest.raises(ValueError, match="unknown hetero strategy"):
         hetero_gspmm(trg, u, strategy="nope")
+    ops = _operands("w", False, trg.n_rel, trg.n_edges)
+    with pytest.warns(UserWarning, match="falling back to 'fused'"):
+        got = _port_out(trg, ops, "min", "kernel")
+    np.testing.assert_allclose(got, _jax_out(jrg, ops, "min", "fused"),
+                               rtol=TOL, atol=TOL)
+    x64 = torch.from_numpy(ops["u"]).double()
+    with pytest.warns(UserWarning, match="falling back to 'fused'"):
+        got = hetero_gspmm(trg, x64, w=torch.from_numpy(ops["w"]).double(),
+                           reduce="sum", strategy="kernel")
+    np.testing.assert_allclose(got.numpy(), _jax_out(jrg, ops, "sum",
+                                                     "fused"),
+                               rtol=TOL, atol=TOL)
     with pytest.raises(ValueError):
         hetero_gspmm(trg, u, reduce="prod")
     with pytest.raises(ValueError):

@@ -19,11 +19,13 @@ import pytest
 import torch
 
 from repro.core import hetero as jax_hetero
+from repro.core import planner as jax_planner
 from repro.core.hetero import from_rels as jax_from_rels
 from repro.core.hetero import from_typed as jax_from_typed
 from repro.core.hetero import hetero_gspmm as jax_hetero_gspmm
 from repro_torch.core import hetero
 from repro_torch.core.hetero import from_rels, from_typed, hetero_gspmm
+from repro_torch.core import planner
 from repro_torch.core.planner import get_plan_cache
 from tests.graphgen import random_edges
 from tests.test_torch_harness import jax_c1_shim  # noqa: F401
@@ -189,7 +191,9 @@ def test_c7_plain_pins_match_jax(strategy, reduce):
     ct = rng.normal(size=(20, 3)).astype(np.float32)
     _both(jrg, trg, args, ct, strategy, reduce, f"C7 {strategy} {reduce}")
     want = {"push": "push", "ell": "ell"}.get(strategy, "loop")
-    assert hetero._resolve(strategy, reduce, ()) == want
+    op = f"hetero:u_w_{reduce}_v"
+    assert planner.last_plan(op, strategy) == want
+    assert jax_planner.last_plan(op, strategy) == want
 
 
 def test_ell_route_differentiates_through_the_gather_vjp():

@@ -32,7 +32,8 @@ from repro_torch.kernels.common import graph_index_ptrs
 from repro_torch.kernels.sddmm.ops import (CALLER_INDEX, sddmm_csr,
                                            sddmm_plain)
 from tests.graphgen import random_edges
-from tests.test_torch_harness import jax_c1_shim  # noqa: F401
+from tests.test_torch_harness import (fresh_fallback_warnings,  # noqa: F401
+                                      jax_c1_shim)
 
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
@@ -140,9 +141,12 @@ def test_gsddmm_widens_1d_operands_like_jax():
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
 
 
-def test_gspmm_delegates_edge_outputs_with_the_jax_name_mapping():
-    """gspmm's edge outputs equal gsddmm's under the mapped strategy, and
-    a pinned 'kernel' reaches the kernel path (which refuses rank 3)."""
+def test_gspmm_delegates_edge_outputs_with_the_jax_name_mapping(
+        fresh_fallback_warnings):
+    """gspmm's edge outputs equal gsddmm's under the mapped strategy; a
+    pinned 'kernel' reaches the kernel path, and on operands B3 does not
+    take (rank 3) falls back to the canonical stream with a warning, as
+    JAX's 'pallas' does; 'pallas' names the kernel route."""
     assert SDDMM_FOR == {"auto": "auto", "kernel": "kernel",
                          "segment": "gather", "push": "gather",
                          "ell": "canonical", "onehot": "canonical"}
@@ -153,12 +157,16 @@ def test_gspmm_delegates_edge_outputs_with_the_jax_name_mapping():
             gspmm(tg, "u_sub_v_copy_e", u=u, v=v, strategy=strategy),
             gsddmm(tg, "u_sub_v_copy_e", u=u, v=v, strategy=mapped),
             rtol=0, atol=0)
-    u3 = u.reshape(-1, 2, 2)
-    with pytest.raises(NotImplementedError, match="sddmm kernel"):
-        gspmm(tg, "u_add_v_copy_e", u=u3, v=v.reshape(-1, 2, 2),
-              strategy="kernel")
-    with pytest.raises(NotImplementedError, match="strategy='kernel'"):
-        gsddmm(tg, "u_add_v_copy_e", u=u, v=v, strategy="pallas")
+    u3, v3 = u.reshape(-1, 2, 2), v.reshape(-1, 2, 2)
+    with pytest.warns(UserWarning, match="falling back to 'canonical'"):
+        got = gspmm(tg, "u_add_v_copy_e", u=u3, v=v3, strategy="kernel")
+    torch.testing.assert_close(got, gsddmm(tg, "u_add_v_copy_e", u=u3, v=v3,
+                                           strategy="canonical"),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(
+        gsddmm(tg, "u_add_v_copy_e", u=u, v=v, strategy="pallas"),
+        gsddmm(tg, "u_add_v_copy_e", u=u, v=v, strategy="kernel"),
+        rtol=0, atol=0)
     with pytest.raises(ValueError, match="unknown sddmm strategy"):
         gsddmm(tg, "u_add_v_copy_e", u=u, v=v, strategy="segment")
     with pytest.raises(ValueError, match="edge outputs"):

@@ -13,14 +13,16 @@ import pytest
 import torch
 
 from repro.core import gspmm as jax_gspmm
+from repro.core import planner as jax_planner
 from repro.kernels.spmm.ops import spmm as jax_spmm_pallas
 from repro.kernels.spmm.ref import spmm_ref
-from repro_torch.core import from_coo, gspmm
+from repro_torch.core import from_coo, gspmm, planner
 from repro_torch.core.binary_reduce import STRATEGIES, copy_reduce, parse_op
 from repro_torch.kernels.dispatch import kernel_supports
 from repro_torch.kernels.spmm.ops import spmm, spmm_csr, spmm_plain
 from tests.graphgen import random_graph
-from tests.test_torch_harness import jax_c1_shim  # noqa: F401
+from tests.test_torch_harness import (fresh_fallback_warnings,  # noqa: F401
+                                      jax_c1_shim)
 
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
@@ -128,24 +130,37 @@ def test_kernel_supports_exactly_the_b1_specs():
     assert not kernel_supports(parse_op("u_copy_add_v"), u.double(), None)
 
 
-def test_queued_strategies_and_outputs_raise():
-    """The queued strategies still raise, naming their ROADMAP item, and
-    so does a spec no kernel covers under 'kernel'; edge outputs, the max
-    reducer and the push / ell / onehot routes, queued before, now
-    compute."""
+def test_queued_strategies_and_outputs_raise(fresh_fallback_warnings):
+    """'pallas' names the kernel route; 'ring' (ROADMAP A12) and a spec no
+    kernel covers under 'kernel' fall back down the planner's chain with
+    a warning, to what JAX's planner picks (its 'pallas' for the port's
+    'kernel'); edge outputs, the max reducer and the push / ell / onehot
+    routes compute."""
     jg, tg, B, w = _case(30, 30, 400, 7)
     u = torch.from_numpy(B)
-    for strategy in ("ring", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            gspmm(tg, "u_copy_add_v", u=u, strategy=strategy)
     ref = np.asarray(jax_gspmm(jg, "u_copy_add_v", u=jnp.asarray(B),
                                strategy="segment"))
+    got = gspmm(tg, "u_copy_add_v", u=u, strategy="pallas").numpy()
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    assert planner.last_plan("u_copy_add_v", "kernel") == "kernel"
+    with pytest.warns(UserWarning, match="falling back"):
+        got = gspmm(tg, "u_copy_add_v", u=u, strategy="ring").numpy()
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+    jax_gspmm(jg, "u_copy_add_v", u=jnp.asarray(B), strategy="ring")
+    assert (planner.last_plan("u_copy_add_v", "ring")
+            == jax_planner.last_plan("u_copy_add_v", "ring"))
     for strategy in ("push", "ell", "onehot"):
         got = gspmm(tg, "u_copy_add_v", u=u, strategy=strategy).numpy()
         np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL,
                                    err_msg=strategy)
-    with pytest.raises(NotImplementedError, match="no kernel computes"):
-        gspmm(tg, "u_add_v_add_v", u=u, v=u, strategy="kernel")
+    with pytest.warns(UserWarning, match="falling back"):
+        got = gspmm(tg, "u_add_v_add_v", u=u, v=u, strategy="kernel")
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_gspmm(jg, "u_add_v_add_v", u=jnp.asarray(B),
+                                          v=jnp.asarray(B), strategy="pallas")),
+        rtol=TOL, atol=TOL)
+    assert (planner.last_plan("u_add_v_add_v", "kernel")
+            == jax_planner.last_plan("u_add_v_add_v", "pallas"))
     for op in ("u_add_v_copy_e", "u_copy_max_v"):
         ref = np.asarray(jax_gspmm(jg, op, u=jnp.asarray(B),
                                    v=jnp.asarray(B), strategy="segment"))

@@ -24,13 +24,16 @@ from repro.core import binary_reduce as jax_binary_reduce
 from repro.core import block_gspmm as jax_block_gspmm
 from repro.core import from_coo as jax_from_coo
 from repro.core import gspmm as jax_gspmm
+from repro.core import planner as jax_planner
 from repro.data import NeighborSampler as JaxSampler
-from repro_torch.core import binary_reduce, block_gspmm, from_coo, gspmm
+from repro_torch.core import (binary_reduce, block_gspmm, from_coo, gspmm,
+                              planner)
 from repro_torch.core.binary_reduce import onehot_supports, parse_op
 from repro_torch.data import NeighborSampler
 from repro_torch.kernels.dispatch import kernel_supports
 from tests.graphgen import random_edges
-from tests.test_torch_harness import jax_c1_shim  # noqa: F401
+from tests.test_torch_harness import (fresh_fallback_warnings,  # noqa: F401
+                                      jax_c1_shim)
 
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
@@ -180,24 +183,32 @@ def test_outputs_and_vjps_agree_seeded(seed):
                     _close(got[k], ref_g[k], f"d{k}: {name} via {s}")
 
 
-def test_onehot_and_ell_refuse_what_they_cannot_run():
-    """A pinned route that cannot compute a spec raises (JAX's
-    ``_gspmm_onehot`` raises on the same specs; its planner's fallback
-    chain is the port's A9)."""
-    _, tg = _graphs()
-    u, v = torch.ones(N_U, 3), torch.ones(N_V, 3)
-    e1, e3 = torch.ones(tg.n_edges, 1), torch.ones(tg.n_edges, 3)
-    for name, kw in (("u_copy_max_v", {"u": u}),
-                     ("e_copy_add_v", {"e": e3}),
-                     ("u_add_v_add_v", {"u": u, "v": v}),
-                     ("u_mul_e_add_v", {"u": u, "e": e3}),
-                     ("u_copy_add_v", {"u": torch.ones(N_U, 2, 3)})):
-        with pytest.raises(ValueError, match="onehot"):
-            gspmm(tg, name, strategy="onehot", **kw)
-    with pytest.raises(ValueError, match="destinations"):
-        gspmm(tg, "v_mul_e_add_u", v=v, e=e1, strategy="ell")
-    with pytest.raises(NotImplementedError, match="A12"):
-        gspmm(tg, "u_copy_add_v", u=u, strategy="ring")
+def test_onehot_and_ell_refuse_what_they_cannot_run(fresh_fallback_warnings):
+    """A pinned route that cannot compute a spec falls back down the
+    planner's chain with a warning, to the route JAX's planner falls back
+    to, with its values (``ring``, ROADMAP A12, to the blocked pull)."""
+    jg, tg = _graphs()
+    rng = np.random.default_rng(11)
+    u, v = _draw(rng, (N_U, 3)), _draw(rng, (N_V, 3))
+    e1, e3 = _draw(rng, (tg.n_edges, 1)), _draw(rng, (tg.n_edges, 3))
+    cases = [("u_copy_max_v", "onehot", {"u": u}),
+             ("e_copy_add_v", "onehot", {"e": e3}),
+             ("u_add_v_add_v", "onehot", {"u": u, "v": v}),
+             ("u_mul_e_add_v", "onehot", {"u": u, "e": e3}),
+             ("u_copy_add_v", "onehot", {"u": _draw(rng, (N_U, 2, 3))}),
+             ("v_mul_e_add_u", "ell", {"v": v, "e": e1}),
+             ("u_copy_add_v", "ring", {"u": u})]
+    for name, strategy, kw in cases:
+        with pytest.warns(UserWarning, match="falling back"):
+            got = gspmm(tg, name, strategy=strategy,
+                        **{k: torch.from_numpy(x) for k, x in kw.items()})
+        ref = jax_gspmm(jg, name, strategy=strategy,
+                        **{k: jnp.asarray(x) for k, x in kw.items()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=TOL,
+                                   atol=TOL, err_msg=f"{name}/{strategy}")
+        assert (planner.last_plan(name, strategy)
+                == jax_planner.last_plan(name, strategy)
+                != strategy), (name, strategy)
 
 
 @pytest.mark.parametrize("strategy", ["push", "ell", "onehot"])
