@@ -1,8 +1,8 @@
-"""Fit the planner's ``cuda`` cost row on one CUDA card.
+"""Fit the planner's ``cuda`` (or ``cuda:bf16``) cost row on one CUDA card.
 
 Usage, from the root of a checkout, on a machine with a CUDA card:
 
-    python3 benchmarks/torch_planner_fit.py
+    python3 benchmarks/torch_planner_fit.py [--dtype fp32|bf16]
 
 The cost model (``src/repro_torch/core/planner.py``) prices a gspmm
 route as ``rate × work + fixed``: ``work`` is ``estimate_cost``'s element
@@ -23,10 +23,19 @@ the same unit. This script measures both on the card:
   segment's device time per element-op at ``reddit-like``. The ELL
   route's host time is charged per degree class (``ell_class``).
 
+With ``--dtype bf16`` the features are bf16 (the weight stays fp32, as
+in a bf16 training step) and the rates are taken over the fp32 segment
+route's time per element-op at the same width, measured in the same run:
+the ``cuda:bf16`` row is in the ``cuda`` row's unit, as JAX's ``cpu:bf16``
+row is in ``cpu``'s, so the per-call (fixed) costs, which the model keeps
+per device, apply to both; the bf16 calls' host times are printed beside
+them.
+
 It prints one JSON line per measurement and, last, the fitted row.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -56,10 +65,13 @@ def work(route: str, stats, d: int) -> int:
     return -(-stats.n_edges // 256) * 256 * d
 
 
-def _operands(g, d: int, gen):
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _operands(g, d: int, gen, dtype=torch.float32):
     from repro_torch.models.gnn.common import make_bundle
 
-    x = torch.randn(g.n_src, d, generator=gen).to(g.device)
+    x = torch.randn(g.n_src, d, generator=gen).to(g.device, dtype)
     return x, make_bundle(g).gcn_norm[:, None].contiguous()
 
 
@@ -75,19 +87,23 @@ def host_ms(fn, calls: int = HOST_CALLS) -> float:
     return (time.perf_counter() - t0) * 1e3 / calls
 
 
-def fit_cuda_row(g_big, g_small, gen, emit=print, reps: int = 10) -> dict:
-    """Measure every route, fit the row, return it with its inputs:
-    ``{"rate": {...}, "fixed": {...}, "ell_class": x, "unit_ms": u,
-    "device_ms": {route: {d: ms}}, "work": {route: {d: n}},
-    "host_ms": {route: ms}}``."""
+def fit_cuda_row(g_big, g_small, gen, emit=print, reps: int = 10,
+                 dtype: torch.dtype = torch.float32) -> dict:
+    """Measure every route on ``dtype`` features, fit the row, return it
+    with its inputs: ``{"rate": {...}, "fixed": {...}, "ell_class": x,
+    "unit_ms": u, "device_ms": {route: {d: ms}}, "work": {route: {d: n}},
+    "host_ms": {route: ms}}``; for bf16 also ``"unit_device_ms"``, the
+    fp32 segment times the rates are taken over."""
     from chip_smoke import time_device_ms
     from repro_torch.core import gspmm
     from repro_torch.core.planner import compute_stats
 
     stats = compute_stats(g_big)
+    name = "fp32" if dtype == torch.float32 else "bf16"
     dev, wk = {r: {} for r in ROUTES}, {r: {} for r in ROUTES}
+    unit_dev = {}
     for d in WIDTHS:
-        x, w = _operands(g_big, d, gen)
+        x, w = _operands(g_big, d, gen, dtype)
         for route in ROUTES:
             if route == "onehot" and d > ONEHOT_MAX_D:
                 continue
@@ -95,17 +111,30 @@ def fit_cuda_row(g_big, g_small, gen, emit=print, reps: int = 10) -> dict:
                                               strategy=route),
                                 cold=False, reps=reps, warmup=2)
             dev[route][d], wk[route][d] = ms, work(route, stats, d)
-            emit(json.dumps({"phase": "planner_fit", "route": route, "d": d,
-                             "device_ms": ms, "work": wk[route][d]}))
+            emit(json.dumps({"phase": "planner_fit", "dtype": name,
+                             "route": route, "d": d, "device_ms": ms,
+                             "work": wk[route][d]}))
+        if dtype != torch.float32:  # the unit: fp32 segment, this width
+            x32 = x.float()
+            unit_dev[d] = time_device_ms(
+                lambda: gspmm(g_big, OP, u=x32, e=w, strategy="segment"),
+                cold=False, reps=reps, warmup=2)
+            emit(json.dumps({"phase": "planner_fit", "dtype": "fp32",
+                             "route": "segment", "d": d,
+                             "device_ms": unit_dev[d],
+                             "work": wk["segment"][d]}))
+            del x32
         del x, w
         torch.cuda.empty_cache()
-    unit = {d: dev["segment"][d] / wk["segment"][d] for d in WIDTHS}
+    unit_src = unit_dev if unit_dev else {d: dev["segment"][d]
+                                          for d in WIDTHS}
+    unit = {d: unit_src[d] / wk["segment"][d] for d in WIDTHS}
     rate = {r: statistics.median(dev[r][d] / wk[r][d] / unit[d]
                                  for d in dev[r]) for r in ROUTES}
     unit_ms = statistics.median(unit.values())
 
     small = compute_stats(g_small)
-    x, w = _operands(g_small, 16, gen)
+    x, w = _operands(g_small, 16, gen, dtype)
     host = {r: host_ms(lambda r=r: gspmm(g_small, OP, u=x, e=w, strategy=r))
             for r in ROUTES}
     for r, ms in host.items():
@@ -118,13 +147,18 @@ def fit_cuda_row(g_big, g_small, gen, emit=print, reps: int = 10) -> dict:
     ell_class = host["ell"] / max(small.ell_n_classes, 1) / unit_ms
     return {"rate": rate, "fixed": fixed, "ell_class": ell_class,
             "unit_ms": unit_ms, "device_ms": dev, "work": wk,
-            "host_ms": host, "reddit_stats": {
+            "host_ms": host, "unit_device_ms": unit_dev,
+            "reddit_stats": {
                 "n_edges": stats.n_edges,
                 "ell_padded_slots": stats.ell_padded_slots,
                 "ell_n_classes": stats.ell_n_classes}}
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=tuple(DTYPES), default="fp32",
+                    help="feature dtype of the fitted row (default fp32)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_planner_fit: torch.cuda is not available",
               file=sys.stderr)
@@ -142,8 +176,10 @@ def main() -> int:
     g_big = make_node_dataset("reddit-like", device="cuda")[0]
     g_small = make_node_dataset("tiny", device="cuda")[0]
     fit = fit_cuda_row(g_big, g_small, gen,
-                       emit=lambda s: print(s, flush=True))
-    print(json.dumps({"phase": "planner_fit_row", **{
+                       emit=lambda s: print(s, flush=True),
+                       dtype=DTYPES[args.dtype])
+    row = "cuda" if args.dtype == "fp32" else "cuda:bf16"
+    print(json.dumps({"phase": "planner_fit_row", "row": row, **{
         k: fit[k] for k in ("rate", "fixed", "ell_class", "unit_ms",
                             "host_ms", "reddit_stats")}}), flush=True)
     return 0

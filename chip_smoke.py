@@ -182,6 +182,25 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     SAGE epoch. It fails if a plain route (pinned, autotuned or chosen
     by auto) launches a kernel, or a kernel route launches none.
 
+17. Mixed precision (``precision="bf16"``, ``optim/precision.py``): the
+    bf16 forms of B1, B3 and B4 at a bf16 training step's shapes
+    (``BF16_B1`` / ``BF16_B3`` / ``BF16_B4``, on G and Gᵀ), each
+    bit-identical over two calls and held element by element to the
+    float64 plain version of its bf16 inputs and fp32 weights and to its
+    plain bf16 version, timed warm, device-only and cold beside its bf16
+    bound, the fp32 kernel's device time and a bf16 library call; per app
+    (GCN, SAGE, GAT full graph; SAGE, GCN, GAT sampled; R-GCN, MoNet and
+    sampled R-GCN) one bf16 step's fp32 grads on the kernel path against
+    the plain bf16 path within ``BF16_GRAD_RTOL`` (plus the plain path's
+    own bf16 noise), bit-identical, with exactly the fp32 step's
+    launches; the masters and AdamW moments fp32;
+    ``train_full_graph`` in bf16 in turns with the fp32 kernel path
+    (epoch median / p90, peak memory, the bf16 − fp32 final loss), the
+    per-step cast of ``x``; ``train_sampled`` in bf16 at
+    ``SAMPLED_RUNS``; R-GCN and MoNet epochs; the ``cuda:bf16`` cost
+    row's fit (``benchmarks/torch_planner_fit.py --dtype bf16``) and
+    auto's choice at each main-path op in bf16, the kernel at every one.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
@@ -400,6 +419,34 @@ PLANNER_AUTOTUNE = [("u_mul_e_add_v", 16, 1), ("u_copy_mean_v", 602, None)]
 # the sampled epoch whose plan log and drift report phase 16 prints:
 # SAGE (10, 10) × 64 on reddit-like, hidden 64, its first batches
 PLANNER_SAMPLED = ((10, 10), 64, 64, 8)
+# the mixed-precision phase (17) on reddit-like: the bf16 kernels at a
+# bf16 training step's shapes (the forward's and the backward's on G and
+# Gᵀ, as TRAIN_B1 / TRAIN_B3 / TRAIN_B4 and serving's GAT shapes): B1
+# GCN's weighted sum at d = 16 / 41, SAGE's mean at d = 602 (layer 0) and
+# 16, and on Gᵀ the weighted and unweighted (SAGE's ∂h) sums; B3 GAT's
+# logits, shift and divide at H = 4 / 1, the copy of ct, a u_dot_v at 16;
+# B4 copy_rhs on G (forward) and Gᵀ (∂u) at H = 4 / 1. A kernel is held to
+# BF16_REF_REL·|ref| + 1e-5·max|ref| of float64 (bf16's unit roundoff:
+# one rounding at the store) and BF16_PLAIN_REL·|plain| + 1e-5·max|plain|
+# of its plain bf16 version (one bf16 ulp: both round an fp32 sum taken
+# in another order); a bf16 step's grads, kernel path against plain, to
+# BF16_GRAD_RTOL of the largest plain grad per parameter (JAX's bf16
+# tolerance, tests/launch/test_mixed_precision.py) plus twice the plain
+# bf16 path's own distance from its fp32 grads (bf16_grads)
+BF16_B1 = {"self_loops": [(16, "sum"), (41, "sum"), (602, "mean"),
+                          (16, "mean")],
+           "reverse": [(16, "sum"), (41, "sum"), (16, "copy_sum")]}
+BF16_B3 = {"self_loops": [(op, lt, rt, d) for d in (4, 1)
+                          for op, lt, rt in (("add", "u", "v"),
+                                             ("sub", "e", "v"),
+                                             ("div", "e", "v"),
+                                             ("copy", "v", None))]
+           + [("dot", "u", "v", 16)]}
+BF16_B4 = {label: [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
+           for label in ("self_loops", "reverse")}
+BF16_REF_REL = 2.0 ** -8
+BF16_PLAIN_REL = 2.0 ** -7
+BF16_GRAD_RTOL = 2e-2
 # the fan-out serving phases: fan-out per layer (benchmarks/fig_serve.py's
 # CMP_FANOUT). A served fan-out batch runs one block per layer, so it
 # launches what a refresh launches: SERVE_LAUNCHES, per batch
@@ -1052,18 +1099,21 @@ def trace_step(fn, launches: int) -> dict:
     return traced
 
 
-def epoch_runs(what: str, model, run, strategy: dict, want: dict) -> dict:
+def epoch_runs(what: str, model, run, strategy: dict, want: dict,
+               order=("kernel", "plain", "plain", "kernel"),
+               falling: bool = True) -> dict:
     """``run(model, strategy)`` (a training history: per-epoch ``loss``,
     ``epoch_time`` and perhaps ``val_acc``) on a copy of ``model``, on
     each path of ``strategy`` (``{"kernel": ..., "plain": ...}``), in
-    turns kernel, plain, plain, kernel. Per path: epoch time median and
-    p90 over the pooled epochs, the loss (finite and falling, or raise),
-    peak device memory, the launches — ``want`` in a kernel run, none in
+    turns (``order``: kernel, plain, plain, kernel). Per path: epoch time
+    median and p90 over the pooled epochs, the loss (finite and, with
+    ``falling``, falling, or raise), peak device memory, the launches —
+    ``want`` in a run of a path whose name starts with "kernel", none in
     a plain one, or raise."""
     import copy
 
-    runs = {"kernel": [], "plain": []}
-    for path in ("kernel", "plain", "plain", "kernel"):
+    runs = {path: [] for path in order}
+    for path in order:
         m = copy.deepcopy(model)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1071,9 +1121,10 @@ def epoch_runs(what: str, model, run, strategy: dict, want: dict) -> dict:
         hist = run(m, strategy[path])
         launches = read_counts()
         loss = hist["loss"]
-        if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        if not (all(np.isfinite(loss))
+                and (loss[-1] < loss[0] or not falling)):
             raise AssertionError(f"{what} {path}: loss {loss}")
-        expect = {k: want.get(k, 0) if path == "kernel" else 0
+        expect = {k: want.get(k, 0) if path.startswith("kernel") else 0
                   for k in launches}
         if launches != expect:
             raise AssertionError(f"{what} {path} training launched "
@@ -1807,7 +1858,10 @@ def sampled_grads(app: str, hidden: int, mb, feats_pad, n_classes) -> dict:
 
 
 def sampled_runs(app: str, dataset: str, data, fanouts, batch: int,
-                 hidden: int, max_batches: int, export: str = None) -> dict:
+                 hidden: int, max_batches: int, export: str = None,
+                 order=("kernel", "plain", "plain", "kernel",
+                        "kernel_telemetry_off"),
+                 precision: str = "fp32", falling: bool = True) -> dict:
     """``train_sampled`` of ``app`` for ``SAMPLED_EPOCHS`` epochs of
     ``max_batches`` batches, in turns kernel, plain, plain, kernel:
     epoch 1's time and its sample / step split (epoch 0 pays the first
@@ -1818,7 +1872,9 @@ def sampled_runs(app: str, dataset: str, data, fanouts, batch: int,
     telemetry off (``obs.set_enabled(False)``: no span, no fenced block
     op, no drift probe), the cost of the telemetry. With ``export``, the
     first kernel run's spans: their time per name, coverage and a Chrome
-    trace."""
+    trace. ``order`` (the runs, in turns), ``precision`` (the trainer's)
+    and ``falling`` (whether the loss must fall) let the mixed-precision
+    phase run the same cells."""
     import copy
 
     from repro_torch import obs
@@ -1829,10 +1885,9 @@ def sampled_runs(app: str, dataset: str, data, fanouts, batch: int,
     ids = np.nonzero(train_mask)[0]
     paths = {"kernel": ("auto", "auto"), "plain": ("ell", "scatter"),
              "kernel_telemetry_off": ("auto", "auto")}
-    runs = {"kernel": [], "plain": [], "kernel_telemetry_off": []}
+    runs = {path: [] for path in order}
     spans = None
-    for path in ("kernel", "plain", "plain", "kernel",
-                 "kernel_telemetry_off"):
+    for path in order:
         telemetry = obs.set_enabled(path != "kernel_telemetry_off")
         m = copy.deepcopy(model)
         torch.cuda.synchronize()
@@ -1843,14 +1898,15 @@ def sampled_runs(app: str, dataset: str, data, fanouts, batch: int,
             mod.forward_blocks, m, g, feats, labels, ids, fanouts=fanouts,
             batch_size=batch, strategy=paths[path][0],
             bwd_strategy=paths[path][1], epochs=SAMPLED_EPOCHS, seed=0,
-            max_batches=max_batches)
+            max_batches=max_batches, precision=precision)
         launches = read_counts()
         probe = obs.enabled()
         obs.set_enabled(telemetry)
         if export and spans is None and path == "kernel":
             spans = span_table(obs.trace_events(), export)
         loss = hist["loss"]
-        if not (all(np.isfinite(loss)) and loss[-1] < loss[0]):
+        if not (all(np.isfinite(loss))
+                and (loss[-1] < loss[0] or not falling)):
             raise AssertionError(f"{app} {dataset} {path}: loss {loss}")
         n = sum(hist["n_batches"])
         per = TRAIN_SAMPLED_LAUNCHES[app]
@@ -1882,14 +1938,15 @@ def sampled_runs(app: str, dataset: str, data, fanouts, batch: int,
                              for k in rs[0]["launches"]}}
 
     row = {"phase": "train_sampled", "app": app, "dataset": dataset,
-           "fanouts": list(fanouts), "batch_size": batch, "hidden": hidden,
-           "epochs": SAMPLED_EPOCHS, "batches_per_epoch": max_batches,
+           "precision": precision, "fanouts": list(fanouts),
+           "batch_size": batch, "hidden": hidden, "epochs": SAMPLED_EPOCHS,
+           "batches_per_epoch": max_batches,
            "launches_per_batch": TRAIN_SAMPLED_LAUNCHES[app],
-           "kernel": pooled(runs["kernel"]), "plain": pooled(runs["plain"]),
-           "kernel_telemetry_off": pooled(runs["kernel_telemetry_off"]),
+           **{path: pooled(rs) for path, rs in runs.items()},
            "spans": spans}
-    row["launches"] = {k: v + row["kernel_telemetry_off"]["launches"][k]
-                       for k, v in row["kernel"]["launches"].items()}
+    row["launches"] = {k: sum(row[path]["launches"][k] for path in runs
+                              if path.startswith("kernel"))
+                       for k in row["kernel"]["launches"]}
     emit(row)
     return row
 
@@ -2382,13 +2439,17 @@ def rgcn_sessions(gen, b4_rows: dict) -> list:
 # 14. relational training
 # --------------------------------------------------------------------- #
 def relational_grads(app: str, model, grads_fn, plains: dict,
-                     launches: dict, kernel_args=("auto",)) -> dict:
+                     launches: dict, kernel_args=("auto",),
+                     rtol: float = TRAIN_GRAD_RTOL,
+                     phase: str = "train_relational_grads",
+                     noise=None) -> dict:
     """One step's per-parameter grads of ``app``: ``grads_fn(*args)`` on
     the kernel path (``kernel_args``) against each plain path of
     ``plains`` (name → (args, whether it must be bit-identical over two
-    calls)), within ``TRAIN_GRAD_RTOL`` of the largest plain grad
-    (+ 1e-6); the kernel path bit-identical over two calls and its
-    launches exactly ``launches``; no launch on a plain path."""
+    calls)), within ``rtol`` of the largest plain grad (+ 1e-6, + the
+    parameter's entry of ``noise``, plain path → per-parameter absolute
+    slack, where given); the kernel path bit-identical over two calls
+    and its launches exactly ``launches``; no launch on a plain path."""
     names = [n for n, _ in model.named_parameters()]
     grads_fn(*kernel_args)          # per-graph structures, Gᵀs included
     reset_counts()
@@ -2411,13 +2472,14 @@ def relational_grads(app: str, model, grads_fn, plains: dict,
         for path, pg in plain.items():
             mx = float(pg[i].abs().max())
             r[path] = {"max_abs_err": max_err(kernel[i], pg[i]),
-                       "tol": 1e-6 + TRAIN_GRAD_RTOL * mx,
+                       "tol": 1e-6 + rtol * mx + (
+                           noise[path][i] if noise else 0.0),
                        "max_abs_plain": mx}
         rows[n] = r
     bad = {n: r for n, r in rows.items()
            if not all(v for k, v in r.items() if k.endswith("bit_identical"))
            or any(r[p]["max_abs_err"] > r[p]["tol"] for p in plain)}
-    row = {"phase": "train_relational_grads", "app": app,
+    row = {"phase": phase, "app": app,
            "step_launches": step_launches, "grads": rows,
            "grads_bit_identical": all(r["bit_identical"]
                                       for r in rows.values())}
@@ -3281,6 +3343,454 @@ def planner_drift(g, dataset) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# 17. mixed-precision training
+# --------------------------------------------------------------------- #
+def _bf16(args) -> tuple:
+    """``args`` with every floating tensor in bf16."""
+    return tuple(a.to(torch.bfloat16) if isinstance(a, torch.Tensor)
+                 and a.is_floating_point() else a for a in args)
+
+
+def bf16_cases(g, w_canon, gen, label: str) -> list:
+    """B1, B3 and B4 at phase 17's shapes on ``g`` (``BF16_B1`` /
+    ``BF16_B3`` / ``BF16_B4`` under ``label``), bf16 features drawn from
+    ``gen`` and B1's weight ``w_canon`` in fp32: per shape ``(kernel name,
+    row fields, kernel fn, plain fn, args, bytes, flops, library fn or
+    None)``. Bytes count each bf16 feature row read once at 2 bytes an
+    element, the output written once, weights and index arrays at 4."""
+    from repro_torch.kernels.binary_reduce.ops import (binary_reduce_csr,
+                                                       binary_reduce_plain)
+    from repro_torch.kernels.sddmm.ops import (CALLER_INDEX, sddmm_csr,
+                                               sddmm_plain)
+    from repro_torch.kernels.spmm.ops import spmm_csr, spmm_plain
+
+    bf = torch.bfloat16
+    n_u, n_v = rows_read(g)
+    out = []
+    for d, red in BF16_B1.get(label, ()):
+        mean = red == "mean"
+        weight = w_canon if red == "sum" else None
+        B = torch.randn(g.n_src, d, generator=gen).cuda().to(bf)
+        if mean:
+            vals = (1.0 / g.in_degrees.clamp(min=1).float()).index_select(
+                0, g.long("dst"))
+        else:
+            vals = (torch.ones(g.n_edges, device=B.device)
+                    if weight is None else weight)
+        A = torch.sparse_csr_tensor(g.long("indptr_dst"), g.long("src"),
+                                    vals.to(bf), size=(g.n_dst, g.n_src))
+        nbytes = (4 * ((g.n_dst + 1) + g.n_edges * (1 if weight is None
+                                                     else 2))
+                  + 2 * (n_u + g.n_dst) * d)
+        out.append(("spmm_csr", {"d": d, "reduce": red,
+                                 "weighted": weight is not None},
+                    spmm_csr, spmm_plain, (g, B, weight, mean), nbytes,
+                    2 * g.n_edges * d,
+                    lambda A=A, B=B: torch.sparse.mm(A, B)))
+    read = {"u": n_u, "v": n_v, "e": g.n_edges}
+    for op, lt, rt, d in BF16_B3.get(label, ()):
+        args = _bf16(b3_operands(g, gen, op, lt, rt, d))
+        n_idx = len({lt, rt} - {"e", None})
+        nbytes = (4 * n_idx * g.n_edges
+                  + 2 * (read[lt] * d + (0 if rt is None else read[rt] * d)
+                         + g.n_edges * (1 if op == "dot" else d)))
+        lib = None
+        if op == "copy":
+            lib = (lambda lhs=args[3], caller=g.long(CALLER_INDEX[lt]):
+                   lhs.index_select(0, caller))
+        out.append(("sddmm_csr:copy" if op == "copy" else "sddmm_csr",
+                    {"op": op, "lhs": lt, "rhs": rt, "d": d}, sddmm_csr,
+                    sddmm_plain, args, nbytes, g.n_edges * d, lib))
+    for binop, d, de, red in BF16_B4.get(label, ()):
+        E = torch.randn(g.n_edges, de, generator=gen).cuda().to(bf)
+        nbytes = (4 * ((g.n_dst + 1) + g.n_edges)
+                  + 2 * (E.numel() + g.n_dst * d))
+        out.append(("binary_reduce_csr",
+                    {"binop": binop, "d": d, "de": de, "reduce": red},
+                    binary_reduce_csr, binary_reduce_plain,
+                    (g, None, E, binop, red == "mean"), nbytes,
+                    g.n_edges * d,
+                    lambda e=E.index_select(0, g.long("eid")),
+                    n=g.in_degrees.long(), r=red:
+                    torch.segment_reduce(e, r, lengths=n)))
+    return out
+
+
+def check_bf16_kernels(g, w_canon, gen, label: str, rows: dict) -> None:
+    """Phase 17 (a): each bf16 kernel of :func:`bf16_cases` on ``g``,
+    bit-identical over two calls; within ``BF16_PLAIN_REL`` (one bf16 ulp:
+    both round an fp32 sum taken in another order) of its plain bf16
+    version and within ``BF16_REF_REL``·|ref| + 1e-5·max|ref| (one
+    rounding at the store, plus the fp32 sum's error) of the float64
+    plain version of the same bf16 inputs and fp32 weights, element by
+    element; timed warm, device-only and cold, beside its bf16 bound, the
+    bf16 plain version, the fp32 kernel's device time at the same shape
+    and one bf16 library call where PyTorch has one."""
+    for name, fields, kernel, plain, args, nbytes, flops, lib in bf16_cases(
+            g, w_canon, gen, label):
+        counter = counters()[name.split(":")[0]]
+        n0 = counter.launches
+        what = f"{name} bf16 {label} {fields}"
+        got = bit_identical(what, lambda: kernel(*args))
+        pl = plain(*args)
+        ref = plain(*(a.double() if isinstance(a, torch.Tensor)
+                      and a.is_floating_point() else a for a in args))
+        torch.cuda.synchronize()
+        if got.dtype != torch.bfloat16 or pl.dtype != torch.bfloat16:
+            raise AssertionError(f"{what}: dtypes {got.dtype}, {pl.dtype}")
+        k64, p64 = got.double(), pl.double()
+        ref_bad = int(((k64 - ref).abs() > BF16_REF_REL * ref.abs()
+                       + 1e-5 * float(ref.abs().max())).sum())
+        plain_bad = int(((k64 - p64).abs() > BF16_PLAIN_REL * p64.abs()
+                         + 1e-5 * float(p64.abs().max())).sum())
+        args32 = tuple(a.float() if isinstance(a, torch.Tensor)
+                       and a.dtype == torch.bfloat16 else a for a in args)
+        k_ms = time_ms(lambda: kernel(*args))
+        k_dev = warm_cold_ms(lambda: kernel(*args))
+        fp32_dev = time_device_ms(lambda: kernel(*args32), False)
+        p_ms = time_ms(lambda: plain(*args))
+        lib_ms, lib_dev, lib_err, lib_why = None, (None, None), None, None
+        if lib is not None:
+            try:    # a yardstick only: PyTorch may lack the bf16 form
+                lib_err = max_err(lib().double(), ref)
+            except RuntimeError as exc:
+                lib, lib_why = None, str(exc).splitlines()[0][:160]
+        if lib is not None:
+            lib_ms = time_ms(lib)
+            lib_dev = warm_cold_ms(lib)
+        b_ms, b_by = bound(nbytes, flops)
+        row = {"phase": "kernel_bf16", "kernel": name.split(":")[0],
+               "dtype": "bfloat16", "graph": label, **fields,
+               "max_abs_err": max_err(k64, ref), "reference": "fp64 plain",
+               "tol": f"{BF16_REF_REL}*|ref| + 1e-5*max|ref|",
+               "elements_over_tol": ref_bad,
+               "plain_max_abs_err": max_err(k64, p64),
+               "plain_elements_over_tol": plain_bad,
+               "plain_bf16_ref_max_abs_err": max_err(p64, ref),
+               "kernel_ms": k_ms, "kernel_device_ms": k_dev[0],
+               "kernel_cold_ms": k_dev[1], "fp32_kernel_device_ms": fp32_dev,
+               "plain_ms": p_ms, "library_ms": lib_ms,
+               "library_device_ms": lib_dev[0],
+               "library_cold_ms": lib_dev[1], "library_max_abs_err": lib_err,
+               "library_missing": lib_why, "bound_ms": b_ms,
+               "bound_by": b_by, "bit_identical": True,
+               "launches": counter.launches - n0}
+        emit(row)
+        if ref_bad or plain_bad:
+            raise AssertionError(f"{what} disagrees: {row}")
+        rows[name][(label, "bf16") + tuple(fields.values())] = row
+
+
+def bf16_grads(what: str, model, grads_fn, plains: dict,
+               launches: dict, kernel_args=("auto",)) -> dict:
+    """Phase 17 (b): one bf16 step's grads (``grads_fn(*args)``, each an
+    fp32 gradient of an fp32 master) on the kernel path against each
+    plain bf16 path, bit-identical over two calls, launches exactly
+    ``launches`` (:func:`relational_grads`), per parameter within
+    ``BF16_GRAD_RTOL``·max|plain| plus twice the plain bf16 path's own
+    distance from its fp32 grads (``grads_fn(*args, prec="fp32")``): two
+    bf16 paths each carry bf16's rounding noise, which a gradient that
+    sums many cancelling terms (R-GCN's layer-0 basis) lifts above 2e-2
+    of its largest entry on either path."""
+    def checked(*args, prec="bf16"):
+        got = grads_fn(*args, prec=prec)
+        bad = [t.dtype for t in got if t.dtype != torch.float32]
+        if bad:
+            raise AssertionError(f"{what} {prec}: grads in {bad}")
+        return got
+
+    noise = {}
+    for path, (args, _) in plains.items():
+        ref = checked(*args, prec="fp32")
+        noise[path] = [2.0 * float((a - b).abs().max())
+                       for a, b in zip(checked(*args), ref)]
+    row = relational_grads(what, model, checked, plains, launches,
+                           kernel_args, rtol=BF16_GRAD_RTOL,
+                           phase="train_bf16_grads", noise=noise)
+    return row
+
+
+def check_masters(what: str, model, step, *args) -> None:
+    """One bf16 ``step`` (a trainer step with ``precision="bf16"``) on a
+    copy of ``model``: parameters and AdamW moments stay fp32, the loss
+    is finite."""
+    import copy
+
+    m = copy.deepcopy(model)
+    opt_init, step_fn = step
+    state, loss = step_fn(m, opt_init(m), 0, *args)
+    dtypes = {t.dtype for t in list(m.parameters()) + state.mu + state.nu}
+    if dtypes != {torch.float32} or not np.isfinite(float(loss)):
+        raise AssertionError(f"{what} bf16 step: dtypes {dtypes}, loss "
+                             f"{float(loss)}")
+
+
+def train_bf16_full(app: str, data) -> dict:
+    """Phase 17 (b, c) for ``app`` on ``reddit-like`` at phase 11's widths:
+    one bf16 step's grads (kernel path against the segment route), the
+    masters and moments fp32, then ``train_full_graph`` in bf16 for
+    ``TRAIN_EPOCHS`` epochs in turns kernel, plain, fp32 kernel, fp32
+    kernel, plain, kernel (launches exact; the loss finite and, but for
+    GAT, as JAX's test excepts it, falling), with the bf16 − fp32 final
+    loss delta (a reading, not a check)."""
+    import functools
+
+    from repro_torch.models.gnn import gat, gcn, sage
+    from repro_torch.models.gnn.train import (call_in_precision,
+                                              make_train_step,
+                                              train_full_graph)
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    bundle, x, labels, train_mask, val_mask, n_classes = data
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    model = mod.init(torch.Generator().manual_seed(0), x.shape[1],
+                     TRAIN_HIDDEN, n_classes, device="cuda")
+    def grads(strategy, prec="bf16"):
+        logits = call_in_precision(
+            prec, mod.forward, model, bundle,
+            x.to(torch.bfloat16) if prec == "bf16" else x,
+            strategy=strategy, train=True,
+            gen=torch.Generator(device="cuda").manual_seed(0))
+        out = torch.autograd.grad(cross_entropy_loss(
+            logits.float(), labels, train_mask), list(model.parameters()))
+        torch.cuda.synchronize()
+        return out
+
+    grad_row = bf16_grads(app, model, grads,
+                          {"plain": (("segment",), False)},
+                          TRAIN_LAUNCHES[app])
+    check_masters(app, model, make_train_step(mod.forward, "auto",
+                                              precision="bf16"),
+                  bundle, x, labels, train_mask,
+                  torch.Generator(device="cuda").manual_seed(0))
+    strategy = {"kernel": ("auto", "bf16"), "plain": ("segment", "bf16"),
+                "kernel_fp32": ("auto", "fp32")}
+    runs = epoch_runs(
+        f"{app} bf16", model, lambda m, st: train_full_graph(
+            mod.forward, m, bundle, x, labels, train_mask, strategy=st[0],
+            epochs=TRAIN_EPOCHS, seed=0, val_mask=val_mask,
+            precision=st[1])[1], strategy,
+        {k: TRAIN_LAUNCHES[app].get(k, 0) * (TRAIN_EPOCHS + 1)
+         + SERVE_LAUNCHES[app].get(k, 0) * TRAIN_EPOCHS
+         for k in read_counts()},
+        order=("kernel", "plain", "kernel_fp32", "kernel_fp32", "plain",
+               "kernel"), falling=app != "gat")
+    cast = functools.partial(x.to, torch.bfloat16)
+    row = {"phase": "train_bf16", "app": app, "dataset": "reddit-like",
+           "hidden": TRAIN_HIDDEN, "epochs": TRAIN_EPOCHS,
+           "step_launches": grad_row["step_launches"],
+           "launches": {k: runs["kernel"]["launches"][k]
+                        + runs["kernel_fp32"]["launches"][k]
+                        for k in runs["kernel"]["launches"]},
+           "grads_max_abs_err": max(r["plain"]["max_abs_err"]
+                                    for r in grad_row["grads"].values()),
+           "grads_bit_identical": grad_row["grads_bit_identical"],
+           **runs,
+           "final_loss_bf16_minus_fp32": (runs["kernel"]["loss"][-1]
+                                          - runs["kernel_fp32"]["loss"][-1]),
+           "x_cast_shape": list(x.shape), "x_cast_ms": time_ms(cast),
+           "x_cast_device_ms": time_device_ms(cast, False),
+           "epoch_ratio_bf16_over_fp32": (
+               runs["kernel"]["epoch_ms_median"]
+               / runs["kernel_fp32"]["epoch_ms_median"])}
+    emit(row)
+    return row
+
+
+def train_bf16_sampled(g_loops, feats, labels, train_mask, n_classes,
+                       prod) -> list:
+    """Phase 17 (b, d): each sampled app's bf16 step grads on the
+    training batch of ``reddit-like`` (10, 10) × 64 (kernel path against
+    the plain pull with autograd and with the gather backward), then
+    ``train_sampled`` in bf16 at ``SAMPLED_RUNS``' cells, kernel then
+    plain: epoch 1 a batch with its sample / step split, launches
+    exact, the loss finite (and falling but for GAT)."""
+    from repro_torch.models.gnn.common import block_features, pad_features
+    from repro_torch.models.gnn.train import call_in_precision
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    out = []
+    mb = sampled_batch(g_loops, labels, train_mask, (10, 10), 64)
+    xs = block_features(pad_features(feats, "cuda"), mb.input_ids)
+    for app, hidden in (("sage", 64), ("gcn", 16), ("gat", 16)):
+        mod, model = sampled_model(app, feats.shape[1], hidden, n_classes)
+
+        def grads(strategy, bwd, prec="bf16", mod=mod, model=model):
+            logits = call_in_precision(
+                prec, mod.forward_blocks, model, mb.blocks,
+                xs.to(torch.bfloat16) if prec == "bf16" else xs,
+                strategy=strategy, bwd_strategy=bwd, train=True,
+                gen=torch.Generator(device="cuda").manual_seed(0))
+            got = torch.autograd.grad(cross_entropy_loss(
+                logits.float(), mb.labels, mb.label_mask),
+                list(model.parameters()))
+            torch.cuda.synchronize()
+            return got
+
+        out.append(bf16_grads(f"{app} sampled", model, grads,
+                              {"plain": (("ell", "scatter"), False),
+                               "plain_gather": (("ell", "gather"), True)},
+                              TRAIN_SAMPLED_LAUNCHES[app],
+                              kernel_args=("auto", "auto")))
+    del mb, xs
+    torch.cuda.empty_cache()
+    sets = {"reddit-like": (g_loops, feats, labels, train_mask, n_classes),
+            "products-like": prod}
+    for app, ds, fo, b, h, nb in SAMPLED_RUNS:
+        out.append(sampled_runs(app, ds, sets[ds], fo, b, h, nb,
+                                order=("kernel", "plain"),
+                                precision="bf16", falling=app != "gat"))
+    return out
+
+
+def train_bf16_relational(gen) -> list:
+    """Phase 17 (b, e): R-GCN (on its RelGraph) and MoNet (on
+    ``make_bundle(g, krel=2)``) in bf16 at phase 14's shapes — a step's
+    grads, kernel route against the plain fused route, and 10 epochs a
+    route in turns, launches exact — and one bf16 step of sampled R-GCN
+    (``SAMPLED_RGCN``'s batch) against the plain pull both ways."""
+    from repro_torch.data.sampler import NeighborSampler
+    from repro_torch.data.synthetic import make_node_dataset
+    from repro_torch.models.gnn import monet, rgcn
+    from repro_torch.models.gnn.common import (block_features, make_bundle,
+                                               pad_features)
+    from repro_torch.models.gnn.train import (call_in_precision,
+                                              train_full_graph)
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    out = []
+    n, R, _ = RGCN_BGS
+    rg = rgcn.build_relgraph(bgs_relations(), n, "cuda")
+    xh, yh = bgs_inputs()
+    x, y = torch.from_numpy(xh).cuda(), torch.from_numpy(yh).cuda()
+    everyone = torch.ones(n, dtype=torch.bool, device="cuda")
+    g, feats, labels, train_mask, _, n_classes = make_node_dataset(
+        MONET_DATASET, device="cuda")
+    bundle = make_bundle(g, krel=MONET_K)
+    feats, labels, train_mask = (torch.from_numpy(a).cuda() for a in
+                                 (feats, labels, train_mask))
+    apps = {"rgcn": (rgcn, rgcn.init(torch.Generator().manual_seed(0), 32,
+                                     32, 4, R, device="cuda"),
+                     rg, x, y, everyone),
+            "monet": (monet, monet.init(torch.Generator().manual_seed(0),
+                                        feats.shape[1], MONET_HIDDEN,
+                                        n_classes, n_kernels=MONET_K,
+                                        device="cuda"),
+                      bundle, feats, labels, train_mask)}
+    for app, (mod, model, graph, xs, ys, mask) in apps.items():
+        def grads(strategy, prec="bf16", mod=mod, model=model, graph=graph,
+                  xs=xs, ys=ys, mask=mask):
+            logits = call_in_precision(
+                prec, mod.forward, model, graph,
+                xs.to(torch.bfloat16) if prec == "bf16" else xs,
+                strategy=strategy)
+            got = torch.autograd.grad(cross_entropy_loss(
+                logits.float(), ys, mask), list(model.parameters()))
+            torch.cuda.synchronize()
+            return got
+
+        per_step = RELATIONAL_TRAIN_LAUNCHES[app]
+        grad_row = bf16_grads(app, model, grads,
+                              {"plain": (("fused",), True)}, per_step)
+        runs = epoch_runs(
+            f"{app} bf16", model, lambda m, st, mod=mod, graph=graph,
+            xs=xs, ys=ys, mask=mask: train_full_graph(
+                mod.forward, m, graph, xs, ys, mask, strategy=st,
+                epochs=TRAIN_EPOCHS, seed=0, precision="bf16")[1],
+            {"kernel": "auto", "plain": "fused"},
+            {k: v * (TRAIN_EPOCHS + 1) for k, v in per_step.items()})
+        row = {"phase": "train_bf16_relational", "app": app,
+               "epochs": TRAIN_EPOCHS,
+               "step_launches": grad_row["step_launches"],
+               "launches": runs["kernel"]["launches"],
+               "grads_max_abs_err": max(
+                   r["plain"]["max_abs_err"]
+                   for r in grad_row["grads"].values()),
+               "grads_bit_identical": grad_row["grads_bit_identical"],
+               **runs}
+        emit(row)
+        out.append(row)
+
+    fanouts, batch, _ = SAMPLED_RGCN
+    gm, rel_ids = rgcn.merged_graph(bgs_relations(), n, "cuda")
+    mb = next(NeighborSampler(gm, list(fanouts), batch, seed=0,
+                              edge_rel=rel_ids, device="cuda",
+                              reverse=True).batches(np.arange(n), yh,
+                                                    drop_last=False))
+    xs = block_features(pad_features(xh, "cuda"), mb.input_ids)
+    model = apps["rgcn"][1]
+
+    def grads(strategy, bwd, prec="bf16"):
+        logits = call_in_precision(
+            prec, rgcn.forward_blocks, model, mb.blocks,
+            xs.to(torch.bfloat16) if prec == "bf16" else xs,
+            strategy=strategy, bwd_strategy=bwd)
+        got = torch.autograd.grad(cross_entropy_loss(
+            logits.float(), mb.labels, mb.label_mask),
+            list(model.parameters()))
+        torch.cuda.synchronize()
+        return got
+
+    row = bf16_grads("rgcn_sampled", model, grads,
+                     {"plain_scatter": (("ell", "scatter"), False),
+                      "plain_gather": (("ell", "gather"), True)},
+                     RELATIONAL_TRAIN_LAUNCHES["rgcn_sampled"],
+                     kernel_args=("auto", "auto"))
+    out.append(row)
+    return out
+
+
+def bf16_planner(g, gen) -> dict:
+    """Phase 17 (f): the ``cuda:bf16`` row's fit on this run's card
+    (``benchmarks/torch_planner_fit.py --dtype bf16``) beside the row the
+    planner carries, and auto's choice, on the carried row, at each
+    main-path op with bf16 features: the kernel at every one, or raise."""
+    from benchmarks.torch_planner_fit import fit_cuda_row
+    from repro_torch.core import parse_op, planner
+    from repro_torch.data.synthetic import make_node_dataset
+
+    tiny = make_node_dataset("tiny", device="cuda")[0]
+    fit = fit_cuda_row(g, tiny, gen, emit=print, dtype=torch.bfloat16)
+    bf = torch.bfloat16
+    stats = planner.get_plan_cache(g).stats
+    w = torch.rand(g.n_edges, 1, generator=gen).cuda()
+    choices = {}
+    for op, d in (("u_mul_e_add_v", 16), ("u_copy_mean_v", 602),
+                  ("e_copy_add_v", 4), ("u_mul_e_add_v", 41),
+                  ("u_copy_add_v", 16)):
+        spec = parse_op(op)
+        rows = g.n_edges if spec.lhs == "e" else g.n_src
+        lhs = torch.randn(rows, d, generator=gen).cuda().to(bf)
+        rhs = w if spec.rhs == "e" else None
+        choices[f"{op} d={d}"] = {
+            "auto": planner.plan_gspmm(g, spec, lhs, rhs).strategy,
+            "predicted": {r: planner.estimate_cost(r, stats, d, "cuda", bf)
+                          for r in ("kernel", "segment", "push", "ell")}}
+    sig = (g.n_src, g.n_dst, g.n_edges)
+    for op, d in PLANNER_RANK_SDDMM + [("e_sub_v_copy_e", 4),
+                                       ("u_dot_v_copy_e", 16)]:
+        spec = parse_op(op)
+        kw = {t: torch.randn(g.n_edges if t == "e" else g.n_src, d,
+                             generator=gen).cuda().to(bf)
+              for t in (spec.lhs, spec.rhs)}
+        choices[f"sddmm:{op} d={d}"] = {"auto": planner.plan_sddmm(
+            sig, spec, d, lhs_data=kw[spec.lhs], rhs_data=kw[spec.rhs])}
+    row = {"phase": "planner_fit_bf16", **{k: fit[k] for k in (
+        "rate", "fixed", "ell_class", "unit_ms", "host_ms",
+        "reddit_stats")}, "device_ms": fit["device_ms"], "work": fit["work"],
+        "unit_device_ms": fit["unit_device_ms"],
+        "carried": {"rate": planner._THROUGHPUT["cuda:bf16"],
+                    "fixed": planner._FIXED["cuda"]},
+        "auto_bf16": choices}
+    emit(row)
+    missed = {k: v for k, v in choices.items() if v["auto"] != "kernel"}
+    if missed:
+        raise AssertionError(f"auto does not take the kernel in bf16: "
+                             f"{missed}")
+    return row
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -3301,10 +3811,11 @@ def summary(name, source, replaces, main_rows, all_rows, launches,
 
 def shape_entry(r: dict) -> dict:
     return {k: r[k] for k in (
-        "graph", "op", "binop", "lhs", "rhs", "d", "de", "reduce", "H", "F",
-        "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
-        "canonical_device_ms", "library_ms", "library_device_ms",
-        "library_cold_ms", "plain_ms", "bound_ms", "max_abs_err") if k in r}
+        "dtype", "graph", "op", "binop", "lhs", "rhs", "d", "de", "reduce",
+        "H", "F", "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
+        "fp32_kernel_device_ms", "canonical_device_ms", "library_ms",
+        "library_device_ms", "library_cold_ms", "plain_ms", "bound_ms",
+        "max_abs_err") if k in r}
 
 
 def main() -> int:
@@ -3497,13 +4008,48 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "planner_done", "seconds": time.perf_counter() - t0})
 
+    # 17. mixed-precision training: the bf16 kernels at a bf16 step's
+    # shapes, each app's bf16 step and epochs (full graph, sampled,
+    # relational), the cuda:bf16 row and auto's bf16 choices
+    t0 = time.perf_counter()
+    from repro_torch.core.graph import reverse
+
+    bf16_rows = {k: {} for k in ("spmm_csr", "sddmm_csr", "sddmm_csr:copy",
+                                 "binary_reduce_csr")}
+    w_all = make_bundle(g_loops).gcn_norm
+    for label, gr in (("self_loops", g_loops), ("reverse", reverse(g_loops))):
+        check_bf16_kernels(gr, w_all.index_select(0, gr.long("eid"))
+                           .contiguous(), gen, label, bf16_rows)
+    torch.cuda.empty_cache()
+    data = (make_bundle(g_loops),
+            *(torch.from_numpy(a).cuda()
+              for a in (feats, labels, train_mask, val_mask)), n_classes)
+    bf16_full = [train_bf16_full(app, data) for app in ("gcn", "sage", "gat")]
+    del data
+    torch.cuda.empty_cache()
+    prod = make_node_dataset("products-like", device="cuda")
+    bf16_sampled = train_bf16_sampled(g_loops, feats, labels, train_mask,
+                                      n_classes, (prod[0], prod[1], prod[2],
+                                                  prod[3], prod[5]))
+    del prod
+    torch.cuda.empty_cache()
+    bf16_rel = train_bf16_relational(gen)
+    torch.cuda.empty_cache()
+    bf16_planner(g_loops, gen)
+    torch.cuda.empty_cache()
+    emit({"phase": "train_bf16_done", "seconds": time.perf_counter() - t0})
+
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it
+    bf16_runs = bf16_full + [r for r in bf16_sampled + bf16_rel
+                             if r["phase"] != "train_bf16_grads"]
+    bf16_steps = bf16_full + [r for r in bf16_sampled + bf16_rel
+                              if r["phase"] != "train_sampled"]
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
             + auto + trained + sampled + relational + rel_trained
-            + ell_trained
+            + ell_trained + bf16_runs
             + [{"launches": r["step_launches"]}
-               for r in trained + sampled_steps + rel_trained])
+               for r in trained + sampled_steps + rel_trained + bf16_steps])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     # the main path's shapes: serving's, and training's backward ones (B3
@@ -3544,6 +4090,10 @@ def main() -> int:
              "binary_reduce_csr": {**b4_rows,
                                    **rel_rows["binary_reduce_csr"]},
              "edge_softmax_csr": b5_rows}
+    # and the bf16 kernels at a bf16 training step's shapes
+    for name, bf16 in bf16_rows.items():
+        main[name] += list(bf16.values())
+        every[name].update(bf16)
     blocks = {k: list(v.values()) for k, v in block_rows.items()}
     blocks["sddmm_csr:copy"] = []
     for k, v in sampled_rows.items():      # the block Gᵀ rows

@@ -178,9 +178,38 @@ def parse_op(name: str) -> BRSpec:
     return BRSpec(lhs=lhs, op=op, rhs=rhs, reduce=REDUCE_OPS[red], out=out)
 
 
+class _TakeRows(torch.autograd.Function):
+    """``x.index_select(0, idx)`` whose backward sums each row's
+    cotangents in fp32 and rounds once to ``x``'s dtype: autograd's own
+    ``index_add_`` would add a half-precision cotangent to a half-precision
+    sum one edge at a time."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = tuple(x.shape)
+        return x.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, ct):
+        idx, = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=torch.float32, device=ct.device)
+        return acc.index_add_(0, idx, ct.float()).to(ct.dtype), None
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(0, idx)`` for the plain routes autograd
+    differentiates: a half-precision ``x`` that needs a gradient goes
+    through :class:`_TakeRows`, so its ∂x accumulates in fp32 (the
+    lattice's rule); anything else is the plain ``index_select``."""
+    if x.dtype in (torch.bfloat16, torch.float16) and _needs_grad(x):
+        return _TakeRows.apply(x, idx)
+    return x.index_select(0, idx)
+
+
 def _edge_val(g, target: str, data: torch.Tensor) -> torch.Tensor:
     """Per-edge operand values in canonical edge order."""
-    return data.index_select(0, g.long(TARGET_INDEX[target]))
+    return take_rows(data, g.long(TARGET_INDEX[target]))
 
 
 def _as2d(x: torch.Tensor) -> torch.Tensor:
@@ -189,6 +218,14 @@ def _as2d(x: torch.Tensor) -> torch.Tensor:
 
 def _detach(x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if x is None else x.detach()
+
+
+def _as_dtypes(grads: Sequence[Optional[torch.Tensor]],
+               inputs: Sequence[Optional[torch.Tensor]]) -> tuple:
+    """Each gradient in its input's dtype (a bf16 step's kernels hand an
+    fp32 weight's gradient back in bf16), as the JAX VJPs cast theirs."""
+    return tuple(None if g is None else g.to(t.dtype)
+                 for g, t in zip(grads, inputs))
 
 
 def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
@@ -339,9 +376,9 @@ def _gspmm_ell(g, spec: BRSpec, pack, lhs_data, rhs_data,
     ``strategies.pull_ell_reduce``."""
     def chunk_fetch(cls, target: str, data):
         if target == "v":           # the row's own value, broadcast on W
-            return data.index_select(0, cls.long("chunk_row")).unsqueeze(1)
+            return take_rows(data, cls.long("chunk_row")).unsqueeze(1)
         idx = cls.long("chunk_cols" if target == "u" else "chunk_eids")
-        return data.index_select(0, idx.reshape(-1)).reshape(
+        return take_rows(data, idx.reshape(-1)).reshape(
             tuple(idx.shape) + tuple(data.shape[1:]))     # (C, W, *feat)
 
     def msg_fn(cls):
@@ -430,7 +467,7 @@ def _sddmm_execute(g, spec: BRSpec, lhs_data, rhs_data,
         # caller-order view of the endpoints, one gather per operand
         def fetch(target, x):
             name = CALLER_INDEX[target]
-            return x if name is None else x.index_select(0, g.long(name))
+            return x if name is None else take_rows(x, g.long(name))
 
         return BINARY_OPS[spec.op](
             fetch(spec.lhs, lhs_data),
@@ -685,9 +722,9 @@ class _KernelGspmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         lhs, rhs = ctx.saved_tensors
-        return (None, None) + _gspmm_grads(
+        return (None, None) + _as_dtypes(_gspmm_grads(
             ctx.g, ctx.spec, lhs.detach(), _detach(rhs), ct,
-            ctx.needs_input_grad[2:])
+            ctx.needs_input_grad[2:]), (lhs, rhs))
 
 
 class _KernelGsddmm(torch.autograd.Function):
@@ -704,6 +741,6 @@ class _KernelGsddmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         lhs, rhs, out = ctx.saved_tensors
-        return (None, None) + _sddmm_grads(
+        return (None, None) + _as_dtypes(_sddmm_grads(
             ctx.g, ctx.spec, lhs.detach(), _detach(rhs), out,
-            ct.contiguous(), ctx.needs_input_grad[2:])
+            ct.contiguous(), ctx.needs_input_grad[2:]), (lhs, rhs))

@@ -70,10 +70,12 @@ import torch
 
 from ..kernels.dispatch import kernel_supports
 from ..obs.events import timed as _timed
+from ..optim.precision import accum_dtype
 from . import planner
-from .binary_reduce import (BINARY_OPS, BRSpec, _as2d, _detach, _execute,
-                            _gspmm_grads, _kernel_name, _needs_grad,
-                            _pull_grads, edge_order, gsddmm, parse_op)
+from .binary_reduce import (BINARY_OPS, BRSpec, _as2d, _as_dtypes, _detach,
+                            _execute, _gspmm_grads, _kernel_name,
+                            _needs_grad, _pull_grads, edge_order, gsddmm,
+                            parse_op, take_rows)
 from .graph import Graph, reverse, reverse_built
 from .strategies import REDUCE_IDENTITY
 
@@ -193,10 +195,10 @@ def check_block_strategy(strategy: str) -> None:
 def _nbr_fetch(bg: BlockGraph, target: str, data: torch.Tensor
                ) -> torch.Tensor:
     """Operand values laid out on the (n_dst_real, fanout) slot grid."""
-    if target == "u":
-        return data[bg.long("nbr")]                  # (nd, F, *feat)
-    if target == "e":
-        return data[bg.long("nbr_eid")]              # (nd, F, *feat)
+    if target in ("u", "e"):                         # (nd, F, *feat)
+        nbr = bg.long("nbr" if target == "u" else "nbr_eid")
+        return take_rows(data, nbr.reshape(-1)).reshape(
+            tuple(nbr.shape) + tuple(data.shape[1:]))
     if target == "v":
         # v operands are sized like g.n_dst (they include the pad row)
         return data[: bg.n_dst_real].unsqueeze(1)    # (nd, 1, *feat)
@@ -211,6 +213,9 @@ def _block_pull(bg: BlockGraph, spec: BRSpec, lhs_data: torch.Tensor,
                if spec.rhs is not None else None)
     msg = BINARY_OPS[spec.op](lhs_val, rhs_val)      # (nd, F, *feat)
     red = spec.reduce
+    dtype = msg.dtype
+    if red in ("sum", "mean"):      # half precision sums in fp32
+        msg = msg.to(accum_dtype(dtype))
     mask = bg.nbr_mask.reshape(bg.nbr_mask.shape + (1,) * (msg.ndim - 2))
     msg = torch.where(mask, msg, msg.new_full((), REDUCE_IDENTITY[red]))
     if red in ("sum", "mean"):
@@ -229,7 +234,7 @@ def _block_pull(bg: BlockGraph, spec: BRSpec, lhs_data: torch.Tensor,
     # DGL semantics: rows with no (real) incoming edge are 0 for every ⊕
     if red != "sum":
         out = torch.where(deg > 0, out, out.new_zeros(()))
-    return out
+    return out.to(dtype)
 
 
 def block_gspmm(bg: BlockGraph, op_name: str, *,
@@ -326,7 +331,12 @@ def _block_execute(bg: BlockGraph, spec: BRSpec, lhs_data, rhs_data,
     which would make a plan cache and stats for every per-batch graph."""
     if chosen == "ell":
         return _block_pull(bg, spec, lhs_data, rhs_data)
-    return _execute(bg.g, spec, lhs_data, rhs_data, chosen)[: bg.n_dst_real]
+    out = _execute(bg.g, spec, lhs_data, rhs_data, chosen)[: bg.n_dst_real]
+    # every route returns its messages' (the operands' promoted) dtype, as
+    # JAX's block path does; a kernel writes its feature operand's
+    if rhs_data is not None and out.is_floating_point():
+        out = out.to(torch.promote_types(lhs_data.dtype, rhs_data.dtype))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -415,7 +425,8 @@ class _BlockGather(torch.autograd.Function):
         def grads():
             ct_pad = torch.cat([ct, ct.new_zeros((1,) + tuple(ct.shape[1:]))])
             if ctx.chosen == "kernel":
-                return _gspmm_grads(bg.g, spec, lhs, rhs, ct_pad, needs)
+                return _as_dtypes(_gspmm_grads(bg.g, spec, lhs, rhs, ct_pad,
+                                               needs), (lhs, rhs))
             return _reverse_grads(bg, spec, lhs, rhs, ct_pad, needs, arg)
 
         return (None, None, None) + tuple(

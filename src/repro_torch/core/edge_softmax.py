@@ -19,7 +19,7 @@ planner (``planner.plan_attention``, logged ``attn:fused``: JAX's cost
 rows, the kernel priced on the graph's row-complete ragged slot count),
 and a pinned ``"kernel"`` on operands B2 does not take falls back to
 ``"fused"`` with a one-time warning; :func:`edge_softmax_fused`, which
-JAX does not plan, takes the kernel for CUDA tensors. The composed
+JAX does not plan, takes the kernel for fp32 CUDA tensors. The composed
 :func:`edge_softmax` hands its strategy to each of its five ops, as JAX
 does, so its node-output reductions go through gspmm's planner.
 
@@ -76,8 +76,9 @@ def _single_pass(strategy: str, x: torch.Tensor) -> str:
     if strategy not in ATTN_STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r}; expected one of "
                          f"{ATTN_STRATEGIES}")
-    if strategy == "auto":
-        return "kernel" if x.device.type == "cuda" else "fused"
+    if strategy == "auto":      # B5 takes fp32 only
+        return ("kernel" if x.device.type == "cuda"
+                and x.dtype == torch.float32 else "fused")
     return strategy
 
 
@@ -139,7 +140,7 @@ def edge_softmax_fused(g, logits: torch.Tensor,
     """Single-pass edge softmax: ``logits`` (n_edges, H) or (n_edges,) in
     caller edge order → α of the same shape and order. 'fused' is the
     canonical-order PyTorch form (``edge_softmax_plain``), 'kernel' the
-    B5 kernel, 'auto' the kernel for CUDA tensors."""
+    B5 kernel, 'auto' the kernel for fp32 CUDA tensors."""
     x = logits[:, None] if logits.ndim == 1 else logits
     if _single_pass(strategy, x) == "kernel":
         out = (_EdgeSoftmaxKernel.apply(g, x) if _needs_grad(x)

@@ -48,13 +48,14 @@ Strategies of :func:`hetero_gspmm`:
   It rides ``gspmm``'s kernel route, so it differentiates through
   ``_KernelGspmm``: B1 on the expanded graph's reverse, whose canonical
   order is the JAX (src, rel)-sorted reverse table, and B3 ``u_dot_v``
-  for an e operand. A pinned ``"kernel"`` on a max or min, or on
-  operands that are not float32, falls back to ``"fused"`` with a
-  one-time warning.
+  for an e operand. Operands may be fp32 or bf16 (B1's bf16 form: the
+  table in bf16, the weights fp32, fp32 sums). A pinned ``"kernel"`` on a
+  max or min, or on operands of another dtype, falls back to ``"fused"``
+  with a one-time warning.
 * ``"auto"`` — the planner's choice (``planner.plan_hetero``, logged
   ``hetero:<op>``): JAX's cost rows for fused, ell and loop, and a
   kernel row (B1's rate over the fused edges plus its per-call cost) on
-  float32 sum / mean.
+  an fp32 or bf16 sum / mean.
 
 The packs and the skew classes are built on the host at first use and
 kept (the classes on the RelGraph, each pack in its graph's PlanCache);
@@ -96,15 +97,16 @@ import torch
 
 from . import planner
 from . import strategies as S
-from . import planner
 from .binary_reduce import (_gspmm_ell, _needs_grad, edge_order, gspmm,
-                            parse_op)
+                            parse_op, take_rows)
 from .blocks import _block_execute, _run_block, check_block_strategy
 from .graph import Graph, from_coo
 from .planner import get_plan_cache
 from ..device import DeviceLike, resolve_device
+from ..kernels.common import FEATURE_DTYPES
 from ..kernels.spmm.ops import spmm
 from ..obs.events import timed as _timed
+from ..substrate.nn import einsum
 
 __all__ = ["RelGraph", "from_typed", "from_rels", "caller_coo",
            "hetero_gspmm", "hetero_block_gspmm", "block_expanded_reverse",
@@ -341,22 +343,22 @@ def _messages(rg: RelGraph, u, w, basis, coeff, s) -> torch.Tensor:
     src = g.long("src")
     if u.ndim == 3:
         flat = u.reshape(u.shape[0] * rg.n_rel, u.shape[2])
-        msg = flat.index_select(0, src * rg.n_rel + rg.long("rel"))
+        msg = take_rows(flat, src * rg.n_rel + rg.long("rel"))
     elif basis is not None:
-        hb = torch.einsum("nd,bdo->nbo", u, basis)
-        msg = torch.einsum("ebo,eb->eo", hb.index_select(0, src),
-                           coeff.index_select(0, rg.long("rel")))
+        hb = einsum("nd,bdo->nbo", u, basis)
+        msg = einsum("ebo,eb->eo", take_rows(hb, src),
+                     take_rows(coeff, rg.long("rel")))
     elif w is None:
-        msg = u.index_select(0, src)
+        msg = take_rows(u, src)
     else:
         d_in, d_out = u.shape[1], w.shape[2]
         if g.n_edges * d_in * d_out <= _EDGE_MODE_ELEMS:
-            msg = torch.einsum("ed,edo->eo", u.index_select(0, src),
-                               w.index_select(0, rg.long("rel")))
+            msg = einsum("ed,edo->eo", take_rows(u, src),
+                         take_rows(w, rg.long("rel")))
         else:
-            H = torch.einsum("nd,rdo->rno", u, w)
+            H = einsum("nd,rdo->rno", u, w)
             flat = H.reshape(rg.n_rel * u.shape[0], d_out)
-            msg = flat.index_select(0, rg.long("rel") * u.shape[0] + src)
+            msg = take_rows(flat, rg.long("rel") * u.shape[0] + src)
     if s is not None:
         msg = msg * s[:, None]
     return msg
@@ -381,9 +383,9 @@ def _exec_loop(rg: RelGraph, u, w, s, reduce: str,
         src_r = g.long("src").index_select(0, slots)
         dst_r = g.long("dst").index_select(0, slots)
         if u.ndim == 3:
-            msg = u[:, r, :].index_select(0, src_r)
+            msg = take_rows(u[:, r, :], src_r)
         else:
-            msg = u.index_select(0, src_r)
+            msg = take_rows(u, src_r)
             if w is not None:
                 msg = msg @ w[r]
         if s is not None:
@@ -415,7 +417,7 @@ def _exec_plain(rg: RelGraph, u, w, basis, coeff, e, reduce: str,
     s = _scale(rg, e, reduce)
     if strategy in ("loop", "push"):
         if basis is not None:       # the pre-fusion form materializes W
-            w = torch.einsum("rb,bdo->rdo", coeff, basis)
+            w = einsum("rb,bdo->rdo", coeff, basis)
         return _exec_loop(rg, u, w, s, reduce,
                           inner="push" if strategy == "push" else "segment")
     base = "sum" if reduce in ("sum", "mean") else reduce
@@ -533,19 +535,19 @@ def _hetero_grads(rg: RelGraph, u, w, basis, coeff, s, ct, needs):
     C = C.reshape(n, R, ct.shape[-1])
     du = dw = dbasis = dcoeff = None
     if basis is not None:
-        Cb = torch.einsum("nro,rb->nbo", C, coeff)
+        Cb = einsum("nro,rb->nbo", C, coeff)
         if need_u:
-            du = torch.einsum("nbo,bdo->nd", Cb, basis).to(u.dtype)
+            du = einsum("nbo,bdo->nd", Cb, basis).to(u.dtype)
         if need_b:
-            dbasis = torch.einsum("nbo,nd->bdo", Cb, u).to(basis.dtype)
+            dbasis = einsum("nbo,nd->bdo", Cb, u).to(basis.dtype)
         if need_c:
-            hb = torch.einsum("nd,bdo->nbo", u, basis)
-            dcoeff = torch.einsum("nro,nbo->rb", C, hb).to(coeff.dtype)
+            hb = einsum("nd,bdo->nbo", u, basis)
+            dcoeff = einsum("nro,nbo->rb", C, hb).to(coeff.dtype)
         return du, None, dbasis, dcoeff
     if need_u:
-        du = torch.einsum("nro,rdo->nd", C, w).to(u.dtype)
+        du = einsum("nro,rdo->nd", C, w).to(u.dtype)
     if need_w:
-        dw = torch.einsum("nro,nd->rdo", C, u).to(w.dtype)
+        dw = einsum("nro,nd->rdo", C, u).to(w.dtype)
     return du, dw, None, None
 
 
@@ -596,10 +598,10 @@ def _table(rg: RelGraph, u, w, basis, coeff) -> torch.Tensor:
     if u.ndim == 3:
         return u.reshape(n * R, u.shape[2])
     if basis is not None:           # W kept factored
-        hb = torch.einsum("nd,bdo->nbo", u, basis)
-        t = torch.einsum("nbo,rb->nro", hb, coeff)
+        hb = einsum("nd,bdo->nbo", u, basis)
+        t = einsum("nbo,rb->nro", hb, coeff)
     else:
-        t = torch.einsum("nd,rdo->nro", u, w)
+        t = einsum("nd,rdo->nro", u, w)
     return t.reshape(n * R, t.shape[2])
 
 
@@ -622,13 +624,18 @@ def _exec_kernel(rg: RelGraph, u, w, basis, coeff, e,
         g, table = rg.expanded(), _table(rg, u, w, basis, coeff)
     if s is None:
         return gspmm(g, "u_copy_add_v", u=table, strategy="kernel")
+    # the fused route's dtype: the table's promoted with the weights' (a
+    # bf16 table with fp32 mean weights gives fp32, as in JAX), where B1
+    # writes the table's
     return gspmm(g, "u_mul_e_add_v", u=table, e=s[:, None],
-                 strategy="kernel")
+                 strategy="kernel").to(torch.promote_types(table.dtype,
+                                                           s.dtype))
 
 
 def _kernel_ok(*ts: Optional[torch.Tensor]) -> bool:
-    """Do the kernel route's operands have its dtype (fp32)?"""
-    return all(t is None or t.dtype == torch.float32 for t in ts)
+    """Do the kernel route's operands have a dtype its kernels load (fp32
+    or bf16; the weights it builds are passed on in fp32)?"""
+    return all(t is None or t.dtype in FEATURE_DTYPES for t in ts)
 
 
 # --------------------------------------------------------------------- #
@@ -752,9 +759,8 @@ def hetero_block_gspmm(bg, rel: torch.Tensor, u: torch.Tensor,
 def _block_messages(bg, rel, u, w, norm) -> torch.Tensor:
     """Per-edge relation-projected messages in CALLER edge order, by
     per-edge W indexing (blocks are small by construction), as in JAX."""
-    msg = torch.einsum("ed,edo->eo",
-                       u.index_select(0, bg.g.src_caller.long()),
-                       w.index_select(0, rel.long()))
+    msg = einsum("ed,edo->eo", take_rows(u, bg.g.src_caller.long()),
+                 take_rows(w, rel.long()))
     if norm is not None:
         msg = msg * norm[:, None]
     return msg
@@ -794,8 +800,8 @@ def _block_table_grads(bg, rel, norm, u, w, ct_pad, needs):
     n, R, d_out = bg.g.n_src, w.shape[0], w.shape[-1]
     gx = block_expanded_reverse(bg, rel, R)
     C = spmm(gx, ct_pad, "sum", weight=norm).reshape(n, R, d_out)
-    du = torch.einsum("nro,rdo->nd", C, w) if needs[0] else None
-    dw = torch.einsum("nro,nd->rdo", C, u) if needs[1] else None
+    du = einsum("nro,rdo->nd", C, w) if needs[0] else None
+    dw = einsum("nro,nd->rdo", C, u) if needs[1] else None
     return du, dw
 
 
@@ -812,14 +818,14 @@ def _block_rev_grads(bg, rel, norm, u, w, ct_pad, needs):
         if norm is not None:
             ct_rev = ct_rev * norm.index_select(0, eid)[:, None]
         w_rev = w.index_select(0, rel.long().index_select(0, eid))
-        du = S.pull_segment(torch.einsum("eo,edo->ed", ct_rev, w_rev), src,
+        du = S.pull_segment(einsum("eo,edo->ed", ct_rev, w_rev), src,
                             g.n_src, "sum", deg=g.out_degrees)
     if needs[1]:
         ct_e = ct_pad.index_select(0, g.dst_caller.long())
         if norm is not None:
             ct_e = ct_e * norm[:, None]
-        outer = torch.einsum("ed,eo->edo",
-                             u.index_select(0, g.src_caller.long()), ct_e)
+        outer = einsum("ed,eo->edo",
+                       u.index_select(0, g.src_caller.long()), ct_e)
         rel_l = rel.long()
         order = torch.argsort(rel_l, stable=True)
         dw = S.pull_segment(outer.index_select(0, order),

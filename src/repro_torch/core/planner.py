@@ -341,10 +341,13 @@ def get_plan_cache(g) -> PlanCache:
 # just as JAX on the CPU never picks Pallas. "cuda" was fitted on an
 # NVIDIA H100 80GB HBM3 at 700 W from device-only times of each gspmm
 # route at reddit-like d = 16 / 32 / 602 (benchmarks/torch_planner_fit.py;
-# the fit and its inputs are in PERF.md §6, PR 22). There is no cuda:bf16
-# row until mixed precision (A12): a bf16 operand on the card takes
-# cpu:bf16, as JAX's _throughput_row does for a backend without one.
-# "ring" has no cuda entry: ring never qualifies before A12.
+# the fit and its inputs are in PERF.md §5). "cuda:bf16" was fitted the
+# same way on bf16 features (the weight fp32, as in a bf16 training step;
+# benchmarks/torch_planner_fit.py --dtype bf16, PERF.md §5),
+# each route's time per element-op over the fp32 segment route's, so it
+# is in the cuda row's unit, as JAX's cpu:bf16 is in cpu's, and the
+# per-call costs below apply to both. "ring" has no cuda entry: ring
+# never qualifies before A12.
 _THROUGHPUT = {
     "cpu": {"push": 6.0, "segment": 1.0, "ell": 0.35,
             "onehot": 64.0, "kernel": 512.0, "ring": 0.5},
@@ -352,6 +355,8 @@ _THROUGHPUT = {
                  "onehot": 64.0, "kernel": 512.0, "ring": 0.35},
     "cuda": {"push": 0.706, "segment": 1.0, "ell": 0.985,
              "onehot": 67.5, "kernel": 0.0498},
+    "cuda:bf16": {"push": 0.734, "segment": 1.03, "ell": 1.03,
+                  "onehot": 67.8, "kernel": 0.0491},
 }
 # Fixed per-call costs, in element-ops of the row's own unit, per device.
 # "cpu": JAX's _FIXED (repro/core/planner.py:445-447) and its other

@@ -21,13 +21,18 @@ empty targets 0, after the paper's progression:
   M-tile. Sum and mean only.
 
 The packs are TPU layouts, so these routes are plain PyTorch; the CUDA
-kernels walk the CSR.
+kernels walk the CSR. A sum or mean of half-precision messages (bf16)
+accumulates in fp32 and is rounded to the messages' dtype once, at the
+end, as the kernels do (``optim.precision.accum_dtype``); extrema are
+exact in any dtype.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+
+from ..optim.precision import accum_dtype
 
 __all__ = ["REDUCE_IDENTITY", "finalize_empty_rows", "push_scatter",
            "pull_segment", "pull_ell_reduce", "onehot_spmm"]
@@ -65,6 +70,9 @@ def push_scatter(msg: torch.Tensor, tgt: torch.Tensor, n_tgt: int,
     by it. Unlike :func:`pull_segment`, a non-finite extremum of a row
     that has edges stays as it is, as in JAX."""
     shape = (n_tgt,) + tuple(msg.shape[1:])
+    dtype = msg.dtype
+    if reduce_op in ("sum", "mean"):
+        msg = msg.to(accum_dtype(dtype))
     out = torch.full(shape, REDUCE_IDENTITY[reduce_op], dtype=msg.dtype,
                      device=msg.device)
     if reduce_op in ("sum", "mean"):
@@ -78,6 +86,7 @@ def push_scatter(msg: torch.Tensor, tgt: torch.Tensor, n_tgt: int,
     if reduce_op == "mean":
         d = deg.clamp(min=1).to(msg.dtype)
         out = out / d.reshape((n_tgt,) + (1,) * (msg.ndim - 1))
+    out = out.to(dtype)
     return finalize_empty_rows(out, deg, reduce_op) if deg is not None else out
 
 
@@ -99,10 +108,13 @@ def pull_segment(msg: torch.Tensor, tgt_sorted: torch.Tensor, n_tgt: int,
                    if deg is None else deg.long())
         # the lengths are a graph's degrees, right by construction:
         # ``unsafe`` skips the checks that read them back to the host
-        out = torch.segment_reduce(msg, "sum", lengths=lengths, unsafe=True)
+        acc = accum_dtype(msg.dtype)
+        out = torch.segment_reduce(msg.to(acc), "sum", lengths=lengths,
+                                   unsafe=True)
         if reduce_op == "mean":
-            d = deg.clamp(min=1).to(msg.dtype)
+            d = deg.clamp(min=1).to(acc)
             out = out / d.reshape((n_tgt,) + (1,) * (msg.ndim - 1))
+        out = out.to(msg.dtype)
     elif reduce_op in _SCATTER:
         # identity-filled output with include_self: an empty row keeps the
         # identity, exactly what jax.ops.segment_{max,min,prod} return
@@ -148,9 +160,12 @@ def pull_ell_reduce(pack, class_msg_fn: Callable, reduce_op: str,
     if base not in ("sum", "max", "min", "prod"):
         raise ValueError(f"unknown reduce op {reduce_op!r}")
     n = pack.n_dst
-    out = None
+    out = dtype = None
     for cls in pack.classes:
         msg = class_msg_fn(cls)                          # (C, W, *feat)
+        dtype = msg.dtype
+        if base == "sum":
+            msg = msg.to(accum_dtype(dtype))
         mask = cls.chunk_mask.reshape(tuple(cls.chunk_mask.shape)
                                       + (1,) * (msg.ndim - 2))
         msg = torch.where(mask, msg,
@@ -179,12 +194,13 @@ def pull_ell_reduce(pack, class_msg_fn: Callable, reduce_op: str,
                                              include_self=True)
         out = cls_out if out is None else _combine(base, out, cls_out)
     if raw:
-        return out
+        return out.to(dtype)
     if base in ("max", "min"):
         out = torch.where(torch.isfinite(out), out, out.new_zeros(()))
     if reduce_op == "mean":
         d = deg.clamp(min=1).to(out.dtype)
         out = out / d.reshape((n,) + (1,) * (out.ndim - 1))
+    out = out.to(dtype)
     return finalize_empty_rows(out, deg, reduce_op) if deg is not None else out
 
 
@@ -215,6 +231,8 @@ def onehot_spmm(pack, B: torch.Tensor, reduce_op: str = "sum",
     T, eb = pack.dst_local.shape
     bm, bk = pack.bm, pack.bk
     d = B.shape[-1]
+    dtype = B.dtype
+    B = B.to(accum_dtype(dtype))
     pad_k = pack.n_tiles_k * bk - B.shape[0]
     Bt = torch.nn.functional.pad(B, (0, 0, 0, pad_k)).reshape(
         pack.n_tiles_k, bk, d)
@@ -241,4 +259,4 @@ def onehot_spmm(pack, B: torch.Tensor, reduce_op: str = "sum",
     out = tiles.reshape(pack.n_tiles_m * bm, d)[: pack.n_dst]
     if reduce_op == "mean":
         out = out / deg.clamp(min=1).to(out.dtype)[:, None]
-    return out
+    return out.to(dtype)

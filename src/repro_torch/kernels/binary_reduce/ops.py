@@ -11,7 +11,9 @@ reads the edge operand in caller order through ``eid``, so no TilePack is
 built and no edge feature is permuted first; a heavy row's segments'
 sums are folded in edge order, in the same launch, by whichever of them
 finishes last. Its header says what bounds it on the H100 (bytes) and how
-narrow rows keep the warp's lanes busy.
+narrow rows keep the warp's lanes busy. Its operands are all fp32 or all
+bf16 (a bf16 step's pairs); the output takes their dtype, and both the
+kernel and the plain version sum in fp32 and round once.
 """
 from __future__ import annotations
 
@@ -22,9 +24,10 @@ from typing import Dict, Optional
 
 import torch
 
+from ...optim.precision import accum_dtype
 from .. import _build
-from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
-                      raise_on_error, stream_handle)
+from ..common import (FEATURE_DTYPES, check_operand, device_guard,
+                      graph_index_ptrs, ptr, raise_on_error, stream_handle)
 from ..rowsplit import row_split
 
 __all__ = ["BINOPS", "BR_SEGMENT_EDGES", "binary_reduce",
@@ -47,9 +50,10 @@ _PLAIN = {
 }
 
 
-def _lib():
+def _lib(dtype: torch.dtype = torch.float32):
     lib = _build.library(_KERNEL)
-    fn = lib.binary_reduce_csr_f32
+    fn = getattr(lib, {torch.float32: "binary_reduce_csr_f32",
+                       torch.bfloat16: "binary_reduce_csr_bf16"}[dtype])
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [
             ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -63,28 +67,33 @@ def binary_reduce_plain(g, B: Optional[torch.Tensor], E: torch.Tensor,
     """``C[v] = Σ_{e=(u→v)} B[u] ⊗ E[e]`` (÷ max(deg, 1) when ``mean``)
     with ``index_select`` + ``index_add_``; ``E`` (n_edges, d) or
     (n_edges, 1) in caller edge order, ``B`` (n_src, d) or None for
-    ``copy_rhs``. Empty rows are 0. The reference the kernel is held
+    ``copy_rhs``. Empty rows are 0. The output takes ``B``'s dtype (``E``'s
+    for ``copy_rhs``); half-precision operands sum in fp32 and are
+    rounded once, as the kernel does. The reference the kernel is held
     against."""
-    e_val = E.index_select(0, g.long("eid"))
-    b_val = None if B is None else B.index_select(0, g.long("src"))
+    dtype = E.dtype if B is None else B.dtype
+    acc = accum_dtype(dtype if B is None else torch.promote_types(
+        B.dtype, E.dtype))
+    e_val = E.index_select(0, g.long("eid")).to(acc)
+    b_val = None if B is None else B.index_select(0, g.long("src")).to(acc)
     msg = _PLAIN[binop](b_val, e_val)
     if msg.shape[-1] == 1 and B is not None and B.shape[-1] != 1:
         msg = msg.expand(-1, B.shape[-1])      # copy_rhs of a scalar E
-    out = torch.zeros((g.n_dst, msg.shape[-1]), dtype=msg.dtype,
+    out = torch.zeros((g.n_dst, msg.shape[-1]), dtype=acc,
                       device=msg.device)
     out.index_add_(0, g.long("dst"), msg)
     if mean:
-        out = out / g.in_degrees.clamp(min=1).to(out.dtype)[:, None]
-    return out
+        out = out / g.in_degrees.clamp(min=1).to(acc)[:, None]
+    return out.to(dtype)
 
 
 def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
                       binop: str = "mul", mean: bool = False
                       ) -> torch.Tensor:
     """B4 wrapper: the CUDA kernel for a CUDA ``E``, the plain version for
-    a CPU ``E``. ``B``: (n_src, d) fp32, None only for ``copy_rhs``;
-    ``E``: (n_edges, d) or (n_edges, 1) fp32 in caller edge order.
-    Returns (n_dst, d).
+    a CPU ``E``. ``B``: (n_src, d), None only for ``copy_rhs``; ``E``:
+    (n_edges, d) or (n_edges, 1) in caller edge order; both fp32 or both
+    bf16. Returns (n_dst, d) in their dtype.
 
     ``binary_reduce_csr.launches`` counts calls that launched the kernel
     (CUDA only).
@@ -100,17 +109,17 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
     if E.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {E.device}")
     dev = g.device
-    check_operand(_KERNEL, "E", E, torch.float32, (g.n_edges, None), dev)
+    check_operand(_KERNEL, "E", E, FEATURE_DTYPES, (g.n_edges, None), dev)
     de = E.shape[1]
     d = de
     if B is not None:
-        check_operand(_KERNEL, "B", B, torch.float32, (g.n_src, None), dev)
+        check_operand(_KERNEL, "B", B, E.dtype, (g.n_src, None), dev)
         d = B.shape[1]
     if de not in (d, 1):
         raise ValueError(f"{_KERNEL}: edge feature width {de} is neither "
                          f"the node width {d} nor 1")
     if g.n_dst * d == 0:
-        return torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
+        return torch.empty((g.n_dst, d), dtype=E.dtype, device=dev)
     out = _launch_br(g, B, E, binop, mean, row_split(g, BR_SEGMENT_EDGES))
     binary_reduce_csr.launches += 1
     return out
@@ -149,11 +158,11 @@ def _launch_br(g, B: Optional[torch.Tensor], E: torch.Tensor, binop: str,
     other caps K and lane counts). Counts nothing."""
     dev = E.device
     d = E.shape[1] if B is None else B.shape[1]
-    out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
+    out = torch.empty((g.n_dst, d), dtype=E.dtype, device=dev)
     partial = (torch.empty((rs.n_partials, d), dtype=torch.float32,
                            device=dev) if rs.n_partials else None)
     idx = graph_index_ptrs(_KERNEL, g)
-    fn = _lib()
+    fn = _lib(E.dtype)
     with device_guard(dev):
         stream = stream_handle(dev)
         cnt = _row_counters(g, stream) if rs.n_split else None

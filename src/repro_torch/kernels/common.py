@@ -11,12 +11,16 @@ from __future__ import annotations
 
 import contextlib
 import weakref
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["check_operand", "graph_index_ptrs", "device_guard",
-           "stream_handle", "ptr", "raise_on_error"]
+__all__ = ["FEATURE_DTYPES", "check_operand", "graph_index_ptrs",
+           "device_guard", "stream_handle", "ptr", "raise_on_error"]
+
+# the feature dtypes B1, B3 and B4 load (each accumulates in fp32 and
+# writes its output in the operand dtype); B2 and B5 take fp32 only
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
 
 # every int32 index array of a Graph, by its length in (n_src, n_dst,
 # n_edges) terms: "edges", or the CSR pointers' rows + 1
@@ -29,18 +33,21 @@ _graph_ptrs: "weakref.WeakKeyDictionary[object, Dict[str, int]]" = (
 
 
 def check_operand(kernel: str, name: str, t: torch.Tensor,
-                  dtype: torch.dtype, shape: Sequence[Optional[int]],
+                  dtype: Union[torch.dtype, Tuple[torch.dtype, ...]],
+                  shape: Sequence[Optional[int]],
                   device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
-    whose shape matches ``shape`` (None = any extent), with no grad."""
+    """Raise unless ``t`` is a contiguous tensor on ``device`` of
+    ``dtype`` (or one of a tuple of dtypes) whose shape matches ``shape``
+    (None = any extent), with no grad."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{kernel}: {name} must be a tensor")
     if t.device != device:
         raise ValueError(f"{kernel}: {name} is on {t.device}, expected "
                          f"{device}")
-    if t.dtype != dtype:
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed:
         raise TypeError(f"{kernel}: {name} has dtype {t.dtype}, expected "
-                        f"{dtype} (this slice's kernels are fp32 only)")
+                        f"{' or '.join(map(str, allowed))}")
     if t.ndim != len(shape) or any(
             want is not None and got != want
             for got, want in zip(t.shape, shape)):

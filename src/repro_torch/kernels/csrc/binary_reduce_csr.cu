@@ -1,4 +1,5 @@
-// Fused Binary-Reduce over the row-segment work list, fp32, for sm_90a.
+// Fused Binary-Reduce over the row-segment work list, fp32 or bf16, for
+// sm_90a.
 //
 //   C[v, j] = sum_{k in row v} B[src[k], j] (op) E[eid[k], j]
 //   op in {add, sub, mul, div, copy_lhs, copy_rhs}
@@ -52,10 +53,34 @@
 //     launch for the fold cost ~0.002 ms more (PERF.md §6).
 // No value is summed by an atomic and every sum has a fixed order: C is
 // bit-identical from call to call.
+// Element types: B, E and C are all fp32 (binary_reduce_csr_f32) or all
+// bf16 (binary_reduce_csr_bf16; for copy_rhs E and C). A bf16 value is
+// widened exactly, the op and the sum run in fp32 (the split rows'
+// partials too), and C is rounded to bf16 once, at the store
+// (__float2bfloat16_rn): the Pallas kernel loads its operands' dtype,
+// accumulates in fp32 (repro/kernels/binary_reduce/kernel.py:44) and
+// writes B's dtype (:54). A bf16 training step hands B4 bf16 edge values
+// (GAT's copy_rhs sums over G and its transpose); a sampled R-GCN block's
+// messages carry its fp32 mean weights, so they reach copy_rhs in fp32.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+typedef __nv_bfloat16 bf16;
+
+// loads widen to fp32 exactly; a bf16 store rounds to nearest even, once
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __uint_as_float(
+      (unsigned int)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *reinterpret_cast<unsigned short*>(p) =
+      __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
 
 enum BinOp { kAdd = 0, kSub = 1, kMul = 2, kDiv = 3, kCopyLhs = 4,
              kCopyRhs = 5 };
@@ -76,12 +101,12 @@ __device__ __forceinline__ float apply(float a, float b) {
 
 // One group of `lanes` lanes (16 or 32) per segment, 32 / lanes segments
 // per warp; a row is covered by groups of LPE lanes.
-template <int OP, int LPE>
+template <typename T, int OP, int LPE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 br_segment_kernel(const int4* __restrict__ seg, int n_seg,
                   const int* __restrict__ src, const int* __restrict__ eid,
-                  const float* __restrict__ B, const float* __restrict__ E,
-                  float* __restrict__ C, float* __restrict__ partial,
+                  const T* __restrict__ B, const T* __restrict__ E,
+                  T* __restrict__ C, float* __restrict__ partial,
                   const int* __restrict__ indptr, int* __restrict__ cnt,
                   int K, int d, int de, int lanes, int mean) {
   constexpr bool kReadB = OP != kCopyRhs;
@@ -112,15 +137,12 @@ br_segment_kernel(const int4* __restrict__ seg, int n_seg,
   const int sub = ln - grp * LPE;
   const int tile = R * lanes;
   // a whole row writes C, divided by its degree for mean; a segment of a
-  // split row writes its raw sum
-  float* orow;
+  // split row writes its raw fp32 sum
+  const bool whole = sg.w < 0;
+  T* crow = C + (int64_t)sg.x * d;
+  float* prow = partial + (int64_t)(whole ? 0 : sg.w) * d;
   float deg = 1.0f;
-  if (sg.w < 0) {
-    orow = C + (int64_t)sg.x * d;
-    if (mean) deg = (float)max(len, 1);
-  } else {
-    orow = partial + (int64_t)sg.w * d;
-  }
+  if (whole && mean) deg = (float)max(len, 1);
 
   for (int c0 = 0; c0 < d; c0 += LPE) {
     const int c = c0 + sub;
@@ -159,8 +181,8 @@ br_segment_kernel(const int4* __restrict__ seg, int n_seg,
             const int ij = kReadE ? __shfl_sync(kFull, id[i / LPE], q, lanes)
                                   : 0;
             ok[u] = t0 + grp + ngrp * i < len && col_ok;
-            if (kReadB && ok[u]) a[u] = __ldg(B + (int64_t)sj * d + c);
-            if (kReadE && ok[u]) b[u] = __ldg(E + (int64_t)ij * de + ce);
+            if (kReadB && ok[u]) a[u] = ld(B + (int64_t)sj * d + c);
+            if (kReadE && ok[u]) b[u] = ld(E + (int64_t)ij * de + ce);
           }
         }
 #pragma unroll
@@ -171,7 +193,13 @@ br_segment_kernel(const int4* __restrict__ seg, int n_seg,
     // combine the segment's edge groups (a fixed order)
     for (int off = LPE; off < lanes; off <<= 1)
       acc += __shfl_xor_sync(kFull, acc, off);
-    if (valid && grp == 0 && col_ok) orow[c] = mean ? acc / deg : acc;
+    if (valid && grp == 0 && col_ok) {
+      if (whole) {
+        st(crow + c, mean ? acc / deg : acc);
+      } else {
+        prow[c] = acc;
+      }
+    }
   }
   // the segment of a split row that finishes last folds the row's slots
   // in slot order; cnt[row] counts the row's finished segments
@@ -196,21 +224,20 @@ br_segment_kernel(const int4* __restrict__ seg, int n_seg,
 #pragma unroll 8
     for (int k = 0; k < count; ++k)
       acc += __ldcg(partial + (int64_t)(first + k) * d + c);
-    C[(int64_t)sg.x * d + c] = mean ? acc / (float)max(rdeg, 1) : acc;
+    st(crow + c, mean ? acc / (float)max(rdeg, 1) : acc);
   }
   if (ln == 0) cnt[sg.x] = 0;  // ready for the next call
 }
 
-template <int OP>
+template <typename T, int OP>
 void launch_segments(int lpe, int lanes, const int4* seg, int n_seg,
-                     const int* src, const int* eid, const float* B,
-                     const float* E, float* C, float* partial,
-                     const int* indptr, int* cnt, int K, int d, int de,
-                     int mean, cudaStream_t stream) {
+                     const int* src, const int* eid, const T* B, const T* E,
+                     T* C, float* partial, const int* indptr, int* cnt,
+                     int K, int d, int de, int mean, cudaStream_t stream) {
   const int64_t warps = (n_seg + 32 / lanes - 1) / (32 / lanes);
   const dim3 grid((unsigned)((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
 #define BR_LPE(LPE)                                                       \
-  br_segment_kernel<OP, LPE><<<grid, kWarpsPerBlock * 32, 0, stream>>>(    \
+  br_segment_kernel<T, OP, LPE><<<grid, kWarpsPerBlock * 32, 0, stream>>>( \
       seg, n_seg, src, eid, B, E, C, partial, indptr, cnt, K, d, de, lanes, \
       mean)
   switch (lpe) {
@@ -224,24 +251,11 @@ void launch_segments(int lpe, int lanes, const int4* seg, int n_seg,
 #undef BR_LPE
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown op, an E width other than d or 1,
-// a null B for an op that reads it, ``lanes`` (lanes per segment: 16 or
-// 32, at least lpe; 0 for the default, max(lpe, 16)) not one of those, or
-// split rows without a workspace. ``seg`` (n_seg x 4) is the work list of
-// kernels/rowsplit.py at cap K, with n_split split rows; ``partial``
-// (n_partials x d) holds their segments' sums and ``counters`` (n_dst
-// ints, all 0) their finished segments, which the fold resets to 0.
-// ``mean`` != 0 divides by max(deg, 1).
-extern "C" int binary_reduce_csr_f32(const void* seg, int n_seg, int n_split,
-                                     const void* indptr, const void* src,
-                                     const void* eid, const void* B,
-                                     const void* E, void* C, void* partial,
-                                     void* counters, int K, int d, int de,
-                                     int binop, int mean, int lanes,
-                                     void* stream) {
+template <typename T>
+int run(const void* seg, int n_seg, int n_split, const void* indptr,
+        const void* src, const void* eid, const void* B, const void* E,
+        void* C, void* partial, void* counters, int K, int d, int de,
+        int binop, int mean, int lanes, void* stream) {
   int lpe = 1;
   while (lpe < d && lpe < 32) lpe <<= 1;
   if (lanes == 0) lanes = lpe > 16 ? lpe : 16;
@@ -254,16 +268,16 @@ extern "C" int binary_reduce_csr_f32(const void* seg, int n_seg, int n_split,
     const int4* sg = static_cast<const int4*>(seg);
     const int* sp = static_cast<const int*>(src);
     const int* ep = static_cast<const int*>(eid);
-    const float* bp = static_cast<const float*>(B);
-    const float* xp = static_cast<const float*>(E);
-    float* cp = static_cast<float*>(C);
+    const T* bp = static_cast<const T*>(B);
+    const T* xp = static_cast<const T*>(E);
+    T* cp = static_cast<T*>(C);
     float* pp = static_cast<float*>(partial);
     const int* ip = static_cast<const int*>(indptr);
     int* cn = static_cast<int*>(counters);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BR_SEGMENTS(OP)                                                   \
-  launch_segments<OP>(lpe, lanes, sg, n_seg, sp, ep, bp, xp, cp, pp, ip, cn, \
-                      K, d, de, mean, st)
+  launch_segments<T, OP>(lpe, lanes, sg, n_seg, sp, ep, bp, xp, cp, pp, ip, \
+                         cn, K, d, de, mean, st)
     switch (binop) {
       case kAdd: BR_SEGMENTS(kAdd); break;
       case kSub: BR_SEGMENTS(kSub); break;
@@ -275,4 +289,38 @@ extern "C" int binary_reduce_csr_f32(const void* seg, int n_seg, int n_split,
 #undef BR_SEGMENTS
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for an unknown op, an E width other than d or 1,
+// a null B for an op that reads it, ``lanes`` (lanes per segment: 16 or
+// 32, at least lpe; 0 for the default, max(lpe, 16)) not one of those, or
+// split rows without a workspace. ``seg`` (n_seg x 4) is the work list of
+// kernels/rowsplit.py at cap K, with n_split split rows; ``partial``
+// (n_partials x d, fp32) holds their segments' sums and ``counters`` (n_dst
+// ints, all 0) their finished segments, which the fold resets to 0.
+// ``mean`` != 0 divides by max(deg, 1). B, E and C are fp32.
+extern "C" int binary_reduce_csr_f32(const void* seg, int n_seg, int n_split,
+                                     const void* indptr, const void* src,
+                                     const void* eid, const void* B,
+                                     const void* E, void* C, void* partial,
+                                     void* counters, int K, int d, int de,
+                                     int binop, int mean, int lanes,
+                                     void* stream) {
+  return run<float>(seg, n_seg, n_split, indptr, src, eid, B, E, C, partial,
+                    counters, K, d, de, binop, mean, lanes, stream);
+}
+
+// The same with B, E and C in bf16; the workspace and the sums stay fp32.
+extern "C" int binary_reduce_csr_bf16(const void* seg, int n_seg,
+                                      int n_split, const void* indptr,
+                                      const void* src, const void* eid,
+                                      const void* B, const void* E, void* C,
+                                      void* partial, void* counters, int K,
+                                      int d, int de, int binop, int mean,
+                                      int lanes, void* stream) {
+  return run<bf16>(seg, n_seg, n_split, indptr, src, eid, B, E, C, partial,
+                   counters, K, d, de, binop, mean, lanes, stream);
 }

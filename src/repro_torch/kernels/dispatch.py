@@ -9,10 +9,15 @@ Node outputs (``gspmm_kernel``), as the JAX package routes them:
   operand never read), ``u_⊗_e_*_v`` for ⊗ ∈ add/sub/mul/div, and
   ``e_⊗_u_*_v`` for the commutative add/mul (operands flipped).
 
-Both take rank-2 fp32 operands and sum/mean only, as
-``repro.core.planner.supports("pallas", ...)`` decides. Edge outputs
-(``sddmm_kernel_supports``) go to B3 for rank-2 fp32 streams whose
-widths match or broadcast from 1, as ``planner.sddmm_supports`` decides.
+Both take rank-2 operands and sum/mean only, as
+``repro.core.planner.supports("pallas", ...)`` decides, in the dtypes
+their kernels load (``common.FEATURE_DTYPES``: fp32 or bf16 features,
+each summed in fp32 and written in the feature dtype): B1 any feature
+dtype with an fp32 or bf16 scalar weight (passed on as fp32: the
+lattice's per-edge weights stay fp32), B4 a node and an edge operand of
+one dtype. Edge outputs (``sddmm_kernel_supports``) go to B3 for rank-2
+streams of one feature dtype whose widths match or broadcast from 1, as
+``planner.sddmm_supports`` decides.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Optional
 import torch
 
 from .binary_reduce.ops import binary_reduce
+from .common import FEATURE_DTYPES
 from .sddmm.ops import OPS as SDDMM_OPS
 from .sddmm.ops import out_width
 from .spmm.ops import spmm
@@ -30,18 +36,19 @@ __all__ = ["kernel_supports", "gspmm_kernel", "sddmm_kernel_supports"]
 _BR_BINOPS = ("add", "sub", "mul", "div")
 
 
-def _fp32_rank2(*ts: Optional[torch.Tensor]) -> bool:
-    return all(t is None or (t.ndim == 2 and t.dtype == torch.float32)
+def _operands_ok(*ts: Optional[torch.Tensor]) -> bool:
+    """Rank 2, in a feature dtype the kernels load (or absent)."""
+    return all(t is None or (t.ndim == 2 and t.dtype in FEATURE_DTYPES)
                for t in ts)
 
 
 def kernel_supports(spec, lhs: torch.Tensor,
                     rhs: Optional[torch.Tensor]) -> bool:
     """Does a node-output kernel (B1 or B4) compute ``spec`` on these
-    operands?"""
+    operands (rank 2, the dtype pairs of the module docstring)?"""
     if spec.out != "v" or spec.reduce not in ("sum", "mean"):
         return False
-    if not _fp32_rank2(lhs, rhs):
+    if not _operands_ok(lhs, rhs):
         return False
     if spec.op == "copy":
         return spec.lhs in ("u", "e")
@@ -51,7 +58,11 @@ def kernel_supports(spec, lhs: torch.Tensor,
         node, edge = rhs, lhs
     else:
         return False
-    return edge.shape[-1] in (1, node.shape[-1])
+    if edge.shape[-1] not in (1, node.shape[-1]):
+        return False
+    if spec.lhs == "u" and spec.op == "mul" and edge.shape[-1] == 1:
+        return True                                 # B1, fp32 weight
+    return edge.dtype == node.dtype                 # B4
 
 
 def gspmm_kernel(g, spec, lhs_data: torch.Tensor,
@@ -60,8 +71,8 @@ def gspmm_kernel(g, spec, lhs_data: torch.Tensor,
     if not kernel_supports(spec, lhs_data, rhs_data):
         raise NotImplementedError(
             f"no kernel computes {spec.name} on these operands (rank-2 "
-            f"fp32, sum/mean, the specs of kernels/dispatch.py); use "
-            f"strategy='segment' or 'auto'")
+            f"fp32 or bf16, sum/mean, the specs and dtype pairs of "
+            f"kernels/dispatch.py); use strategy='segment' or 'auto'")
     red = spec.reduce
     if spec.op == "copy" and spec.lhs == "u":
         return spmm(g, lhs_data.contiguous(), red)
@@ -69,7 +80,8 @@ def gspmm_kernel(g, spec, lhs_data: torch.Tensor,
         return binary_reduce(g, None, lhs_data, "copy_rhs", red)
     if spec.lhs == "u":
         if spec.op == "mul" and rhs_data.shape[-1] == 1:   # scalar weight
-            return spmm(g, lhs_data.contiguous(), red, weight=rhs_data[:, 0])
+            return spmm(g, lhs_data.contiguous(), red,
+                        weight=rhs_data[:, 0].float())
         return binary_reduce(g, lhs_data, rhs_data, spec.op, red)
     return binary_reduce(g, rhs_data, lhs_data, spec.op, red)   # e_⊗_u
 
@@ -79,7 +91,8 @@ def sddmm_kernel_supports(spec, lhs: torch.Tensor,
     """Does the B3 kernel compute edge-output ``spec`` on these operands?"""
     if spec.out != "e" or spec.op not in SDDMM_OPS:
         return False
-    if not _fp32_rank2(lhs, rhs):
+    if not _operands_ok(lhs, rhs) or (rhs is not None
+                                      and rhs.dtype != lhs.dtype):
         return False
     return out_width(spec.op, lhs.shape[-1],
                      None if rhs is None else rhs.shape[-1]) is not None

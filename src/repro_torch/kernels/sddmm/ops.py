@@ -15,7 +15,9 @@ goes through ``eid``; the output and edge operands are contiguous. Bytes
 bound it on the H100 (its header says how the design meets that).
 
 The graph's index arrays are fixed at construction, so the wrapper checks
-them once per graph; each call checks only its operands.
+them once per graph; each call checks only its operands. Operands are both
+fp32 or both bf16, and the output takes their dtype; a bf16 op runs in
+fp32 and is rounded once, in the kernel and its plain version alike.
 """
 from __future__ import annotations
 
@@ -26,9 +28,10 @@ from typing import Optional
 
 import torch
 
+from ...optim.precision import accum_dtype
 from .. import _build
-from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
-                      raise_on_error, stream_handle)
+from ..common import (FEATURE_DTYPES, check_operand, device_guard,
+                      graph_index_ptrs, ptr, raise_on_error, stream_handle)
 
 __all__ = ["OPS", "TARGET_INDEX", "CALLER_INDEX", "sddmm_csr", "sddmm_plain",
            "out_width"]
@@ -52,9 +55,10 @@ _PLAIN = {
 
 
 @functools.cache
-def _lib():
+def _lib(dtype: torch.dtype = torch.float32):
     lib = _build.library(_KERNEL)
-    fn = lib.sddmm_csr_f32
+    fn = getattr(lib, {torch.float32: "sddmm_csr_f32",
+                       torch.bfloat16: "sddmm_csr_bf16"}[dtype])
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
@@ -77,12 +81,18 @@ def sddmm_plain(g, op: str, lhs_target: str, lhs: torch.Tensor,
                 rhs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The JAX package's two-step: gather each operand into canonical edge
     order, apply ⊗ (width-1 operands broadcast, ``dot`` gives width 1),
-    un-permute by ``eid_inv`` into caller order. The reference the kernel
-    is held against."""
-    lhs_val = lhs.index_select(0, g.long(TARGET_INDEX[lhs_target]))
-    rhs_val = (None if rhs is None else
-               rhs.index_select(0, g.long(TARGET_INDEX[rhs_target])))
-    return _PLAIN[op](lhs_val, rhs_val).index_select(0, g.long("eid_inv"))
+    un-permute by ``eid_inv`` into caller order. Half-precision operands
+    are widened and the result (the operands' promoted dtype) rounded
+    once, as the kernel computes in fp32. The reference the kernel is held
+    against."""
+    dtype = lhs.dtype if rhs is None else torch.promote_types(lhs.dtype,
+                                                              rhs.dtype)
+    acc = accum_dtype(dtype)
+    lhs_val = lhs.index_select(0, g.long(TARGET_INDEX[lhs_target])).to(acc)
+    rhs_val = (None if rhs is None else rhs.index_select(
+        0, g.long(TARGET_INDEX[rhs_target])).to(acc))
+    return _PLAIN[op](lhs_val, rhs_val).index_select(
+        0, g.long("eid_inv")).to(dtype)
 
 
 def _rows(g, target: str) -> int:
@@ -99,9 +109,10 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
               rhs_target: Optional[str] = None,
               rhs: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B3 wrapper: the CUDA kernel for a CUDA ``lhs``, the plain version
-    for a CPU ``lhs``. Operands are (rows of their target, width) fp32,
-    indexed by node id or caller edge id; ``rhs`` is None for ``copy``.
-    Returns (n_edges, width) in caller edge order.
+    for a CPU ``lhs``. Operands are (rows of their target, width), both
+    fp32 or both bf16, indexed by node id or caller edge id; ``rhs`` is
+    None for ``copy``. Returns (n_edges, width) in caller edge order, in
+    the operands' dtype.
 
     ``sddmm_csr.launches`` counts kernel launches (CUDA only), and
     ``sddmm_csr.op_launches`` counts them by ``op``.
@@ -117,22 +128,22 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
     if lhs.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {lhs.device}")
     dev = g.device
-    check_operand(_KERNEL, "lhs", lhs, torch.float32,
+    check_operand(_KERNEL, "lhs", lhs, FEATURE_DTYPES,
                   (_rows(g, lhs_target), None), dev)
     dl, dr, idx_r = lhs.shape[1], 0, None
     idx = graph_index_ptrs(_KERNEL, g)
     if rhs is not None:
-        check_operand(_KERNEL, "rhs", rhs, torch.float32,
+        check_operand(_KERNEL, "rhs", rhs, lhs.dtype,
                       (_rows(g, rhs_target), None), dev)
         dr, idx_r = rhs.shape[1], _index(idx, rhs_target)
     d = out_width(op, dl, dr)
     if d is None or dl == 0:
         raise ValueError(f"{_KERNEL}: widths {dl} and {dr} neither match "
                          f"nor broadcast from 1")
-    out = torch.empty((g.n_edges, d), dtype=torch.float32, device=dev)
+    out = torch.empty((g.n_edges, d), dtype=lhs.dtype, device=dev)
     if out.numel() == 0:
         return out
-    fn = _lib()
+    fn = _lib(lhs.dtype)
     with device_guard(dev):
         rc = fn(_index(idx, lhs_target), idx_r, lhs.data_ptr(), ptr(rhs),
                 out.data_ptr(), g.n_edges, dl, dr, OPS[op],

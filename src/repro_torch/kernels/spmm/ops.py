@@ -9,7 +9,9 @@ list (``../rowsplit.py``, at most ``SEGMENT_EDGES`` edges) walks the
 CSR by destination directly, so no TilePack is built; a heavy row's
 segments are combined in edge order by a second launch of the same call.
 Its header says what bounds it on the H100 (bytes) and how the design
-keeps gathers in flight.
+keeps gathers in flight. ``B`` is fp32 or bf16 (the output takes its
+dtype), the weight fp32; both the kernel and the plain version sum in
+fp32 and round once.
 """
 from __future__ import annotations
 
@@ -19,8 +21,9 @@ from typing import Optional
 import torch
 
 from .. import _build
-from ..common import (check_operand, device_guard, graph_index_ptrs, ptr,
-                      raise_on_error, stream_handle)
+from ...optim.precision import accum_dtype
+from ..common import (FEATURE_DTYPES, check_operand, device_guard,
+                      graph_index_ptrs, ptr, raise_on_error, stream_handle)
 from ..rowsplit import row_split
 
 __all__ = ["spmm", "spmm_csr", "spmm_plain"]
@@ -28,9 +31,10 @@ __all__ = ["spmm", "spmm_csr", "spmm_plain"]
 _KERNEL = "spmm_csr"
 
 
-def _lib():
+def _lib(dtype: torch.dtype = torch.float32):
     lib = _build.library(_KERNEL)
-    fn = lib.spmm_csr_f32
+    fn = getattr(lib, {torch.float32: "spmm_csr_f32",
+                       torch.bfloat16: "spmm_csr_bf16"}[dtype])
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_int] + [ctypes.c_void_p] * 6 + [
@@ -43,23 +47,27 @@ def spmm_plain(g, B: torch.Tensor, weight: Optional[torch.Tensor] = None,
                mean: bool = False) -> torch.Tensor:
     """``C[v] = Σ_{e=(u→v)} w_e·B[u]`` (÷ max(deg, 1) when ``mean``) with
     ``index_select`` + ``index_add_``; ``weight`` in canonical edge
-    order. Empty rows are 0. The reference the kernel is held against."""
-    msg = B.index_select(0, g.long("src"))
+    order. Empty rows are 0. A bf16 ``B`` sums in fp32 and is rounded to
+    bf16 once, as the kernel does. The reference the kernel is held
+    against."""
+    acc = accum_dtype(B.dtype)
+    msg = B.index_select(0, g.long("src")).to(acc)
     if weight is not None:
-        msg = msg * weight[:, None].to(msg.dtype)
-    out = torch.zeros((g.n_dst,) + tuple(B.shape[1:]), dtype=B.dtype,
+        msg = msg * weight[:, None].to(acc)
+    out = torch.zeros((g.n_dst,) + tuple(B.shape[1:]), dtype=acc,
                       device=B.device)
     out.index_add_(0, g.long("dst"), msg)
     if mean:
-        out = out / g.in_degrees.clamp(min=1).to(B.dtype)[:, None]
-    return out
+        out = out / g.in_degrees.clamp(min=1).to(acc)[:, None]
+    return out.to(B.dtype)
 
 
 def spmm_csr(g, B: torch.Tensor, weight: Optional[torch.Tensor] = None,
              mean: bool = False) -> torch.Tensor:
     """B1 wrapper: the CUDA kernel for a CUDA ``B``, the plain version for
-    a CPU ``B``. ``B``: (n_src, d) fp32; ``weight``: (n_edges,) fp32 in
-    canonical edge order, or None. Returns (n_dst, d).
+    a CPU ``B``. ``B``: (n_src, d) fp32 or bf16; ``weight``: (n_edges,)
+    fp32 in canonical edge order, or None. Returns (n_dst, d) in ``B``'s
+    dtype.
 
     ``spmm_csr.launches`` counts calls that launched the kernel (CUDA
     branch only); a heavy row's combine pass is part of the same call.
@@ -69,13 +77,12 @@ def spmm_csr(g, B: torch.Tensor, weight: Optional[torch.Tensor] = None,
     if B.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {B.device}")
     dev = g.device
-    check_operand(_KERNEL, "B", B, torch.float32, (g.n_src, None), dev)
+    check_operand(_KERNEL, "B", B, FEATURE_DTYPES, (g.n_src, None), dev)
     if weight is not None:
         check_operand(_KERNEL, "weight", weight, torch.float32,
                       (g.n_edges,), dev)
     if g.n_dst * B.shape[1] == 0:
-        return torch.empty((g.n_dst, B.shape[1]), dtype=torch.float32,
-                           device=dev)
+        return torch.empty((g.n_dst, B.shape[1]), dtype=B.dtype, device=dev)
     out = _launch_spmm(g, B, weight, mean, row_split(g))
     spmm_csr.launches += 1
     return out
@@ -91,11 +98,11 @@ def _launch_spmm(g, B: torch.Tensor, weight: Optional[torch.Tensor],
     also times other caps K). Counts nothing."""
     dev = B.device
     d = B.shape[1]
-    out = torch.empty((g.n_dst, d), dtype=torch.float32, device=dev)
+    out = torch.empty((g.n_dst, d), dtype=B.dtype, device=dev)
     partial = (torch.empty((rs.n_partials, d), dtype=torch.float32,
                            device=dev) if rs.n_partials else None)
     idx = graph_index_ptrs(_KERNEL, g)
-    fn = _lib()
+    fn = _lib(B.dtype)
     with device_guard(dev):
         rc = fn(ptr(rs.seg), rs.n_segments, ptr(rs.split), rs.n_split,
                 idx["indptr_dst"], idx["src"], ptr(weight), ptr(B), ptr(out),

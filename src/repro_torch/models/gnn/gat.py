@@ -53,7 +53,8 @@ from ...core.edge_softmax import (block_edge_softmax, block_fused_attention,
                                   edge_softmax, edge_softmax_fused,
                                   fused_attention)
 from ...device import DeviceLike
-from ...substrate.nn import dropout, from_numpy, glorot, leaky_relu
+from ...substrate.nn import (dropout, from_numpy, glorot, leaky_relu,
+                              matmul)
 from .common import GraphBundle, run_blocks
 
 __all__ = ["GAT", "GATLayer", "init", "forward", "infer", "block_layer",
@@ -94,7 +95,7 @@ class GATLayer(nn.Module):
                 strategy: str, attn: str) -> torch.Tensor:
         g = bundle.g
         heads, out = self.attn_l.shape
-        z = (h @ self.w).reshape(-1, heads, out)           # (n, H, F)
+        z = matmul(h, self.w).reshape(-1, heads, out)      # (n, H, F)
         el = (z * self.attn_l).sum(dim=-1)                 # (n, H)
         er = (z * self.attn_r).sum(dim=-1)
         if attn in _FUSED_STRATEGY:
@@ -197,7 +198,7 @@ def block_layer(lyr: GATLayer, blk, h: torch.Tensor, *,
     bg = blk.bg
     nd = bg.n_dst_real
     heads, out = lyr.attn_l.shape
-    z = (h @ lyr.w).reshape(-1, heads, out)              # (n_src_pad, H, F)
+    z = matmul(h, lyr.w).reshape(-1, heads, out)         # (n_src_pad, H, F)
     el = (z * lyr.attn_l).sum(dim=-1)                    # (n_src_pad, H)
     er = (z[:nd] * lyr.attn_r).sum(dim=-1)
     er = torch.cat([er, er.new_zeros((1, heads))], dim=0)

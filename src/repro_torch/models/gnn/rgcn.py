@@ -26,7 +26,7 @@ from ...core.graph import Graph, from_coo
 from ...core.hetero import (RelGraph, from_rels, hetero_block_gspmm,
                             hetero_gspmm)
 from ...device import DeviceLike
-from ...substrate.nn import from_numpy, glorot
+from ...substrate.nn import from_numpy, glorot, matmul
 from .common import run_blocks
 
 __all__ = ["RGCN", "RGCNLayer", "init", "build_relgraph", "merged_graph",
@@ -108,7 +108,7 @@ def forward(model: RGCN, rg, x: torch.Tensor, *, strategy: str = "auto",
     h = x
     n_layers = len(model.layers)
     for i, lyr in enumerate(model.layers):
-        h = (h @ lyr.self_w
+        h = (matmul(h, lyr.self_w)
              + hetero_gspmm(rg, h, basis=lyr.basis, coeff=lyr.coeff,
                             reduce="mean", strategy=strategy))
         if i < n_layers - 1:
@@ -124,9 +124,9 @@ def forward_loop(model: RGCN, rel_graphs: Sequence[Graph], x: torch.Tensor,
     n_layers = len(model.layers)
     for i, lyr in enumerate(model.layers):
         w_rel = lyr.w_rel()
-        acc = h @ lyr.self_w
+        acc = matmul(h, lyr.self_w)
         for r, g in enumerate(rel_graphs):
-            acc = acc + gspmm(g, "u_copy_mean_v", u=h @ w_rel[r],
+            acc = acc + gspmm(g, "u_copy_mean_v", u=matmul(h, w_rel[r]),
                               strategy=strategy)
         h = acc
         if i < n_layers - 1:
@@ -147,7 +147,7 @@ def block_layer(lyr: RGCNLayer, blk, h: torch.Tensor, *,
     bg = blk.bg
     agg = hetero_block_gspmm(bg, blk.rel, h, lyr.w_rel(), norm=blk.rel_norm,
                              strategy=strategy, bwd_strategy=bwd_strategy)
-    return h[: bg.n_dst_real] @ lyr.self_w + agg
+    return matmul(h[: bg.n_dst_real], lyr.self_w) + agg
 
 
 def forward_blocks(model: RGCN, blocks, x: torch.Tensor, *,

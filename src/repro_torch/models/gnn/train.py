@@ -22,7 +22,13 @@ and, once per new batch signature, an eager probe of the block ops'
 forward and backward times (``obs.events``), which ``obs.drift_report``
 holds against the planner's predicted costs.
 
-fp32 only: mixed precision and partitioned training are ROADMAP A12.
+``precision=`` ("fp32", "bf16" or an ``optim.Precision``) is JAX's mixed
+precision policy: the parameters and AdamW's moments stay fp32 masters,
+the loss runs the forward on ``precision.compute`` casts of them and of
+the input rows (differentiable casts, so ``torch.autograd.grad`` hands
+back fp32 gradients), and the cross-entropy is taken on fp32 logits. On
+the card a bf16 step launches the same kernels as an fp32 step, in their
+bf16 forms (fp32 accumulation). Partitioned training is ROADMAP A12.
 """
 from __future__ import annotations
 
@@ -39,19 +45,50 @@ from ...data.sampler import NeighborSampler
 from ...obs import metrics as _metrics
 from ...obs.signatures import SignatureTracker
 from ...obs.spans import fence, span
-from ...optim import adamw, apply_updates, clip_by_global_norm
+from ...optim import (Precision, adamw, apply_updates, cast_logits,
+                      cast_tree, clip_by_global_norm)
 from ...substrate.nn import accuracy, cross_entropy_loss
 from .common import block_features, pad_features
 
-__all__ = ["make_loss_step", "make_train_step", "train_full_graph",
-           "make_sampled_train_step", "train_sampled"]
+__all__ = ["call_in_precision", "make_loss_step", "make_train_step",
+           "train_full_graph", "make_sampled_train_step", "train_sampled"]
 
 
-def _check_precision(precision) -> None:
-    if precision not in (None, "fp32"):
-        raise NotImplementedError(
-            f"precision {precision!r} is not ported: the port trains in "
-            f"fp32 only (mixed precision is ROADMAP A12)")
+def _resolve_precision(precision) -> Precision:
+    """Accept None (fp32), a name ("fp32" / "bf16") or a Precision."""
+    if precision is None:
+        return Precision.fp32()
+    if isinstance(precision, str):
+        return Precision.parse(precision)
+    return precision
+
+
+class _Bound(nn.Module):
+    """``fn(model, ...)`` as a module call, so ``functional_call`` can
+    swap ``model``'s parameters for their compute-dtype casts."""
+
+    def __init__(self, fn: Callable, model: nn.Module):
+        super().__init__()
+        self.fn = fn
+        self.model = model
+
+    def forward(self, *args, **kwargs):
+        return self.fn(self.model, *args, **kwargs)
+
+
+def call_in_precision(precision: Precision, fn: Callable, model: nn.Module,
+                      *args, **kwargs):
+    """``fn(model, *args, **kwargs)`` with every floating parameter of
+    ``model`` replaced by its cast to ``precision.compute`` (a name or a
+    ``Precision``; the masters stay as they are), so gradients reach the
+    fp32 masters through the casts. At fp32 it is the plain call."""
+    precision = _resolve_precision(precision)
+    if not precision.mixed:
+        return fn(model, *args, **kwargs)
+    casts = cast_tree({f"model.{n}": p for n, p in model.named_parameters()},
+                      precision.compute)
+    return torch.func.functional_call(_Bound(fn, model), casts, args,
+                                      kwargs, strict=False)
 
 
 def make_loss_step(loss_fn: Callable, lr: float = 1e-2,
@@ -91,13 +128,15 @@ def make_train_step(forward_fn: Callable, strategy: str = "auto",
                     clip: float = 5.0, precision=None):
     """Returns ``(opt_init, step)`` (:func:`make_loss_step` on the masked
     cross-entropy of ``forward_fn``'s logits): ``step(model, opt_state,
-    step_i, bundle, x, labels, mask, gen)``."""
-    _check_precision(precision)
+    step_i, bundle, x, labels, mask, gen)``; ``precision`` as in the
+    module docstring (``x`` is cast inside the loss, every step)."""
+    precision = _resolve_precision(precision)
 
     def loss_fn(model, bundle, x, labels, mask, gen):
-        logits = forward_fn(model, bundle, x, strategy=strategy, train=True,
-                            gen=gen)
-        return cross_entropy_loss(logits, labels, mask)
+        logits = call_in_precision(precision, forward_fn, model, bundle,
+                                   cast_tree(x, precision.compute),
+                                   strategy=strategy, train=True, gen=gen)
+        return cross_entropy_loss(cast_logits(logits), labels, mask)
 
     return make_loss_step(loss_fn, lr, weight_decay, clip)
 
@@ -116,7 +155,7 @@ def train_full_graph(forward_fn: Callable, model: nn.Module, bundle, x,
     structures of every kernel of the step, G's and Gᵀ's."""
     dev = bundle.g.device
     opt_init, step = make_train_step(forward_fn, strategy, lr=lr,
-                                     precision=precision)
+                                     precision=_resolve_precision(precision))
     x = torch.as_tensor(x, device=dev)
     labels = torch.as_tensor(labels, device=dev).long()
     mask = torch.as_tensor(train_mask, device=dev)
@@ -159,15 +198,19 @@ def make_sampled_train_step(forward_blocks_fn: Callable, strategy: str,
     ``forward_blocks_fn`` with ``train=True`` and dropout from ``gen``,
     and takes the cross-entropy on the real seeds (``mb.label_mask``).
     ``bwd_strategy`` is the block VJP ('auto' takes the gather pull on
-    the card)."""
-    _check_precision(precision)
+    the card). ``precision`` as in :func:`make_train_step`: the batch's
+    input rows are cast inside the loss."""
+    precision = _resolve_precision(precision)
 
     def loss_fn(model, mb, feats_pad, gen):
-        x = block_features(feats_pad, mb.input_ids)
-        logits = forward_blocks_fn(model, mb.blocks, x, strategy=strategy,
+        x = cast_tree(block_features(feats_pad, mb.input_ids),
+                      precision.compute)
+        logits = call_in_precision(precision, forward_blocks_fn, model,
+                                   mb.blocks, x, strategy=strategy,
                                    bwd_strategy=bwd_strategy, train=True,
                                    gen=gen)
-        return cross_entropy_loss(logits, mb.labels, mb.label_mask)
+        return cross_entropy_loss(cast_logits(logits), mb.labels,
+                                  mb.label_mask)
 
     return make_loss_step(loss_fn, lr, weight_decay, clip)
 
@@ -215,7 +258,7 @@ def train_sampled(forward_blocks_fn: Callable, model: nn.Module, g, feats,
     train_ids = np.asarray(train_ids)
     opt_init, step = make_sampled_train_step(
         forward_blocks_fn, strategy, bwd_strategy=bwd_strategy, lr=lr,
-        weight_decay=weight_decay, precision=precision)
+        weight_decay=weight_decay, precision=_resolve_precision(precision))
     opt_state = opt_init(model)
     feats_pad = pad_features(feats, dev)
     if sampler is None:

@@ -13,8 +13,9 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 
-__all__ = ["glorot", "he_normal", "from_numpy", "Linear", "leaky_relu",
-           "dropout", "cross_entropy_loss", "accuracy"]
+__all__ = ["glorot", "he_normal", "from_numpy", "promote", "matmul",
+           "einsum", "Linear", "leaky_relu", "dropout", "cross_entropy_loss",
+           "accuracy"]
 
 
 def glorot(gen: torch.Generator, shape: Sequence[int],
@@ -42,6 +43,28 @@ def from_numpy(a, device: DeviceLike = "cuda") -> torch.Tensor:
                         device=resolve_device(device))
 
 
+def promote(*ts: torch.Tensor) -> tuple:
+    """``ts`` cast to their common dtype under JAX's (and PyTorch's)
+    promotion rules — bf16 with fp32 is fp32 — for the products, which in
+    PyTorch take a single dtype where ``jnp.matmul`` / ``jnp.einsum``
+    promote. Tensors already of that dtype pass as they are."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the operands' promoted dtype (:func:`promote`)."""
+    a, b = promote(a, b)
+    return a @ b
+
+
+def einsum(eq: str, *ts: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the operands' promoted dtype (:func:`promote`)."""
+    return torch.einsum(eq, *promote(*ts))
+
+
 class Linear(nn.Module):
     """``y = x @ w + b`` keeping the JAX layout: ``w`` is (d_in, d_out)."""
 
@@ -63,7 +86,7 @@ class Linear(nn.Module):
                    from_numpy(p["b"], device) if "b" in p else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
+        y = matmul(x, self.w)
         return y if self.b is None else y + self.b
 
 
