@@ -22,6 +22,14 @@ the same unit. This script measures both on the card:
   with one synchronize at the end: the host time of one call, over
   segment's device time per element-op at ``reddit-like``. The ELL
   route's host time is charged per degree class (``ell_class``).
+* the ring: ``core/partition.ring_gspmm`` on the kernels (B1 per ring
+  stage) over ``reddit-like``'s contiguous partition at S = 4 (GCN's
+  bucketed weights, padded features), every stage of a pass on this one
+  card; its work is the partition's ragged slots · d, so its rate is the
+  emulated ring's device time per bucket slot, which ``estimate_cost``
+  charges per device (slots / S). Its fixed cost is one pass's host time
+  on ``tiny`` at S = 4. The exchange term (JAX's model constant) is not
+  measured: one card has no ring to send over.
 
 With ``--dtype bf16`` the features are bf16 (the weight stays fp32, as
 in a bf16 training step) and the rates are taken over the fp32 segment
@@ -52,6 +60,7 @@ sys.path.insert(0, ROOT)
 OP = "u_mul_e_add_v"
 WIDTHS = (16, 32, 602)
 ROUTES = ("segment", "push", "ell", "onehot", "kernel")
+RING_SHARDS = 4
 ONEHOT_MAX_D = 32
 HOST_CALLS = 50
 
@@ -73,6 +82,18 @@ def _operands(g, d: int, gen, dtype=torch.float32):
 
     x = torch.randn(g.n_src, d, generator=gen).to(g.device, dtype)
     return x, make_bundle(g).gcn_norm[:, None].contiguous()
+
+
+def _ring_call(g, d: int, gen, dtype=torch.float32):
+    """One exact ring pass of ``g``'s contiguous partition at S =
+    ``RING_SHARDS`` on ``dtype`` features: ``(call, ragged slots)``."""
+    from repro_torch.core.partition import ring_gspmm
+    from repro_torch.models.gnn.common import make_partitioned_bundle
+
+    pb = make_partitioned_bundle(g, RING_SHARDS)
+    xp = torch.randn(pb.pg.n_pad, d, generator=gen).to(g.device, dtype)
+    return (lambda: ring_gspmm(pb.pg, xp, pb.gcn_w, strategy="kernel"),
+            pb.pg.stats.ragged_slots)
 
 
 def host_ms(fn, calls: int = HOST_CALLS) -> float:
@@ -100,7 +121,8 @@ def fit_cuda_row(g_big, g_small, gen, emit=print, reps: int = 10,
 
     stats = compute_stats(g_big)
     name = "fp32" if dtype == torch.float32 else "bf16"
-    dev, wk = {r: {} for r in ROUTES}, {r: {} for r in ROUTES}
+    routes = ROUTES + ("ring",)
+    dev, wk = {r: {} for r in routes}, {r: {} for r in routes}
     unit_dev = {}
     for d in WIDTHS:
         x, w = _operands(g_big, d, gen, dtype)
@@ -114,6 +136,15 @@ def fit_cuda_row(g_big, g_small, gen, emit=print, reps: int = 10,
             emit(json.dumps({"phase": "planner_fit", "dtype": name,
                              "route": route, "d": d, "device_ms": ms,
                              "work": wk[route][d]}))
+        call, slots = _ring_call(g_big, d, gen, dtype)
+        dev["ring"][d] = time_device_ms(call, cold=False, reps=reps,
+                                        warmup=2)
+        wk["ring"][d] = slots * d
+        emit(json.dumps({"phase": "planner_fit", "dtype": name,
+                         "route": "ring", "shards": RING_SHARDS, "d": d,
+                         "device_ms": dev["ring"][d],
+                         "work": wk["ring"][d]}))
+        del call
         if dtype != torch.float32:  # the unit: fp32 segment, this width
             x32 = x.float()
             unit_dev[d] = time_device_ms(
@@ -130,19 +161,20 @@ def fit_cuda_row(g_big, g_small, gen, emit=print, reps: int = 10,
                                           for d in WIDTHS}
     unit = {d: unit_src[d] / wk["segment"][d] for d in WIDTHS}
     rate = {r: statistics.median(dev[r][d] / wk[r][d] / unit[d]
-                                 for d in dev[r]) for r in ROUTES}
+                                 for d in dev[r]) for r in routes}
     unit_ms = statistics.median(unit.values())
 
     small = compute_stats(g_small)
     x, w = _operands(g_small, 16, gen, dtype)
     host = {r: host_ms(lambda r=r: gspmm(g_small, OP, u=x, e=w, strategy=r))
             for r in ROUTES}
+    host["ring"] = host_ms(_ring_call(g_small, 16, gen, dtype)[0])
     for r, ms in host.items():
         emit(json.dumps({"phase": "planner_fit_host", "route": r,
                          "graph": "tiny", "n_edges": small.n_edges,
                          "ell_n_classes": small.ell_n_classes,
                          "host_ms": ms}))
-    fixed = {r: host[r] / unit_ms for r in ROUTES if r != "ell"}
+    fixed = {r: host[r] / unit_ms for r in routes if r != "ell"}
     fixed["ell"] = 0.0
     ell_class = host["ell"] / max(small.ell_n_classes, 1) / unit_ms
     return {"rate": rate, "fixed": fixed, "ell_class": ell_class,

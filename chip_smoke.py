@@ -201,6 +201,22 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     row's fit (``benchmarks/torch_planner_fit.py --dtype bf16``) and
     auto's choice at each main-path op in bf16, the kernel at every one.
 
+18. Partitioned training (``core/partition.py``, ``train_partitioned``;
+    ``PART_*``, benchmarks/fig_partitioned.py's widths): the kernels on
+    the ring's stage graphs and their reverses (B1 fp32 and bf16, B3
+    ``add``, B4 ``copy_rhs``, B5 on the graph of every bucket), each
+    against its float64 plain version, bit-identical, timed; one step of
+    GCN, SAGE and GAT (and GCN / SAGE delayed refresh, stale and int8
+    steps) on the kernel path against the plain ring (JAX's emulated
+    loop), logits and grads within 1e-4·max|plain| + 1e-6, bit-identical
+    over two calls, launching exactly ``partitioned_launches`` (a stale
+    step the local graph alone); ``train_partitioned`` per app at S = 2 /
+    4 / 8 (launches exact, the loss falling), GCN delayed, GCN in fp32 /
+    bf16 × none / int8 (int8 raw / wire bytes ≥ 3 at fp32, bf16 × int8's
+    final loss within 2e-2 of fp32's); the power-law leg; GCN and SAGE on
+    ``reddit-like`` at S = 4 in turns kernel / plain beside the
+    single-device epoch, with peak memory and one traced step.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
@@ -315,6 +331,25 @@ RELATIONAL_TRAIN_LAUNCHES = {
     "monet": {"spmm_csr": 4, "sddmm_csr": 2, "sddmm_csr:copy": 2},
     "lgnn": {"spmm_csr": 6, "sddmm_csr": 3, "binary_reduce_csr": 4},
     "rgcn_sampled": {"spmm_csr": 2, "binary_reduce_csr": 2}}
+
+
+def partitioned_launches(app: str, stages: int, parts: int = 0) -> dict:
+    """Kernel launches of one partitioned training step of a two-layer
+    app (phase 18). An exact ring pass is B1 per non-empty ring diagonal
+    (``stages``): GCN forward 2 passes, backward 2 (∂x on each stage's
+    reverse, layer 0's through its linear); SAGE backward 1 (its layer-0
+    input needs no grad). With a delayed halo or int8 exchanges a pass is
+    B1 on the local (diagonal-0) graph and, on a refresh step, on the
+    remote (off-diagonal) one: ``parts`` graphs instead of ``stages``.
+    GAT per layer: B3 add per stage and B5 forward; backward B4 copy_rhs
+    twice per stage (∂el on the reverse, ∂er) plus the softmax's B4 and
+    B3 sub; its per-head sum (rank 3) runs on the segment route."""
+    if app == "gat":
+        return {"sddmm_csr": 2 * stages + 2,
+                "binary_reduce_csr": 4 * stages + 2, "edge_softmax_csr": 2}
+    return {"spmm_csr": (4 if app == "gcn" else 3) * (parts or stages)}
+
+
 # the relational phase's shapes, the repo's own benchmarks'. hetero_gspmm
 # alone at benchmarks/fig_hetero.py's 100-relation BGS_SWEEP row (nodes,
 # relations, edges per relation; d_in → d_out, bases), one operand form a
@@ -447,6 +482,38 @@ BF16_B4 = {label: [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
 BF16_REF_REL = 2.0 ** -8
 BF16_PLAIN_REL = 2.0 ** -7
 BF16_GRAD_RTOL = 2e-2
+# the partitioned phase (18), at benchmarks/fig_partitioned.py's widths:
+# pubmed-like (16,384 nodes, 45k edges, 500 features, 3 classes), GCN /
+# SAGE / GAT at hidden 64, S = 2 / 4 / 8 contiguous, 3 epochs, dropout 0;
+# GCN's delayed halo (staleness 4 at S = 8 over 8 epochs: 2 refresh, 6
+# stale); GCN in fp32 / bf16 × none / int8 at S = 4; the power-law leg
+# (R-MAT 2^13 nodes, 60,000 edges, seed 13, hash at S = 8, F = 8); the
+# heavy case on reddit-like at Fig. 2's width (hidden 16), S = 4, 5
+# epochs a run. Kernel rows on the busiest off-diagonal stage graph of
+# each S = 4 partition and its reverse at the steps' shapes: B1 GCN's
+# sums (64 / 3 pubmed, 16 / 41 reddit) and SAGE's layer-0 input (500 /
+# 602), ∂x on the reverse; B3 GAT's logits (H = 4 / 1) and B4 their
+# ∂el / ∂er; B1 bf16 at 64 / 3; B5 on the graph of every bucket
+PART_DATASET = "pubmed-like"
+PART_HIDDEN = 64
+PART_SHARDS = (2, 4, 8)
+PART_EPOCHS = 3
+PART_HALO = (8, 4, 8)          # shards, staleness, epochs
+PART_PREC_SHARDS = 4
+PART_STEP_SHARDS = 4
+PART_KERNEL_SHARDS = 4
+PART_POWERLAW = (13, 60_000, 13, 8, 8)  # n_log2, edges, seed, shards, F
+PART_HEAVY = ("reddit-like", 4, 16, 5)  # dataset, shards, hidden, epochs
+PART_INT8_MIN_RATIO = 3.0
+PART_LOSS_BF16_TOL = 2e-2
+PART_B1 = {"pubmed": {"stage": [(64, "sum"), (3, "sum"), (500, "sum")],
+                      "reverse": [(64, "sum"), (3, "sum")]},
+           "reddit": {"stage": [(16, "sum"), (41, "sum"), (602, "sum")],
+                      "reverse": [(16, "sum"), (41, "sum")]}}
+PART_B3 = [("add", "u", "v", 4), ("add", "u", "v", 1)]
+PART_B4 = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
+PART_B5 = [4, 1]
+PART_BF16_B1 = [(64, "sum"), (3, "sum")]
 # the fan-out serving phases: fan-out per layer (benchmarks/fig_serve.py's
 # CMP_FANOUT). A served fan-out batch runs one block per layer, so it
 # launches what a refresh launches: SERVE_LAUNCHES, per batch
@@ -1057,8 +1124,9 @@ def trace(fn, top: int = 10) -> dict:
     for path in [os.path.join(root, p) for p in SOURCES.values()] + [
             str(CANONICAL_SRC)]:
         with open(path) as f:
-            names.update(re.findall(r"__global__.*?\b(\w+_kernel)\s*\(",
-                                    f.read(), re.S))
+            names.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?"
+                r"(\w+)\s*\(", f.read()))
     head = "void (anonymous namespace)::"
 
     def ours(key):
@@ -3352,9 +3420,10 @@ def _bf16(args) -> tuple:
                  and a.is_floating_point() else a for a in args)
 
 
-def bf16_cases(g, w_canon, gen, label: str) -> list:
+def bf16_cases(g, w_canon, gen, label: str, shapes=None) -> list:
     """B1, B3 and B4 at phase 17's shapes on ``g`` (``BF16_B1`` /
-    ``BF16_B3`` / ``BF16_B4`` under ``label``), bf16 features drawn from
+    ``BF16_B3`` / ``BF16_B4`` under ``label``, or ``shapes``, a triple of
+    such lists), bf16 features drawn from
     ``gen`` and B1's weight ``w_canon`` in fp32: per shape ``(kernel name,
     row fields, kernel fn, plain fn, args, bytes, flops, library fn or
     None)``. Bytes count each bf16 feature row read once at 2 bytes an
@@ -3368,7 +3437,9 @@ def bf16_cases(g, w_canon, gen, label: str) -> list:
     bf = torch.bfloat16
     n_u, n_v = rows_read(g)
     out = []
-    for d, red in BF16_B1.get(label, ()):
+    b1, b3, b4 = shapes or (BF16_B1.get(label, ()), BF16_B3.get(label, ()),
+                            BF16_B4.get(label, ()))
+    for d, red in b1:
         mean = red == "mean"
         weight = w_canon if red == "sum" else None
         B = torch.randn(g.n_src, d, generator=gen).cuda().to(bf)
@@ -3389,7 +3460,7 @@ def bf16_cases(g, w_canon, gen, label: str) -> list:
                     2 * g.n_edges * d,
                     lambda A=A, B=B: torch.sparse.mm(A, B)))
     read = {"u": n_u, "v": n_v, "e": g.n_edges}
-    for op, lt, rt, d in BF16_B3.get(label, ()):
+    for op, lt, rt, d in b3:
         args = _bf16(b3_operands(g, gen, op, lt, rt, d))
         n_idx = len({lt, rt} - {"e", None})
         nbytes = (4 * n_idx * g.n_edges
@@ -3402,7 +3473,7 @@ def bf16_cases(g, w_canon, gen, label: str) -> list:
         out.append(("sddmm_csr:copy" if op == "copy" else "sddmm_csr",
                     {"op": op, "lhs": lt, "rhs": rt, "d": d}, sddmm_csr,
                     sddmm_plain, args, nbytes, g.n_edges * d, lib))
-    for binop, d, de, red in BF16_B4.get(label, ()):
+    for binop, d, de, red in b4:
         E = torch.randn(g.n_edges, de, generator=gen).cuda().to(bf)
         nbytes = (4 * ((g.n_dst + 1) + g.n_edges)
                   + 2 * (E.numel() + g.n_dst * d))
@@ -3417,7 +3488,8 @@ def bf16_cases(g, w_canon, gen, label: str) -> list:
     return out
 
 
-def check_bf16_kernels(g, w_canon, gen, label: str, rows: dict) -> None:
+def check_bf16_kernels(g, w_canon, gen, label: str, rows: dict,
+                       shapes=None) -> None:
     """Phase 17 (a): each bf16 kernel of :func:`bf16_cases` on ``g``,
     bit-identical over two calls; within ``BF16_PLAIN_REL`` (one bf16 ulp:
     both round an fp32 sum taken in another order) of its plain bf16
@@ -3428,7 +3500,7 @@ def check_bf16_kernels(g, w_canon, gen, label: str, rows: dict) -> None:
     bf16 plain version, the fp32 kernel's device time at the same shape
     and one bf16 library call where PyTorch has one."""
     for name, fields, kernel, plain, args, nbytes, flops, lib in bf16_cases(
-            g, w_canon, gen, label):
+            g, w_canon, gen, label, shapes):
         counter = counters()[name.split(":")[0]]
         n0 = counter.launches
         what = f"{name} bf16 {label} {fields}"
@@ -3791,6 +3863,387 @@ def bf16_planner(g, gen) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# 18. partitioned training
+# --------------------------------------------------------------------- #
+def _part_data(ds) -> tuple:
+    """(graph, feats, labels, train mask, n_classes) of a
+    ``make_node_dataset`` tuple, the masks as numpy."""
+    g, feats, labels, train_mask, _, n_classes = ds
+    return g, feats, labels, train_mask, n_classes
+
+
+def partition_kernels(g_pub, g_red, gen, rows: dict) -> None:
+    """Phase 18 (a): the kernels on the ring's stage graphs at the
+    partitioned steps' shapes (``PART_*`` below): on the busiest
+    off-diagonal stage graph of each ``PART_KERNEL_SHARDS``-way partition
+    and its reverse, B1 (the weighted sums of GCN and SAGE, forward and
+    ∂x), on ``pubmed-like``'s also B3 ``add`` (GAT's logits), B4
+    ``copy_rhs`` (∂el on the reverse, ∂er), B1's bf16 form, and B5 on the
+    graph of every bucket (the bucket softmax); each held to its float64
+    plain version, bit-identical over two calls, timed beside its bound,
+    plain version and library call."""
+    from repro_torch.core.partition import stage_plan
+    from repro_torch.models.gnn.common import make_partitioned_bundle
+
+    S = PART_KERNEL_SHARDS
+    for name, g, b1 in (("pubmed", g_pub, PART_B1["pubmed"]),
+                        ("reddit", g_red, PART_B1["reddit"])):
+        t0 = time.perf_counter()
+        pb = make_partitioned_bundle(g, S)
+        plan = stage_plan(pb.pg)
+        part = max((p for p in plan.stages if p.stage > 0),
+                    key=lambda p: p.g.n_edges)
+        rev, rev_canon = part.rev, part.rev_canon
+        emit({"phase": "partition_plan", "graph": name, "shards": S,
+              "stats": pb.pg.stats.__dict__,
+              "stage_edges": {p.stage: p.g.n_edges for p in plan.stages},
+              "checked_stage": part.stage,
+              "build_s": time.perf_counter() - t0})
+        wf = pb.gcn_w.reshape(-1)
+        label = f"{name}_s{S}_stage{part.stage}"
+        cases = ((label, part.g, part.canon, "stage"),
+                 (label + "_rev", rev, rev_canon, "reverse"))
+        for lab, gg, idx, which in cases:
+            check_b1(gg, wf.index_select(0, idx).contiguous(), gen, lab,
+                     rows["spmm_csr"], b1[which], fp64=True)
+        if name != "pubmed":
+            continue
+        check_b3(part.g, gen, label, rows["sddmm_csr"], PART_B3, fp64=True)
+        for lab, gg, idx, _ in cases:
+            check_b4(gg, gen, lab, rows["binary_reduce_csr"], PART_B4,
+                     sweep=False, fp64=True)
+            check_bf16_kernels(gg, wf.index_select(0, idx).contiguous(),
+                               gen, lab, rows["bf16"],
+                               (PART_BF16_B1, (), ()))
+        check_b5(plan.everything.g, gen, f"{name}_s{S}_all_buckets",
+                 rows["edge_softmax_csr"], PART_B5, sweep=False, fp64=True)
+
+
+def partition_step(app: str, ds) -> dict:
+    """Phase 18 (b): one partitioned step of ``app`` on ``pubmed-like`` at
+    ``PART_STEP_SHARDS`` shards: the logits and every parameter's grad on
+    the kernel path within 1e-4·max|plain| + 1e-6 of the plain path
+    (JAX's emulated ring), bit-identical over two calls, launching
+    exactly ``partitioned_launches``; for GCN and SAGE also a delayed
+    refresh step, a stale one (B1 on the local graph alone: no remote
+    stage) and an int8 step, each against its plain path."""
+    from repro_torch.core.partition import stage_plan
+    from repro_torch.models.gnn import gat, gcn, sage
+    from repro_torch.models.gnn.common import make_partitioned_bundle
+    from repro_torch.substrate.nn import cross_entropy_loss
+
+    g, feats, labels, train_mask, n_classes = _part_data(ds)
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    model = mod.init(torch.Generator().manual_seed(0), feats.shape[1],
+                     PART_HIDDEN, n_classes, device="cuda")
+    pb = make_partitioned_bundle(g, PART_STEP_SHARDS)
+    pg = pb.pg
+    xp, yp, mp = (pg.scatter_nodes(torch.from_numpy(a).cuda())
+                  for a in (feats, labels.astype(np.int64), train_mask))
+    plan = stage_plan(pg)
+    stages = len(plan.stages)
+    parts = (plan.local is not None) + (plan.remote is not None)
+    params = list(model.parameters())
+
+    def step(strategy, **kw):
+        out = mod.forward_partitioned(model, pb, xp, strategy=strategy,
+                                      **kw)
+        grads = torch.autograd.grad(cross_entropy_loss(out[0], yp, mp),
+                                    params)
+        torch.cuda.synchronize()
+        return [out[0].detach()] + list(grads)
+
+    modes = {"exact": ({}, partitioned_launches(app, stages))}
+    if app != "gat":
+        halo = mod.init_halo(model, pg)
+        comm = mod.init_comm(model, pg)
+        modes.update({
+            "delayed_refresh": ({"halo": halo, "refresh": True},
+                                partitioned_launches(app, stages, parts)),
+            "delayed_stale": ({"halo": halo, "refresh": False},
+                              partitioned_launches(app, stages, 1)),
+            "int8": ({"comm_state": comm},
+                     partitioned_launches(app, stages, parts))})
+    names = ["logits"] + [n for n, _ in model.named_parameters()]
+    out = {}
+    for mode, (kw, want) in modes.items():
+        step("kernel", **kw)            # per-graph structures, Gᵀs too
+        reset_counts()
+        got = step("kernel", **kw)
+        launched = read_counts()
+        check_launches(f"{app} partitioned {mode} step", launched, want, 1)
+        again = step("kernel", **kw)
+        reset_counts()
+        ref = step("plain", **kw)
+        check_launches(f"{app} partitioned {mode} plain step",
+                       read_counts(), {}, 1)
+        per = {}
+        for n, a, b, r in zip(names, got, again, ref):
+            mx = float(r.abs().max())
+            per[n] = {"max_abs_err": max_err(a, r),
+                      "tol": 1e-4 * mx + 1e-6, "max_abs_plain": mx,
+                      "bit_identical": torch.equal(a, b)}
+        bad = {n: v for n, v in per.items()
+               if not (v["bit_identical"] and v["max_abs_err"] <= v["tol"])}
+        out[mode] = {"step_launches": launched, "checks": per}
+        if bad:
+            raise AssertionError(f"{app} partitioned {mode} step: {bad}")
+    row = {"phase": "train_partitioned_step", "app": app,
+           "dataset": PART_DATASET, "shards": PART_STEP_SHARDS,
+           "hidden": PART_HIDDEN, "stages": stages, "parts": parts,
+           "modes": out, "step_launches": out["exact"]["step_launches"]}
+    emit(row)
+    return row
+
+
+def _train_run(app: str, ds, S: int, what: str, **kw) -> dict:
+    """``train_partitioned`` of a fresh ``app`` model on ``ds`` at ``S``
+    shards (``PART_EPOCHS`` epochs unless ``kw`` says, dropout 0, the
+    kernel path) with its launches (counted from 0 just before), the
+    partition's host build timed first, and the obs ring counters."""
+    from repro_torch import obs
+    from repro_torch.core.partition import stage_plan
+    from repro_torch.models.gnn import gat, gcn, sage
+    from repro_torch.models.gnn.common import make_partitioned_bundle
+    from repro_torch.models.gnn.train import train_partitioned
+
+    g, feats, labels, train_mask, n_classes = _part_data(ds)
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    model = mod.init(torch.Generator().manual_seed(0), feats.shape[1],
+                     PART_HIDDEN, n_classes, device="cuda")
+    t0 = time.perf_counter()
+    pg = make_partitioned_bundle(g, S).pg
+    plan = stage_plan(pg)
+    stages = len(plan.stages)
+    build_s = time.perf_counter() - t0
+    kw.setdefault("epochs", PART_EPOCHS)
+    obs.reset_metrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    _, hist = train_partitioned(mod.forward_partitioned, model, g, feats,
+                                labels, train_mask, n_shards=S, drop=0.0,
+                                seed=1, **kw)
+    launches = read_counts()
+    snap = obs.snapshot()
+    ring = {k: snap.get(f"comm.ring.{k}", {}).get("value", 0)
+            for k in ("raw_bytes", "wire_bytes", "pad_slots")}
+    loss = hist["loss"]
+    if not all(np.isfinite(loss)):
+        raise AssertionError(f"{what}: loss {loss}")
+    st = pg.stats
+    return {"app": app, "shards": S, "stages": stages,
+            "parts": (plan.local is not None) + (plan.remote is not None),
+            "cut_fraction": st.cut_fraction, "eb": st.eb,
+            "pad_ratio": st.pad_ratio,
+            "ragged_pad_ratio": st.ragged_pad_ratio,
+            "plan_build_s": build_s,
+            "epoch_ms": [t * 1e3 for t in hist["epoch_time"]],
+            "epoch_ms_median": statistics.median(hist["epoch_time"]) * 1e3,
+            "loss": loss, "refreshed": hist["refreshed"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "ring_counters": ring, "launches": launches}
+
+
+def partition_runs(ds) -> list:
+    """Phase 18 (c): ``train_partitioned`` per app at every
+    ``PART_SHARDS`` (exact; launches (epochs + 1 warm-up) × a step's, the
+    loss falling), GCN with a delayed halo (``PART_HALO``: a stale epoch
+    launches the local graph alone), GCN at ``PART_PREC_SHARDS`` in fp32
+    / bf16 × none / int8 (raw / wire bytes ≥ ``PART_INT8_MIN_RATIO`` at
+    fp32; bf16 × int8's final loss within ``PART_LOSS_BF16_TOL`` of
+    fp32's)."""
+    from repro_torch.optim import Precision
+
+    rows = []
+    for app in ("gcn", "sage", "gat"):
+        for S in PART_SHARDS:
+            r = _train_run(app, ds, S, f"{app} s{S}")
+            check_launches(f"{app} partitioned s{S}", r["launches"],
+                           partitioned_launches(app, r["stages"]),
+                           PART_EPOCHS + 1)
+            if not r["loss"][-1] < r["loss"][0]:
+                raise AssertionError(f"{app} s{S}: loss {r['loss']}")
+            rows.append({"phase": "train_partitioned", "mode": "exact",
+                         "dataset": PART_DATASET, **r})
+            emit(rows[-1])
+    from repro_torch.models.gnn import gcn
+
+    S, k, epochs = PART_HALO
+    r = _train_run("gcn", ds, S, "gcn delayed", halo_staleness=k,
+                   init_halo_fn=gcn.init_halo, epochs=epochs)
+    n_ref = sum(r["refreshed"]) + 1     # the warm-up runs one of each
+    n_stale = epochs - sum(r["refreshed"]) + 1
+    want = {key: partitioned_launches("gcn", r["stages"], r["parts"]).get(
+        key, 0) * n_ref + partitioned_launches("gcn", r["stages"], 1).get(
+            key, 0) * n_stale for key in r["launches"]}
+    check_launches("gcn delayed", r["launches"], want, 1)
+    ep = r["epoch_ms"]
+    r.update(halo_staleness=k, refresh_epoch_ms=[
+        t for t, f in zip(ep, r["refreshed"]) if f], stale_epoch_ms=[
+        t for t, f in zip(ep, r["refreshed"]) if not f])
+    rows.append({"phase": "train_partitioned", "mode": "delayed",
+                 "dataset": PART_DATASET, **r})
+    emit(rows[-1])
+    base = None
+    S = PART_PREC_SHARDS
+    for pname, comm in (("fp32", "none"), ("bf16", "none"),
+                        ("fp32", "int8"), ("bf16", "int8")):
+        prec = Precision.parse(pname, comm=comm)
+        r = _train_run("gcn", ds, S, f"gcn {prec.tag()}", precision=prec,
+                       init_comm_fn=gcn.init_comm if comm == "int8"
+                       else None)
+        check_launches(f"gcn {prec.tag()}", r["launches"],
+                       partitioned_launches("gcn", r["stages"],
+                                            r["parts"] if comm == "int8"
+                                            else 0), PART_EPOCHS + 1)
+        base = r["loss"][-1] if base is None else base
+        rc = r["ring_counters"]
+        r.update(precision=prec.tag(), loss_delta_vs_fp32=r["loss"][-1] - base,
+                 raw_over_wire=rc["raw_bytes"] / max(rc["wire_bytes"], 1))
+        rows.append({"phase": "train_partitioned", "mode": "precision",
+                     "dataset": PART_DATASET, **r})
+        emit(rows[-1])
+        if comm == "int8" and pname == "fp32" and not (
+                r["raw_over_wire"] >= PART_INT8_MIN_RATIO):
+            raise AssertionError(f"int8 wire: {rc}")
+        if comm == "int8" and pname == "bf16" and not (
+                abs(r["loss_delta_vs_fp32"]) <= PART_LOSS_BF16_TOL):
+            raise AssertionError(f"bf16 x int8 loss: {r['loss']}")
+    return rows
+
+
+def partition_powerlaw(gen) -> dict:
+    """Phase 18 (d): the benchmark's power-law leg (R-MAT, ``hash`` at
+    ``PART_POWERLAW``'s shards and width): the dense (S²·eb) and ragged
+    slot and pad + wire bills, one ring pass's forward and backward
+    (∂ of Σ out²) on the kernel path — bit-identical, launches exact —
+    against the plain path and the single-graph segment route, timed."""
+    from repro_torch.core import from_coo, gspmm, planner
+    from repro_torch.core.partition import ring_gspmm, stage_plan
+    from repro_torch.data.synthetic import rmat_graph
+
+    n_log2, nnz, seed, S, F = PART_POWERLAW
+    src, dst, n = rmat_graph(n_log2, nnz, seed=seed)
+    g = from_coo(src, dst, n_src=n, n_dst=n, device="cuda")
+    pg = planner.get_plan_cache(g).partition(S, "hash")
+    st = pg.stats
+    stages = st.ragged_stages if st.ragged_stages >= 0 else S - 1
+    wire_d = S * (S - 1) * pg.rows * F * 4
+    wire_r = S * stages * pg.rows * F * 4
+    pad_d = (S * S * st.eb - g.n_edges) * F * 4
+    pad_r = (st.ragged_slots - g.n_edges) * F * 4
+    x = torch.randn(n, F, generator=gen).cuda()
+    w = pg.scatter_edges(torch.ones(g.n_edges, device=g.device))
+
+    def run(strategy):
+        xx = x.clone().requires_grad_()
+        if strategy == "segment":
+            out = gspmm(g, "u_copy_add_v", u=xx, strategy="segment")
+        else:
+            out = pg.gather_nodes(ring_gspmm(pg, pg.scatter_nodes(xx), w,
+                                             strategy=strategy))
+        (gx,) = torch.autograd.grad((out ** 2).sum(), xx)
+        return torch.cat([out.detach(), gx], dim=1)
+
+    run("kernel")
+    reset_counts()
+    got = bit_identical("powerlaw ring", lambda: run("kernel"))
+    n_stages = len(stage_plan(pg).stages)
+    launches = read_counts()
+    check_launches("powerlaw ring", launches, {"spmm_csr": 2 * n_stages}, 2)
+    plain, ref = run("plain"), run("segment")
+    torch.cuda.synchronize()
+    mx = float(ref.abs().max())
+    row = {"phase": "partition_powerlaw", "n_log2": n_log2,
+           "edges": g.n_edges, "shards": S, "F": F, "mode": "hash",
+           "stages": n_stages, "dense_slots": S * S * st.eb,
+           "ragged_slots": st.ragged_slots,
+           "padwire_bytes_dense": pad_d + wire_d,
+           "padwire_bytes_ragged": pad_r + wire_r,
+           "max_abs_err_vs_plain": max_err(got, plain),
+           "max_abs_err_vs_segment": max_err(got, ref),
+           "max_abs_segment": mx,
+           "fwd_bwd_kernel_ms": time_ms(lambda: run("kernel"), reps=10),
+           "fwd_bwd_plain_ms": time_ms(lambda: run("plain"), reps=10),
+           "fwd_bwd_segment_ms": time_ms(lambda: run("segment"), reps=10),
+           "launches": launches}
+    emit(row)
+    tol = 1e-4 * mx + 1e-6
+    if not (row["max_abs_err_vs_plain"] <= tol
+            and row["max_abs_err_vs_segment"] <= tol):
+        raise AssertionError(f"powerlaw ring: {row}")
+    return row
+
+
+def partition_heavy(app: str, dataset) -> dict:
+    """Phase 18 (e): the heavy case, ``app`` on ``reddit-like`` at Fig.
+    2's width (``PART_HEAVY``): ``train_partitioned`` epochs in turns
+    kernel, plain, plain, kernel (launches exact), beside the
+    single-device ``train_full_graph`` kernel epoch, with peak memory;
+    one traced partitioned step (the ring's B1 share of its device time
+    and of the step)."""
+    from repro_torch.core.partition import stage_plan
+    from repro_torch.models.gnn import gcn, sage
+    from repro_torch.models.gnn.common import (make_bundle,
+                                               make_partitioned_bundle)
+    from repro_torch.models.gnn.train import (make_partitioned_train_step,
+                                              train_full_graph,
+                                              train_partitioned)
+
+    name, S, hidden, epochs = PART_HEAVY
+    g, feats, labels, train_mask, n_classes = _part_data(dataset)
+    mod = {"gcn": gcn, "sage": sage}[app]
+    model = mod.init(torch.Generator().manual_seed(0), feats.shape[1],
+                     hidden, n_classes, device="cuda")
+    pb = make_partitioned_bundle(g, S)
+    stages = len(stage_plan(pb.pg).stages)
+    want = partitioned_launches(app, stages)
+    runs = epoch_runs(
+        f"{app} partitioned {name}", model, lambda m, st: train_partitioned(
+            mod.forward_partitioned, m, g, feats, labels, train_mask,
+            n_shards=S, epochs=epochs, drop=0.0, strategy=st)[1],
+        {"kernel": "kernel", "plain": "plain"},
+        {k: want.get(k, 0) * (epochs + 1) for k in read_counts()})
+    import copy
+    single = copy.deepcopy(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, hist = train_full_graph(
+        lambda *a, **kw: mod.forward(*a, **dict(kw, drop=0.0)), single,
+        make_bundle(g), feats, labels, train_mask, epochs=epochs)
+    single_row = {"epoch_ms_median": statistics.median(
+        hist["epoch_time"]) * 1e3, "loss": hist["loss"],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    pg = pb.pg
+    xp, yp, mp = (pg.scatter_nodes(torch.from_numpy(a).cuda())
+                  for a in (feats, labels.astype(np.int64), train_mask))
+    opt_init, step = make_partitioned_train_step(mod.forward_partitioned)
+    m = copy.deepcopy(model)
+    state = opt_init(m)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def one_step():
+        float(step(m, state, 0, pb, xp, yp, mp, None, None, gen)[1])
+
+    traced = trace_step(one_step, sum(want.values()))
+    ring_us = sum(e["total_us"] for e in traced["port_kernels"])
+    row = {"phase": "train_partitioned_heavy", "app": app, "dataset": name,
+           "shards": S, "hidden": hidden, "epochs": epochs,
+           "stages": stages, **runs, "single_device_kernel": single_row,
+           "partitioned_over_single": runs["kernel"]["epoch_ms_median"]
+           / single_row["epoch_ms_median"],
+           "trace": traced, "ring_kernel_us": ring_us,
+           "ring_share_of_device": ring_us / max(
+               traced["device_us_total"], 1e-9),
+           "ring_share_of_step": ring_us / max(traced["wall_us_profiled"],
+                                               1e-9),
+           "launches": runs["kernel"]["launches"]}
+    emit(row)
+    return row
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -4039,6 +4492,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit({"phase": "train_bf16_done", "seconds": time.perf_counter() - t0})
 
+    # 18. partitioned training: the kernels on the ring's stage graphs,
+    # one step per app and mode against the plain ring, train_partitioned
+    # at every shard count, delayed and in precision × comm, the
+    # power-law leg, the heavy case on reddit-like
+    t0 = time.perf_counter()
+    part_rows = {k: {} for k in ("spmm_csr", "sddmm_csr",
+                                 "binary_reduce_csr", "edge_softmax_csr")}
+    part_rows["bf16"] = {"spmm_csr": {}}
+    pub = make_node_dataset(PART_DATASET, device="cuda")
+    partition_kernels(pub[0], g_loops, gen, part_rows)
+    torch.cuda.empty_cache()
+    part_steps = [partition_step(app, pub) for app in ("gcn", "sage", "gat")]
+    part_runs = partition_runs(pub)
+    del pub
+    part_runs.append(partition_powerlaw(gen))
+    torch.cuda.empty_cache()
+    part_runs += [partition_heavy(app, dataset) for app in ("gcn", "sage")]
+    torch.cuda.empty_cache()
+    emit({"phase": "train_partitioned_done",
+          "seconds": time.perf_counter() - t0})
+
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it
     bf16_runs = bf16_full + [r for r in bf16_sampled + bf16_rel
@@ -4047,9 +4521,11 @@ def main() -> int:
                               if r["phase"] != "train_sampled"]
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
             + auto + trained + sampled + relational + rel_trained
-            + ell_trained + bf16_runs
+            + ell_trained + bf16_runs + part_runs
             + [{"launches": r["step_launches"]}
-               for r in trained + sampled_steps + rel_trained + bf16_steps])
+               for r in trained + sampled_steps + rel_trained + bf16_steps]
+            + [{"launches": m["step_launches"]} for r in part_steps
+               for m in r["modes"].values()])
     launches = {k: sum(r["launches"][k] for r in runs)
                 for k in runs[0]["launches"]}
     # the main path's shapes: serving's, and training's backward ones (B3
@@ -4094,6 +4570,12 @@ def main() -> int:
     for name, bf16 in bf16_rows.items():
         main[name] += list(bf16.values())
         every[name].update(bf16)
+    # and partitioned training's, on the ring's stage graphs
+    for name, rows in list(part_rows.items()) + list(
+            part_rows["bf16"].items()):
+        if name != "bf16":
+            main[name] += list(rows.values())
+            every[name].update(rows)
     blocks = {k: list(v.values()) for k, v in block_rows.items()}
     blocks["sddmm_csr:copy"] = []
     for k, v in sampled_rows.items():      # the block Gᵀ rows

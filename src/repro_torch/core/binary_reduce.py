@@ -21,14 +21,17 @@ Strategies of :func:`gspmm` (node outputs):
 * ``"kernel"`` (JAX's ``"pallas"``, which names it here too) — the CUDA
   Copy-Reduce (B1) or Binary-Reduce (B4) kernel through
   ``kernels/dispatch.py``; on a CPU tensor, the kernels' plain versions.
+* ``"ring"`` — partitioned execution (``core/partition.ring_gspmm``,
+  :func:`_gspmm_ring`): ``u_copy`` or ``u_mul_e`` with a scalar weight,
+  sum or mean, on a square graph, inside ``planner.use_ring``.
 * ``"auto"`` — the planner's choice (``core/planner.plan_gspmm``): the
   cost model's row for the operands' device, or a measured winner in
   autotune mode.
 
 Every call goes through ``planner.plan_gspmm`` and its plan log. A pinned
 strategy that cannot run a spec falls back down the planner's chain
-(``kernel → onehot → ell → segment``; ``"ring"``, which waits for
-partitioning (ROADMAP A12), to ``ell``) with a one-time warning; a kernel
+(``kernel → onehot → ell → segment``; ``"ring"`` outside a ring context
+to ``ell``) with a one-time warning; a kernel
 that fails to build or launch still raises. The packs are built once per
 graph, on the host, at first use. ``push``, ``ell`` and ``onehot`` are
 plain PyTorch: ELL and tiles are TPU layouts, and the kernels walk the
@@ -345,6 +348,10 @@ def _execute(g, spec: BRSpec, lhs_data, rhs_data,
         return _gspmm_onehot(g, spec, lhs_data, rhs_data)
     if chosen == "push":
         return _execute_segment(g, spec, lhs_data, rhs_data, push=True)
+    if chosen == "ring":
+        ctx = planner.active_ring()
+        return _gspmm_ring(g, spec, get_plan_cache(g).partition(
+            ctx.n_shards, ctx.mode), lhs_data, rhs_data, mesh=ctx.mesh)
     if spec.reduce in ("sum", "mean") and _needs_grad(lhs_data, rhs_data):
         return _SegmentGspmm.apply(g, spec, lhs_data, rhs_data)
     return _execute_segment(g, spec, lhs_data, rhs_data)
@@ -389,6 +396,29 @@ def _gspmm_ell(g, spec: BRSpec, pack, lhs_data, rhs_data,
 
     return S.pull_ell_reduce(pack, msg_fn, spec.reduce, deg=g.in_degrees,
                              raw=raw)
+
+
+def _gspmm_ring(g, spec: BRSpec, pg, lhs_data, rhs_data,
+                mesh=None) -> torch.Tensor:
+    """Partitioned execution of a weighted CR on partition ``pg``
+    (``repro/core/binary_reduce.py:451``): mean folds 1/deg_in into the
+    per-edge weights (kept at ≥ fp32), so the ring is a pure weighted
+    CR-sum; the layout converts per call (partitioned training keeps the
+    padded layout end to end instead, ``models/gnn/train.py``)."""
+    from .partition import ring_gspmm   # partition is heavy
+
+    wdt = (torch.promote_types(lhs_data.dtype, torch.float32)
+           if lhs_data.is_floating_point() else lhs_data.dtype)
+    if spec.op == "mul":
+        w = rhs_data[:, 0]
+    else:                       # copy
+        w = torch.ones(g.n_edges, dtype=wdt, device=lhs_data.device)
+    if spec.reduce == "mean":
+        deg = g.in_degrees.clamp(min=1).to(wdt)
+        w = w / deg.index_select(0, g.dst_caller.long())
+    out = ring_gspmm(pg, pg.scatter_nodes(lhs_data), pg.scatter_edges(w),
+                     mesh=mesh)
+    return pg.gather_nodes(out, g.n_dst)
 
 
 def onehot_supports(spec: BRSpec, lhs_data, rhs_data) -> bool:

@@ -44,8 +44,13 @@ uniform pull), its two node-output reductions differentiated as
 ``bwd_strategy`` says (the block VJP of ``core/blocks.py``: the max by
 its arg-extremum table under ``gather``); :func:`block_fused_attention`
 runs the fused pipeline on ``bg.g`` (B2), differentiates through
-``_FusedAttentionKernel`` there, and slices off the dummy row. The
-partitioned variant comes with A12 (ROADMAP A).
+``_FusedAttentionKernel`` there, and slices off the dummy row.
+
+:func:`fused_attention_partitioned` is the pipeline on a vertex-partitioned
+graph (``core/partition.py``): ``ring_edge_values`` (B3 ``add`` per ring
+stage), leaky-relu, ``bucket_softmax`` (B5 on the graph of every bucket)
+and the per-head ``ring_gspmm``, logged as the ``ring`` form of
+``attn:fused``.
 """
 from __future__ import annotations
 
@@ -65,7 +70,8 @@ from .blocks import (SDDMM_FOR_BLOCK, BlockGraph, block_gspmm,
 from .planner import get_plan_cache
 
 __all__ = ["edge_softmax", "edge_softmax_fused", "fused_attention",
-           "block_edge_softmax", "block_fused_attention", "ATTN_STRATEGIES"]
+           "block_edge_softmax", "block_fused_attention",
+           "fused_attention_partitioned", "ATTN_STRATEGIES"]
 
 ATTN_STRATEGIES = ("auto", "fused", "kernel")
 
@@ -169,8 +175,8 @@ def fused_attention(g, el: torch.Tensor, er: torch.Tensor, z: torch.Tensor,
         padded_slots=stats.ragged_padded_slots if g.n_edges else None,
         dtype=z.dtype, device=planner.device_of(z))
     if chosen == "ring":
-        raise NotImplementedError("strategy='ring' is the partitioned "
-                                  "attention: ROADMAP A12")
+        raise ValueError("strategy='ring' needs a partition: use "
+                         "fused_attention_partitioned")
     slope = float(negative_slope)
 
     def run():
@@ -200,6 +206,32 @@ def block_fused_attention(bg: BlockGraph, el: torch.Tensor,
     out = fused_attention(bg.g, el, er, z, negative_slope=negative_slope,
                           strategy=strategy)
     return out[: bg.n_dst_real]
+
+
+def fused_attention_partitioned(pg, el: torch.Tensor, er: torch.Tensor,
+                                z: torch.Tensor, *, mesh=None,
+                                axis: str = "data",
+                                negative_slope: float = 0.2,
+                                strategy: str = "auto") -> torch.Tensor:
+    """Fused attention on a partitioned graph (port of
+    ``repro/core/edge_softmax.py:327``): one ring pass assembles the
+    bucketed logits, leaky-relu and the softmax run owner-local, a second
+    ring does the α-weighted reduce. ``el`` / ``er``: (n_pad, H); ``z``:
+    (n_pad, H, F), the padded layout; returns (n_pad, H, F).
+    ``strategy``: ``core/partition.RING_STRATEGIES``."""
+    from .partition import bucket_softmax, ring_edge_values, ring_gspmm
+
+    H, F = el.shape[-1], z.shape[-1]
+    n_slots = pg.n_shards * pg.n_shards * pg.eb
+    planner.plan_attention((pg.n_pad, pg.n_pad, n_slots), H, F,
+                           requested="ring", dtype=z.dtype,
+                           device=planner.device_of(z))
+    logits = ring_edge_values(pg, el, er, mesh=mesh, axis=axis,
+                              strategy=strategy)
+    logits = torch.where(logits >= 0, logits, negative_slope * logits)
+    alpha = bucket_softmax(pg, logits, strategy=strategy)
+    return ring_gspmm(pg, z, alpha, mesh=mesh, axis=axis,
+                      strategy=strategy)
 
 
 # --------------------------------------------------------------------- #

@@ -29,10 +29,16 @@ kernels B1–B5, which walk the CSR and need no pack. The cost row is
 picked from the operands' device type (``"cpu"`` or ``"cuda"``), never
 from a process global. The ``cpu`` rows are JAX's, so on the CPU the
 port decides as JAX decides; the ``cuda`` row was fitted on an H100
-(PERF.md §6, PR 22, ``benchmarks/torch_planner_fit.py``). ``ring`` waits
-for partitioning (ROADMAP A12): it never qualifies, and a pinned
-``"ring"`` falls back to ``ell`` / ``segment`` as JAX's does without a
-mesh.
+(PERF.md §6, ``benchmarks/torch_planner_fit.py``).
+
+``ring`` (partitioned execution, ``core/partition.py``) qualifies only
+inside :func:`use_ring`, whose context holds the ``torch.distributed``
+process group the shards live on, and only for a square graph; its cost
+adds the exchange (``compression.wire_bytes`` at the context's wire
+mode) to the per-device slot work of the partition's stats
+(:meth:`PlanCache.partition`). Without a context — on one card, always —
+auto never takes it and a pinned ``"ring"`` falls back to ``ell`` /
+``segment``, as JAX's does without a mesh.
 
 Every decision is recorded in a process-wide plan log (:func:`plan_log`)
 and, with its predicted cost, in the plan-event stream
@@ -41,6 +47,7 @@ measured times.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import threading
@@ -58,6 +65,7 @@ from ..obs import events as _obs_events
 from ..obs import metrics as _obs_metrics
 from ..obs.events import drift_report, plan_events  # noqa: F401 (re-export)
 from ..obs.spans import fence
+from ..optim.compression import wire_bytes as _wire_bytes
 from .tiling import (ELLClass, ELLPack, TilePack, build_ell, build_ell_ragged,
                      build_ell_uniform, build_tiles)
 
@@ -73,7 +81,8 @@ __all__ = ["GraphStats", "PlanCache", "Plan", "get_plan_cache",
            "SDDMM_STRATEGIES", "sddmm_supports", "plan_sddmm",
            "clear_sddmm_plans", "ATTN_STRATEGIES", "plan_attention",
            "SERVE_MODES", "plan_serve", "clear_serve_plans",
-           "drift_report", "plan_events"]
+           "drift_report", "plan_events", "RingContext", "active_ring",
+           "use_ring"]
 
 STRATEGIES = ("push", "segment", "ell", "onehot", "kernel", "ring")
 
@@ -85,8 +94,8 @@ FALLBACK_CHAIN = ("kernel", "onehot", "ell", "segment")
 # analogue, the blocked pull (repro/core/planner.py:74).
 _RING_FALLBACK = ("ell", "segment")
 
-# Strategies auto considers (push is the pinned baseline only; ring never
-# qualifies until A12) — repro/core/planner.py:78.
+# Strategies auto considers (push is the pinned baseline only; ring only
+# inside an active use_ring() context) — repro/core/planner.py:78.
 _AUTO_CANDIDATES = ("ring", "kernel", "onehot", "ell", "segment")
 
 _DEFAULT_ELL_CAP = 64
@@ -229,6 +238,7 @@ class PlanCache:
         self._tiles_by_geom: Dict[Tuple[int, int, int], TilePack] = {}
         self._uniform: Dict[int, ELLClass] = {}
         self._autotuned: Dict[Tuple, str] = {}
+        self._partitions: Dict[Tuple[int, str], Any] = {}
         # plan_gspmm's cost-model decisions: (chosen, reason, predicted)
         self._plans: Dict[Tuple, Tuple[str, str, float]] = {}
 
@@ -305,6 +315,31 @@ class PlanCache:
                                   g.n_edges)
         return self._ragged
 
+    def partition(self, n_shards: int, mode: str = "contiguous"):
+        """Memoized :class:`~repro_torch.core.partition.PartitionedGraph`
+        for ``(n_shards, mode)``: the ring's pack, built on the host once
+        per graph and configuration and shared by ``gspmm``'s ring route,
+        the partitioned bundles and the benchmarks (its stage graphs are
+        kept on it). Sets the ``planner.pad_ratio.partition`` (S²·eb
+        slots) and ``partition_ragged`` (the ragged schedule's) gauges."""
+        key = (int(n_shards), mode)
+        if key not in self._partitions:
+            from .partition import build_partition  # partition is heavy
+
+            g = self._graph()
+            pg = build_partition(g, *key)
+            st = pg.stats
+            self._partitions[key] = _built(
+                "partition", pg, st.n_shards * st.n_shards * st.eb,
+                st.n_edges)
+            _obs_metrics.gauge("planner.pad_ratio.partition_ragged").set(
+                st.ragged_slots / max(st.n_edges, 1))
+        return self._partitions[key]
+
+    def peek_partition(self, n_shards: int, mode: str = "contiguous"):
+        """The built partition for ``(n_shards, mode)``, or None."""
+        return self._partitions.get((int(n_shards), mode))
+
     def prefers_ell(self, d: int, device: str = "cpu") -> bool:
         """Does the cost model rank the blocked pull above every other
         route auto would take at width ``d``: segment, and the kernel
@@ -346,17 +381,21 @@ def get_plan_cache(g) -> PlanCache:
 # benchmarks/torch_planner_fit.py --dtype bf16, PERF.md §5),
 # each route's time per element-op over the fp32 segment route's, so it
 # is in the cuda row's unit, as JAX's cpu:bf16 is in cpu's, and the
-# per-call costs below apply to both. "ring" has no cuda entry: ring
-# never qualifies before A12.
+# per-call costs below apply to both. "ring" on the card is the emulated
+# ring's device time per bucket slot on the kernels (every stage of a pass
+# on one card, B1 per stage, reddit-like at S = 4), which estimate_cost
+# charges per device (slots / S); its exchange term is JAX's model
+# constant, unmeasured until a multi-card ring exists.
 _THROUGHPUT = {
     "cpu": {"push": 6.0, "segment": 1.0, "ell": 0.35,
             "onehot": 64.0, "kernel": 512.0, "ring": 0.5},
     "cpu:bf16": {"push": 5.5, "segment": 0.85, "ell": 0.22,
                  "onehot": 64.0, "kernel": 512.0, "ring": 0.35},
     "cuda": {"push": 0.706, "segment": 1.0, "ell": 0.985,
-             "onehot": 67.5, "kernel": 0.0498},
+             "onehot": 67.5, "kernel": 0.0498, "ring": 0.238},
     "cuda:bf16": {"push": 0.734, "segment": 1.03, "ell": 1.03,
-                  "onehot": 67.8, "kernel": 0.0491},
+                  "onehot": 67.8, "kernel": 0.0491,
+                  "ring": 0.262},
 }
 # Fixed per-call costs, in element-ops of the row's own unit, per device.
 # "cpu": JAX's _FIXED (repro/core/planner.py:445-447) and its other
@@ -367,13 +406,14 @@ _THROUGHPUT = {
 # (tiny, 2,959 edges), over segment's device time per element-op at
 # reddit-like (4.59e-8 ms): segment 0.095 ms, push 0.080, onehot 0.393,
 # the kernel 0.062, ELL 0.951 over its 7 degree classes (charged per
-# class). A relation of the hetero loop and the fused stream's setup
-# cost one segment call, the attention kernel one kernel call.
+# class), a ring pass at S = 4 0.356 ms. A relation of the
+# hetero loop and the fused stream's setup cost one segment call, the
+# attention kernel one kernel call.
 _FIXED = {
     "cpu": {"push": 0.0, "segment": 0.0, "ell": 2e4,
             "onehot": 5e4, "kernel": 5e4, "ring": 1e5},
     "cuda": {"push": 1.75e6, "segment": 2.07e6, "ell": 0.0,
-             "onehot": 8.56e6, "kernel": 1.34e6},
+             "onehot": 8.56e6, "kernel": 1.34e6, "ring": 7.75e6},
 }
 _OVERHEAD = {
     "cpu": {"ell_class": 1.5e3, "hetero_rel": 2e4, "hetero_fixed": 2e4,
@@ -382,6 +422,11 @@ _OVERHEAD = {
              "hetero_fixed": 2.07e6, "attn_kernel": 1.34e6},
 }
 _TILE_EDGE_BUDGET = 256         # eb — edge slots per tile bucket
+# the ring's exchange: JAX's model constant per fp32-equivalent element
+# moved per stage (repro/core/planner.py:449) on every row — no
+# multi-card ring has measured it — and the nominal S without a context
+_RING_COMM = 0.3
+_RING_DEFAULT_SHARDS = 8
 
 
 def _row(device: str) -> str:
@@ -397,16 +442,25 @@ def _throughput_row(device: str, dtype=None) -> Dict[str, float]:
 
 
 def estimate_cost(strategy: str, stats: GraphStats, d: int,
-                  device: str = "cpu", dtype=None) -> float:
+                  device: str = "cpu", dtype=None, ring_stats=None,
+                  comm: Optional[str] = None) -> float:
     """Estimated cost of one gspmm call on ``device`` ('cpu' | 'cuda'),
     in element-ops of that device's row. ``dtype`` (operand element type,
-    default fp32) selects the per-precision row."""
-    if strategy == "ring":
-        raise NotImplementedError(
-            "the ring cost term needs partition stats: ROADMAP A12")
+    default fp32) selects the per-precision row and sizes the ring's
+    exchange in bytes.
+
+    ``ring``: per-device slot work plus the per-stage exchange
+    (repro/core/planner.py:487-530). ``ring_stats`` (a
+    ``PartitionStats``) gives the real ragged slots and stages; without
+    it the work is the ideal balance over the active context's (or a
+    nominal 8) shards. ``comm`` ("none" / "int8", default the active
+    context's) prices the exchange at the payload that moves."""
     tp = _throughput_row(device, dtype)[strategy]
     fixed = _FIXED[_row(device)]
     dd = max(int(d), 1)
+    if strategy == "ring":
+        return _ring_cost(tp, stats, dd, dtype, ring_stats, comm) + fixed[
+            "ring"]
     if strategy in ("push", "segment"):
         work = stats.n_edges * dd
     elif strategy == "ell":
@@ -418,6 +472,102 @@ def estimate_cost(strategy: str, stats: GraphStats, d: int,
     if strategy == "ell":
         cost += _OVERHEAD[_row(device)]["ell_class"] * stats.ell_n_classes
     return cost
+
+
+def _ring_cost(tp: float, stats: GraphStats, dd: int, dtype, ring_stats,
+               comm: Optional[str]) -> float:
+    """The ring term of :func:`estimate_cost` without its fixed cost."""
+    ctx = active_ring()
+    if ring_stats is not None:
+        S = ring_stats.n_shards
+        rows = ring_stats.rows_per_shard
+        # ragged per-diagonal widths (S · Σ_s w_s) when known, else the
+        # dense S²·eb envelope
+        slots = ring_stats.ragged_slots
+        if slots <= 0:
+            slots = S * S * ring_stats.eb
+        work = (slots / S) * dd
+        stages = ring_stats.ragged_stages
+        if stages < 0:
+            stages = S - 1
+    else:
+        S = ctx.n_shards if ctx is not None else _RING_DEFAULT_SHARDS
+        rows = -(-max(stats.n_dst, 1) // S)
+        work = (stats.n_edges / S) * dd          # ideal balance
+        stages = S - 1
+    if comm is None:
+        comm = ctx.comm if ctx is not None else "none"
+    itemsize = {"bfloat16": 2, "float16": 2, "float64": 8}.get(
+        dtype_name(dtype), 4)
+    _, wire = _wire_bytes(rows * dd, itemsize, comm)
+    # _RING_COMM is per fp32-equivalent element, and only non-empty
+    # stages are exchanged
+    return tp * work + _RING_COMM * stages * (wire / 4.0)
+
+
+# --------------------------------------------------------------------- #
+# ring (partitioned) execution context (repro/core/planner.py:535-571)
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class RingContext:
+    """An installed process group makes ``ring`` a planner candidate.
+
+    ``mesh`` is the ``torch.distributed`` process group the shards live
+    on (JAX's mesh; ``axis`` names its ring axis, kept for JAX's
+    signature); ``comm`` declares the wire mode ("none" / "int8") the
+    cost model prices the exchange at."""
+    mesh: Any
+    axis: str = "data"
+    mode: str = "contiguous"
+    comm: str = "none"
+
+    @property
+    def n_shards(self) -> int:
+        import torch.distributed as dist
+
+        return int(dist.get_world_size(self.mesh))
+
+
+_RING_CTX: Optional[RingContext] = None
+
+
+def active_ring() -> Optional[RingContext]:
+    """The :func:`use_ring` context in force, or None (no process group
+    given: the ring never qualifies)."""
+    return _RING_CTX
+
+
+@contextlib.contextmanager
+def use_ring(mesh, axis: str = "data", mode: str = "contiguous",
+             comm: str = "none"):
+    """Enable partitioned (ring) execution for ``gspmm`` while active,
+    over the ``torch.distributed`` process group ``mesh``. With
+    ``mesh=None`` (one card) nothing is enabled: ``strategy="auto"``
+    plans single-device and a pinned ``"ring"`` falls back down the
+    established chain."""
+    global _RING_CTX
+    prev = _RING_CTX
+    _RING_CTX = (None if mesh is None else
+                 RingContext(mesh=mesh, axis=axis, mode=mode, comm=comm))
+    try:
+        yield _RING_CTX
+    finally:
+        _RING_CTX = prev
+
+
+def _ring_ready(stats: GraphStats) -> bool:
+    """Can the ring run here: a live context and one shared vertex space
+    (JAX's ``pack_available``; the partition builds on the host)."""
+    return active_ring() is not None and stats.n_src == stats.n_dst
+
+
+def _ring_stats(cache: "PlanCache"):
+    """The built partition's stats for the active context, or None."""
+    ctx = active_ring()
+    if ctx is None:
+        return None
+    pg = cache.peek_partition(ctx.n_shards, ctx.mode)
+    return None if pg is None else pg.stats
 
 
 # --------------------------------------------------------------------- #
@@ -433,10 +583,19 @@ def supports(strategy: str, spec, lhs_data, rhs_data) -> bool:
     red = spec.reduce
     if strategy in ("push", "segment"):
         return spec.out in ("u", "v") and red != "none"
-    if strategy == "ring":
-        return False            # partitioned execution is A12's
     if spec.out != "v" or red == "none":
         return False
+    if strategy == "ring":
+        # sharded weighted CR: source-node lhs, sum / mean, rank 2, plain
+        # copy or a scalar edge weight (mean folds 1/deg into it)
+        if red not in ("sum", "mean") or spec.lhs != "u":
+            return False
+        if lhs_data.ndim != 2:
+            return False
+        if spec.op == "copy":
+            return True
+        return (spec.op == "mul" and spec.rhs == "e"
+                and rhs_data.ndim == 2 and rhs_data.shape[-1] == 1)
     if strategy == "ell":
         return True     # any ⊗, any operand targets, all reducers
     if strategy == "kernel":
@@ -571,9 +730,11 @@ def plan_gspmm(g, spec, lhs_data, rhs_data, *, requested: str = "auto",
     # a decision depends on the spec, the operands' trailing shapes and
     # dtypes and the device alone: the cost model's is made once per
     # graph and key (PyTorch plans every eager call; JAX once per trace)
+    ctx = active_ring()
     key = (spec.name, requested, device, tuple(lhs_data.shape[1:]), dtype,
            None if rhs_data is None
-           else (tuple(rhs_data.shape[1:]), dtype_name(rhs_data.dtype)))
+           else (tuple(rhs_data.shape[1:]), dtype_name(rhs_data.dtype)),
+           None if ctx is None else (ctx.n_shards, ctx.mode, ctx.comm))
     hit = cache._plans.get(key)
     if hit is None or (requested == "auto" and _MODE == "autotune"):
         hit = _decide(spec, lhs_data, rhs_data, requested, cache, runner,
@@ -594,7 +755,8 @@ def _decide(spec, lhs_data, rhs_data, requested, cache, runner,
     stats = cache.stats
 
     def ok(strategy: str) -> bool:
-        return supports(strategy, spec, lhs_data, rhs_data)
+        return (supports(strategy, spec, lhs_data, rhs_data)
+                and (strategy != "ring" or _ring_ready(stats)))
 
     if requested == "auto":
         chosen, reason = _plan_auto(spec, lhs_data, rhs_data, stats, ok,
@@ -615,7 +777,7 @@ def _decide(spec, lhs_data, rhs_data, requested, cache, runner,
             chosen = next((s for s in chain if ok(s)), "segment")
             reason = f"fallback({requested})"
     predicted = estimate_cost(chosen, stats, _width(lhs_data), device,
-                              lhs_data.dtype)
+                              lhs_data.dtype, ring_stats=_ring_stats(cache))
     return chosen, reason, predicted
 
 
@@ -630,17 +792,21 @@ def _plan_auto(spec, lhs_data, rhs_data, stats, ok, cache, runner,
     if not candidates:           # out == 'u' etc. → segment path
         return "segment", "only-generic"
     if _MODE == "autotune" and runner is not None:
-        # the device is part of the key: a winner measured on one
-        # device is never replayed for another
+        # the device and the ring context are part of the key: a winner
+        # measured on one device, or inside use_ring(), is never replayed
+        # elsewhere
+        ctx = active_ring()
         key = (spec.name, d, dtype_name(lhs_data.dtype),
-               None if rhs_data is None else rhs_data.shape[-1], device)
+               None if rhs_data is None else rhs_data.shape[-1], device,
+               None if ctx is None else (ctx.n_shards, ctx.axis, ctx.mode))
         winner = cache._autotuned.get(key)
         if winner is None or winner not in candidates:
             winner = _autotune(spec.name, runner, candidates)
             cache._autotuned[key] = winner
         return winner, "autotune"
+    ring_stats = _ring_stats(cache)
     chosen = min(candidates, key=lambda s: estimate_cost(
-        s, stats, d, device, lhs_data.dtype))
+        s, stats, d, device, lhs_data.dtype, ring_stats=ring_stats))
     return chosen, "cost"
 
 
@@ -1060,7 +1226,9 @@ def plan_sddmm(signature: Tuple[int, int, int], spec, d: int,
 # fused-attention planning (repro/core/planner.py:1342-1409)
 # --------------------------------------------------------------------- #
 # 'fused' — the canonical single-pass PyTorch form; 'kernel' — B2 (JAX's
-# 'pallas' megakernel); 'ring' — the partitioned composition (A12).
+# 'pallas' megakernel); 'ring' — the partitioned composition
+# (ring_edge_values → bucket_softmax → ring_gspmm), pinned by
+# core/edge_softmax.fused_attention_partitioned.
 # Logged under ONE name, ``attn:fused``.
 ATTN_STRATEGIES = ("fused", "kernel", "ring")
 

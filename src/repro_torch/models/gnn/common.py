@@ -5,10 +5,10 @@ graph: ``core/graph.reverse``), its graph's pack cache and, when asked
 for, the blocked packs and the ELL training graph, and MoNet's
 K-relation :class:`~repro_torch.core.hetero.RelGraph`; the
 loaders that carry parameters between the JAX package and the port
-(:func:`from_jax_params`, :func:`to_jax_params`); and the one code path
-every app's sampled-minibatch forward runs on (:func:`run_blocks`).
-
-The partitioned bundle is ROADMAP A12.
+(:func:`from_jax_params`, :func:`to_jax_params`); the one code path
+every app's sampled-minibatch forward runs on (:func:`run_blocks`); and
+the partitioned bundle (:class:`PartitionedBundle`): the graph's memoized
+partition with the normalizations in its bucket layout.
 """
 from __future__ import annotations
 
@@ -21,6 +21,8 @@ from torch import nn
 
 from ...core.graph import Graph
 from ...core.hetero import RelGraph, caller_coo, from_rels
+from ...core.partition import (PartitionedGraph, check_mesh, ring_gspmm,
+                               ring_gspmm_delayed)
 from ...core.planner import PlanCache, get_plan_cache
 from ...core.tiling import ELLPack, TilePack
 from ...core.training_ops import TrainingGraph, make_training_graph
@@ -28,7 +30,9 @@ from ...device import DeviceLike, resolve_device
 from ...substrate.nn import dropout
 
 __all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params",
-           "to_jax_params", "pad_features", "block_features", "run_blocks"]
+           "to_jax_params", "pad_features", "block_features", "run_blocks",
+           "PartitionedBundle", "make_partitioned_bundle",
+           "shard_partitioned", "partitioned_aggregate"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -132,6 +136,68 @@ def make_bundle(g: Graph, *, ell: bool = False, tiles: bool = False,
                        gcn_norm=torch.from_numpy(w_caller).to(g.device),
                        mean_norm=torch.from_numpy(m_caller).to(g.device),
                        krels=krels, cache=cache, tg=tg)
+
+
+# --------------------------------------------------------------------- #
+# partitioned (ring) execution bundle (repro/models/gnn/common.py:115-180)
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True, eq=False)
+class PartitionedBundle:
+    """Partition plan + pre-bucketed normalization weights.
+
+    ``pg`` is the graph's memoized partition (``PlanCache.partition``, so
+    one partition — and its stage graphs — serves direct ``gspmm`` calls
+    and every trainer); ``gcn_w`` / ``mean_w`` are the bundle's
+    normalizations in the (S, S, eb) bucket layout, 0 on pad slots.
+    ``mesh`` is None: the emulated ring (a process group is ROADMAP A12's
+    last item)."""
+    pg: PartitionedGraph
+    gcn_w: torch.Tensor       # (S, S, eb) 1/sqrt(d_u d_v)
+    mean_w: torch.Tensor      # (S, S, eb) 1/deg_in(dst)
+    mesh: Optional[object] = None
+    axis: str = "data"
+
+
+def make_partitioned_bundle(g: Graph, n_shards: int, *, mesh=None,
+                            axis: str = "data",
+                            mode: str = "contiguous") -> PartitionedBundle:
+    """The partitioned bundle of ``g`` on its device: the partition from
+    (and memoized in) the graph's PlanCache, the per-edge norms of
+    :func:`edge_norms` bucketed once."""
+    check_mesh(mesh)
+    pg = get_plan_cache(g).partition(n_shards, mode)
+    w_caller, m_caller = edge_norms(g)
+    return PartitionedBundle(
+        pg=pg,
+        gcn_w=pg.scatter_edges(torch.from_numpy(w_caller).to(g.device)),
+        mean_w=pg.scatter_edges(torch.from_numpy(m_caller).to(g.device)),
+        mesh=mesh, axis=axis)
+
+
+def shard_partitioned(pb: PartitionedBundle, *arrays):
+    """Place the bundle and padded node arrays on the process group's
+    shards: a no-op without one (the emulated ring), as in JAX; with
+    one, ROADMAP A12's last item."""
+    check_mesh(pb.mesh)
+    return (pb,) + arrays if arrays else pb
+
+
+def partitioned_aggregate(pb: PartitionedBundle, h: torch.Tensor, w,
+                          i: int, halo, refresh: bool, comm_state,
+                          strategy: str):
+    """Layer ``i``'s ring aggregation of ``h`` with bucketed weight ``w``
+    (GCN's and SAGE's): exact, delayed (``halo``), int8
+    (``comm_state``) or both. Returns ``(out, stale, residual)``, the
+    last two None where unused."""
+    kw = dict(mesh=pb.mesh, axis=pb.axis, strategy=strategy)
+    if comm_state is not None:
+        kw.update(comm="int8", residual=comm_state[i])
+    if halo is None:
+        out = ring_gspmm(pb.pg, h, w, **kw)
+        return (out, None, None) if comm_state is None else (
+            out[0], None, out[1])
+    out = ring_gspmm_delayed(pb.pg, h, w, halo[i], refresh, **kw)
+    return out if comm_state is not None else out + (None,)
 
 
 def from_jax_params(app: str, tree, device: DeviceLike = "cuda") -> nn.Module:

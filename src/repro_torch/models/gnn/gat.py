@@ -37,6 +37,12 @@ pulls, ``'push'`` its scatter baseline for the node reductions. Sampled
 training differentiates the block ops as ``bwd_strategy`` says
 (``core/blocks.py``): the max and the rank-3 sum as the block planner
 says, the rest on the kernels.
+
+:func:`forward_partitioned` runs each layer as one
+``fused_attention_partitioned`` on a vertex-partitioned graph: the logits
+on B3 per ring stage, the softmax on B5, the per-head sum (rank 3) on the
+segment route per stage graph. It is always exact: no delayed halo and no
+int8 exchanges, as in JAX.
 """
 from __future__ import annotations
 
@@ -51,14 +57,15 @@ from ...core.blocks import (SDDMM_FOR_BLOCK, block_gspmm,
                             check_block_strategy)
 from ...core.edge_softmax import (block_edge_softmax, block_fused_attention,
                                   edge_softmax, edge_softmax_fused,
-                                  fused_attention)
+                                  fused_attention,
+                                  fused_attention_partitioned)
 from ...device import DeviceLike
 from ...substrate.nn import (dropout, from_numpy, glorot, leaky_relu,
                               matmul)
-from .common import GraphBundle, run_blocks
+from .common import GraphBundle, PartitionedBundle, run_blocks
 
 __all__ = ["GAT", "GATLayer", "init", "forward", "infer", "block_layer",
-           "forward_blocks", "infer_blocks"]
+           "forward_blocks", "infer_blocks", "forward_partitioned"]
 
 _ATTN_MODES = ("multipass", "softmax-fused", "fused", "pallas", "auto")
 _STRATEGIES = ("auto", "segment", "kernel")
@@ -253,3 +260,38 @@ def infer_blocks(model: GAT, blocks, x: torch.Tensor, *,
     with torch.no_grad():
         return forward_blocks(model, blocks, x, strategy=strategy,
                               attn=attn)
+
+
+def forward_partitioned(model: GAT, pb: PartitionedBundle, x: torch.Tensor,
+                        *, halo=None, refresh: bool = True, comm_state=None,
+                        train: bool = False,
+                        gen: Optional[torch.Generator] = None,
+                        drop: float = 0.4, strategy: str = "auto"):
+    """Partitioned full-graph GAT (port of
+    ``repro/models/gnn/gat.py:156``), always exact: attention weights are
+    parameter-dependent, so a stale remote partial has no DistGNN-style
+    form, and the two rings exchange pre-softmax logits, which int8 error
+    feedback cannot track. ``x``: (n_pad, d) padded. Returns
+    ``(logits_pad, None)``."""
+    if halo is not None:
+        raise ValueError("GAT has no delayed-halo mode (attention "
+                         "weights are parameter-dependent)")
+    if comm_state is not None:
+        raise ValueError("GAT has no compressed-comm mode (the fused "
+                         "attention rings exchange pre-softmax logits; "
+                         "see DESIGN.md §12)")
+    h = x
+    for i, lyr in enumerate(model.layers):
+        heads, out = lyr.attn_l.shape
+        if train and gen is not None:
+            h = dropout(gen, h, drop, train)
+        z = matmul(h, lyr.w).reshape(-1, heads, out)      # (n_pad, H, F)
+        el = (z * lyr.attn_l).sum(dim=-1)                 # (n_pad, H)
+        er = (z * lyr.attn_r).sum(dim=-1)
+        out_feat = fused_attention_partitioned(pb.pg, el, er, z,
+                                               mesh=pb.mesh, axis=pb.axis,
+                                               strategy=strategy)
+        h = out_feat.reshape(-1, heads * out)
+        if i < len(model.layers) - 1:
+            h = F.elu(h)
+    return h, None

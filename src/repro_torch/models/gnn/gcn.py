@@ -16,6 +16,11 @@ padding is low, on the card's never at these shapes), the layer pulls
 through ``weighted_copy_reduce``'s ELL route instead, both ways, as the
 JAX forward does. ``train=True`` drops out each layer's input,
 as in JAX.
+
+:func:`forward_partitioned` is the same model on a vertex-partitioned
+graph (``core/partition.py``, the padded layout): each aggregation is a
+ring pass (B1 per ring stage on the card), exact, with a delayed halo
+(:func:`init_halo`) or with int8 exchanges (:func:`init_comm`), or both.
 """
 from __future__ import annotations
 
@@ -29,10 +34,12 @@ from ...core.blocks import block_gspmm
 from ...core.training_ops import weighted_copy_reduce
 from ...device import DeviceLike
 from ...substrate.nn import Linear, dropout
-from .common import GraphBundle, run_blocks
+from .common import (GraphBundle, PartitionedBundle, partitioned_aggregate,
+                     run_blocks)
 
 __all__ = ["GCN", "init", "forward", "infer", "block_layer",
-           "forward_blocks", "infer_blocks"]
+           "forward_blocks", "infer_blocks", "init_halo", "init_comm",
+           "forward_partitioned"]
 
 
 class GCN(nn.Module):
@@ -124,3 +131,49 @@ def infer_blocks(model: GCN, blocks, x: torch.Tensor, *,
     """Inference-mode block forward — the serving tier's fan-out path."""
     with torch.no_grad():
         return forward_blocks(model, blocks, x, strategy=strategy)
+
+
+# --------------------------------------------------------------------- #
+# partitioned (repro/models/gnn/gcn.py:78-140)
+# --------------------------------------------------------------------- #
+def init_halo(model: GCN, pg) -> tuple:
+    """Zero remote-partial carry for the delayed halo: one fp32 (n_pad,
+    d_out) tensor per layer (GCN aggregates after the linear)."""
+    return tuple(torch.zeros((pg.n_pad, lyr.w.shape[1]), device=pg.device)
+                 for lyr in model.layers)
+
+
+def init_comm(model: GCN, pg) -> tuple:
+    """Zero error-feedback residual of the int8 exchanges: one fp32
+    (n_pad, d_out) tensor per layer, the exchanged payload's shape."""
+    return init_halo(model, pg)
+
+
+def forward_partitioned(model: GCN, pb: PartitionedBundle, x: torch.Tensor,
+                        *, halo=None, refresh: bool = True, comm_state=None,
+                        train: bool = False,
+                        gen: Optional[torch.Generator] = None,
+                        drop: float = 0.5, strategy: str = "auto"):
+    """Full-graph forward on a vertex-partitioned graph. ``x``: (n_pad, d)
+    padded (``pg.scatter_nodes``). With ``halo`` (:func:`init_halo`) the
+    cross-shard partials are recomputed only when ``refresh`` and reused
+    stale otherwise; with ``comm_state`` (:func:`init_comm`) every
+    refreshed exchange is int8 with error feedback. Returns
+    ``(logits_pad, halo_out)``, or ``(logits_pad, halo_out, comm_out)``
+    with ``comm_state``. ``strategy``: ``core/partition.RING_STRATEGIES``.
+    """
+    h = x
+    halo_out, comm_out = [], []
+    for i, lyr in enumerate(model.layers):
+        if train and gen is not None:
+            h = dropout(gen, h, drop, train)
+        h, stale, res = partitioned_aggregate(pb, lyr(h), pb.gcn_w, i, halo,
+                                              refresh, comm_state, strategy)
+        halo_out.append(stale)
+        comm_out.append(res)
+        if i < len(model.layers) - 1:
+            h = torch.relu(h)
+    halo_ret = tuple(halo_out) if halo is not None else None
+    if comm_state is None:
+        return h, halo_ret
+    return h, halo_ret, tuple(comm_out)

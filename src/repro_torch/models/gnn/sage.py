@@ -11,8 +11,12 @@ bundle that has its training graph (``make_bundle(g, training=True)``),
 or under ``"auto"`` where the cost model prefers the ELL pull
 (``GraphBundle.use_training_graph``), the mean pulls through
 ``weighted_copy_reduce``'s ELL route, both ways, as in JAX.
-``train=True`` drops out each layer's input. The partitioned variant is
-A12.
+``train=True`` drops out each layer's input.
+
+:func:`forward_partitioned` runs on a vertex-partitioned graph: the
+neighbour mean is a weighted ring pass (1/deg_in folded into
+``pb.mean_w``; B1 per ring stage on the card), the self term needs no
+exchange; delayed halo and int8 exchanges as in GCN.
 """
 from __future__ import annotations
 
@@ -26,10 +30,12 @@ from ...core.blocks import block_gspmm
 from ...core.training_ops import weighted_copy_reduce
 from ...device import DeviceLike
 from ...substrate.nn import Linear, dropout
-from .common import GraphBundle, run_blocks
+from .common import (GraphBundle, PartitionedBundle, partitioned_aggregate,
+                     run_blocks)
 
 __all__ = ["SAGE", "init", "forward", "infer", "block_layer",
-           "forward_blocks", "infer_blocks"]
+           "forward_blocks", "infer_blocks", "init_halo", "init_comm",
+           "forward_partitioned"]
 
 
 class SAGE(nn.Module):
@@ -121,3 +127,46 @@ def infer_blocks(model: SAGE, blocks, x: torch.Tensor, *,
     """Inference-mode block forward — the serving tier's fan-out path."""
     with torch.no_grad():
         return forward_blocks(model, blocks, x, strategy=strategy)
+
+
+# --------------------------------------------------------------------- #
+# partitioned (repro/models/gnn/sage.py:74-130)
+# --------------------------------------------------------------------- #
+def init_halo(model: SAGE, pg) -> tuple:
+    """Zero remote-partial carry per layer: SAGE aggregates the layer
+    input (before the linear), so the halo width is w.shape[0] // 2."""
+    return tuple(torch.zeros((pg.n_pad, lyr.w.shape[0] // 2),
+                             device=pg.device) for lyr in model.layers)
+
+
+def init_comm(model: SAGE, pg) -> tuple:
+    """Zero error-feedback residual per layer, fp32 at the exchanged
+    payload's shape (the layer input, width w.shape[0] // 2)."""
+    return init_halo(model, pg)
+
+
+def forward_partitioned(model: SAGE, pb: PartitionedBundle,
+                        x: torch.Tensor, *, halo=None, refresh: bool = True,
+                        comm_state=None, train: bool = False,
+                        gen: Optional[torch.Generator] = None,
+                        drop: float = 0.5, strategy: str = "auto"):
+    """Partitioned full-graph forward (padded layout): the mean is a
+    weighted ring pass, the self term local; delayed halo (``halo``) and
+    int8 exchanges (``comm_state``) as in ``gcn.forward_partitioned``,
+    with its returns."""
+    h = x
+    halo_out, comm_out = [], []
+    for i, lyr in enumerate(model.layers):
+        if train and gen is not None:
+            h = dropout(gen, h, drop, train)
+        hn, stale, res = partitioned_aggregate(pb, h, pb.mean_w, i, halo,
+                                               refresh, comm_state, strategy)
+        halo_out.append(stale)
+        comm_out.append(res)
+        h = lyr(torch.cat([h, hn], dim=-1))
+        if i < len(model.layers) - 1:
+            h = torch.relu(h)
+    halo_ret = tuple(halo_out) if halo is not None else None
+    if comm_state is None:
+        return h, halo_ret
+    return h, halo_ret, tuple(comm_out)

@@ -1,5 +1,6 @@
 """GNN training loops (port of ``repro/models/gnn/train.py``): full
-graph (paper Fig. 2) and sampled minibatch (paper Fig. 3).
+graph (paper Fig. 2), sampled minibatch (paper Fig. 3) and partitioned
+full graph (vertex shards on the emulated ring).
 
 One step is one forward, the masked cross-entropy, the backward, global
 norm clipping and an AdamW update (lr 1e-2, weight decay 5e-4, clip 5.0
@@ -28,7 +29,14 @@ the loss runs the forward on ``precision.compute`` casts of them and of
 the input rows (differentiable casts, so ``torch.autograd.grad`` hands
 back fp32 gradients), and the cross-entropy is taken on fp32 logits. On
 the card a bf16 step launches the same kernels as an fp32 step, in their
-bf16 forms (fp32 accumulation). Partitioned training is ROADMAP A12.
+bf16 forms (fp32 accumulation).
+
+Partitioned training (:func:`train_partitioned`) keeps features, labels
+and masks in the padded layout of the graph's partition end to end; each
+step runs the app's ``forward_partitioned`` (exact, a delayed halo every
+``halo_staleness`` epochs, and, with ``precision.comm == "int8"``, int8
+exchanges whose error-feedback residual the step carries). On the card a
+ring pass is B1 per ring stage (``core/partition.py``).
 """
 from __future__ import annotations
 
@@ -48,10 +56,11 @@ from ...obs.spans import fence, span
 from ...optim import (Precision, adamw, apply_updates, cast_logits,
                       cast_tree, clip_by_global_norm)
 from ...substrate.nn import accuracy, cross_entropy_loss
-from .common import block_features, pad_features
+from .common import block_features, make_partitioned_bundle, pad_features
 
 __all__ = ["call_in_precision", "make_loss_step", "make_train_step",
-           "train_full_graph", "make_sampled_train_step", "train_sampled"]
+           "train_full_graph", "make_sampled_train_step", "train_sampled",
+           "make_partitioned_train_step", "train_partitioned"]
 
 
 def _resolve_precision(precision) -> Precision:
@@ -310,4 +319,141 @@ def train_sampled(forward_blocks_fn: Callable, model: nn.Module, g, feats,
         history["sample_time"].append(t_sample)
         history["step_time"].append(t_step)
         history["n_batches"].append(len(losses))
+    return model, history
+
+
+# --------------------------------------------------------------------- #
+# partitioned full-graph training (repro/models/gnn/train.py:116-260)
+# --------------------------------------------------------------------- #
+def make_partitioned_train_step(forward_part_fn: Callable,
+                                lr: float = 1e-2,
+                                weight_decay: float = 5e-4,
+                                clip: float = 5.0, drop: float = 0.0,
+                                precision=None, strategy: str = "auto"):
+    """Returns ``(opt_init, step)`` over padded node tensors
+    (:func:`make_loss_step`): ``step(model, opt_state, step_i, pb, xp,
+    yp, mp, halo, comm, gen, refresh=True)`` runs
+    ``forward_part_fn(model, pb, xp, halo=, refresh=, [comm_state=,]
+    train=True, gen=, drop=, strategy=)`` in ``precision.compute`` (fp32
+    masters, ``call_in_precision``), the masked cross-entropy on fp32
+    logits, and returns ``(opt_state, loss, halo_out, comm_out)``:
+    ``comm`` (None, or the per-layer int8 residuals) is carried into
+    ``comm_out``; ``refresh`` is a plain bool (a stale-halo step)."""
+    precision = _resolve_precision(precision)
+    aux = {}
+
+    def loss_fn(model, pb, xp, yp, mp, halo, comm, gen, refresh):
+        kw = dict(halo=halo, refresh=refresh, train=True, gen=gen,
+                  drop=drop, strategy=strategy)
+        if comm is not None:
+            kw["comm_state"] = comm
+        out = call_in_precision(precision, forward_part_fn, model, pb,
+                                cast_tree(xp, precision.compute), **kw)
+        aux["halo"] = out[1]
+        aux["comm"] = out[2] if comm is not None else None
+        return cross_entropy_loss(cast_logits(out[0]), yp, mp)
+
+    opt_init, inner = make_loss_step(loss_fn, lr, weight_decay, clip)
+
+    def step(model, opt_state, step_i, pb, xp, yp, mp, halo, comm, gen,
+             refresh: bool = True):
+        opt_state, loss = inner(model, opt_state, step_i, pb, xp, yp, mp,
+                                halo, comm, gen, refresh)
+        return opt_state, loss, aux.pop("halo"), aux.pop("comm")
+
+    return opt_init, step
+
+
+def train_partitioned(forward_part_fn: Callable, model: nn.Module, g, x,
+                      labels, train_mask, *, n_shards: int, mesh=None,
+                      axis: str = "data", mode: str = "contiguous",
+                      halo_staleness: int = 0, epochs: int = 10,
+                      lr: float = 1e-2, weight_decay: float = 5e-4,
+                      drop: float = 0.0, seed: int = 0, val_mask=None,
+                      init_halo_fn: Optional[Callable] = None,
+                      precision=None,
+                      init_comm_fn: Optional[Callable] = None,
+                      strategy: str = "auto"
+                      ) -> Tuple[nn.Module, Dict[str, List]]:
+    """Full-graph training of ``model`` in place across ``n_shards``
+    vertex shards of ``g`` (its device is the run's).
+
+    Features are scattered once into the padded layout and the run stays
+    there (labels padded with masked rows). ``mesh=None`` trains on the
+    emulated ring (a process group is ROADMAP A12's last item).
+    ``halo_staleness=0`` is exact every step; ``k > 0`` refreshes the
+    cross-shard partials every k-th epoch and reuses them stale between
+    (needs ``init_halo_fn``, e.g. ``gcn.init_halo``). ``precision`` as in
+    :func:`train_full_graph`; ``precision.comm == "int8"`` puts the
+    exchanges on the int8 wire with error feedback (needs
+    ``init_comm_fn``, e.g. ``gcn.init_comm``). ``strategy`` goes to the
+    ring ops (``core/partition.RING_STRATEGIES``). A warm-up step, and a
+    stale one when delayed, run on a copy of the model first (their
+    updates discarded, as JAX compiles both variants): they build the
+    partition's stage graphs and every kernel's per-graph structures.
+    Returns ``(model, history)``: per epoch ``loss``, ``epoch_time``
+    (s), ``refreshed`` and, given ``val_mask``, ``val_acc``."""
+    from ...core import planner
+
+    precision = _resolve_precision(precision)
+    pb = make_partitioned_bundle(g, n_shards, mesh=mesh, axis=axis,
+                                 mode=mode)
+    pg = pb.pg
+    planner._record("partitioned:train", "auto",
+                    f"ring-emulated:s{n_shards}:{mode}:{precision.tag()}",
+                    dtype=planner.dtype_name(precision.compute))
+    dev = g.device
+    xp = pg.scatter_nodes(torch.as_tensor(np.asarray(x, np.float32),
+                                          device=dev))
+    yp = pg.scatter_nodes(torch.as_tensor(np.asarray(labels),
+                                          device=dev).long())
+    mp = pg.scatter_nodes(torch.as_tensor(np.asarray(train_mask, bool),
+                                          device=dev))
+    vp = (None if val_mask is None else pg.scatter_nodes(
+        torch.as_tensor(np.asarray(val_mask, bool), device=dev)))
+
+    delayed = halo_staleness > 0
+    if delayed and init_halo_fn is None:
+        raise ValueError("halo_staleness > 0 needs init_halo_fn "
+                         "(e.g. gcn.init_halo)")
+    if precision.comm == "int8" and init_comm_fn is None:
+        raise ValueError('precision.comm == "int8" needs init_comm_fn '
+                         "(e.g. gcn.init_comm)")
+    halo = init_halo_fn(model, pg) if delayed else None
+    comm = init_comm_fn(model, pg) if precision.comm == "int8" else None
+
+    opt_init, step = make_partitioned_train_step(
+        forward_part_fn, lr=lr, weight_decay=weight_decay, drop=drop,
+        precision=precision, strategy=strategy)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    history = {"loss": [], "epoch_time": [], "val_acc": [],
+               "refreshed": []}
+    warm = copy.deepcopy(model)
+    for refresh in ((True, False) if delayed else (True,)):
+        _, loss, _, _ = step(warm, opt_init(warm), 0, pb, xp, yp, mp, halo,
+                             comm, gen, refresh=refresh)
+        float(loss)
+    del warm
+
+    opt_state = opt_init(model)
+    for e in range(epochs):
+        refresh = (not delayed) or (e % halo_staleness == 0)
+        t0 = time.perf_counter()
+        opt_state, loss, halo_new, comm = step(
+            model, opt_state, e, pb, xp, yp, mp, halo, comm, gen,
+            refresh=refresh)
+        loss = float(loss)          # the epoch's one host sync
+        history["epoch_time"].append(time.perf_counter() - t0)
+        if delayed:
+            halo = halo_new
+        history["loss"].append(loss)
+        history["refreshed"].append(bool(refresh))
+        if vp is not None:
+            with torch.no_grad():
+                logits = call_in_precision(
+                    precision, forward_part_fn, model, pb,
+                    cast_tree(xp, precision.compute),
+                    strategy=strategy)[0]
+                history["val_acc"].append(float(accuracy(
+                    cast_logits(logits), yp, vp)))
     return model, history

@@ -6,7 +6,8 @@ Decisions are compared under the names' mapping ``pallas ↔ kernel``;
 predicted costs to relative 1e-12 (the same formula on the same row):
 
 * ``compute_stats`` on R-MAT / uniform / empty / zero-in-degree graphs;
-* ``estimate_cost`` for every strategy but ``ring`` (A12), fp32 and bf16;
+* ``estimate_cost`` for every strategy, fp32 and bf16 (``ring`` without
+  partition stats here; ``tests/test_torch_partition.py`` adds them);
 * ``supports("kernel")`` is ``kernels/dispatch.kernel_supports`` on every
   spec, and JAX's ``supports("pallas")`` on fp32 operands;
 * ``plan_gspmm`` on ``tests/core/test_planner.py``'s grids, auto and the
@@ -149,7 +150,7 @@ def test_set_ell_cap_recomputes_stats():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("strategy", ["push", "segment", "ell", "onehot",
-                                      "kernel"])
+                                      "kernel", "ring"])
 def test_estimate_cost_matches_jax(strategy, dtype):
     for kind in ("rmat", "uniform", "empty"):
         jg, tg = _graph_case(kind)
@@ -160,8 +161,6 @@ def test_estimate_cost_matches_jax(strategy, dtype):
             got = tp.estimate_cost(strategy, ts, d, "cpu",
                                    getattr(torch, dtype))
             assert got == pytest.approx(want, rel=REL), (kind, d)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tp.estimate_cost("ring", ts, 4)
 
 
 def test_block_stats_match_jax():

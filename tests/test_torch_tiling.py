@@ -157,7 +157,10 @@ def test_plan_cache_builds_each_pack_once():
     uni = cache.ell_uniform(width)
     assert cache.ell_uniform(width) is uni
     after = planner.pack_build_totals()
-    built = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    # kinds this test does not build (a partition built by an earlier
+    # test in the process) stay out of the comparison
+    built = {k: after[k] - before.get(k, 0) for k in after
+             if after[k] != before.get(k, 0)}
     assert built == {"ell": 1, "tiles": 2, "ell_ragged": 1,
                      "ell_uniform": 1}
     # a cap change re-slots: the old pack stays keyed by its cap
