@@ -217,15 +217,40 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     ``reddit-like`` at S = 4 in turns kernel / plain beside the
     single-device epoch, with peak memory and one traced step.
 
+19. The LM stack (``models/lm``, ``launch/{steps,train,serve}.py``,
+    ``checkpoint/``; no kernel of its own): (a) each of the ten smoke
+    configs, initialised on the CPU and copied to the card, card against
+    CPU in fp32 — loss, grads, prefill logits and caches and two decode
+    steps within 1e-4·max|cpu| + 1e-6, MoE routing (``gate_idx``,
+    ``keep``) equal, the SSM / hybrid decode equal to the longer prefill
+    within 2e-3, five ``make_train_step`` steps on a fixed batch with the
+    last loss below the first (microbatch 2 for ``LM_MICROBATCH``);
+    (b) a smoke train state (fp32 and bf16) saved from the card and
+    restored onto it bit-exact, and the step taken after the restore
+    bit-equal to the uninterrupted one; (c) ``llama3.2-3b`` at its full
+    published config (its reckoned memory, bf16 params and grads and
+    fp32 moments, must fit the card's free memory: ``reduced`` stays
+    empty): a 2-layer full-width fp32 copy card against
+    CPU (loss and last-position logits within 1e-4·max + 1e-6), then
+    ``launch.train.main`` (1 warm-up and 3 timed steps at B = 2, S = 512
+    on a fixed batch, the loss falling) and ``launch.serve.main`` twice
+    (prefill 4 × 512, 32 greedy decode steps, the tokens equal): step ms,
+    tokens/s, model TFLOP/s (6·active params·tokens; prefill 2·…) and its
+    share of 989 TFLOP/s, prefill ms, decode ms a step, peak memory.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
+import gc
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -527,6 +552,22 @@ BLOCK_SHAPES = [
     {"b1": [(41, "sum"), (32, "mean")], "b2": [(1, 41)],
      "b3": [k for k in B3_MAIN if k[3] == 1],
      "b4": [("copy_rhs", 1, 1, "sum")], "b5": [1]}]
+
+
+# the LM phase (19): the smoke configs' batch (B, S) and cache span, the
+# steps of the card's train run and the arch that runs it in 2
+# microbatches; the full-width config, its parity copy's depth and batch
+# (layers, B, S), its train run (B, S, steps: 1 warm-up + 3 timed) and its
+# serve run (B, prompt, tokens: the prefill's and 32 decode steps')
+LM_SMOKE = (2, 16, 24)
+LM_STEPS = 5
+LM_MICROBATCH = "qwen2_vl_2b"
+LM_FULL = "llama3p2_3b"
+LM_PARITY = (2, 1, 64)
+LM_TRAIN = (2, 512, 4)
+LM_SERVE = (4, 512, 33)
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense
+LM_CKPT_DIR = os.path.join("build", "lm_ckpt")
 
 
 def emit(obj) -> None:
@@ -4244,6 +4285,376 @@ def partition_heavy(app: str, dataset) -> dict:
     return row
 
 
+# --------------------------------------------------------------------- #
+# 19. the LM stack: the smoke configs card against CPU, a checkpoint
+# resume on the card, llama3.2-3b at its full published width
+# --------------------------------------------------------------------- #
+def lm_ratio(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
+    """max|got - ref| over the tolerance 1e-4·max|ref| + 1e-6; raises
+    when it is above 1."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    if got.shape != ref.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}")
+    tol = 1e-4 * float(ref.abs().max()) + 1e-6
+    r = float((got - ref).abs().max()) / tol
+    if not r <= 1.0:
+        raise AssertionError(f"{what}: error {r:.3g} × its tolerance")
+    return r
+
+
+def lm_batch(cfg, B: int, S: int, device, seed: int = 0) -> dict:
+    """The smoke tests' batch: tokens, plus frames (encdec) or 3-D
+    positions (vlm), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)),
+                                       dtype=torch.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.normal(
+            size=(B, cfg.enc_seq, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "vlm":
+        batch["positions"] = torch.arange(S, dtype=torch.int32).expand(
+            3, B, S).contiguous()
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts / sequences, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in tree_leaves(v)]
+    return [tree]
+
+
+def lm_serve_path(model, cfg, batch, S: int, device) -> list:
+    """Prefill the first ``S`` tokens, then decode the next two (the
+    batch's own, so both devices decode the same tokens): each step's
+    logits and the cache's tensors after it."""
+    from repro_torch.models.lm import model as lm
+
+    B = batch["tokens"].shape[0]
+    memory = positions = None
+    if cfg.family == "encdec":
+        with torch.no_grad():
+            memory = lm.encode(model, batch["frames"])
+    if cfg.family == "vlm":
+        positions = batch["positions"][:, :, :S]
+    cache = lm.init_cache(cfg, B, LM_SMOKE[2], torch.float32, device)
+    logits, cache = lm.prefill(model, batch["tokens"][:, :S], cache,
+                               positions=positions, memory=memory)
+    out = [(logits, [t.clone() for t in tree_leaves(cache)])]
+    for i in range(2):
+        logits, cache = lm.decode_step(
+            model, batch["tokens"][:, S + i], cache,
+            torch.tensor(S + i, device=device))
+        out.append((logits, [t.clone() for t in tree_leaves(cache)]))
+    return out
+
+
+def lm_smoke(arch: str) -> dict:
+    """Phase 19 (a) for one smoke config: card against CPU on the same
+    weights, the MoE routing, the SSM decode, a 5-step train run."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.models.lm import model as lm
+    from repro_torch.models.lm.moe import moe_route
+
+    t0 = time.perf_counter()
+    cfg = get_smoke_config(arch)
+    B, S, MAX = LM_SMOKE
+    models = {"cpu": lm.init_params(cfg, seed=0, max_seq=MAX, device="cpu")}
+    models["cuda"] = copy.deepcopy(models["cpu"]).to("cuda")
+    res = {}
+    for dev, model in models.items():
+        batch = lm_batch(cfg, B, S, dev)
+        loss = lm.loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        route = None
+        if cfg.family == "moe":
+            x = lm.embed_tokens(model, batch["tokens"]).reshape(B * S, -1)
+            route = moe_route(model.blocks[0].moe, cfg, x)
+        res[dev] = (loss, grads, lm_serve_path(model, cfg, batch, S // 2,
+                                               dev), route)
+    (lc, gcpu, sc, rc), (lg, gg, sg, rg) = res["cpu"], res["cuda"]
+    ratios = {"loss": lm_ratio(lg, lc, f"{arch} loss"),
+              "grads": max(lm_ratio(a, b, f"{arch} grad")
+                           for a, b in zip(gg, gcpu)),
+              "prefill_logits": lm_ratio(sg[0][0], sc[0][0], "prefill"),
+              "decode_logits": max(lm_ratio(sg[i][0], sc[i][0], "decode")
+                                   for i in (1, 2)),
+              "caches": max(lm_ratio(a, b, f"{arch} cache")
+                            for (_, ca), (_, cb) in zip(sg, sc)
+                            for a, b in zip(ca, cb))}
+    row = {"phase": "lm_smoke", "arch": arch, "family": cfg.family,
+           "loss_cpu": lc.item(), "loss_cuda": lg.item(),
+           "err_over_tol": ratios}
+    if rc is not None:
+        for f in ("gate_idx", "keep"):
+            if not torch.equal(getattr(rg, f).cpu(), getattr(rc, f)):
+                raise AssertionError(f"{arch}: MoE {f} differs card / CPU")
+        row["moe"] = {"gate_idx_equal": True, "keep_equal": True,
+                      "dropped": int((~rc.keep).sum()),
+                      "choices": int(rc.keep.numel())}
+    if cfg.family in ("ssm", "hybrid"):
+        model = models["cuda"]
+        toks = lm_batch(cfg, 1, 9, "cuda", seed=2)["tokens"]
+        full, _ = lm.prefill(model, toks, lm.init_cache(
+            cfg, 1, MAX, torch.float32, "cuda"))
+        _, c2 = lm.prefill(model, toks[:, :8], lm.init_cache(
+            cfg, 1, MAX, torch.float32, "cuda"))
+        step, _ = lm.decode_step(model, toks[:, 8], c2,
+                                 torch.tensor(8, device="cuda"))
+        err = float(((step - full).abs() / (2e-3 + 2e-3 * full.abs())).max())
+        if not err <= 1.0:
+            raise AssertionError(f"{arch}: decode vs prefill {err:.3g} × "
+                                 f"2e-3")
+        row["ssm_decode_over_tol"] = err
+    model = copy.deepcopy(models["cuda"])
+    zeros = [torch.zeros(p.shape, device="cuda") for p in model.parameters()]
+    state = TrainState(model, zeros, [z.clone() for z in zeros], 0)
+    mb = 2 if arch == LM_MICROBATCH else 1
+    step_fn = make_train_step(cfg, microbatch=mb)
+    batch = lm_batch(cfg, B, S, "cuda", seed=1)
+    losses = []
+    for _ in range(LM_STEPS):
+        state, metrics = step_fn(state, batch)
+        losses.append(float(metrics["loss"]))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: train losses {losses}")
+    row.update({"microbatch": mb, "train_losses": losses,
+                "seconds": time.perf_counter() - t0})
+    emit(row)
+    return row
+
+
+def lm_checkpoint(dtype: str) -> dict:
+    """Phase 19 (b): the llama smoke train state in ``dtype`` saved from
+    the card after two steps and restored onto it (every leaf bit-equal,
+    params and moments on the card), then the third step after the
+    restore bit-equal to the uninterrupted third step."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import (init_state, load_state_tree,
+                                          make_train_step, state_tree)
+    from repro_torch.launch.train import synthetic_batch
+
+    cfg = dataclasses.replace(get_smoke_config(LM_FULL), dtype=dtype)
+    step_fn = make_train_step(cfg)
+    batches = [synthetic_batch(cfg, i, 2, 16, device="cuda")
+               for i in range(3)]
+    state = init_state(cfg, seed=0, device="cuda")
+    for b in batches[:2]:
+        state, _ = step_fn(state, b)
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+    mgr = CheckpointManager(LM_CKPT_DIR)
+    saved = [t.clone() for t in tree_leaves(state_tree(state))]
+    t0 = time.perf_counter()
+    mgr.save(state_tree(state), 2)
+    save_s = time.perf_counter() - t0
+    state, _ = step_fn(state, batches[2])
+    after = [t.clone() for t in tree_leaves(state_tree(state))]
+
+    fresh = init_state(cfg, seed=1, device="cuda")
+    t0 = time.perf_counter()
+    tree, n = mgr.restore_latest(state_tree(fresh))
+    restore_s = time.perf_counter() - t0
+    leaves = tree_leaves(tree)
+    if n != 2 or len(leaves) != len(saved):
+        raise AssertionError(f"restored step {n}, {len(leaves)} leaves")
+    card = next(fresh.params.parameters()).device
+    for got, want in zip(leaves, saved):
+        if got.dim() and got.device != card:
+            raise AssertionError("a restored leaf is not on the card")
+        if not torch.equal(got.cpu(), want.cpu()):
+            raise AssertionError("a restored leaf differs from the saved")
+    fresh = load_state_tree(fresh, tree)
+    fresh, _ = step_fn(fresh, batches[2])
+    for got, want in zip(tree_leaves(state_tree(fresh)), after):
+        if not torch.equal(got, want):
+            raise AssertionError("the step after the restore differs "
+                                 "from the uninterrupted step")
+    nbytes = sum(os.path.getsize(os.path.join(LM_CKPT_DIR, "step_2", f))
+                 for f in os.listdir(os.path.join(LM_CKPT_DIR, "step_2")))
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+    row = {"phase": "lm_checkpoint", "arch": cfg.name, "dtype": dtype,
+           "leaves": len(saved), "bytes": nbytes,
+           "bf16_leaves": sum(t.dtype == torch.bfloat16 for t in saved),
+           "save_s": save_s, "restore_s": restore_s,
+           "restored_bit_exact": True, "resumed_step_bit_exact": True}
+    emit(row)
+    return row
+
+
+def lm_full() -> list:
+    """Phase 19 (c): ``LM_FULL`` at its full published config."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.models.lm import model as lm
+
+    cfg = get_config(LM_FULL)
+    params, active = cfg.param_count(), cfg.active_param_count()
+    # bf16 params and grads, fp32 AdamW moments, before activations
+    reckoned = params * (2 + 2 + 8)
+    free, total = torch.cuda.mem_get_info()
+    if reckoned > 0.8 * free:
+        raise AssertionError(f"{LM_FULL}: {reckoned / 1e9:.1f} GB reckoned "
+                             f"against {free / 1e9:.1f} GB free")
+    rows = []
+
+    # a 2-layer fp32 copy at full width, card against CPU
+    t0 = time.perf_counter()
+    layers, B, S = LM_PARITY
+    cfg2 = dataclasses.replace(cfg, n_layers=layers, dtype="float32")
+    cpu = lm.init_params(cfg2, seed=0, device="cpu")
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", copy.deepcopy(cpu).to("cuda"))):
+        batch = lm_batch(cfg2, B, S, dev)
+        with torch.no_grad():
+            loss = lm.loss_fn(model, batch)
+        logits, _ = lm.prefill(model, batch["tokens"], lm.init_cache(
+            cfg2, B, S, torch.float32, dev))
+        out[dev] = (loss, logits)
+        del model
+    del cpu
+    rows.append({"phase": "lm_full_parity", "arch": cfg.name,
+                 "n_layers": layers, "d_model": cfg.d_model,
+                 "vocab": cfg.vocab, "batch": B, "seq": S,
+                 "loss_cpu": float(out["cpu"][0]),
+                 "loss_cuda": float(out["cuda"][0]),
+                 "loss_over_tol": lm_ratio(out["cuda"][0], out["cpu"][0],
+                                           "full-width loss"),
+                 "logits_over_tol": lm_ratio(out["cuda"][1], out["cpu"][1],
+                                             "full-width logits"),
+                 "seconds": time.perf_counter() - t0})
+    emit(rows[-1])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training through the launcher: 1 warm-up step, then timed steps
+    B, S, n = LM_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(["--arch", LM_FULL, "--steps", str(n), "--batch",
+                      str(B), "--seq", str(S), "--fixed-batch",
+                      "--log-every", "1", "--device", "cuda"])
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{LM_FULL}: train losses {losses}")
+    step_s = statistics.median(res["step_s"][1:])
+    tflops = 6 * active * B * S / step_s / 1e12
+    rows.append({"phase": "lm_full_train", "arch": cfg.name,
+                 "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "params": params, "active_params": active,
+                 "reckoned_gb": reckoned / 1e9, "free_gb": free / 1e9,
+                 "reduced": [], "batch": B, "seq": S, "losses": losses,
+                 "warmup_ms": res["step_s"][0] * 1e3,
+                 "step_ms": [t * 1e3 for t in res["step_s"][1:]],
+                 "step_ms_median": step_s * 1e3,
+                 "tokens_per_s": B * S / step_s, "model_tflops": tflops,
+                 "share_of_989": tflops * 1e12 / BF16_FLOPS_PER_S,
+                 "peak_gb": peak / 1e9})
+    emit(rows[-1])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # serving through the launcher, twice: the same tokens
+    B, S, gen = LM_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    runs = [serve.main(["--arch", LM_FULL, "--batch", str(B),
+                        "--prompt-len", str(S), "--gen", str(gen),
+                        "--device", "cuda"]) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(runs[0]["tokens"], runs[1]["tokens"]):
+        raise AssertionError(f"{LM_FULL}: two serve runs generated "
+                             f"different tokens")
+    pre_s = runs[1]["prefill_s"]
+    rows.append({"phase": "lm_full_serve", "arch": cfg.name,
+                 "n_layers": cfg.n_layers, "reduced": [], "batch": B,
+                 "prompt": S, "decode_steps": gen - 1,
+                 "prefill_ms": [r["prefill_s"] * 1e3 for r in runs],
+                 "decode_ms_per_step": [r["decode_s"] * 1e3 / (gen - 1)
+                                        for r in runs],
+                 "prefill_tokens_per_s": B * S / pre_s,
+                 "prefill_model_tflops": 2 * active * B * S / pre_s / 1e12,
+                 "prefill_share_of_989": 2 * active * B * S / pre_s
+                 / BF16_FLOPS_PER_S,
+                 "decode_tokens_per_s": B * (gen - 1) / runs[1]["decode_s"],
+                 "tokens_equal": True, "sample": runs[1]["tokens"][0, :8]
+                 .tolist(), "peak_gb": peak / 1e9})
+    emit(rows[-1])
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.append(lm_trace(cfg))
+    return rows
+
+
+def lm_trace(cfg) -> dict:
+    """One train step (``LM_TRAIN``'s batch) and one decode step
+    (``LM_SERVE``'s, after its prefill) of the full config under
+    ``torch.profiler``: device time by operation and the busy share. A
+    reading only."""
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.lm import model as lm
+
+    B, S, _ = LM_TRAIN
+    step_fn = make_train_step(cfg)
+    batch = synthetic_batch(cfg, 0, B, S, device="cuda")
+    box = [init_state(cfg, device="cuda")]
+
+    def train_step():
+        box[0], metrics = step_fn(box[0], batch)
+        float(metrics["loss"])
+
+    traced = {"train_step": trace(train_step)}
+    del box
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S, gen = LM_SERVE
+    model = lm.init_params(cfg, max_seq=S + gen, device="cuda")
+    cache = lm.init_cache(cfg, B, S + gen, lm.lm_dtype(cfg), "cuda")
+    tokens = synthetic_batch(cfg, 0, B, S, device="cuda")["tokens"]
+    logits, cache = lm.prefill(model, tokens, cache)
+    tok, pos = logits.argmax(-1), torch.tensor(S, device="cuda")
+
+    def decode():   # the same position each call: the same work
+        lm.decode_step(model, tok, cache, pos)
+        torch.cuda.synchronize()
+
+    traced["decode_step"] = trace(decode)
+    row = {"phase": "lm_full_trace", "arch": cfg.name, **{
+        k: {f: v[f] for f in ("device_events", "device_us_total",
+                              "wall_us_profiled",
+                              "device_busy_share_profiled", "top",
+                              "top_host")}
+        for k, v in traced.items()}}
+    emit(row)
+    return row
+
+
+def lm_phase() -> None:
+    """Phase 19: (a) every smoke config, (b) the checkpoint resume,
+    (c) the full-width config."""
+    from repro_torch.configs import ARCHS
+
+    t0 = time.perf_counter()
+    for arch in ARCHS:
+        lm_smoke(arch)
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        lm_checkpoint(dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_full()
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_done", "seconds": time.perf_counter() - t0})
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -4274,12 +4685,7 @@ def shape_entry(r: dict) -> dict:
 def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     from benchmarks.torch_sddmm_walks import CANONICAL_SRC
-    from repro_torch.data.synthetic import make_node_dataset, rmat_graph
-    from repro_torch.core.graph import from_coo
     from repro_torch.kernels import _build
-    from repro_torch.kernels.edge_softmax.ops import SOFTMAX_SEGMENT_EDGES
-    from repro_torch.kernels.rowsplit import SEGMENT_EDGES, row_split
-    from repro_torch.models.gnn.common import make_bundle, pad_features
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available", file=sys.stderr)
@@ -4308,6 +4714,26 @@ def main() -> int:
         report = [ln for ln in _build.ptxas_report(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         emit({"phase": "ptxas", "source": name, "report": report})
+
+    kernels = gnn_phases()
+    # 19. the LM stack, after the GNN phases' tensors are freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_phase()
+    emit(kernels)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+def gnn_phases() -> dict:
+    """Phases 3-18; returns the kernels summary line."""
+    from repro_torch.data.synthetic import make_node_dataset, rmat_graph
+    from repro_torch.core.graph import from_coo
+    from repro_torch.kernels.edge_softmax.ops import SOFTMAX_SEGMENT_EDGES
+    from repro_torch.kernels.rowsplit import SEGMENT_EDGES, row_split
+    from repro_torch.models.gnn.common import make_bundle, pad_features
 
     # 3. kernels, with and without zero-in-degree rows
     gen = torch.Generator().manual_seed(0)
@@ -4580,15 +5006,11 @@ def main() -> int:
     blocks["sddmm_csr:copy"] = []
     for k, v in sampled_rows.items():      # the block Gᵀ rows
         blocks[k] += list(v.values())
-    emit({"kernels": [
+    return {"kernels": [
         summary(name, SOURCES[name.split(":")[0]], REPLACES[name],
                 main[name], list(every[name].values()) + blocks[name],
                 launches[name], blocks[name])
-        for name in main]})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
-    return 0
+        for name in main]}
 
 
 if __name__ == "__main__":

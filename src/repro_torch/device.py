@@ -17,3 +17,10 @@ def resolve_device(device: DeviceLike) -> torch.device:
             f"device {str(device)!r} requested but torch.cuda is not "
             f"available; pass device='cpu' to run the plain versions")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for ``device``'s queued work (nothing to wait for on the
+    CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

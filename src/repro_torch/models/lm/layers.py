@@ -1,0 +1,298 @@
+"""Transformer building blocks (port of ``repro/models/lm/layers.py``):
+norms, RoPE / M-RoPE, GQA attention, MLP.
+
+Each ``*_init`` builds an ``nn.Module`` whose parameters carry the JAX
+tree's names (``wq``, ``w_gate``, ``scale``, ...) on an explicit device
+and dtype, drawn from a ``torch.Generator`` (or left uninitialised when
+``gen`` is None, for weights copied in afterwards); each ``*_apply`` is
+the JAX function's math on such a module. Products promote their operands
+as JAX does (``substrate.nn.matmul``).
+
+Attention is blockwise (online softmax over KV chunks of ``block``), as
+JAX's ``lax.scan``; sliding-window attention masks within the same loop.
+On one card JAX's sharding hints (``_attn_parallel_mode``, every
+``shard_hint``) are the identity, so they are left out.
+
+A KV cache is updated IN PLACE (the JAX functions return a new one): the
+caller's cache tensors hold the new entries afterwards. Positions, the
+cache length and ``q_offset`` may be 0-d device tensors; nothing here
+reads one back to the host.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...substrate.nn import matmul
+from .config import ModelConfig
+
+__all__ = ["Norm", "Attention", "MLP", "normal", "norm_init", "norm_apply",
+           "rope_freqs", "rope_angles", "apply_rope", "attention_init",
+           "blockwise_attention", "attention_kv", "attention_apply",
+           "mlp_init", "mlp_apply"]
+
+
+def normal(gen: Optional[torch.Generator], shape, scale: float,
+           dtype: torch.dtype, device) -> nn.Parameter:
+    """``N(0, 1)·scale`` drawn in float32 on ``device`` from ``gen`` and
+    cast to ``dtype`` (JAX's ``(normal(k, shape) * s).astype(dtype)``);
+    uninitialised when ``gen`` is None."""
+    if gen is None:
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return nn.Parameter((w * scale).to(dtype))
+
+
+def _const(shape, value: float, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device))
+
+
+# --------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------- #
+class Norm(nn.Module):
+    """RMSNorm (``scale``) or LayerNorm (``scale``, ``bias``), float32."""
+
+    def __init__(self, d: int, kind: str, device):
+        super().__init__()
+        self.scale = _const((d,), 1.0, torch.float32, device)
+        if kind != "rmsnorm":
+            self.bias = _const((d,), 0.0, torch.float32, device)
+
+
+def norm_init(d: int, kind: str, device) -> Norm:
+    return Norm(d, kind, device)
+
+
+def norm_apply(p: Norm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if hasattr(p, "bias"):   # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.square(xf - mu).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps) * p.scale + p.bias
+    else:                    # rmsnorm
+        ms = torch.square(xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p.scale
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# RoPE (+ M-RoPE)
+# --------------------------------------------------------------------- #
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float,
+                sections: Tuple[int, ...] = ()) -> torch.Tensor:
+    """(B, S, head_dim/2) rotation angles.
+
+    ``positions``: (B, S) for standard RoPE, or (3, B, S) for M-RoPE where
+    the rows are (t, h, w) coordinates and ``sections`` splits the
+    head_dim/2 frequency slots among them (qwen2-vl)."""
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    if positions.dim() == 2:
+        return positions[..., None].float() * freqs
+    if not sections or sum(sections) != head_dim // 2:
+        raise ValueError("M-RoPE sections must sum to head_dim/2")
+    parts, off = [], 0
+    for row, sec in enumerate(sections):
+        parts.append(positions[row][..., None].float()
+                     * freqs[off:off + sec])
+        off += sec
+    return torch.cat(parts, dim=-1)
+
+
+def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, Dh), angles: (B, S, Dh/2). Rotates (even, odd) pairs."""
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1 = x[..., 0::2]
+    x2 = x[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------- #
+class Attention(nn.Module):
+    """``wq`` (D, Hq, Dh), ``wk`` / ``wv`` (D, Hkv, Dh), ``wo`` (Hq, Dh, D)
+    and, with ``qkv_bias``, ``bq`` / ``bk`` / ``bv``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, gen):
+        super().__init__()
+        D, Dh = cfg.d_model, cfg.head_dim
+        Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+        s = D ** -0.5
+        self.wq = normal(gen, (D, Hq, Dh), s, dtype, device)
+        self.wk = normal(gen, (D, Hkv, Dh), s, dtype, device)
+        self.wv = normal(gen, (D, Hkv, Dh), s, dtype, device)
+        self.wo = normal(gen, (Hq, Dh, D), s, dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _const((Hq, Dh), 0.0, dtype, device)
+            self.bk = _const((Hkv, Dh), 0.0, dtype, device)
+            self.bv = _const((Hkv, Dh), 0.0, dtype, device)
+
+
+def attention_init(cfg: ModelConfig, dtype, device, gen) -> Attention:
+    return Attention(cfg, dtype, device, gen)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul."""
+    return matmul(x, w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, Hkv, Dh) -> (B, S, Hkv*groups, Dh) by head replication."""
+    if groups == 1:
+        return x
+    b, s, h, d = x.shape
+    return x[:, :, :, None, :].expand(b, s, h, groups, d).reshape(
+        b, s, h * groups, d)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int = 0, q_offset=0,
+                        kv_len: Optional[torch.Tensor] = None,
+                        block: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ``block``.
+
+    q: (B, Sq, H, Dh); k/v: (B, Skv, H, Dh) (kv heads already repeated).
+    ``q_offset``: absolute position of q[0] (an int or a 0-d tensor).
+    ``kv_len``: optional valid length of the KV (cache decoding).
+    ``window``: sliding-window size (0 = unlimited). Masked scores are
+    -1e30, JAX's constant, so a chunk masked whole is wiped by the next
+    chunk's correction exactly as in JAX."""
+    B, Sq, H, Dh = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    nblk = -(-Skv // block)
+    pad = nblk * block - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q32 = q.float() * Dh ** -0.5
+    qpos = q_offset + torch.arange(Sq, device=dev)
+    acc = torch.zeros((B, H, Sq, Dh), dtype=torch.float32, device=dev)
+    m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=dev)
+    denom = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    for i in range(nblk):
+        kblk = k[:, i * block:(i + 1) * block].float()
+        vblk = v[:, i * block:(i + 1) * block].float()
+        kpos = i * block + torch.arange(block, device=dev)
+        s = torch.einsum("bqhd,bkhd->bhqk", q32, kblk)
+        mask = torch.ones((Sq, block), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        if kv_len is not None:
+            mask = mask & (kpos[None, :] < kv_len)
+        if pad:
+            mask = mask & (kpos[None, :] < Skv)
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        denom = denom * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                   vblk)
+        m = m_new
+    out = acc / torch.clamp(denom[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)          # (B, Sq, H, Dh)
+
+
+def attention_kv(p: Attention, cfg: ModelConfig, src: torch.Tensor):
+    """K/V projection only (cross-attention K/V are projected once at
+    prefill and read from the cache at decode)."""
+    k = _proj(src, p.wk)
+    v = _proj(src, p.wv)
+    if hasattr(p, "bk"):
+        k = k + p.bk
+        v = v + p.bv
+    return k, v
+
+
+def _cache_write(cache: Dict, k: torch.Tensor, v: torch.Tensor):
+    """Write k / v at ``cache["len"]`` onwards, in place; returns the
+    whole cached K / V and the new length (a device tensor)."""
+    idx = cache["len"]
+    rows = (idx + torch.arange(k.shape[1], device=k.device)).long()
+    cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+    new_len = idx + k.shape[1]
+    cache["len"].copy_(new_len)
+    return cache["k"], cache["v"], new_len
+
+
+def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    angles: Optional[torch.Tensor], *, causal: bool = True,
+                    memory: Optional[torch.Tensor] = None, kv_override=None,
+                    cache: Optional[Dict] = None, q_offset=0,
+                    block: int = 512) -> torch.Tensor:
+    """Self- or cross-attention with an optional KV cache.
+
+    ``memory``: encoder output for cross-attention (keys/values from it).
+    ``kv_override``: precomputed (k, v) — skips the K/V projections.
+    ``cache``: {"k", "v": (B, Smax, Hkv, Dh), "len": 0-d} — updated in
+    place."""
+    groups = cfg.n_heads // cfg.n_kv_heads
+    q = _proj(x, p.wq)
+    if hasattr(p, "bq"):
+        q = q + p.bq
+    if kv_override is not None:
+        k, v = kv_override
+    else:
+        k, v = attention_kv(p, cfg, memory if memory is not None else x)
+    if angles is not None and memory is None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
+    kv_len = None
+    if cache is not None:
+        k, v, kv_len = _cache_write(cache, k, v)
+    out = blockwise_attention(q, _repeat_kv(k, groups),
+                              _repeat_kv(v, groups), causal=causal,
+                              window=cfg.sliding_window, q_offset=q_offset,
+                              kv_len=kv_len, block=block)
+    return matmul(out.flatten(2), p.wo.reshape(-1, p.wo.shape[-1]))
+
+
+# --------------------------------------------------------------------- #
+# MLP
+# --------------------------------------------------------------------- #
+class MLP(nn.Module):
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or GELU (``w_up``,
+    ``b_up``, ``w_down``, ``b_down``)."""
+
+    def __init__(self, d: int, ff: int, act: str, dtype, device, gen):
+        super().__init__()
+        s_in, s_out = d ** -0.5, ff ** -0.5
+        if act == "swiglu":
+            self.w_gate = normal(gen, (d, ff), s_in, dtype, device)
+            self.w_up = normal(gen, (d, ff), s_in, dtype, device)
+            self.w_down = normal(gen, (ff, d), s_out, dtype, device)
+        else:
+            self.w_up = normal(gen, (d, ff), s_in, dtype, device)
+            self.b_up = _const((ff,), 0.0, dtype, device)
+            self.w_down = normal(gen, (ff, d), s_out, dtype, device)
+            self.b_down = _const((d,), 0.0, dtype, device)
+
+
+def mlp_init(d: int, ff: int, act: str, dtype, device, gen) -> MLP:
+    return MLP(d, ff, act, dtype, device, gen)
+
+
+def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    if hasattr(p, "w_gate"):
+        return matmul(F.silu(matmul(x, p.w_gate)) * matmul(x, p.w_up),
+                      p.w_down)
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(matmul(x, p.w_up) + p.b_up, approximate="tanh")
+    return matmul(h, p.w_down) + p.b_down

@@ -1,0 +1,455 @@
+"""TransformerLM — one composable model for the ten assigned archs (port
+of ``repro/models/lm/model.py``).
+
+Families:
+  dense   — uniform (attn + MLP) blocks (qwen2 / llama / internlm2)
+  moe     — (attn + MoE) blocks (mixtral / granite-moe)
+  ssm     — Mamba2 blocks (mamba2-1.3b)
+  hybrid  — groups of Mamba2 blocks, each followed by ONE weight-shared
+            attention block (every ``shared_attn_every`` layers; zamba2)
+  encdec  — encoder stack + decoder stack with cross-attention (whisper;
+            the frontend is a stub supplying frame embeddings)
+  vlm     — dense with M-RoPE 3-D positions (qwen2-vl; stub frontend)
+
+The model is an ``nn.Module`` (:class:`LM`) whose parameter names are the
+JAX tree's, with one module per layer in a ``ModuleList`` where JAX stacks
+the layers on a leading L axis; :func:`from_jax_params` and
+:func:`to_jax_tree` carry weights across. JAX's per-block
+``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant) while
+gradients are recorded; recomputing a block gives the same values, so it
+changes no result. JAX's residual sharding hints are the identity on one
+card and are left out.
+
+Caches (:func:`init_cache`) have JAX's layout, stacked per layer, and
+:func:`prefill` / :func:`decode_step` update them IN PLACE and return them.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ...device import DeviceLike, resolve_device
+from ...substrate.nn import matmul
+from .config import ModelConfig
+from .layers import (Attention, MLP, Norm, attention_apply, attention_kv,
+                     mlp_apply, norm_apply, normal, rope_angles)
+from .mamba2 import Mamba2, mamba2_apply
+from .moe import MoE, moe_apply
+
+__all__ = ["LM", "lm_dtype", "init_params", "from_jax_params",
+           "to_jax_tree", "from_jax_tree", "embed_tokens", "logits_fn",
+           "chunked_ce_loss", "backbone", "encode", "loss_fn", "init_cache",
+           "prefill", "decode_step"]
+
+_STACKS = ("blocks", "enc_blocks")
+
+
+def lm_dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+# --------------------------------------------------------------------- #
+# modules
+# --------------------------------------------------------------------- #
+class AttnBlock(nn.Module):
+    """``norm1``, ``attn``, ``norm2``, ``mlp`` or ``moe``; a decoder block
+    (``kind="cross"``) adds ``norm_x`` and ``xattn``."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, dtype, device, gen):
+        super().__init__()
+        D = cfg.d_model
+        self.norm1 = Norm(D, cfg.norm, device)
+        self.attn = Attention(cfg, dtype, device, gen)
+        self.norm2 = Norm(D, cfg.norm, device)
+        if kind == "moe":
+            self.moe = MoE(cfg, dtype, device, gen)
+        else:
+            self.mlp = MLP(D, cfg.d_ff, cfg.act, dtype, device, gen)
+        if kind == "cross":
+            self.norm_x = Norm(D, cfg.norm, device)
+            self.xattn = Attention(cfg, dtype, device, gen)
+
+
+class MambaBlock(nn.Module):
+    """``norm`` and ``mixer``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, gen):
+        super().__init__()
+        self.norm = Norm(cfg.d_model, cfg.norm, device)
+        self.mixer = Mamba2(cfg, dtype, device, gen)
+
+
+_KIND = {"dense": "dense", "vlm": "dense", "moe": "moe", "ssm": "mamba",
+         "hybrid": "mamba", "encdec": "cross"}
+
+
+class LM(nn.Module):
+    """The model of one config on ``device``; weights drawn there from a
+    ``torch.Generator`` seeded with ``seed`` (``init=False`` leaves them
+    uninitialised, for weights copied in). ``max_seq`` sizes the decoder's
+    learned positions (encdec only), as JAX's ``init_params``."""
+
+    def __init__(self, cfg: ModelConfig, *, max_seq: int = 0,
+                 device: DeviceLike = "cuda", seed: int = 0,
+                 init: bool = True):
+        super().__init__()
+        if cfg.family not in _KIND:
+            raise ValueError(cfg.family)
+        dev = resolve_device(device)
+        dtype = lm_dtype(cfg)
+        gen = torch.Generator(device=dev).manual_seed(seed) if init else None
+        D, V, kind = cfg.d_model, cfg.vocab, _KIND[cfg.family]
+        self.cfg = cfg
+
+        def block(k):
+            return (MambaBlock(cfg, dtype, dev, gen) if k == "mamba"
+                    else AttnBlock(cfg, k, dtype, dev, gen))
+
+        self.embed = normal(gen, (V, D), 0.02, dtype, dev)
+        self.final_norm = Norm(D, cfg.norm, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = normal(gen, (V, D), 0.02, dtype, dev)
+        self.blocks = nn.ModuleList(block(kind) for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared = block("dense")
+        if cfg.family == "encdec":
+            self.enc_blocks = nn.ModuleList(
+                block("dense") for _ in range(cfg.n_enc_layers))
+            self.enc_pos = normal(gen, (cfg.enc_seq, D), 0.02, dtype, dev)
+            self.dec_pos = normal(gen, (max(max_seq, 8), D), 0.02, dtype,
+                                  dev)
+            self.enc_final_norm = Norm(D, cfg.norm, dev)
+
+    @property
+    def head(self) -> torch.Tensor:
+        """The output table: ``lm_head``, or ``embed`` when tied."""
+        return self.lm_head if hasattr(self, "lm_head") else self.embed
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, max_seq: int = 0,
+                device: DeviceLike = "cuda") -> LM:
+    """JAX's ``init_params(key, cfg, max_seq=)``: a new :class:`LM`."""
+    return LM(cfg, max_seq=max_seq, device=device, seed=seed)
+
+
+# --------------------------------------------------------------------- #
+# weights carried across: JAX's tree stacks layers on a leading L axis
+# --------------------------------------------------------------------- #
+def _jax_path(name: str):
+    """``blocks.3.attn.wq`` -> (("blocks", "attn", "wq"), 3)."""
+    parts = name.split(".")
+    if parts[0] in _STACKS:
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def to_jax_tree(model: LM, tensors=None) -> Dict:
+    """JAX's parameter tree of ``model`` (nested dicts, layers stacked):
+    of its parameters, or of ``tensors``, one per parameter in
+    ``model.parameters()`` order (grads, AdamW moments)."""
+    if tensors is None:
+        tensors = [p.detach() for p in model.parameters()]
+    tree: Dict = {}
+    stacks: Dict = {}
+    for (name, _), t in zip(model.named_parameters(), tensors):
+        path, layer = _jax_path(name)
+        if layer is None:
+            _put(tree, path, t)
+        else:
+            stacks.setdefault(path, []).append(t)
+    for path, ts in stacks.items():
+        _put(tree, path, torch.stack(ts))
+    return tree
+
+
+def _put(tree: Dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def from_jax_tree(model: LM, tree: Dict) -> list:
+    """The inverse of :func:`to_jax_tree`: one tensor per parameter of
+    ``model``, in ``model.parameters()`` order, from a tree of tensors or
+    numpy arrays (JAX's bfloat16 ones too; shapes checked)."""
+    out = []
+    for name, p in model.named_parameters():
+        path, layer = _jax_path(name)
+        leaf = functools.reduce(lambda t, k: t[k], path, tree)
+        if isinstance(leaf, np.ndarray):
+            leaf = (torch.tensor(leaf.view(np.int16)).view(torch.bfloat16)
+                    if leaf.dtype.name == "bfloat16" else torch.tensor(leaf))
+        if layer is not None:
+            leaf = leaf[layer]
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(leaf.shape)}, "
+                             f"model wants {tuple(p.shape)}")
+        out.append(leaf)
+    return out
+
+
+def from_jax_params(cfg: ModelConfig, tree: Dict,
+                    device: DeviceLike = "cuda") -> LM:
+    """The port's model holding JAX's parameter tree ``tree`` (numpy
+    arrays or tensors, layers stacked, ``"shared"`` unstacked)."""
+    max_seq = tree["dec_pos"].shape[0] if "dec_pos" in tree else 0
+    model = LM(cfg, max_seq=max_seq, device=device, init=False)
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), from_jax_tree(model, tree)):
+            p.copy_(v)
+    return model
+
+
+# --------------------------------------------------------------------- #
+# blocks
+# --------------------------------------------------------------------- #
+def _attn_block(bp: AttnBlock, cfg: ModelConfig, h, angles, *, causal=True,
+                memory=None, cache=None, q_offset=0):
+    """Returns (h, aux). A decoder block's cross-attention K/V are
+    projected from ``memory`` (and written to the cache when there is
+    one) or, at decode, read from the cache."""
+    x = norm_apply(bp.norm1, h)
+    h = h + attention_apply(bp.attn, cfg, x, angles, causal=causal,
+                            cache=cache, q_offset=q_offset)
+    if hasattr(bp, "xattn"):
+        x = norm_apply(bp.norm_x, h)
+        if memory is not None:
+            xk, xv = attention_kv(bp.xattn, cfg, memory)
+            if cache is not None:
+                cache["cross_k"].copy_(xk)
+                cache["cross_v"].copy_(xv)
+        else:
+            xk, xv = cache["cross_k"], cache["cross_v"]
+        h = h + attention_apply(bp.xattn, cfg, x, None, causal=False,
+                                kv_override=(xk, xv))
+    x = norm_apply(bp.norm2, h)
+    if hasattr(bp, "moe"):
+        y, aux = moe_apply(bp.moe, cfg, x)
+    else:
+        y, aux = mlp_apply(bp.mlp, x), h.new_zeros((), dtype=torch.float32)
+    return h + y, aux
+
+
+def _mamba_block(bp: MambaBlock, cfg: ModelConfig, h, state=None):
+    return h + mamba2_apply(bp.mixer, cfg, norm_apply(bp.norm, h), state)
+
+
+def _layer(caches: Optional[Dict], i: int) -> Optional[Dict]:
+    """Layer ``i``'s view of a stacked cache (writes go through)."""
+    if caches is None:
+        return None
+    return {k: v[i] for k, v in caches.items()}
+
+
+def _remat(fn, *args):
+    """``fn(*args)``, checkpointed per block while gradients are
+    recorded (JAX's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _attn_stack(model: LM, blocks, h, angles, *, causal=True, memory=None,
+                caches=None, q_offset=0):
+    cfg = model.cfg
+    aux = h.new_zeros((), dtype=torch.float32)
+    for i, bp in enumerate(blocks):
+        fn = functools.partial(_attn_block, bp, cfg, causal=causal,
+                               memory=memory, cache=_layer(caches, i),
+                               q_offset=q_offset)
+        h, a = _remat(fn, h, angles)
+        aux = aux + a
+    return h, aux
+
+
+def _mamba_stack(model: LM, blocks, h, states=None):
+    for i, bp in enumerate(blocks):
+        h = _remat(functools.partial(
+            _mamba_block, bp, model.cfg, state=_layer(states, i)), h)
+    return h
+
+
+# --------------------------------------------------------------------- #
+# embedding / logits / loss
+# --------------------------------------------------------------------- #
+def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), model.embed)
+
+
+def logits_fn(model: LM, h: torch.Tensor) -> torch.Tensor:
+    return matmul(h, model.head.t()).float()
+
+
+def chunked_ce_loss(model: LM, h: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """Mean CE over the labels >= 0, the (B, c, V) logits of one chunk of
+    ``chunk`` positions at a time. The label's logit is gathered where
+    JAX sums ``logits · one_hot`` (the same value: one term plus zeros)."""
+    S = h.shape[1]
+    tot = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, S, chunk):
+        logits = logits_fn(model, h[:, c0:c0 + chunk])
+        lx = labels[:, c0:c0 + chunk].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = logits.gather(-1, lx.clamp(min=0)[..., None])[..., 0]
+        valid = (lx >= 0).float()
+        tot = tot + torch.sum((lse - lab) * valid)
+        cnt = cnt + torch.sum(valid)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+# --------------------------------------------------------------------- #
+# forward passes
+# --------------------------------------------------------------------- #
+def _positions_default(B: int, S: int, device, offset=0) -> torch.Tensor:
+    return (torch.arange(S, device=device) + offset).expand(B, S)
+
+
+def backbone(model: LM, h: torch.Tensor, positions: torch.Tensor, *,
+             caches=None, q_offset=0, memory=None):
+    """Shared trunk: blocks -> final norm.
+
+    positions: (B, S) or (3, B, S) for M-RoPE. caches: the family's
+    cache (:func:`init_cache`), updated in place. Returns (h, aux_loss,
+    caches)."""
+    cfg = model.cfg
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe", "encdec"):
+        angles = (None if fam == "encdec" else   # encdec: learned positions
+                  rope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                              cfg.mrope_sections))
+        h, aux = _attn_stack(model, model.blocks, h, angles, causal=True,
+                             memory=memory, caches=caches, q_offset=q_offset)
+        return norm_apply(model.final_norm, h), aux, caches
+    zero = h.new_zeros((), dtype=torch.float32)
+    if fam == "ssm":
+        h = _mamba_stack(model, model.blocks, h, caches)
+        return norm_apply(model.final_norm, h), zero, caches
+    # hybrid: each group of Mamba2 blocks, then the shared attention block
+    angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    every = cfg.shared_attn_every
+    m_states, a_caches = (None, None) if caches is None else (
+        caches["mamba"], caches["attn"])
+    for gi in range(cfg.n_layers // every):
+        h = _mamba_stack(model, model.blocks[gi * every:(gi + 1) * every], h,
+                         _layer(m_states, gi))
+        h, _ = _attn_block(model.shared, cfg, h, angles, causal=True,
+                           cache=_layer(a_caches, gi), q_offset=q_offset)
+    return norm_apply(model.final_norm, h), zero, caches
+
+
+def encode(model: LM, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, enc_seq, D)."""
+    h = frames + model.enc_pos[None, :frames.shape[1]]
+    h, _ = _attn_stack(model, model.enc_blocks, h, None, causal=False)
+    return norm_apply(model.enc_final_norm, h)
+
+
+def loss_fn(model: LM, batch: Dict) -> torch.Tensor:
+    """Training loss. batch keys: tokens (B, S) int, optionally labels,
+    plus per family: encdec frames (B, enc_seq, D); vlm positions
+    (3, B, S)."""
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    if "labels" in batch:
+        inputs, labels = tokens, batch["labels"]
+    else:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    B, S = inputs.shape
+    h = embed_tokens(model, inputs)
+    memory = None
+    if cfg.family == "encdec":
+        memory = encode(model, batch["frames"].to(h.dtype))
+        h = h + model.dec_pos[None, :S]
+    if cfg.family == "vlm":
+        positions = batch["positions"]
+        if "labels" not in batch:
+            positions = positions[:, :, :-1]
+    else:
+        positions = _positions_default(B, S, h.device)
+    h, aux, _ = backbone(model, h, positions, memory=memory)
+    return chunked_ce_loss(model, h, labels) + 0.01 * aux
+
+
+# --------------------------------------------------------------------- #
+# serving: prefill + decode with caches
+# --------------------------------------------------------------------- #
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+               device: DeviceLike = "cuda") -> Dict:
+    """JAX's cache tree, zeroed on ``device``: per layer K / V over
+    ``max_seq`` and a length (attention), conv and SSM states (Mamba2),
+    cross K / V (encdec); hybrid: {"mamba": per group and layer, "attn":
+    per group}."""
+    dev = resolve_device(device)
+    Hkv, Dh, L = cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def attn_cache(n):
+        return {"k": zeros((n, batch, max_seq, Hkv, Dh)),
+                "v": zeros((n, batch, max_seq, Hkv, Dh)),
+                "len": zeros((n,), torch.int32)}
+
+    def mamba_state(*n):
+        di, N = cfg.d_inner, cfg.ssm_state
+        return {"conv": zeros((*n, batch, cfg.ssm_conv - 1, di + 2 * N)),
+                "ssm": zeros((*n, batch, cfg.ssm_heads, cfg.ssm_head_dim, N),
+                             torch.float32)}
+
+    if cfg.family == "encdec":
+        c = attn_cache(L)
+        c["cross_k"] = zeros((L, batch, cfg.enc_seq, Hkv, Dh))
+        c["cross_v"] = zeros((L, batch, cfg.enc_seq, Hkv, Dh))
+        return c
+    if cfg.family in ("dense", "vlm", "moe"):
+        return attn_cache(L)
+    if cfg.family == "ssm":
+        return mamba_state(L)
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        return {"mamba": mamba_state(L // every, every),
+                "attn": attn_cache(L // every)}
+    raise ValueError(cfg.family)
+
+
+@torch.no_grad()
+def prefill(model: LM, tokens: torch.Tensor, cache: Dict, *,
+            positions=None, memory=None):
+    """Run the prompt through the model, filling ``cache`` in place.
+
+    Returns (last-position logits (B, V) float32, cache)."""
+    B, S = tokens.shape
+    h = embed_tokens(model, tokens)
+    if model.cfg.family == "encdec":
+        h = h + model.dec_pos[None, :S]
+    if positions is None:
+        positions = _positions_default(B, S, h.device)
+    h, _, cache = backbone(model, h, positions, caches=cache, q_offset=0,
+                           memory=memory)
+    return matmul(h[:, -1], model.head.t()).float(), cache
+
+
+@torch.no_grad()
+def decode_step(model: LM, token: torch.Tensor, cache: Dict, pos, *,
+                memory=None):
+    """One decode step. token: (B,) int; pos: the absolute position, a
+    0-d tensor on the model's device (or an int).
+
+    Returns (logits (B, V) float32, cache)."""
+    B = token.shape[0]
+    h = embed_tokens(model, token[:, None])
+    pos = torch.as_tensor(pos, device=h.device)
+    if model.cfg.family == "encdec":
+        h = h + model.dec_pos.index_select(0, pos.reshape(1).long())[None]
+    shape = (3, B, 1) if model.cfg.family == "vlm" else (B, 1)
+    h, _, cache = backbone(model, h, pos.expand(shape), caches=cache,
+                           q_offset=pos, memory=memory)
+    return matmul(h[:, 0], model.head.t()).float(), cache
