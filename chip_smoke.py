@@ -238,6 +238,26 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     tokens/s, model TFLOP/s (6·active params·tokens; prefill 2·…) and its
     share of 989 TFLOP/s, prefill ms, decode ms a step, peak memory.
 
+20. The mesh ring (``core/partition.py`` with a process group,
+    ``core/transport.py``, ``launch/mesh.py``; run after phase 18, before
+    19): B1 on rank 0's busiest local stage graph of ``reddit-like``'s S =
+    4 partition and on the reverse of its busiest column bucket, against
+    the float64 plain version, timed (kernel rows); then ``MESH_RANKS``
+    processes spawned (this one already holds a CUDA context) join one
+    ``gloo`` group on this card — every rank ``cuda:0``, its blocks through
+    host memory — and load the kernels built in phase 2: (a) on
+    ``pubmed-like`` at S = 2 (a sub-group of ranks 0 and 1) and 4, the op
+    cases (``ring_gspmm`` scalar and per-head, int8, the delayed halo,
+    the partitioned attention; forward and grads) on each rank's shard
+    against the emulated ring on the card within 1e-4·max|ref| + 1e-6;
+    (b) ``train_partitioned`` of GCN / SAGE / GAT at phase 18's widths,
+    3 epochs, the losses within 1e-4 of the emulated run, the parameters
+    bit-equal across the ranks, each rank's launches its step's
+    (``mesh_launches``) per step; (c) GCN and SAGE at ``PART_HEAVY``:
+    epoch ms beside phase 18's emulated and single-device epochs, each
+    rank's exchange ms and bytes (gloo through the host on one card: not
+    an NVLink or NCCL number), peak memory, rank 0's traced kernel ms.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
@@ -373,6 +393,22 @@ def partitioned_launches(app: str, stages: int, parts: int = 0) -> dict:
         return {"sddmm_csr": 2 * stages + 2,
                 "binary_reduce_csr": 4 * stages + 2, "edge_softmax_csr": 2}
     return {"spmm_csr": (4 if app == "gcn" else 3) * (parts or stages)}
+
+
+def mesh_launches(app: str, n_fwd: int, n_bwd: int) -> dict:
+    """Kernel launches of one partitioned training step of a two-layer
+    app on one rank of the mesh ring (phase 20): the rank's non-empty
+    buckets of its row (``n_fwd``, reduced forward) and of its column
+    (``n_bwd``, whose reverses the backward reduces) take the places of
+    the emulated pass's stage graphs, so a rank whose buckets are all
+    non-empty launches ``partitioned_launches`` of its step. A delayed
+    refresh or an int8 step launches the same (the local and the remote
+    part are every stage); a stale one its diagonal bucket alone."""
+    if app == "gat":
+        return {"sddmm_csr": 2 * n_fwd + 2,
+                "binary_reduce_csr": 2 * (n_fwd + n_bwd) + 2,
+                "edge_softmax_csr": 2}
+    return {"spmm_csr": 2 * n_fwd + (2 if app == "gcn" else 1) * n_bwd}
 
 
 # the relational phase's shapes, the repo's own benchmarks'. hetero_gspmm
@@ -539,6 +575,20 @@ PART_B3 = [("add", "u", "v", 4), ("add", "u", "v", 1)]
 PART_B4 = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
 PART_B5 = [4, 1]
 PART_BF16_B1 = [(64, "sum"), (3, "sum")]
+# the mesh ring phase (20): MESH_RANKS processes of one gloo group on this
+# card (each rank cuda:0, blocks through host memory), one spawn; S = 2 on a
+# sub-group of the first ranks. (a) the op cases at MESH_SHARDS on
+# pubmed-like against the emulated ring, (b) train_partitioned at phase 18's
+# widths (MESH_EPOCHS), (c) PART_HEAVY. Kernel rows: B1 on rank 0's busiest
+# row bucket of reddit-like's S = 4 partition (GCN's 16 / 41 and SAGE's
+# layer-0 602) and on the reverse of its busiest column bucket (∂x, 16 / 41)
+MESH_SHARDS = (2, 4)
+MESH_RANKS = 4                 # = PART_HEAVY's shards
+MESH_EPOCHS = PART_EPOCHS
+MESH_TIMEOUT_S = 300           # the group's: a rank waiting longer fails
+MESH_SPAWN_LIMIT_S = 600
+MESH_B1 = {"stage": [(16, "sum"), (41, "sum"), (602, "sum")],
+           "reverse": [(16, "sum"), (41, "sum")]}
 # the fan-out serving phases: fan-out per layer (benchmarks/fig_serve.py's
 # CMP_FANOUT). A served fan-out batch runs one block per layer, so it
 # launches what a refresh launches: SERVE_LAUNCHES, per batch
@@ -803,7 +853,7 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
         else:
             tol = 0.0
             why = "one IEEE op per element in both: exact"
-        lib_ms, lib_dev = None, (None, None)
+        lib_ms, lib_dev, lib = None, (None, None), {}
         if op == "copy":
             caller = g.long(CALLER_INDEX[lt])
             lib_err = max_err(lhs.index_select(0, caller), ref)
@@ -811,6 +861,25 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
                 raise AssertionError(f"index_select copy differs: {lib_err}")
             lib_ms = time_ms(lambda: lhs.index_select(0, caller))
             lib_dev = warm_cold_ms(lambda: lhs.index_select(0, caller))
+        if (op, lt, rt) == ("dot", "u", "v"):
+            # sampled V·Uᵀ on the graph's CSR by destination: one value per
+            # edge, in CSR (canonical) order, not the caller's
+            A = torch.sparse_csr_tensor(
+                g.long("indptr_dst"), g.long("src"),
+                torch.zeros(g.n_edges, device=lhs.device),
+                size=(g.n_dst, g.n_src))
+            V, Ut = args[5], lhs.t().contiguous()
+
+            def sampled():
+                return torch.sparse.sampled_addmm(A, V, Ut, beta=0.0)
+            vals = sampled().values().index_select(0, g.long("eid_inv"))
+            lib_err = max_err(vals[:, None], ref)
+            if not lib_err <= tol:
+                raise AssertionError(f"sampled_addmm dot differs: {lib_err}")
+            lib_ms = time_ms(sampled)
+            lib_dev = warm_cold_ms(sampled)
+            lib = {"library": "torch.sparse.sampled_addmm (CSR order)",
+                   "library_max_abs_err": lib_err}
         k_ms = time_ms(lambda: sddmm_csr(*args))
         p_ms = time_ms(lambda: sddmm_plain(*args))
         k_dev = warm_cold_ms(lambda: sddmm_csr(*args))
@@ -836,7 +905,7 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
                "library_cold_ms": lib_dev[1],
                "canonical_device_ms": canon_ms,
                "canonical_max_abs_err": canon_err, "bound_ms": b_ms,
-               "bound_by": b_by, "launches": sddmm_csr.launches - n0}
+               "bound_by": b_by, "launches": sddmm_csr.launches - n0, **lib}
         emit(row)
         if not (err <= tol and canon_err <= tol):
             raise AssertionError(f"sddmm_csr disagrees: {row}")
@@ -922,6 +991,35 @@ def check_b4(g, gen, label: str, rows: dict, shapes=B4_SHAPES,
                                      f"{lanes} d={d}: {k_err}")
 
 
+def sparse_softmax(g, x, ref, tol: float) -> dict:
+    """B5's library yardstick: ``torch.sparse.softmax`` over the (dst,
+    src) COO of ``g`` with the (E, H) logits as dense values, along the
+    source dimension — the same function only when no (dst, src) pair
+    repeats (coalescing would merge them); its values come back in
+    (dst, src) order. Times and error, or why there is none."""
+    h = g.host
+    dst, src = (a[h.eid_inv].astype(np.int64) for a in (h.dst, h.src))
+    key = dst * g.n_src + src
+    if np.unique(key).size != g.n_edges:
+        return {"library_ms": None, "library": "none: repeated (dst, src) "
+                "pairs, which torch.sparse.softmax's COO would merge"}
+    order = torch.from_numpy(np.argsort(key, kind="stable")).to(x.device)
+    coo = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([dst, src])).to(x.device), x,
+        size=(g.n_dst, g.n_src, x.shape[1])).coalesce()
+
+    def softmax():
+        return torch.sparse.softmax(coo, 1)
+    vals = torch.empty_like(x).index_copy_(0, order, softmax().values())
+    lib_err = max_err(vals, ref)
+    if not lib_err <= tol:
+        raise AssertionError(f"torch.sparse.softmax differs: {lib_err}")
+    dev = warm_cold_ms(softmax)
+    return {"library": "torch.sparse.softmax ((dst, src) order)",
+            "library_max_abs_err": lib_err, "library_ms": time_ms(softmax),
+            "library_device_ms": dev[0], "library_cold_ms": dev[1]}
+
+
 def check_b5(g, gen, label: str, rows: dict, shapes=B5_SHAPES,
              sweep: bool = True, fp64: bool = False) -> None:
     from repro_torch.kernels.edge_softmax.ops import (_launch_softmax,
@@ -944,11 +1042,12 @@ def check_b5(g, gen, label: str, rows: dict, shapes=B5_SHAPES,
         k_dev = warm_cold_ms(lambda: edge_softmax_csr(g, x))
         nbytes = 4 * ((g.n_dst + 1) + g.n_edges + 2 * x.numel())
         b_ms, b_by = bound(nbytes, 4 * x.numel())
+        lib = sparse_softmax(g, x, ref, tol)
         row = {"phase": "kernel", "kernel": "edge_softmax_csr",
                "graph": label, "H": H, "max_abs_err": err, "tol": tol,
                **refs,
                "tol_reason": "alpha <= 1; expf and the sum's order differ",
-               "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+               "kernel_ms": k_ms, "plain_ms": p_ms, **lib,
                "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
                "bound_ms": b_ms, "bound_by": b_by, "bit_identical": True,
                "launches": edge_softmax_csr.launches - n0}
@@ -4286,6 +4385,415 @@ def partition_heavy(app: str, dataset) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# 20. the mesh ring: S ranks of a gloo group on one card
+# --------------------------------------------------------------------- #
+def mesh_kernels(g, gen, rows: dict) -> dict:
+    """Phase 20's kernel rows (in this process): B1 on rank 0's busiest
+    local stage graph of ``PART_HEAVY``'s partition of ``g`` (its row's
+    bucket, rows × rows) at ``MESH_B1["stage"]`` and on the reverse of its
+    busiest column bucket (∂x) at ``MESH_B1["reverse"]``, each held to its
+    float64 plain version, timed beside its bound and library call."""
+    from repro_torch.core.partition import RankPlan
+    from repro_torch.models.gnn.common import make_partitioned_bundle
+
+    S = PART_HEAVY[1]
+    pb = make_partitioned_bundle(g, S)
+    plan = RankPlan(pb.pg, 0)
+    fwd = max((b for b in plan.fwd if b is not None), key=lambda b: b.k)
+    bwd = max((b for b in plan.bwd if b is not None), key=lambda b: b.k)
+    name = f"reddit_s{S}_rank0"
+    for label, gg, w_row, idx, shapes in (
+            (f"{name}_bucket{fwd.i}{fwd.j}", fwd.part.g, pb.gcn_w[0],
+             fwd.part.canon, MESH_B1["stage"]),
+            (f"{name}_bucket{bwd.i}{bwd.j}_rev", bwd.part.rev,
+             pb.gcn_w[bwd.i], bwd.part.rev_canon, MESH_B1["reverse"])):
+        check_b1(gg, w_row.reshape(-1).index_select(0, idx).contiguous(),
+                 gen, label, rows, shapes, fp64=True)
+    row = {"phase": "mesh_plan", "graph": "reddit-like", "shards": S,
+           "rank": 0, "fwd_edges": [b and b.k for b in plan.fwd],
+           "bwd_edges": [b and b.k for b in plan.bwd],
+           "checked": [[fwd.i, fwd.j], [bwd.i, bwd.j]]}
+    emit(row)
+    return row
+
+
+class _Exchange:
+    """Times (host clock) and sizes what this rank's ring hops and
+    all-reduces move, by wrapping ``core/transport``'s ``Hop`` and
+    ``all_reduce_sum`` for the life of the process (a child of phase
+    20): on ``gloo`` every tensor stages through host memory."""
+
+    def __init__(self):
+        from repro_torch.core import transport
+        from repro_torch.models.gnn import train as gnn_train
+
+        self.reset()
+        init, wait, reduce = (transport.Hop.__init__, transport.Hop.wait,
+                              transport.all_reduce_sum)
+        ex = self
+
+        def hop_init(hop, group, tensors, step, tag):
+            t0 = time.perf_counter()
+            init(hop, group, tensors, step, tag)
+            ex.ms += (time.perf_counter() - t0) * 1e3
+            ex.hops += 1
+            ex.sent_bytes += sum(t.numel() * t.element_size()
+                                 for t in tensors)
+
+        def hop_wait(hop):
+            t0 = time.perf_counter()
+            out = wait(hop)
+            ex.ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        def all_reduce(tensors, group):
+            t0 = time.perf_counter()
+            out = reduce(tensors, group)
+            ex.reduce_ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        transport.Hop.__init__, transport.Hop.wait = hop_init, hop_wait
+        gnn_train.all_reduce_sum = all_reduce
+
+    def reset(self):
+        self.ms = self.reduce_ms = 0.0
+        self.hops = self.sent_bytes = 0
+
+    def read(self) -> dict:
+        return {"transport": "gloo via host, one card",
+                "exchange_ms": self.ms, "hops": self.hops,
+                "sent_bytes": self.sent_bytes,
+                "allreduce_ms": self.reduce_ms}
+
+
+def _mesh_tol(ref: torch.Tensor) -> float:
+    return 1e-4 * float(ref.abs().max()) + 1e-6
+
+
+def mesh_ops(ds, group, S: int, rank: int) -> dict:
+    """Phase 20 (a) on one rank: the op cases on ``pubmed-like`` at ``S``
+    shards — ``ring_gspmm`` (GCN's norm at d = 64, and a per-head weight
+    against (4, 16) features), its int8 form, the delayed halo's refresh
+    and stale steps, the partitioned attention (edge values, bucket
+    softmax, per-head sum) — forward and every gradient on the kernel
+    route, this rank's rows against the port's emulated ring on the card
+    (kernel route), within 1e-4·max|ref| + 1e-6. Returns each case's
+    max error."""
+    from repro_torch.core import partition as tp
+    from repro_torch.core.edge_softmax import fused_attention_partitioned
+    from repro_torch.models.gnn.common import make_partitioned_bundle
+
+    g = ds[0]
+    pb = make_partitioned_bundle(g, S)
+    pg = pb.pg
+    gen = torch.Generator().manual_seed(20 + S)
+    me = slice(rank * pg.rows, (rank + 1) * pg.rows)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).cuda()
+
+    def run(fn, whole, mesh_args, n_diff):
+        """``fn(*args[, mesh])`` and the grads of Σ out·ct w.r.t. its first
+        ``n_diff`` args, whole (emulated) and on this rank (mesh); the
+        largest error, each within its tolerance or raise."""
+        outs, ct = {}, None
+        for name, args, kw in (("emu", whole, {}),
+                               ("mesh", mesh_args, {"mesh": group})):
+            leaves = [a.clone().requires_grad_() if i < n_diff else a
+                      for i, a in enumerate(args)]
+            out = fn(*leaves, **kw)
+            out = out if isinstance(out, tuple) else (out,)
+            if ct is None:
+                ct = rnd(*out[0].shape)
+            grads = torch.autograd.grad(
+                (out[0] * (ct if name == "emu" else ct[me])).sum(),
+                leaves[:n_diff])
+            outs[name] = [o.detach() for o in out] + list(grads)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for got, ref in zip(outs["mesh"], outs["emu"]):
+            ref = ref[me] if ref.shape[0] == pg.n_pad else (
+                ref[rank:rank + 1] if ref.shape[0] == S else ref)
+            err = max_err(got, ref)
+            if not err <= _mesh_tol(ref):
+                raise AssertionError(f"mesh ring S={S} rank {rank}: off "
+                                     f"by {err}")
+            worst = max(worst, err)
+        return worst
+
+    x = rnd(pg.n_pad, 64)
+    heads = rnd(pg.n_pad, 4, 16)
+    alpha = pg.scatter_edges(torch.rand(g.n_edges, 4, generator=gen).cuda())
+    el, er = rnd(pg.n_pad, 4), rnd(pg.n_pad, 4)
+    res = rnd(pg.n_pad, 64) * 0.01
+    stale = rnd(pg.n_pad, 64)
+    w = pb.gcn_w
+    row = slice(rank, rank + 1)
+    errs = {
+        "ring_gspmm": run(lambda a, b, **kw: tp.ring_gspmm(
+            pg, a, b, strategy="kernel", **kw), (x, w), (x[me], w[row]), 2),
+        "ring_gspmm_per_head": run(lambda a, b, **kw: tp.ring_gspmm(
+            pg, a, b, strategy="kernel", **kw), (heads, alpha),
+            (heads[me], alpha[row]), 2),
+        "ring_gspmm_int8": run(lambda a, r, **kw: tp.ring_gspmm(
+            pg, a, w[row] if kw else w, comm="int8", residual=r,
+            strategy="kernel", **kw), (x, res), (x[me], res[me]), 1),
+        "attention": run(lambda a, b, c, **kw: fused_attention_partitioned(
+            pg, a, b, c, strategy="kernel", **kw), (el, er, heads),
+            (el[me], er[me], heads[me]), 3)}
+    for refresh in (True, False):
+        errs[f"delayed_refresh={refresh}"] = run(
+            lambda a, s, **kw: tp.ring_gspmm_delayed(
+                pg, a, w[row] if kw else w, s, refresh, strategy="kernel",
+                **kw), (x, stale), (x[me], stale[me]), 1)
+    return errs
+
+
+def _app_model(app: str, d_in: int, hidden: int, n_classes: int):
+    from repro_torch.models.gnn import gat, gcn, sage
+
+    mod = {"gcn": gcn, "sage": sage, "gat": gat}[app]
+    return mod, mod.init(torch.Generator().manual_seed(0), d_in, hidden,
+                         n_classes, device="cuda")
+
+
+def _flat(model) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def mesh_train(ds, group, S: int, rank: int, ex: _Exchange) -> list:
+    """Phase 20 (b) on one rank: ``train_partitioned`` of GCN / SAGE / GAT
+    on ``pubmed-like`` at ``PART_HIDDEN``, ``MESH_EPOCHS`` epochs, dropout
+    0, on the mesh ring, then the emulated ring on the card: per-epoch
+    losses within 1e-4, the parameters bit-equal across the ranks, the
+    run's launches (counted from 0 just before it) ``MESH_EPOCHS`` + 1
+    (the warm-up) times this rank's step (``mesh_launches``)."""
+    from repro_torch import obs
+    from repro_torch.core.partition import rank_plan, stage_plan
+    from repro_torch.core.transport import all_gather_rows
+    from repro_torch.models.gnn.common import make_partitioned_bundle
+    from repro_torch.models.gnn.train import train_partitioned
+
+    g, feats, labels, train_mask, _, n_classes = ds
+    pg = make_partitioned_bundle(g, S).pg
+    plan = rank_plan(pg, group)
+    n_fwd = sum(b is not None for b in plan.fwd)
+    n_bwd = sum(b is not None for b in plan.bwd)
+    stages = len(stage_plan(pg).stages)
+    rows = []
+    for app in ("gcn", "sage", "gat"):
+        hists = {}
+        for where in ("mesh", "emulated"):
+            mod, model = _app_model(app, feats.shape[1], PART_HIDDEN,
+                                    n_classes)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            obs.reset_metrics()
+            ex.reset()
+            reset_counts()
+            _, hist = train_partitioned(
+                mod.forward_partitioned, model, g, feats, labels,
+                train_mask, n_shards=S, epochs=MESH_EPOCHS, drop=0.0, seed=1,
+                mesh=group if where == "mesh" else None)
+            launches = read_counts()
+            snap = obs.snapshot()
+            hists[where] = dict(
+                hist, launches=launches, exchange=ex.read(),
+                ring_counters={k: snap.get(f"comm.ring.{k}", {}).get(
+                    "value", 0) for k in ("raw_bytes", "wire_bytes",
+                                          "pad_slots")},
+                peak=torch.cuda.max_memory_allocated())
+            if where == "mesh":
+                flat = _flat(model)
+                every = all_gather_rows(flat[None], group)
+                equal = all(torch.equal(every[0], r) for r in every)
+        want = mesh_launches(app, n_fwd, n_bwd)
+        mesh, emu = hists["mesh"], hists["emulated"]
+        check_launches(f"{app} mesh s{S} rank {rank}", mesh["launches"],
+                       want, MESH_EPOCHS + 1)
+        dl = max(abs(a - b) for a, b in zip(mesh["loss"], emu["loss"]))
+        row = {"app": app, "shards": S, "rank": rank,
+               "n_fwd": n_fwd, "n_bwd": n_bwd, "stages": stages,
+               "step_launches": want,
+               "equal_to_emulated_step": want == partitioned_launches(
+                   app, stages),
+               "launches": mesh["launches"],
+               "loss": mesh["loss"], "loss_emulated": emu["loss"],
+               "loss_max_abs_diff": dl,
+               "params_equal_across_ranks": equal,
+               "epoch_ms_median": statistics.median(
+                   mesh["epoch_time"]) * 1e3,
+               "emulated_epoch_ms_median": statistics.median(
+                   emu["epoch_time"]) * 1e3,
+               "exchange": mesh["exchange"],
+               "ring_counters": mesh["ring_counters"],
+               "max_memory_allocated_bytes": mesh["peak"]}
+        rows.append(row)
+        if not (dl <= 1e-4 and equal and all(np.isfinite(mesh["loss"]))):
+            raise AssertionError(f"mesh training: {row}")
+    return rows
+
+
+def mesh_heavy(ds, group, rank: int, ex: _Exchange) -> list:
+    """Phase 20 (c) on one rank: GCN and SAGE on ``reddit-like`` at
+    ``PART_HEAVY`` (S = 4, hidden 16, 5 epochs) on the mesh ring: epoch
+    ms, this rank's exchange (ms, bytes; gloo through the host) and
+    all-reduce ms, its peak memory, its launches; one step traced on rank
+    0 (the port's kernels' device ms on that rank)."""
+    from repro_torch.models.gnn.common import (make_partitioned_bundle,
+                                               shard_partitioned)
+    from repro_torch.models.gnn.train import (make_partitioned_train_step,
+                                              train_partitioned)
+
+    _, S, hidden, epochs = PART_HEAVY
+    g, feats, labels, train_mask, _, n_classes = ds
+    rows = []
+    for app in ("gcn", "sage"):
+        mod, model = _app_model(app, feats.shape[1], hidden, n_classes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ex.reset()
+        reset_counts()
+        _, hist = train_partitioned(mod.forward_partitioned, model, g, feats,
+                                    labels, train_mask, n_shards=S,
+                                    epochs=epochs, drop=0.0, mesh=group)
+        launches = read_counts()
+        xfer = ex.read()
+        peak = torch.cuda.max_memory_allocated()
+        pb = make_partitioned_bundle(g, S, mesh=group)
+        whole = [pb.pg.scatter_nodes(torch.from_numpy(a).cuda())
+                 for a in (feats, labels.astype(np.int64), train_mask)]
+        _, xp, yp, mp = shard_partitioned(pb, *whole)
+        opt_init, step = make_partitioned_train_step(mod.forward_partitioned)
+        state = opt_init(model)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def one_step():
+            float(step(model, state, 0, pb, xp, yp, mp, None, None, gen)[1])
+
+        traced = None
+        if rank == 0:
+            traced = trace(one_step)
+        else:
+            one_step()
+            one_step()
+        ep = hist["epoch_time"]
+        rows.append({
+            "app": app, "shards": S, "hidden": hidden, "epochs": epochs,
+            "rank": rank, "epoch_ms": [t * 1e3 for t in ep],
+            "epoch_ms_median": statistics.median(ep) * 1e3,
+            "loss": hist["loss"], "launches": launches, **xfer,
+            "exchange_ms_per_epoch": xfer["exchange_ms"] / (epochs + 1),
+            "max_memory_allocated_bytes": peak,
+            "trace": traced and {k: traced[k] for k in (
+                "device_us_total", "wall_us_profiled", "port_kernels",
+                "port_launches", "device_busy_share_profiled")},
+            "kernel_device_ms": traced and sum(
+                e["total_us"] for e in traced["port_kernels"]) / 1e3})
+        if not all(np.isfinite(hist["loss"])):
+            raise AssertionError(f"mesh heavy {app}: {hist['loss']}")
+    return rows
+
+
+def _mesh_rank(rank: int, world: int, root: str) -> None:
+    """One rank of phase 20 (a spawned child: it loads the kernels the
+    parent built, and uses cuda:0 and ``gloo``): (a) and (b) at every
+    ``MESH_SHARDS`` (a smaller S on a sub-group of the first ranks), (c)
+    at ``PART_HEAVY``'s S; its rows pickled to ``root``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+    from repro_torch.data.synthetic import make_node_dataset
+    from repro_torch.launch.mesh import make_shard_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{root}/pg", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        ex = _Exchange()
+        out = {"ops": {}, "train": []}
+        pub = make_node_dataset(PART_DATASET, device="cuda")
+        for S in MESH_SHARDS:
+            group = make_shard_mesh(S)
+            if rank < S:
+                out["ops"][S] = mesh_ops(pub, group, S, rank)
+                out["train"] += mesh_train(pub, group, S, rank, ex)
+            dist.barrier()
+        del pub
+        red = make_node_dataset(PART_HEAVY[0], device="cuda")
+        out["heavy"] = mesh_heavy(red, make_shard_mesh(PART_HEAVY[1]), rank,
+                                  ex)
+        with open(os.path.join(root, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(heavy_rows: list) -> list:
+    """Phase 20 (a–c): ``MESH_RANKS`` ranks spawned (start method spawn:
+    this process holds a CUDA context) on this card, joined under
+    ``MESH_SPAWN_LIMIT_S``; a rank that fails fails the run. Emits the
+    rows, with phase 18's emulated and single-device heavy epochs beside
+    the mesh's; returns the training runs (their launches count on the
+    main path)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    root = tempfile.mkdtemp(prefix="mesh_ring_")
+    try:
+        ctx = mp.start_processes(_mesh_rank, args=(MESH_RANKS, root),
+                                 nprocs=MESH_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MESH_SPAWN_LIMIT_S
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"phase 20 ranks still running after "
+                                   f"{MESH_SPAWN_LIMIT_S} s")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for S in MESH_SHARDS:
+        errs = {r: ranks[r]["ops"][S] for r in range(S)}
+        emit({"phase": "mesh_ops", "dataset": PART_DATASET, "shards": S,
+              "route": "kernel", "reference": "emulated ring, kernel route",
+              "max_abs_err": max(e for r in errs.values()
+                                 for e in r.values()),
+              "per_rank": errs})
+    runs = []
+    for row in (r for rk in ranks for r in rk["train"]):
+        emit({"phase": "mesh_train", "dataset": PART_DATASET,
+              "hidden": PART_HIDDEN, **row})
+        runs.append(row)
+    emulated = {r["app"]: r for r in heavy_rows}
+    for app in ("gcn", "sage"):
+        per_rank = [r for rk in ranks for r in rk["heavy"] if r["app"] == app]
+        base = emulated[app]
+        row = {"phase": "mesh_heavy", "app": app, "dataset": PART_HEAVY[0],
+               "shards": PART_HEAVY[1], "hidden": PART_HEAVY[2],
+               "epoch_ms_median": max(r["epoch_ms_median"] for r in per_rank),
+               "emulated_epoch_ms_median":
+                   base["kernel"]["epoch_ms_median"],
+               "single_device_epoch_ms_median":
+                   base["single_device_kernel"]["epoch_ms_median"],
+               "kernel_device_ms_rank0": per_rank[0]["kernel_device_ms"],
+               "per_rank": per_rank}
+        emit(row)
+        runs += per_rank
+    return runs
+
+
+# --------------------------------------------------------------------- #
 # 19. the LM stack: the smoke configs card against CPU, a checkpoint
 # resume on the card, llama3.2-3b at its full published width
 # --------------------------------------------------------------------- #
@@ -4728,7 +5236,7 @@ def main() -> int:
 
 
 def gnn_phases() -> dict:
-    """Phases 3-18; returns the kernels summary line."""
+    """Phases 3-18 and 20; returns the kernels summary line."""
     from repro_torch.data.synthetic import make_node_dataset, rmat_graph
     from repro_torch.core.graph import from_coo
     from repro_torch.kernels.edge_softmax.ops import SOFTMAX_SEGMENT_EDGES
@@ -4939,6 +5447,15 @@ def gnn_phases() -> dict:
     emit({"phase": "train_partitioned_done",
           "seconds": time.perf_counter() - t0})
 
+    # 20. the mesh ring: B1 on a rank's local stage graphs here, then the
+    # ops, training and the heavy case on spawned gloo ranks
+    t0 = time.perf_counter()
+    mesh_rows = {}
+    mesh_kernels(g_loops, gen, mesh_rows)
+    torch.cuda.empty_cache()
+    mesh_runs = mesh_phase(part_runs[-2:])
+    emit({"phase": "mesh_done", "seconds": time.perf_counter() - t0})
+
     # launches on the main path: every serve, forward, fan-out and
     # training run, each counted from 0 just before it
     bf16_runs = bf16_full + [r for r in bf16_sampled + bf16_rel
@@ -4947,7 +5464,7 @@ def gnn_phases() -> dict:
                               if r["phase"] != "train_sampled"]
     runs = (list(served.values()) + list(forward.values()) + fanned + exact
             + auto + trained + sampled + relational + rel_trained
-            + ell_trained + bf16_runs + part_runs
+            + ell_trained + bf16_runs + part_runs + mesh_runs
             + [{"launches": r["step_launches"]}
                for r in trained + sampled_steps + rel_trained + bf16_steps]
             + [{"launches": m["step_launches"]} for r in part_steps
@@ -5002,6 +5519,9 @@ def gnn_phases() -> dict:
         if name != "bf16":
             main[name] += list(rows.values())
             every[name].update(rows)
+    # and the mesh ring's: B1 on a rank's local stage graphs
+    main["spmm_csr"] += list(mesh_rows.values())
+    every["spmm_csr"].update(mesh_rows)
     blocks = {k: list(v.values()) for k, v in block_rows.items()}
     blocks["sddmm_csr:copy"] = []
     for k, v in sampled_rows.items():      # the block Gᵀ rows

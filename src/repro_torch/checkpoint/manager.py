@@ -17,7 +17,7 @@
 
 A tree is nested dicts, lists, tuples and NamedTuples of tensors (or numpy
 arrays); ``None`` is an empty subtree, as in JAX. Restoring onto a
-device mesh waits for the multi-card form (ROADMAP A12).
+device mesh waits for the LM mesh (ROADMAP A15).
 """
 from __future__ import annotations
 

@@ -404,8 +404,13 @@ def _gspmm_ring(g, spec: BRSpec, pg, lhs_data, rhs_data,
     (``repro/core/binary_reduce.py:451``): mean folds 1/deg_in into the
     per-edge weights (kept at ≥ fp32), so the ring is a pure weighted
     CR-sum; the layout converts per call (partitioned training keeps the
-    padded layout end to end instead, ``models/gnn/train.py``)."""
+    padded layout end to end instead, ``models/gnn/train.py``). With a
+    process group ``mesh`` the contract stays global in, global out:
+    each rank takes its block of the scattered input and its row of the
+    weights, runs the mesh ring, and the blocks are gathered back on every
+    rank (differentiable both ways)."""
     from .partition import ring_gspmm   # partition is heavy
+    from .transport import gather_blocks, process_group, take_block
 
     wdt = (torch.promote_types(lhs_data.dtype, torch.float32)
            if lhs_data.is_floating_point() else lhs_data.dtype)
@@ -416,9 +421,13 @@ def _gspmm_ring(g, spec: BRSpec, pg, lhs_data, rhs_data,
     if spec.reduce == "mean":
         deg = g.in_degrees.clamp(min=1).to(wdt)
         w = w / deg.index_select(0, g.dst_caller.long())
-    out = ring_gspmm(pg, pg.scatter_nodes(lhs_data), pg.scatter_edges(w),
-                     mesh=mesh)
-    return pg.gather_nodes(out, g.n_dst)
+    xp, wb = pg.scatter_nodes(lhs_data), pg.scatter_edges(w)
+    group = process_group(mesh)
+    if group is None:
+        return pg.gather_nodes(ring_gspmm(pg, xp, wb), g.n_dst)
+    out = ring_gspmm(pg, take_block(xp, group), take_block(wb, group),
+                     mesh=group)
+    return pg.gather_nodes(gather_blocks(out, group), g.n_dst)
 
 
 def onehot_supports(spec: BRSpec, lhs_data, rhs_data) -> bool:

@@ -217,7 +217,8 @@ def fused_attention_partitioned(pg, el: torch.Tensor, er: torch.Tensor,
     ``repro/core/edge_softmax.py:327``): one ring pass assembles the
     bucketed logits, leaky-relu and the softmax run owner-local, a second
     ring does the α-weighted reduce. ``el`` / ``er``: (n_pad, H); ``z``:
-    (n_pad, H, F), the padded layout; returns (n_pad, H, F).
+    (n_pad, H, F), the padded layout; returns (n_pad, H, F). With a
+    process group ``mesh``, the mesh ring on the rank's rows (rows, …).
     ``strategy``: ``core/partition.RING_STRATEGIES``."""
     from .partition import bucket_softmax, ring_edge_values, ring_gspmm
 
@@ -229,7 +230,7 @@ def fused_attention_partitioned(pg, el: torch.Tensor, er: torch.Tensor,
     logits = ring_edge_values(pg, el, er, mesh=mesh, axis=axis,
                               strategy=strategy)
     logits = torch.where(logits >= 0, logits, negative_slope * logits)
-    alpha = bucket_softmax(pg, logits, strategy=strategy)
+    alpha = bucket_softmax(pg, logits, mesh=mesh, strategy=strategy)
     return ring_gspmm(pg, z, alpha, mesh=mesh, axis=axis,
                       strategy=strategy)
 

@@ -1,5 +1,6 @@
-"""Partitioned-graph execution on the emulated ring (port of
-``repro/core/partition.py``, its ``mesh=None`` path).
+"""Partitioned-graph execution (port of ``repro/core/partition.py``): the
+emulated ring on one device and the mesh ring over a ``torch.distributed``
+process group.
 
 The paper's Alg. 2 argument — owner-computes pull aggregation over
 bounded K-block working sets — lifted one level up, to vertex shards
@@ -21,8 +22,8 @@ bounded K-block working sets — lifted one level up, to vertex shards
 
 Two routes compute each op (``strategy``):
 
-* ``"plain"`` — the JAX package's emulated ring, bucket by bucket
-  (``_stage_reduce`` over the S² buckets, the transposed ring as the
+* ``"plain"`` — the JAX package's ring, bucket by bucket
+  (``_stage_reduce`` over the buckets, the transposed ring as the
   backward of a ``torch.autograd.Function``): the reference.
 * ``"kernel"`` (and ``"auto"``) — the ring on the card's kernels. Each
   :class:`PartitionedGraph` builds, once, on the host, a **stage graph**
@@ -45,9 +46,22 @@ Two routes compute each op (``strategy``):
   ``u_mul_e_add_v`` does. On a CPU tensor the wrappers run their plain
   versions; on the card a kernel that fails to build or launch fails.
 
-A non-``None`` ``mesh`` (a ``torch.distributed`` process group: one shard
-per card, the ring's blocks sent between them) raises
-``NotImplementedError``: it is ROADMAP A12's last item.
+``mesh`` — a ``torch.distributed`` process group of ``n_shards`` ranks
+(anything else raises ``TypeError``) — runs the mesh ring, JAX's
+``shard_map`` path (``repro/core/partition.py:431-549, 677-760``): every
+rank runs the same program on its own shard. The ops then take and
+return the rank's blocks: a node array (n_pad, …) as the rank's (rows, …)
+rows, a bucket array (S, S, eb[, H]) as the rank's destination row
+(1, S, eb[, H]). Each rank builds, once, its :class:`RankPlan` from the
+same host partition: per ring stage ``s`` the graph (on local ids, rows ×
+rows) of bucket ``(me, (me - s) % S)``, which the forward reduces, and of
+bucket ``((me + s) % S, me)``, whose reverse the backward reduces. Source
+blocks go round the ring by ``isend`` / ``irecv`` (``core/transport.py``),
+the next hop posted before the stage's reduce, stopping after the last
+non-empty diagonal; the backward is the transposed ring (the x blocks
+forward, the cotangent blocks and weight rows backward). The stage
+reduces are the routes' own: B1 / B3 / B4 / B5 on the rank's graphs, or
+the plain loop.
 """
 from __future__ import annotations
 
@@ -63,27 +77,20 @@ from ..kernels.common import FEATURE_DTYPES
 from ..kernels.sddmm.ops import sddmm_csr
 from ..kernels.spmm.ops import spmm_csr
 from ..obs import metrics as _metrics
-from ..optim.compression import compress_payload, wire_bytes
+from ..optim.compression import BLOCK, compress_payload, wire_bytes
 from ..optim.precision import accum_dtype
 from .graph import Graph, from_coo, reverse
+from .transport import Hop, all_gather_rows, process_group, rank_of
 
 __all__ = ["PartitionStats", "PartitionedGraph", "build_partition",
            "ring_gspmm", "ring_edge_values", "bucket_softmax",
            "local_gspmm", "offdiag_weights", "ring_gspmm_delayed",
-           "ring_reference", "stage_plan", "PARTITION_MODES", "COMM_MODES",
-           "RING_STRATEGIES"]
+           "ring_reference", "stage_plan", "rank_plan", "RankPlan",
+           "PARTITION_MODES", "COMM_MODES", "RING_STRATEGIES"]
 
 PARTITION_MODES = ("contiguous", "hash", "uniform")
 COMM_MODES = ("none", "int8")
 RING_STRATEGIES = ("auto", "kernel", "plain")
-
-
-def check_mesh(mesh) -> None:
-    """The port runs the emulated ring only (``mesh=None``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the torch.distributed ring (one shard per card) is ROADMAP "
-            "A12's last item; pass mesh=None for the emulated ring")
 
 
 # --------------------------------------------------------------------- #
@@ -298,25 +305,40 @@ def build_partition(g: Graph, n_shards: int,
         stats=stats, eb_ij=eb_ij, host=host)
 
 
-def _count_exchange(pg: PartitionedGraph, x: torch.Tensor,
-                    comm: str) -> None:
+def _diag_widths(pg: PartitionedGraph) -> Tuple[int, ...]:
+    """Max real bucket width along each ring diagonal ``s`` (the buckets
+    ``((j + s) % S, j)``); ``ws[0]`` is the owner-local diagonal."""
+    S = pg.n_shards
+    return tuple(max(pg.eb_ij[(j + s) % S][j] for j in range(S))
+                 for s in range(S))
+
+
+def _count_exchange(pg: PartitionedGraph, x: torch.Tensor, comm: str,
+                    plan: Optional["RankPlan"] = None) -> None:
     """Account one full ring exchange in the obs metrics registry
     (repro/core/partition.py:69): S · stages block-sends of ``rows ×
     feat`` elements, ``raw_bytes`` at ``x``'s dtype, ``wire_bytes`` under
     ``comm``, and the bucket slots the ragged schedule touches beyond the
-    real edges (``pad_slots``)."""
+    real edges (``pad_slots``). On the mesh ring (``plan``, the rank's) a
+    rank counts what it sends, ``stages`` blocks, and its share of the
+    pad slots (Σ_s ws[s] less its own row's real slots), so the sums over
+    the ranks equal the emulated pass's counts."""
     if not _metrics.enabled() or pg.n_shards < 2:
         return
     st = pg.stats
     elems = pg.rows * int(np.prod(x.shape[1:], dtype=np.int64))
     raw, wire = wire_bytes(elems, x.element_size(), comm)
     stages = st.ragged_stages if st.ragged_stages >= 0 else pg.n_shards - 1
-    hops = pg.n_shards * stages
+    if plan is None:
+        hops = pg.n_shards * stages
+        slots = st.ragged_slots if st.ragged_slots > 0 else (
+            pg.n_shards * pg.n_shards * pg.eb)
+        pad = max(slots - pg.n_edges, 0)
+    else:
+        hops, pad = stages, plan.pad_slots
     _metrics.counter("comm.ring.raw_bytes").inc(hops * raw)
     _metrics.counter("comm.ring.wire_bytes").inc(hops * wire)
-    slots = st.ragged_slots if st.ragged_slots > 0 else (
-        pg.n_shards * pg.n_shards * pg.eb)
-    _metrics.counter("comm.ring.pad_slots").inc(max(slots - pg.n_edges, 0))
+    _metrics.counter("comm.ring.pad_slots").inc(pad)
 
 
 # --------------------------------------------------------------------- #
@@ -590,6 +612,395 @@ class _RingPlain(torch.autograd.Function):
 
 
 # --------------------------------------------------------------------- #
+# the mesh ring: one shard per rank of a process group
+# (repro/core/partition.py:431-549, 677-760)
+# --------------------------------------------------------------------- #
+_FWD, _BWD_X, _BWD_CT = 0, 1, 2     # the three hop directions' tag bits
+
+
+def _rank_part(pg: PartitionedGraph, stage: int, i: int,
+               js) -> Optional[StagePart]:
+    """The :class:`StagePart` of buckets ``(i, j)``, ``j`` in ``js``, on
+    local ids (rows × rows: ``src_local`` → ``dst_local``), its slots
+    ``j·eb + k`` in row ``i`` of the bucket layout; None without edges."""
+    h, rows, eb = pg.host, pg.rows, pg.eb
+    src, dst, slots = [], [], []
+    for j in js:
+        k = pg.eb_ij[i][j]
+        src.append(h.src_local[i, j, :k].astype(np.int64))
+        dst.append(h.dst_local[i, j, :k].astype(np.int64))
+        slots.append(j * eb + np.arange(k, dtype=np.int64))
+    slots = np.concatenate(slots)
+    if not slots.size:
+        return None
+    g = from_coo(np.concatenate(src), np.concatenate(dst), n_src=rows,
+                 n_dst=rows, device=pg.device)
+    return StagePart(stage, g, slots)
+
+
+class RankBucket:
+    """Bucket ``(i, j)`` as the rank reducing it holds it: ``src`` /
+    ``dst`` its real slots' local offsets (int64, slot order) and ``k``
+    their count, for the plain route; :attr:`part`, built on the host at
+    first use, its graph for the kernel route."""
+
+    def __init__(self, pg: PartitionedGraph, stage: int, i: int, j: int):
+        self.stage, self.i, self.j = stage, i, j
+        self.k = pg.eb_ij[i][j]
+        self.src = pg.long("src_local")[i, j, :self.k]
+        self.dst = pg.long("dst_local")[i, j, :self.k]
+        self._pg = pg
+
+    @functools.cached_property
+    def part(self) -> StagePart:
+        return _rank_part(self._pg, self.stage, self.i, (self.j,))
+
+
+class RankPlan:
+    """One rank's view of a partition for the mesh ring (rank ``me`` of
+    ``S``): per ring stage ``s``, ``fwd[s]`` — bucket ``(me, (me - s) %
+    S)``, the forward's (or None when empty) — and ``bwd[s]`` — bucket
+    ``((me + s) % S, me)``, whose reverse the backward reduces; ``s_max``
+    the last non-empty diagonal (the ring's hops); :attr:`row` every
+    bucket of the rank's row by local destination (the bucket softmax's
+    graph); ``pad_slots`` the rank's share of the ragged schedule's pad
+    slots. Every ring op draws a call number (:meth:`next_call`) that
+    tags its messages with (call, stage, direction)."""
+
+    def __init__(self, pg: PartitionedGraph, me: int):
+        S = pg.n_shards
+        ws = _diag_widths(pg)
+        self.me, self.pg = me, pg
+        self.s_max = max((s for s in range(S) if ws[s]), default=0)
+        self.fwd = tuple(RankBucket(pg, s, me, (me - s) % S)
+                         if pg.eb_ij[me][(me - s) % S] else None
+                         for s in range(S))
+        self.bwd = tuple(RankBucket(pg, s, (me + s) % S, me)
+                         if pg.eb_ij[(me + s) % S][me] else None
+                         for s in range(S))
+        self.pad_slots = sum(ws) - sum(pg.eb_ij[me])
+        self.calls = 0
+
+    @functools.cached_property
+    def row(self) -> Optional[StagePart]:
+        return _rank_part(self.pg, -1, self.me, range(self.pg.n_shards))
+
+    def next_call(self) -> int:
+        self.calls += 1
+        return self.calls
+
+    @staticmethod
+    def tag(call: int, stage: int, direction: int) -> int:
+        """The base tag of a hop (4 tensors at most, ``tag + k``)."""
+        return ((((call % 65536) << 10) | stage) << 4) | (direction << 2)
+
+
+def rank_plan(pg: PartitionedGraph, group) -> RankPlan:
+    """The calling rank's :class:`RankPlan` of ``pg`` on ``group`` (its
+    size must be ``pg.n_shards``), built once and kept on ``pg``."""
+    import torch.distributed as dist
+
+    size = dist.get_world_size(group)
+    if size != pg.n_shards:
+        raise ValueError(f"the process group has {size} ranks; the "
+                         f"partition has {pg.n_shards} shards")
+    key = f"rank_plan:{rank_of(group)}"
+    plan = pg._derived.get(key)
+    if plan is None:
+        plan = pg._derived[key] = RankPlan(pg, rank_of(group))
+    return plan
+
+
+def _check_shard(pg: PartitionedGraph, x: Optional[torch.Tensor] = None,
+                 w: Optional[torch.Tensor] = None) -> None:
+    """A rank's operands: (rows, …) node rows, a (1, S, eb[, H]) row."""
+    if x is not None and x.shape[0] != pg.rows:
+        raise ValueError(f"a rank's node block has {pg.rows} rows (the "
+                         f"partition's); got {tuple(x.shape)}")
+    if w is not None and tuple(w.shape[:3]) != (1, pg.n_shards, pg.eb):
+        raise ValueError(f"a rank's bucket row is (1, {pg.n_shards}, "
+                         f"{pg.eb}, …); got {tuple(w.shape)}")
+
+
+def _rank_slots(w_row: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Entries ``idx`` of a (S, eb[, H]) weight row, flattened."""
+    return w_row.reshape((-1,) + tuple(w_row.shape[2:])).index_select(0, idx)
+
+
+def _segment_stage(g, x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``u_mul_e_add_v`` of a per-head weight ``e`` (caller order) on
+    gspmm's sorted segment route, in the accumulation dtype."""
+    from .binary_reduce import _execute, parse_op   # binary_reduce is heavy
+
+    e = e.reshape(tuple(e.shape) + (1,) * (x.ndim - e.ndim))
+    return _execute(g, parse_op("u_mul_e_add_v"), x, e, "segment").to(
+        accum_dtype(x.dtype))
+
+
+def _flat2(t: torch.Tensor) -> torch.Tensor:
+    return t.reshape(t.shape[0], -1).contiguous()
+
+
+def _mesh_fwd_stage(route: str, b: RankBucket, block, w_row):
+    """Bucket ``b``'s weighted sum of ``block`` into its local rows."""
+    if route == "kernel":
+        return spmm_csr(b.part.g, _flat2(block), _rank_slots(
+            w_row, b.part.canon).float()).reshape(block.shape)
+    if route == "segment":
+        return _segment_stage(b.part.g, block, _rank_slots(w_row,
+                                                           b.part.slots))
+    out = torch.zeros(block.shape, dtype=accum_dtype(block.dtype),
+                      device=block.device)
+    return _stage_reduce(block, b.src, b.dst, w_row[b.j, :b.k], out)
+
+
+def _mesh_dx_stage(route: str, b: RankBucket, ct, w_row):
+    """∂x of bucket ``b`` (sources mine): gather at dst, scatter at src,
+    ``w_row`` the destination shard's weight row."""
+    if route == "kernel":
+        return spmm_csr(b.part.rev, _flat2(ct), _rank_slots(
+            w_row, b.part.rev_canon).float()).reshape(ct.shape)
+    if route == "segment":
+        return _segment_stage(b.part.rev, ct, _rank_slots(w_row,
+                                                          b.part.slots))
+    out = torch.zeros(ct.shape, dtype=accum_dtype(ct.dtype), device=ct.device)
+    return _stage_reduce(ct, b.dst, b.src, w_row[b.j, :b.k], out)
+
+
+def _mesh_dw_stage(route: str, b: RankBucket, block, ct, head_rank: int):
+    """∂w of bucket ``b`` (destinations mine): ⟨x[src], ct[dst]⟩ per
+    slot."""
+    if route == "kernel":
+        return sddmm_csr(b.part.g, "dot", "u", _flat2(block), "v",
+                         _flat2(ct))[:, 0]
+    return _edge_dot(block.index_select(0, b.src),
+                     ct.index_select(0, b.dst), head_rank)
+
+
+class _Int8Wire:
+    """The int8 payload of a rank's block (``comm="int8"``): ``q`` in the
+    padded layout's 256-value blocks over this block's span, front-padded
+    by the block's offset into its first one, and one fp32 scale per
+    block; :meth:`decode` dequantizes shard ``r``'s payload."""
+
+    def __init__(self, shape, dtype, q, scales):
+        self.shape, self.dtype, self.tensors = tuple(shape), dtype, [q, scales]
+
+    def offset(self, shard: int) -> int:
+        return (shard * int(np.prod(self.shape))) % BLOCK
+
+    def decode(self, tensors, shard: int) -> torch.Tensor:
+        q, scales = tensors
+        n = int(np.prod(self.shape))
+        off = self.offset(shard)
+        deq = (q.reshape(-1, BLOCK).to(torch.float32) * scales[:, None])
+        return deq.reshape(-1)[off:off + n].reshape(self.shape).to(
+            self.dtype)
+
+
+def _compress_shard(plan: RankPlan, group, x: torch.Tensor,
+                    residual: torch.Tensor):
+    """``compress_payload`` of this rank's block with the whole padded
+    array's 256-value blocks (the emulated and JAX's quantization): a
+    block straddling two ranks' spans takes the amax of both, from one
+    ``all_gather`` of each rank's two end blocks. Returns ``(y,
+    new_residual, wire)``."""
+    n = x.numel()
+    start = plan.me * n
+    off = start % BLOCK
+    length = (n // BLOCK + 2) * BLOCK
+    target = x.detach().to(torch.float32).reshape(-1) + residual.reshape(-1)
+    blocks = torch.nn.functional.pad(target, (off, length - off - n)
+                                     ).reshape(-1, BLOCK)
+    amax = blocks.abs().amax(dim=1)
+    # this span's first and last block: local row and padded-layout id
+    ends = ((0, start // BLOCK), ((off + n - 1) // BLOCK,
+                                  (start + n - 1) // BLOCK))
+    mine = torch.tensor([[v for row, gid in ends
+                          for v in (gid, float(amax[row]))]],
+                        dtype=torch.float64, device=x.device)
+    for b0, a0, b1, a1 in all_gather_rows(mine, group).tolist():
+        for row, gid in ends:
+            for b, a in ((b0, a0), (b1, a1)):
+                if b == gid and a > float(amax[row]):
+                    amax[row] = a
+    scales = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(blocks / scales[:, None]), -127, 127).to(
+        torch.int8)
+    deq = (q.to(torch.float32) * scales[:, None]).reshape(-1)[
+        off:off + n].reshape(x.shape)
+    y = x + (deq.to(x.dtype) - x).detach()
+    wire = _Int8Wire(x.shape, x.dtype, q.reshape(-1), scales)
+    return y, (target.reshape(x.shape) - deq).detach(), wire
+
+
+class _MeshPass:
+    """One weighted sum on the mesh ring: stages ``first``..``last`` of
+    ``plan`` reduced on ``route`` ("plain", "kernel" or, for a per-head
+    weight, "segment"), the source blocks sent raw or on ``wire``."""
+
+    def __init__(self, plan: RankPlan, group, route: str, first: int,
+                 last: int, wire: Optional[_Int8Wire]):
+        self.plan, self.group, self.route = plan, group, route
+        self.first, self.last, self.wire = first, last, wire
+        self.call = plan.next_call()
+
+    def _hop(self, tensors, step: int, stage: int, direction: int) -> Hop:
+        return Hop(self.group, tensors, step,
+                   self.plan.tag(self.call, stage, direction))
+
+    def forward(self, x, w):
+        S, me = self.plan.pg.n_shards, self.plan.me
+        w_row = w[0]
+        held = x
+        wire = self.wire.tensors if self.wire is not None else [x]
+        outs = []
+        for s in range(self.last + 1):
+            # post the next block's hop before this stage's reduce
+            hop = self._hop(wire, 1, s, _FWD) if s < self.last else None
+            b = self.plan.fwd[s]
+            if b is not None and s >= self.first:
+                outs.append(_mesh_fwd_stage(self.route, b, held, w_row))
+            if hop is not None:
+                wire = hop.wait()
+                held = (wire[0] if self.wire is None
+                        else self.wire.decode(wire, (me - s - 1) % S))
+        return _stage_sum(outs, x)
+
+    def backward(self, x, w, ct, need_dx: bool, need_dw: bool):
+        """The transposed ring: x blocks forward (∂w of bucket (me, j)),
+        cotangent blocks and weight rows backward (∂x of bucket (i, me))."""
+        w_row = w[0]
+        ct = ct.to(x.dtype).contiguous()
+        xb, cb, wb = x, ct, w_row
+        dxs = []
+        dw = torch.zeros(w_row.shape, dtype=accum_dtype(
+            torch.promote_types(x.dtype, ct.dtype)), device=x.device)
+        for s in range(self.last + 1):
+            hx = hc = None
+            if s < self.last:
+                hx = self._hop([xb], 1, s, _BWD_X) if need_dw else None
+                hc = self._hop([cb, wb], -1, s, _BWD_CT) if need_dx else None
+            if s >= self.first:
+                bb, fb = self.plan.bwd[s], self.plan.fwd[s]
+                if need_dx and bb is not None:
+                    dxs.append(_mesh_dx_stage(self.route, bb, cb, wb))
+                if need_dw and fb is not None:
+                    dw[fb.j, :fb.k] = _mesh_dw_stage(self.route, fb, xb, ct,
+                                                     w.ndim - 3)
+            if hx is not None:
+                xb, = hx.wait()
+            if hc is not None:
+                cb, wb = hc.wait()
+        return (_stage_sum(dxs, x) if need_dx else None,
+                dw.to(w.dtype)[None] if need_dw else None)
+
+
+class _MeshRing(torch.autograd.Function):
+    """A :class:`_MeshPass` and its transposed-ring backward."""
+
+    @staticmethod
+    def forward(ctx, op, x, w):
+        ctx.op = op
+        ctx.save_for_backward(x, w)
+        return op.forward(x.detach(), w.detach())
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, w = (t.detach() for t in ctx.saved_tensors)
+        dx, dw = ctx.op.backward(x, w, ct, ctx.needs_input_grad[1],
+                                 ctx.needs_input_grad[2])
+        return None, dx, dw
+
+
+def _mesh_sum(pg: PartitionedGraph, group, part: str, x, w, strategy: str,
+              wire: Optional[_Int8Wire] = None) -> torch.Tensor:
+    """One weighted sum over ``part`` ('ring': every stage; 'remote': the
+    off-diagonal buckets; 'local': the diagonal one, no exchange) of this
+    rank's block ``x`` with its weight row ``w`` on the mesh ring."""
+    plan = rank_plan(pg, group)
+    _check_shard(pg, x, w)
+    route = _resolve(strategy, x)
+    if route == "kernel" and w.ndim > 3:
+        route = "segment"
+    first, last = {"ring": (0, plan.s_max), "remote": (1, plan.s_max),
+                   "local": (0, 0)}[part]
+    return _MeshRing.apply(_MeshPass(plan, group, route, first, last, wire),
+                           x, w)
+
+
+class _MeshRev:
+    """``ring_edge_values`` on the mesh ring: the ``el`` blocks rotate
+    forward, ``er`` stays local; B3 ``add`` (``kernel``) or the gather
+    sum per stage. The backward: ∂er local over the rank's row, ∂el the
+    transposed ring of cotangent rows (B4 ``copy_rhs``, or
+    ``index_add``)."""
+
+    def __init__(self, plan: RankPlan, group, kernel: bool):
+        self.plan, self.group, self.kernel = plan, group, kernel
+        self.call = plan.next_call()
+
+    def forward(self, el, er):
+        pg = self.plan.pg
+        feat = tuple(el.shape[1:])
+        out = torch.zeros((pg.n_shards, pg.eb) + feat,
+                          dtype=torch.promote_types(el.dtype, er.dtype),
+                          device=el.device)
+        held = el
+        for s in range(self.plan.s_max + 1):
+            hop = (Hop(self.group, [held], 1,
+                       self.plan.tag(self.call, s, _FWD))
+                   if s < self.plan.s_max else None)
+            b = self.plan.fwd[s]
+            if b is not None:
+                out[b.j, :b.k] = (
+                    sddmm_csr(b.part.g, "add", "u", held, "v", er)
+                    if self.kernel else held.index_select(0, b.src)
+                    + er.index_select(0, b.dst))
+            if hop is not None:
+                held, = hop.wait()
+        return out[None]
+
+    def _scatter(self, b: RankBucket, vals, rev: bool):
+        if self.kernel:
+            return binary_reduce_csr(b.part.rev if rev else b.part.g, None,
+                                     vals.contiguous(), "copy_rhs")
+        acc = accum_dtype(vals.dtype)
+        out = torch.zeros((self.plan.pg.rows,) + tuple(vals.shape[1:]),
+                          dtype=acc, device=vals.device)
+        return out.index_add(0, b.src if rev else b.dst, vals.to(acc))
+
+    def backward(self, ct):
+        row = ct[0].contiguous()
+        like = row.new_empty((self.plan.pg.rows,) + tuple(row.shape[2:]))
+        d_er = _stage_sum([self._scatter(b, row[b.j, :b.k], False)
+                           for b in self.plan.fwd if b is not None], like)
+        outs, cb = [], row
+        for s in range(self.plan.s_max + 1):
+            hop = (Hop(self.group, [cb], -1,
+                       self.plan.tag(self.call, s, _BWD_CT))
+                   if s < self.plan.s_max else None)
+            b = self.plan.bwd[s]
+            if b is not None:
+                outs.append(self._scatter(b, cb[b.j, :b.k], True))
+            if hop is not None:
+                cb, = hop.wait()
+        return _stage_sum(outs, like), d_er
+
+
+class _MeshRevFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, op, el, er):
+        ctx.op, ctx.dtypes = op, (el.dtype, er.dtype)
+        return op.forward(el.detach().contiguous(), er.detach().contiguous())
+
+    @staticmethod
+    def backward(ctx, ct):
+        d_el, d_er = ctx.op.backward(ct)
+        return None, d_el.to(ctx.dtypes[0]), d_er.to(ctx.dtypes[1])
+
+
+# --------------------------------------------------------------------- #
 # the public ops
 # --------------------------------------------------------------------- #
 def _resolve(strategy: str, x: torch.Tensor) -> str:
@@ -603,10 +1014,13 @@ def _resolve(strategy: str, x: torch.Tensor) -> str:
     return strategy
 
 
-def _ring_sum(pg: PartitionedGraph, part: str, x, w,
-              strategy: str) -> torch.Tensor:
+def _ring_sum(pg: PartitionedGraph, part: str, x, w, strategy: str,
+              group=None, wire: Optional[_Int8Wire] = None) -> torch.Tensor:
     """One weighted sum over ``part`` ('ring': every stage; 'remote': the
-    off-diagonal buckets) on the resolved route."""
+    off-diagonal buckets) on the resolved route; on the mesh ring with a
+    ``group``."""
+    if group is not None:
+        return _mesh_sum(pg, group, part, x, w, strategy, wire)
     if _resolve(strategy, x) == "plain":
         if part == "remote":
             w = offdiag_weights(pg, w)
@@ -627,29 +1041,41 @@ def ring_gspmm(pg: PartitionedGraph, x: torch.Tensor, w: torch.Tensor, *,
     (S, S, eb) scalar or (S, S, eb, H) per head against (H, F) features
     (:meth:`~PartitionedGraph.scatter_edges`; fold 1/deg into ``w`` for
     mean). Returns (n_pad, *feat) destination sums, differentiable in
-    ``x`` and ``w``.
+    ``x`` and ``w``. With a process group ``mesh`` every operand and the
+    result are the rank's: ``x`` (rows, *feat), ``w`` (1, S, eb[, H]).
 
     ``comm="int8"`` puts the cross-shard payload on the compressed wire:
-    the source blocks are quantized once (blockwise int8, an fp32 scale
-    per 256 values) with the error-feedback ``residual`` ((n_pad, *feat)
-    fp32, required) folded in; owner-local (diagonal) edges read the raw
-    features, the remote ones the dequantized values, straight-through
-    for autograd. Returns ``(out, new_residual)``.
+    the source blocks are quantized once, at their owner (blockwise int8,
+    an fp32 scale per 256 values of the padded layout), with the
+    error-feedback ``residual`` ((n_pad, *feat) fp32 — the rank's rows on
+    the mesh — required) folded in; owner-local (diagonal) edges read the
+    raw features, the remote ones the dequantized values (on the mesh the
+    int8 payload and its scales travel the ring), straight-through for
+    autograd. Returns ``(out, new_residual)``.
     """
-    check_mesh(mesh)
+    group = process_group(mesh)
     if comm not in COMM_MODES:
         raise ValueError(f"comm must be one of {COMM_MODES}: {comm!r}")
+    plan = None if group is None else rank_plan(pg, group)
     if comm == "none":
-        _count_exchange(pg, x, "none")
-        return _ring_sum(pg, "ring", x, w, strategy)
+        _count_exchange(pg, x, "none", plan)
+        return _ring_sum(pg, "ring", x, w, strategy, group)
     if residual is None:
         raise ValueError('comm="int8" needs the error-feedback residual '
                          "(init with torch.zeros((n_pad, *feat)))")
-    y, new_residual = compress_payload(x, residual)
-    _count_exchange(pg, x, "int8")
-    out = (local_gspmm(pg, x, w, strategy=strategy)
-           + _ring_sum(pg, "remote", y, w, strategy))
+    y, new_residual, wire = _compress(plan, group, x, residual)
+    _count_exchange(pg, x, "int8", plan)
+    out = (local_gspmm(pg, x, w, mesh=group, strategy=strategy)
+           + _ring_sum(pg, "remote", y, w, strategy, group, wire))
     return out, new_residual
+
+
+def _compress(plan: Optional[RankPlan], group, x, residual):
+    """``(y, new_residual, wire)`` of the int8 exchange: the whole padded
+    array's (``compress_payload``, no wire) or the rank's block's."""
+    if group is None:
+        return compress_payload(x, residual) + (None,)
+    return _compress_shard(plan, group, x, residual)
 
 
 def ring_reference(pg: PartitionedGraph, x: torch.Tensor,
@@ -745,62 +1171,81 @@ def ring_edge_values(pg: PartitionedGraph, el: torch.Tensor,
                      strategy: str = "auto") -> torch.Tensor:
     """Bucketed per-edge sums ``el[src_e] + er[dst_e]`` — GAT's
     ``u_add_v_copy_e`` on shards. ``el`` / ``er``: (n_pad, *feat) padded
-    node values. Returns (S, S, eb, *feat), 0 on pad slots. The kernel
-    route takes rank-2 operands of one feature dtype; others run
-    plain."""
-    check_mesh(mesh)
+    node values. Returns (S, S, eb, *feat), 0 on pad slots; with a
+    process group ``mesh``, the rank's (rows, *feat) blocks in and its
+    (1, S, eb, *feat) row out. The kernel route takes rank-2 operands of
+    one feature dtype; others run plain."""
+    group = process_group(mesh)
     dtype = torch.promote_types(el.dtype, er.dtype)
-    if (_resolve(strategy, el.to(dtype)) == "kernel" and el.ndim == 2
-            and er.ndim == 2 and dtype in FEATURE_DTYPES):
-        return _RevKernel.apply(pg, el.to(dtype), er.to(dtype))
+    kernel = (_resolve(strategy, el.to(dtype)) == "kernel" and el.ndim == 2
+              and er.ndim == 2 and dtype in FEATURE_DTYPES)
+    if kernel:
+        el, er = el.to(dtype), er.to(dtype)
+    if group is not None:
+        _check_shard(pg, el)
+        _check_shard(pg, er)
+        return _MeshRevFn.apply(_MeshRev(rank_plan(pg, group), group,
+                                         kernel), el, er)
+    if kernel:
+        return _RevKernel.apply(pg, el, er)
     return _RevPlain.apply(pg, el, er)
 
 
-def _bucket_softmax_plain(pg: PartitionedGraph, logits: torch.Tensor
-                          ) -> torch.Tensor:
-    """JAX's ``bucket_softmax``: masked max by padded destination (a
+def _bucket_softmax_plain(logits: torch.Tensor, gdst: torch.Tensor,
+                          mask: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """JAX's ``bucket_softmax`` over bucketed logits whose slots land on
+    rows ``gdst`` (flat) of ``n_rows``: masked max by destination (a
     shift the softmax cancels, so taken without a gradient), exp, masked
     sum, divide by max(sum, 1e-20); pad slots 0."""
-    S, rows, eb = pg.n_shards, pg.rows, pg.eb
     feat = tuple(logits.shape[3:])
-    gdst = (torch.arange(S, device=logits.device)[:, None, None] * rows
-            + pg.long("dst_local")).reshape(-1)
-    flat = logits.reshape((S * S * eb,) + feat)
-    mkr = pg.mask.reshape((-1,) + (1,) * len(feat))
+    flat = logits.reshape((gdst.shape[0],) + feat)
+    mkr = mask.reshape((-1,) + (1,) * len(feat))
     idx = gdst.reshape((-1,) + (1,) * len(feat)).expand_as(flat)
     with torch.no_grad():
         neg = torch.full((), float("-inf"), dtype=flat.dtype,
                          device=flat.device)
-        m = torch.full((pg.n_pad,) + feat, float("-inf"), dtype=flat.dtype,
+        m = torch.full((n_rows,) + feat, float("-inf"), dtype=flat.dtype,
                        device=flat.device).scatter_reduce(
             0, idx, torch.where(mkr, flat, neg), "amax", include_self=True)
         m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     ex = torch.where(mkr, torch.exp(flat - m.index_select(0, gdst)),
                      flat.new_zeros(()))
-    z = flat.new_zeros((pg.n_pad,) + feat).index_add(0, gdst, ex)
+    z = flat.new_zeros((n_rows,) + feat).index_add(0, gdst, ex)
     alpha = ex / torch.clamp(z.index_select(0, gdst), min=1e-20)
-    return alpha.reshape((S, S, eb) + feat)
+    return alpha.reshape(logits.shape)
 
 
 def bucket_softmax(pg: PartitionedGraph, logits: torch.Tensor, *,
-                   strategy: str = "auto") -> torch.Tensor:
+                   mesh=None, strategy: str = "auto") -> torch.Tensor:
     """Destination softmax over bucketed edge logits (S, S, eb, *feat);
     every bucket of destination shard ``i`` is owner-resident, so no
-    exchange. Pad slots come back 0. The kernel route is B5 (fp32) on the
-    graph of every bucket; a bf16 operand takes the plain form."""
+    exchange. Pad slots come back 0. With a process group ``mesh`` the
+    logits are the rank's row (1, S, eb, *feat). The kernel route is B5
+    (fp32) on the graph of every bucket (of the rank's row); a bf16
+    operand takes the plain form."""
     from .edge_softmax import edge_softmax_fused
 
+    group = process_group(mesh)
+    if group is None:
+        S, rows = pg.n_shards, pg.rows
+        graph = stage_plan(pg).everything
+        gdst = (torch.arange(S, device=logits.device)[:, None, None] * rows
+                + pg.long("dst_local")).reshape(-1)
+        mask, n_rows = pg.mask, pg.n_pad
+    else:
+        me = rank_of(group)
+        graph = rank_plan(pg, group).row
+        _check_shard(pg, w=logits)
+        gdst = pg.long("dst_local")[me].reshape(-1)
+        mask, n_rows = pg.mask[me], pg.rows
     if (_resolve(strategy, logits) == "plain"
-            or logits.dtype != torch.float32
-            or stage_plan(pg).everything is None):
-        return _bucket_softmax_plain(pg, logits)
-    everything = stage_plan(pg).everything
-    flat = logits.reshape(pg.n_shards * pg.n_shards * pg.eb, -1)
-    alpha = edge_softmax_fused(everything.g,
-                               flat.index_select(0, everything.slots),
+            or logits.dtype != torch.float32 or graph is None):
+        return _bucket_softmax_plain(logits, gdst, mask, n_rows)
+    flat = logits.reshape(gdst.shape[0], -1)
+    alpha = edge_softmax_fused(graph.g, flat.index_select(0, graph.slots),
                                strategy="kernel")
     return flat.new_zeros(flat.shape).index_copy(
-        0, everything.slots, alpha).reshape(logits.shape)
+        0, graph.slots, alpha).reshape(logits.shape)
 
 
 # --------------------------------------------------------------------- #
@@ -828,19 +1273,28 @@ def _local_plain(pg: PartitionedGraph, x, w):
 
 
 def local_gspmm(pg: PartitionedGraph, x: torch.Tensor, w: torch.Tensor, *,
-                strategy: str = "auto") -> torch.Tensor:
+                mesh=None, strategy: str = "auto") -> torch.Tensor:
     """Owner-local part only: the diagonal (d, d) buckets, no exchange.
-    The kernel route is B1 on the diagonal-0 stage graph."""
+    The kernel route is B1 on the diagonal-0 stage graph. With a process
+    group ``mesh``, the rank's block, row and bucket (me, me)."""
+    group = process_group(mesh)
+    if group is not None:
+        return _mesh_sum(pg, group, "local", x, w, strategy)
     if _resolve(strategy, x) == "plain":
         return _local_plain(pg, x, w)
     return _kernel_sum((stage_plan(pg).local,), x, w)
 
 
-def offdiag_weights(pg: PartitionedGraph, w: torch.Tensor) -> torch.Tensor:
-    """Zero the diagonal buckets — the remote-only weight view."""
+def offdiag_weights(pg: PartitionedGraph, w: torch.Tensor, *,
+                    mesh=None) -> torch.Tensor:
+    """Zero the diagonal buckets — the remote-only weight view (with a
+    process group ``mesh``: of the rank's row, bucket (me, me))."""
     S = pg.n_shards
     off = 1.0 - torch.eye(S, dtype=w.dtype, device=w.device)
-    return w * off.reshape((S, S) + (1,) * (w.ndim - 2))
+    group = process_group(mesh)
+    if group is not None:
+        off = off[rank_of(group)][None]
+    return w * off.reshape(tuple(off.shape) + (1,) * (w.ndim - 2))
 
 
 def ring_gspmm_delayed(pg: PartitionedGraph, x: torch.Tensor,
@@ -858,26 +1312,28 @@ def ring_gspmm_delayed(pg: PartitionedGraph, x: torch.Tensor,
     ``comm="int8"`` compresses the refresh exchange as
     :func:`ring_gspmm` does (needs ``residual``; the local part reads raw
     features); a stale step moves no bytes and passes the residual
-    through. Returns ``(out, remote, new_residual)``.
+    through. Returns ``(out, remote, new_residual)``. With a process
+    group ``mesh`` every tensor is the rank's (``stale`` its rows).
     """
-    check_mesh(mesh)
+    group = process_group(mesh)
     if comm not in COMM_MODES:
         raise ValueError(f"comm must be one of {COMM_MODES}: {comm!r}")
-    loc = local_gspmm(pg, x, w, strategy=strategy)
+    plan = None if group is None else rank_plan(pg, group)
+    loc = local_gspmm(pg, x, w, mesh=group, strategy=strategy)
     if comm == "int8":
         if residual is None:
             raise ValueError('comm="int8" needs the error-feedback '
                              "residual")
         if refresh:
-            y, residual = compress_payload(x, residual)
-            _count_exchange(pg, x, "int8")
-            remote = _ring_sum(pg, "remote", y, w, strategy)
+            y, residual, wire = _compress(plan, group, x, residual)
+            _count_exchange(pg, x, "int8", plan)
+            remote = _ring_sum(pg, "remote", y, w, strategy, group, wire)
         else:
             remote = stale.detach()
         return loc + remote, remote.detach(), residual
     if refresh:
-        _count_exchange(pg, x, "none")
-        remote = _ring_sum(pg, "remote", x, w, strategy)
+        _count_exchange(pg, x, "none", plan)
+        remote = _ring_sum(pg, "remote", x, w, strategy, group)
     else:
         remote = stale.detach()
     return loc + remote, remote.detach()

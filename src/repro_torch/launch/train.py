@@ -64,7 +64,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--mesh", default=None,
-                    help="a device mesh: not on one card (ROADMAP A12)")
+                    help="a device mesh for the LM: not yet (ROADMAP A15)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
@@ -74,8 +74,8 @@ def main(argv: Optional[List[str]] = None) -> Dict:
 
     if args.mesh:
         raise NotImplementedError(
-            "--mesh: multi-card training waits for the torch.distributed "
-            "form (ROADMAP A12)")
+            "--mesh: placing one LM over many ranks waits for the LM mesh "
+            "(ROADMAP A15: pjit_utils, launch/shardings.py)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)
     train_step = make_train_step(cfg, lr=args.lr)

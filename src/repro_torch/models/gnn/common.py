@@ -8,7 +8,8 @@ loaders that carry parameters between the JAX package and the port
 (:func:`from_jax_params`, :func:`to_jax_params`); the one code path
 every app's sampled-minibatch forward runs on (:func:`run_blocks`); and
 the partitioned bundle (:class:`PartitionedBundle`): the graph's memoized
-partition with the normalizations in its bucket layout.
+partition with the normalizations in its bucket layout, on one device (the
+emulated ring) or as one rank's view of a process group (the mesh ring).
 """
 from __future__ import annotations
 
@@ -21,11 +22,12 @@ from torch import nn
 
 from ...core.graph import Graph
 from ...core.hetero import RelGraph, caller_coo, from_rels
-from ...core.partition import (PartitionedGraph, check_mesh, ring_gspmm,
+from ...core.partition import (PartitionedGraph, ring_gspmm,
                                ring_gspmm_delayed)
 from ...core.planner import PlanCache, get_plan_cache
 from ...core.tiling import ELLPack, TilePack
 from ...core.training_ops import TrainingGraph, make_training_graph
+from ...core.transport import process_group, rank_of
 from ...device import DeviceLike, resolve_device
 from ...substrate.nn import dropout
 
@@ -149,13 +151,30 @@ class PartitionedBundle:
     one partition — and its stage graphs — serves direct ``gspmm`` calls
     and every trainer); ``gcn_w`` / ``mean_w`` are the bundle's
     normalizations in the (S, S, eb) bucket layout, 0 on pad slots.
-    ``mesh`` is None: the emulated ring (a process group is ROADMAP A12's
-    last item)."""
+    ``mesh`` None: the emulated ring. ``mesh`` a process group: the
+    calling rank's view — ``pg`` whole (every rank plans the same
+    partition on the host), ``gcn_w`` / ``mean_w`` the rank's
+    destination row (1, S, eb)."""
     pg: PartitionedGraph
     gcn_w: torch.Tensor       # (S, S, eb) 1/sqrt(d_u d_v)
     mean_w: torch.Tensor      # (S, S, eb) 1/deg_in(dst)
     mesh: Optional[object] = None
     axis: str = "data"
+
+    def dropout(self, gen: Optional[torch.Generator], h: torch.Tensor,
+                rate: float, train: bool) -> torch.Tensor:
+        """``substrate.nn.dropout`` of padded node rows ``h``: on the mesh
+        the rank draws the whole padded layout's mask from ``gen`` and
+        keeps its own rows, so a run drops what the emulated run drops."""
+        if self.mesh is None or not train or rate <= 0.0:
+            return dropout(gen, h, rate, train)
+        keep = 1.0 - rate
+        me, rows = rank_of(self.mesh), self.pg.rows
+        mask = torch.rand((self.pg.n_pad,) + tuple(h.shape[1:]),
+                          generator=gen, device=h.device)[
+            me * rows:(me + 1) * rows] < keep
+        return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype,
+                                                       device=h.device))
 
 
 def make_partitioned_bundle(g: Graph, n_shards: int, *, mesh=None,
@@ -163,23 +182,41 @@ def make_partitioned_bundle(g: Graph, n_shards: int, *, mesh=None,
                             mode: str = "contiguous") -> PartitionedBundle:
     """The partitioned bundle of ``g`` on its device: the partition from
     (and memoized in) the graph's PlanCache, the per-edge norms of
-    :func:`edge_norms` bucketed once."""
-    check_mesh(mesh)
+    :func:`edge_norms` bucketed once; with a process group ``mesh`` (of
+    ``n_shards`` ranks), the calling rank's view of it."""
+    group = process_group(mesh)
     pg = get_plan_cache(g).partition(n_shards, mode)
     w_caller, m_caller = edge_norms(g)
-    return PartitionedBundle(
-        pg=pg,
-        gcn_w=pg.scatter_edges(torch.from_numpy(w_caller).to(g.device)),
-        mean_w=pg.scatter_edges(torch.from_numpy(m_caller).to(g.device)),
-        mesh=mesh, axis=axis)
+    gcn_w, mean_w = (pg.scatter_edges(torch.from_numpy(w).to(g.device))
+                     for w in (w_caller, m_caller))
+    if group is not None:
+        me = rank_of(group)
+        gcn_w, mean_w = gcn_w[me:me + 1], mean_w[me:me + 1]
+    return PartitionedBundle(pg=pg, gcn_w=gcn_w, mean_w=mean_w, mesh=group,
+                             axis=axis)
 
 
 def shard_partitioned(pb: PartitionedBundle, *arrays):
-    """Place the bundle and padded node arrays on the process group's
-    shards: a no-op without one (the emulated ring), as in JAX; with
-    one, ROADMAP A12's last item."""
-    check_mesh(pb.mesh)
-    return (pb,) + arrays if arrays else pb
+    """The bundle and the calling rank's slices of ``arrays`` (JAX's
+    ``device_put`` onto the mesh): a padded node array (n_pad, …) gives
+    the rank's (rows, …) rows, a bucket array (S, S, eb, …) its
+    destination row (1, S, eb, …), anything else (small maps, None) is
+    kept whole. The bundle is already the rank's view
+    (:func:`make_partitioned_bundle`). A no-op without a process group."""
+    if pb.mesh is None:
+        return (pb,) + arrays if arrays else pb
+    pg = pb.pg
+    me = rank_of(pb.mesh)
+
+    def shard(a):
+        if isinstance(a, torch.Tensor) and a.ndim >= 1:
+            if a.shape[0] == pg.n_pad:
+                return a[me * pg.rows:(me + 1) * pg.rows]
+            if a.shape[0] == pg.n_shards:
+                return a[me:me + 1]
+        return a
+
+    return (pb,) + tuple(shard(a) for a in arrays) if arrays else pb
 
 
 def partitioned_aggregate(pb: PartitionedBundle, h: torch.Tensor, w,

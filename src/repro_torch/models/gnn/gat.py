@@ -284,7 +284,7 @@ def forward_partitioned(model: GAT, pb: PartitionedBundle, x: torch.Tensor,
     for i, lyr in enumerate(model.layers):
         heads, out = lyr.attn_l.shape
         if train and gen is not None:
-            h = dropout(gen, h, drop, train)
+            h = pb.dropout(gen, h, drop, train)
         z = matmul(h, lyr.w).reshape(-1, heads, out)      # (n_pad, H, F)
         el = (z * lyr.attn_l).sum(dim=-1)                 # (n_pad, H)
         er = (z * lyr.attn_r).sum(dim=-1)

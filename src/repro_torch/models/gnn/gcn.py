@@ -166,7 +166,7 @@ def forward_partitioned(model: GCN, pb: PartitionedBundle, x: torch.Tensor,
     halo_out, comm_out = [], []
     for i, lyr in enumerate(model.layers):
         if train and gen is not None:
-            h = dropout(gen, h, drop, train)
+            h = pb.dropout(gen, h, drop, train)
         h, stale, res = partitioned_aggregate(pb, lyr(h), pb.gcn_w, i, halo,
                                               refresh, comm_state, strategy)
         halo_out.append(stale)

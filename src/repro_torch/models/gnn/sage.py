@@ -158,7 +158,7 @@ def forward_partitioned(model: SAGE, pb: PartitionedBundle,
     halo_out, comm_out = [], []
     for i, lyr in enumerate(model.layers):
         if train and gen is not None:
-            h = dropout(gen, h, drop, train)
+            h = pb.dropout(gen, h, drop, train)
         hn, stale, res = partitioned_aggregate(pb, h, pb.mean_w, i, halo,
                                                refresh, comm_state, strategy)
         halo_out.append(stale)

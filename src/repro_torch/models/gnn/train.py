@@ -1,6 +1,7 @@
 """GNN training loops (port of ``repro/models/gnn/train.py``): full
 graph (paper Fig. 2), sampled minibatch (paper Fig. 3) and partitioned
-full graph (vertex shards on the emulated ring).
+full graph (vertex shards on the emulated ring, or one shard per rank of
+a ``torch.distributed`` process group).
 
 One step is one forward, the masked cross-entropy, the backward, global
 norm clipping and an AdamW update (lr 1e-2, weight decay 5e-4, clip 5.0
@@ -36,7 +37,12 @@ and masks in the padded layout of the graph's partition end to end; each
 step runs the app's ``forward_partitioned`` (exact, a delayed halo every
 ``halo_staleness`` epochs, and, with ``precision.comm == "int8"``, int8
 exchanges whose error-feedback residual the step carries). On the card a
-ring pass is B1 per ring stage (``core/partition.py``).
+ring pass is B1 per ring stage (``core/partition.py``). With a process
+group (``mesh``) each rank holds its shard's rows and the run is GSPMD's
+by hand: the loss is the masked mean over every rank's rows (its sum and
+count all-reduced), the gradients of the replicated parameters are
+all-reduced before the norm clip, so AdamW runs alike on every rank and
+the parameters stay equal across ranks.
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...core.transport import all_reduce_sum, process_group
 from ...data.pipeline import prefetch
 from ...data.sampler import NeighborSampler
 from ...obs import metrics as _metrics
@@ -56,7 +63,8 @@ from ...obs.spans import fence, span
 from ...optim import (Precision, adamw, apply_updates, cast_logits,
                       cast_tree, clip_by_global_norm)
 from ...substrate.nn import accuracy, cross_entropy_loss
-from .common import block_features, make_partitioned_bundle, pad_features
+from .common import (block_features, make_partitioned_bundle, pad_features,
+                     shard_partitioned)
 
 __all__ = ["call_in_precision", "make_loss_step", "make_train_step",
            "train_full_graph", "make_sampled_train_step", "train_sampled",
@@ -111,19 +119,23 @@ def make_loss_step(loss_fn: Callable, lr: float = 1e-2,
     ``torch.autograd.grad`` (zero for a parameter the loss does not
     reach), clips them by global norm and updates the
     parameters in place; it returns ``(opt_state, loss)`` with ``loss`` a
-    device scalar."""
+    device scalar. ``step(..., group=g)`` with a process group sums the
+    gradients over its ranks before the clip (each rank's loss its share
+    of the whole)."""
     opt_init, opt_update = adamw(lr, weight_decay=weight_decay)
 
     def init(model: nn.Module):
         return opt_init(list(model.parameters()))
 
-    def step(model: nn.Module, opt_state, step_i: int, *args):
+    def step(model: nn.Module, opt_state, step_i: int, *args, group=None):
         params = list(model.parameters())
         loss = loss_fn(model, *args)
         # a parameter the loss does not reach (LGNN's last line-graph
         # update) has a zero gradient, as under jax.grad
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
             params, torch.autograd.grad(loss, params, allow_unused=True))]
+        if group is not None:
+            grads = all_reduce_sum(grads, group)
         grads, _ = clip_by_global_norm(grads, clip)
         ups, opt_state = opt_update(grads, opt_state, params, step_i)
         apply_updates(params, ups)
@@ -325,6 +337,28 @@ def train_sampled(forward_blocks_fn: Callable, model: nn.Module, g, feats,
 # --------------------------------------------------------------------- #
 # partitioned full-graph training (repro/models/gnn/train.py:116-260)
 # --------------------------------------------------------------------- #
+def _mesh_loss(logits: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor, group) -> torch.Tensor:
+    """The masked mean cross-entropy over every rank's rows: its value is
+    the whole run's loss; its gradient this rank's rows' share (their sum
+    over the global count), which the gradient all-reduce completes."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    m = mask.to(nll.dtype)
+    part = (nll * m).sum()
+    total, count = all_reduce_sum([part.detach(), m.sum()], group)
+    return (part + (total - part.detach())) / count.clamp(min=1.0)
+
+
+def _mesh_accuracy(logits: torch.Tensor, labels: torch.Tensor,
+                   mask: torch.Tensor, group) -> torch.Tensor:
+    """``accuracy`` over every rank's masked rows."""
+    m = mask.to(torch.float32)
+    hit = (logits.argmax(dim=-1) == labels).to(torch.float32)
+    hits, count = all_reduce_sum([(hit * m).sum(), m.sum()], group)
+    return hits / count.clamp(min=1.0)
+
+
 def make_partitioned_train_step(forward_part_fn: Callable,
                                 lr: float = 1e-2,
                                 weight_decay: float = 5e-4,
@@ -338,7 +372,10 @@ def make_partitioned_train_step(forward_part_fn: Callable,
     masters, ``call_in_precision``), the masked cross-entropy on fp32
     logits, and returns ``(opt_state, loss, halo_out, comm_out)``:
     ``comm`` (None, or the per-layer int8 residuals) is carried into
-    ``comm_out``; ``refresh`` is a plain bool (a stale-halo step)."""
+    ``comm_out``; ``refresh`` is a plain bool (a stale-halo step). On a
+    bundle with a process group the tensors are the rank's
+    (``shard_partitioned``), the loss is the global masked mean and the
+    gradients are all-reduced before the clip."""
     precision = _resolve_precision(precision)
     aux = {}
 
@@ -351,14 +388,17 @@ def make_partitioned_train_step(forward_part_fn: Callable,
                                 cast_tree(xp, precision.compute), **kw)
         aux["halo"] = out[1]
         aux["comm"] = out[2] if comm is not None else None
-        return cross_entropy_loss(cast_logits(out[0]), yp, mp)
+        logits = cast_logits(out[0])
+        if pb.mesh is None:
+            return cross_entropy_loss(logits, yp, mp)
+        return _mesh_loss(logits, yp, mp, pb.mesh)
 
     opt_init, inner = make_loss_step(loss_fn, lr, weight_decay, clip)
 
     def step(model, opt_state, step_i, pb, xp, yp, mp, halo, comm, gen,
              refresh: bool = True):
         opt_state, loss = inner(model, opt_state, step_i, pb, xp, yp, mp,
-                                halo, comm, gen, refresh)
+                                halo, comm, gen, refresh, group=pb.mesh)
         return opt_state, loss, aux.pop("halo"), aux.pop("comm")
 
     return opt_init, step
@@ -380,7 +420,12 @@ def train_partitioned(forward_part_fn: Callable, model: nn.Module, g, x,
 
     Features are scattered once into the padded layout and the run stays
     there (labels padded with masked rows). ``mesh=None`` trains on the
-    emulated ring (a process group is ROADMAP A12's last item).
+    emulated ring; a process group of ``n_shards`` ranks (every rank calls
+    with the same arguments) trains on the mesh ring, each rank on its
+    shard's rows (``shard_partitioned``: features, labels, masks, the halo
+    and the int8 residuals), the loss, ``val_acc`` and the gradients
+    global; with ``drop > 0`` each rank keeps its rows of the whole
+    layout's dropout mask, so the run is the emulated one.
     ``halo_staleness=0`` is exact every step; ``k > 0`` refreshes the
     cross-shard partials every k-th epoch and reuses them stale between
     (needs ``init_halo_fn``, e.g. ``gcn.init_halo``). ``precision`` as in
@@ -396,11 +441,13 @@ def train_partitioned(forward_part_fn: Callable, model: nn.Module, g, x,
     from ...core import planner
 
     precision = _resolve_precision(precision)
-    pb = make_partitioned_bundle(g, n_shards, mesh=mesh, axis=axis,
+    group = process_group(mesh)
+    pb = make_partitioned_bundle(g, n_shards, mesh=group, axis=axis,
                                  mode=mode)
     pg = pb.pg
+    ring = "ring" if group is not None else "ring-emulated"
     planner._record("partitioned:train", "auto",
-                    f"ring-emulated:s{n_shards}:{mode}:{precision.tag()}",
+                    f"{ring}:s{n_shards}:{mode}:{precision.tag()}",
                     dtype=planner.dtype_name(precision.compute))
     dev = g.device
     xp = pg.scatter_nodes(torch.as_tensor(np.asarray(x, np.float32),
@@ -421,6 +468,12 @@ def train_partitioned(forward_part_fn: Callable, model: nn.Module, g, x,
                          "(e.g. gcn.init_comm)")
     halo = init_halo_fn(model, pg) if delayed else None
     comm = init_comm_fn(model, pg) if precision.comm == "int8" else None
+    if group is not None:
+        pb, xp, yp, mp, vp = shard_partitioned(pb, xp, yp, mp, vp)
+        if delayed:
+            halo = shard_partitioned(pb, *halo)[1:]
+        if comm is not None:
+            comm = shard_partitioned(pb, *comm)[1:]
 
     opt_init, step = make_partitioned_train_step(
         forward_part_fn, lr=lr, weight_decay=weight_decay, drop=drop,
@@ -454,6 +507,8 @@ def train_partitioned(forward_part_fn: Callable, model: nn.Module, g, x,
                     precision, forward_part_fn, model, pb,
                     cast_tree(xp, precision.compute),
                     strategy=strategy)[0]
-                history["val_acc"].append(float(accuracy(
-                    cast_logits(logits), yp, vp)))
+                logits = cast_logits(logits)
+                history["val_acc"].append(float(
+                    accuracy(logits, yp, vp) if group is None
+                    else _mesh_accuracy(logits, yp, vp, group)))
     return model, history

@@ -114,7 +114,7 @@ def test_train_resume_cli(tmp_path, capsys):
 
 
 def test_train_cli_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A15"):
         train.main(["--arch", "llama3p2_3b", "--smoke", "--device", "cpu",
                     "--mesh", "2x2"])
 

@@ -563,8 +563,8 @@ def test_use_ring_without_a_group_never_qualifies():
 
 def test_use_ring_with_a_process_group(tmp_path):
     """A one-process gloo group makes ``ring`` a candidate (a square
-    graph, a supported spec) and sets the context's shard count; running
-    on it is the multi-card ring, which raises."""
+    graph, a supported spec) and sets the context's shard count; gspmm's
+    ring route runs the mesh ring on it, equal to the segment route."""
     import torch.distributed as dist
 
     _, tg = _pair(seed=19)
@@ -578,14 +578,17 @@ def test_use_ring_with_a_process_group(tmp_path):
             plan = planner.plan_gspmm(tg, parse_op("u_copy_add_v"), u, None,
                                       requested="ring")
             assert plan.strategy == "ring" and plan.reason == "pinned"
-            with pytest.raises(NotImplementedError, match="A12"):
-                gspmm(tg, "u_copy_add_v", u=u, strategy="ring")
+            out = gspmm(tg, "u_copy_add_v", u=u, strategy="ring")
+        torch.testing.assert_close(out, gspmm(tg, "u_copy_add_v", u=u,
+                                              strategy="segment"))
         assert planner.active_ring() is None
     finally:
         dist.destroy_process_group()
 
 
 def test_mesh_raises_everywhere():
+    """A ``mesh`` that is not a process group raises ``TypeError`` in every
+    entry point; without one the bundle's sharding is a no-op."""
     from repro_torch.models.gnn.common import (make_partitioned_bundle,
                                                shard_partitioned)
 
@@ -596,8 +599,10 @@ def test_mesh_raises_everywhere():
     for call in (lambda: tp.ring_gspmm(pg, x, w, mesh=mesh),
                  lambda: tp.ring_gspmm_delayed(pg, x, w, x, True, mesh=mesh),
                  lambda: tp.ring_edge_values(pg, x, x, mesh=mesh),
+                 lambda: tp.bucket_softmax(pg, w[..., None], mesh=mesh),
+                 lambda: tp.local_gspmm(pg, x, w, mesh=mesh),
                  lambda: make_partitioned_bundle(tg, 2, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match="A12"):
+        with pytest.raises(TypeError, match="ProcessGroup"):
             call()
     pb = make_partitioned_bundle(tg, 2)
     assert shard_partitioned(pb) is pb
