@@ -258,6 +258,29 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     rank's exchange ms and bytes (gloo through the host on one card: not
     an NVLink or NCCL number), peak memory, rank 0's traced kernel ms.
 
+21. The LM mesh (``pjit_utils.py``, ``launch/shardings.py``, the mesh
+    train step of ``launch/steps.py``, the mesh save and sharded restore
+    of ``checkpoint/``; run after phase 19; no kernel of its own):
+    ``MESH_RANKS`` processes spawned join one ``gloo`` group on this card
+    (every rank ``cuda:0``, its bytes through host memory) as a
+    ``LM_MESH`` (2, 2) process mesh: (a) qwen2, granite-MoE and zamba2
+    smoke, 3 steps at B = 4, S = 32, held to the same steps run here on
+    one rank under ``ambient_mesh(MeshShape((2, 2)))`` (the MoE's token
+    blocks): losses within 1e-5 relative, the gathered params within
+    1e-4·max + 1e-6 plus 1% of the steps' lr, every two ranks holding the
+    same chunk of a leaf bit-equal; (b) llama smoke saved after 2 steps
+    on (2, 2) and, in a second spawn, restored onto (4, 1) with
+    ``data == 4``, its step 3 within 1e-5 of the uninterrupted run's;
+    (c) ``llama3.2-3b`` at its published width (bf16), depth cut to
+    ``LM_MESH_FULL``'s layers so four ranks share the card (``reduced``):
+    1 warm-up and 3 timed steps at B = 4, S = 512 on a fixed batch, each
+    loss within 2e-2 of the same model's one-rank run here, the loss
+    falling; step ms per rank, the gathers' and the gradient all-reduce's
+    ms and bytes per rank (gloo through the host on one card: not an
+    NVLink or NCCL number), each rank's state bytes beside the one-rank
+    state's and the specs' count, the working copy's bytes, peak memory
+    per process.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
@@ -618,6 +641,17 @@ LM_TRAIN = (2, 512, 4)
 LM_SERVE = (4, 512, 33)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense
 LM_CKPT_DIR = os.path.join("build", "lm_ckpt")
+# the LM mesh phase (21): MESH_RANKS ranks as a (data, model) mesh; the
+# smoke archs held to the one-rank mesh semantics and their batch (B, S,
+# steps); the elastic restore's two meshes; the full-width config's depth
+# and run (layers, B, S, warm-up steps, timed steps)
+LM_MESH = (2, 2)
+LM_MESH_ARCHS = ("qwen2_7b", "granite_moe_3b", "zamba2_2p7b")
+LM_MESH_BATCH = (4, 32, 3)
+LM_MESH_ELASTIC = ((2, 2), (4, 1))
+LM_MESH_FULL = (2, 4, 512, 1, 3)
+LM_MESH_TOL = 1e-5
+LM_MESH_FULL_TOL = 2e-2
 
 
 def emit(obj) -> None:
@@ -4733,6 +4767,23 @@ def _mesh_rank(rank: int, world: int, root: str) -> None:
         dist.destroy_process_group()
 
 
+def spawn_mesh_ranks(fn, args: tuple, what: str) -> None:
+    """``fn(rank, *args)`` on ``MESH_RANKS`` processes (start method
+    spawn: this process holds a CUDA context), joined under
+    ``MESH_SPAWN_LIMIT_S``; a rank that fails fails the run."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=MESH_RANKS, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + MESH_SPAWN_LIMIT_S
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{what} ranks still running after "
+                               f"{MESH_SPAWN_LIMIT_S} s")
+
+
 def mesh_phase(heavy_rows: list) -> list:
     """Phase 20 (a–c): ``MESH_RANKS`` ranks spawned (start method spawn:
     this process holds a CUDA context) on this card, joined under
@@ -4743,20 +4794,9 @@ def mesh_phase(heavy_rows: list) -> list:
     import pickle
     import tempfile
 
-    import torch.multiprocessing as mp
-
     root = tempfile.mkdtemp(prefix="mesh_ring_")
     try:
-        ctx = mp.start_processes(_mesh_rank, args=(MESH_RANKS, root),
-                                 nprocs=MESH_RANKS, join=False,
-                                 start_method="spawn")
-        deadline = time.monotonic() + MESH_SPAWN_LIMIT_S
-        while not ctx.join(timeout=1):
-            if time.monotonic() > deadline:
-                for p in ctx.processes:
-                    p.kill()
-                raise TimeoutError(f"phase 20 ranks still running after "
-                                   f"{MESH_SPAWN_LIMIT_S} s")
+        spawn_mesh_ranks(_mesh_rank, (MESH_RANKS, root), "phase 20")
         ranks = []
         for r in range(MESH_RANKS):
             with open(os.path.join(root, f"rank{r}.pkl"), "rb") as f:
@@ -5163,6 +5203,365 @@ def lm_phase() -> None:
     emit({"phase": "lm_done", "seconds": time.perf_counter() - t0})
 
 
+# --------------------------------------------------------------------- #
+# 21. the LM mesh: one LM over MESH_RANKS gloo ranks on this card
+# --------------------------------------------------------------------- #
+class _LMExchange:
+    """Times (host clock) and sizes this rank's parameter gathers
+    (``transport.all_gather_cat``, which ``pjit_utils.full_tensors``
+    calls) and gradient all-reduces (``launch.steps``' ``all_reduce_sum``)
+    for the life of the process (a child of phase 21): on ``gloo`` every
+    byte stages through host memory."""
+
+    def __init__(self):
+        from repro_torch.core import transport
+        from repro_torch.launch import steps
+
+        self.reset()
+        gather, reduce = transport.all_gather_cat, steps.all_reduce_sum
+        ex = self
+
+        def all_gather_cat(tensors, group, dims):
+            t0 = time.perf_counter()
+            out = gather(tensors, group, dims)
+            ex.gather_ms += (time.perf_counter() - t0) * 1e3
+            ex.gather_bytes += sum(o.numel() * o.element_size() for o in out)
+            ex.gather_bytes -= sum(t.numel() * t.element_size()
+                                   for t in tensors)
+            return out
+
+        def all_reduce_sum(tensors, group, dtype=None):
+            t0 = time.perf_counter()
+            out = reduce(tensors, group, dtype=dtype)
+            ex.reduce_ms += (time.perf_counter() - t0) * 1e3
+            ex.reduce_bytes += sum(t.numel() for t in tensors) * (
+                dtype or tensors[0].dtype).itemsize
+            return out
+
+        transport.all_gather_cat = all_gather_cat
+        steps.all_reduce_sum = all_reduce_sum
+
+    def reset(self):
+        self.gather_ms = self.reduce_ms = 0.0
+        self.gather_bytes = self.reduce_bytes = 0
+
+    def read(self) -> dict:
+        return {"gather_ms": self.gather_ms,
+                "gather_bytes_received": self.gather_bytes,
+                "allreduce_ms": self.reduce_ms,
+                "allreduce_bytes": self.reduce_bytes}
+
+
+def _lm_mesh_steps(cfg, state, step_fn, mesh, batches) -> tuple:
+    """``step_fn`` over ``batches`` under ``mesh`` (a ``MeshShape`` or a
+    process mesh); the state and the losses."""
+    from repro_torch.pjit_utils import ambient_mesh
+
+    losses = []
+    with ambient_mesh(mesh):
+        for b in batches:
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+    return state, losses
+
+
+def _lm_mesh_batches(cfg, n: int, B: int, S: int) -> list:
+    from repro_torch.launch.train import synthetic_batch
+
+    return [synthetic_batch(cfg, i, B, S, device="cuda") for i in range(n)]
+
+
+def _lm_mesh_chunks(state, mesh) -> list:
+    """Per sharded leaf of the state: (this rank's coordinates on the mesh
+    dims that shard it, a digest of its local bits)."""
+    import hashlib
+
+    from repro_torch.launch.steps import state_tree
+
+    coord = mesh.get_coordinate()
+    out = []
+    for leaf in tree_leaves(state_tree(state)):
+        if hasattr(leaf, "placements"):
+            local = leaf.to_local().detach().contiguous().cpu()
+            out.append((tuple(c for c, p in zip(coord, leaf.placements)
+                              if p.is_shard()),
+                        hashlib.sha1(local.reshape(-1).view(torch.uint8)
+                                     .numpy().tobytes()).hexdigest()))
+    return out
+
+
+def _lm_mesh_full_run(cfg, state, step_fn, mesh, ex) -> dict:
+    """``LM_MESH_FULL``'s warm-up and timed steps on a fixed batch: the
+    losses, host-clock step ms (each ending in the loss read), the
+    exchange per step (process meshes) and peak memory."""
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.pjit_utils import ambient_mesh
+
+    _, B, S, warm, timed = LM_MESH_FULL
+    batch = synthetic_batch(cfg, 0, B, S, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, exchange = [], [], []
+    with ambient_mesh(mesh):
+        for _ in range(warm + timed):
+            if ex is not None:
+                ex.reset()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if ex is not None:
+                exchange.append(ex.read())
+    return {"losses": losses, "warmup_ms": step_ms[:warm],
+            "step_ms": step_ms[warm:],
+            "step_ms_median": statistics.median(step_ms[warm:]),
+            "exchange_per_step": exchange[warm:],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _lm_mesh_main(rank: int, root: str, ex: _LMExchange) -> dict:
+    """Phase 21 (a), (b)'s save and (c) on one rank of the (2, 2) mesh."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (init_state, make_train_step,
+                                          state_bytes, state_tree)
+    from repro_torch.pjit_utils import full_tensors
+
+    mesh = make_mesh(LM_MESH, ("data", "model"), device="cuda")
+    B, S, n = LM_MESH_BATCH
+    out = {"rank": rank, "parity": {}}
+    for arch in LM_MESH_ARCHS:
+        cfg = get_smoke_config(arch)
+        state, losses = _lm_mesh_steps(
+            cfg, init_state(cfg, seed=0, device="cuda", mesh=mesh),
+            make_train_step(cfg, mesh=mesh), mesh,
+            _lm_mesh_batches(cfg, n, B, S))
+        gathered = [full_tensors([v])[0].cpu()
+                    for v in tree_leaves(state_tree(state).params)]
+        out["parity"][arch] = {"losses": losses,
+                               "chunks": _lm_mesh_chunks(state, mesh),
+                               "params": gathered if rank == 0 else None}
+    cfg = get_smoke_config(LM_FULL)
+    state, losses = _lm_mesh_steps(
+        cfg, init_state(cfg, seed=0, device="cuda", mesh=mesh),
+        make_train_step(cfg, mesh=mesh), mesh,
+        _lm_mesh_batches(cfg, 2, B, S))
+    CheckpointManager(os.path.join(root, "ckpt")).save(state_tree(state), 2)
+    out["elastic_saved_losses"] = losses
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = LM_MESH_FULL[0]
+    cfg = dataclasses.replace(get_config(LM_FULL), n_layers=layers)
+    state = init_state(cfg, seed=0, device="cuda", mesh=mesh)
+    out["full_state_bytes"] = state_bytes(state)
+    out["full"] = _lm_mesh_full_run(cfg, state, make_train_step(
+        cfg, mesh=mesh), mesh, ex)
+    return out
+
+
+def _lm_mesh_restore(rank: int, root: str) -> dict:
+    """Phase 21 (b): the (2, 2) checkpoint restored onto (4, 1), step 3."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (eval_param_shapes, init_state,
+                                          load_state_tree, make_train_step,
+                                          state_placements, state_tree)
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.pjit_utils import axis_sizes
+
+    mesh = make_mesh(LM_MESH_ELASTIC[1], ("data", "model"), device="cuda")
+    cfg = get_smoke_config(LM_FULL)
+    B, S, _ = LM_MESH_BATCH
+    state = init_state(cfg, seed=1, device="cuda", mesh=mesh)
+    tree, n = CheckpointManager(os.path.join(root, "ckpt")).restore_latest(
+        state_tree(state), mesh=mesh, shardings=state_placements(
+            eval_param_shapes(cfg), cfg, mesh))
+    state = load_state_tree(state, tree)
+    wq = tree.params["blocks"]["attn"]["wq"]
+    _, losses = _lm_mesh_steps(cfg, state, make_train_step(cfg, mesh=mesh),
+                               mesh, [synthetic_batch(cfg, 2, B, S,
+                                                      device="cuda")])
+    return {"rank": rank, "step": n, "state_step": state.step,
+            "data": axis_sizes(wq.device_mesh)["data"], "loss": losses[0]}
+
+
+def _lm_mesh_rank(rank: int, world: int, root: str, job: str) -> None:
+    """One rank of phase 21 (a spawned child on cuda:0 over ``gloo``):
+    ``job`` "main" or "restore"; its result pickled to ``root``."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{root}/pg_{job}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        out = (_lm_mesh_main(rank, root, _LMExchange()) if job == "main"
+               else _lm_mesh_restore(rank, root))
+        with open(os.path.join(root, f"{job}{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_lm_mesh(root: str, job: str) -> list:
+    """``MESH_RANKS`` ranks of ``job``; their results, in rank order."""
+    import pickle
+
+    spawn_mesh_ranks(_lm_mesh_rank, (MESH_RANKS, root, job),
+                     f"phase 21 ({job})")
+    out = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(root, f"{job}{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def lm_mesh_phase() -> None:
+    """Phase 21 (a–c): the one-rank references here, then the two spawns
+    on this card; every check raises."""
+    import tempfile
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.shardings import param_specs, shard_shape
+    from repro_torch.launch.steps import (eval_param_shapes, init_state,
+                                          make_train_step, state_bytes,
+                                          state_tree)
+    from repro_torch.pjit_utils import MeshShape
+
+    t0 = time.perf_counter()
+    shape = MeshShape(LM_MESH)
+    B, S, n = LM_MESH_BATCH
+    refs = {}
+    for arch in LM_MESH_ARCHS:
+        cfg = get_smoke_config(arch)
+        state, losses = _lm_mesh_steps(
+            cfg, init_state(cfg, seed=0, device="cuda"),
+            make_train_step(cfg), shape, _lm_mesh_batches(cfg, n, B, S))
+        refs[arch] = (losses, [v.cpu() for v in
+                               tree_leaves(state_tree(state).params)])
+    cfg = get_smoke_config(LM_FULL)
+    _, elastic_ref = _lm_mesh_steps(
+        cfg, init_state(cfg, seed=0, device="cuda"), make_train_step(cfg),
+        shape, _lm_mesh_batches(cfg, 3, B, S))
+    layers = LM_MESH_FULL[0]
+    cfg = dataclasses.replace(get_config(LM_FULL), n_layers=layers)
+    state = init_state(cfg, seed=0, device="cuda")
+    one_bytes = state_bytes(state)
+    work_bytes = sum(p.numel() * p.element_size()
+                     for p in state.params.parameters())
+    one = _lm_mesh_full_run(cfg, state, make_train_step(cfg), None, None)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes = eval_param_shapes(cfg)
+
+    def pairs(spec, leaf):       # (spec, shape leaf), dict keys sorted
+        if isinstance(leaf, dict):
+            return [x for k in sorted(leaf) for x in pairs(spec[k], leaf[k])]
+        return [(spec, leaf)]
+
+    # a rank's params in their dtype and μ, ν in float32
+    specs_bytes = sum(
+        int(np.prod(shard_shape(leaf.shape, spec, shape)))
+        * (leaf.dtype.itemsize + 8)
+        for spec, leaf in pairs(param_specs(shapes, cfg, shape), shapes))
+
+    root = tempfile.mkdtemp(prefix="lm_mesh_")
+    try:
+        ranks = _spawn_lm_mesh(root, "main")
+        restored = _spawn_lm_mesh(root, "restore")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (a) each rank's losses and rank 0's params against the one rank
+    moved = 1e-2 * 3e-4 * n          # 1% of lr (the default) × the steps
+    for arch, (want, params) in refs.items():
+        errs = [_rel(a, b) for r in ranks
+                for a, b in zip(r["parity"][arch]["losses"], want)]
+        if not max(errs) <= LM_MESH_TOL:
+            raise AssertionError(f"{arch}: mesh losses off by {max(errs)}")
+        ratio = 0.0
+        for got, ref in zip(ranks[0]["parity"][arch]["params"], params):
+            tol = 1e-4 * float(ref.float().abs().max()) + 1e-6 + moved
+            ratio = max(ratio, float((got.float() - ref.float()).abs()
+                                     .max()) / tol)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{arch}: mesh params {ratio:.3g} × tol")
+        chunks = [r["parity"][arch]["chunks"] for r in ranks]
+        for i in range(len(chunks[0])):
+            seen = {}
+            for c in chunks:
+                key, digest = c[i]
+                if seen.setdefault(key, digest) != digest:
+                    raise AssertionError(f"{arch}: ranks holding chunk {key} "
+                                         f"of state leaf {i} differ")
+        emit({"phase": "lm_mesh_parity", "arch": arch, "mesh": list(LM_MESH),
+              "ranks": MESH_RANKS, "batch": B, "seq": S,
+              "reference": "one rank, ambient MeshShape((2, 2))",
+              "losses_one_rank": want,
+              "losses_rank0": ranks[0]["parity"][arch]["losses"],
+              "loss_rel_err_max": max(errs), "params_err_over_tol": ratio,
+              "same_chunk_bits_equal": True})
+
+    # (b) the restore onto (4, 1) and its step 3
+    want = elastic_ref[2]
+    for r in restored:
+        if (r["step"], r["state_step"], r["data"]) != (2, 2, 4):
+            raise AssertionError(f"restore: {r}")
+        if not _rel(r["loss"], want) <= LM_MESH_TOL:
+            raise AssertionError(f"restored step 3 loss {r['loss']} against "
+                                 f"{want}")
+    emit({"phase": "lm_mesh_elastic", "arch": LM_FULL, "smoke": True,
+          "saved_on": list(LM_MESH_ELASTIC[0]),
+          "restored_on": list(LM_MESH_ELASTIC[1]), "data": 4,
+          "loss_step3": [r["loss"] for r in restored],
+          "uninterrupted_loss_step3": want,
+          "rel_err_max": max(_rel(r["loss"], want) for r in restored)})
+
+    # (c) the full width on (2, 2) against one rank
+    errs = [_rel(a, b) for r in ranks
+            for a, b in zip(r["full"]["losses"], one["losses"])]
+    for r in ranks:
+        losses = r["full"]["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"full width, rank {r['rank']}: {losses}")
+        if r["full_state_bytes"] != specs_bytes:
+            raise AssertionError(f"rank {r['rank']} holds "
+                                 f"{r['full_state_bytes']} state bytes, the "
+                                 f"specs {specs_bytes}")
+    if not max(errs) <= LM_MESH_FULL_TOL:
+        raise AssertionError(f"full-width mesh losses off by {max(errs)}")
+    full = get_config(LM_FULL)
+    emit({"phase": "lm_mesh_full", "arch": full.name, "mesh": list(LM_MESH),
+          "ranks": MESH_RANKS, "n_layers": layers, "d_model": full.d_model,
+          "n_heads": full.n_heads, "n_kv_heads": full.n_kv_heads,
+          "d_ff": full.d_ff, "vocab": full.vocab, "dtype": full.dtype,
+          "reduced": [f"n_layers {full.n_layers} -> {layers}: four ranks "
+                      f"share one card"],
+          "batch": LM_MESH_FULL[1], "seq": LM_MESH_FULL[2],
+          "transport": "gloo through the host, one card: not an NVLink or "
+                       "NCCL number",
+          "loss_rel_err_max": max(errs), "one_rank": one,
+          "one_rank_state_bytes": one_bytes,
+          "specs_state_bytes_per_rank": specs_bytes,
+          "working_copy_bytes": work_bytes,
+          "per_rank": [{"rank": r["rank"], "state_bytes":
+                        r["full_state_bytes"], **r["full"]} for r in ranks]})
+    emit({"phase": "lm_mesh_done", "seconds": time.perf_counter() - t0})
+
+
 def summary(name, source, replaces, main_rows, all_rows, launches,
             block_rows=()):
     def total(key):
@@ -5228,6 +5627,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lm_phase()
+    # 21. the LM mesh: four gloo ranks of one LM on this card
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_mesh_phase()
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

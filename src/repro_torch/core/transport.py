@@ -1,5 +1,7 @@
-"""The mesh ring's transport over a ``torch.distributed`` process group
-(one vertex shard per rank; ``core/partition.py``, the trainers).
+"""Transport over a ``torch.distributed`` process group: the mesh ring's
+(one vertex shard per rank; ``core/partition.py``, the trainers) and the
+LM mesh step's (``launch/steps.py``: a sharded leaf gathered over the
+sub-groups of its mesh dims, the whole-mesh gradient all-reduce).
 
 Every rank runs the same program on its own shard, so every rank posts
 the same sends and receives in the same order. The transport is chosen by
@@ -22,7 +24,8 @@ from typing import List, Sequence
 import torch
 
 __all__ = ["process_group", "rank_of", "Hop", "all_reduce_sum",
-           "all_gather_rows", "take_block", "gather_blocks"]
+           "all_gather_rows", "all_gather_cat", "take_block",
+           "gather_blocks"]
 
 
 def process_group(mesh):
@@ -94,18 +97,24 @@ class Hop:
         return [t.to(d) for t, d in zip(self._recv, self._devices)]
 
 
-def all_reduce_sum(tensors: Sequence[torch.Tensor],
-                   group) -> List[torch.Tensor]:
+def all_reduce_sum(tensors: Sequence[torch.Tensor], group,
+                   dtype: torch.dtype = None) -> List[torch.Tensor]:
     """The element-wise sum over ``group`` of each of ``tensors``, in one
-    collective over their flat concatenation; every rank gets the same
-    bits."""
+    collective over their flat concatenation in ``dtype`` (default the
+    first tensor's), each returned in its own dtype; every rank gets the
+    same bits."""
     import torch.distributed as dist
 
     if not tensors:
         return []
     host = _via_host(group)
-    flat = torch.cat([t.detach().reshape(-1).to(tensors[0].dtype)
-                      for t in tensors])
+    flat = torch.empty(sum(t.numel() for t in tensors),
+                       dtype=dtype or tensors[0].dtype,
+                       device=tensors[0].device)
+    at = 0
+    for t in tensors:
+        flat[at:at + t.numel()].copy_(t.detach().reshape(-1))
+        at += t.numel()
     buf = flat.cpu() if host else flat
     dist.all_reduce(buf, group=group)
     flat = buf.to(flat.device)
@@ -119,13 +128,37 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor],
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """Every rank's ``t`` (one shape on every rank), concatenated along
     dim 0 in rank order."""
+    return all_gather_cat([t], group, [0])[0]
+
+
+def all_gather_cat(tensors: Sequence[torch.Tensor], group,
+                   dims: Sequence[int]) -> List[torch.Tensor]:
+    """Every rank's ``tensors[k]`` (one shape per k on every rank)
+    concatenated along ``dims[k]`` in group-rank order, for every k in
+    one collective: the tensors' bytes, each padded to 8, gathered as one
+    ``uint8`` buffer (any dtype mix; the bits arrive unchanged)."""
     import torch.distributed as dist
 
+    if not tensors:
+        return []
     host = _via_host(group)
-    buf = _wire(t, host)
+    dev = tensors[0].device
+    blocks, sizes = [], []
+    for t in tensors:
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        sizes.append(b.numel())
+        pad = -b.numel() % 8
+        blocks += [b, b.new_zeros(pad)] if pad else [b]
+    buf = _wire(torch.cat(blocks), host)
     parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, buf, group=group)
-    return torch.cat(parts).to(t.device)
+    parts = [p.to(dev) for p in parts]
+    out, at = [], 0
+    for t, d, n in zip(tensors, dims, sizes):
+        out.append(torch.cat([p[at:at + n].view(t.dtype).reshape(t.shape)
+                              for p in parts], dim=d))
+        at += n + (-n % 8)
+    return out
 
 
 def _block(t: torch.Tensor, group) -> torch.Tensor:

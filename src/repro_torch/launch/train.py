@@ -1,5 +1,6 @@
 """LM training launcher with checkpoint / auto-resume (port of
-``repro/launch/train.py``, one card).
+``repro/launch/train.py``), on one card or, with ``--mesh``, over a
+``torch.distributed`` process mesh.
 
 The loop restores the latest good checkpoint, if any, and continues. Data
 is the JAX launcher's deterministic synthetic token stream keyed by
@@ -9,10 +10,20 @@ batches — and restarts replay identically with no sampler state.
 Usage (on the card; ``--device cpu`` runs on the host):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3p2_3b \\
       --smoke --steps 50 --batch 4 --seq 128 --ckpt-dir /tmp/ckpt
+
+``--mesh DxM`` (or ``PxDxM``; axes ``("pod", "data", "model")``, as
+JAX's) runs every rank of a process mesh of that many ranks, e.g.
+  torchrun --nproc-per-node=8 -m repro_torch.launch.train --arch \\
+      llama3p2_3b --smoke --mesh 2x4 --ckpt-dir /tmp/ckpt
+Each rank holds its shards of the state (``launch/steps.py``); a resume
+restores the latest checkpoint onto this mesh, whatever mesh wrote it.
+A rank joins the default group from ``torchrun``'s environment when the
+caller has not initialised it.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -23,7 +34,10 @@ from ..checkpoint import CheckpointManager
 from ..configs import get_config, get_smoke_config
 from ..device import DeviceLike, resolve_device, synchronize
 from ..models.lm.config import ModelConfig
-from .steps import init_state, load_state_tree, make_train_step, state_tree
+from ..pjit_utils import ambient_mesh
+from .mesh import make_mesh
+from .steps import (eval_param_shapes, init_state, load_state_tree,
+                    make_train_step, state_placements, state_tree)
 
 __all__ = ["synthetic_batch", "main"]
 
@@ -64,7 +78,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--mesh", default=None,
-                    help="a device mesh for the LM: not yet (ROADMAP A15)")
+                    help="e.g. 2x4: a process mesh of that many ranks")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
@@ -72,48 +86,68 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                     help="train every step on step 0's batch")
     args = ap.parse_args(argv)
 
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: placing one LM over many ranks waits for the LM mesh "
-            "(ROADMAP A15: pjit_utils, launch/shardings.py)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     dev = resolve_device(args.device)
-    train_step = make_train_step(cfg, lr=args.lr)
+    mesh = None
+    if args.mesh:
+        dims = tuple(int(x) for x in args.mesh.split("x"))
+        _join_torchrun(dev)
+        mesh = make_mesh(dims, ("pod", "data", "model")[-len(dims):],
+                         device=dev)
+    train_step = make_train_step(cfg, lr=args.lr, mesh=mesh)
     max_seq = args.seq + 8 if cfg.family == "encdec" else 0
-    state = init_state(cfg, seed=args.seed, max_seq=max_seq, device=dev)
+    state = init_state(cfg, seed=args.seed, max_seq=max_seq, device=dev,
+                       mesh=mesh)
 
     mgr = None
     start_step = 0
     if args.ckpt_dir:
         mgr = CheckpointManager(args.ckpt_dir)
-        restored = mgr.restore_latest(state_tree(state))
+        shardings = (None if mesh is None else state_placements(
+            eval_param_shapes(cfg, max_seq), cfg, mesh))
+        restored = mgr.restore_latest(state_tree(state), mesh=mesh,
+                                      shardings=shardings)
         if restored is not None:
             tree, start_step = restored
             state = load_state_tree(state, tree)
             print(f"[train] resumed from step {start_step}")
 
     t_hist, losses, gnorms = [], [], []
-    for step in range(start_step, args.steps):
-        batch = synthetic_batch(cfg, 0 if args.fixed_batch else step,
-                                args.batch, args.seq, args.seed, dev)
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, batch)
-        synchronize(dev)
-        t_hist.append(time.perf_counter() - t0)
-        losses.append(float(metrics["loss"]))
-        gnorms.append(float(metrics["grad_norm"]))
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"[train] step={step} loss={losses[-1]:.4f} "
-                  f"gnorm={gnorms[-1]:.3f} dt={t_hist[-1]*1e3:.0f}ms")
-        if mgr and (step + 1) % args.ckpt_every == 0:
-            mgr.save(state_tree(state), step + 1)
-            print(f"[train] checkpoint @ {step + 1}")
+    with ambient_mesh(mesh):
+        for step in range(start_step, args.steps):
+            batch = synthetic_batch(cfg, 0 if args.fixed_batch else step,
+                                    args.batch, args.seq, args.seed, dev)
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            synchronize(dev)
+            t_hist.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            gnorms.append(float(metrics["grad_norm"]))
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(f"[train] step={step} loss={losses[-1]:.4f} "
+                      f"gnorm={gnorms[-1]:.3f} dt={t_hist[-1]*1e3:.0f}ms")
+            if mgr and (step + 1) % args.ckpt_every == 0:
+                mgr.save(state_tree(state), step + 1)
+                print(f"[train] checkpoint @ {step + 1}")
     if mgr:
         mgr.save(state_tree(state), args.steps)
     med = float(np.median(t_hist)) if t_hist else float("nan")
     print(f"[train] done. median step time {med*1e3:.1f} ms")
     return {"arch": cfg.name, "start_step": start_step, "losses": losses,
             "grad_norms": gnorms, "step_s": t_hist}
+
+
+def _join_torchrun(dev) -> None:
+    """Join the default group from ``torchrun``'s environment, when the
+    caller has not initialised one (``gloo`` on the CPU, ``nccl`` on the
+    card); otherwise ``make_mesh`` says how to start the ranks."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() or "RANK" not in os.environ:
+        return
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
 
 
 if __name__ == "__main__":

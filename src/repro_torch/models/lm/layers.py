@@ -10,8 +10,9 @@ as JAX does (``substrate.nn.matmul``).
 
 Attention is blockwise (online softmax over KV chunks of ``block``), as
 JAX's ``lax.scan``; sliding-window attention masks within the same loop.
-On one card JAX's sharding hints (``_attn_parallel_mode``, every
-``shard_hint``) are the identity, so they are left out.
+JAX's sharding hints sit at JAX's sites (``_attn_parallel_mode`` picks
+them from the ambient mesh); on the plain tensors of one card and of the
+mesh train step, which splits only the batch, each is the identity.
 
 A KV cache is updated IN PLACE (the JAX functions return a new one): the
 caller's cache tensors hold the new entries afterwards. Positions, the
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...pjit_utils import axis_sizes, current_mesh, shard_hint
 from ...substrate.nn import matmul
 from .config import ModelConfig
 
@@ -33,6 +35,24 @@ __all__ = ["Norm", "Attention", "MLP", "normal", "norm_init", "norm_apply",
            "rope_freqs", "rope_angles", "apply_rope", "attention_init",
            "blockwise_attention", "attention_kv", "attention_apply",
            "mlp_init", "mlp_apply"]
+
+
+def _attn_parallel_mode(cfg: ModelConfig, seq_len: int) -> Optional[str]:
+    """The attention sharding strategy for the ambient mesh: 'heads'
+    (Megatron TP) when n_heads divides the model axis, else 'context'
+    (q sharded on S over 'model', the small GQA K/V gathered) when the
+    sequence covers the axis, else None."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    m = axis_sizes(mesh).get("model", 1)
+    if m <= 1:
+        return None
+    if cfg.n_heads % m == 0:
+        return "heads"
+    if seq_len >= m:
+        return "context"
+    return None
 
 
 def normal(gen: Optional[torch.Generator], shape, scale: float,
@@ -251,6 +271,17 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         k, v = kv_override
     else:
         k, v = attention_kv(p, cfg, memory if memory is not None else x)
+    mode = _attn_parallel_mode(cfg, q.shape[1])
+    if mode == "heads":
+        q = shard_hint(q, "data", None, "model", None)
+        # GQA K/V heads rarely divide the axis: replicate them
+        k = shard_hint(k, "data", None, None, None)
+        v = shard_hint(v, "data", None, None, None)
+    elif mode == "context":
+        # context parallel: q sharded on sequence, K/V gathered (small)
+        q = shard_hint(q, "data", "model", None, None)
+        k = shard_hint(k, "data", None, None, None)
+        v = shard_hint(v, "data", None, None, None)
     if angles is not None and memory is None:
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)

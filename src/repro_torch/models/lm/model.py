@@ -17,8 +17,10 @@ the layers on a leading L axis; :func:`from_jax_params` and
 :func:`to_jax_tree` carry weights across. JAX's per-block
 ``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant) while
 gradients are recorded; recomputing a block gives the same values, so it
-changes no result. JAX's residual sharding hints are the identity on one
-card and are left out.
+changes no result (the recomputation runs under the ambient mesh of the
+forward, which the MoE's token blocks read). JAX's residual and logits
+sharding hints sit at JAX's sites; on plain tensors they are the
+identity.
 
 Caches (:func:`init_cache`) have JAX's layout, stacked per layer, and
 :func:`prefill` / :func:`decode_step` update them IN PLACE and return them.
@@ -35,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...device import DeviceLike, resolve_device
+from ...pjit_utils import ambient_mesh, current_mesh, shard_hint
 from ...substrate.nn import matmul
 from .config import ModelConfig
 from .layers import (Attention, MLP, Norm, attention_apply, attention_kv,
@@ -52,6 +55,14 @@ _STACKS = ("blocks", "enc_blocks")
 
 def lm_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _residual_hint(h):
+    """Residual-stream sharding between blocks: sequence-sharded over
+    'model' (Megatron-SP), d_model-sharded for short (decode) calls."""
+    if h.shape[1] >= 16:
+        return shard_hint(h, "data", "model", None)
+    return shard_hint(h, "data", None, "model")
 
 
 # --------------------------------------------------------------------- #
@@ -149,10 +160,11 @@ def _jax_path(name: str):
     return tuple(parts), None
 
 
-def to_jax_tree(model: LM, tensors=None) -> Dict:
+def to_jax_tree(model: LM, tensors=None, stack=torch.stack) -> Dict:
     """JAX's parameter tree of ``model`` (nested dicts, layers stacked):
     of its parameters, or of ``tensors``, one per parameter in
-    ``model.parameters()`` order (grads, AdamW moments)."""
+    ``model.parameters()`` order (grads, AdamW moments); ``stack`` makes a
+    stacked leaf of its layers' values (a mesh state stacks shards)."""
     if tensors is None:
         tensors = [p.detach() for p in model.parameters()]
     tree: Dict = {}
@@ -164,7 +176,7 @@ def to_jax_tree(model: LM, tensors=None) -> Dict:
         else:
             stacks.setdefault(path, []).append(t)
     for path, ts in stacks.items():
-        _put(tree, path, torch.stack(ts))
+        _put(tree, path, stack(ts))
     return tree
 
 
@@ -174,12 +186,16 @@ def _put(tree: Dict, path, value) -> None:
     tree[path[-1]] = value
 
 
-def from_jax_tree(model: LM, tree: Dict) -> list:
+def from_jax_tree(model: LM, tree: Dict, shapes=None) -> list:
     """The inverse of :func:`to_jax_tree`: one tensor per parameter of
     ``model``, in ``model.parameters()`` order, from a tree of tensors or
-    numpy arrays (JAX's bfloat16 ones too; shapes checked)."""
+    numpy arrays (JAX's bfloat16 ones too), each checked against its
+    parameter's shape or its entry of ``shapes`` (a mesh state's local
+    shard shapes)."""
     out = []
-    for name, p in model.named_parameters():
+    if shapes is None:
+        shapes = [p.shape for p in model.parameters()]
+    for (name, _), shape in zip(model.named_parameters(), shapes):
         path, layer = _jax_path(name)
         leaf = functools.reduce(lambda t, k: t[k], path, tree)
         if isinstance(leaf, np.ndarray):
@@ -187,9 +203,9 @@ def from_jax_tree(model: LM, tree: Dict) -> list:
                     if leaf.dtype.name == "bfloat16" else torch.tensor(leaf))
         if layer is not None:
             leaf = leaf[layer]
-        if tuple(leaf.shape) != tuple(p.shape):
+        if tuple(leaf.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(leaf.shape)}, "
-                             f"model wants {tuple(p.shape)}")
+                             f"model wants {tuple(shape)}")
         out.append(leaf)
     return out
 
@@ -233,11 +249,12 @@ def _attn_block(bp: AttnBlock, cfg: ModelConfig, h, angles, *, causal=True,
         y, aux = moe_apply(bp.moe, cfg, x)
     else:
         y, aux = mlp_apply(bp.mlp, x), h.new_zeros((), dtype=torch.float32)
-    return h + y, aux
+    return _residual_hint(h + y), aux
 
 
 def _mamba_block(bp: MambaBlock, cfg: ModelConfig, h, state=None):
-    return h + mamba2_apply(bp.mixer, cfg, norm_apply(bp.norm, h), state)
+    return _residual_hint(
+        h + mamba2_apply(bp.mixer, cfg, norm_apply(bp.norm, h), state))
 
 
 def _layer(caches: Optional[Dict], i: int) -> Optional[Dict]:
@@ -249,9 +266,17 @@ def _layer(caches: Optional[Dict], i: int) -> Optional[Dict]:
 
 def _remat(fn, *args):
     """``fn(*args)``, checkpointed per block while gradients are
-    recorded (JAX's ``jax.checkpoint`` with ``nothing_saveable``)."""
+    recorded (JAX's ``jax.checkpoint`` with ``nothing_saveable``). The
+    recomputation, which the backward may run on another thread, sees
+    the forward's ambient mesh."""
     if torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        mesh = current_mesh()
+
+        def run(*a):
+            with ambient_mesh(mesh):
+                return fn(*a)
+
+        return checkpoint(run, *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -279,11 +304,12 @@ def _mamba_stack(model: LM, blocks, h, states=None):
 # embedding / logits / loss
 # --------------------------------------------------------------------- #
 def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return F.embedding(tokens.long(), model.embed)
+    return _residual_hint(F.embedding(tokens.long(), model.embed))
 
 
 def logits_fn(model: LM, h: torch.Tensor) -> torch.Tensor:
-    return matmul(h, model.head.t()).float()
+    return shard_hint(matmul(h, model.head.t()).float(), "data", None,
+                      "model")
 
 
 def chunked_ce_loss(model: LM, h: torch.Tensor, labels: torch.Tensor,
@@ -347,7 +373,8 @@ def backbone(model: LM, h: torch.Tensor, positions: torch.Tensor, *,
 
 def encode(model: LM, frames: torch.Tensor) -> torch.Tensor:
     """Whisper encoder over stub frame embeddings (B, enc_seq, D)."""
-    h = frames + model.enc_pos[None, :frames.shape[1]]
+    h = shard_hint(frames + model.enc_pos[None, :frames.shape[1]], "data",
+                   None, "model")
     h, _ = _attn_stack(model, model.enc_blocks, h, None, causal=False)
     return norm_apply(model.enc_final_norm, h)
 

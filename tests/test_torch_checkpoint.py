@@ -114,7 +114,10 @@ def test_train_resume_cli(tmp_path, capsys):
 
 
 def test_train_cli_mesh_raises():
-    with pytest.raises(NotImplementedError, match="A15"):
+    """``--mesh`` with no process group up (and no ``torchrun``
+    environment) says how to start the ranks; the mesh run itself is
+    ``tests/test_torch_lm_mesh.py``'s."""
+    with pytest.raises(RuntimeError, match="needs 4 ranks, have 0.*torchrun"):
         train.main(["--arch", "llama3p2_3b", "--smoke", "--device", "cpu",
                     "--mesh", "2x2"])
 

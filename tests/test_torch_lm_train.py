@@ -8,7 +8,7 @@ Same numpy inputs (seeded), same weights (``from_jax_params`` of
   through ``to_jax_tree``, within 1e-4·max|JAX| + 1e-6;
 * the per-block checkpointing changes no result (bit-equal grads);
 * three ``make_train_step`` steps against JAX's, microbatch 1 and 2 (the
-  vlm positions split on axis 1): losses within 1e-5 relative, moments
+  vlm positions split on axis 1): losses within 1e-5 relative, μ and ν
   within 1e-4·max|JAX| + 1e-6, and params within 1e-4·max|JAX| plus 1% of
   the most AdamW moves an element in those steps (lr per step): the
   normalised update of an element whose grad sits near rounding noise
@@ -94,6 +94,7 @@ def test_train_steps_match_jax(arch, microbatch):
     assert state_t.step == int(state_j.step) == 3
     tree = steps.state_tree(state_t)
     close_tree(tree.mu, state_j.mu, "mu")
+    close_tree(tree.nu, state_j.nu, "nu")
     moved = 1e-2 * 3e-4 * 3     # 1% of lr (the default) × 3 steps
     for (path, ref), got in zip(
             jax.tree_util.tree_flatten_with_path(state_j.params)[0],
