@@ -281,6 +281,40 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     state's and the specs' count, the working copy's bytes, peak memory
     per process.
 
+22. LM serving over the mesh and the dry run's counts (the mesh prefill
+    and decode steps of ``launch/steps.py``, ``launch/dryrun.py``,
+    ``launch/op_analysis.py``, ``launch/roofline.py``; run after phase 21;
+    no kernel of its own): ``MESH_RANKS`` processes spawned join one
+    ``gloo`` group on this card as the ``LM_MESH`` (2, 2) process mesh:
+    (a) llama, mixtral (MoE, sliding window), whisper (enc-dec) and mamba2
+    smoke, the model of shards and a cache of ``cache_specs``' shards: the
+    mesh prefill of ``LM_SERVE_MESH_SMOKE``'s prompt, the cache resharded
+    to the decode specs, ``LM_SERVE_MESH_STEPS`` greedy decode steps, held
+    to the same steps run here on one rank under ``ambient_mesh(
+    MeshShape((2, 2)))``: logits within ``LM_SERVE_MESH_TOL`` relative,
+    tokens equal, each rank's cache bytes the specs' count; (b)
+    ``llama3.2-3b`` at its published width, depth cut to
+    ``LM_MESH_FULL``'s layers (``reduced``), served at
+    ``LM_SERVE_MESH_FULL``: prefill ms (a warm-up and a timed call, each on
+    a fresh cache), decode ms a step, the gathers' ms and bytes per call
+    (gloo through the host on one card: not an NVLink or NCCL number), the
+    cache's bytes and peak memory per rank; the same model and prompt
+    served here on one rank under ``ambient_mesh(MeshShape((2, 2)))``,
+    whose greedy tokens the ranks' decode steps are fed: each rank's
+    logits of every call within ``LM_MESH_FULL_TOL`` (bf16) relative of
+    one rank's, its greedy tokens equal but at near-ties (one rank's
+    logits of the two tokens within that bound); (c) ``op_analysis`` of
+    real steps held EQUAL to the dry run's fake count of the same step
+    (``dryrun.build_cell`` on cuda), and that fake count EQUAL to the same
+    cell faked on the CPU, as a CPU-only torch counts it (FLOPs,
+    collective bytes, the HBM estimate): rank 0's decode step of (b)
+    against a fake (2, 2) group in this process (the real HBM estimate
+    less ``gloo``'s host staging), and one rank's ``LM_FULL`` train step
+    (``LM_TRAIN``) and decode step (``LM_SERVE``'s, after its prefill)
+    here; beside each, the roofline terms at the H100 datasheet constants,
+    the measured ms and the fraction of roofline, and the same for phase
+    21's one-rank 2-layer step from its fake count.
+
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA the script exits non-zero
 and prints no result.
@@ -652,6 +686,17 @@ LM_MESH_ELASTIC = ((2, 2), (4, 1))
 LM_MESH_FULL = (2, 4, 512, 1, 3)
 LM_MESH_TOL = 1e-5
 LM_MESH_FULL_TOL = 2e-2
+# the LM serve mesh phase (22): MESH_RANKS ranks as the LM_MESH process
+# mesh serve the smoke archs (prefill, then LM_SERVE_MESH_STEPS greedy
+# decode steps at (B, prompt, cache span)), held to one rank under
+# MeshShape(LM_MESH) within LM_SERVE_MESH_TOL relative; then the full width
+# at LM_MESH_FULL's depth: (B, prompt, timed decode steps), one warm-up each
+LM_SERVE_MESH_ARCHS = ("llama3p2_3b", "mixtral_8x22b", "whisper_medium",
+                       "mamba2_1p3b")
+LM_SERVE_MESH_SMOKE = (4, 16, 32)
+LM_SERVE_MESH_STEPS = 8
+LM_SERVE_MESH_FULL = (4, 512, 4)
+LM_SERVE_MESH_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -5428,9 +5473,10 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b)
 
 
-def lm_mesh_phase() -> None:
+def lm_mesh_phase() -> float:
     """Phase 21 (a–c): the one-rank references here, then the two spawns
-    on this card; every check raises."""
+    on this card; every check raises. Returns the one-rank step's median
+    ms (phase 22's roofline reads it)."""
     import tempfile
 
     from repro_torch.configs import get_config, get_smoke_config
@@ -5560,6 +5606,538 @@ def lm_mesh_phase() -> None:
           "per_rank": [{"rank": r["rank"], "state_bytes":
                         r["full_state_bytes"], **r["full"]} for r in ranks]})
     emit({"phase": "lm_mesh_done", "seconds": time.perf_counter() - t0})
+    return one["step_ms_median"]
+
+
+# --------------------------------------------------------------------- #
+# 22. LM serving over the mesh, and the dry run's counts on the card
+# --------------------------------------------------------------------- #
+def _serve_smoke_inputs(cfg, model, device) -> tuple:
+    """The smoke serve case's prompt (seed 3) and, for encdec, the
+    encoder memory of its frames."""
+    from repro_torch.models.lm import model as lm
+
+    B, P, _ = LM_SERVE_MESH_SMOKE
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (B, P)),
+                             dtype=torch.int32, device=device)
+    extras = {}
+    if cfg.family == "encdec":
+        frames = torch.as_tensor(rng.normal(size=(B, cfg.enc_seq,
+                                                  cfg.d_model)),
+                                 dtype=torch.float32, device=device)
+        with torch.no_grad():
+            extras["memory"] = lm.encode(model, frames)
+    return tokens, extras
+
+
+def _serve_smoke_one_rank(arch: str) -> dict:
+    """Phase 22 (a)'s reference: prefill and the greedy decode steps on
+    one rank under ``ambient_mesh(MeshShape(LM_MESH))``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.lm import model as lm
+    from repro_torch.pjit_utils import MeshShape, ambient_mesh
+
+    cfg = get_smoke_config(arch)
+    B, P, MAX = LM_SERVE_MESH_SMOKE
+    model = lm.init_params(cfg, seed=0, max_seq=MAX, device="cuda")
+    tokens, extras = _serve_smoke_inputs(cfg, model, "cuda")
+    cache = lm.init_cache(cfg, B, MAX, torch.float32, "cuda")
+    logits_all, toks = [], []
+    with ambient_mesh(MeshShape(LM_MESH)):
+        logits, cache = make_prefill_step(cfg)(model, tokens, cache, extras)
+        decode = make_decode_step(cfg)
+        for i in range(LM_SERVE_MESH_STEPS + 1):
+            logits_all.append(logits.cpu())
+            toks.append(logits.argmax(-1).to(torch.int32))
+            if i < LM_SERVE_MESH_STEPS:
+                logits, cache = decode(model, toks[-1], cache,
+                                       torch.tensor(P + i, device="cuda"), {})
+    return {"logits": logits_all, "tokens": [t.cpu() for t in toks]}
+
+
+def _serve_mesh_smoke(arch: str, mesh) -> dict:
+    """Phase 22 (a) on one rank of the process mesh: the mesh prefill, the
+    cache resharded to the decode specs, the greedy decode steps."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import model as lm
+    from repro_torch.pjit_utils import full_tensors
+
+    cfg = get_smoke_config(arch)
+    B, P, MAX = LM_SERVE_MESH_SMOKE
+    model = lm.init_params(cfg, seed=0, max_seq=MAX, device="cuda")
+    tokens, extras = _serve_smoke_inputs(cfg, model, "cuda")
+    steps.shard_model(model, mesh)
+    cache = steps.init_mesh_cache(cfg, B, MAX, torch.float32, mesh,
+                                  kind="prefill", device="cuda")
+    out = {"bytes": {"prefill": steps.cache_bytes(cache)}}
+    logits, cache = steps.make_prefill_step(cfg, mesh=mesh)(
+        model, tokens, cache, extras)
+    cache = steps.reshard_cache(cache, cfg, mesh, kind="decode")
+    out["bytes"]["decode"] = steps.cache_bytes(cache)
+    decode = steps.make_decode_step(cfg, mesh=mesh)
+    logits_all, toks = [], []
+    for i in range(LM_SERVE_MESH_STEPS + 1):
+        full = full_tensors([logits])[0]
+        logits_all.append(full.cpu())
+        toks.append(full.argmax(-1).to(torch.int32))
+        if i < LM_SERVE_MESH_STEPS:
+            logits, cache = decode(model, toks[-1], cache,
+                                   torch.tensor(P + i, device="cuda"), {})
+    out.update({"logits": logits_all, "tokens": [t.cpu() for t in toks]})
+    return out
+
+
+def _serve_full_case():
+    """Phase 22 (b)'s model config (``LM_FULL`` at ``LM_MESH_FULL``'s
+    depth), its cache span and its prompt (seed 4)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(LM_FULL), n_layers=LM_MESH_FULL[0])
+    B, P, n = LM_SERVE_MESH_FULL
+    tokens = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (B, P)), dtype=torch.int32, device="cuda")
+    return cfg, P + n + 2, tokens
+
+
+def _serve_full_one_rank() -> dict:
+    """Phase 22 (b)'s reference: the same model (seed 0) and prompt on one
+    rank under ``ambient_mesh(MeshShape(LM_MESH))``: the prefill, then
+    greedy decode at the positions (b) decodes at. Its logits (the
+    prefill's and each decode step's) and greedy tokens, which (b)'s ranks
+    are fed."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.lm import model as lm
+    from repro_torch.pjit_utils import MeshShape, ambient_mesh
+
+    cfg, MAX, tokens = _serve_full_case()
+    B, P, n = LM_SERVE_MESH_FULL
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    cache = lm.init_cache(cfg, B, MAX, lm.lm_dtype(cfg), "cuda")
+    logits_all, toks = [], []
+    with torch.no_grad(), ambient_mesh(MeshShape(LM_MESH)):
+        logits, cache = make_prefill_step(cfg)(model, tokens, cache, {})
+        decode = make_decode_step(cfg)
+        for i in range(n + 2):
+            logits_all.append(logits.cpu())
+            toks.append(logits.argmax(-1).to(torch.int32))
+            if i <= n:
+                logits, cache = decode(model, toks[-1], cache, torch.tensor(
+                    P + i, dtype=torch.int32, device="cuda"), {})
+    return {"logits": logits_all, "tokens": torch.stack(toks).cpu()}
+
+
+def _serve_mesh_full(rank: int, mesh, ex, feed: torch.Tensor) -> dict:
+    """Phase 22 (b) on one rank: ``LM_FULL`` at its published width,
+    ``LM_MESH_FULL``'s depth, served over the mesh: a warm-up and a timed
+    prefill (each on a fresh cache), a warm-up and the timed decode steps
+    fed the one-rank reference's greedy tokens ``feed``, host-clock ms and
+    the exchange per call, each call's logits gathered after its timing;
+    then one more decode step under ``op_analysis`` (phase 22 (c) holds it
+    to the dry run's fake count of the same step)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.models.lm import model as lm
+    from repro_torch.pjit_utils import full_tensors
+
+    cfg, MAX, tokens = _serve_full_case()
+    B, P, n = LM_SERVE_MESH_FULL
+    feed = feed.to("cuda")
+    model = lm.init_params(cfg, seed=0, device="cuda")
+    steps.shard_model(model, mesh)
+    prefill = steps.make_prefill_step(cfg, mesh=mesh)
+    decode = steps.make_decode_step(cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        ex.reset()
+        t0 = time.perf_counter()
+        logits, _ = fn()
+        torch.cuda.synchronize()
+        ms, moved = (time.perf_counter() - t0) * 1e3, ex.read()
+        return full_tensors([logits])[0].cpu(), ms, moved
+
+    pre = []
+    for _ in range(2):
+        cache = steps.init_mesh_cache(cfg, B, MAX, lm.lm_dtype(cfg), mesh,
+                                      kind="prefill", device="cuda")
+        pre.append(timed(lambda: prefill(model, tokens, cache, {})))
+    dec = [timed(lambda i=i: decode(model, feed[i], cache, torch.tensor(
+        P + i, dtype=torch.int32, device="cuda"), {}))
+        for i in range(n + 1)]
+    with OpAnalysis() as oa:
+        decode(model, feed[n + 1], cache, torch.tensor(
+            P + n + 1, dtype=torch.int32, device="cuda"), {})
+    return {"prefill_ms": [r[1] for r in pre],
+            "prefill_exchange": pre[1][2],
+            "decode_warmup_ms": dec[0][1],
+            "decode_ms": [r[1] for r in dec[1:]],
+            "decode_ms_median": statistics.median(r[1] for r in dec[1:]),
+            "decode_exchange": dec[1][2],
+            "cache_bytes": steps.cache_bytes(cache),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "logits": [pre[1][0]] + [r[0] for r in dec],
+            "counts": oa.analyze() if rank == 0 else None}
+
+
+def _serve_mesh_rank(rank: int, world: int, root: str) -> None:
+    """One rank of phase 22 (a spawned child on cuda:0 over ``gloo``)."""
+    import datetime
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{root}/pg_serve", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        from repro_torch.launch.mesh import make_mesh
+
+        ex = _LMExchange()
+        mesh = make_mesh(LM_MESH, ("data", "model"), device="cuda")
+        out = {"rank": rank,
+               "smoke": {a: _serve_mesh_smoke(a, mesh)
+                         for a in LM_SERVE_MESH_ARCHS}}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["full"] = _serve_mesh_full(
+            rank, mesh, ex, torch.load(os.path.join(root, "full_feed.pt")))
+        with open(os.path.join(root, f"serve{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _cache_spec_bytes(cfg, kind: str) -> int:
+    """A rank's bytes of the smoke cache under ``cache_specs(kind=)`` on
+    ``MeshShape(LM_MESH)``, counted from the specs."""
+    from repro_torch.launch.shardings import cache_specs, shard_shape
+    from repro_torch.launch.steps import tree_leaves
+    from repro_torch.models.lm import model as lm
+    from repro_torch.pjit_utils import MeshShape
+
+    B, _, MAX = LM_SERVE_MESH_SMOKE
+    mesh = MeshShape(LM_MESH)
+    shapes = lm.init_cache(cfg, B, MAX, torch.float32, "meta")
+    specs = cache_specs(cfg, mesh, batch_size=B, seq_len=MAX, kind=kind)
+    return sum(int(np.prod(shard_shape(t.shape, sp, mesh))) * t.element_size()
+               for t, sp in zip(tree_leaves(shapes), tree_leaves(specs)))
+
+
+def _roofline(what: str, counts: dict, measured_ms: float, model_flops,
+              link: float) -> dict:
+    """The roofline terms of ``counts`` at the H100 datasheet constants
+    (``launch/roofline.py``) beside a measured time."""
+    from repro_torch.launch import roofline
+
+    terms = {"compute": counts["flops_hlo"] / roofline.PEAK_FLOPS * 1e3,
+             "memory": counts["hbm_bytes_est"] / roofline.HBM_BW * 1e3,
+             "collective": counts["collective_total"] / link * 1e3}
+    bound = max(terms.values())
+    return {"step": what, "terms_ms": terms,
+            "bound_by": max(terms, key=terms.get), "bound_ms": bound,
+            "measured_ms": measured_ms,
+            "fraction_of_roofline": bound / measured_ms,
+            "model_flops": model_flops,
+            "model_flops_share_of_counted": (
+                model_flops / counts["flops_hlo"] if model_flops else None),
+            "model_tflops_measured": (model_flops / measured_ms / 1e9
+                                      if model_flops else None)}
+
+
+def _same_counts(what: str, real: dict, fake: dict) -> dict:
+    """Hold the real step's counts to the dry run's fake count of the
+    same step: FLOPs, collective bytes by kind, and the HBM estimate less
+    the real step's host staging (a gloo group's copies, which the fake
+    group's transport does not make) must be equal."""
+    keys = ("flops_hlo", "collective_total")
+    for k in keys:
+        if real[k] != fake[k]:
+            raise AssertionError(f"{what}: {k} real {real[k]} fake {fake[k]}")
+    if real["collective_bytes"] != fake["collective_bytes"]:
+        raise AssertionError(f"{what}: collectives real "
+                             f"{real['collective_bytes']} fake "
+                             f"{fake['collective_bytes']}")
+    hbm_real = real["hbm_bytes_est"] - real["host_copy_bytes"]
+    if hbm_real != fake["hbm_bytes_est"]:
+        raise AssertionError(f"{what}: hbm_bytes_est real {hbm_real} (less "
+                             f"{real['host_copy_bytes']} staged) fake "
+                             f"{fake['hbm_bytes_est']}")
+    return {"flops_hlo": real["flops_hlo"],
+            "collective_bytes": real["collective_bytes"],
+            "hbm_bytes_est": real["hbm_bytes_est"],
+            "host_copy_bytes": real["host_copy_bytes"],
+            "ops_real": real["ops"], "ops_fake": fake["ops"],
+            "equal": True}
+
+
+def _fake_counts(arch: str, shape: str, meshes=None, **kw) -> tuple:
+    """The dry run's fake count of one step (``dryrun.build_cell`` on
+    cuda) and its seconds, held EQUAL in FLOPs, collective bytes and the
+    HBM estimate to the same cell faked on the CPU, as a host with a
+    CPU-only torch counts it. ``meshes``: each device's fake mesh, or
+    None for one rank."""
+    from repro_torch.launch.dryrun import build_cell, fake_device
+    from repro_torch.launch.op_analysis import OpAnalysis
+
+    if fake_device() != "cuda":
+        raise AssertionError("this torch is not built for CUDA")
+    counts, secs = {}, {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        cell = build_cell(arch, shape, meshes and meshes[device],
+                          device=device, **kw)
+        oa = OpAnalysis()
+        cell.step(oa)
+        counts[device], secs[device] = oa.analyze(), time.perf_counter() - t0
+    for k in ("flops_hlo", "collective_bytes", "collective_total",
+              "hbm_bytes_est"):
+        if counts["cuda"][k] != counts["cpu"][k]:
+            raise AssertionError(f"{arch} × {shape}: {k} faked on cuda "
+                                 f"{counts['cuda'][k]}, on the cpu "
+                                 f"{counts['cpu'][k]}")
+    return counts["cuda"], secs["cuda"]
+
+
+def _counts_one_rank(one_rank_ms: float) -> list:
+    """Phase 22 (c) on one rank: ``op_analysis`` over the real
+    ``LM_FULL`` train step (``LM_TRAIN``'s batch) and decode step
+    (``LM_SERVE``'s, after its prefill) on the card, each held to the dry
+    run's fake count of the same step; the roofline beside the measured
+    ms; and the roofline of phase 21's 2-layer one-rank step from its
+    fake count beside the time phase 21 measured."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.launch.roofline import NVLINK_BW
+    from repro_torch.launch.steps import init_state, make_train_step
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models.lm import model as lm
+
+    cfg = get_config(LM_FULL)
+    active = cfg.active_param_count()
+    rows = []
+    # the train step
+    B, S, _ = LM_TRAIN
+    step_fn = make_train_step(cfg)
+    batch = synthetic_batch(cfg, 0, B, S, device="cuda")
+    state = init_state(cfg, device="cuda")
+    with OpAnalysis() as oa:
+        state, m = step_fn(state, batch)
+        torch.cuda.synchronize()
+    real = oa.analyze()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batch)
+    float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del state, m, oa
+    gc.collect()
+    torch.cuda.empty_cache()
+    fake, fake_s = _fake_counts(LM_FULL, "train_4k", cfg=cfg, batch_size=B,
+                                seq_len=S)
+    rows.append({"phase": "lm_counts", "step": "train", "arch": cfg.name,
+                 "batch": B, "seq": S, "fake_build_run_s": fake_s,
+                 "cpu_fake_equal": True,
+                 **_same_counts("train step", real, fake),
+                 "roofline": _roofline("train", real, step_ms,
+                                       6 * active * B * S, NVLINK_BW)})
+    emit(rows[-1])
+    # the decode step, after the prefill
+    B, P, gen = LM_SERVE
+    MAX = P + gen
+    model = lm.init_params(cfg, max_seq=MAX, device="cuda")
+    cache = lm.init_cache(cfg, B, MAX, lm.lm_dtype(cfg), "cuda")
+    tokens = synthetic_batch(cfg, 0, B, P, device="cuda")["tokens"]
+    logits, cache = lm.prefill(model, tokens, cache)
+    tok = logits.argmax(-1).to(torch.int32)
+    pos = torch.tensor(P, dtype=torch.int32, device="cuda")
+    with OpAnalysis() as oa:
+        lm.decode_step(model, tok, cache, pos)
+        torch.cuda.synchronize()
+    real = oa.analyze()
+
+    def decode():   # the same position each call: the same work
+        lm.decode_step(model, tok, cache, pos)
+
+    dec_ms = time_ms(decode, reps=10, warmup=2)
+    del model, cache, oa
+    gc.collect()
+    torch.cuda.empty_cache()
+    fake, fake_s = _fake_counts(LM_FULL, "decode_32k", cfg=cfg,
+                                batch_size=B, seq_len=MAX)
+    rows.append({"phase": "lm_counts", "step": "decode", "arch": cfg.name,
+                 "batch": B, "cache_len": MAX, "fake_build_run_s": fake_s,
+                 "cpu_fake_equal": True,
+                 **_same_counts("decode step", real, fake),
+                 "roofline": _roofline("decode", real, dec_ms, 2 * active * B,
+                                       NVLINK_BW)})
+    emit(rows[-1])
+    # phase 21's one-rank 2-layer step (B = 4 × 512): its fake count only
+    layers, B, S = LM_MESH_FULL[:3]
+    cfg2 = dataclasses.replace(cfg, n_layers=layers)
+    fake, fake_s = _fake_counts(LM_FULL, "train_4k", cfg=cfg2, batch_size=B,
+                                seq_len=S)
+    rows.append({"phase": "lm_counts", "step": "train_2_layers",
+                 "arch": cfg.name, "n_layers": layers, "batch": B, "seq": S,
+                 "fake_build_run_s": fake_s, "cpu_fake_equal": True,
+                 "flops_hlo": fake["flops_hlo"],
+                 "hbm_bytes_est": fake["hbm_bytes_est"],
+                 "measured_in": "phase 21 (one rank)",
+                 "roofline": _roofline("train", fake, one_rank_ms,
+                                       6 * cfg2.active_param_count() * B * S,
+                                       NVLINK_BW)})
+    emit(rows[-1])
+    return rows
+
+
+def _counts_mesh(real: dict) -> dict:
+    """Phase 22 (c) over the mesh: rank 0's real decode step of (b) held
+    to the dry run's fake count of the same step on a fake group of
+    ``LM_MESH`` (this process, rank 0 of it, then the group is closed)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.dryrun import fake_mesh
+
+    cfg, MAX, _ = _serve_full_case()
+    try:
+        meshes = {d: fake_mesh(LM_MESH, ("data", "model"), d)
+                  for d in ("cuda", "cpu")}
+        fake, fake_s = _fake_counts(LM_FULL, "decode_32k", meshes, cfg=cfg,
+                                    batch_size=LM_SERVE_MESH_FULL[0],
+                                    seq_len=MAX)
+    finally:
+        dist.destroy_process_group()
+    return {"fake_build_run_s": fake_s, "cpu_fake_equal": True,
+            **_same_counts("mesh decode step", real, fake)}
+
+
+def lm_serve_mesh_phase(one_rank_ms: float) -> None:
+    """Phase 22 (a–c): the one-rank references here, the spawn of
+    ``MESH_RANKS`` ranks, the checks, then the counts; every check
+    raises. ``one_rank_ms``: phase 21's one-rank step (its roofline)."""
+    import pickle
+    import tempfile
+
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch.roofline import NVLINK_BW
+
+    t0 = time.perf_counter()
+    refs = {a: _serve_smoke_one_rank(a) for a in LM_SERVE_MESH_ARCHS}
+    ref_full = _serve_full_one_rank()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="lm_serve_mesh_")
+    try:
+        torch.save(ref_full["tokens"], os.path.join(root, "full_feed.pt"))
+        spawn_mesh_ranks(_serve_mesh_rank, (MESH_RANKS, root), "phase 22")
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(root, f"serve{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t_spawn = time.perf_counter() - t0
+
+    # (a) each rank's logits and tokens against one rank's, cache bytes
+    for arch in LM_SERVE_MESH_ARCHS:
+        cfg = get_smoke_config(arch)
+        want = {k: _cache_spec_bytes(cfg, k) for k in ("prefill", "decode")}
+        ref = refs[arch]
+        errs = []
+        for r in ranks:
+            got = r["smoke"][arch]
+            if got["bytes"] != want:
+                raise AssertionError(f"{arch}: rank {r['rank']} holds cache "
+                                     f"bytes {got['bytes']}, specs {want}")
+            for a, b in zip(got["logits"], ref["logits"]):
+                errs.append(float((a - b).abs().max() / b.abs().max()))
+            for a, b in zip(got["tokens"], ref["tokens"]):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{arch}: rank {r['rank']} greedy "
+                                         f"tokens differ from one rank's")
+        if not max(errs) <= LM_SERVE_MESH_TOL:
+            raise AssertionError(f"{arch}: mesh logits off by {max(errs)}")
+        emit({"phase": "lm_serve_mesh_parity", "arch": arch,
+              "mesh": list(LM_MESH), "ranks": MESH_RANKS,
+              "batch": LM_SERVE_MESH_SMOKE[0],
+              "prompt": LM_SERVE_MESH_SMOKE[1],
+              "decode_steps": LM_SERVE_MESH_STEPS,
+              "reference": "one rank, ambient MeshShape((2, 2))",
+              "logits_rel_err_max": max(errs), "tokens_equal": True,
+              "cache_bytes_per_rank": want, "cache_bytes_equal_specs": True})
+
+    # (b) the full width: each rank's logits (the prefill's, each decode
+    # step's) against one rank's within the bf16 bound; its greedy tokens
+    # equal, but where one rank's logits of the two tokens lie within that
+    # bound of each other (a near-tie)
+    full = get_config(LM_FULL)
+    B, P, n = LM_SERVE_MESH_FULL
+    errs, near_ties = [], 0
+    for r in ranks:
+        for i, (a, b) in enumerate(zip(r["full"]["logits"],
+                                       ref_full["logits"])):
+            a, b = a.float(), b.float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"full width, rank {r['rank']}: "
+                                     f"non-finite logits in call {i}")
+            bound = LM_MESH_FULL_TOL * float(b.abs().max())
+            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
+            got, want = a.argmax(-1), ref_full["tokens"][i].long()
+            for row in (got != want).nonzero().flatten().tolist():
+                gap = float(b[row, want[row]] - b[row, got[row]])
+                if not gap <= bound:
+                    raise AssertionError(
+                        f"full width, rank {r['rank']}, call {i}, row "
+                        f"{row}: greedy token {int(got[row])}, one rank's "
+                        f"{int(want[row])} ahead by {gap} > {bound}")
+                near_ties += 1
+    if not max(errs) <= LM_MESH_FULL_TOL:
+        raise AssertionError(f"full-width mesh logits off by {max(errs)}")
+    emit({"phase": "lm_serve_mesh_full", "arch": full.name,
+          "mesh": list(LM_MESH), "ranks": MESH_RANKS,
+          "n_layers": LM_MESH_FULL[0], "d_model": full.d_model,
+          "vocab": full.vocab, "dtype": full.dtype,
+          "reduced": [f"n_layers {full.n_layers} -> {LM_MESH_FULL[0]}: four "
+                      f"ranks share one card"],
+          "batch": B, "prompt": P, "decode_steps_timed": n,
+          "reference": "one rank, ambient MeshShape((2, 2)), greedy tokens "
+                       "fed to the ranks",
+          "logits_rel_err_max": max(errs), "logits_tol": LM_MESH_FULL_TOL,
+          "calls_held": len(ref_full["logits"]),
+          "token_near_ties": near_ties,
+          "transport": "gloo through the host, one card: not an NVLink or "
+                       "NCCL number",
+          "per_rank": [{"rank": r["rank"], **{k: v for k, v in
+                                              r["full"].items()
+                                              if k not in ("counts",
+                                                           "logits")}}
+                       for r in ranks]})
+
+    # (c) the counts: the mesh decode step of (b), then one rank's steps
+    t1 = time.perf_counter()
+    real = ranks[0]["full"]["counts"]
+    row = {"phase": "lm_counts", "step": "mesh_decode", "arch": full.name,
+           "n_layers": LM_MESH_FULL[0], "mesh": list(LM_MESH), "rank": 0,
+           **_counts_mesh(real),
+           "roofline": _roofline("mesh decode", real,
+                                 ranks[0]["full"]["decode_ms_median"],
+                                 2 * dataclasses.replace(
+                                     full, n_layers=LM_MESH_FULL[0])
+                                 .active_param_count() * B // LM_MESH[0],
+                                 NVLINK_BW)}
+    emit(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _counts_one_rank(one_rank_ms)
+    emit({"phase": "lm_serve_mesh_done", "spawn_s": t_spawn,
+          "counts_s": time.perf_counter() - t1,
+          "seconds": time.perf_counter() - t0})
 
 
 def summary(name, source, replaces, main_rows, all_rows, launches,
@@ -5630,7 +6208,11 @@ def main() -> int:
     # 21. the LM mesh: four gloo ranks of one LM on this card
     gc.collect()
     torch.cuda.empty_cache()
-    lm_mesh_phase()
+    one_rank_ms = lm_mesh_phase()
+    # 22. serving over the mesh; the dry run's counts against the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_serve_mesh_phase(one_rank_ms)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

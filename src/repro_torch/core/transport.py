@@ -10,7 +10,12 @@ the group's backend, never by catching an error:
 * ``nccl`` — device tensors go straight through;
 * ``gloo`` — tensors stage through host memory: ``.cpu()`` before a send
   or a collective, ``.to(device)`` after a receive (on one card, S ranks
-  share the card and talk through the host).
+  share the card and talk through the host);
+* ``fake`` — ``torch.distributed``'s fake backend, which only the dry run
+  (``launch/dryrun.py``) starts: the same c10d calls as ``nccl``, with
+  device tensors, on a group whose collectives move nothing and return at
+  once, so an op count sees every collective a step issues at its real
+  size. A real group never has this backend.
 
 Any other backend raises. A send's tensor is held until its request is
 waited on. A receive that never comes fails after the group's timeout
@@ -57,8 +62,10 @@ def _via_host(group) -> bool:
         return False
     if backend == "gloo":
         return True
+    if backend == "fake":
+        return False
     raise ValueError(f"no ring transport for backend {backend!r}: the mesh "
-                     f"ring runs on nccl or gloo")
+                     f"ring runs on nccl or gloo (the dry run on fake)")
 
 
 def _wire(t: torch.Tensor, host: bool) -> torch.Tensor:

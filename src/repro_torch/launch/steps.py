@@ -34,7 +34,28 @@ its shards of params, μ and ν, each a ``DTensor`` with
 
 The loss and grad norm reported are global. The mean of the ranks' mean
 losses is the global mean because every rank holds as many labels, all
-valid; a mesh step rejects a batch with masked (negative) labels.
+valid; a mesh step rejects a batch with masked (negative) labels (a fake
+batch, the dry run's, has no values to test).
+
+Serving over a process mesh (``make_prefill_step`` / ``make_decode_step``
+with ``mesh=``; JAX's prefill and decode jitted with ``param_specs`` and
+``cache_specs`` shardings) follows the train step's design. Between
+calls the model's parameters are DTensor shards (:func:`shard_model`)
+and the cache is held as shards of ``shardings.cache_specs``
+(:func:`init_mesh_cache`, :func:`reshard_cache`). A call, under the
+ambient mesh (the MoE's token blocks):
+
+1. gathers the working copy of the parameters, as a train step does;
+2. gathers the rank's rows of the cache over 'model' where the spec
+   splits heads, sequence or head_dim there (context-parallel prefill,
+   head-dim decode): the step runs whole heads on its rows, so the cache
+   of its rows is moved to it, a cost the model axis's compute split
+   would remove;
+3. runs prefill or decode on the rank's rows (its block over 'data' ×
+   'pod' when ``batch_specs`` says so, else the whole batch);
+4. writes the rank's shard of the updated cache back in place (the
+   donated cache of JAX's step) and returns the logits as a DTensor of
+   the global (B, V), this rank's rows local.
 """
 from __future__ import annotations
 
@@ -42,20 +63,25 @@ from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
 from ..core.transport import all_reduce_sum
 from ..device import DeviceLike
 from ..models.lm import model as lm
 from ..models.lm.config import ModelConfig
 from ..optim import AdamState, adamw, apply_updates, global_norm
-from ..pjit_utils import (axis_sizes, full_tensors, local_shard, mesh_group,
-                          to_dtensor, to_placements)
+from ..pjit_utils import (ambient_mesh, axis_sizes, full_tensors,
+                          local_nbytes, local_shard, mesh_group, to_dtensor,
+                          to_placements)
 from . import shardings as shard_rules
 
-__all__ = ["TrainState", "init_state", "state_of", "make_train_step",
-           "make_prefill_step", "make_decode_step", "state_specs",
-           "state_placements", "eval_param_shapes", "state_tree",
-           "load_state_tree", "is_sharded", "state_bytes"]
+__all__ = ["TrainState", "init_state", "state_of", "shard_model",
+           "make_train_step", "make_prefill_step", "make_decode_step",
+           "state_specs", "state_placements", "eval_param_shapes",
+           "state_tree", "load_state_tree", "is_sharded", "state_bytes",
+           "cache_placements", "init_mesh_cache", "reshard_cache",
+           "cache_bytes", "named_leaves", "tree_leaves",
+           "step_batch_specs"]
 
 
 class TrainState(NamedTuple):
@@ -97,19 +123,16 @@ def is_sharded(state: TrainState) -> bool:
 
 def state_bytes(state: TrainState) -> int:
     """The bytes this rank holds of the state's params, μ and ν."""
-    def local(t):
-        t = t.to_local() if hasattr(t, "to_local") else t
-        return t.numel() * t.element_size()
-
-    return sum(local(t) for t in list(state.params.parameters())
+    return sum(local_nbytes(t) for t in list(state.params.parameters())
                + list(state.mu) + list(state.nu))
 
 
-def _param_placements(model: lm.LM, mesh) -> List[tuple]:
+def _param_placements(model: lm.LM, mesh, fsdp: bool = True
+                      ) -> List[tuple]:
     metas = [torch.empty(p.shape, dtype=p.dtype, device="meta")
              for p in model.parameters()]
     specs = shard_rules.param_specs(lm.to_jax_tree(model, metas),
-                                    model.cfg, mesh)
+                                    model.cfg, mesh, fsdp=fsdp)
     return [to_placements(s, mesh)
             for s in shard_rules.model_specs(model, specs)]
 
@@ -130,24 +153,36 @@ def init_state(cfg: ModelConfig, *, seed: int = 0, max_seq: int = 0,
                                    device=device), mesh)
 
 
-def state_of(model: lm.LM, mesh=None) -> TrainState:
+def state_of(model: lm.LM, mesh=None, fsdp: bool = True) -> TrainState:
     """The step-0 state of ``model`` (zero float32 moments); on a process
-    ``mesh`` its parameters are replaced by this rank's shards."""
+    ``mesh`` its parameters are replaced by this rank's shards
+    (:func:`shard_model`)."""
     if mesh is None:
         zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in model.parameters()]
         return TrainState(model, zeros, [torch.zeros_like(z) for z in zeros],
                           0)
-    mu, nu, shards = [], [], []
-    for p, pl in zip(model.parameters(), _param_placements(model, mesh)):
+    mu, nu = [], []
+    for p in shard_model(model, mesh, fsdp):
+        local = p.to_local()
+        for m in (mu, nu):
+            m.append(to_dtensor(torch.zeros(local.shape, device=local.device),
+                                mesh, p.placements, p.shape))
+    return TrainState(model, mu, nu, 0)
+
+
+def shard_model(model: lm.LM, mesh, fsdp: bool = True) -> List[nn.Parameter]:
+    """Replace ``model``'s parameters by this rank's shards under JAX's
+    ``param_specs`` (DTensor records, ``requires_grad=False``); returns
+    them in ``model.parameters()`` order."""
+    shards = []
+    for p, pl in zip(model.parameters(),
+                     _param_placements(model, mesh, fsdp)):
         local = local_shard(p.detach(), mesh, pl).clone()
         shards.append(nn.Parameter(to_dtensor(local, mesh, pl, p.shape),
                                    requires_grad=False))
-        for m in (mu, nu):
-            m.append(to_dtensor(torch.zeros(local.shape, device=local.device),
-                                mesh, pl, p.shape))
     _set_params(model, shards)
-    return TrainState(model, mu, nu, 0)
+    return shards
 
 
 def _split(x: torch.Tensor, microbatch: int) -> torch.Tensor:
@@ -217,12 +252,23 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
     return train_step
 
 
-def _rank_rows(cfg: ModelConfig, mesh, batch: Dict) -> Dict:
-    """This rank's rows of ``batch``: its block over 'data' (× 'pod',
-    pod-major) along the dim ``batch_specs`` shards, or the whole batch
-    when the size does not divide."""
-    B = batch["tokens"].shape[0]
-    specs = shard_rules.batch_specs(cfg, "train", mesh, batch_size=B)
+def step_batch_specs(cfg: ModelConfig, kind: str, mesh, batch_size: int
+                     ) -> Dict:
+    """``shardings.batch_specs`` of a ``kind`` step's inputs, with an
+    encdec ``memory`` split along its first dim as the tokens are (as
+    JAX's dry run places it)."""
+    specs = shard_rules.batch_specs(cfg, kind, mesh, batch_size=batch_size)
+    specs["memory"] = specs["tokens"][:1] + (None, None)
+    return specs
+
+
+def _rank_rows(cfg: ModelConfig, mesh, batch: Dict, kind: str = "train"
+               ) -> Dict:
+    """This rank's rows of ``batch`` (a ``kind`` step's inputs): its block
+    over 'data' (× 'pod', pod-major) along the dim
+    :func:`step_batch_specs` shards, or the whole batch when the size does
+    not divide."""
+    specs = step_batch_specs(cfg, kind, mesh, batch["tokens"].shape[0])
     if specs["tokens"][0] is None:
         return batch
     sizes, coord = axis_sizes(mesh), dict(zip(
@@ -241,6 +287,23 @@ def _rank_rows(cfg: ModelConfig, mesh, batch: Dict) -> Dict:
     return out
 
 
+def _working_model(cfg: ModelConfig, sharded: lm.LM,
+                   skip: Tuple[str, ...] = ()) -> lm.LM:
+    """A model holding the gathered full parameters of ``sharded`` (one
+    collective per mesh dim): the step's working copy. Parameters whose
+    name starts with one of ``skip`` are not gathered (left ``meta``: a
+    step that never runs them)."""
+    max_seq = sharded.dec_pos.shape[0] if hasattr(sharded, "dec_pos") else 0
+    model = lm.LM(cfg, max_seq=max_seq, device="meta", init=False)
+    named = list(sharded.named_parameters())
+    keep = [i for i, (n, _) in enumerate(named) if not n.startswith(skip)]
+    full = dict(zip(keep, full_tensors([named[i][1] for i in keep])))
+    _set_params(model, [nn.Parameter(full[i] if i in full else torch.empty(
+        p.shape, dtype=p.dtype, device="meta"))
+        for i, (_, p) in enumerate(named)])
+    return model
+
+
 def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
                      clip: float, microbatch: int, mesh):
     _, opt_update = adamw(lr, weight_decay=weight_decay)
@@ -249,15 +312,16 @@ def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
-        if "labels" in batch and bool((batch["labels"] < 0).any()):
-            raise ValueError("a mesh train step takes no masked (negative) "
-                             "labels: its ranks' mean losses would not "
-                             "average to the global mean")
+        if "labels" in batch:
+            masked = (batch["labels"] < 0).any()
+            # a fake batch (the dry run's) holds no values to test
+            if not is_fake(masked) and bool(masked):
+                raise ValueError("a mesh train step takes no masked "
+                                 "(negative) labels: its ranks' mean "
+                                 "losses would not average to the global "
+                                 "mean")
         shards = list(state.params.parameters())
-        max_seq = (state.params.dec_pos.shape[0]
-                   if hasattr(state.params, "dec_pos") else 0)
-        model = lm.LM(cfg, max_seq=max_seq, device="meta", init=False)
-        _set_params(model, [nn.Parameter(t) for t in full_tensors(shards)])
+        model = _working_model(cfg, state.params)
         loss, grads = _loss_and_grads(model, [
             _rank_rows(cfg, mesh, b)
             for b in _microbatches(batch, microbatch)])
@@ -287,7 +351,17 @@ def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    """Returns ``prefill_step(model, tokens, cache, extras) -> (logits,
+    cache)`` (JAX's signature; ``extras``: ``positions`` for the VLM,
+    ``memory`` for encdec). With a process ``mesh``, the step of a model
+    of shards and a cache of shards (module docstring); every rank passes
+    the whole batch."""
+    if mesh is not None:
+        step = _mesh_serve_step(cfg, mesh, "prefill")
+        return lambda model, tokens, cache, extras: step(
+            model, tokens, cache, None, extras)
+
     def prefill_step(model, tokens, cache, extras):
         return lm.prefill(model, tokens, cache,
                           positions=extras.get("positions"),
@@ -295,11 +369,167 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    """Returns ``decode_step(model, token, cache, pos, extras) -> (logits,
+    cache)``; with a process ``mesh`` as :func:`make_prefill_step`."""
+    if mesh is not None:
+        return _mesh_serve_step(cfg, mesh, "decode")
+
     def decode_step(model, token, cache, pos, extras):
         return lm.decode_step(model, token, cache, pos,
                               memory=extras.get("memory"))
     return decode_step
+
+
+_BATCH_AXES = ("pod", "data")
+
+
+def _mesh_serve_step(cfg: ModelConfig, mesh, kind: str):
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh_group(mesh)                # the mesh must span the default group
+    model_axes = tuple(a for a in mesh.mesh_dim_names
+                       if a not in _BATCH_AXES)
+
+    def along_model(placements) -> tuple:
+        return tuple(p if a in model_axes else Replicate()
+                     for p, a in zip(placements, mesh.mesh_dim_names))
+
+    def rows_of(dt) -> tuple:
+        """The shape of this rank's rows of the cache leaf ``dt``, whole
+        along 'model'."""
+        pl = tuple(Replicate() if a in model_axes else p
+                   for p, a in zip(dt.placements, mesh.mesh_dim_names))
+        return local_shard(torch.empty(dt.shape, device="meta"), mesh,
+                           pl).shape
+
+    # the serve step never runs the encoder (memory is an input); prefill
+    # overwrites the cross-attention K / V whole, so they are not gathered
+    skip = ("enc_",) if cfg.family == "encdec" else ()
+    fresh = ("cross_k", "cross_v") if kind == "prefill" else ()
+
+    @torch.no_grad()
+    def serve_step(model, tokens, cache, pos, extras):
+        inputs = {"tokens": tokens, **{k: v for k, v in extras.items()
+                                       if v is not None}}
+        with ambient_mesh(mesh):
+            work = _working_model(cfg, model, skip)
+            rows = _rank_rows(cfg, mesh, inputs, kind)
+            names, shards = zip(*named_leaves(cache))
+            gather = [i for i, n in enumerate(names)
+                      if n.rsplit(".", 1)[-1] not in fresh]
+            got = dict(zip(gather, full_tensors([shards[i] for i in gather],
+                                                axes=model_axes)))
+            local = [got[i] if i in got else torch.empty(
+                rows_of(dt), dtype=dt.dtype, device=dt.to_local().device)
+                for i, dt in enumerate(shards)]
+            tree = _with_leaves(cache, local)
+            if kind == "prefill":
+                logits, _ = lm.prefill(work, rows["tokens"], tree,
+                                       positions=rows.get("positions"),
+                                       memory=rows.get("memory"))
+            else:
+                logits, _ = lm.decode_step(work, rows["tokens"], tree, pos,
+                                           memory=rows.get("memory"))
+            del work, tree
+            for dt, t in zip(shards, local):
+                if t is not dt.to_local():
+                    dt.to_local().copy_(local_shard(
+                        t, mesh, along_model(dt.placements)))
+        split = rows["tokens"].shape[0] != tokens.shape[0]
+        pl = tuple(Shard(0) if split and a in _BATCH_AXES else Replicate()
+                   for a in mesh.mesh_dim_names)
+        return to_dtensor(logits, mesh, pl,
+                          (tokens.shape[0], logits.shape[1])), cache
+
+    return serve_step
+
+
+def named_leaves(tree, prefix: str = "") -> list:
+    """``[("attn.k", leaf), ...]``: each leaf of a tree of nested dicts
+    with its dotted path after ``prefix``, keys sorted."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in named_leaves(
+            tree[k], f"{prefix}.{k}" if prefix else k)]
+    return [(prefix, tree)]
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of nested dicts, keys sorted."""
+    return [t for _, t in named_leaves(tree)]
+
+
+def _with_leaves(tree, leaves: list):
+    """``tree``'s structure holding ``leaves`` (:func:`tree_leaves`'
+    order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(tree)
+
+
+def cache_placements(cfg: ModelConfig, mesh, batch_size: int, seq_len: int,
+                     kind: str = "prefill"):
+    """JAX's ``cache_specs`` as DTensor placements over ``mesh`` (a tree
+    of the cache's shape)."""
+    return shard_rules.map_tree(
+        lambda _, s: to_placements(s, mesh),
+        shard_rules.cache_specs(cfg, mesh, batch_size=batch_size,
+                                seq_len=seq_len, kind=kind))
+
+
+def init_mesh_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                    mesh, *, kind: str = "prefill",
+                    device: DeviceLike = "cuda"):
+    """``lm.init_cache`` over a process ``mesh``: a tree of DTensors of
+    the global shapes whose local tensors are this rank's zeroed shards
+    under ``cache_specs(kind=)``; nothing global is allocated."""
+    shapes = lm.init_cache(cfg, batch, max_seq, dtype, "meta")
+    pls = cache_placements(cfg, mesh, batch, max_seq, kind)
+    return _with_leaves(shapes, [
+        to_dtensor(torch.zeros(local_shard(m, mesh, pl).shape, dtype=m.dtype,
+                               device=device), mesh, pl, m.shape)
+        for m, pl in zip(tree_leaves(shapes), tree_leaves(pls))])
+
+
+def reshard_cache(cache, cfg: ModelConfig, mesh, *, kind: str):
+    """``cache`` (DTensor shards) under ``cache_specs(kind=)``: leaves
+    whose placements change are gathered whole and sliced anew (JAX's
+    resharding between a prefill and a decode jit)."""
+    leaves = tree_leaves(cache)
+    pls = tree_leaves(cache_placements(cfg, mesh, _cache_batch(cache),
+                                       _cache_seq(cache), kind))
+    moved = [i for i, (t, pl) in enumerate(zip(leaves, pls))
+             if tuple(t.placements) != tuple(pl)]
+    whole = full_tensors([leaves[i] for i in moved])
+    out = list(leaves)
+    for i, t in zip(moved, whole):
+        out[i] = to_dtensor(local_shard(t, mesh, pls[i]).clone(), mesh,
+                            pls[i], t.shape)
+    return _with_leaves(cache, out)
+
+
+def _cache_batch(cache) -> int:
+    """The batch size of an LM cache tree (its leaves' batch dim)."""
+    if "attn" in cache:
+        return cache["attn"]["k"].shape[1]
+    return (cache["k"] if "k" in cache else cache["conv"]).shape[1]
+
+
+def _cache_seq(cache) -> int:
+    """The max sequence length of an LM cache tree (0 without K / V)."""
+    kv = cache.get("attn", cache)
+    return kv["k"].shape[2] if "k" in kv else 0
+
+
+def cache_bytes(cache) -> int:
+    """The bytes this rank holds of a cache tree (DTensor shards or
+    plain tensors)."""
+    return sum(local_nbytes(t) for t in tree_leaves(cache))
 
 
 def _stack_shards(dts: list):

@@ -35,7 +35,7 @@ import torch
 __all__ = ["MeshShape", "axis_sizes", "is_process_mesh", "mesh_group",
            "current_mesh", "ambient_mesh", "resolve_axis", "make_spec",
            "shard_hint", "to_placements", "shard_shape", "local_shard",
-           "to_dtensor", "full_tensors"]
+           "local_nbytes", "to_dtensor", "full_tensors"]
 
 _state = threading.local()
 
@@ -186,6 +186,13 @@ def _chunks(mesh, placements) -> Dict[int, Tuple[int, int]]:
     return out
 
 
+def local_nbytes(t: torch.Tensor) -> int:
+    """The bytes this rank holds of ``t``: a DTensor's local shard, a
+    plain tensor whole."""
+    t = t.to_local() if hasattr(t, "to_local") else t
+    return t.numel() * t.element_size()
+
+
 def local_shard(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's chunk of ``full`` (a view) under ``placements``."""
     t = full
@@ -207,19 +214,36 @@ def to_dtensor(local: torch.Tensor, mesh, placements,
                               shape=shape, stride=stride)
 
 
-def full_tensors(dts: Sequence) -> List[torch.Tensor]:
+def full_tensors(dts: Sequence, axes: Sequence[str] = None
+                 ) -> List[torch.Tensor]:
     """Each ``DTensor`` of ``dts`` whole, on every rank: per mesh dim,
     innermost first, one ``transport.all_gather_cat`` over that dim's
-    sub-group carries every leaf sharded on it. The leaves share one
-    mesh; every rank calls this with the same leaves."""
+    sub-group carries every leaf sharded on it. With ``axes``, only the
+    mesh dims of those names are gathered: each leaf comes back whole
+    along them and still this rank's chunk along the others (a tensor dim
+    sharded over a gathered and a kept mesh dim raises). A leaf with
+    nothing to gather comes back as its local tensor itself. The leaves
+    share one mesh; every rank calls this with the same leaves."""
     from .core.transport import all_gather_cat
 
     out = [dt.to_local() for dt in dts]
     if not dts:
         return out
     mesh = dts[0].device_mesh
+    names = mesh.mesh_dim_names
+    keep = [i for i in range(mesh.ndim)
+            if axes is not None and names[i] not in axes]
     for i in reversed(range(mesh.ndim)):
+        if i in keep:
+            continue
         which = [k for k, dt in enumerate(dts) if dt.placements[i].is_shard()]
+        for k in which:
+            d = dts[k].placements[i].dim
+            if any(dts[k].placements[j].is_shard()
+                   and dts[k].placements[j].dim == d for j in keep):
+                raise ValueError(f"dim {d} of a leaf is sharded over mesh "
+                                 f"dims {names[i]!r} and kept ones: gather "
+                                 f"them all")
         if not which:
             continue
         got = all_gather_cat([out[k] for k in which], mesh.get_group(i),

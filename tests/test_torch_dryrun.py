@@ -1,0 +1,159 @@
+"""The port's dry run (``repro_torch.launch.dryrun``, ``dryrun_all``)
+against JAX's (``repro.launch.dryrun``), on the CPU.
+
+Each cell runs as JAX's own smoke test runs it: ``python -m
+<package>.launch.dryrun`` in a subprocess on the debug mesh
+(``REPRO_DRYRUN_MESH=2x4``; JAX with 8 placeholder devices, the port as
+rank 0 of an 8-rank ``fake`` group), JAX's and the port's of a cell at
+the same time, under a timeout. Held: ``params``, ``active_params``,
+``tokens_global`` and each rank's ``argument_size_in_bytes`` equal to
+JAX's cell JSON; the FLOPs counted positive, their ratio to JAX's
+``flops_hlo`` in the message (a rank of the port runs the whole model on
+its rows: queue A items 2 and 3). This file: the dense train cell, the
+SSM long-context decode cell, ``llama3p2_3b × train_4k`` on the 256-rank
+pod mesh, and ``dryrun_all``'s skip and error JSONs;
+``test_torch_dryrun_serve.py`` the enc-dec prefill and MoE decode cells.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import pytest
+
+CELL_TIMEOUT_S = 300
+CASES = [("llama3p2_3b", "train_4k"),       # dense train
+         ("mamba2_1p3b", "long_500k")]      # SSM long-context decode
+
+
+def start_cell(package: str, arch: str, shape: str, out: str,
+               mesh: str = "2x4", extra=()):
+    """``python -m <package>.launch.dryrun`` of one cell, started."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = "src"
+    env.pop("REPRO_DRYRUN_MESH", None)
+    if mesh:
+        env["REPRO_DRYRUN_MESH"] = mesh
+    if package == "repro":
+        env["REPRO_DRYRUN_DEVICES"] = "8"
+        env["JAX_PLATFORMS"] = "cpu"
+    cmd = [sys.executable, "-m", f"{package}.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--out", out, *extra]
+    return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_cell(proc, out: str, deadline: float) -> dict:
+    try:
+        _, err = proc.communicate(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, err[-3000:]
+    with open(out) as f:
+        cell = json.load(f)
+    assert cell["ok"]
+    return cell
+
+
+def run_pairs(tmp, cases) -> dict:
+    """Every case's JAX cell and port cell, all started at once."""
+    procs = {}
+    for arch, shape in cases:
+        for pkg in ("repro", "repro_torch"):
+            out = str(tmp / f"{pkg}__{arch}__{shape}.json")
+            procs[(pkg, arch, shape)] = (start_cell(pkg, arch, shape, out),
+                                         out)
+    deadline = time.time() + CELL_TIMEOUT_S
+    return {k: finish_cell(p, out, deadline)
+            for k, (p, out) in procs.items()}
+
+
+def check_pair(jax_cell: dict, port: dict) -> None:
+    for k in ("arch", "shape", "kind", "n_chips", "params", "active_params",
+              "tokens_global", "microbatch", "fsdp"):
+        assert port[k] == jax_cell[k], k
+    assert port["mesh"] == jax_cell["mesh"] == "debug-2x4"
+    assert (port["memory_analysis"]["argument_size_in_bytes"]
+            == jax_cell["memory_analysis"]["argument_size_in_bytes"])
+    flops, jflops = port["tripaware"]["flops_hlo"], \
+        jax_cell["tripaware"]["flops_hlo"]
+    assert flops > 0 and port["cost_analysis"]["flops"] == flops, (
+        f"port {flops:.4g} FLOPs a rank, JAX {jflops:.4g}: "
+        f"{flops / jflops:.3f}×")
+    for k in ("output_size_in_bytes", "alias_size_in_bytes",
+              "temp_size_in_bytes"):
+        assert port["memory_analysis"][k] > 0, k
+    assert port["tripaware"]["collective_total"] > 0
+    assert port["notes"]
+
+
+@pytest.fixture(scope="module")
+def cells(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("dryrun")
+    pod_out = str(tmp / "llama3p2_3b__train_4k__pod.json")
+    pod = start_cell("repro_torch", "llama3p2_3b", "train_4k", pod_out,
+                     mesh=None)
+    res = run_pairs(tmp, CASES)
+    res["pod"] = finish_cell(pod, pod_out, time.time() + CELL_TIMEOUT_S)
+    return res
+
+
+@pytest.mark.parametrize("arch,shape", CASES,
+                         ids=[f"{a}:{s}" for a, s in CASES])
+def test_cell_matches_jax_on_debug_mesh(cells, arch, shape):
+    check_pair(cells[("repro", arch, shape)],
+               cells[("repro_torch", arch, shape)])
+
+
+def test_train_cell_repeats_the_model_axis(cells):
+    """A rank of the port computes its data rows through the whole model:
+    at most 4× JAX's FLOPs a device on (2, 4), whose 'model' axis splits
+    them 4 ways (3.65× today; the yardstick of queue A items 2 and 3,
+    which bring it toward 1)."""
+    port = cells[("repro_torch", "llama3p2_3b", "train_4k")]
+    jax_cell = cells[("repro", "llama3p2_3b", "train_4k")]
+    ratio = port["tripaware"]["flops_hlo"] / jax_cell["tripaware"][
+        "flops_hlo"]
+    assert ratio <= 4.0, f"port / JAX FLOPs a device: {ratio:.3f}"
+    assert port["collective_bytes"]["all-gather"] > 0
+    assert port["collective_bytes"]["all-reduce"] > 0
+
+
+def test_pod_mesh_cell(cells):
+    pod = cells["pod"]
+    assert (pod["mesh"], pod["n_chips"], pod["mesh_shape"]) == (
+        "pod-16x16", 256, [16, 16])
+    assert pod["tokens_global"] == 256 * 4096
+    # a rank's data rows: 16 of 256 sequences, the whole model
+    debug = cells[("repro_torch", "llama3p2_3b", "train_4k")]
+    assert pod["tripaware"]["flops_hlo"] == pytest.approx(
+        debug["tripaware"]["flops_hlo"] / 8, rel=1e-6)
+
+
+def test_dryrun_all_skips_done_cells_and_writes_errors(tmp_path,
+                                                       monkeypatch, capsys):
+    from repro_torch.launch import dryrun_all
+
+    monkeypatch.setattr(dryrun_all, "OUT_DIR", str(tmp_path))
+    done = dryrun_all.cell_path("llama3p2_3b", "train_4k", False)
+    with open(done, "w") as f:
+        json.dump({"ok": True}, f)
+    assert dryrun_all.run_one("llama3p2_3b", "train_4k", False)
+    assert "[skip] llama3p2_3b__train_4k__pod.json" in capsys.readouterr().out
+    # a cell that fails: its error JSON holds the stderr's tail
+    assert not dryrun_all.run_one("no_such_arch", "train_4k", True,
+                                  timeout=120)
+    with open(dryrun_all.cell_path("no_such_arch", "train_4k", True)) as f:
+        err = json.load(f)
+    assert (err["ok"], err["mesh"]) == (False, "multipod")
+    assert "no_such_arch" in err["stderr"]
+    assert not dryrun_all.cell_done(dryrun_all.cell_path(
+        "no_such_arch", "train_4k", True))
+    # and one past its timeout
+    assert not dryrun_all.run_one("mamba2_1p3b", "long_500k", False,
+                                  timeout=0.01)
+    with open(dryrun_all.cell_path("mamba2_1p3b", "long_500k", False)) as f:
+        assert json.load(f)["stderr"] == "timeout"

@@ -1,0 +1,32 @@
+"""The port's dry run of the serve cells against JAX's, on the CPU: the
+enc-dec prefill (``whisper_medium × prefill_32k``: the encoder memory an
+input, the cross-attention K / V written whole) and the MoE + sliding-
+window decode (``mixtral_8x22b × decode_32k``: a 32,768-deep cache), each
+as JAX's smoke test runs it, on the debug mesh; held as
+``test_torch_dryrun.py`` holds the train and SSM cells, plus the donated
+cache's bytes (``alias_size_in_bytes``) equal to JAX's.
+"""
+import pytest
+
+from tests.test_torch_dryrun import check_pair, run_pairs
+
+CASES = [("whisper_medium", "prefill_32k"),    # enc-dec serve
+         ("mixtral_8x22b", "decode_32k")]      # MoE + SWA decode
+
+
+@pytest.fixture(scope="module")
+def cells(tmp_path_factory):
+    return run_pairs(tmp_path_factory.mktemp("dryrun_serve"), CASES)
+
+
+@pytest.mark.parametrize("arch,shape", CASES,
+                         ids=[f"{a}:{s}" for a, s in CASES])
+def test_serve_cell_matches_jax_on_debug_mesh(cells, arch, shape):
+    jax_cell, port = cells[("repro", arch, shape)], \
+        cells[("repro_torch", arch, shape)]
+    check_pair(jax_cell, port)
+    assert (port["memory_analysis"]["alias_size_in_bytes"]
+            == jax_cell["memory_analysis"]["alias_size_in_bytes"])
+    # the cache is sharded over 'model': its rows are gathered each call
+    assert any("cache" in n for n in port["notes"])
+    assert port["collective_bytes"]["all-gather"] > 0
