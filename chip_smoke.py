@@ -676,16 +676,29 @@ LM_SERVE = (4, 512, 33)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense
 LM_CKPT_DIR = os.path.join("build", "lm_ckpt")
 # the LM mesh phase (21): MESH_RANKS ranks as a (data, model) mesh; the
-# smoke archs held to the one-rank mesh semantics and their batch (B, S,
-# steps); the elastic restore's two meshes; the full-width config's depth
-# and run (layers, B, S, warm-up steps, timed steps)
+# smoke archs held to the one-rank mesh semantics (llama: 3 heads on a
+# model axis of 2, context-parallel attention; qwen2: 4 heads, Megatron
+# TP; whisper: enc-dec; granite / zamba2: the MoE FFN and the Mamba2 mixer
+# behind the split's bridge) and their batch (B, S, steps); the elastic
+# restore's two meshes; the full-width config's depth and run (layers, B,
+# S, warm-up steps, timed steps)
 LM_MESH = (2, 2)
-LM_MESH_ARCHS = ("qwen2_7b", "granite_moe_3b", "zamba2_2p7b")
+LM_MESH_ARCHS = ("llama3p2_3b", "qwen2_7b", "whisper_medium",
+                 "granite_moe_3b", "zamba2_2p7b")
 LM_MESH_BATCH = (4, 32, 3)
 LM_MESH_ELASTIC = ((2, 2), (4, 1))
 LM_MESH_FULL = (2, 4, 512, 1, 3)
 LM_MESH_TOL = 1e-5
 LM_MESH_FULL_TOL = 2e-2
+# phase 21 (a) holds every smoke arch's first-step gradients to one rank's
+# and, after the steps, the params of these: whisper's are not held there,
+# since one element of its dec_pos has a first-step gradient of -9.3e-9,
+# within one eps (1e-8) of AdamW's denominator, where any two valid fp32
+# summation orders move the parameter by different fractions of lr (the
+# card: 3.7e-5 against a bound of 1.7e-5); tests/test_torch_lm_tp.py holds
+# its params against JAX's on the CPU
+LM_MESH_PARAMS_ARCHS = ("llama3p2_3b", "qwen2_7b", "granite_moe_3b",
+                        "zamba2_2p7b")
 # the LM serve mesh phase (22): MESH_RANKS ranks as the LM_MESH process
 # mesh serve the smoke archs (prefill, then LM_SERVE_MESH_STEPS greedy
 # decode steps at (B, prompt, cache span)), held to one rank under
@@ -5252,49 +5265,83 @@ def lm_phase() -> None:
 # 21. the LM mesh: one LM over MESH_RANKS gloo ranks on this card
 # --------------------------------------------------------------------- #
 class _LMExchange:
-    """Times (host clock) and sizes this rank's parameter gathers
-    (``transport.all_gather_cat``, which ``pjit_utils.full_tensors``
-    calls) and gradient all-reduces (``launch.steps``' ``all_reduce_sum``)
-    for the life of the process (a child of phase 21): on ``gloo`` every
-    byte stages through host memory."""
+    """Times (host clock) and sizes this rank's collectives for the life of
+    the process (a child of phase 21 or 22), in three parts: the working
+    copy's gathers (``launch.steps``' ``full_tensors``: the parameters,
+    and a serve call's Mamba2 states), the gradient all-reduces
+    (``launch.steps``' ``all_reduce_sum``), and the activations of the
+    model axis's split (every other ``torch.distributed`` collective: ms
+    inside the call, which excludes the host staging, and operand bytes
+    by JAX's convention). On ``gloo`` every byte stages through host
+    memory."""
 
     def __init__(self):
-        from repro_torch.core import transport
+        import torch.distributed as dist
+
         from repro_torch.launch import steps
 
         self.reset()
-        gather, reduce = transport.all_gather_cat, steps.all_reduce_sum
+        self.inside = False
+        gather, reduce = steps.full_tensors, steps.all_reduce_sum
         ex = self
 
-        def all_gather_cat(tensors, group, dims):
+        def full_tensors(dts, axes=None):
             t0 = time.perf_counter()
-            out = gather(tensors, group, dims)
+            ex.inside = True
+            try:
+                out = gather(dts, axes)
+            finally:
+                ex.inside = False
             ex.gather_ms += (time.perf_counter() - t0) * 1e3
             ex.gather_bytes += sum(o.numel() * o.element_size() for o in out)
-            ex.gather_bytes -= sum(t.numel() * t.element_size()
-                                   for t in tensors)
+            ex.gather_bytes -= sum(d.to_local().numel()
+                                   * d.to_local().element_size() for d in dts)
             return out
 
         def all_reduce_sum(tensors, group, dtype=None):
             t0 = time.perf_counter()
-            out = reduce(tensors, group, dtype=dtype)
+            ex.inside = True
+            try:
+                out = reduce(tensors, group, dtype=dtype)
+            finally:
+                ex.inside = False
             ex.reduce_ms += (time.perf_counter() - t0) * 1e3
             ex.reduce_bytes += sum(t.numel() for t in tensors) * (
                 dtype or tensors[0].dtype).itemsize
             return out
 
-        transport.all_gather_cat = all_gather_cat
+        def activation(fn, operand: int):
+            def call(*args, **kwargs):
+                if ex.inside:
+                    return fn(*args, **kwargs)
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                ex.act_ms += (time.perf_counter() - t0) * 1e3
+                t = args[operand]
+                ex.act_bytes += t.numel() * t.element_size()
+                ex.act_calls += 1
+                return out
+            return call
+
+        dist.all_gather = activation(dist.all_gather, 1)
+        dist.reduce_scatter_tensor = activation(dist.reduce_scatter_tensor, 1)
+        dist.all_reduce = activation(dist.all_reduce, 0)
+        steps.full_tensors = full_tensors
         steps.all_reduce_sum = all_reduce_sum
 
     def reset(self):
-        self.gather_ms = self.reduce_ms = 0.0
+        self.gather_ms = self.reduce_ms = self.act_ms = 0.0
         self.gather_bytes = self.reduce_bytes = 0
+        self.act_bytes = self.act_calls = 0
 
     def read(self) -> dict:
         return {"gather_ms": self.gather_ms,
                 "gather_bytes_received": self.gather_bytes,
                 "allreduce_ms": self.reduce_ms,
-                "allreduce_bytes": self.reduce_bytes}
+                "allreduce_bytes": self.reduce_bytes,
+                "activation_ms": self.act_ms,
+                "activation_bytes": self.act_bytes,
+                "activation_calls": self.act_calls}
 
 
 def _lm_mesh_steps(cfg, state, step_fn, mesh, batches) -> tuple:
@@ -5338,7 +5385,10 @@ def _lm_mesh_chunks(state, mesh) -> list:
 def _lm_mesh_full_run(cfg, state, step_fn, mesh, ex) -> dict:
     """``LM_MESH_FULL``'s warm-up and timed steps on a fixed batch: the
     losses, host-clock step ms (each ending in the loss read), the
-    exchange per step (process meshes) and peak memory."""
+    exchange per step and peak memory; on a process mesh, then one more
+    step under ``op_analysis`` (its counts: the rank's FLOPs, collective
+    bytes by kind, the largest collective sites)."""
+    from repro_torch.launch.op_analysis import OpAnalysis
     from repro_torch.launch.train import synthetic_batch
     from repro_torch.pjit_utils import ambient_mesh
 
@@ -5357,11 +5407,62 @@ def _lm_mesh_full_run(cfg, state, step_fn, mesh, ex) -> dict:
             step_ms.append((time.perf_counter() - t0) * 1e3)
             if ex is not None:
                 exchange.append(ex.read())
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counts = None
+        if ex is not None:
+            with OpAnalysis() as oa:
+                oa.name(dict(state.params.named_parameters()))
+                state, m = step_fn(state, batch)
+                float(m["loss"])
+            counts = _count_row(oa)
     return {"losses": losses, "warmup_ms": step_ms[:warm],
             "step_ms": step_ms[warm:],
             "step_ms_median": statistics.median(step_ms[warm:]),
-            "exchange_per_step": exchange[warm:],
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "exchange_per_step": exchange[warm:], "peak_gb": peak_gb,
+            "counts": counts}
+
+
+def _count_row(oa) -> dict:
+    """An ``op_analysis`` count's FLOPs, collectives and largest sites."""
+    got = oa.analyze()
+    return {"flops_hlo": got["flops_hlo"],
+            "collective_bytes": got["collective_bytes"],
+            "collective_counts": got["collective_counts"],
+            "host_copy_bytes": got["host_copy_bytes"],
+            "top_collectives": oa.top_collectives(6)}
+
+
+def _lm_mesh_grads(cfg, state, mesh, batch) -> list:
+    """The mesh step's gradients of ``batch`` (before the clip), each
+    whole, in ``parameters()`` order: the rank's working copy's, summed
+    over 'data' (÷ its size), its 'model' chunks gathered."""
+    from repro_torch.core.transport import all_gather_cat, all_reduce_sum
+    from repro_torch.launch import steps
+    from repro_torch.models.lm.tp import make_split
+    from repro_torch.pjit_utils import ambient_mesh
+
+    with ambient_mesh(mesh):
+        rows = steps._rank_rows(cfg, mesh, batch)
+        split = make_split(cfg, mesh, steps._seq_len(rows))
+        model, chunked = steps._working_model(cfg, state.params, split)
+        _, grads = steps._loss_and_grads(model, [rows], split)
+    names = [n for n, _ in model.named_parameters()]
+    grads = all_reduce_sum([g / LM_MESH[0] for g in grads],
+                           mesh.get_group("data"), dtype=torch.float32)
+    return [(all_gather_cat([g], mesh.get_group("model"),
+                            [split.chunk_dim(name)])[0] if i in chunked
+             else g).cpu() for i, (name, g) in enumerate(zip(names, grads))]
+
+
+def _lm_one_rank_grads(cfg, state, batch) -> list:
+    """One rank's gradients of ``batch`` under ``MeshShape(LM_MESH)``."""
+    from repro_torch.models.lm import model as lm
+    from repro_torch.pjit_utils import MeshShape, ambient_mesh
+
+    params = list(state.params.parameters())
+    with ambient_mesh(MeshShape(LM_MESH)):
+        loss = lm.loss_fn(state.params, batch)
+        return [g.cpu() for g in torch.autograd.grad(loss, params)]
 
 
 def _lm_mesh_main(rank: int, root: str, ex: _LMExchange) -> dict:
@@ -5378,15 +5479,20 @@ def _lm_mesh_main(rank: int, root: str, ex: _LMExchange) -> dict:
     out = {"rank": rank, "parity": {}}
     for arch in LM_MESH_ARCHS:
         cfg = get_smoke_config(arch)
+        grads = _lm_mesh_grads(cfg, init_state(
+            cfg, seed=0, max_seq=S, device="cuda", mesh=mesh), mesh,
+            _lm_mesh_batches(cfg, 1, B, S)[0])
         state, losses = _lm_mesh_steps(
-            cfg, init_state(cfg, seed=0, device="cuda", mesh=mesh),
+            cfg, init_state(cfg, seed=0, max_seq=S, device="cuda",
+                            mesh=mesh),
             make_train_step(cfg, mesh=mesh), mesh,
             _lm_mesh_batches(cfg, n, B, S))
         gathered = [full_tensors([v])[0].cpu()
                     for v in tree_leaves(state_tree(state).params)]
         out["parity"][arch] = {"losses": losses,
                                "chunks": _lm_mesh_chunks(state, mesh),
-                               "params": gathered if rank == 0 else None}
+                               "params": gathered if rank == 0 else None,
+                               "grads": grads if rank == 0 else None}
     cfg = get_smoke_config(LM_FULL)
     state, losses = _lm_mesh_steps(
         cfg, init_state(cfg, seed=0, device="cuda", mesh=mesh),
@@ -5473,7 +5579,7 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b)
 
 
-def lm_mesh_phase() -> float:
+def lm_mesh_phase() -> tuple:
     """Phase 21 (a–c): the one-rank references here, then the two spawns
     on this card; every check raises. Returns the one-rank step's median
     ms (phase 22's roofline reads it)."""
@@ -5492,11 +5598,15 @@ def lm_mesh_phase() -> float:
     refs = {}
     for arch in LM_MESH_ARCHS:
         cfg = get_smoke_config(arch)
+        state = init_state(cfg, seed=0, max_seq=S, device="cuda")
+        grads = _lm_one_rank_grads(cfg, state,
+                                   _lm_mesh_batches(cfg, 1, B, S)[0])
         state, losses = _lm_mesh_steps(
-            cfg, init_state(cfg, seed=0, device="cuda"),
-            make_train_step(cfg), shape, _lm_mesh_batches(cfg, n, B, S))
+            cfg, state, make_train_step(cfg), shape,
+            _lm_mesh_batches(cfg, n, B, S))
         refs[arch] = (losses, [v.cpu() for v in
-                               tree_leaves(state_tree(state).params)])
+                               tree_leaves(state_tree(state).params)],
+                      grads)
     cfg = get_smoke_config(LM_FULL)
     _, elastic_ref = _lm_mesh_steps(
         cfg, init_state(cfg, seed=0, device="cuda"), make_train_step(cfg),
@@ -5533,18 +5643,28 @@ def lm_mesh_phase() -> float:
 
     # (a) each rank's losses and rank 0's params against the one rank
     moved = 1e-2 * 3e-4 * n          # 1% of lr (the default) × the steps
-    for arch, (want, params) in refs.items():
+    for arch, (want, params, grads) in refs.items():
         errs = [_rel(a, b) for r in ranks
                 for a, b in zip(r["parity"][arch]["losses"], want)]
         if not max(errs) <= LM_MESH_TOL:
             raise AssertionError(f"{arch}: mesh losses off by {max(errs)}")
-        ratio = 0.0
-        for got, ref in zip(ranks[0]["parity"][arch]["params"], params):
-            tol = 1e-4 * float(ref.float().abs().max()) + 1e-6 + moved
-            ratio = max(ratio, float((got.float() - ref.float()).abs()
-                                     .max()) / tol)
-        if not ratio <= 1.0:
-            raise AssertionError(f"{arch}: mesh params {ratio:.3g} × tol")
+        g_ratio = 0.0
+        for got, ref in zip(ranks[0]["parity"][arch]["grads"], grads):
+            tol = 1e-4 * float(ref.float().abs().max()) + 1e-6
+            g_ratio = max(g_ratio, float((got.float() - ref.float()).abs()
+                                         .max()) / tol)
+        if not g_ratio <= 1.0:
+            raise AssertionError(f"{arch}: mesh grads {g_ratio:.3g} × tol")
+        ratio = None
+        if arch in LM_MESH_PARAMS_ARCHS:
+            ratio = 0.0
+            for got, ref in zip(ranks[0]["parity"][arch]["params"], params):
+                tol = 1e-4 * float(ref.float().abs().max()) + 1e-6 + moved
+                ratio = max(ratio, float((got.float() - ref.float()).abs()
+                                         .max()) / tol)
+            if not ratio <= 1.0:
+                raise AssertionError(f"{arch}: mesh params {ratio:.3g} × "
+                                     f"tol")
         chunks = [r["parity"][arch]["chunks"] for r in ranks]
         for i in range(len(chunks[0])):
             seen = {}
@@ -5558,7 +5678,8 @@ def lm_mesh_phase() -> float:
               "reference": "one rank, ambient MeshShape((2, 2))",
               "losses_one_rank": want,
               "losses_rank0": ranks[0]["parity"][arch]["losses"],
-              "loss_rel_err_max": max(errs), "params_err_over_tol": ratio,
+              "loss_rel_err_max": max(errs), "grads_err_over_tol": g_ratio,
+              "params_err_over_tol": ratio,
               "same_chunk_bits_equal": True})
 
     # (b) the restore onto (4, 1) and its step 3
@@ -5605,8 +5726,41 @@ def lm_mesh_phase() -> float:
           "working_copy_bytes": work_bytes,
           "per_rank": [{"rank": r["rank"], "state_bytes":
                         r["full_state_bytes"], **r["full"]} for r in ranks]})
+    emit(_split_row("lm_mesh_split", "train step", full, ranks,
+                    lambda r: r["full"]))
     emit({"phase": "lm_mesh_done", "seconds": time.perf_counter() - t0})
-    return one["step_ms_median"]
+    return one["step_ms_median"], ranks[0]["full"]["counts"]
+
+
+def _split_row(phase: str, what: str, full, ranks, part) -> dict:
+    """Per rank: the FLOPs ``op_analysis`` counted in ``what`` on the
+    process mesh, the median over the timed calls of the working copy's
+    gathers, the gradient all-reduces and the split's activation
+    collectives (ms and bytes), and the peak. ``part(rank result)`` is
+    the run's dict (``counts``, ``exchange_per_step``, ``peak_gb``)."""
+    rows = []
+    for r in ranks:
+        run = part(r)
+        ex = run["exchange_per_step"]
+
+        def med(k):
+            return statistics.median(e[k] for e in ex)
+
+        rows.append({"rank": r["rank"],
+                     "flops_hlo": run["counts"]["flops_hlo"],
+                     "collective_bytes": run["counts"]["collective_bytes"],
+                     "gather_ms": med("gather_ms"),
+                     "gather_bytes_received": med("gather_bytes_received"),
+                     "allreduce_ms": med("allreduce_ms"),
+                     "allreduce_bytes": med("allreduce_bytes"),
+                     "activation_ms": med("activation_ms"),
+                     "activation_bytes": med("activation_bytes"),
+                     "activation_calls": med("activation_calls"),
+                     "peak_gb": run["peak_gb"]})
+    return {"phase": phase, "what": what, "arch": full.name,
+            "n_layers": LM_MESH_FULL[0], "mesh": list(LM_MESH),
+            "transport": "gloo through the host, one card: not an NVLink "
+                         "or NCCL number", "per_rank": rows}
 
 
 # --------------------------------------------------------------------- #
@@ -5739,6 +5893,7 @@ def _serve_mesh_full(rank: int, mesh, ex, feed: torch.Tensor) -> dict:
     to the dry run's fake count of the same step)."""
     from repro_torch.launch import steps
     from repro_torch.launch.op_analysis import OpAnalysis
+    from repro_torch.launch.steps import named_leaves
     from repro_torch.models.lm import model as lm
     from repro_torch.pjit_utils import full_tensors
 
@@ -5768,19 +5923,30 @@ def _serve_mesh_full(rank: int, mesh, ex, feed: torch.Tensor) -> dict:
     dec = [timed(lambda i=i: decode(model, feed[i], cache, torch.tensor(
         P + i, dtype=torch.int32, device="cuda"), {}))
         for i in range(n + 1)]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cache_nbytes = steps.cache_bytes(cache)
     with OpAnalysis() as oa:
+        oa.name(dict(named_leaves(cache, "cache")))
         decode(model, feed[n + 1], cache, torch.tensor(
             P + n + 1, dtype=torch.int32, device="cuda"), {})
+    fresh = steps.init_mesh_cache(cfg, B, MAX, lm.lm_dtype(cfg), mesh,
+                                  kind="prefill", device="cuda")
+    with OpAnalysis() as pre_oa:
+        pre_oa.name(dict(named_leaves(fresh, "cache")))
+        prefill(model, tokens, fresh, {})
+        torch.cuda.synchronize()
     return {"prefill_ms": [r[1] for r in pre],
             "prefill_exchange": pre[1][2],
             "decode_warmup_ms": dec[0][1],
             "decode_ms": [r[1] for r in dec[1:]],
             "decode_ms_median": statistics.median(r[1] for r in dec[1:]),
             "decode_exchange": dec[1][2],
-            "cache_bytes": steps.cache_bytes(cache),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "decode_exchange_per_step": [r[2] for r in dec[1:]],
+            "cache_bytes": cache_nbytes, "peak_gb": peak_gb,
             "logits": [pre[1][0]] + [r[0] for r in dec],
-            "counts": oa.analyze() if rank == 0 else None}
+            "counts": oa.analyze() if rank == 0 else None,
+            "decode_counts": _count_row(oa),
+            "prefill_counts": _count_row(pre_oa)}
 
 
 def _serve_mesh_rank(rank: int, world: int, root: str) -> None:
@@ -5996,6 +6162,39 @@ def _counts_one_rank(one_rank_ms: float) -> list:
     return rows
 
 
+def _counts_unsplit(full, split: dict) -> None:
+    """Phase 22 (c): rank 0's counts of the split mesh steps (train, the
+    prefill, a decode step) beside the dry run's fake count of the same
+    rows through the whole model on one rank, which is what each rank of
+    the mesh steps computed before the model axis split the work."""
+    cfg = dataclasses.replace(full, n_layers=LM_MESH_FULL[0])
+    _, MAX, _ = _serve_full_case()
+    B, S = LM_MESH_FULL[1:3]
+    rows = {"train": ("train_4k", B // LM_MESH[0], S),
+            "prefill": ("prefill_32k", LM_SERVE_MESH_FULL[0] // LM_MESH[0],
+                        LM_SERVE_MESH_FULL[1]),
+            "decode": ("decode_32k", LM_SERVE_MESH_FULL[0] // LM_MESH[0],
+                       MAX)}
+    for what, (shape, b, seq) in rows.items():
+        fake, fake_s = _fake_counts(LM_FULL, shape, cfg=cfg, batch_size=b,
+                                    seq_len=seq)
+        got = split[what]["flops_hlo"]
+        if not 0 < got < fake["flops_hlo"]:
+            raise AssertionError(f"mesh {what}: the split rank counts {got} "
+                                 f"FLOPs, its rows unsplit "
+                                 f"{fake['flops_hlo']}")
+        emit({"phase": "lm_counts", "step": f"mesh_{what}_split",
+              "arch": full.name, "n_layers": LM_MESH_FULL[0],
+              "mesh": list(LM_MESH), "rank": 0, "rows": b, "seq": seq,
+              "flops_split": got, "flops_rows_unsplit": fake["flops_hlo"],
+              "split_over_unsplit": got / fake["flops_hlo"],
+              "collective_bytes_split": split[what]["collective_bytes"],
+              "fake_build_run_s": fake_s,
+              "unsplit": "the whole model on the rank's rows on one rank "
+                         "(the dry run's fake count): each rank's work "
+                         "before the model axis split it"})
+
+
 def _counts_mesh(real: dict) -> dict:
     """Phase 22 (c) over the mesh: rank 0's real decode step of (b) held
     to the dry run's fake count of the same step on a fake group of
@@ -6017,10 +6216,11 @@ def _counts_mesh(real: dict) -> dict:
             **_same_counts("mesh decode step", real, fake)}
 
 
-def lm_serve_mesh_phase(one_rank_ms: float) -> None:
+def lm_serve_mesh_phase(one_rank_ms: float, mesh_train: dict) -> None:
     """Phase 22 (a–c): the one-rank references here, the spawn of
     ``MESH_RANKS`` ranks, the checks, then the counts; every check
-    raises. ``one_rank_ms``: phase 21's one-rank step (its roofline)."""
+    raises. ``one_rank_ms``: phase 21's one-rank step (its roofline);
+    ``mesh_train``: rank 0's count of phase 21's split mesh step."""
     import pickle
     import tempfile
 
@@ -6115,9 +6315,28 @@ def lm_serve_mesh_phase(one_rank_ms: float) -> None:
                        "NCCL number",
           "per_rank": [{"rank": r["rank"], **{k: v for k, v in
                                               r["full"].items()
-                                              if k not in ("counts",
-                                                           "logits")}}
+                                              if k not in (
+                                                  "counts", "logits",
+                                                  "decode_counts",
+                                                  "prefill_counts")}}
                        for r in ranks]})
+    for what, key, ex in (("prefill", "prefill_counts", "prefill_exchange"),
+                          ("decode", "decode_counts",
+                           "decode_exchange_per_step")):
+        emit(_split_row("lm_serve_mesh_split", what, full, ranks,
+                        lambda r, key=key, ex=ex: {
+                            "counts": r["full"][key],
+                            "exchange_per_step": (
+                                r["full"][ex] if isinstance(r["full"][ex],
+                                                            list)
+                                else [r["full"][ex]]),
+                            "peak_gb": r["full"]["peak_gb"]}))
+        for r in ranks:
+            cached = [x for x in r["full"][key]["top_collectives"]
+                      if "cache." in x["names"]]
+            if what == "decode" and cached:
+                raise AssertionError(f"rank {r['rank']}'s decode step "
+                                     f"gathers cache leaves: {cached}")
 
     # (c) the counts: the mesh decode step of (b), then one rank's steps
     t1 = time.perf_counter()
@@ -6132,6 +6351,9 @@ def lm_serve_mesh_phase(one_rank_ms: float) -> None:
                                  .active_param_count() * B // LM_MESH[0],
                                  NVLINK_BW)}
     emit(row)
+    _counts_unsplit(full, {"train": mesh_train,
+                           "prefill": ranks[0]["full"]["prefill_counts"],
+                           "decode": ranks[0]["full"]["decode_counts"]})
     gc.collect()
     torch.cuda.empty_cache()
     _counts_one_rank(one_rank_ms)
@@ -6208,11 +6430,11 @@ def main() -> int:
     # 21. the LM mesh: four gloo ranks of one LM on this card
     gc.collect()
     torch.cuda.empty_cache()
-    one_rank_ms = lm_mesh_phase()
+    one_rank_ms, mesh_train = lm_mesh_phase()
     # 22. serving over the mesh; the dry run's counts against the card
     gc.collect()
     torch.cuda.empty_cache()
-    lm_serve_mesh_phase(one_rank_ms)
+    lm_serve_mesh_phase(one_rank_ms, mesh_train)
     emit(kernels)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

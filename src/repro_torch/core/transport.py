@@ -1,7 +1,18 @@
 """Transport over a ``torch.distributed`` process group: the mesh ring's
 (one vertex shard per rank; ``core/partition.py``, the trainers) and the
 LM mesh step's (``launch/steps.py``: a sharded leaf gathered over the
-sub-groups of its mesh dims, the whole-mesh gradient all-reduce).
+sub-groups of its mesh dims, the gradients summed over the batch axes;
+``models/lm/tp.py``: the activations of the model axis's compute split).
+
+The split's collectives are ``torch.autograd.Function`` s, each the
+adjoint of another: :func:`copy_to_group` (identity, its gradient summed
+over the group), :func:`reduce_from_group` (a sum over the group, its
+gradient passed through), :func:`gather_along` (an all-gather along a
+dim, its gradient reduce-scattered), :func:`reduce_scatter_along` (a
+reduce-scatter along a dim, its gradient all-gathered), and
+:func:`gather_blocks` / :func:`take_block` (an all-gather and a rank's
+block of a value every rank holds whole, each the other's adjoint). Sums
+run in float32 whatever the tensors' dtype; gathers move the bits.
 
 Every rank runs the same program on its own shard, so every rank posts
 the same sends and receives in the same order. The transport is chosen by
@@ -29,8 +40,9 @@ from typing import List, Sequence
 import torch
 
 __all__ = ["process_group", "rank_of", "Hop", "all_reduce_sum",
-           "all_gather_rows", "all_gather_cat", "take_block",
-           "gather_blocks"]
+           "all_gather_rows", "all_gather_cat", "reduce_scatter_sum",
+           "take_block", "gather_blocks", "copy_to_group",
+           "reduce_from_group", "gather_along", "reduce_scatter_along"]
 
 
 def process_group(mesh):
@@ -168,12 +180,32 @@ def all_gather_cat(tensors: Sequence[torch.Tensor], group,
     return out
 
 
-def _block(t: torch.Tensor, group) -> torch.Tensor:
+def reduce_scatter_sum(t: torch.Tensor, group, dim: int = 0
+                       ) -> torch.Tensor:
+    """The element-wise sum over ``group`` of every rank's ``t`` (one
+    shape on every rank), this rank's block of it along ``dim`` (blocks
+    in group-rank order), summed in float32 and returned in ``t``'s
+    dtype."""
     import torch.distributed as dist
 
-    n = t.shape[0] // dist.get_world_size(group)
-    me = dist.get_rank(group)
-    return t[me * n:(me + 1) * n]
+    host = _via_host(group)
+    n = dist.get_world_size(group)
+    x = t.detach().movedim(dim, 0).to(torch.float32).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    if host:
+        buf = out.cpu()
+        dist.reduce_scatter_tensor(buf, x.cpu(), group=group)
+        out = buf.to(x.device)
+    else:
+        dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim).to(t.dtype)
+
+
+def _block(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    import torch.distributed as dist
+
+    n = t.shape[dim] // dist.get_world_size(group)
+    return t.narrow(dim, dist.get_rank(group) * n, n)
 
 
 class _TakeBlock(torch.autograd.Function):
@@ -181,13 +213,14 @@ class _TakeBlock(torch.autograd.Function):
     gathers every rank's block gradient back into the whole."""
 
     @staticmethod
-    def forward(ctx, group, t):
-        ctx.group = group
-        return _block(t, group).clone()
+    def forward(ctx, group, t, dim):
+        ctx.group, ctx.dim = group, dim
+        return _block(t, group, dim).clone()
 
     @staticmethod
     def backward(ctx, ct):
-        return None, all_gather_rows(ct.contiguous(), ctx.group)
+        return None, all_gather_cat([ct.contiguous()], ctx.group,
+                                    [ctx.dim])[0], None
 
 
 class _GatherBlocks(torch.autograd.Function):
@@ -195,23 +228,106 @@ class _GatherBlocks(torch.autograd.Function):
     its adjoint is this rank's block of the gradient."""
 
     @staticmethod
-    def forward(ctx, group, t):
-        ctx.group = group
-        return all_gather_rows(t, group)
+    def forward(ctx, group, t, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat([t], group, [dim])[0]
 
     @staticmethod
     def backward(ctx, ct):
-        return None, _block(ct, ctx.group).clone()
+        return None, _block(ct, ctx.group, ctx.dim).clone(), None
 
 
-def take_block(t: torch.Tensor, group) -> torch.Tensor:
-    """Rank r's r-th of ``t`` along dim 0 (``t`` the same on every rank;
+class _CopyToGroup(torch.autograd.Function):
+    """The identity; its adjoint sums the gradient over the group (a
+    value every rank holds whole, each rank using it for its own share
+    of the work)."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, all_reduce_sum([ct], ctx.group,
+                                    dtype=torch.float32)[0]
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The sum over the group of every rank's partial value; its adjoint
+    passes the gradient (the same on every rank) through."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        return all_reduce_sum([t], group, dtype=torch.float32)[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, ct
+
+
+class _GatherAlong(torch.autograd.Function):
+    """Every rank's block along ``dim``, concatenated; its adjoint sums
+    the ranks' gradients of the whole and keeps this rank's block (each
+    rank used the whole for its own share of the work)."""
+
+    @staticmethod
+    def forward(ctx, group, t, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather_cat([t], group, [dim])[0]
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, reduce_scatter_sum(ct, ctx.group, ctx.dim), None
+
+
+class _ReduceScatterAlong(torch.autograd.Function):
+    """The sum over the group of every rank's partial value, this rank's
+    block of it along ``dim``; its adjoint gathers the blocks' gradients
+    into the whole."""
+
+    @staticmethod
+    def forward(ctx, group, t, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_sum(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return None, all_gather_cat([ct.contiguous()], ctx.group,
+                                    [ctx.dim])[0], None
+
+
+def take_block(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Rank r's r-th of ``t`` along ``dim`` (``t`` the same on every rank;
     differentiable: the gradient of the whole is gathered)."""
-    return _TakeBlock.apply(group, t)
+    return _TakeBlock.apply(group, t, dim)
 
 
-def gather_blocks(t: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along dim 0 in rank order, the same
-    whole on every rank (differentiable: each rank's gradient is its
+def gather_blocks(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order, the
+    same whole on every rank (differentiable: each rank's gradient is its
     block of the whole's)."""
-    return _GatherBlocks.apply(group, t)
+    return _GatherBlocks.apply(group, t, dim)
+
+
+def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` itself; its gradient is summed over ``group``."""
+    return _CopyToGroup.apply(group, t)
+
+
+def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``t`` over ``group`` (float32, in ``t``'s
+    dtype); its gradient passes through."""
+    return _ReduceFromGroup.apply(group, t)
+
+
+def gather_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim``; its gradient is
+    reduce-scattered back along ``dim``."""
+    return _GatherAlong.apply(group, t, dim)
+
+
+def reduce_scatter_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of every rank's ``t``;
+    its gradient is all-gathered along ``dim``."""
+    return _ReduceScatterAlong.apply(group, t, dim)

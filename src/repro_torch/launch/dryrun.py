@@ -27,8 +27,9 @@ records which. ``device.resolve_device`` is not asked for a card: nothing
 real is allocated.
 
 The cell JSON has JAX's keys. Where the port's step differs from JAX's
-GSPMD program (a full working copy per rank, the rank's rows of the cache
-gathered over 'model'), its ``notes`` say so; no count is scaled.
+GSPMD program (a working copy gathered once a step, the bridge's whole
+MoE / Mamba2 compute on every 'model' rank), its ``notes`` say so; no
+count is scaled.
 ``--attn-block`` is left out: JAX's dry run accepts it and never reads
 it, and the port's model has no such knob.
 """
@@ -162,12 +163,16 @@ def build_cell(arch: str, shape: str, mesh, *, microbatch: int = 1,
     notes = []
     if mesh is not None:
         notes.append(
-            "each rank gathers the whole parameters once a step into a "
-            "working copy and runs the whole model on its rows: the 'model' "
-            "axis splits the state, not the compute (ROADMAP queue A items "
-            "2 and 3), so a rank's FLOPs are its data rows' through every "
-            "head, expert and vocab column, and its collectives include "
-            "that gather")
+            "the 'model' axis splits attention (heads, context or "
+            "head_dim), the dense MLP, the embedding, the head and the CE, "
+            "and the residual stream between blocks (sequence-parallel); "
+            "the MoE FFN and the Mamba2 mixer run whole on every 'model' "
+            "rank behind the split's bridge (ROADMAP queue A item 2b), so "
+            "an MoE or SSM cell's FLOPs repeat that part")
+        notes.append(
+            "each rank gathers its working copy once a step: its 'model' "
+            "chunks of the split leaves over the batch axes, every other "
+            "leaf whole (queue A item 3 gathers per block)")
         notes.append("every rank is handed the whole batch and narrows it "
                      "to its rows; argument bytes count its rows")
     if device != "cuda":
@@ -203,9 +208,11 @@ def build_cell(arch: str, shape: str, mesh, *, microbatch: int = 1,
             if any("model" in str(sp) for sp in cspecs):
                 notes.append(
                     "the cache is sharded over 'model' (heads, sequence or "
-                    "head_dim): a step gathers its rows' cache over 'model' "
-                    "and writes its shard back, moving the whole cache of "
-                    "its rows each call")
+                    "head_dim): each rank reads and writes its own cache "
+                    "shards in place"
+                    + ("; the bridge's Mamba2 states are gathered over "
+                       "'model' and the rank's shard written back"
+                       if cfg.family in ("ssm", "hybrid") else ""))
         else:
             cache = lm.init_cache(cfg, B, S, lm.lm_dtype(cfg), device)
         names = {**dict(model.named_parameters()),

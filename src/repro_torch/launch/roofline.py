@@ -16,8 +16,9 @@ number, not a measurement. FLOPs and collective bytes come from the cell's
 cell's own mesh. MODEL_FLOPS = 6·N_active·D (train) or 2·N_active·D
 (serve); ``useful_ratio`` = MODEL_FLOPS per device / counted FLOPs per
 device measures how much counted compute is useful (remat, replicated
-attention, padding lower it; in the port, the work that ranks on 'model'
-repeat). ``roofline_row`` reads a cell JSON of either package.
+attention, padding lower it; in the port, the MoE and Mamba2 work that
+ranks on 'model' repeat behind the split's bridge). ``roofline_row``
+reads a cell JSON of either package.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh pod]
                           [--md] [--out-dir experiments/dryrun_torch]
@@ -159,8 +160,8 @@ def what_would_help(row: dict) -> str:
     b = row["bottleneck"]
     if b == "compute":
         if row["useful_ratio"] < 0.5:
-            return ("compute-bound but mostly waste: split the compute over "
-                    "'model' so attention/FFN aren't repeated (useful "
+            return ("compute-bound but mostly waste: cut what is repeated "
+                    "(remat, work the 'model' ranks repeat; useful "
                     f"{row['useful_ratio']:.0%})")
         return "compute-bound: larger per-GPU batch or faster kernels"
     if b == "memory":

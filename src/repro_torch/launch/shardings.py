@@ -21,10 +21,13 @@ JAX's ``NamedSharding(mesh, spec).shard_shape``; which rank holds which
 chunk need not be: an entry such as ``("model", "data")`` runs against
 the mesh order, and DTensor chunks it in mesh order.
 
-The rules place the STATE. The port's mesh step (``launch/steps.py``)
-gathers it per step and splits only the batch over 'data': the model
-axis's compute split (TP, context-parallel attention, EP), which GSPMD
-derives from these specs and the model's hints, is not done yet.
+The rules place the STATE. The port's mesh steps (``launch/steps.py``)
+gather it once a step into the rank's working copy, split the batch over
+'data' and the compute over 'model' (``models/lm/tp.py``: TP and
+context-parallel attention, the TP MLP, the vocab-parallel embedding and
+head, the sequence-parallel residual), as GSPMD derives it from these
+specs and the model's hints; EP and the Mamba2 mixer's split are not
+done yet (their blocks run whole behind the split's bridge).
 """
 from __future__ import annotations
 

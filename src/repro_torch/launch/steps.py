@@ -16,21 +16,32 @@ mesh=)``; a ``DeviceMesh`` over every rank) the state is SHARDED as
 JAX's specs say (:func:`state_specs`): between steps each rank holds only
 its shards of params, μ and ν, each a ``DTensor`` with
 ``shardings.to_placements`` of its spec (the model's parameters are
-``DTensor`` records, ``requires_grad=False``). A step:
+``DTensor`` records, ``requires_grad=False``). The model axis splits the
+compute (``models/lm/tp.py``: Megatron TP and context-parallel
+attention, the sequence-parallel residual, the vocab-parallel embedding,
+head and CE; the MoE FFN and the Mamba2 mixer run whole behind its
+bridge). A step:
 
-1. gathers the parameters (``pjit_utils.full_tensors``: one collective
-   per mesh dim) into a working full-size model, which lives for the
-   step only (the transient: one full copy of the params and their
-   grads per rank);
-2. runs the rank's share of the batch: split over 'data' (× 'pod') when
-   ``batch_specs`` of a microbatch's size says so, else the whole batch;
-   with ``microbatch > 1`` a rank's rows in microbatch i are its block
-   of JAX's microbatch i;
-3. all-reduces the loss and the gradients over the whole mesh (sum of
-   ``g / size``, in float32; ranks on 'model' computed the same rows, so
-   this is the mean over the data shards, the same bits on every rank);
-4. clips by the global norm and runs AdamW on the rank's own shard of
-   every parameter, one at a time.
+1. builds the rank's working copy (:func:`_working_model`, which lives
+   for the step only): a leaf the split runs on its 'model' chunk is
+   gathered over 'pod' / 'data' only and stays that chunk; every other
+   leaf (norms, the bridge's weights, a leaf whose stored shard does not
+   hold the chunk) is gathered whole (``pjit_utils.full_tensors``: one
+   collective per mesh dim);
+2. runs the rank's share: its rows of the batch over 'data' (× 'pod')
+   when ``batch_specs`` of a microbatch's size says so, else the whole
+   batch (with ``microbatch > 1`` a rank's rows in microbatch i are its
+   block of JAX's microbatch i), and its share of the model axis's work
+   on them, the activations moving between the 'model' ranks at JAX's
+   hint sites (``core/transport.py``); every 'model' rank gets the same
+   loss;
+3. sums the loss and the gradients over the batch axes (``g / n``, in
+   float32; the mean over the data shards, the same bits on every rank
+   holding a leaf's chunk): every gradient is already complete for the
+   rank's rows (``tp`` module docstring), a chunk's for the chunk;
+4. clips by the global norm (each element once: a chunk's squares summed
+   over 'model') and runs AdamW on the rank's own shard of every
+   parameter, one at a time.
 
 The loss and grad norm reported are global. The mean of the ranks' mean
 losses is the global mean because every rank holds as many labels, all
@@ -45,21 +56,22 @@ and the cache is held as shards of ``shardings.cache_specs``
 (:func:`init_mesh_cache`, :func:`reshard_cache`). A call, under the
 ambient mesh (the MoE's token blocks):
 
-1. gathers the working copy of the parameters, as a train step does;
-2. gathers the rank's rows of the cache over 'model' where the spec
-   splits heads, sequence or head_dim there (context-parallel prefill,
-   head-dim decode): the step runs whole heads on its rows, so the cache
-   of its rows is moved to it, a cost the model axis's compute split
-   would remove;
-3. runs prefill or decode on the rank's rows (its block over 'data' ×
-   'pod' when ``batch_specs`` says so, else the whole batch);
-4. writes the rank's shard of the updated cache back in place (the
-   donated cache of JAX's step) and returns the logits as a DTensor of
-   the global (B, V), this rank's rows local.
+1. builds the working copy as a train step does, for the call's split
+   (a decode's attention follows its cache's layout: heads, head_dim or
+   whole);
+2. runs prefill or decode on the rank's rows (its block over 'data' ×
+   'pod' when ``batch_specs`` says so, else the whole batch), each rank
+   reading and writing its own shards of the attention cache: its K/V
+   heads, its chunk of the sequence (a context-parallel prefill, which
+   starts from an empty cache) or its head_dim slice. The bridge's
+   Mamba2 states are gathered whole over 'model' and the rank's shard
+   written back (the mixer's split, ROADMAP item 2b, removes this);
+3. returns the logits as a DTensor of the global (B, V) (each rank's
+   vocabulary slice gathered over 'model'), this rank's rows local.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -70,7 +82,8 @@ from ..device import DeviceLike
 from ..models.lm import model as lm
 from ..models.lm.config import ModelConfig
 from ..optim import AdamState, adamw, apply_updates, global_norm
-from ..pjit_utils import (ambient_mesh, axis_sizes, full_tensors,
+from ..models.lm.tp import Split, make_split
+from ..pjit_utils import (BATCH_AXES, ambient_mesh, axis_sizes, full_tensors,
                           local_nbytes, local_shard, mesh_group, to_dtensor,
                           to_placements)
 from . import shardings as shard_rules
@@ -200,17 +213,17 @@ def _microbatches(batch: Dict, microbatch: int) -> List[Dict]:
     return [{k: v[i] for k, v in mb.items()} for i in range(microbatch)]
 
 
-def _loss_and_grads(model: lm.LM, batches: List[Dict]):
+def _loss_and_grads(model: lm.LM, batches: List[Dict], split=None):
     """The mean loss and grads over ``batches`` (JAX's microbatch
     accumulation: grads summed, then divided)."""
     params = list(model.parameters())
     if len(batches) == 1:
-        loss = lm.loss_fn(model, batches[0])
+        loss = lm.loss_fn(model, batches[0], split)
         return loss.detach(), list(torch.autograd.grad(loss, params))
     grads = [torch.zeros_like(p) for p in params]
     loss = torch.zeros((), dtype=torch.float32, device=params[0].device)
     for b in batches:
-        li = lm.loss_fn(model, b)
+        li = lm.loss_fn(model, b, split)
         gi = torch.autograd.grad(li, params)
         grads = [a + g for a, g in zip(grads, gi)]
         loss = loss + li.detach()
@@ -287,28 +300,74 @@ def _rank_rows(cfg: ModelConfig, mesh, batch: Dict, kind: str = "train"
     return out
 
 
+def _owns_chunk(p, dim: int) -> bool:
+    """Does the shard of the DTensor ``p`` hold its 'model' chunk along
+    ``dim`` whole along every other axis's sharding of that dim (the
+    chunk a gather over the batch axes alone completes)?"""
+    names = p.device_mesh.mesh_dim_names
+    if "model" not in names:
+        return False
+    own = p.placements[names.index("model")]
+    return (own.is_shard() and own.dim == dim and not any(
+        q.is_shard() and q.dim == dim
+        for a, q in zip(names, p.placements) if a != "model"))
+
+
 def _working_model(cfg: ModelConfig, sharded: lm.LM,
-                   skip: Tuple[str, ...] = ()) -> lm.LM:
-    """A model holding the gathered full parameters of ``sharded`` (one
-    collective per mesh dim): the step's working copy. Parameters whose
-    name starts with one of ``skip`` are not gathered (left ``meta``: a
-    step that never runs them)."""
+                   split: Optional[Split] = None,
+                   skip: Tuple[str, ...] = ()) -> Tuple[lm.LM, set]:
+    """The step's working copy of ``sharded`` and the indices (in
+    ``parameters()`` order) of the leaves it holds as their 'model'
+    chunk. A leaf ``split`` runs on its chunk (``Split.chunk_dim``) is
+    gathered over 'pod' / 'data' only where its shard is sharded on that
+    dim by 'model' alone; every other leaf is gathered whole: the norms,
+    the bridge's, and the fused fallbacks that shard one dim over both
+    'data' and 'model' (``wq`` ``(("data", "model"), None, None)``,
+    ``wo`` ``(None, None, ("data", "model"))``, ``embed`` / ``lm_head``
+    ``(None, ("model", "data"))`` where the vocabulary does not divide,
+    whose chunks DTensor orders in mesh order, not JAX's) or on another
+    dim (``wq`` on head_dim under 'heads'); ``Split.tp`` takes the rank's
+    chunk of those. Parameters whose name starts with one of ``skip`` are
+    not gathered (left ``meta``: a step that never runs them)."""
     max_seq = sharded.dec_pos.shape[0] if hasattr(sharded, "dec_pos") else 0
     model = lm.LM(cfg, max_seq=max_seq, device="meta", init=False)
     named = list(sharded.named_parameters())
-    keep = [i for i, (n, _) in enumerate(named) if not n.startswith(skip)]
-    full = dict(zip(keep, full_tensors([named[i][1] for i in keep])))
+    chunked, whole = [], []
+    for i, (n, p) in enumerate(named):
+        if n.startswith(skip):
+            continue
+        d = split.chunk_dim(n) if split is not None else None
+        (chunked if d is not None and _owns_chunk(p, d) else whole).append(i)
+    batch = tuple(a for a in named[0][1].device_mesh.mesh_dim_names
+                  if a in BATCH_AXES)
+    full = dict(zip(chunked, full_tensors([named[i][1] for i in chunked],
+                                          axes=batch)))
+    full.update(zip(whole, full_tensors([named[i][1] for i in whole])))
     _set_params(model, [nn.Parameter(full[i] if i in full else torch.empty(
         p.shape, dtype=p.dtype, device="meta"))
         for i, (_, p) in enumerate(named)])
-    return model
+    return model, set(chunked)
+
+
+def _seq_len(batch: Dict) -> int:
+    """The positions a train batch runs (``loss_fn``'s inputs)."""
+    S = batch["tokens"].shape[1]
+    return S if "labels" in batch else S - 1
 
 
 def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
                      clip: float, microbatch: int, mesh):
+    from torch.distributed.tensor import Replicate
+
     _, opt_update = adamw(lr, weight_decay=weight_decay)
-    group = mesh_group(mesh)
-    size = mesh.size()
+    mesh_group(mesh)                # the mesh must span the default group
+    names = mesh.mesh_dim_names
+    batch_dims = [i for i, a in enumerate(names)
+                  if a in BATCH_AXES and int(mesh.shape[i]) > 1]
+    n_rows = 1
+    for i in batch_dims:
+        n_rows *= int(mesh.shape[i])
+    model_dim = names.index("model") if "model" in names else None
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
@@ -321,22 +380,31 @@ def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
                                  "losses would not average to the global "
                                  "mean")
         shards = list(state.params.parameters())
-        model = _working_model(cfg, state.params)
-        loss, grads = _loss_and_grads(model, [
-            _rank_rows(cfg, mesh, b)
-            for b in _microbatches(batch, microbatch)])
+        rows = [_rank_rows(cfg, mesh, b)
+                for b in _microbatches(batch, microbatch)]
+        split = make_split(cfg, mesh, _seq_len(rows[0]))
+        model, chunked = _working_model(cfg, state.params, split)
+        loss, grads = _loss_and_grads(model, rows, split)
         del model
-        # the mean over the mesh, in float32, the same bits on every rank
-        for g in grads:
-            g.div_(size)
-        red = all_reduce_sum(grads + [loss / size], group,
-                             dtype=torch.float32)
+        # the mean over the data shards, in float32, the same bits on
+        # every rank holding a leaf's chunk
+        red = [g / n_rows for g in grads] + [loss / n_rows]
+        for i in batch_dims:
+            red = all_reduce_sum(red, mesh.get_group(i), dtype=torch.float32)
         loss, grads = red[-1], red[:-1]
-        gnorm = global_norm(grads)
+        # the global norm, each element once
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        own = sum((sq[i] for i in chunked), loss.new_zeros(()))
+        if chunked:
+            own = all_reduce_sum([own], mesh.get_group(model_dim))[0]
+        gnorm = torch.sqrt(own + sum(q for i, q in enumerate(sq)
+                                     if i not in chunked))
         scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
         with torch.no_grad():
             for i, p in enumerate(shards):
-                g = local_shard(grads[i], mesh, p.placements)
+                pl = tuple(Replicate() if i in chunked and j == model_dim
+                           else q for j, q in enumerate(p.placements))
+                g = local_shard(grads[i], mesh, pl)
                 g, grads[i] = g * scale.to(g.dtype), None
                 ups, opt = opt_update([g], AdamState(
                     [state.mu[i].to_local()], [state.nu[i].to_local()]),
@@ -381,64 +449,65 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     return decode_step
 
 
-_BATCH_AXES = ("pod", "data")
-
-
 def _mesh_serve_step(cfg: ModelConfig, mesh, kind: str):
     from torch.distributed.tensor import Replicate, Shard
 
     mesh_group(mesh)                # the mesh must span the default group
-    model_axes = tuple(a for a in mesh.mesh_dim_names
-                       if a not in _BATCH_AXES)
+    names = mesh.mesh_dim_names
+    model_axes = tuple(a for a in names if a not in BATCH_AXES)
 
     def along_model(placements) -> tuple:
         return tuple(p if a in model_axes else Replicate()
-                     for p, a in zip(placements, mesh.mesh_dim_names))
+                     for p, a in zip(placements, names))
 
-    def rows_of(dt) -> tuple:
-        """The shape of this rank's rows of the cache leaf ``dt``, whole
-        along 'model'."""
-        pl = tuple(Replicate() if a in model_axes else p
-                   for p, a in zip(dt.placements, mesh.mesh_dim_names))
-        return local_shard(torch.empty(dt.shape, device="meta"), mesh,
-                           pl).shape
+    def layout(dt) -> Optional[int]:
+        """The per-layer dim of a stacked cache leaf sharded on 'model'."""
+        if "model" not in names:
+            return None
+        p = dt.placements[names.index("model")]
+        return p.dim - 1 if p.is_shard() else None
 
-    # the serve step never runs the encoder (memory is an input); prefill
-    # overwrites the cross-attention K / V whole, so they are not gathered
+    # the serve step never runs the encoder (memory is an input)
     skip = ("enc_",) if cfg.family == "encdec" else ()
-    fresh = ("cross_k", "cross_v") if kind == "prefill" else ()
 
     @torch.no_grad()
     def serve_step(model, tokens, cache, pos, extras):
         inputs = {"tokens": tokens, **{k: v for k, v in extras.items()
                                        if v is not None}}
         with ambient_mesh(mesh):
-            work = _working_model(cfg, model, skip)
             rows = _rank_rows(cfg, mesh, inputs, kind)
-            names, shards = zip(*named_leaves(cache))
-            gather = [i for i, n in enumerate(names)
-                      if n.rsplit(".", 1)[-1] not in fresh]
-            got = dict(zip(gather, full_tensors([shards[i] for i in gather],
-                                                axes=model_axes)))
-            local = [got[i] if i in got else torch.empty(
-                rows_of(dt), dtype=dt.dtype, device=dt.to_local().device)
-                for i, dt in enumerate(shards)]
+            attn = cache.get("attn", cache)
+            split = make_split(
+                cfg, mesh, rows["tokens"].shape[1] if kind == "prefill"
+                else 1, kind, layout(attn["k"]) if "k" in attn else None,
+                layout(attn["cross_k"]) if "cross_k" in attn else None)
+            work, _ = _working_model(cfg, model, split, skip)
+            leaf_names, shards = zip(*named_leaves(cache))
+            # the bridge: the Mamba2 mixer runs whole on its state
+            bridged = [i for i, n in enumerate(leaf_names)
+                       if n.rsplit(".", 1)[-1] in ("conv", "ssm")]
+            got = dict(zip(bridged, full_tensors(
+                [shards[i] for i in bridged], axes=model_axes)))
+            local = [got[i] if i in got else dt.to_local()
+                     for i, dt in enumerate(shards)]
             tree = _with_leaves(cache, local)
             if kind == "prefill":
                 logits, _ = lm.prefill(work, rows["tokens"], tree,
                                        positions=rows.get("positions"),
-                                       memory=rows.get("memory"))
+                                       memory=rows.get("memory"),
+                                       split=split)
             else:
                 logits, _ = lm.decode_step(work, rows["tokens"], tree, pos,
-                                           memory=rows.get("memory"))
+                                           memory=rows.get("memory"),
+                                           split=split)
             del work, tree
-            for dt, t in zip(shards, local):
-                if t is not dt.to_local():
-                    dt.to_local().copy_(local_shard(
-                        t, mesh, along_model(dt.placements)))
-        split = rows["tokens"].shape[0] != tokens.shape[0]
-        pl = tuple(Shard(0) if split and a in _BATCH_AXES else Replicate()
-                   for a in mesh.mesh_dim_names)
+            for i in bridged:
+                if local[i] is not shards[i].to_local():
+                    shards[i].to_local().copy_(local_shard(
+                        local[i], mesh, along_model(shards[i].placements)))
+        split_rows = rows["tokens"].shape[0] != tokens.shape[0]
+        pl = tuple(Shard(0) if split_rows and a in BATCH_AXES
+                   else Replicate() for a in names)
         return to_dtensor(logits, mesh, pl,
                           (tokens.shape[0], logits.shape[1])), cache
 

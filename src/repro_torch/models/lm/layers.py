@@ -11,8 +11,9 @@ as JAX does (``substrate.nn.matmul``).
 Attention is blockwise (online softmax over KV chunks of ``block``), as
 JAX's ``lax.scan``; sliding-window attention masks within the same loop.
 JAX's sharding hints sit at JAX's sites (``_attn_parallel_mode`` picks
-them from the ambient mesh); on the plain tensors of one card and of the
-mesh train step, which splits only the batch, each is the identity.
+them from the ambient mesh); on plain tensors each is the identity. On a
+process mesh the steps pass a ``tp.Split`` and :func:`attention_split` /
+:func:`mlp_split` run the rank's share of the model axis's work.
 
 A KV cache is updated IN PLACE (the JAX functions return a new one): the
 caller's cache tensors hold the new entries afterwards. Positions, the
@@ -21,20 +22,23 @@ reads one back to the host.
 """
 from __future__ import annotations
 
+import types
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.transport import gather_along, reduce_from_group
 from ...pjit_utils import axis_sizes, current_mesh, shard_hint
 from ...substrate.nn import matmul
 from .config import ModelConfig
+from .tp import Split
 
 __all__ = ["Norm", "Attention", "MLP", "normal", "norm_init", "norm_apply",
            "rope_freqs", "rope_angles", "apply_rope", "attention_init",
            "blockwise_attention", "attention_kv", "attention_apply",
-           "mlp_init", "mlp_apply"]
+           "attention_split", "mlp_init", "mlp_apply", "mlp_split"]
 
 
 def _attn_parallel_mode(cfg: ModelConfig, seq_len: int) -> Optional[str]:
@@ -181,7 +185,8 @@ def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int = 0, q_offset=0,
                         kv_len: Optional[torch.Tensor] = None,
-                        block: int = 512) -> torch.Tensor:
+                        block: int = 512, scale_dim: Optional[int] = None,
+                        reduce_scores=None) -> torch.Tensor:
     """Online-softmax attention over KV chunks of ``block``.
 
     q: (B, Sq, H, Dh); k/v: (B, Skv, H, Dh) (kv heads already repeated).
@@ -189,7 +194,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``kv_len``: optional valid length of the KV (cache decoding).
     ``window``: sliding-window size (0 = unlimited). Masked scores are
     -1e30, JAX's constant, so a chunk masked whole is wiped by the next
-    chunk's correction exactly as in JAX."""
+    chunk's correction exactly as in JAX. ``scale_dim``: the head dim of
+    the 1/sqrt scale (default q's); ``reduce_scores``: applied to each
+    block's scores before masking (the sum over 'model' of a head_dim
+    split's partial q·k)."""
     B, Sq, H, Dh = q.shape
     Skv = k.shape[1]
     dev = q.device
@@ -198,7 +206,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
-    q32 = q.float() * Dh ** -0.5
+    q32 = q.float() * (scale_dim or Dh) ** -0.5
     qpos = q_offset + torch.arange(Sq, device=dev)
     acc = torch.zeros((B, H, Sq, Dh), dtype=torch.float32, device=dev)
     m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=dev)
@@ -208,6 +216,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vblk = v[:, i * block:(i + 1) * block].float()
         kpos = i * block + torch.arange(block, device=dev)
         s = torch.einsum("bqhd,bkhd->bhqk", q32, kblk)
+        if reduce_scores is not None:
+            s = reduce_scores(s)
         mask = torch.ones((Sq, block), dtype=torch.bool, device=dev)
         if causal:
             mask = mask & (qpos[:, None] >= kpos[None, :])
@@ -296,6 +306,159 @@ def attention_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor,
 
 
 # --------------------------------------------------------------------- #
+# attention over the model axis (tp.Split)
+# --------------------------------------------------------------------- #
+def _split_kv(p: Attention, cfg: ModelConfig, src: torch.Tensor,
+              sp: Split):
+    """K / V of ``src`` in the split's compute layout: the rank's K/V
+    heads, its head_dim slice, or every head (whole weights: for the
+    rank's own share of the work, or, 'replicated', the same work on
+    every rank)."""
+    Hkv, Dh = cfg.n_kv_heads, cfg.head_dim
+    if sp.kv_chunked:
+        def w(t, d):
+            return sp.tp(t, d, Hkv)
+    elif sp.attn == "head_dim":
+        def w(t, d):
+            return sp.tp(t, d + 1, Dh)
+    elif sp.attn == "replicated":
+        def w(t, d):
+            return t
+    else:
+        def w(t, d):
+            return sp.part(t)
+    k, v = _proj(src, w(p.wk, 1)), _proj(src, w(p.wv, 1))
+    if hasattr(p, "bk"):
+        k = k + w(p.bk, 0)
+        v = v + w(p.bv, 0)
+    return k, v
+
+
+def _for_q_heads(k: torch.Tensor, cfg: ModelConfig, sp: Split
+                 ) -> torch.Tensor:
+    """K (or V) repeated for the query heads the rank runs: under 'heads'
+    with every K/V head at hand, the ones its query heads read."""
+    groups = cfg.n_heads // cfg.n_kv_heads
+    if sp.attn != "heads" or sp.kv_chunked:
+        return _repeat_kv(k, groups)
+    q0, hq = sp.chunk(cfg.n_heads)
+    kv0, kv1 = q0 // groups, (q0 + hq - 1) // groups + 1
+    return _repeat_kv(k[:, :, kv0:kv1], groups).narrow(
+        2, q0 - kv0 * groups, hq)
+
+
+def _cache_shard(t: torch.Tensor, layout: Optional[int], cfg: ModelConfig,
+                 sp: Split) -> torch.Tensor:
+    """This rank's shard, in a cache sharded on heads (2) or head_dim (3)
+    or whole, of K / V held in the compute layout."""
+    if layout == 2 and t.shape[2] == cfg.n_kv_heads:
+        return sp.tp(t, 2, cfg.n_kv_heads)
+    if layout == 3 and t.shape[3] == cfg.head_dim:
+        return sp.tp(t, 3, cfg.head_dim)
+    return t
+
+
+def _seq_shard_write(buf: torch.Tensor, t: torch.Tensor, start,
+                     sp: Split) -> None:
+    """Write ``t`` (B, S, H, Dh), at cache positions ``start`` onwards,
+    into ``buf``: the rank's chunk (B, n, H, Dh) of a cache sharded on the
+    sequence, which holds positions r·n … r·n + n - 1."""
+    n, S = buf.shape[1], t.shape[1]
+    j = sp.r * n + torch.arange(n, device=buf.device) - start
+    ok = ((j >= 0) & (j < S))[None, :, None, None]
+    rows = t.index_select(1, j.clamp(0, S - 1).long()).to(buf.dtype)
+    buf.copy_(torch.where(ok, rows, buf))
+
+
+def attention_split(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    angles: Optional[torch.Tensor], sp: Split, *,
+                    causal: bool = True, cache: Optional[Dict] = None,
+                    q_offset=0, memory: Optional[torch.Tensor] = None,
+                    cross: bool = False, block: int = 512) -> torch.Tensor:
+    """The rank's share of self- or (``cross``) cross-attention under the
+    split ``sp`` (``tp`` module docstring): ``x`` in the residual layout
+    (the rank's rows under ``sp.sp``), the output in the same layout.
+
+    ``cache``: the rank's shards of the layer's cache (``k`` / ``v`` /
+    ``len``, or ``cross_k`` / ``cross_v``), written in place in their
+    layouts ``sp.kv`` / ``sp.cross``. Where the cache holds what the rank
+    attends over (its heads, its head_dim slice, or all) it attends over
+    the cache, as one card does; else (a prefill writing a sequence- or
+    head_dim-sharded cache) over the K / V it computed, which is the
+    same from an empty cache. ``memory``: the encoder output, whole on
+    every rank (cross-attention K / V from it; at decode they are read
+    from the cache)."""
+    Hq, Dh = cfg.n_heads, cfg.head_dim
+    mode = sp.attn
+    wo = p.wo.reshape(-1, p.wo.shape[-1])
+    if mode == "heads":
+        x = sp.enter(x)
+        q = _proj(x, sp.tp(p.wq, 1, Hq))
+        bq = sp.tp(p.bq, 0, Hq) if hasattr(p, "bq") else None
+    elif mode == "head_dim":
+        q = _proj(x, sp.tp(p.wq, 2, Dh))
+        bq = sp.tp(p.bq, 1, Dh) if hasattr(p, "bq") else None
+    else:
+        wq = sp.part(p.wq) if mode == "context" else p.wq
+        q = _proj(x, wq)
+        bq = None if not hasattr(p, "bq") else (
+            sp.part(p.bq) if mode == "context" else p.bq)
+    if bq is not None:
+        q = q + bq
+    if mode == "context":
+        q_offset = q_offset + sp.r * x.shape[1]
+        if angles is not None:
+            angles = sp.seq_chunk(angles)
+    elif mode == "head_dim" and angles is not None:
+        start, n = sp.chunk(Dh)
+        angles = angles[..., start // 2:(start + n) // 2]
+    kv_len = None
+    if cross:
+        if memory is not None:
+            k, v = _split_kv(p, cfg, memory, sp)
+            if cache is not None:
+                cache["cross_k"].copy_(_cache_shard(k, sp.cross, cfg, sp))
+                cache["cross_v"].copy_(_cache_shard(v, sp.cross, cfg, sp))
+        else:
+            k, v = cache["cross_k"], cache["cross_v"]
+    else:
+        k, v = _split_kv(p, cfg, x, sp)
+        if angles is not None:
+            q = apply_rope(q, angles)
+            k = apply_rope(k, angles)
+        if mode == "context":
+            k = gather_along(k, sp.group, 1)
+            v = gather_along(v, sp.group, 1)
+        if cache is not None:
+            if sp.kv == 1:
+                _seq_shard_write(cache["k"], k, cache["len"], sp)
+                _seq_shard_write(cache["v"], v, cache["len"], sp)
+                cache["len"].copy_(cache["len"] + k.shape[1])
+            else:
+                ks = _cache_shard(k, sp.kv, cfg, sp)
+                vs = _cache_shard(v, sp.kv, cfg, sp)
+                ck, cv, new_len = _cache_write(cache, ks, vs)
+                if ks is k:     # the cache holds what this rank reads
+                    k, v, kv_len = ck, cv, new_len
+    reduce = None
+    if mode == "head_dim":
+        def reduce(s):
+            return reduce_from_group(s, sp.group)
+    out = blockwise_attention(q, _for_q_heads(k, cfg, sp),
+                              _for_q_heads(v, cfg, sp), causal=causal,
+                              window=cfg.sliding_window,
+                              q_offset=q_offset, kv_len=kv_len, block=block,
+                              scale_dim=Dh, reduce_scores=reduce)
+    if mode == "heads":
+        return sp.exit(matmul(out.flatten(2), sp.tp(p.wo, 0, Hq).reshape(
+            -1, wo.shape[-1])))
+    if mode == "head_dim":
+        return reduce_from_group(matmul(out.flatten(2), sp.tp(
+            p.wo, 1, Dh).reshape(-1, wo.shape[-1])), sp.group)
+    return matmul(out.flatten(2), sp.part(wo) if mode == "context" else wo)
+
+
+# --------------------------------------------------------------------- #
 # MLP
 # --------------------------------------------------------------------- #
 class MLP(nn.Module):
@@ -327,3 +490,22 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(matmul(x, p.w_up) + p.b_up, approximate="tanh")
     return matmul(h, p.w_down) + p.b_down
+
+
+def mlp_split(p: MLP, x: torch.Tensor, sp: Split) -> torch.Tensor:
+    """The rank's share of the MLP under ``sp``: TP over d_ff when the
+    axis divides it (the whole sequence in, the partial sums reduced to
+    the residual layout, ``b_down`` added on the rank's rows), else the
+    whole MLP on the rank's rows."""
+    if not sp.mlp_tp:
+        return mlp_apply(types.SimpleNamespace(**{
+            n: sp.rows(t) for n, t in p.named_parameters()}), x)
+    ff = sp.cfg.d_ff
+    x = sp.enter(x)
+    if hasattr(p, "w_gate"):
+        h = F.silu(matmul(x, sp.tp(p.w_gate, 1, ff))) * matmul(
+            x, sp.tp(p.w_up, 1, ff))
+        return sp.exit(matmul(h, sp.tp(p.w_down, 0, ff)))
+    h = F.gelu(matmul(x, sp.tp(p.w_up, 1, ff)) + sp.tp(p.b_up, 0, ff),
+               approximate="tanh")
+    return sp.exit(matmul(h, sp.tp(p.w_down, 0, ff))) + sp.rows(p.b_down)

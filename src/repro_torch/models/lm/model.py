@@ -20,7 +20,10 @@ gradients are recorded; recomputing a block gives the same values, so it
 changes no result (the recomputation runs under the ambient mesh of the
 forward, which the MoE's token blocks read). JAX's residual and logits
 sharding hints sit at JAX's sites; on plain tensors they are the
-identity.
+identity. On a process mesh the steps pass ``split=`` (a ``tp.Split``):
+the blocks, the embedding, the head and the CE then run the rank's
+share of the model axis's work (``tp`` module docstring), with the MoE
+FFN and the Mamba2 mixer behind its bridge.
 
 Caches (:func:`init_cache`) have JAX's layout, stacked per layer, and
 :func:`prefill` / :func:`decode_step` update them IN PLACE and return them.
@@ -28,6 +31,7 @@ Caches (:func:`init_cache`) have JAX's layout, stacked per layer, and
 from __future__ import annotations
 
 import functools
+import types
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,14 +40,18 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ...core.transport import (all_gather_cat, copy_to_group, gather_along,
+                               gather_blocks, reduce_from_group)
 from ...device import DeviceLike, resolve_device
 from ...pjit_utils import ambient_mesh, current_mesh, shard_hint
 from ...substrate.nn import matmul
 from .config import ModelConfig
 from .layers import (Attention, MLP, Norm, attention_apply, attention_kv,
-                     mlp_apply, norm_apply, normal, rope_angles)
+                     attention_split, mlp_apply, mlp_split, norm_apply,
+                     normal, rope_angles)
 from .mamba2 import Mamba2, mamba2_apply
 from .moe import MoE, moe_apply
+from .tp import Split
 
 __all__ = ["LM", "lm_dtype", "init_params", "from_jax_params",
            "to_jax_tree", "from_jax_tree", "embed_tokens", "logits_fn",
@@ -59,7 +67,10 @@ def lm_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _residual_hint(h):
     """Residual-stream sharding between blocks: sequence-sharded over
-    'model' (Megatron-SP), d_model-sharded for short (decode) calls."""
+    'model' (Megatron-SP), d_model-sharded for short (decode) calls. On a
+    process mesh the split keeps the rank's rows of the sequence wherever
+    the model axis divides it, else the whole residual on every 'model'
+    rank (``tp`` module docstring): the layout changes no value."""
     if h.shape[1] >= 16:
         return shard_hint(h, "data", "model", None)
     return shard_hint(h, "data", None, "model")
@@ -225,11 +236,43 @@ def from_jax_params(cfg: ModelConfig, tree: Dict,
 # --------------------------------------------------------------------- #
 # blocks
 # --------------------------------------------------------------------- #
+def _norm(p: Norm, h, split: Optional[Split]):
+    """``norm_apply``; on the residual's rows under a split, its scale and
+    bias enter through ``Split.part``."""
+    if split is None or not split.sp:
+        return norm_apply(p, h)
+    return norm_apply(types.SimpleNamespace(**{
+        n: split.part(t) for n, t in p.named_parameters()}), h)
+
+
+def _attn_block_split(bp: AttnBlock, cfg: ModelConfig, h, angles, split,
+                      *, causal, memory, cache, q_offset):
+    h = h + attention_split(bp.attn, cfg, _norm(bp.norm1, h, split), angles,
+                            split, causal=causal, cache=cache,
+                            q_offset=q_offset)
+    if hasattr(bp, "xattn"):
+        h = h + attention_split(bp.xattn, cfg, _norm(bp.norm_x, h, split),
+                                None, split, causal=False, cache=cache,
+                                memory=memory, cross=True)
+    x = _norm(bp.norm2, h, split)
+    if hasattr(bp, "moe"):
+        y, aux = split.bridge(lambda t: moe_apply(bp.moe, cfg, t), x)
+    else:
+        y, aux = mlp_split(bp.mlp, x, split), h.new_zeros(
+            (), dtype=torch.float32)
+    return h + y, aux
+
+
 def _attn_block(bp: AttnBlock, cfg: ModelConfig, h, angles, *, causal=True,
-                memory=None, cache=None, q_offset=0):
+                memory=None, cache=None, q_offset=0, split=None):
     """Returns (h, aux). A decoder block's cross-attention K/V are
     projected from ``memory`` (and written to the cache when there is
-    one) or, at decode, read from the cache."""
+    one) or, at decode, read from the cache. Under ``split``, the rank's
+    share (``_attn_block_split``)."""
+    if split is not None:
+        return _attn_block_split(bp, cfg, h, angles, split, causal=causal,
+                                 memory=memory, cache=cache,
+                                 q_offset=q_offset)
     x = norm_apply(bp.norm1, h)
     h = h + attention_apply(bp.attn, cfg, x, angles, causal=causal,
                             cache=cache, q_offset=q_offset)
@@ -252,7 +295,11 @@ def _attn_block(bp: AttnBlock, cfg: ModelConfig, h, angles, *, causal=True,
     return _residual_hint(h + y), aux
 
 
-def _mamba_block(bp: MambaBlock, cfg: ModelConfig, h, state=None):
+def _mamba_block(bp: MambaBlock, cfg: ModelConfig, h, state=None,
+                 split=None):
+    if split is not None:     # the bridge: the mixer whole, the state whole
+        return h + split.bridge(lambda t: mamba2_apply(
+            bp.mixer, cfg, t, state), _norm(bp.norm, h, split))
     return _residual_hint(
         h + mamba2_apply(bp.mixer, cfg, norm_apply(bp.norm, h), state))
 
@@ -281,30 +328,75 @@ def _remat(fn, *args):
 
 
 def _attn_stack(model: LM, blocks, h, angles, *, causal=True, memory=None,
-                caches=None, q_offset=0):
+                caches=None, q_offset=0, split=None):
     cfg = model.cfg
     aux = h.new_zeros((), dtype=torch.float32)
     for i, bp in enumerate(blocks):
         fn = functools.partial(_attn_block, bp, cfg, causal=causal,
                                memory=memory, cache=_layer(caches, i),
-                               q_offset=q_offset)
+                               q_offset=q_offset, split=split)
         h, a = _remat(fn, h, angles)
         aux = aux + a
     return h, aux
 
 
-def _mamba_stack(model: LM, blocks, h, states=None):
+def _mamba_stack(model: LM, blocks, h, states=None, split=None):
     for i, bp in enumerate(blocks):
         h = _remat(functools.partial(
-            _mamba_block, bp, model.cfg, state=_layer(states, i)), h)
+            _mamba_block, bp, model.cfg, state=_layer(states, i),
+            split=split), h)
     return h
 
 
 # --------------------------------------------------------------------- #
 # embedding / logits / loss
 # --------------------------------------------------------------------- #
-def embed_tokens(model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    return _residual_hint(F.embedding(tokens.long(), model.embed))
+def embed_tokens(model: LM, tokens: torch.Tensor,
+                 split: Optional[Split] = None) -> torch.Tensor:
+    """The token embeddings; under ``split`` in the residual layout: from
+    the rank's vocabulary rows (zeros for the other tokens, the sum over
+    'model' scattered to the rows), or, from a table held whole, the
+    rows' tokens looked up."""
+    if split is None:
+        return _residual_hint(F.embedding(tokens.long(), model.embed))
+    table, V = model.embed, model.cfg.vocab
+    if table.shape[0] != V:
+        v0, n = split.chunk(V)
+        t = tokens.long() - v0
+        e = F.embedding(t.clamp(0, n - 1), table)
+        inside = ((t >= 0) & (t < n))[..., None]
+        return split.exit(torch.where(inside, e, e.new_zeros(())))
+    if split.sp:
+        tokens = split.seq_chunk(tokens)
+    return F.embedding(tokens.long(), split.rows(table))
+
+
+def _vocab_rows(model: LM, split: Split):
+    """The head table's rows of the rank's vocabulary slice and the
+    slice's first token id."""
+    table, V = model.head, model.cfg.vocab
+    v0, n = split.chunk(V)
+    if table.shape[0] != V:
+        return table, v0
+    return split.part(table).narrow(0, v0, n), v0
+
+
+def _split_logits(model: LM, h: torch.Tensor, split: Split) -> torch.Tensor:
+    """(B, V) float32 logits of ``h`` (B, D), whole on every 'model'
+    rank: each rank's vocabulary slice, gathered (serving)."""
+    table, v0 = _vocab_rows(model, split)
+    part = matmul(h, table.t()).float()
+    width = -(-model.cfg.vocab // split.m)
+    part = F.pad(part, (0, width - part.shape[-1]))
+    return all_gather_cat([part], split.group, [1])[0][:, :model.cfg.vocab]
+
+
+def _pos_rows(table: torch.Tensor, S: int, split: Optional[Split]):
+    """Learned positions 0 … S - 1 in the residual layout."""
+    if split is None or not split.sp:
+        return table[None, :S]
+    start, n = split.chunk(S)
+    return split.part(table).narrow(0, start, n)[None]
 
 
 def logits_fn(model: LM, h: torch.Tensor) -> torch.Tensor:
@@ -313,10 +405,17 @@ def logits_fn(model: LM, h: torch.Tensor) -> torch.Tensor:
 
 
 def chunked_ce_loss(model: LM, h: torch.Tensor, labels: torch.Tensor,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, split: Optional[Split] = None
+                    ) -> torch.Tensor:
     """Mean CE over the labels >= 0, the (B, c, V) logits of one chunk of
     ``chunk`` positions at a time. The label's logit is gathered where
-    JAX sums ``logits · one_hot`` (the same value: one term plus zeros)."""
+    JAX sums ``logits · one_hot`` (the same value: one term plus zeros).
+    Under ``split`` each rank computes its vocabulary slice's logits of
+    the whole sequence: the log-sum-exp is that of the ranks'
+    log-sum-exps, the label's logit the sum of the ranks' (zero off
+    their slice); the loss is the same on every 'model' rank."""
+    if split is not None:
+        return _chunked_ce_split(model, h, labels, chunk, split)
     S = h.shape[1]
     tot = h.new_zeros((), dtype=torch.float32)
     cnt = h.new_zeros((), dtype=torch.float32)
@@ -331,6 +430,27 @@ def chunked_ce_loss(model: LM, h: torch.Tensor, labels: torch.Tensor,
     return tot / torch.clamp(cnt, min=1.0)
 
 
+def _chunked_ce_split(model: LM, h, labels, chunk: int, split: Split):
+    h = split.enter(h)
+    table, v0 = _vocab_rows(model, split)
+    n = table.shape[0]
+    tot = h.new_zeros((), dtype=torch.float32)
+    cnt = h.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, h.shape[1], chunk):
+        logits = matmul(h[:, c0:c0 + chunk], table.t()).float()
+        lx = labels[:, c0:c0 + chunk].long()
+        lse = torch.logsumexp(gather_blocks(torch.logsumexp(
+            logits, dim=-1)[..., None], split.group, -1), dim=-1)
+        t = lx - v0
+        lab = logits.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+        lab = reduce_from_group(torch.where((t >= 0) & (t < n), lab,
+                                            lab.new_zeros(())), split.group)
+        valid = (lx >= 0).float()
+        tot = tot + torch.sum((lse - lab) * valid)
+        cnt = cnt + torch.sum(valid)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 # --------------------------------------------------------------------- #
 # forward passes
 # --------------------------------------------------------------------- #
@@ -339,12 +459,13 @@ def _positions_default(B: int, S: int, device, offset=0) -> torch.Tensor:
 
 
 def backbone(model: LM, h: torch.Tensor, positions: torch.Tensor, *,
-             caches=None, q_offset=0, memory=None):
+             caches=None, q_offset=0, memory=None, split=None):
     """Shared trunk: blocks -> final norm.
 
     positions: (B, S) or (3, B, S) for M-RoPE. caches: the family's
     cache (:func:`init_cache`), updated in place. Returns (h, aux_loss,
-    caches)."""
+    caches). Under ``split``, ``h`` is in the residual layout, the caches
+    are the rank's shards."""
     cfg = model.cfg
     fam = cfg.family
     if fam in ("dense", "vlm", "moe", "encdec"):
@@ -352,12 +473,13 @@ def backbone(model: LM, h: torch.Tensor, positions: torch.Tensor, *,
                   rope_angles(positions, cfg.head_dim, cfg.rope_theta,
                               cfg.mrope_sections))
         h, aux = _attn_stack(model, model.blocks, h, angles, causal=True,
-                             memory=memory, caches=caches, q_offset=q_offset)
-        return norm_apply(model.final_norm, h), aux, caches
+                             memory=memory, caches=caches, q_offset=q_offset,
+                             split=split)
+        return _norm(model.final_norm, h, split), aux, caches
     zero = h.new_zeros((), dtype=torch.float32)
     if fam == "ssm":
-        h = _mamba_stack(model, model.blocks, h, caches)
-        return norm_apply(model.final_norm, h), zero, caches
+        h = _mamba_stack(model, model.blocks, h, caches, split)
+        return _norm(model.final_norm, h, split), zero, caches
     # hybrid: each group of Mamba2 blocks, then the shared attention block
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     every = cfg.shared_attn_every
@@ -365,24 +487,44 @@ def backbone(model: LM, h: torch.Tensor, positions: torch.Tensor, *,
         caches["mamba"], caches["attn"])
     for gi in range(cfg.n_layers // every):
         h = _mamba_stack(model, model.blocks[gi * every:(gi + 1) * every], h,
-                         _layer(m_states, gi))
+                         _layer(m_states, gi), split)
         h, _ = _attn_block(model.shared, cfg, h, angles, causal=True,
-                           cache=_layer(a_caches, gi), q_offset=q_offset)
-    return norm_apply(model.final_norm, h), zero, caches
+                           cache=_layer(a_caches, gi), q_offset=q_offset,
+                           split=split)
+    return _norm(model.final_norm, h, split), zero, caches
 
 
-def encode(model: LM, frames: torch.Tensor) -> torch.Tensor:
-    """Whisper encoder over stub frame embeddings (B, enc_seq, D)."""
-    h = shard_hint(frames + model.enc_pos[None, :frames.shape[1]], "data",
-                   None, "model")
-    h, _ = _attn_stack(model, model.enc_blocks, h, None, causal=False)
-    return norm_apply(model.enc_final_norm, h)
+def encode(model: LM, frames: torch.Tensor, split: Optional[Split] = None
+           ) -> torch.Tensor:
+    """Whisper encoder over stub frame embeddings (B, enc_seq, D). Under
+    ``split`` (the decoder's) the encoder runs its own split over
+    enc_seq and the memory comes back whole on every 'model' rank, its
+    gradient summed over 'model' where the decoder's attention uses it
+    for each rank's share."""
+    if split is None:
+        h = shard_hint(frames + model.enc_pos[None, :frames.shape[1]],
+                       "data", None, "model")
+        h, _ = _attn_stack(model, model.enc_blocks, h, None, causal=False)
+        return norm_apply(model.enc_final_norm, h)
+    S = frames.shape[1]
+    esp = split.for_seq(S)
+    h = (esp.seq_chunk(frames) if esp.sp else frames) + _pos_rows(
+        model.enc_pos, S, esp)
+    h, _ = _attn_stack(model, model.enc_blocks, h, None, causal=False,
+                       split=esp)
+    h = _norm(model.enc_final_norm, h, esp)
+    shared = split.attn in ("heads", "context")
+    if esp.sp:
+        return (gather_along if shared else gather_blocks)(h, esp.group, 1)
+    return copy_to_group(h, esp.group) if shared else h
 
 
-def loss_fn(model: LM, batch: Dict) -> torch.Tensor:
+def loss_fn(model: LM, batch: Dict, split: Optional[Split] = None
+            ) -> torch.Tensor:
     """Training loss. batch keys: tokens (B, S) int, optionally labels,
     plus per family: encdec frames (B, enc_seq, D); vlm positions
-    (3, B, S)."""
+    (3, B, S). ``split``: the rank's share over a process mesh (its
+    rows of the batch, every 'model' rank the same rows)."""
     cfg = model.cfg
     tokens = batch["tokens"]
     if "labels" in batch:
@@ -390,19 +532,19 @@ def loss_fn(model: LM, batch: Dict) -> torch.Tensor:
     else:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
     B, S = inputs.shape
-    h = embed_tokens(model, inputs)
+    h = embed_tokens(model, inputs, split)
     memory = None
     if cfg.family == "encdec":
-        memory = encode(model, batch["frames"].to(h.dtype))
-        h = h + model.dec_pos[None, :S]
+        memory = encode(model, batch["frames"].to(h.dtype), split)
+        h = h + _pos_rows(model.dec_pos, S, split)
     if cfg.family == "vlm":
         positions = batch["positions"]
         if "labels" not in batch:
             positions = positions[:, :, :-1]
     else:
         positions = _positions_default(B, S, h.device)
-    h, aux, _ = backbone(model, h, positions, memory=memory)
-    return chunked_ce_loss(model, h, labels) + 0.01 * aux
+    h, aux, _ = backbone(model, h, positions, memory=memory, split=split)
+    return chunked_ce_loss(model, h, labels, split=split) + 0.01 * aux
 
 
 # --------------------------------------------------------------------- #
@@ -449,34 +591,44 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
 
 @torch.no_grad()
 def prefill(model: LM, tokens: torch.Tensor, cache: Dict, *,
-            positions=None, memory=None):
+            positions=None, memory=None, split=None):
     """Run the prompt through the model, filling ``cache`` in place.
 
-    Returns (last-position logits (B, V) float32, cache)."""
+    Returns (last-position logits (B, V) float32, cache). Under
+    ``split``: the rank's share, its cache shards written (a mesh prefill
+    starts from an empty cache), the logits whole on every 'model'
+    rank."""
     B, S = tokens.shape
-    h = embed_tokens(model, tokens)
+    h = embed_tokens(model, tokens, split)
     if model.cfg.family == "encdec":
-        h = h + model.dec_pos[None, :S]
+        h = h + _pos_rows(model.dec_pos, S, split)
     if positions is None:
         positions = _positions_default(B, S, h.device)
     h, _, cache = backbone(model, h, positions, caches=cache, q_offset=0,
-                           memory=memory)
-    return matmul(h[:, -1], model.head.t()).float(), cache
+                           memory=memory, split=split)
+    if split is None:
+        return matmul(h[:, -1], model.head.t()).float(), cache
+    last = (all_gather_cat([h[:, -1:]], split.group, [1])[0] if split.sp
+            else h)[:, -1]
+    return _split_logits(model, last, split), cache
 
 
 @torch.no_grad()
 def decode_step(model: LM, token: torch.Tensor, cache: Dict, pos, *,
-                memory=None):
+                memory=None, split=None):
     """One decode step. token: (B,) int; pos: the absolute position, a
     0-d tensor on the model's device (or an int).
 
-    Returns (logits (B, V) float32, cache)."""
+    Returns (logits (B, V) float32, cache); under ``split`` as
+    :func:`prefill`."""
     B = token.shape[0]
-    h = embed_tokens(model, token[:, None])
+    h = embed_tokens(model, token[:, None], split)
     pos = torch.as_tensor(pos, device=h.device)
     if model.cfg.family == "encdec":
         h = h + model.dec_pos.index_select(0, pos.reshape(1).long())[None]
     shape = (3, B, 1) if model.cfg.family == "vlm" else (B, 1)
     h, _, cache = backbone(model, h, pos.expand(shape), caches=cache,
-                           q_offset=pos, memory=memory)
+                           q_offset=pos, memory=memory, split=split)
+    if split is not None:
+        return _split_logits(model, h[:, 0], split), cache
     return matmul(h[:, 0], model.head.t()).float(), cache

@@ -14,9 +14,12 @@ mesh is either
   mesh semantics — the reference a process mesh is held to.
 
 ``shard_hint`` is the identity on a plain tensor (every tensor of the
-mesh train step is one: each rank runs a full-size working copy of the
-model on its rows); on a ``DTensor`` it redistributes to the spec's
-placements, which changes no value. A spec is JAX's ``PartitionSpec`` as
+mesh steps is one: a rank runs its share of the work on plain local
+tensors, and the model axis's compute split, ``models/lm/tp.py``, moves
+the activations at JAX's hint sites itself); on a ``DTensor`` it
+redistributes to the spec's placements, which changes no value.
+:func:`axis_index` and :func:`owned_chunk` give a rank its coordinate on
+an axis and the block of a dim it owns there. A spec is JAX's ``PartitionSpec`` as
 a tuple: per dim ``None``, an axis name, or a tuple of names.
 
 A sharded leaf is recorded as a ``DTensor`` (``from_local`` /
@@ -35,7 +38,10 @@ import torch
 __all__ = ["MeshShape", "axis_sizes", "is_process_mesh", "mesh_group",
            "current_mesh", "ambient_mesh", "resolve_axis", "make_spec",
            "shard_hint", "to_placements", "shard_shape", "local_shard",
-           "local_nbytes", "to_dtensor", "full_tensors"]
+           "local_nbytes", "to_dtensor", "full_tensors", "axis_index",
+           "owned_chunk", "BATCH_AXES"]
+
+BATCH_AXES = ("pod", "data")
 
 _state = threading.local()
 
@@ -81,6 +87,22 @@ def mesh_group(mesh):
                          f"the default group: mesh of {mesh.size()}, world "
                          f"of {dist.get_world_size()}")
     return dist.group.WORLD
+
+
+def axis_index(mesh, name: str) -> int:
+    """This rank's coordinate on the process mesh's axis ``name``."""
+    return int(mesh.get_coordinate()[mesh.mesh_dim_names.index(name)])
+
+
+def owned_chunk(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """``(start, size)`` of block ``index`` of a dim of ``n`` cut into
+    ``parts`` blocks of ``ceil(n / parts)`` (the last ones shorter when
+    ``parts`` does not divide ``n``): the block a rank at ``index`` on an
+    axis of ``parts`` owns. Where ``parts`` divides ``n`` it is the chunk
+    ``local_shard`` takes."""
+    size = -(-n // parts)
+    start = min(n, index * size)
+    return start, min(n, start + size) - start
 
 
 def current_mesh():

@@ -4,7 +4,10 @@ input, the cross-attention K / V written whole) and the MoE + sliding-
 window decode (``mixtral_8x22b × decode_32k``: a 32,768-deep cache), each
 as JAX's smoke test runs it, on the debug mesh; held as
 ``test_torch_dryrun.py`` holds the train and SSM cells, plus the donated
-cache's bytes (``alias_size_in_bytes``) equal to JAX's.
+cache's bytes (``alias_size_in_bytes``) equal to JAX's, no collective
+moving a cache leaf (each rank reads and writes its own shards), and the
+enc-dec prefill's FLOPs a device within 1.3× JAX's (the model axis split;
+3.71× while every rank ran the whole model).
 """
 import pytest
 
@@ -27,6 +30,16 @@ def test_serve_cell_matches_jax_on_debug_mesh(cells, arch, shape):
     check_pair(jax_cell, port)
     assert (port["memory_analysis"]["alias_size_in_bytes"]
             == jax_cell["memory_analysis"]["alias_size_in_bytes"])
-    # the cache is sharded over 'model': its rows are gathered each call
+    # the cache is sharded over 'model': each rank reads and writes its
+    # own shards, and no collective carries a cache leaf
     assert any("cache" in n for n in port["notes"])
     assert port["collective_bytes"]["all-gather"] > 0
+    assert not any("cache." in r["names"] for r in port["top_collectives"])
+
+
+def test_encdec_prefill_flops_near_jax(cells):
+    port = cells[("repro_torch", "whisper_medium", "prefill_32k")]
+    jax_cell = cells[("repro", "whisper_medium", "prefill_32k")]
+    ratio = port["tripaware"]["flops_hlo"] / jax_cell["tripaware"][
+        "flops_hlo"]
+    assert ratio <= 1.3, f"port / JAX FLOPs a device: {ratio:.3f}"

@@ -96,7 +96,8 @@ for arch in sorted({a for a, _ in CASES} | {ELASTIC}):
             n = int(np.prod(s.shard_shape(p.shape)))
             nbytes += n * p.dtype.itemsize + 2 * n * 4
         ins[f"{arch}/bytes/{shape[0]}x{shape[1]}"] = np.asarray(nbytes)
-np.savez(inputs_path, **ins)
+np.savez(inputs_path + ".tmp.npz", **ins)
+os.replace(inputs_path + ".tmp.npz", inputs_path)   # whole when it appears
 
 mesh = meshes[(2, 4)]
 for arch, mb in CASES:

@@ -91,7 +91,8 @@ for arch in ARCHS:
             params, jnp.asarray(frames))
         ins[arch + "/memory"] = np.asarray(extras["memory"])
     cases[arch] = (cfg, params, tokens, extras)
-np.savez(inputs_path, **ins)
+np.savez(inputs_path + ".tmp.npz", **ins)
+os.replace(inputs_path + ".tmp.npz", inputs_path)   # whole when it appears
 
 res = {}
 for arch, (cfg, params, tokens, extras) in cases.items():
@@ -136,7 +137,8 @@ for arch, (cfg, params, tokens, extras) in cases.items():
             tok = jnp.argmax(logits, -1).astype(jnp.int32)
             toks.append(np.asarray(tok))
         res[arch + "/tokens"] = np.stack(toks)
-np.savez(out_path, **res)
+np.savez(out_path + ".tmp.npz", **res)
+os.replace(out_path + ".tmp.npz", out_path)   # whole when it appears
 print("LM_SERVE_MESH_REF_OK")
 """
 
