@@ -678,8 +678,8 @@ LM_CKPT_DIR = os.path.join("build", "lm_ckpt")
 # the LM mesh phase (21): MESH_RANKS ranks as a (data, model) mesh; the
 # smoke archs held to the one-rank mesh semantics (llama: 3 heads on a
 # model axis of 2, context-parallel attention; qwen2: 4 heads, Megatron
-# TP; whisper: enc-dec; granite / zamba2: the MoE FFN and the Mamba2 mixer
-# behind the split's bridge) and their batch (B, S, steps); the elastic
+# TP; whisper: enc-dec; granite: the MoE's 'slots' split; zamba2: the
+# Mamba2 mixer over its heads) and their batch (B, S, steps); the elastic
 # restore's two meshes; the full-width config's depth and run (layers, B,
 # S, warm-up steps, timed steps)
 LM_MESH = (2, 2)
@@ -690,6 +690,10 @@ LM_MESH_ELASTIC = ((2, 2), (4, 1))
 LM_MESH_FULL = (2, 4, 512, 1, 3)
 LM_MESH_TOL = 1e-5
 LM_MESH_FULL_TOL = 2e-2
+# and these at their published widths, cut in depth so four ranks share
+# the card, trained as LM_FULL's row: (arch, layers); granite's 40 small
+# experts run the 'slots' split, mamba2's 64 SSM heads split over 'model'
+LM_MESH_FULL_MORE = (("granite_moe_3b", 2), ("mamba2_1p3b", 2))
 # phase 21 (a) holds every smoke arch's first-step gradients to one rank's
 # and, after the steps, the params of these: whisper's are not held there,
 # since one element of its dec_pos has a first-step gradient of -9.3e-9,
@@ -710,6 +714,13 @@ LM_SERVE_MESH_SMOKE = (4, 16, 32)
 LM_SERVE_MESH_STEPS = 8
 LM_SERVE_MESH_FULL = (4, 512, 4)
 LM_SERVE_MESH_TOL = 1e-5
+# phase 22 (b)'s full-width serve rows: (arch, layers, B, prompt, timed
+# decode steps), LM_FULL's first; mixtral's 8 experts run expert-parallel
+# on the model axis of 2 (one layer: ≈ 5.4e9 parameters, its train state
+# would not fit four ranks on one card, so it is served only)
+LM_SERVE_MESH_FULL_ROWS = ((LM_FULL, LM_MESH_FULL[0]) + LM_SERVE_MESH_FULL,
+                           ("mamba2_1p3b", 2, 4, 512, 4),
+                           ("mixtral_8x22b", 1, 4, 128, 2))
 
 
 def emit(obj) -> None:
@@ -5267,8 +5278,8 @@ def lm_phase() -> None:
 class _LMExchange:
     """Times (host clock) and sizes this rank's collectives for the life of
     the process (a child of phase 21 or 22), in three parts: the working
-    copy's gathers (``launch.steps``' ``full_tensors``: the parameters,
-    and a serve call's Mamba2 states), the gradient all-reduces
+    copy's gathers (``launch.steps``' ``full_tensors``: the parameters),
+    the gradient all-reduces
     (``launch.steps``' ``all_reduce_sum``), and the activations of the
     model axis's split (every other ``torch.distributed`` collective: ms
     inside the call, which excludes the host staging, and operand bytes
@@ -5509,6 +5520,16 @@ def _lm_mesh_main(rank: int, root: str, ex: _LMExchange) -> dict:
     out["full_state_bytes"] = state_bytes(state)
     out["full"] = _lm_mesh_full_run(cfg, state, make_train_step(
         cfg, mesh=mesh), mesh, ex)
+    out["more"] = {}
+    for arch, layers in LM_MESH_FULL_MORE:
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        state = init_state(cfg, seed=0, device="cuda", mesh=mesh)
+        out["more"][arch] = {"state_bytes": state_bytes(state),
+                             **_lm_mesh_full_run(cfg, state, make_train_step(
+                                 cfg, mesh=mesh), mesh, ex)}
     return out
 
 
@@ -5586,10 +5607,8 @@ def lm_mesh_phase() -> tuple:
     import tempfile
 
     from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.launch.shardings import param_specs, shard_shape
-    from repro_torch.launch.steps import (eval_param_shapes, init_state,
-                                          make_train_step, state_bytes,
-                                          state_tree)
+    from repro_torch.launch.steps import (init_state, make_train_step,
+                                          state_bytes, state_tree)
     from repro_torch.pjit_utils import MeshShape
 
     t0 = time.perf_counter()
@@ -5621,18 +5640,20 @@ def lm_mesh_phase() -> tuple:
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    shapes = eval_param_shapes(cfg)
-
-    def pairs(spec, leaf):       # (spec, shape leaf), dict keys sorted
-        if isinstance(leaf, dict):
-            return [x for k in sorted(leaf) for x in pairs(spec[k], leaf[k])]
-        return [(spec, leaf)]
-
-    # a rank's params in their dtype and μ, ν in float32
-    specs_bytes = sum(
-        int(np.prod(shard_shape(leaf.shape, spec, shape)))
-        * (leaf.dtype.itemsize + 8)
-        for spec, leaf in pairs(param_specs(shapes, cfg, shape), shapes))
+    specs_bytes = _specs_state_bytes(cfg)
+    # the other full-width rows' one-rank references, under the mesh's
+    # semantics (the MoE's token blocks)
+    more = {}
+    for arch, n_layers in LM_MESH_FULL_MORE:
+        c = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        state = init_state(c, seed=0, device="cuda")
+        more[arch] = {"one_rank": _lm_mesh_full_run(
+            c, state, make_train_step(c), shape, None),
+            "one_rank_state_bytes": state_bytes(state),
+            "specs_state_bytes_per_rank": _specs_state_bytes(c)}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
 
     root = tempfile.mkdtemp(prefix="lm_mesh_")
     try:
@@ -5728,11 +5749,99 @@ def lm_mesh_phase() -> tuple:
                         r["full_state_bytes"], **r["full"]} for r in ranks]})
     emit(_split_row("lm_mesh_split", "train step", full, ranks,
                     lambda r: r["full"]))
+    for arch, n_layers in LM_MESH_FULL_MORE:
+        _lm_mesh_full_more(arch, n_layers, ranks, more[arch])
     emit({"phase": "lm_mesh_done", "seconds": time.perf_counter() - t0})
-    return one["step_ms_median"], ranks[0]["full"]["counts"]
+    return one["step_ms_median"], {
+        LM_FULL: ranks[0]["full"]["counts"],
+        **{a: ranks[0]["more"][a]["counts"] for a, _ in LM_MESH_FULL_MORE}}
 
 
-def _split_row(phase: str, what: str, full, ranks, part) -> dict:
+def _specs_state_bytes(cfg) -> int:
+    """A rank's bytes of ``cfg``'s train state under JAX's specs on
+    ``MeshShape(LM_MESH)``: its params in their dtype, μ and ν in
+    float32."""
+    from repro_torch.launch.shardings import param_specs, shard_shape
+    from repro_torch.launch.steps import eval_param_shapes
+    from repro_torch.pjit_utils import MeshShape
+
+    shape = MeshShape(LM_MESH)
+    shapes = eval_param_shapes(cfg)
+
+    def pairs(spec, leaf):       # (spec, shape leaf), dict keys sorted
+        if isinstance(leaf, dict):
+            return [x for k in sorted(leaf) for x in pairs(spec[k], leaf[k])]
+        return [(spec, leaf)]
+
+    return sum(int(np.prod(shard_shape(leaf.shape, spec, shape)))
+               * (leaf.dtype.itemsize + 8)
+               for spec, leaf in pairs(param_specs(shapes, cfg, shape),
+                                       shapes))
+
+
+def _lm_mesh_full_more(arch: str, layers: int, ranks: list, ref: dict
+                       ) -> None:
+    """Phase 21 (c) for a ``LM_MESH_FULL_MORE`` row: each rank's losses
+    finite, falling and within ``LM_MESH_FULL_TOL`` of one rank's under
+    ``MeshShape(LM_MESH)``, its state bytes the specs'; its row and its
+    split row emitted."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    want = ref["one_rank"]["losses"]
+    errs = []
+    for r in ranks:
+        run = r["more"][arch]
+        losses = run["losses"]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{arch} full width, rank {r['rank']}: "
+                                 f"{losses}")
+        if run["state_bytes"] != ref["specs_state_bytes_per_rank"]:
+            raise AssertionError(f"{arch}: rank {r['rank']} holds "
+                                 f"{run['state_bytes']} state bytes, the "
+                                 f"specs {ref['specs_state_bytes_per_rank']}")
+        errs += [_rel(a, b) for a, b in zip(losses, want)]
+    if not max(errs) <= LM_MESH_FULL_TOL:
+        raise AssertionError(f"{arch} full-width mesh losses off by "
+                             f"{max(errs)}")
+    cfg = dataclasses.replace(full, n_layers=layers)
+    split = _split_modes(cfg, LM_MESH_FULL[2])
+    emit({"phase": "lm_mesh_full", "arch": full.name, "mesh": list(LM_MESH),
+          "ranks": MESH_RANKS, "n_layers": layers, "d_model": full.d_model,
+          "n_heads": full.n_heads, "d_ff": full.d_ff,
+          "n_experts": full.n_experts, "ssm_heads": (
+              full.ssm_heads if full.ssm_state else None),
+          "vocab": full.vocab, "dtype": full.dtype, "split": split,
+          "reduced": [f"n_layers {full.n_layers} -> {layers}: four ranks "
+                      f"share one card"],
+          "batch": LM_MESH_FULL[1], "seq": LM_MESH_FULL[2],
+          "reference": "one rank, ambient MeshShape((2, 2))",
+          "transport": "gloo through the host, one card: not an NVLink or "
+                       "NCCL number",
+          "loss_rel_err_max": max(errs), "loss_tol": LM_MESH_FULL_TOL,
+          **ref, "per_rank": [{"rank": r["rank"], **{
+              k: v for k, v in r["more"][arch].items() if k != "counts"}}
+              for r in ranks]})
+    emit(_split_row("lm_mesh_split", "train step", full, ranks,
+                    lambda r: r["more"][arch], layers))
+
+
+def _split_modes(cfg, seq_len: int) -> dict:
+    """The model axis's split modes of ``cfg`` over ``seq_len`` positions
+    on a model axis of ``LM_MESH[1]`` (``tp.Split``'s, read here without
+    a process group)."""
+    from repro_torch.models.lm.tp import Split
+
+    sp = Split(cfg, None, None, LM_MESH[1], 0, seq_len % LM_MESH[1] == 0,
+               "")
+    return {"sp": sp.sp,
+            "moe": sp.moe if cfg.n_experts else None,
+            "mixer": sp.mixer if cfg.ssm_state else None,
+            "conv_chunked": sp.conv_chunked if cfg.ssm_state else None}
+
+
+def _split_row(phase: str, what: str, full, ranks, part,
+               layers: int = LM_MESH_FULL[0]) -> dict:
     """Per rank: the FLOPs ``op_analysis`` counted in ``what`` on the
     process mesh, the median over the timed calls of the working copy's
     gathers, the gradient all-reduces and the split's activation
@@ -5758,7 +5867,7 @@ def _split_row(phase: str, what: str, full, ranks, part) -> dict:
                      "activation_calls": med("activation_calls"),
                      "peak_gb": run["peak_gb"]})
     return {"phase": phase, "what": what, "arch": full.name,
-            "n_layers": LM_MESH_FULL[0], "mesh": list(LM_MESH),
+            "n_layers": layers, "mesh": list(LM_MESH),
             "transport": "gloo through the host, one card: not an NVLink "
                          "or NCCL number", "per_rank": rows}
 
@@ -5844,30 +5953,30 @@ def _serve_mesh_smoke(arch: str, mesh) -> dict:
     return out
 
 
-def _serve_full_case():
-    """Phase 22 (b)'s model config (``LM_FULL`` at ``LM_MESH_FULL``'s
-    depth), its cache span and its prompt (seed 4)."""
+def _serve_full_case(row=LM_SERVE_MESH_FULL_ROWS[0]):
+    """A phase 22 (b) row's model config (the arch at the row's depth),
+    its cache span and its prompt (seed 4)."""
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config(LM_FULL), n_layers=LM_MESH_FULL[0])
-    B, P, n = LM_SERVE_MESH_FULL
+    arch, layers, B, P, n = row
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     tokens = torch.as_tensor(np.random.default_rng(4).integers(
         0, cfg.vocab, (B, P)), dtype=torch.int32, device="cuda")
     return cfg, P + n + 2, tokens
 
 
-def _serve_full_one_rank() -> dict:
-    """Phase 22 (b)'s reference: the same model (seed 0) and prompt on one
-    rank under ``ambient_mesh(MeshShape(LM_MESH))``: the prefill, then
-    greedy decode at the positions (b) decodes at. Its logits (the
+def _serve_full_one_rank(row) -> dict:
+    """A phase 22 (b) row's reference: the same model (seed 0) and prompt
+    on one rank under ``ambient_mesh(MeshShape(LM_MESH))``: the prefill,
+    then greedy decode at the positions (b) decodes at. Its logits (the
     prefill's and each decode step's) and greedy tokens, which (b)'s ranks
     are fed."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.lm import model as lm
     from repro_torch.pjit_utils import MeshShape, ambient_mesh
 
-    cfg, MAX, tokens = _serve_full_case()
-    B, P, n = LM_SERVE_MESH_FULL
+    cfg, MAX, tokens = _serve_full_case(row)
+    _, _, B, P, n = row
     model = lm.init_params(cfg, seed=0, device="cuda")
     cache = lm.init_cache(cfg, B, MAX, lm.lm_dtype(cfg), "cuda")
     logits_all, toks = [], []
@@ -5883,22 +5992,22 @@ def _serve_full_one_rank() -> dict:
     return {"logits": logits_all, "tokens": torch.stack(toks).cpu()}
 
 
-def _serve_mesh_full(rank: int, mesh, ex, feed: torch.Tensor) -> dict:
-    """Phase 22 (b) on one rank: ``LM_FULL`` at its published width,
-    ``LM_MESH_FULL``'s depth, served over the mesh: a warm-up and a timed
-    prefill (each on a fresh cache), a warm-up and the timed decode steps
-    fed the one-rank reference's greedy tokens ``feed``, host-clock ms and
-    the exchange per call, each call's logits gathered after its timing;
-    then one more decode step under ``op_analysis`` (phase 22 (c) holds it
-    to the dry run's fake count of the same step)."""
+def _serve_mesh_full(rank: int, mesh, ex, feed: torch.Tensor, row) -> dict:
+    """A phase 22 (b) row on one rank: the arch at its published width,
+    the row's depth, served over the mesh: a warm-up and a timed prefill
+    (each on a fresh cache), a warm-up and the timed decode steps fed the
+    one-rank reference's greedy tokens ``feed``, host-clock ms and the
+    exchange per call, each call's logits gathered after its timing; then
+    one more decode step under ``op_analysis`` (phase 22 (c) holds it to
+    the dry run's fake count of the same step)."""
     from repro_torch.launch import steps
     from repro_torch.launch.op_analysis import OpAnalysis
     from repro_torch.launch.steps import named_leaves
     from repro_torch.models.lm import model as lm
     from repro_torch.pjit_utils import full_tensors
 
-    cfg, MAX, tokens = _serve_full_case()
-    B, P, n = LM_SERVE_MESH_FULL
+    cfg, MAX, tokens = _serve_full_case(row)
+    _, _, B, P, n = row
     feed = feed.to("cuda")
     model = lm.init_params(cfg, seed=0, device="cuda")
     steps.shard_model(model, mesh)
@@ -5969,11 +6078,13 @@ def _serve_mesh_rank(rank: int, world: int, root: str) -> None:
         mesh = make_mesh(LM_MESH, ("data", "model"), device="cuda")
         out = {"rank": rank,
                "smoke": {a: _serve_mesh_smoke(a, mesh)
-                         for a in LM_SERVE_MESH_ARCHS}}
-        gc.collect()
-        torch.cuda.empty_cache()
-        out["full"] = _serve_mesh_full(
-            rank, mesh, ex, torch.load(os.path.join(root, "full_feed.pt")))
+                         for a in LM_SERVE_MESH_ARCHS}, "full": {}}
+        for row in LM_SERVE_MESH_FULL_ROWS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["full"][row[0]] = _serve_mesh_full(
+                rank, mesh, ex, torch.load(os.path.join(
+                    root, f"full_feed_{row[0]}.pt")), row)
         with open(os.path.join(root, f"serve{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -6162,29 +6273,37 @@ def _counts_one_rank(one_rank_ms: float) -> list:
     return rows
 
 
-def _counts_unsplit(full, split: dict) -> None:
-    """Phase 22 (c): rank 0's counts of the split mesh steps (train, the
-    prefill, a decode step) beside the dry run's fake count of the same
-    rows through the whole model on one rank, which is what each rank of
-    the mesh steps computed before the model axis split the work."""
-    cfg = dataclasses.replace(full, n_layers=LM_MESH_FULL[0])
-    _, MAX, _ = _serve_full_case()
-    B, S = LM_MESH_FULL[1:3]
-    rows = {"train": ("train_4k", B // LM_MESH[0], S),
-            "prefill": ("prefill_32k", LM_SERVE_MESH_FULL[0] // LM_MESH[0],
-                        LM_SERVE_MESH_FULL[1]),
-            "decode": ("decode_32k", LM_SERVE_MESH_FULL[0] // LM_MESH[0],
-                       MAX)}
+def _counts_unsplit(arch: str, layers: int, split: dict,
+                    serve=None) -> None:
+    """Phase 22 (c): rank 0's counts of ``arch``'s split mesh steps at
+    ``layers`` (``split``: "train" where phase 21 trained it; "prefill" and
+    "decode" of its phase 22 (b) row ``serve``) beside the dry run's fake
+    count of the same rows through the whole model on one rank, which is
+    what each rank of the mesh steps computed before the model axis split
+    the work."""
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    rows = {}
+    if "train" in split:
+        B, S = LM_MESH_FULL[1:3]
+        rows["train"] = ("train_4k", B // LM_MESH[0], S)
+    if serve is not None:
+        _, MAX, _ = _serve_full_case(serve)
+        _, _, B, P, _ = serve
+        rows["prefill"] = ("prefill_32k", B // LM_MESH[0], P)
+        rows["decode"] = ("decode_32k", B // LM_MESH[0], MAX)
     for what, (shape, b, seq) in rows.items():
-        fake, fake_s = _fake_counts(LM_FULL, shape, cfg=cfg, batch_size=b,
+        fake, fake_s = _fake_counts(arch, shape, cfg=cfg, batch_size=b,
                                     seq_len=seq)
         got = split[what]["flops_hlo"]
         if not 0 < got < fake["flops_hlo"]:
-            raise AssertionError(f"mesh {what}: the split rank counts {got} "
-                                 f"FLOPs, its rows unsplit "
+            raise AssertionError(f"{arch} mesh {what}: the split rank counts "
+                                 f"{got} FLOPs, its rows unsplit "
                                  f"{fake['flops_hlo']}")
         emit({"phase": "lm_counts", "step": f"mesh_{what}_split",
-              "arch": full.name, "n_layers": LM_MESH_FULL[0],
+              "arch": full.name, "n_layers": layers,
               "mesh": list(LM_MESH), "rank": 0, "rows": b, "seq": seq,
               "flops_split": got, "flops_rows_unsplit": fake["flops_hlo"],
               "split_over_unsplit": got / fake["flops_hlo"],
@@ -6195,32 +6314,115 @@ def _counts_unsplit(full, split: dict) -> None:
                          "before the model axis split it"})
 
 
-def _counts_mesh(real: dict) -> dict:
-    """Phase 22 (c) over the mesh: rank 0's real decode step of (b) held
-    to the dry run's fake count of the same step on a fake group of
-    ``LM_MESH`` (this process, rank 0 of it, then the group is closed)."""
+def _counts_mesh(reals: dict) -> dict:
+    """Phase 22 (c) over the mesh: rank 0's real decode step of each
+    (b) row (``reals``: its count by arch) held to the dry run's fake
+    count of the same step on a fake group of ``LM_MESH`` (this process,
+    rank 0 of it, then the group is closed)."""
     import torch.distributed as dist
 
     from repro_torch.launch.dryrun import fake_mesh
 
-    cfg, MAX, _ = _serve_full_case()
+    out = {}
     try:
         meshes = {d: fake_mesh(LM_MESH, ("data", "model"), d)
                   for d in ("cuda", "cpu")}
-        fake, fake_s = _fake_counts(LM_FULL, "decode_32k", meshes, cfg=cfg,
-                                    batch_size=LM_SERVE_MESH_FULL[0],
-                                    seq_len=MAX)
+        for row in LM_SERVE_MESH_FULL_ROWS:
+            cfg, MAX, _ = _serve_full_case(row)
+            fake, fake_s = _fake_counts(row[0], "decode_32k", meshes,
+                                        cfg=cfg, batch_size=row[2],
+                                        seq_len=MAX)
+            out[row[0]] = {"fake_build_run_s": fake_s,
+                           "cpu_fake_equal": True,
+                           **_same_counts(f"{row[0]} mesh decode step",
+                                          reals[row[0]], fake)}
     finally:
         dist.destroy_process_group()
-    return {"fake_build_run_s": fake_s, "cpu_fake_equal": True,
-            **_same_counts("mesh decode step", real, fake)}
+    return out
+
+
+def _serve_full_checks(row, ranks: list, ref: dict) -> None:
+    """Phase 22 (b)'s checks of one row and its rows emitted: each rank's
+    logits (the prefill's, each decode step's) against one rank's within
+    the bf16 bound; its greedy tokens equal, but where one rank's logits
+    of the two tokens lie within that bound of each other (a near-tie);
+    no decode step gathers a cache leaf."""
+    from repro_torch.configs import get_config
+
+    arch, layers, B, P, n = row
+    full = get_config(arch)
+    errs, near_ties = [], 0
+    for r in ranks:
+        for i, (a, b) in enumerate(zip(r["full"][arch]["logits"],
+                                       ref["logits"])):
+            a, b = a.float(), b.float()
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{arch} full width, rank {r['rank']}: "
+                                     f"non-finite logits in call {i}")
+            bound = LM_MESH_FULL_TOL * float(b.abs().max())
+            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
+            got, want = a.argmax(-1), ref["tokens"][i].long()
+            for k in (got != want).nonzero().flatten().tolist():
+                gap = float(b[k, want[k]] - b[k, got[k]])
+                if not gap <= bound:
+                    raise AssertionError(
+                        f"{arch} full width, rank {r['rank']}, call {i}, "
+                        f"row {k}: greedy token {int(got[k])}, one rank's "
+                        f"{int(want[k])} ahead by {gap} > {bound}")
+                near_ties += 1
+    if not max(errs) <= LM_MESH_FULL_TOL:
+        raise AssertionError(f"{arch} full-width mesh logits off by "
+                             f"{max(errs)}")
+    cfg = dataclasses.replace(full, n_layers=layers)
+    emit({"phase": "lm_serve_mesh_full", "arch": full.name,
+          "mesh": list(LM_MESH), "ranks": MESH_RANKS,
+          "n_layers": layers, "d_model": full.d_model,
+          "n_experts": full.n_experts, "vocab": full.vocab,
+          "dtype": full.dtype,
+          "split": {k: _split_modes(cfg, q) for k, q in (("prefill", P),
+                                                         ("decode", 1))},
+          "reduced": [f"n_layers {full.n_layers} -> {layers}: four ranks "
+                      f"share one card"],
+          "batch": B, "prompt": P, "decode_steps_timed": n,
+          "reference": "one rank, ambient MeshShape((2, 2)), greedy tokens "
+                       "fed to the ranks",
+          "logits_rel_err_max": max(errs), "logits_tol": LM_MESH_FULL_TOL,
+          "calls_held": len(ref["logits"]),
+          "token_near_ties": near_ties,
+          "transport": "gloo through the host, one card: not an NVLink or "
+                       "NCCL number",
+          "per_rank": [{"rank": r["rank"], **{k: v for k, v in
+                                              r["full"][arch].items()
+                                              if k not in (
+                                                  "counts", "logits",
+                                                  "decode_counts",
+                                                  "prefill_counts")}}
+                       for r in ranks]})
+    for what, key, ex in (("prefill", "prefill_counts", "prefill_exchange"),
+                          ("decode", "decode_counts",
+                           "decode_exchange_per_step")):
+        emit(_split_row("lm_serve_mesh_split", what, full, ranks,
+                        lambda r, key=key, ex=ex: {
+                            "counts": r["full"][arch][key],
+                            "exchange_per_step": (
+                                r["full"][arch][ex]
+                                if isinstance(r["full"][arch][ex], list)
+                                else [r["full"][arch][ex]]),
+                            "peak_gb": r["full"][arch]["peak_gb"]}, layers))
+        for r in ranks:
+            cached = [x for x in r["full"][arch][key]["top_collectives"]
+                      if "cache." in x["names"]]
+            if cached:
+                raise AssertionError(f"{arch}: rank {r['rank']}'s {what} "
+                                     f"gathers cache leaves: {cached}")
 
 
 def lm_serve_mesh_phase(one_rank_ms: float, mesh_train: dict) -> None:
     """Phase 22 (a–c): the one-rank references here, the spawn of
     ``MESH_RANKS`` ranks, the checks, then the counts; every check
     raises. ``one_rank_ms``: phase 21's one-rank step (its roofline);
-    ``mesh_train``: rank 0's count of phase 21's split mesh step."""
+    ``mesh_train``: rank 0's count of phase 21's split mesh step, by
+    arch."""
     import pickle
     import tempfile
 
@@ -6229,12 +6431,15 @@ def lm_serve_mesh_phase(one_rank_ms: float, mesh_train: dict) -> None:
 
     t0 = time.perf_counter()
     refs = {a: _serve_smoke_one_rank(a) for a in LM_SERVE_MESH_ARCHS}
-    ref_full = _serve_full_one_rank()
-    gc.collect()
-    torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="lm_serve_mesh_")
     try:
-        torch.save(ref_full["tokens"], os.path.join(root, "full_feed.pt"))
+        ref_full = {}
+        for row in LM_SERVE_MESH_FULL_ROWS:
+            ref_full[row[0]] = _serve_full_one_rank(row)
+            torch.save(ref_full[row[0]]["tokens"],
+                       os.path.join(root, f"full_feed_{row[0]}.pt"))
+            gc.collect()
+            torch.cuda.empty_cache()
         spawn_mesh_ranks(_serve_mesh_rank, (MESH_RANKS, root), "phase 22")
         ranks = []
         for r in range(MESH_RANKS):
@@ -6272,88 +6477,34 @@ def lm_serve_mesh_phase(one_rank_ms: float, mesh_train: dict) -> None:
               "logits_rel_err_max": max(errs), "tokens_equal": True,
               "cache_bytes_per_rank": want, "cache_bytes_equal_specs": True})
 
-    # (b) the full width: each rank's logits (the prefill's, each decode
-    # step's) against one rank's within the bf16 bound; its greedy tokens
-    # equal, but where one rank's logits of the two tokens lie within that
-    # bound of each other (a near-tie)
-    full = get_config(LM_FULL)
-    B, P, n = LM_SERVE_MESH_FULL
-    errs, near_ties = [], 0
-    for r in ranks:
-        for i, (a, b) in enumerate(zip(r["full"]["logits"],
-                                       ref_full["logits"])):
-            a, b = a.float(), b.float()
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"full width, rank {r['rank']}: "
-                                     f"non-finite logits in call {i}")
-            bound = LM_MESH_FULL_TOL * float(b.abs().max())
-            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
-            got, want = a.argmax(-1), ref_full["tokens"][i].long()
-            for row in (got != want).nonzero().flatten().tolist():
-                gap = float(b[row, want[row]] - b[row, got[row]])
-                if not gap <= bound:
-                    raise AssertionError(
-                        f"full width, rank {r['rank']}, call {i}, row "
-                        f"{row}: greedy token {int(got[row])}, one rank's "
-                        f"{int(want[row])} ahead by {gap} > {bound}")
-                near_ties += 1
-    if not max(errs) <= LM_MESH_FULL_TOL:
-        raise AssertionError(f"full-width mesh logits off by {max(errs)}")
-    emit({"phase": "lm_serve_mesh_full", "arch": full.name,
-          "mesh": list(LM_MESH), "ranks": MESH_RANKS,
-          "n_layers": LM_MESH_FULL[0], "d_model": full.d_model,
-          "vocab": full.vocab, "dtype": full.dtype,
-          "reduced": [f"n_layers {full.n_layers} -> {LM_MESH_FULL[0]}: four "
-                      f"ranks share one card"],
-          "batch": B, "prompt": P, "decode_steps_timed": n,
-          "reference": "one rank, ambient MeshShape((2, 2)), greedy tokens "
-                       "fed to the ranks",
-          "logits_rel_err_max": max(errs), "logits_tol": LM_MESH_FULL_TOL,
-          "calls_held": len(ref_full["logits"]),
-          "token_near_ties": near_ties,
-          "transport": "gloo through the host, one card: not an NVLink or "
-                       "NCCL number",
-          "per_rank": [{"rank": r["rank"], **{k: v for k, v in
-                                              r["full"].items()
-                                              if k not in (
-                                                  "counts", "logits",
-                                                  "decode_counts",
-                                                  "prefill_counts")}}
-                       for r in ranks]})
-    for what, key, ex in (("prefill", "prefill_counts", "prefill_exchange"),
-                          ("decode", "decode_counts",
-                           "decode_exchange_per_step")):
-        emit(_split_row("lm_serve_mesh_split", what, full, ranks,
-                        lambda r, key=key, ex=ex: {
-                            "counts": r["full"][key],
-                            "exchange_per_step": (
-                                r["full"][ex] if isinstance(r["full"][ex],
-                                                            list)
-                                else [r["full"][ex]]),
-                            "peak_gb": r["full"]["peak_gb"]}))
-        for r in ranks:
-            cached = [x for x in r["full"][key]["top_collectives"]
-                      if "cache." in x["names"]]
-            if what == "decode" and cached:
-                raise AssertionError(f"rank {r['rank']}'s decode step "
-                                     f"gathers cache leaves: {cached}")
+    # (b) each full-width row against one rank's
+    for row in LM_SERVE_MESH_FULL_ROWS:
+        _serve_full_checks(row, ranks, ref_full[row[0]])
 
-    # (c) the counts: the mesh decode step of (b), then one rank's steps
+    # (c) the counts: each row's mesh decode step, then one rank's steps
     t1 = time.perf_counter()
-    real = ranks[0]["full"]["counts"]
-    row = {"phase": "lm_counts", "step": "mesh_decode", "arch": full.name,
-           "n_layers": LM_MESH_FULL[0], "mesh": list(LM_MESH), "rank": 0,
-           **_counts_mesh(real),
-           "roofline": _roofline("mesh decode", real,
-                                 ranks[0]["full"]["decode_ms_median"],
-                                 2 * dataclasses.replace(
-                                     full, n_layers=LM_MESH_FULL[0])
-                                 .active_param_count() * B // LM_MESH[0],
-                                 NVLINK_BW)}
-    emit(row)
-    _counts_unsplit(full, {"train": mesh_train,
-                           "prefill": ranks[0]["full"]["prefill_counts"],
-                           "decode": ranks[0]["full"]["decode_counts"]})
+    mesh = _counts_mesh({row[0]: ranks[0]["full"][row[0]]["counts"]
+                         for row in LM_SERVE_MESH_FULL_ROWS})
+    for arch, layers, B, _, _ in LM_SERVE_MESH_FULL_ROWS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        real = ranks[0]["full"][arch]["counts"]
+        emit({"phase": "lm_counts", "step": "mesh_decode", "arch": cfg.name,
+              "n_layers": layers, "mesh": list(LM_MESH), "rank": 0,
+              **mesh[arch],
+              "roofline": _roofline("mesh decode", real,
+                                    ranks[0]["full"][arch]["decode_ms_median"],
+                                    2 * cfg.active_param_count() * B
+                                    // LM_MESH[0], NVLINK_BW)})
+    for row in LM_SERVE_MESH_FULL_ROWS:
+        arch, layers = row[:2]
+        split = {"prefill": ranks[0]["full"][arch]["prefill_counts"],
+                 "decode": ranks[0]["full"][arch]["decode_counts"]}
+        if arch in mesh_train:
+            split["train"] = mesh_train[arch]
+        _counts_unsplit(arch, layers, split, row)
+    for arch, layers in LM_MESH_FULL_MORE:
+        if arch not in (row[0] for row in LM_SERVE_MESH_FULL_ROWS):
+            _counts_unsplit(arch, layers, {"train": mesh_train[arch]})
     gc.collect()
     torch.cuda.empty_cache()
     _counts_one_rank(one_rank_ms)

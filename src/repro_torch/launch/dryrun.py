@@ -27,9 +27,9 @@ records which. ``device.resolve_device`` is not asked for a card: nothing
 real is allocated.
 
 The cell JSON has JAX's keys. Where the port's step differs from JAX's
-GSPMD program (a working copy gathered once a step, the bridge's whole
-MoE / Mamba2 compute on every 'model' rank), its ``notes`` say so; no
-count is scaled.
+GSPMD program (a working copy gathered once a step, with the leaves a
+rank's split does not run on their 'model' chunk whole), its ``notes``
+say so; no count is scaled.
 ``--attn-block`` is left out: JAX's dry run accepts it and never reads
 it, and the port's model has no such knob.
 """
@@ -165,10 +165,9 @@ def build_cell(arch: str, shape: str, mesh, *, microbatch: int = 1,
         notes.append(
             "the 'model' axis splits attention (heads, context or "
             "head_dim), the dense MLP, the embedding, the head and the CE, "
-            "and the residual stream between blocks (sequence-parallel); "
-            "the MoE FFN and the Mamba2 mixer run whole on every 'model' "
-            "rank behind the split's bridge (ROADMAP queue A item 2b), so "
-            "an MoE or SSM cell's FLOPs repeat that part")
+            "the residual stream between blocks (sequence-parallel), the "
+            "MoE FFN (expert-parallel, ff-TP or the small experts' token "
+            "slots) and the Mamba2 mixer (its heads, its conv channels)")
         notes.append(
             "each rank gathers its working copy once a step: its 'model' "
             "chunks of the split leaves over the batch axes, every other "
@@ -209,10 +208,7 @@ def build_cell(arch: str, shape: str, mesh, *, microbatch: int = 1,
                 notes.append(
                     "the cache is sharded over 'model' (heads, sequence or "
                     "head_dim): each rank reads and writes its own cache "
-                    "shards in place"
-                    + ("; the bridge's Mamba2 states are gathered over "
-                       "'model' and the rank's shard written back"
-                       if cfg.family in ("ssm", "hybrid") else ""))
+                    "shards in place")
         else:
             cache = lm.init_cache(cfg, B, S, lm.lm_dtype(cfg), device)
         names = {**dict(model.named_parameters()),

@@ -16,8 +16,8 @@ number, not a measurement. FLOPs and collective bytes come from the cell's
 cell's own mesh. MODEL_FLOPS = 6·N_active·D (train) or 2·N_active·D
 (serve); ``useful_ratio`` = MODEL_FLOPS per device / counted FLOPs per
 device measures how much counted compute is useful (remat, replicated
-attention, padding lower it; in the port, the MoE and Mamba2 work that
-ranks on 'model' repeat behind the split's bridge). ``roofline_row``
+attention, padding lower it; in the port, the work a mode of the model
+axis's split runs whole on every 'model' rank). ``roofline_row``
 reads a cell JSON of either package.
 
 Usage: PYTHONPATH=src python -m repro_torch.launch.roofline [--mesh pod]

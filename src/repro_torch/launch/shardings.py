@@ -25,16 +25,18 @@ The rules place the STATE. The port's mesh steps (``launch/steps.py``)
 gather it once a step into the rank's working copy, split the batch over
 'data' and the compute over 'model' (``models/lm/tp.py``: TP and
 context-parallel attention, the TP MLP, the vocab-parallel embedding and
-head, the sequence-parallel residual), as GSPMD derives it from these
-specs and the model's hints; EP and the Mamba2 mixer's split are not
-done yet (their blocks run whole behind the split's bridge).
+head, the sequence-parallel residual, the MoE's expert-parallel, ff-TP
+and slot splits, the Mamba2 mixer over its heads), as GSPMD derives it
+from these specs and the model's hints. ``moe.small_ffn`` is the one
+test of a small expert FFN that these rules, the MoE's token blocks and
+the split read.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ..models.lm.config import ModelConfig
-from ..models.lm.moe import small_ffn
+from ..models.lm import moe
 from ..pjit_utils import axis_sizes, shard_shape, to_placements
 
 __all__ = ["pick_spec", "param_specs", "model_specs", "batch_specs",
@@ -173,7 +175,7 @@ def param_specs(params_shape: Any, cfg: Optional[ModelConfig], mesh,
               and cfg.n_experts % model_axis == 0)
     # tiny expert FFNs: replicate the weights, let the slot dim carry
     # the parallelism
-    small = cfg is not None and cfg.n_experts > 0 and small_ffn(cfg)
+    small = cfg is not None and cfg.n_experts > 0 and moe.small_ffn(cfg)
 
     def spec_for(names, leaf):
         name = names[-1]

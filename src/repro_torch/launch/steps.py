@@ -19,14 +19,16 @@ its shards of params, μ and ν, each a ``DTensor`` with
 ``DTensor`` records, ``requires_grad=False``). The model axis splits the
 compute (``models/lm/tp.py``: Megatron TP and context-parallel
 attention, the sequence-parallel residual, the vocab-parallel embedding,
-head and CE; the MoE FFN and the Mamba2 mixer run whole behind its
-bridge). A step:
+head and CE, the MoE's expert-parallel, ff-TP and slot splits, the
+Mamba2 mixer over its heads). A step:
 
 1. builds the rank's working copy (:func:`_working_model`, which lives
    for the step only): a leaf the split runs on its 'model' chunk is
-   gathered over 'pod' / 'data' only and stays that chunk; every other
-   leaf (norms, the bridge's weights, a leaf whose stored shard does not
-   hold the chunk) is gathered whole (``pjit_utils.full_tensors``: one
+   gathered over 'pod' / 'data' only and stays that chunk (the experts
+   on E under 'ep', on d_ff under 'ff'; ``out_proj``, ``conv_w``,
+   ``conv_b`` on their 'model' dim); every other leaf (norms, the small
+   experts, ``in_proj``, a leaf whose stored shard does not hold the
+   chunk) is gathered whole (``pjit_utils.full_tensors``: one
    collective per mesh dim);
 2. runs the rank's share: its rows of the batch over 'data' (× 'pod')
    when ``batch_specs`` of a microbatch's size says so, else the whole
@@ -61,11 +63,11 @@ ambient mesh (the MoE's token blocks):
    whole);
 2. runs prefill or decode on the rank's rows (its block over 'data' ×
    'pod' when ``batch_specs`` says so, else the whole batch), each rank
-   reading and writing its own shards of the attention cache: its K/V
+   reading and writing its own shards of the cache in place: its K/V
    heads, its chunk of the sequence (a context-parallel prefill, which
-   starts from an empty cache) or its head_dim slice. The bridge's
-   Mamba2 states are gathered whole over 'model' and the rank's shard
-   written back (the mixer's split, ROADMAP item 2b, removes this);
+   starts from an empty cache) or its head_dim slice; its heads of the
+   Mamba2 ``ssm`` state and its channels of the ``conv`` state. No call
+   gathers a cache leaf;
 3. returns the logits as a DTensor of the global (B, V) (each rank's
    vocabulary slice gathered over 'model'), this rank's rows local.
 """
@@ -321,8 +323,9 @@ def _working_model(cfg: ModelConfig, sharded: lm.LM,
     chunk. A leaf ``split`` runs on its chunk (``Split.chunk_dim``) is
     gathered over 'pod' / 'data' only where its shard is sharded on that
     dim by 'model' alone; every other leaf is gathered whole: the norms,
-    the bridge's, and the fused fallbacks that shard one dim over both
-    'data' and 'model' (``wq`` ``(("data", "model"), None, None)``,
+    the small experts, ``in_proj`` (its shard a chunk of the fused dim),
+    and the fused fallbacks that shard one dim over both 'data' and
+    'model' (``wq`` ``(("data", "model"), None, None)``,
     ``wo`` ``(None, None, ("data", "model"))``, ``embed`` / ``lm_head``
     ``(None, ("model", "data"))`` where the vocabulary does not divide,
     whose chunks DTensor orders in mesh order, not JAX's) or on another
@@ -454,11 +457,6 @@ def _mesh_serve_step(cfg: ModelConfig, mesh, kind: str):
 
     mesh_group(mesh)                # the mesh must span the default group
     names = mesh.mesh_dim_names
-    model_axes = tuple(a for a in names if a not in BATCH_AXES)
-
-    def along_model(placements) -> tuple:
-        return tuple(p if a in model_axes else Replicate()
-                     for p, a in zip(placements, names))
 
     def layout(dt) -> Optional[int]:
         """The per-layer dim of a stacked cache leaf sharded on 'model'."""
@@ -482,15 +480,8 @@ def _mesh_serve_step(cfg: ModelConfig, mesh, kind: str):
                 else 1, kind, layout(attn["k"]) if "k" in attn else None,
                 layout(attn["cross_k"]) if "cross_k" in attn else None)
             work, _ = _working_model(cfg, model, split, skip)
-            leaf_names, shards = zip(*named_leaves(cache))
-            # the bridge: the Mamba2 mixer runs whole on its state
-            bridged = [i for i, n in enumerate(leaf_names)
-                       if n.rsplit(".", 1)[-1] in ("conv", "ssm")]
-            got = dict(zip(bridged, full_tensors(
-                [shards[i] for i in bridged], axes=model_axes)))
-            local = [got[i] if i in got else dt.to_local()
-                     for i, dt in enumerate(shards)]
-            tree = _with_leaves(cache, local)
+            tree = _with_leaves(cache, [dt.to_local()
+                                        for dt in tree_leaves(cache)])
             if kind == "prefill":
                 logits, _ = lm.prefill(work, rows["tokens"], tree,
                                        positions=rows.get("positions"),
@@ -501,10 +492,6 @@ def _mesh_serve_step(cfg: ModelConfig, mesh, kind: str):
                                            memory=rows.get("memory"),
                                            split=split)
             del work, tree
-            for i in bridged:
-                if local[i] is not shards[i].to_local():
-                    shards[i].to_local().copy_(local_shard(
-                        local[i], mesh, along_model(shards[i].placements)))
         split_rows = rows["tokens"].shape[0] != tokens.shape[0]
         pl = tuple(Shard(0) if split_rows and a in BATCH_AXES
                    else Replicate() for a in names)

@@ -11,6 +11,11 @@ recurrence.
 Layout: x (B, S, d_inner) viewed as (B, S, H, P) with P = ssm_head_dim;
 B / C are shared across heads (one group). A decode state
 {"conv": (B, K-1, di+2N), "ssm": (B, H, P, N)} is updated IN PLACE.
+
+Over a process mesh :func:`mamba2_split` runs the rank's share under the
+model axis's split (``tp.Split.mixer``): its heads (``z`` / ``dt``
+columns of ``in_proj``, the SSM, ``out_proj``'s rows) and its chunk of
+the conv's ``[x | B | C]`` channels, on its shards of the state.
 """
 from __future__ import annotations
 
@@ -20,11 +25,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.transport import (copy_to_group, gather_along, gather_blocks,
+                               take_block)
 from ...substrate.nn import matmul
 from .config import ModelConfig
 from .layers import normal
 
-__all__ = ["Mamba2", "mamba2_init", "ssd_chunked", "mamba2_apply"]
+__all__ = ["Mamba2", "mamba2_init", "ssd_chunked", "mamba2_apply",
+           "mamba2_split"]
 
 
 class Mamba2(nn.Module):
@@ -146,31 +154,25 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, h
 
 
-def mamba2_apply(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
-                 state: Optional[Dict] = None) -> torch.Tensor:
-    """u: (B, S, D). With ``state`` (a decode cache entry) the state is
-    carried in: chunked with h0 for S > 1 (prefill), the O(1) recurrence
-    for S == 1; either way it is overwritten with the new state."""
-    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, x, Bmat, Cmat, dt = _split_proj(cfg, matmul(u, p.in_proj))
-
-    conv_in = torch.cat([x, Bmat, Cmat], dim=-1)
-    conv_out, new_conv = _causal_conv(
-        conv_in, p.conv_w, p.conv_b,
-        state["conv"] if state is not None else None)
-    x = conv_out[..., :di]
-    Bmat = conv_out[..., di:di + N]
-    Cmat = conv_out[..., di + N:]
-
+def _ssm(cfg: ModelConfig, x: torch.Tensor, Bmat: torch.Tensor,
+         Cmat: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+         dt_bias: torch.Tensor, skip_D: torch.Tensor,
+         state: Optional[Dict]) -> torch.Tensor:
+    """The SSM of the heads ``x`` (B, S, H·P) holds (H = ``A_log``'s
+    length; ``dt`` (B, S, H) before the softplus), with the skip term:
+    (B, S, H·P) in ``x``'s dtype. With ``state`` its ``ssm`` entry
+    (B, H, P, N) is carried in and overwritten: chunked with h0 for
+    S > 1 (prefill), the O(1) recurrence for S == 1."""
+    P = cfg.ssm_head_dim
     # jax.nn.softplus is logaddexp(x, 0)
-    dt = torch.logaddexp(dt.float() + p.dt_bias,
-                         torch.zeros((), device=u.device))
-    A = -torch.exp(p.A_log)                                    # (H,)
-    xh = x.reshape(*x.shape[:2], H, P)
+    dt = torch.logaddexp(dt.float() + dt_bias,
+                         torch.zeros((), device=x.device))
+    A = -torch.exp(A_log)                                      # (H,)
+    xh = x.reshape(*x.shape[:2], -1, P)
 
     if state is None:
         y, _ = ssd_chunked(xh, dt, A, Bmat, Cmat, cfg.ssm_chunk)
-    elif u.shape[1] > 1:
+    elif x.shape[1] > 1:
         y, h_last = ssd_chunked(xh, dt, A, Bmat, Cmat, cfg.ssm_chunk,
                                 h0=state["ssm"])
     else:
@@ -182,10 +184,85 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
         h_last = h * dA[:, :, None, None] + Bx
         y = torch.einsum("bn,bhpn->bhp", Cmat[:, 0].float(), h_last)[:, None]
     if state is not None:
-        state["conv"].copy_(new_conv)
         state["ssm"].copy_(h_last)
+    y = y + xh.float() * skip_D[:, None]
+    return y.reshape(x.shape).to(x.dtype)
 
-    y = y + xh.float() * p.skip_D[:, None]
-    y = y.reshape(*u.shape[:2], di).to(u.dtype)
-    y = y * F.silu(z)
+
+def mamba2_apply(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
+                 state: Optional[Dict] = None) -> torch.Tensor:
+    """u: (B, S, D). With ``state`` (a decode cache entry) the state is
+    carried in: chunked with h0 for S > 1 (prefill), the O(1) recurrence
+    for S == 1; either way it is overwritten with the new state."""
+    di, N = cfg.d_inner, cfg.ssm_state
+    z, x, Bmat, Cmat, dt = _split_proj(cfg, matmul(u, p.in_proj))
+
+    conv_in = torch.cat([x, Bmat, Cmat], dim=-1)
+    conv_out, new_conv = _causal_conv(
+        conv_in, p.conv_w, p.conv_b,
+        state["conv"] if state is not None else None)
+    y = _ssm(cfg, conv_out[..., :di], conv_out[..., di:di + N],
+             conv_out[..., di + N:], dt, p.A_log, p.dt_bias, p.skip_D, state)
+    if state is not None:
+        state["conv"].copy_(new_conv)
+    y = y.to(u.dtype) * F.silu(z)
     return matmul(y, p.out_proj)
+
+
+def mamba2_split(p: Mamba2, cfg: ModelConfig, u: torch.Tensor, split,
+                 state: Optional[Dict] = None) -> torch.Tensor:
+    """The rank's share of the mixer under ``split`` (a ``tp.Split``;
+    the ``tp`` module docstring): ``u`` and the output in the residual
+    layout; ``state``: the rank's shards of the layer's ``conv`` / ``ssm``
+    state, read and written in place.
+
+    'heads': ``z``, ``dt`` and the SSM of the rank's heads, its partial
+    ``out_proj`` product reduced. The conv runs on the rank's channel
+    chunk (``conv_chunked``), which does not line up with the heads, so
+    its output is gathered over 'model' (the SSM reads ``B`` / ``C`` of
+    every channel), or on every channel. ``in_proj``'s stored shard, a
+    chunk of the fused ``[z | x | B | C | dt]`` dim, holds neither: it
+    comes whole and is sliced. 'whole': the mixer whole on every 'model'
+    rank but the conv's chunk."""
+    di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    conv_c = di + 2 * N
+    heads = split.mixer == "heads"
+    if heads:
+        u = split.enter(u)
+    elif split.sp:
+        u = gather_blocks(u, split.group, 1)
+    # in_proj's columns the rank uses for its own share (its heads, its
+    # conv chunk), and, in 'whole', those every rank uses alike
+    own = split.part(p.in_proj)
+    same = own if heads else p.in_proj
+    h0, Hs = split.chunk(H) if heads else (0, H)
+    z = matmul(u, same.narrow(1, h0 * P, Hs * P))
+    dt = matmul(u, same.narrow(1, 2 * di + 2 * N + h0, Hs))
+    conv_state = state["conv"] if state is not None else None
+    if split.conv_chunked:
+        c0, cn = split.chunk(conv_c)
+        xbc = matmul(u if heads else copy_to_group(u, split.group),
+                     own.narrow(1, di + c0, cn))
+        out, new_conv = _causal_conv(xbc, split.tp(p.conv_w, 1, conv_c),
+                                     split.tp(p.conv_b, 0, conv_c),
+                                     conv_state)
+        out = (gather_along if heads else gather_blocks)(out, split.group,
+                                                         -1)
+    else:
+        w = split.part if heads else (lambda t: t)
+        out, new_conv = _causal_conv(matmul(u, same.narrow(1, di, conv_c)),
+                                     w(p.conv_w), w(p.conv_b), conv_state)
+
+    def hs(t):          # a per-head leaf's entries of the rank's heads
+        return split.tp(t, 0, H) if heads else t
+
+    y = _ssm(cfg, out[..., h0 * P:(h0 + Hs) * P], out[..., di:di + N],
+             out[..., di + N:], dt, hs(p.A_log), hs(p.dt_bias),
+             hs(p.skip_D), state)
+    if state is not None:
+        state["conv"].copy_(new_conv)
+    y = y.to(u.dtype) * F.silu(z)
+    if heads:
+        return split.exit(matmul(y, split.tp(p.out_proj, 0, di)))
+    y = matmul(y, p.out_proj)
+    return take_block(y, split.group, 1) if split.sp else y

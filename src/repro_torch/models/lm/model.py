@@ -22,8 +22,9 @@ forward, which the MoE's token blocks read). JAX's residual and logits
 sharding hints sit at JAX's sites; on plain tensors they are the
 identity. On a process mesh the steps pass ``split=`` (a ``tp.Split``):
 the blocks, the embedding, the head and the CE then run the rank's
-share of the model axis's work (``tp`` module docstring), with the MoE
-FFN and the Mamba2 mixer behind its bridge.
+share of the model axis's work (``tp`` module docstring): attention,
+the MLP, the MoE FFN (``moe.moe_split``) and the Mamba2 mixer
+(``mamba2.mamba2_split``, on the rank's shards of its state).
 
 Caches (:func:`init_cache`) have JAX's layout, stacked per layer, and
 :func:`prefill` / :func:`decode_step` update them IN PLACE and return them.
@@ -49,8 +50,8 @@ from .config import ModelConfig
 from .layers import (Attention, MLP, Norm, attention_apply, attention_kv,
                      attention_split, mlp_apply, mlp_split, norm_apply,
                      normal, rope_angles)
-from .mamba2 import Mamba2, mamba2_apply
-from .moe import MoE, moe_apply
+from .mamba2 import Mamba2, mamba2_apply, mamba2_split
+from .moe import MoE, moe_apply, moe_split
 from .tp import Split
 
 __all__ = ["LM", "lm_dtype", "init_params", "from_jax_params",
@@ -256,7 +257,7 @@ def _attn_block_split(bp: AttnBlock, cfg: ModelConfig, h, angles, split,
                                 memory=memory, cross=True)
     x = _norm(bp.norm2, h, split)
     if hasattr(bp, "moe"):
-        y, aux = split.bridge(lambda t: moe_apply(bp.moe, cfg, t), x)
+        y, aux = moe_split(bp.moe, cfg, x, split)
     else:
         y, aux = mlp_split(bp.mlp, x, split), h.new_zeros(
             (), dtype=torch.float32)
@@ -297,9 +298,9 @@ def _attn_block(bp: AttnBlock, cfg: ModelConfig, h, angles, *, causal=True,
 
 def _mamba_block(bp: MambaBlock, cfg: ModelConfig, h, state=None,
                  split=None):
-    if split is not None:     # the bridge: the mixer whole, the state whole
-        return h + split.bridge(lambda t: mamba2_apply(
-            bp.mixer, cfg, t, state), _norm(bp.norm, h, split))
+    if split is not None:
+        return h + mamba2_split(bp.mixer, cfg, _norm(bp.norm, h, split),
+                                split, state)
     return _residual_hint(
         h + mamba2_apply(bp.mixer, cfg, norm_apply(bp.norm, h), state))
 

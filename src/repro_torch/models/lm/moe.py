@@ -16,22 +16,29 @@ ways (the model size, for a small expert FFN, when it divides S) — and
 capacity, ranks and drops are decided per block, in the block's own
 token order (rows ``B/dd`` × positions ``S/dm``, row-major). So an MoE's
 loss on a mesh differs from its one-device loss by design. With no mesh
-there is one block, ``Tb = B·S``. On a process mesh a rank holds one data
-block of rows (or, when B does not divide, the whole batch: one block
-either way) and splits it ``dm`` ways; the aux loss
-``E·Σ(me·ce)`` is a product of GLOBAL means, so the rank all-reduces
-``ce`` (no gradient) over the mesh and uses ``E·Σ(me_r·ce)``, whose mean
-over the ranks is JAX's aux. The ``shard_hint`` sites are JAX's.
+there is one block, ``Tb = B·S``. The aux loss ``E·Σ(me·ce)`` is a
+product of GLOBAL means.
+
+Over a process mesh :func:`moe_split` runs the rank's share under the
+model axis's split (``tp.Split.moe``): a rank holds one data block of
+rows (or, when B does not divide, the whole batch), and its block is
+JAX's: its residual rows under 'slots' (``dm`` = the model size), the
+rows' whole sequence otherwise (``dm`` = 1), whose experts' slots 'ep'
+splits by expert and 'ff' by d_ff. The rank all-reduces ``ce`` (no
+gradient) over the mesh and uses ``E·Σ(me_r·ce)``: the mean over the
+ranks is JAX's aux. The ``shard_hint`` sites are JAX's.
 """
 from __future__ import annotations
 
+import types
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.transport import all_reduce_sum
+from ...core.transport import (all_reduce_sum, gather_blocks,
+                               reduce_from_group, take_block)
 from ...pjit_utils import (axis_sizes, current_mesh, is_process_mesh,
                            mesh_group, shard_hint)
 from ...substrate.nn import matmul
@@ -39,14 +46,15 @@ from .config import ModelConfig
 from .layers import normal
 
 __all__ = ["MoE", "Routing", "moe_init", "moe_route", "moe_apply",
-           "small_ffn"]
+           "moe_split", "small_ffn"]
 
 
 def small_ffn(cfg: ModelConfig) -> bool:
     """Tiny expert FFNs (granite: d_ff = 512), ≤ 512 MiB of bf16 expert
     weights: their weights are replicated, not ff-TP-sharded
     (``launch/shardings.py``), and the token blocks also split the
-    sequence over 'model'."""
+    sequence over 'model'. The one test the specs, the token blocks and
+    the split (``tp.Split.moe``) read, each at call time."""
     return cfg.n_experts * cfg.d_ff * cfg.d_model * 2 * 3 <= 512 * 1024 ** 2
 
 
@@ -65,10 +73,9 @@ def _block_layout(B: int, S: int, small_ffn: bool):
     return (ds if B % ds == 0 else 1), dm
 
 
-def _mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """``t``'s mean over the ranks of the ambient process mesh (``t``
-    itself with none)."""
-    mesh = current_mesh()
+def _mean_over_ranks(t: torch.Tensor, mesh) -> torch.Tensor:
+    """``t``'s mean over the ranks of the process mesh ``mesh`` (``t``
+    itself on none)."""
     if not is_process_mesh(mesh):
         return t
     return all_reduce_sum([t], mesh_group(mesh))[0] / mesh.size()
@@ -106,6 +113,12 @@ class Routing(NamedTuple):
     capacity: int
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (bool) by a comparison: no data-dependent
+    range check, so a fake tensor's op count is a real one's."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
 def _top_k(probs: torch.Tensor, k: int):
     """``jax.lax.top_k``: the k largest, ties to the lower index (a
     stable descending sort; ``torch.topk`` promises no order on ties)."""
@@ -113,10 +126,12 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_route(p: MoE, cfg: ModelConfig, xb: torch.Tensor) -> Routing:
+def moe_route(p: MoE, cfg: ModelConfig, xb: torch.Tensor,
+              mesh=None) -> Routing:
     """Route token blocks ``xb`` (ds, Tb, D), or (T, D) as one block:
     top-k of the router's softmax, the slot of every choice within its
-    block and the aux loss."""
+    block and the aux loss (``ce`` averaged over the ranks of ``mesh``,
+    default the ambient mesh, when it is a process mesh)."""
     one = xb.dim() == 2
     if one:
         xb = xb[None]
@@ -128,11 +143,12 @@ def moe_route(p: MoE, cfg: ModelConfig, xb: torch.Tensor) -> Routing:
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
     # load-balancing auxiliary loss (Switch-style), of global means
     me = probs.mean((0, 1))
-    ce = _mean_over_ranks(F.one_hot(gate_idx[..., 0], E).float().mean((0, 1)))
+    ce = _mean_over_ranks(_one_hot(gate_idx[..., 0], E).float().mean((0, 1)),
+                          current_mesh() if mesh is None else mesh)
     aux = E * torch.sum(me * ce)
     # rank of each choice within its expert, token-major within a block
     flat_e = gate_idx.reshape(ds, Tb * K)
-    onehot = F.one_hot(flat_e, E).to(torch.int32)             # (ds, TbK, E)
+    onehot = _one_hot(flat_e, E).to(torch.int32)              # (ds, TbK, E)
     pos = torch.cumsum(onehot, dim=1) - onehot
     flat_pos = (pos * onehot).sum(-1)
     keep = flat_pos < Cb
@@ -149,7 +165,6 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D). Returns (y, aux_loss)."""
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
     small = small_ffn(cfg)
     dd, dm = _block_layout(B, S, small)
     ds = dd * dm
@@ -164,38 +179,91 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
     xb = xb.transpose(1, 2).reshape(ds, Tb, D)
     xb = shard_hint(xb, block_ax, None, None)
     r = moe_route(p, cfg, xb)
-    Cb = r.capacity
+    y = _experts(p, cfg, xb, r, block_ax, None if small else "model")
+    # inverse of the mesh-aligned blocking
+    y = (y.reshape(dd, dm, B // dd, S // dm, D).transpose(1, 2)
+         .reshape(B, S, D))
+    return y.to(x.dtype), r.aux
 
+
+def _experts(p, cfg: ModelConfig, xb: torch.Tensor, r: Routing,
+             block_ax=None, ff_ax=None, e0: int = 0) -> torch.Tensor:
+    """Dispatch, expert FFN and combine of the blocks ``xb`` (ds, Tb, D)
+    routed by ``r``, for the experts ``e0 … e0 + En - 1`` that ``p``'s
+    weights hold (``En = p.w_gate.shape[0]``; the choices of the others
+    add nothing): (ds, Tb, D)."""
+    ds, Tb, D = xb.shape
+    E, K, Cb = cfg.n_experts, cfg.top_k, r.capacity
+    En = p.w_gate.shape[0]
     # dispatch: scatter token indices (not payloads) into each block's
     # slot table; every kept choice has a slot of its own, the drops
     # share (E, Cb)
-    blk = torch.arange(ds, device=x.device)[:, None]
-    tok = torch.arange(Tb, device=x.device).repeat_interleave(K)
+    blk = torch.arange(ds, device=xb.device)[:, None]
+    tok = torch.arange(Tb, device=xb.device).repeat_interleave(K)
     slot_tok = torch.full((ds, E + 1, Cb + 1), Tb, dtype=torch.long,
-                          device=x.device)
+                          device=xb.device)
     slot_tok[blk, r.slot_e, r.slot_c] = tok.expand(ds, -1)
-    slot_tok = slot_tok[:, :E, :Cb] + blk[:, :, None] * (Tb + 1)
+    slot_tok = slot_tok[:, e0:e0 + En, :Cb] + blk[:, :, None] * (Tb + 1)
     x_pad = torch.cat([xb, xb.new_zeros((ds, 1, D))], dim=1)
     buf = x_pad.reshape(ds * (Tb + 1), D)[slot_tok.reshape(-1)]
-    buf = buf.reshape(ds, E, Cb, D).transpose(0, 1).reshape(E, ds * Cb, D)
+    buf = buf.reshape(ds, En, Cb, D).transpose(0, 1).reshape(En, ds * Cb, D)
 
     # expert FFN (SwiGLU): ff-TP for big experts, replicated small ones
-    ff_ax = None if small else "model"
     buf = shard_hint(buf, None, block_ax, None)
     h_g = matmul(buf, p.w_gate)
     h = F.silu(shard_hint(h_g, None, block_ax, ff_ax)) * matmul(buf, p.w_up)
     y_buf = shard_hint(matmul(h, p.w_down), None, block_ax, None)
 
     # combine: gather each choice's slot in its block, weight, sum the K
-    y_blk = (y_buf.reshape(E, ds, Cb, D).transpose(0, 1)
-             .reshape(ds * E * Cb, D))
-    idx = (torch.clamp(r.slot_e, 0, E - 1) * Cb
-           + torch.clamp(r.slot_c, max=Cb - 1) + blk * (E * Cb))
+    y_blk = (y_buf.reshape(En, ds, Cb, D).transpose(0, 1)
+             .reshape(ds * En * Cb, D))
+    own = r.keep & (r.slot_e >= e0) & (r.slot_e < e0 + En)
+    idx = (torch.clamp(r.slot_e - e0, 0, En - 1) * Cb
+           + torch.clamp(r.slot_c, max=Cb - 1) + blk * (En * Cb))
     gathered = y_blk[idx.reshape(-1)]
-    gathered = torch.where(r.keep.reshape(-1, 1), gathered, 0)
+    gathered = torch.where(own.reshape(-1, 1), gathered, 0)
     w = r.gate_vals.reshape(ds * Tb * K, 1).to(gathered.dtype)
-    y = (gathered * w).reshape(ds, Tb, K, D).sum(2)
-    # inverse of the mesh-aligned blocking
-    y = (y.reshape(dd, dm, B // dd, S // dm, D).transpose(1, 2)
-         .reshape(B, S, D))
-    return y.to(x.dtype), r.aux
+    return (gathered * w).reshape(ds, Tb, K, D).sum(2)
+
+
+def moe_split(p: MoE, cfg: ModelConfig, x: torch.Tensor, split
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rank's share of the MoE FFN under ``split`` (a ``tp.Split``;
+    its ``moe`` mode, the ``tp`` module docstring): ``x`` and the output
+    in the residual layout; returns (y, aux), the aux loss the same on
+    every 'model' rank, JAX's mean over the rank's data block."""
+    mode = split.moe
+    B, _, D = x.shape
+    e0 = 0
+    if mode == "slots":
+        # the rank's rows are its (data, model) block: the weights whole,
+        # for the rank's own tokens
+        xs = x
+        w = types.SimpleNamespace(**{n: split.part(t)
+                                     for n, t in p.named_parameters()})
+    elif mode == "replicated":
+        # the whole FFN on every 'model' rank, on the rows' sequence
+        xs = gather_blocks(x, split.group, 1) if split.sp else x
+        w = p
+    else:
+        # 'ep' / 'ff': the rows' whole sequence routed alike on every
+        # 'model' rank, each running its experts or its d_ff chunk of all
+        xs = split.enter(x)
+        full = cfg.n_experts if mode == "ep" else cfg.d_ff
+        e0 = split.chunk(full)[0] if mode == "ep" else 0
+        w = types.SimpleNamespace(router=split.part(p.router), **{
+            n: split.tp(getattr(p, n), split.chunk_dim(f"moe.{n}"), full)
+            for n in ("w_gate", "w_up", "w_down")})
+    S = xs.shape[1]
+    xb = xs.reshape(1, B * S, D)
+    r = moe_route(w, cfg, xb, split.mesh)
+    y = _experts(w, cfg, xb, r, e0=e0).reshape(B, S, D).to(x.dtype)
+    if mode == "slots":
+        # each 'model' rank routed its own block: the mean of their aux
+        return y, reduce_from_group(r.aux / split.m, split.group)
+    if mode == "replicated":
+        return (take_block(y, split.group, 1) if split.sp else y), r.aux
+    # the aux loss, the same on every 'model' rank, reaches the router
+    # (entered for the rank's share) once
+    aux = r.aux.detach() + (r.aux - r.aux.detach()) / split.m
+    return split.exit(y), aux

@@ -32,9 +32,26 @@ split, with ``m`` ranks on 'model' and this rank at ``r``:
   tokens of its vocabulary rows (zeros elsewhere; the sum over 'model'
   scattered to the rows) and computes the logits of its vocabulary
   slice, the CE's log-sum-exp and label logit combined over 'model'.
-* **the bridge**: the MoE FFN and the Mamba2 mixer are not split yet:
-  the block gathers its input's sequence, runs the whole computation
-  (weights whole) on every 'model' rank and keeps its rows.
+* **the MoE FFN** (``moe``), as JAX's ``moe._block_layout`` and the
+  expert specs choose it: 'slots' — a small expert FFN
+  (``moe.small_ffn``) on a sequence ``m`` divides: JAX's (data, model)
+  token block is the rank's residual rows, routed and run there with the
+  weights whole; 'ep' — expert parallelism where ``m`` divides E: the
+  routing whole on the rank's data rows, the rank running only its
+  ``E/m`` experts' slots; 'ff' — big experts otherwise: every expert's
+  slots with the rank's chunk of d_ff (``w_gate`` / ``w_up`` column
+  chunks, ``w_down`` row chunk); the partial outputs of 'ep' / 'ff'
+  reduced; 'replicated' — a small FFN on a sequence ``m`` does not
+  divide (decode), or big experts neither E nor d_ff divide: the whole
+  FFN on every rank.
+* **the Mamba2 mixer** (``mixer``): 'heads' when ``m`` divides the SSM
+  heads (the rank's ``z`` / ``dt`` columns and heads, ``out_proj`` row
+  chunk, its ``ssm`` state shard; the partial outputs reduced), else
+  'whole'. Its depthwise conv runs on the rank's contiguous chunk of the
+  ``[x | B | C]`` channels when ``m`` divides them (``conv_w`` /
+  ``conv_b`` / the ``conv`` state chunks, JAX's specs), its output
+  gathered over 'model'; else on every channel. So a serve call reads
+  and writes its own ``conv`` / ``ssm`` shards and gathers no state.
 
 A leaf the split runs on its 'model' chunk (:meth:`Split.chunk_dim`)
 reaches the model as that chunk where its stored shard is sharded there
@@ -54,9 +71,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from ...core.transport import (copy_to_group, gather_along, gather_blocks,
-                               reduce_from_group, reduce_scatter_along,
-                               take_block)
+from ...core.transport import (copy_to_group, gather_along,
+                               reduce_from_group, reduce_scatter_along)
 from ...pjit_utils import axis_index, axis_sizes, is_process_mesh, owned_chunk
 from .config import ModelConfig
 
@@ -66,6 +82,9 @@ _HEADS = {"wq": 1, "bq": 0, "wo": 0}
 _KV_HEADS = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}
 _HEAD_DIM = {"wq": 2, "wk": 2, "wv": 2, "bq": 1, "bk": 1, "bv": 1, "wo": 1}
 _MLP = {"w_gate": 1, "w_up": 1, "b_up": 0, "w_down": 0}
+_MOE = {"ep": {"w_gate": 0, "w_up": 0, "w_down": 0},
+        "ff": {"w_gate": 2, "w_up": 2, "w_down": 1}}
+_CONV = {"conv_w": 1, "conv_b": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +113,28 @@ class Split:
         dividing Hkv)?"""
         return self.attn == "heads" and self.cfg.n_kv_heads % self.m == 0
 
+    @property
+    def moe(self) -> str:
+        """The MoE FFN's mode (module docstring)."""
+        from . import moe       # moe imports layers, which imports this
+
+        cfg = self.cfg
+        if moe.small_ffn(cfg):
+            return "slots" if self.sp else "replicated"
+        if cfg.n_experts % self.m == 0:
+            return "ep"
+        return "ff" if cfg.d_ff % self.m == 0 else "replicated"
+
+    @property
+    def mixer(self) -> str:
+        """The Mamba2 mixer's mode: 'heads' or 'whole'."""
+        return "heads" if self.cfg.ssm_heads % self.m == 0 else "whole"
+
+    @property
+    def conv_chunked(self) -> bool:
+        """Does the rank run its chunk of the conv's channels?"""
+        return (self.cfg.d_inner + 2 * self.cfg.ssm_state) % self.m == 0
+
     def for_seq(self, seq_len: int) -> "Split":
         """The split of a stack over ``seq_len`` positions (the
         encoder's)."""
@@ -113,6 +154,12 @@ class Split:
             return None
         if mod == "mlp" and self.mlp_tp:
             return _MLP.get(leaf)
+        if mod == "moe":
+            return _MOE.get(self.moe, {}).get(leaf)
+        if mod == "mixer":
+            if leaf == "out_proj":
+                return 0 if self.mixer == "heads" else None
+            return _CONV.get(leaf) if self.conv_chunked else None
         if name in ("embed", "lm_head"):
             return 0
         return None
@@ -158,16 +205,6 @@ class Split:
         if self.sp:
             return reduce_scatter_along(y, self.group, 1)
         return reduce_from_group(y, self.group)
-
-    def bridge(self, fn, x: torch.Tensor):
-        """``fn`` run whole on every 'model' rank: the residual's rows
-        gathered, ``fn``'s output (or its first item) cut back to them."""
-        if not self.sp:
-            return fn(x)
-        out = fn(gather_blocks(x, self.group, 1))
-        if isinstance(out, tuple):
-            return (take_block(out[0], self.group, 1),) + tuple(out[1:])
-        return take_block(out, self.group, 1)
 
 
 def make_split(cfg: ModelConfig, mesh, seq_len: int, kind: str = "train",

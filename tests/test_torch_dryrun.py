@@ -8,11 +8,11 @@ rank 0 of an 8-rank ``fake`` group), JAX's and the port's of a cell at
 the same time, under a timeout. Held: ``params``, ``active_params``,
 ``tokens_global`` and each rank's ``argument_size_in_bytes`` equal to
 JAX's cell JSON; the FLOPs counted positive, their ratio to JAX's
-``flops_hlo`` in the message (the model axis splits the compute as
-GSPMD does, but for the MoE FFN and the Mamba2 mixer: queue A item 2b).
-This file: the dense train cell, the
-SSM long-context decode cell, ``llama3p2_3b × train_4k`` on the 256-rank
-pod mesh, and ``dryrun_all``'s skip and error JSONs;
+``flops_hlo`` in the message and held near JAX's where the model axis
+splits the cell's compute as GSPMD does (the dense train step, the SSM
+decode's Mamba2 mixer over its heads). This file: the dense train cell,
+the SSM long-context decode cell, ``llama3p2_3b × train_4k`` on the
+256-rank pod mesh, and ``dryrun_all``'s skip and error JSONs;
 ``test_torch_dryrun_serve.py`` the enc-dec prefill and MoE decode cells.
 """
 import json
@@ -123,6 +123,21 @@ def test_train_cell_splits_the_model_axis(cells):
     assert port["collective_bytes"]["all-gather"] > 0
     assert port["collective_bytes"]["all-reduce"] > 0
     assert port["collective_bytes"]["reduce-scatter"] > 0
+
+
+def test_ssm_cell_splits_the_mixer(cells):
+    """A rank runs its 16 of the 64 SSM heads of each Mamba2 mixer (its
+    ``z`` / ``dt`` columns, its conv channels, ``out_proj``'s rows): its
+    FLOPs within 1.2× JAX's a device (3.92× while every 'model' rank ran
+    the mixer whole), its argument bytes JAX's."""
+    port = cells[("repro_torch", "mamba2_1p3b", "long_500k")]
+    jax_cell = cells[("repro", "mamba2_1p3b", "long_500k")]
+    ratio = port["tripaware"]["flops_hlo"] / jax_cell["tripaware"][
+        "flops_hlo"]
+    print(f"mamba2_1p3b × long_500k: port / JAX FLOPs a device {ratio:.3f}")
+    assert ratio <= 1.2, f"port / JAX FLOPs a device: {ratio:.3f}"
+    assert (port["memory_analysis"]["argument_size_in_bytes"]
+            == jax_cell["memory_analysis"]["argument_size_in_bytes"])
 
 
 def test_pod_mesh_cell(cells):

@@ -5,9 +5,11 @@ window decode (``mixtral_8x22b × decode_32k``: a 32,768-deep cache), each
 as JAX's smoke test runs it, on the debug mesh; held as
 ``test_torch_dryrun.py`` holds the train and SSM cells, plus the donated
 cache's bytes (``alias_size_in_bytes``) equal to JAX's, no collective
-moving a cache leaf (each rank reads and writes its own shards), and the
+moving a cache leaf (each rank reads and writes its own shards), the
 enc-dec prefill's FLOPs a device within 1.3× JAX's (the model axis split;
-3.71× while every rank ran the whole model).
+3.71× while every rank ran the whole model), and the MoE decode's within
+JAX's (expert parallelism: 8 experts over a model axis of 4; 1.72× while
+every 'model' rank ran all 8).
 """
 import pytest
 
@@ -43,3 +45,15 @@ def test_encdec_prefill_flops_near_jax(cells):
     ratio = port["tripaware"]["flops_hlo"] / jax_cell["tripaware"][
         "flops_hlo"]
     assert ratio <= 1.3, f"port / JAX FLOPs a device: {ratio:.3f}"
+
+
+def test_moe_decode_flops_within_jax(cells):
+    port = cells[("repro_torch", "mixtral_8x22b", "decode_32k")]
+    jax_cell = cells[("repro", "mixtral_8x22b", "decode_32k")]
+    ratio = port["tripaware"]["flops_hlo"] / jax_cell["tripaware"][
+        "flops_hlo"]
+    print(f"mixtral_8x22b × decode_32k: port / JAX FLOPs a device "
+          f"{ratio:.3f}")
+    assert ratio <= 1.0, f"port / JAX FLOPs a device: {ratio:.3f}"
+    assert (port["memory_analysis"]["argument_size_in_bytes"]
+            == jax_cell["memory_analysis"]["argument_size_in_bytes"])

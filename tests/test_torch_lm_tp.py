@@ -1,6 +1,6 @@
 """Port parity for the model axis's compute split (``repro_torch.models.lm.
 tp``: Megatron TP and context-parallel attention, the sequence-parallel
-residual, the vocab-parallel embedding / head / CE, the bridge) in the
+residual, the vocab-parallel embedding / head / CE) in the
 mesh train, prefill and decode steps, against JAX's (2, 4) mesh runs, on
 the CPU.
 
