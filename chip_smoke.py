@@ -721,6 +721,27 @@ LM_SERVE_MESH_TOL = 1e-5
 LM_SERVE_MESH_FULL_ROWS = ((LM_FULL, LM_MESH_FULL[0]) + LM_SERVE_MESH_FULL,
                            ("mamba2_1p3b", 2, 4, 512, 4),
                            ("mixtral_8x22b", 1, 4, 128, 2))
+# phases 21–22's split rows read a step's collectives by op_analysis site:
+# these are not the split's activations (the working copy's gathers, the
+# step's gradient mean and norm); and these sites may sum in float32 in a
+# bf16 model, where JAX's value is float32 too (the head_dim scores, the
+# CE's label logit, the MoE's aux and expert-load means) or, in the
+# backward, the gradient of a float32 leaf entered through Split.part
+# (norms, A_log / dt_bias / skip_D, the router; no larger than the
+# largest float32 leaf). Every other reduction runs in the model's dtype,
+# and no train or prefill collective is posted by mamba2_split itself.
+# On a CUDA device autograd runs the backward on its own thread, whose
+# stack holds no frame of the port: op_analysis's site is "" there, which
+# the rows call LM_BACKWARD_SITE (on the CPU: steps.py:_loss_and_grads).
+LM_NOT_ACTIVATION_SITES = ("launch/steps.py:_working_model",
+                           "launch/steps.py:train_step")
+LM_FP32_SITES = ("models/lm/layers.py:reduce",
+                 "models/lm/model.py:_chunked_ce_split",
+                 "models/lm/moe.py:moe_split",
+                 "models/lm/moe.py:_mean_over_ranks")
+LM_BACKWARD_SITE = "(autograd's device thread)"
+LM_FP32_GRAD_SITES = ("launch/steps.py:_loss_and_grads", LM_BACKWARD_SITE)
+LM_MAMBA2_SPLIT_SITE = "models/lm/mamba2.py:mamba2_split"
 
 
 def emit(obj) -> None:
@@ -5434,13 +5455,62 @@ def _lm_mesh_full_run(cfg, state, step_fn, mesh, ex) -> dict:
 
 
 def _count_row(oa) -> dict:
-    """An ``op_analysis`` count's FLOPs, collectives and largest sites."""
+    """An ``op_analysis`` count's FLOPs, collectives, largest sites and
+    the split's activation collectives by site, kind and dtype."""
     got = oa.analyze()
     return {"flops_hlo": got["flops_hlo"],
             "collective_bytes": got["collective_bytes"],
             "collective_counts": got["collective_counts"],
             "host_copy_bytes": got["host_copy_bytes"],
-            "top_collectives": oa.top_collectives(6)}
+            "top_collectives": oa.top_collectives(6),
+            "activation_collectives": _activation_collectives(oa)}
+
+
+def _activation_collectives(oa) -> list:
+    """The split's activation collectives ``oa`` counted (every site but
+    ``LM_NOT_ACTIVATION_SITES``), summed by (site, kind, dtype): count,
+    bytes, the largest operand; largest first."""
+    rows = {}
+    for r in oa.top_collectives(None):
+        site = r["site"] or LM_BACKWARD_SITE
+        if site in LM_NOT_ACTIVATION_SITES:
+            continue
+        row = rows.setdefault((site, r["kind"], r["dtype"]), {
+            "site": site, "kind": r["kind"], "dtype": r["dtype"],
+            "count": 0, "bytes": 0, "bytes_each_max": 0})
+        row["count"] += r["count"]
+        row["bytes"] += r["bytes_total"]
+        row["bytes_each_max"] = max(row["bytes_each_max"], r["bytes_each"])
+    return sorted(rows.values(), key=lambda r: -r["bytes"])
+
+
+def _check_activation_collectives(cfg, what: str, rows: list) -> dict:
+    """Hold a split row's activation collectives (``rows``: one rank's
+    :func:`_activation_collectives`) to the split's design: no train or
+    prefill collective at ``mamba2_split``; every reduction in the model's
+    dtype but at ``LM_FP32_SITES`` (float32 all-reduces) and the float32
+    leaves' gradients. Returns the bytes by dtype."""
+    from repro_torch.models.lm import model as lm
+
+    dtype = str(lm.lm_dtype(cfg)).replace("torch.", "")
+    fp32_leaf = max(p.numel() * 4 for p in lm.LM(
+        dataclasses.replace(cfg, n_layers=1), device="meta",
+        init=False).parameters() if p.dtype == torch.float32)
+    by_dtype = {}
+    for r in rows:
+        by_dtype[r["dtype"]] = by_dtype.get(r["dtype"], 0) + r["bytes"]
+        if what != "decode" and r["site"] == LM_MAMBA2_SPLIT_SITE:
+            raise AssertionError(f"{cfg.name} {what}: a collective at "
+                                 f"mamba2_split: {r}")
+        if r["kind"] == "all-gather" or r["dtype"] == dtype:
+            continue
+        if not (r["dtype"] == "float32" and r["kind"] == "all-reduce" and (
+                r["site"] in LM_FP32_SITES or (
+                    r["site"] in LM_FP32_GRAD_SITES
+                    and r["bytes_each_max"] <= fp32_leaf))):
+            raise AssertionError(f"{cfg.name} {what}: a {r['dtype']} "
+                                 f"reduction in a {dtype} model: {r}")
+    return by_dtype
 
 
 def _lm_mesh_grads(cfg, state, mesh, batch) -> list:
@@ -5826,31 +5896,34 @@ def _lm_mesh_full_more(arch: str, layers: int, ranks: list, ref: dict
                     lambda r: r["more"][arch], layers))
 
 
-def _split_modes(cfg, seq_len: int) -> dict:
-    """The model axis's split modes of ``cfg`` over ``seq_len`` positions
-    on a model axis of ``LM_MESH[1]`` (``tp.Split``'s, read here without
-    a process group)."""
+def _split_modes(cfg, seq_len: int, kind: str = "train") -> dict:
+    """The model axis's split modes of ``cfg`` in a ``kind`` call over
+    ``seq_len`` positions on a model axis of ``LM_MESH[1]``
+    (``tp.Split``'s, read here without a process group)."""
     from repro_torch.models.lm.tp import Split
 
     sp = Split(cfg, None, None, LM_MESH[1], 0, seq_len % LM_MESH[1] == 0,
-               "")
+               "", kind=kind)
     return {"sp": sp.sp,
             "moe": sp.moe if cfg.n_experts else None,
             "mixer": sp.mixer if cfg.ssm_state else None,
-            "conv_chunked": sp.conv_chunked if cfg.ssm_state else None}
+            "conv": sp.conv if cfg.ssm_state else None}
 
 
 def _split_row(phase: str, what: str, full, ranks, part,
                layers: int = LM_MESH_FULL[0]) -> dict:
     """Per rank: the FLOPs ``op_analysis`` counted in ``what`` on the
-    process mesh, the median over the timed calls of the working copy's
-    gathers, the gradient all-reduces and the split's activation
-    collectives (ms and bytes), and the peak. ``part(rank result)`` is
-    the run's dict (``counts``, ``exchange_per_step``, ``peak_gb``)."""
+    process mesh, the split's activation collectives it counted by site,
+    kind and dtype (held by :func:`_check_activation_collectives`), the
+    median over the timed calls of the working copy's gathers, the
+    gradient all-reduces and the split's activation collectives (ms and
+    bytes), and the peak. ``part(rank result)`` is the run's dict
+    (``counts``, ``exchange_per_step``, ``peak_gb``)."""
     rows = []
     for r in ranks:
         run = part(r)
         ex = run["exchange_per_step"]
+        acts = run["counts"]["activation_collectives"]
 
         def med(k):
             return statistics.median(e[k] for e in ex)
@@ -5858,6 +5931,9 @@ def _split_row(phase: str, what: str, full, ranks, part,
         rows.append({"rank": r["rank"],
                      "flops_hlo": run["counts"]["flops_hlo"],
                      "collective_bytes": run["counts"]["collective_bytes"],
+                     "activation_bytes_by_dtype":
+                         _check_activation_collectives(full, what, acts),
+                     "activation_collectives": acts,
                      "gather_ms": med("gather_ms"),
                      "gather_bytes_received": med("gather_bytes_received"),
                      "allreduce_ms": med("allreduce_ms"),
@@ -6379,8 +6455,8 @@ def _serve_full_checks(row, ranks: list, ref: dict) -> None:
           "n_layers": layers, "d_model": full.d_model,
           "n_experts": full.n_experts, "vocab": full.vocab,
           "dtype": full.dtype,
-          "split": {k: _split_modes(cfg, q) for k, q in (("prefill", P),
-                                                         ("decode", 1))},
+          "split": {k: _split_modes(cfg, q, k) for k, q in (("prefill", P),
+                                                            ("decode", 1))},
           "reduced": [f"n_layers {full.n_layers} -> {layers}: four ranks "
                       f"share one card"],
           "batch": B, "prompt": P, "decode_steps_timed": n,

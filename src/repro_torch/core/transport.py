@@ -11,8 +11,10 @@ gradient passed through), :func:`gather_along` (an all-gather along a
 dim, its gradient reduce-scattered), :func:`reduce_scatter_along` (a
 reduce-scatter along a dim, its gradient all-gathered), and
 :func:`gather_blocks` / :func:`take_block` (an all-gather and a rank's
-block of a value every rank holds whole, each the other's adjoint). Sums
-run in float32 whatever the tensors' dtype; gathers move the bits.
+block of a value every rank holds whole, each the other's adjoint). Each
+sum runs in its operand's dtype (bf16 where the model is bf16), as GSPMD
+reduces a value in the dtype it has at the reduction; a value JAX holds in
+float32 at that point is float32 here too. Gathers move the bits.
 
 Every rank runs the same program on its own shard, so every rank posts
 the same sends and receives in the same order. The transport is chosen by
@@ -184,13 +186,12 @@ def reduce_scatter_sum(t: torch.Tensor, group, dim: int = 0
                        ) -> torch.Tensor:
     """The element-wise sum over ``group`` of every rank's ``t`` (one
     shape on every rank), this rank's block of it along ``dim`` (blocks
-    in group-rank order), summed in float32 and returned in ``t``'s
-    dtype."""
+    in group-rank order), summed in ``t``'s dtype."""
     import torch.distributed as dist
 
     host = _via_host(group)
     n = dist.get_world_size(group)
-    x = t.detach().movedim(dim, 0).to(torch.float32).contiguous()
+    x = t.detach().movedim(dim, 0).contiguous()
     out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
     if host:
         buf = out.cpu()
@@ -198,7 +199,7 @@ def reduce_scatter_sum(t: torch.Tensor, group, dim: int = 0
         out = buf.to(x.device)
     else:
         dist.reduce_scatter_tensor(out, x, group=group)
-    return out.movedim(0, dim).to(t.dtype)
+    return out.movedim(0, dim)
 
 
 def _block(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -249,8 +250,7 @@ class _CopyToGroup(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, ct):
-        return None, all_reduce_sum([ct], ctx.group,
-                                    dtype=torch.float32)[0]
+        return None, all_reduce_sum([ct], ctx.group)[0]
 
 
 class _ReduceFromGroup(torch.autograd.Function):
@@ -259,7 +259,7 @@ class _ReduceFromGroup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, group, t):
-        return all_reduce_sum([t], group, dtype=torch.float32)[0]
+        return all_reduce_sum([t], group)[0]
 
     @staticmethod
     def backward(ctx, ct):
@@ -316,8 +316,8 @@ def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's ``t`` over ``group`` (float32, in ``t``'s
-    dtype); its gradient passes through."""
+    """The sum of every rank's ``t`` over ``group``, in ``t``'s dtype;
+    its gradient passes through."""
     return _ReduceFromGroup.apply(group, t)
 
 

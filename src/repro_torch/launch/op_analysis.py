@@ -37,7 +37,9 @@ meta tensors alike) and records:
 ``hbm_bytes_est``, ``collective_bytes``, ``collective_total``);
 :meth:`OpAnalysis.top_collectives` the largest collective sites, each
 named by the parameter or cache leaves its operand was copied from
-(:meth:`OpAnalysis.name` registers them) and by the port's call site.
+(:meth:`OpAnalysis.name` registers them), by the port's call site and by
+its operand's dtype (a reduction's is the dtype it sums in; the port's
+gathers move ``uint8`` bytes).
 """
 from __future__ import annotations
 
@@ -196,7 +198,9 @@ class OpAnalysis(TorchDispatchMode):
             nb = sum(local_nbytes(t) for t in operand)
             self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + nb
             self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
-            key = (kind, nb, tuple(sorted(self._names_of(operand))), _site())
+            key = (kind, nb, tuple(sorted(self._names_of(operand))), _site(),
+                   str(operand[0].dtype).replace("torch.", "")
+                   if operand else "")
             self.sites[key] = self.sites.get(key, 0) + 1
         if not func.is_view and name not in _NO_BYTES:
             nb = sum(local_nbytes(t) for t in ins + outs)
@@ -237,16 +241,16 @@ class OpAnalysis(TorchDispatchMode):
                 "host_copy_bytes": float(self.host_copy_bytes),
                 "entry": "dispatched ops"}
 
-    def top_collectives(self, k: int = 12) -> List[dict]:
-        """The ``k`` largest collective sites by total bytes: kind, bytes
-        each, count, total, the leaves their operand carries (where
-        known) and the port's call site."""
+    def top_collectives(self, k: Optional[int] = 12) -> List[dict]:
+        """The ``k`` largest collective sites by total bytes (every site
+        for None): kind, dtype, bytes each, count, total, the leaves their
+        operand carries (where known) and the port's call site."""
         rows = []
-        for (kind, nb, names, site), n in self.sites.items():
+        for (kind, nb, names, site, dtype), n in self.sites.items():
             label = ", ".join(names[:4]) + (
                 f", … (+{len(names) - 4})" if len(names) > 4 else "")
-            rows.append({"kind": kind, "bytes_each": nb, "count": n,
-                         "bytes_total": nb * n, "names": label,
+            rows.append({"kind": kind, "dtype": dtype, "bytes_each": nb,
+                         "count": n, "bytes_total": nb * n, "names": label,
                          "site": site})
         rows.sort(key=lambda r: -r["bytes_total"])
         return rows[:k]

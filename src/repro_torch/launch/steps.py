@@ -23,13 +23,17 @@ head and CE, the MoE's expert-parallel, ff-TP and slot splits, the
 Mamba2 mixer over its heads). A step:
 
 1. builds the rank's working copy (:func:`_working_model`, which lives
-   for the step only): a leaf the split runs on its 'model' chunk is
-   gathered over 'pod' / 'data' only and stays that chunk (the experts
-   on E under 'ep', on d_ff under 'ff'; ``out_proj``, ``conv_w``,
-   ``conv_b`` on their 'model' dim); every other leaf (norms, the small
-   experts, ``in_proj``, a leaf whose stored shard does not hold the
-   chunk) is gathered whole (``pjit_utils.full_tensors``: one
-   collective per mesh dim);
+   for the step only): a leaf the split runs on its 'model' chunk
+   (``Split.chunk_dim``) is gathered over 'pod' / 'data' only and stays
+   that chunk (the experts on E under 'ep', on d_ff under 'ff';
+   ``out_proj`` on its 'model' dim; ``conv_w`` / ``conv_b`` only in a
+   decode, whose conv runs on the rank's channel chunk); every other
+   leaf (norms, the small experts, ``in_proj``, ``conv_w`` / ``conv_b``
+   in a train or prefill step, whose conv runs on the rank's heads'
+   channels, a leaf whose stored shard does not hold the chunk) is
+   gathered whole (``pjit_utils.full_tensors``: one collective per mesh
+   dim). The stored shards keep JAX's specs either way, and the
+   optimizer updates the rank's shard of a whole leaf's gradient;
 2. runs the rank's share: its rows of the batch over 'data' (× 'pod')
    when ``batch_specs`` of a microbatch's size says so, else the whole
    batch (with ``microbatch > 1`` a rank's rows in microbatch i are its
@@ -66,8 +70,9 @@ ambient mesh (the MoE's token blocks):
    reading and writing its own shards of the cache in place: its K/V
    heads, its chunk of the sequence (a context-parallel prefill, which
    starts from an empty cache) or its head_dim slice; its heads of the
-   Mamba2 ``ssm`` state and its channels of the ``conv`` state. No call
-   gathers a cache leaf;
+   Mamba2 ``ssm`` state and its channels of the ``conv`` state (a
+   prefill, which starts from an empty cache, writes them from the
+   prompt's last conv inputs). No call gathers a cache leaf;
 3. returns the logits as a DTensor of the global (B, V) (each rank's
    vocabulary slice gathered over 'model'), this rank's rows local.
 """

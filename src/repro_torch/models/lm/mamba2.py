@@ -13,9 +13,11 @@ B / C are shared across heads (one group). A decode state
 {"conv": (B, K-1, di+2N), "ssm": (B, H, P, N)} is updated IN PLACE.
 
 Over a process mesh :func:`mamba2_split` runs the rank's share under the
-model axis's split (``tp.Split.mixer``): its heads (``z`` / ``dt``
-columns of ``in_proj``, the SSM, ``out_proj``'s rows) and its chunk of
-the conv's ``[x | B | C]`` channels, on its shards of the state.
+model axis's split (``tp.Split.mixer`` / ``conv``): its heads (``z`` /
+``dt`` columns of ``in_proj``, the SSM, ``out_proj``'s rows), in a train
+or prefill call the conv of its heads' ``x`` channels and of all of
+``B`` / ``C``, in a decode the conv of its chunk of the ``[x | B | C]``
+channels; on its shards of the state.
 """
 from __future__ import annotations
 
@@ -209,6 +211,14 @@ def mamba2_apply(p: Mamba2, cfg: ModelConfig, u: torch.Tensor,
     return matmul(y, p.out_proj)
 
 
+def _conv_tail(u: torch.Tensor, w: torch.Tensor, K: int) -> torch.Tensor:
+    """The conv state an empty cache holds after the prompt ``u``: the
+    last ``K - 1`` conv inputs ``u @ w`` (zeros before the prompt, as
+    :func:`_causal_conv` pads)."""
+    tail = matmul(u[:, -(K - 1):], w)
+    return F.pad(tail, (0, 0, K - 1 - tail.shape[1], 0))
+
+
 def mamba2_split(p: Mamba2, cfg: ModelConfig, u: torch.Tensor, split,
                  state: Optional[Dict] = None) -> torch.Tensor:
     """The rank's share of the mixer under ``split`` (a ``tp.Split``;
@@ -217,33 +227,56 @@ def mamba2_split(p: Mamba2, cfg: ModelConfig, u: torch.Tensor, split,
     state, read and written in place.
 
     'heads': ``z``, ``dt`` and the SSM of the rank's heads, its partial
-    ``out_proj`` product reduced. The conv runs on the rank's channel
-    chunk (``conv_chunked``), which does not line up with the heads, so
-    its output is gathered over 'model' (the SSM reads ``B`` / ``C`` of
-    every channel), or on every channel. ``in_proj``'s stored shard, a
-    chunk of the fused ``[z | x | B | C | dt]`` dim, holds neither: it
-    comes whole and is sliced. 'whole': the mixer whole on every 'model'
-    rank but the conv's chunk."""
+    ``out_proj`` product reduced. ``in_proj``'s stored shard, a chunk of
+    the fused ``[z | x | B | C | dt]`` dim, holds neither the heads'
+    columns nor the conv's: it comes whole and is sliced. The conv
+    (``split.conv``): 'heads' (train, prefill) on the heads' ``x``
+    channels and all of ``B`` / ``C``, with ``conv_w`` / ``conv_b`` whole
+    (the gradients of the columns other ranks run arrive as zeros, summed
+    over 'model' with the rest); no collective. A prefill starts at
+    position 0 on an empty cache (JAX's ``prefill``, ``q_offset=0``; every
+    caller zeroes it), so the conv reads no carried state, and it writes
+    the rank's ``conv`` state chunk from the prompt's last inputs of those
+    channels. 'chunk' (decode): the rank's channel chunk, which does not
+    line up with the heads, with its ``conv`` state shard, its output
+    gathered over 'model' (the SSM reads ``B`` / ``C`` of every channel);
+    'whole': every channel. 'whole' mixer: the mixer whole on every
+    'model' rank but the conv's chunk."""
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    conv_c = di + 2 * N
+    conv_c, K = di + 2 * N, cfg.ssm_conv
     heads = split.mixer == "heads"
     if heads:
         u = split.enter(u)
     elif split.sp:
         u = gather_blocks(u, split.group, 1)
     # in_proj's columns the rank uses for its own share (its heads, its
-    # conv chunk), and, in 'whole', those every rank uses alike
+    # conv channels), and, in 'whole', those every rank uses alike
     own = split.part(p.in_proj)
     same = own if heads else p.in_proj
     h0, Hs = split.chunk(H) if heads else (0, H)
     z = matmul(u, same.narrow(1, h0 * P, Hs * P))
     dt = matmul(u, same.narrow(1, 2 * di + 2 * N + h0, Hs))
     conv_state = state["conv"] if state is not None else None
-    if split.conv_chunked:
+    # the conv's output: the x channels from column 0 to ``bc`` (the
+    # rank's heads' from ``x0``), then B and C
+    x0, bc = h0 * P, di
+    if split.conv == "heads":
+        def xbc(t, dim):    # the heads' x and all B / C of a fused leaf
+            return torch.cat([t.narrow(dim, h0 * P, Hs * P),
+                              t.narrow(dim, di, 2 * N)], dim)
+
+        out, _ = _causal_conv(matmul(u, xbc(own.narrow(1, di, conv_c), 1)),
+                              xbc(split.part(p.conv_w), 1),
+                              xbc(split.part(p.conv_b), 0))
+        x0, bc = 0, Hs * P
+        if state is not None:
+            c0, cn = split.chunk(conv_c)
+            new_conv = _conv_tail(u, own.narrow(1, di + c0, cn), K)
+    elif split.conv == "chunk":
         c0, cn = split.chunk(conv_c)
-        xbc = matmul(u if heads else copy_to_group(u, split.group),
+        xin = matmul(u if heads else copy_to_group(u, split.group),
                      own.narrow(1, di + c0, cn))
-        out, new_conv = _causal_conv(xbc, split.tp(p.conv_w, 1, conv_c),
+        out, new_conv = _causal_conv(xin, split.tp(p.conv_w, 1, conv_c),
                                      split.tp(p.conv_b, 0, conv_c),
                                      conv_state)
         out = (gather_along if heads else gather_blocks)(out, split.group,
@@ -256,8 +289,8 @@ def mamba2_split(p: Mamba2, cfg: ModelConfig, u: torch.Tensor, split,
     def hs(t):          # a per-head leaf's entries of the rank's heads
         return split.tp(t, 0, H) if heads else t
 
-    y = _ssm(cfg, out[..., h0 * P:(h0 + Hs) * P], out[..., di:di + N],
-             out[..., di + N:], dt, hs(p.A_log), hs(p.dt_bias),
+    y = _ssm(cfg, out[..., x0:x0 + Hs * P], out[..., bc:bc + N],
+             out[..., bc + N:], dt, hs(p.A_log), hs(p.dt_bias),
              hs(p.skip_D), state)
     if state is not None:
         state["conv"].copy_(new_conv)

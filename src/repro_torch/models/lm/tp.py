@@ -47,11 +47,16 @@ split, with ``m`` ranks on 'model' and this rank at ``r``:
 * **the Mamba2 mixer** (``mixer``): 'heads' when ``m`` divides the SSM
   heads (the rank's ``z`` / ``dt`` columns and heads, ``out_proj`` row
   chunk, its ``ssm`` state shard; the partial outputs reduced), else
-  'whole'. Its depthwise conv runs on the rank's contiguous chunk of the
-  ``[x | B | C]`` channels when ``m`` divides them (``conv_w`` /
-  ``conv_b`` / the ``conv`` state chunks, JAX's specs), its output
-  gathered over 'model'; else on every channel. So a serve call reads
-  and writes its own ``conv`` / ``ssm`` shards and gathers no state.
+  'whole'. Its depthwise conv (``conv``): 'heads' in a train or prefill
+  call under the 'heads' mixer — on the ``x`` channels of the rank's
+  heads and on all of ``B`` / ``C``, ``conv_w`` / ``conv_b`` whole, no
+  collective (a prefill writes the rank's ``conv`` state chunk from its
+  last inputs); 'chunk' in a decode, or under 'whole', when ``m``
+  divides the ``[x | B | C]`` channels — on the rank's contiguous chunk
+  of them (``conv_w`` / ``conv_b`` / the ``conv`` state chunks, JAX's
+  specs), its output gathered over 'model'; else 'whole', on every
+  channel. So a serve call reads and writes its own ``conv`` / ``ssm``
+  shards and gathers no state.
 
 A leaf the split runs on its 'model' chunk (:meth:`Split.chunk_dim`)
 reaches the model as that chunk where its stored shard is sharded there
@@ -92,7 +97,8 @@ class Split:
     """One call's split (module docstring). ``kv`` / ``cross``: the
     per-layer cache leaf's (B, S, H, Dh) dim sharded over 'model' (1
     sequence, 2 heads, 3 head_dim, None whole), of the self- and the
-    cross-attention K / V."""
+    cross-attention K / V; ``kind``: the call's ("train", "prefill" or
+    "decode")."""
     cfg: ModelConfig
     mesh: Any
     group: Any
@@ -102,6 +108,7 @@ class Split:
     attn: str
     kv: Optional[int] = None
     cross: Optional[int] = None
+    kind: str = "train"
 
     @property
     def mlp_tp(self) -> bool:
@@ -131,9 +138,13 @@ class Split:
         return "heads" if self.cfg.ssm_heads % self.m == 0 else "whole"
 
     @property
-    def conv_chunked(self) -> bool:
-        """Does the rank run its chunk of the conv's channels?"""
-        return (self.cfg.d_inner + 2 * self.cfg.ssm_state) % self.m == 0
+    def conv(self) -> str:
+        """The Mamba2 conv's mode: 'heads', 'chunk' or 'whole' (module
+        docstring)."""
+        if self.mixer == "heads" and self.kind != "decode":
+            return "heads"
+        channels = self.cfg.d_inner + 2 * self.cfg.ssm_state
+        return "chunk" if channels % self.m == 0 else "whole"
 
     def for_seq(self, seq_len: int) -> "Split":
         """The split of a stack over ``seq_len`` positions (the
@@ -159,7 +170,7 @@ class Split:
         if mod == "mixer":
             if leaf == "out_proj":
                 return 0 if self.mixer == "heads" else None
-            return _CONV.get(leaf) if self.conv_chunked else None
+            return _CONV.get(leaf) if self.conv == "chunk" else None
         if name in ("embed", "lm_head"):
             return 0
         return None
@@ -226,4 +237,4 @@ def make_split(cfg: ModelConfig, mesh, seq_len: int, kind: str = "train",
     else:
         attn = "context" if sp else "replicated"
     return Split(cfg, mesh, mesh.get_group("model"), m,
-                 axis_index(mesh, "model"), sp, attn, kv, cross)
+                 axis_index(mesh, "model"), sp, attn, kv, cross, kind)

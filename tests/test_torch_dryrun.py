@@ -10,10 +10,14 @@ the same time, under a timeout. Held: ``params``, ``active_params``,
 JAX's cell JSON; the FLOPs counted positive, their ratio to JAX's
 ``flops_hlo`` in the message and held near JAX's where the model axis
 splits the cell's compute as GSPMD does (the dense train step, the SSM
-decode's Mamba2 mixer over its heads). This file: the dense train cell,
-the SSM long-context decode cell, ``llama3p2_3b × train_4k`` on the
-256-rank pod mesh, and ``dryrun_all``'s skip and error JSONs;
-``test_torch_dryrun_serve.py`` the enc-dec prefill and MoE decode cells.
+decode's Mamba2 mixer over its heads, the SSM train step), and the
+collective bytes a rank moves at most JAX's where the split moves what
+GSPMD moves (the train steps: reductions in the activations' bf16, the
+Mamba2 conv on the rank's heads with no gather). This file: the dense
+train cell, the SSM long-context decode cell, the SSM train cell,
+``llama3p2_3b × train_4k`` on the 256-rank pod mesh, and
+``dryrun_all``'s skip and error JSONs; ``test_torch_dryrun_serve.py``
+the enc-dec prefill and MoE decode cells.
 """
 import json
 import os
@@ -25,7 +29,8 @@ import pytest
 
 CELL_TIMEOUT_S = 300
 CASES = [("llama3p2_3b", "train_4k"),       # dense train
-         ("mamba2_1p3b", "long_500k")]      # SSM long-context decode
+         ("mamba2_1p3b", "long_500k"),      # SSM long-context decode
+         ("mamba2_1p3b", "train_4k")]       # SSM train
 
 
 def start_cell(package: str, arch: str, shape: str, out: str,
@@ -109,20 +114,50 @@ def test_cell_matches_jax_on_debug_mesh(cells, arch, shape):
                cells[("repro_torch", arch, shape)])
 
 
+def _ratios(port: dict, jax_cell: dict, what: str) -> tuple:
+    """Port / JAX FLOPs and collective bytes a device (JAX's loop bodies
+    counted once per trip, as the port counts every op), printed."""
+    flops, coll = (port["tripaware"][k] / jax_cell["tripaware"][k]
+                   for k in ("flops_hlo", "collective_total"))
+    print(f"{what}: port / JAX FLOPs a device {flops:.3f}, collective "
+          f"bytes {coll:.3f}")
+    return flops, coll
+
+
 def test_train_cell_splits_the_model_axis(cells):
     """A rank of the port runs its share of the model axis's work on its
     data rows (TP / context-parallel attention, TP MLP, vocab-parallel
     head and CE, the sequence-parallel residual): at most JAX's FLOPs a
     device on (2, 4) (0.91× when this was written; 3.65× while every rank
-    ran the whole model), with the residual's reduce-scatters."""
+    ran the whole model), with the residual's reduce-scatters, in bf16 as
+    GSPMD's: at most JAX's collective bytes (0.64× when this was written;
+    1.13× while they reduced in float32)."""
     port = cells[("repro_torch", "llama3p2_3b", "train_4k")]
     jax_cell = cells[("repro", "llama3p2_3b", "train_4k")]
-    ratio = port["tripaware"]["flops_hlo"] / jax_cell["tripaware"][
-        "flops_hlo"]
+    ratio, coll = _ratios(port, jax_cell, "llama3p2_3b × train_4k")
     assert ratio <= 1.0, f"port / JAX FLOPs a device: {ratio:.3f}"
+    assert coll <= 1.0, f"port / JAX collective bytes a device: {coll:.3f}"
     assert port["collective_bytes"]["all-gather"] > 0
     assert port["collective_bytes"]["all-reduce"] > 0
     assert port["collective_bytes"]["reduce-scatter"] > 0
+
+
+def test_ssm_train_cell_moves_at_most_jax_collective_bytes(cells):
+    """The Mamba2 train step: the conv runs on the rank's heads' ``x``
+    channels and all of ``B`` / ``C`` (no gather of its output; no
+    collective site in ``mamba2_split``), the activations reduce in bf16:
+    at most JAX's collective bytes a device (0.88× when this was written;
+    3.14× with the conv's gather and float32 reductions), FLOPs within
+    1.2× JAX's (a rank's ``in_proj`` runs its heads' ``x`` and all of
+    ``B`` / ``C``, 2,320 columns where its conv chunk took 2,128)."""
+    port = cells[("repro_torch", "mamba2_1p3b", "train_4k")]
+    jax_cell = cells[("repro", "mamba2_1p3b", "train_4k")]
+    ratio, coll = _ratios(port, jax_cell, "mamba2_1p3b × train_4k")
+    assert ratio <= 1.2, f"port / JAX FLOPs a device: {ratio:.3f}"
+    assert coll <= 1.0, f"port / JAX collective bytes a device: {coll:.3f}"
+    sites = [r for r in port["top_collectives"]
+             if r["site"] == "models/lm/mamba2.py:mamba2_split"]
+    assert not sites, sites
 
 
 def test_ssm_cell_splits_the_mixer(cells):

@@ -35,11 +35,15 @@ against JAX's mesh runs, on the CPU.
   the summation order decides (mixtral's ``embed[111, 16]`` at step 2:
   3e-8 in a row of 0.08; JAX moves it up, the port down). Also: the
   working copy holds the split leaves as the rank's 'model' chunks (the
-  experts on E or d_ff, ``out_proj``, ``conv_w`` / ``conv_b``), the small
-  experts and ``in_proj`` whole; every serve call is handed the rank's
-  cache shards and no prefill or decode collective carries a cache leaf
-  (``op_analysis``); a rank's train step counts at most 0.5× the FLOPs
-  of its rows through one unsplit rank (granite, zamba2).
+  experts on E or d_ff, ``out_proj``), the small experts, ``in_proj``
+  and, in train and prefill, ``conv_w`` / ``conv_b`` whole (the conv
+  runs on the rank's heads' channels), in decode those two as the rank's
+  chunk (the conv runs on its channel chunk); every serve call is handed
+  the rank's cache shards and no prefill or decode collective carries a
+  cache leaf; no train or prefill collective is posted by
+  ``mamba2_split`` itself, a decode's one gather of the conv output is
+  (``op_analysis`` sites); a rank's train step counts at most 0.5× the
+  FLOPs of its rows through one unsplit rank (granite, zamba2).
 """
 import concurrent.futures
 import os
@@ -239,10 +243,17 @@ def _mesh_grads(cfg, state, mesh, batch) -> dict:
         for i, (n, g) in enumerate(zip(names, grads))])
 
 
+def _collectives(oa) -> list:
+    """Every collective site ``oa`` counted: (kind, leaf names, site)."""
+    return [(r["kind"], r["names"], r["site"])
+            for r in oa.top_collectives(None)]
+
+
 def _train(rank, case, arch, S, ins, mesh, flags, out):
     """``case``'s first-step gradients and mesh train steps; the working
-    copy's leaf shapes and chunked leaves recorded, and for ``FLOPS`` one
-    step's count beside one unsplit rank's count of the same rows."""
+    copy's leaf shapes and chunked leaves recorded, the last step's
+    collectives counted, and for ``FLOPS`` its FLOPs beside one unsplit
+    rank's count of the same rows."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import steps, train
     from repro_torch.launch.op_analysis import OpAnalysis
@@ -278,10 +289,11 @@ def _train(rank, case, arch, S, ins, mesh, flags, out):
         with ambient_mesh(mesh):
             for i in range(TRAIN_STEPS):
                 batch = train.synthetic_batch(cfg, i, B, S, device="cpu")
-                if case in FLOPS and i == TRAIN_STEPS - 1:
+                if i == TRAIN_STEPS - 1:
                     with OpAnalysis() as oa:
                         state, m = step(state, batch)
                     flags[f"{case}/flops"] = oa.analyze()["flops_hlo"]
+                    flags[f"{case}/train_collectives"] = _collectives(oa)
                 else:
                     state, m = step(state, batch)
                 losses.append(float(m["loss"]))
@@ -304,16 +316,18 @@ def _train(rank, case, arch, S, ins, mesh, flags, out):
 
 def _serve(case, arch, P, ins, ref, mesh, flags, out):
     """``case``'s mesh prefill and decode steps on JAX's greedy tokens;
-    the cache leaves each call is handed, the shards, and the prefill's
-    and last decode step's collectives recorded."""
+    the cache leaves each call is handed, the shards, the working copy's
+    chunked leaves by call kind, and the prefill's and last decode step's
+    collectives recorded."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import steps
     from repro_torch.launch.op_analysis import OpAnalysis
     from repro_torch.models.lm import model as T
     from repro_torch.pjit_utils import full_tensors
 
-    handed = []
+    handed, working = [], {}
     calls = {k: getattr(T, k) for k in ("prefill", "decode_step")}
+    build = steps._working_model
 
     def recording(fn):
         def call(model, tokens, cache, *a, **kw):
@@ -322,11 +336,15 @@ def _serve(case, arch, P, ins, ref, mesh, flags, out):
             return fn(model, tokens, cache, *a, **kw)
         return call
 
-    def collectives(oa):
-        return [(r["kind"], r["names"]) for r in oa.top_collectives(100)]
+    def building(cfg, sharded, split=None, skip=()):
+        model, chunked = build(cfg, sharded, split, skip)
+        working[split.kind] = {n: tuple(p.shape) for i, (n, p) in enumerate(
+            model.named_parameters()) if i in chunked}
+        return model, chunked
 
     for k, fn in calls.items():
         setattr(T, k, recording(fn))
+    steps._working_model = building
     try:
         cfg = get_smoke_config(arch)
         model = T.from_jax_params(cfg, _tree(ins, f"serve/{case}/params"),
@@ -341,7 +359,7 @@ def _serve(case, arch, P, ins, ref, mesh, flags, out):
             logits, cache = steps.make_prefill_step(cfg, mesh=mesh)(
                 model, torch.from_numpy(ins[f"serve/{case}/tokens"]), cache,
                 {})
-        flags[f"{case}/prefill_collectives"] = collectives(oa)
+        flags[f"{case}/prefill_collectives"] = _collectives(oa)
         out[f"serve/{case}/logits/0"] = full_tensors([logits])[0].numpy()
         names, leaves = zip(*named_leaves(cache))
         for name, leaf in zip(names, full_tensors(leaves)):
@@ -359,10 +377,12 @@ def _serve(case, arch, P, ins, ref, mesh, flags, out):
                 logits, cache = decode(*args)
             out[f"serve/{case}/logits/{i + 1}"] = full_tensors(
                 [logits])[0].numpy()
-        flags[f"{case}/decode_collectives"] = collectives(oa)
+        flags[f"{case}/decode_collectives"] = _collectives(oa)
         flags[f"{case}/handed"] = list(handed)
         flags[f"{case}/shards"] = shards
+        flags[f"{case}/serve_chunked"] = dict(working)
     finally:
+        steps._working_model = build
         for k, fn in calls.items():
             setattr(T, k, fn)
 
@@ -464,14 +484,13 @@ def test_split_serve_matches_jax_mesh(runs, case):
 _MODES = {"granite": ("slots", None), "zamba2": (None, "heads"),
           "mamba2": (None, "heads"), "mixtral_ep": ("ep", None),
           "mixtral_ff": ("ff", None)}
-# a leaf the split runs on its chunk: (name, dim, whole size, model axis)
+# a leaf the split runs on its chunk: (name, dim, whole size, model axis);
+# a train step's Mamba2 conv runs on the rank's heads' channels, so
+# conv_w / conv_b are whole there (a decode's: _DECODE_CONV)
 _CHUNKS = {
     "granite": [],
-    "zamba2": [("blocks.0.mixer.out_proj", 0, 128, 4),
-               ("blocks.3.mixer.conv_w", 1, 160, 4),
-               ("blocks.1.mixer.conv_b", 0, 160, 4)],
-    "mamba2": [("blocks.1.mixer.out_proj", 0, 128, 4),
-               ("blocks.0.mixer.conv_w", 1, 160, 4)],
+    "zamba2": [("blocks.0.mixer.out_proj", 0, 128, 4)],
+    "mamba2": [("blocks.1.mixer.out_proj", 0, 128, 4)],
     "mixtral_ep": [("blocks.0.moe.w_gate", 0, 4, 4),
                    ("blocks.1.moe.w_up", 0, 4, 4),
                    ("blocks.0.moe.w_down", 0, 4, 4)],
@@ -482,8 +501,10 @@ _CHUNKS = {
 _WHOLE = {"granite": ["blocks.0.moe.w_gate", "blocks.1.moe.w_down",
                       "blocks.0.moe.router"],
           "zamba2": ["blocks.0.mixer.in_proj", "blocks.2.mixer.A_log",
-                     "blocks.1.norm.scale"],
-          "mamba2": ["blocks.1.mixer.in_proj", "blocks.0.mixer.skip_D"],
+                     "blocks.1.norm.scale", "blocks.3.mixer.conv_w",
+                     "blocks.1.mixer.conv_b"],
+          "mamba2": ["blocks.1.mixer.in_proj", "blocks.0.mixer.skip_D",
+                     "blocks.0.mixer.conv_w", "blocks.1.mixer.conv_b"],
           "mixtral_ep": ["blocks.0.moe.router"],
           "mixtral_ff": ["blocks.1.moe.router"]}
 
@@ -503,6 +524,35 @@ def test_rank_runs_on_its_model_chunks(runs, case):
             assert name not in work["chunked"], (case, name)
 
 
+# the SSM cases' conv leaves a decode runs on the rank's chunk:
+# (name, dim, whole size, model axis)
+_DECODE_CONV = {"zamba2": [("blocks.3.mixer.conv_w", 1, 160, 4),
+                           ("blocks.1.mixer.conv_b", 0, 160, 4)],
+                "mamba2": [("blocks.0.mixer.conv_w", 1, 160, 4),
+                           ("blocks.1.mixer.conv_b", 0, 160, 4)]}
+_MAMBA2_SPLIT = "models/lm/mamba2.py:mamba2_split"
+
+
+@pytest.mark.parametrize("case", sorted(_DECODE_CONV))
+def test_conv_runs_on_heads_in_train_and_prefill_on_chunk_in_decode(
+        runs, case):
+    """Train and prefill run the Mamba2 conv on the rank's heads' ``x``
+    channels and all of ``B`` / ``C``: ``conv_w`` / ``conv_b`` reach the
+    working copy whole and ``mamba2_split`` posts no collective; a decode
+    runs it on the rank's channel chunk (those leaves its chunk) and
+    gathers the one token's conv output there."""
+    for f in _ranks_of(runs, case):
+        for name, dim, n, m in _DECODE_CONV[case]:
+            assert f[f"{case}/serve_chunked"]["decode"][name][dim] == n // m
+            assert name not in f[f"{case}/serve_chunked"]["prefill"]
+        for step in ("train", "prefill"):
+            sites = [c for c in f[f"{case}/{step}_collectives"]
+                     if c[2] == _MAMBA2_SPLIT]
+            assert not sites, (case, step, sites)
+        assert any(c[2] == _MAMBA2_SPLIT
+                   for c in f[f"{case}/decode_collectives"]), case
+
+
 @pytest.mark.parametrize("case", SERVE)
 def test_serve_call_reads_and_writes_its_cache_shards(runs, case):
     """Each prefill and decode call is handed the rank's shards of the
@@ -514,7 +564,7 @@ def test_serve_call_reads_and_writes_its_cache_shards(runs, case):
         assert handed[0] == shards["prefill"]
         assert all(h == shards["decode"] for h in handed[1:])
         for step in ("prefill", "decode"):
-            for kind, names in f[f"{case}/{step}_collectives"]:
+            for kind, names, _ in f[f"{case}/{step}_collectives"]:
                 assert "cache." not in names, (case, step, kind, names)
 
 
