@@ -275,11 +275,13 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     ``LM_MESH_FULL``'s layers so four ranks share the card (``reduced``):
     1 warm-up and 3 timed steps at B = 4, S = 512 on a fixed batch, each
     loss within 2e-2 of the same model's one-rank run here, the loss
-    falling; step ms per rank, the gathers' and the gradient all-reduce's
-    ms and bytes per rank (gloo through the host on one card: not an
-    NVLink or NCCL number), each rank's state bytes beside the one-rank
-    state's and the specs' count, the working copy's bytes, peak memory
-    per process.
+    falling; step ms per rank, the per-block parameter gathers' ms, bytes
+    and count, the gathered bytes alive at once at their peak beside a
+    whole working copy's bytes, the gradients' reduce-scatters' and the
+    other reductions' ms and bytes per rank (gloo through the host on one
+    card: not an NVLink or NCCL number), each rank's state bytes beside
+    the one-rank state's and the specs' count, peak memory per process,
+    the card's name and power limit.
 
 22. LM serving over the mesh and the dry run's counts (the mesh prefill
     and decode steps of ``launch/steps.py``, ``launch/dryrun.py``,
@@ -303,7 +305,12 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     whose greedy tokens the ranks' decode steps are fed: each rank's
     logits of every call within ``LM_MESH_FULL_TOL`` (bf16) relative of
     one rank's, its greedy tokens equal but at near-ties (one rank's
-    logits of the two tokens within that bound); (c) ``op_analysis`` of
+    logits of the two tokens within that bound); the other rows of
+    ``LM_SERVE_MESH_FULL_ROWS`` the same way, each printing its peak
+    memory per rank beside a whole working copy's bytes, the last one
+    ``mamba2-1.3b`` at all 48 layers in float32 (B = 1), with its bf16
+    twin's distance from it on one rank and on the mesh; (c)
+    ``op_analysis`` of
     real steps held EQUAL to the dry run's fake count of the same step
     (``dryrun.build_cell`` on cuda), and that fake count EQUAL to the same
     cell faked on the CPU, as a CPU-only torch counts it (FLOPs,
@@ -715,15 +722,30 @@ LM_SERVE_MESH_STEPS = 8
 LM_SERVE_MESH_FULL = (4, 512, 4)
 LM_SERVE_MESH_TOL = 1e-5
 # phase 22 (b)'s full-width serve rows: (arch, layers, B, prompt, timed
-# decode steps), LM_FULL's first; mixtral's 8 experts run expert-parallel
-# on the model axis of 2 (one layer: ≈ 5.4e9 parameters, its train state
-# would not fit four ranks on one card, so it is served only)
-LM_SERVE_MESH_FULL_ROWS = ((LM_FULL, LM_MESH_FULL[0]) + LM_SERVE_MESH_FULL,
-                           ("mamba2_1p3b", 2, 4, 512, 4),
-                           ("mixtral_8x22b", 1, 4, 128, 2))
+# decode steps, dtype), LM_FULL's first; mixtral's 8 experts run
+# expert-parallel on the model axis of 2 (one layer: ≈ 5.4e9 parameters,
+# its train state would not fit four ranks on one card, so it is served
+# only). The last row shows the per-block point at depth: mamba2-1.3b at
+# its published width and all its layers, where a rank's peak is its
+# shards and about one block, not a whole working copy. It runs in
+# float32: at that depth one rank's bf16 logits and the mesh's each lie
+# farther than LM_MESH_FULL_TOL from a float32 run (its twin, below, shows
+# how far), so they cannot be held to each other. A row whose dtype is not its
+# config's also serves its twin in the config's dtype on the same
+# weights, fed the row's greedy tokens, and holds the mesh's twin no
+# farther than LM_MESH_TWIN_RATIO times one rank's twin from the row's
+# one-rank logits: the split's bf16 sums may round differently from one
+# rank's whole matmul, never worse by more than that ratio
+LM_SERVE_MESH_FULL_ROWS = (
+    (LM_FULL, LM_MESH_FULL[0]) + LM_SERVE_MESH_FULL + ("bfloat16",),
+    ("mamba2_1p3b", 2, 4, 512, 4, "bfloat16"),
+    ("mixtral_8x22b", 1, 4, 128, 2, "bfloat16"),
+    ("mamba2_1p3b", 48, 1, 128, 2, "float32"))
+LM_MESH_TWIN_RATIO = 2.0
 # phases 21–22's split rows read a step's collectives by op_analysis site:
-# these are not the split's activations (the working copy's gathers, the
-# step's gradient mean and norm); and these sites may sum in float32 in a
+# these are not the split's activations (the per-block parameter gathers
+# and their gradients' reduce-scatters, the step's gradient mean over
+# replicas and norm); and these sites may sum in float32 in a
 # bf16 model, where JAX's value is float32 too (the head_dim scores, the
 # CE's label logit, the MoE's aux and expert-load means) or, in the
 # backward, the gradient of a float32 leaf entered through Split.part
@@ -733,7 +755,9 @@ LM_SERVE_MESH_FULL_ROWS = ((LM_FULL, LM_MESH_FULL[0]) + LM_SERVE_MESH_FULL,
 # On a CUDA device autograd runs the backward on its own thread, whose
 # stack holds no frame of the port: op_analysis's site is "" there, which
 # the rows call LM_BACKWARD_SITE (on the CPU: steps.py:_loss_and_grads).
-LM_NOT_ACTIVATION_SITES = ("launch/steps.py:_working_model",
+LM_NOT_ACTIVATION_SITES = ("launch/fsdp.py:forward",
+                           "launch/fsdp.py:backward",
+                           "launch/steps.py:_shard_grads",
                            "launch/steps.py:train_step")
 LM_FP32_SITES = ("models/lm/layers.py:reduce",
                  "models/lm/model.py:_chunked_ce_split",
@@ -5298,36 +5322,57 @@ def lm_phase() -> None:
 # --------------------------------------------------------------------- #
 class _LMExchange:
     """Times (host clock) and sizes this rank's collectives for the life of
-    the process (a child of phase 21 or 22), in three parts: the working
-    copy's gathers (``launch.steps``' ``full_tensors``: the parameters),
-    the gradient all-reduces
-    (``launch.steps``' ``all_reduce_sum``), and the activations of the
-    model axis's split (every other ``torch.distributed`` collective: ms
-    inside the call, which excludes the host staging, and operand bytes
-    by JAX's convention). On ``gloo`` every byte stages through host
-    memory."""
+    the process (a child of phase 21 or 22), in four parts: the per-block
+    parameter gathers (``launch.fsdp``'s ``gather_shards``: bytes
+    received), their gradients' reduce-scatters (``launch.fsdp``'s
+    ``reduce_scatter_cat``: float32 operand bytes), the step's other
+    reductions (``launch.steps``' ``all_reduce_sum``: the gradients of
+    leaves replicated over a batch axis, the loss, the norm), and the
+    activations of the model axis's split (every other
+    ``torch.distributed`` collective: ms inside the call, which excludes
+    the host staging, and operand bytes by JAX's convention). Also the
+    gathers' count and the peak of gathered bytes alive at once
+    (``fsdp.stats``), and the bytes of every leaf as the call's plan
+    gathers it (``steps.gather_plan``'s shapes: what a working copy of
+    the whole model would hold). On ``gloo`` every byte stages through
+    host memory."""
 
     def __init__(self):
         import torch.distributed as dist
 
-        from repro_torch.launch import steps
+        from repro_torch.launch import fsdp, steps
 
+        self.fsdp = fsdp
         self.reset()
         self.inside = False
-        gather, reduce = steps.full_tensors, steps.all_reduce_sum
+        self.copy_bytes = 0
+        gather, scatter = fsdp.gather_shards, fsdp.reduce_scatter_cat
+        reduce, plan = steps.all_reduce_sum, steps.gather_plan
         ex = self
 
-        def full_tensors(dts, axes=None):
+        def gather_shards(locals_, placements, mesh, over):
             t0 = time.perf_counter()
             ex.inside = True
             try:
-                out = gather(dts, axes)
+                out = gather(locals_, placements, mesh, over)
             finally:
                 ex.inside = False
             ex.gather_ms += (time.perf_counter() - t0) * 1e3
             ex.gather_bytes += sum(o.numel() * o.element_size() for o in out)
-            ex.gather_bytes -= sum(d.to_local().numel()
-                                   * d.to_local().element_size() for d in dts)
+            ex.gather_bytes -= sum(t.numel() * t.element_size()
+                                   for t in locals_)
+            return out
+
+        def reduce_scatter_cat(tensors, group, dims):
+            t0 = time.perf_counter()
+            ex.inside = True
+            try:
+                out = scatter(tensors, group, dims)
+            finally:
+                ex.inside = False
+            ex.scatter_ms += (time.perf_counter() - t0) * 1e3
+            ex.scatter_bytes += sum(t.numel() * t.element_size()
+                                    for t in tensors)
             return out
 
         def all_reduce_sum(tensors, group, dtype=None):
@@ -5341,6 +5386,13 @@ class _LMExchange:
             ex.reduce_bytes += sum(t.numel() for t in tensors) * (
                 dtype or tensors[0].dtype).itemsize
             return out
+
+        def gather_plan(sharded, split=None):
+            got = plan(sharded, split)
+            dtypes = {n: p.dtype for n, p in sharded.named_parameters()}
+            ex.copy_bytes = sum(int(np.prod(s)) * dtypes[n].itemsize
+                                for n, s in got.shapes.items())
+            return got
 
         def activation(fn, operand: int):
             def call(*args, **kwargs):
@@ -5358,17 +5410,26 @@ class _LMExchange:
         dist.all_gather = activation(dist.all_gather, 1)
         dist.reduce_scatter_tensor = activation(dist.reduce_scatter_tensor, 1)
         dist.all_reduce = activation(dist.all_reduce, 0)
-        steps.full_tensors = full_tensors
+        fsdp.gather_shards = gather_shards
+        fsdp.reduce_scatter_cat = reduce_scatter_cat
         steps.all_reduce_sum = all_reduce_sum
+        steps.gather_plan = gather_plan
 
     def reset(self):
-        self.gather_ms = self.reduce_ms = self.act_ms = 0.0
-        self.gather_bytes = self.reduce_bytes = 0
+        self.gather_ms = self.scatter_ms = self.reduce_ms = self.act_ms = 0.0
+        self.gather_bytes = self.scatter_bytes = self.reduce_bytes = 0
         self.act_bytes = self.act_calls = 0
+        self.fsdp.reset_stats()
 
     def read(self) -> dict:
+        st = self.fsdp.stats()
         return {"gather_ms": self.gather_ms,
                 "gather_bytes_received": self.gather_bytes,
+                "gathers": st["gathers"],
+                "gathered_bytes_live_peak": st["peak_live_bytes"],
+                "working_copy_bytes_from_shapes": self.copy_bytes,
+                "reduce_scatter_ms": self.scatter_ms,
+                "reduce_scatter_bytes": self.scatter_bytes,
                 "allreduce_ms": self.reduce_ms,
                 "allreduce_bytes": self.reduce_bytes,
                 "activation_ms": self.act_ms,
@@ -5515,24 +5576,19 @@ def _check_activation_collectives(cfg, what: str, rows: list) -> dict:
 
 def _lm_mesh_grads(cfg, state, mesh, batch) -> list:
     """The mesh step's gradients of ``batch`` (before the clip), each
-    whole, in ``parameters()`` order: the rank's working copy's, summed
-    over 'data' (÷ its size), its 'model' chunks gathered."""
-    from repro_torch.core.transport import all_gather_cat, all_reduce_sum
+    whole, in ``parameters()`` order: the rank's shards' (each summed over
+    'data', ÷ its size), gathered."""
     from repro_torch.launch import steps
     from repro_torch.models.lm.tp import make_split
-    from repro_torch.pjit_utils import ambient_mesh
+    from repro_torch.pjit_utils import ambient_mesh, full_tensors, to_dtensor
 
     with ambient_mesh(mesh):
         rows = steps._rank_rows(cfg, mesh, batch)
         split = make_split(cfg, mesh, steps._seq_len(rows))
-        model, chunked = steps._working_model(cfg, state.params, split)
-        _, grads = steps._loss_and_grads(model, [rows], split)
-    names = [n for n, _ in model.named_parameters()]
-    grads = all_reduce_sum([g / LM_MESH[0] for g in grads],
-                           mesh.get_group("data"), dtype=torch.float32)
-    return [(all_gather_cat([g], mesh.get_group("model"),
-                            [split.chunk_dim(name)])[0] if i in chunked
-             else g).cpu() for i, (name, g) in enumerate(zip(names, grads))]
+        _, grads = steps._shard_grads(cfg, state.params, mesh, [rows], split)
+    return [g.cpu() for g in full_tensors([
+        to_dtensor(g, mesh, p.placements, p.shape)
+        for g, p in zip(grads, state.params.parameters())])]
 
 
 def _lm_one_rank_grads(cfg, state, batch) -> list:
@@ -5803,7 +5859,8 @@ def lm_mesh_phase() -> tuple:
         raise AssertionError(f"full-width mesh losses off by {max(errs)}")
     full = get_config(LM_FULL)
     emit({"phase": "lm_mesh_full", "arch": full.name, "mesh": list(LM_MESH),
-          "ranks": MESH_RANKS, "n_layers": layers, "d_model": full.d_model,
+          "card": _card(), "ranks": MESH_RANKS, "n_layers": layers,
+          "d_model": full.d_model,
           "n_heads": full.n_heads, "n_kv_heads": full.n_kv_heads,
           "d_ff": full.d_ff, "vocab": full.vocab, "dtype": full.dtype,
           "reduced": [f"n_layers {full.n_layers} -> {layers}: four ranks "
@@ -5877,7 +5934,8 @@ def _lm_mesh_full_more(arch: str, layers: int, ranks: list, ref: dict
     cfg = dataclasses.replace(full, n_layers=layers)
     split = _split_modes(cfg, LM_MESH_FULL[2])
     emit({"phase": "lm_mesh_full", "arch": full.name, "mesh": list(LM_MESH),
-          "ranks": MESH_RANKS, "n_layers": layers, "d_model": full.d_model,
+          "card": _card(), "ranks": MESH_RANKS, "n_layers": layers,
+          "d_model": full.d_model,
           "n_heads": full.n_heads, "d_ff": full.d_ff,
           "n_experts": full.n_experts, "ssm_heads": (
               full.ssm_heads if full.ssm_state else None),
@@ -5910,13 +5968,24 @@ def _split_modes(cfg, seq_len: int, kind: str = "train") -> dict:
             "conv": sp.conv if cfg.ssm_state else None}
 
 
+def _card() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    return out.splitlines()[0] if out else "nvidia-smi: no output"
+
+
 def _split_row(phase: str, what: str, full, ranks, part,
                layers: int = LM_MESH_FULL[0]) -> dict:
     """Per rank: the FLOPs ``op_analysis`` counted in ``what`` on the
     process mesh, the split's activation collectives it counted by site,
     kind and dtype (held by :func:`_check_activation_collectives`), the
-    median over the timed calls of the working copy's gathers, the
-    gradient all-reduces and the split's activation collectives (ms and
+    median over the timed calls of the per-block parameter gathers (ms,
+    bytes, count, the gathered bytes alive at once at their peak, beside
+    the bytes of a whole working copy), the gradients' reduce-scatters,
+    the other reductions and the split's activation collectives (ms and
     bytes), and the peak. ``part(rank result)`` is the run's dict
     (``counts``, ``exchange_per_step``, ``peak_gb``)."""
     rows = []
@@ -5936,6 +6005,13 @@ def _split_row(phase: str, what: str, full, ranks, part,
                      "activation_collectives": acts,
                      "gather_ms": med("gather_ms"),
                      "gather_bytes_received": med("gather_bytes_received"),
+                     "gathers": med("gathers"),
+                     "gathered_bytes_live_peak": med(
+                         "gathered_bytes_live_peak"),
+                     "working_copy_bytes_from_shapes": med(
+                         "working_copy_bytes_from_shapes"),
+                     "reduce_scatter_ms": med("reduce_scatter_ms"),
+                     "reduce_scatter_bytes": med("reduce_scatter_bytes"),
                      "allreduce_ms": med("allreduce_ms"),
                      "allreduce_bytes": med("allreduce_bytes"),
                      "activation_ms": med("activation_ms"),
@@ -5943,7 +6019,7 @@ def _split_row(phase: str, what: str, full, ranks, part,
                      "activation_calls": med("activation_calls"),
                      "peak_gb": run["peak_gb"]})
     return {"phase": phase, "what": what, "arch": full.name,
-            "n_layers": layers, "mesh": list(LM_MESH),
+            "n_layers": layers, "mesh": list(LM_MESH), "card": _card(),
             "transport": "gloo through the host, one card: not an NVLink "
                          "or NCCL number", "per_rank": rows}
 
@@ -6029,31 +6105,69 @@ def _serve_mesh_smoke(arch: str, mesh) -> dict:
     return out
 
 
-def _serve_full_case(row=LM_SERVE_MESH_FULL_ROWS[0]):
-    """A phase 22 (b) row's model config (the arch at the row's depth),
-    its cache span and its prompt (seed 4)."""
+def _serve_full_cfg(row):
+    """A phase 22 (b) row's model config: the arch at the row's depth and
+    dtype."""
     from repro_torch.configs import get_config
 
-    arch, layers, B, P, n = row
-    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return dataclasses.replace(get_config(row[0]), n_layers=row[1],
+                               dtype=row[5])
+
+
+def _serve_full_model(row):
+    """A phase 22 (b) row's model on the card: drawn (seed 0) in its
+    config's dtype and cast to the row's, so a row and its twin
+    (:func:`_served`) hold the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as lm
+
+    cfg, drawn = _serve_full_cfg(row), get_config(row[0]).dtype
+    model = lm.init_params(dataclasses.replace(cfg, dtype=drawn), seed=0,
+                           device="cuda")
+    if cfg.dtype == drawn:
+        return model
+    model.cfg = cfg
+    return model.to(dtype=lm.lm_dtype(cfg))
+
+
+def _served(row) -> tuple:
+    """The runs of a phase 22 (b) row: the row, and where its dtype is not
+    its config's, its twin in the config's dtype."""
+    from repro_torch.configs import get_config
+
+    dtype = get_config(row[0]).dtype
+    return (row,) if row[5] == dtype else (row, row[:5] + (dtype,))
+
+
+def _row_key(row) -> str:
+    """A phase 22 (b) run's key in the results: arch, layers and dtype."""
+    return f"{row[0]}@{row[1]}:{row[5]}"
+
+
+def _serve_full_case(row=LM_SERVE_MESH_FULL_ROWS[0]):
+    """A phase 22 (b) row's model config (:func:`_serve_full_cfg`), its
+    cache span and its prompt (seed 4)."""
+    arch, layers, B, P, n, _ = row
+    cfg = _serve_full_cfg(row)
     tokens = torch.as_tensor(np.random.default_rng(4).integers(
         0, cfg.vocab, (B, P)), dtype=torch.int32, device="cuda")
     return cfg, P + n + 2, tokens
 
 
-def _serve_full_one_rank(row) -> dict:
-    """A phase 22 (b) row's reference: the same model (seed 0) and prompt
-    on one rank under ``ambient_mesh(MeshShape(LM_MESH))``: the prefill,
-    then greedy decode at the positions (b) decodes at. Its logits (the
-    prefill's and each decode step's) and greedy tokens, which (b)'s ranks
-    are fed."""
+def _serve_full_one_rank(row, feed=None) -> dict:
+    """A phase 22 (b) row's reference: the same model
+    (:func:`_serve_full_model`) and prompt on one rank under
+    ``ambient_mesh(MeshShape(LM_MESH))``: the prefill, then greedy decode
+    at the positions (b) decodes at, or decode fed ``feed`` (a twin: its
+    row's tokens). Its logits (the prefill's and each decode step's) and
+    the tokens, which (b)'s ranks are fed."""
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.lm import model as lm
     from repro_torch.pjit_utils import MeshShape, ambient_mesh
 
     cfg, MAX, tokens = _serve_full_case(row)
-    _, _, B, P, n = row
-    model = lm.init_params(cfg, seed=0, device="cuda")
+    _, _, B, P, n, _ = row
+    model = _serve_full_model(row)
     cache = lm.init_cache(cfg, B, MAX, lm.lm_dtype(cfg), "cuda")
     logits_all, toks = [], []
     with torch.no_grad(), ambient_mesh(MeshShape(LM_MESH)):
@@ -6061,7 +6175,8 @@ def _serve_full_one_rank(row) -> dict:
         decode = make_decode_step(cfg)
         for i in range(n + 2):
             logits_all.append(logits.cpu())
-            toks.append(logits.argmax(-1).to(torch.int32))
+            toks.append(logits.argmax(-1).to(torch.int32) if feed is None
+                        else feed[i].to("cuda"))
             if i <= n:
                 logits, cache = decode(model, toks[-1], cache, torch.tensor(
                     P + i, dtype=torch.int32, device="cuda"), {})
@@ -6083,9 +6198,9 @@ def _serve_mesh_full(rank: int, mesh, ex, feed: torch.Tensor, row) -> dict:
     from repro_torch.pjit_utils import full_tensors
 
     cfg, MAX, tokens = _serve_full_case(row)
-    _, _, B, P, n = row
+    _, _, B, P, n, _ = row
     feed = feed.to("cuda")
-    model = lm.init_params(cfg, seed=0, device="cuda")
+    model = _serve_full_model(row)
     steps.shard_model(model, mesh)
     prefill = steps.make_prefill_step(cfg, mesh=mesh)
     decode = steps.make_decode_step(cfg, mesh=mesh)
@@ -6155,12 +6270,13 @@ def _serve_mesh_rank(rank: int, world: int, root: str) -> None:
         out = {"rank": rank,
                "smoke": {a: _serve_mesh_smoke(a, mesh)
                          for a in LM_SERVE_MESH_ARCHS}, "full": {}}
-        for row in LM_SERVE_MESH_FULL_ROWS:
+        for run in [r for row in LM_SERVE_MESH_FULL_ROWS
+                    for r in _served(row)]:
             gc.collect()
             torch.cuda.empty_cache()
-            out["full"][row[0]] = _serve_mesh_full(
+            out["full"][_row_key(run)] = _serve_mesh_full(
                 rank, mesh, ex, torch.load(os.path.join(
-                    root, f"full_feed_{row[0]}.pt")), row)
+                    root, f"full_feed_{_row_key(run)}.pt")), run)
         with open(os.path.join(root, f"serve{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -6349,6 +6465,13 @@ def _counts_one_rank(one_rank_ms: float) -> list:
     return rows
 
 
+def _rank_batch(B: int) -> int:
+    """A mesh rank's rows of a batch of ``B``: its block over 'data', or
+    all of them where 'data' does not divide ``B``
+    (``steps._rank_rows``)."""
+    return B if B % LM_MESH[0] else B // LM_MESH[0]
+
+
 def _counts_unsplit(arch: str, layers: int, split: dict,
                     serve=None) -> None:
     """Phase 22 (c): rank 0's counts of ``arch``'s split mesh steps at
@@ -6364,12 +6487,12 @@ def _counts_unsplit(arch: str, layers: int, split: dict,
     rows = {}
     if "train" in split:
         B, S = LM_MESH_FULL[1:3]
-        rows["train"] = ("train_4k", B // LM_MESH[0], S)
+        rows["train"] = ("train_4k", _rank_batch(B), S)
     if serve is not None:
-        _, MAX, _ = _serve_full_case(serve)
-        _, _, B, P, _ = serve
-        rows["prefill"] = ("prefill_32k", B // LM_MESH[0], P)
-        rows["decode"] = ("decode_32k", B // LM_MESH[0], MAX)
+        cfg, MAX, _ = _serve_full_case(serve)
+        _, _, B, P, _, _ = serve
+        rows["prefill"] = ("prefill_32k", _rank_batch(B), P)
+        rows["decode"] = ("decode_32k", _rank_batch(B), MAX)
     for what, (shape, b, seq) in rows.items():
         fake, fake_s = _fake_counts(arch, shape, cfg=cfg, batch_size=b,
                                     seq_len=seq)
@@ -6379,7 +6502,7 @@ def _counts_unsplit(arch: str, layers: int, split: dict,
                                  f"{got} FLOPs, its rows unsplit "
                                  f"{fake['flops_hlo']}")
         emit({"phase": "lm_counts", "step": f"mesh_{what}_split",
-              "arch": full.name, "n_layers": layers,
+              "arch": full.name, "n_layers": layers, "dtype": cfg.dtype,
               "mesh": list(LM_MESH), "rank": 0, "rows": b, "seq": seq,
               "flops_split": got, "flops_rows_unsplit": fake["flops_hlo"],
               "split_over_unsplit": got / fake["flops_hlo"],
@@ -6392,7 +6515,7 @@ def _counts_unsplit(arch: str, layers: int, split: dict,
 
 def _counts_mesh(reals: dict) -> dict:
     """Phase 22 (c) over the mesh: rank 0's real decode step of each
-    (b) row (``reals``: its count by arch) held to the dry run's fake
+    (b) row (``reals``: its count by :func:`_row_key`) held to the dry run's fake
     count of the same step on a fake group of ``LM_MESH`` (this process,
     rank 0 of it, then the group is closed)."""
     import torch.distributed as dist
@@ -6408,35 +6531,69 @@ def _counts_mesh(reals: dict) -> dict:
             fake, fake_s = _fake_counts(row[0], "decode_32k", meshes,
                                         cfg=cfg, batch_size=row[2],
                                         seq_len=MAX)
-            out[row[0]] = {"fake_build_run_s": fake_s,
-                           "cpu_fake_equal": True,
-                           **_same_counts(f"{row[0]} mesh decode step",
-                                          reals[row[0]], fake)}
+            out[_row_key(row)] = {
+                "fake_build_run_s": fake_s, "cpu_fake_equal": True,
+                **_same_counts(f"{_row_key(row)} mesh decode step",
+                               reals[_row_key(row)], fake)}
     finally:
         dist.destroy_process_group()
     return out
 
 
-def _serve_full_checks(row, ranks: list, ref: dict) -> None:
+def _rel_err(a, b) -> float:
+    """max |a − b| over max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / float(b.abs().max())
+
+
+def _serve_twin_checks(row, ranks: list, refs: dict) -> dict:
+    """A row's twin in its config's dtype (:func:`_served`), fed the row's
+    tokens: each call's distance from the row's one-rank logits, on one
+    rank and on each mesh rank; the mesh's (max over calls and ranks) must
+    stay within ``LM_MESH_TWIN_RATIO`` times one rank's (max over
+    calls)."""
+    twin = _served(row)[1]
+    truth, one = refs[_row_key(row)]["logits"], refs[_row_key(twin)]["logits"]
+    one_err = [_rel_err(a, b) for a, b in zip(one, truth)]
+    mesh_err = [[_rel_err(a, b) for a, b in zip(
+        r["full"][_row_key(twin)]["logits"], truth)] for r in ranks]
+    drift = [[_rel_err(a, b) for a, b in zip(
+        r["full"][_row_key(twin)]["logits"], one)] for r in ranks]
+    worst = max(max(e) for e in mesh_err)
+    if not (0 < max(one_err) and worst <= LM_MESH_TWIN_RATIO * max(one_err)):
+        raise AssertionError(f"{row[0]} {twin[5]} twin at {row[1]} layers: "
+                             f"the mesh lies {worst} from the {row[5]} "
+                             f"logits, one rank {max(one_err)}")
+    return {"dtype": twin[5], "reference": f"one rank, {row[5]}, the same "
+            f"weights and tokens", "one_rank_rel_err": one_err,
+            "mesh_rel_err_per_rank": mesh_err,
+            "mesh_vs_one_rank_rel_err_per_rank": drift,
+            "ratio_max": worst / max(one_err),
+            "ratio_bound": LM_MESH_TWIN_RATIO}
+
+
+def _serve_full_checks(row, ranks: list, refs: dict) -> None:
     """Phase 22 (b)'s checks of one row and its rows emitted: each rank's
     logits (the prefill's, each decode step's) against one rank's within
-    the bf16 bound; its greedy tokens equal, but where one rank's logits
-    of the two tokens lie within that bound of each other (a near-tie);
-    no decode step gathers a cache leaf."""
+    the bound; its greedy tokens equal, but where one rank's logits of the
+    two tokens lie within that bound of each other (a near-tie); the twin
+    (:func:`_serve_twin_checks`); no decode step gathers a cache leaf."""
     from repro_torch.configs import get_config
 
-    arch, layers, B, P, n = row
+    arch, layers, B, P, n, dtype = row
+    key = _row_key(row)
+    ref = refs[key]
     full = get_config(arch)
     errs, near_ties = [], 0
     for r in ranks:
-        for i, (a, b) in enumerate(zip(r["full"][arch]["logits"],
+        for i, (a, b) in enumerate(zip(r["full"][key]["logits"],
                                        ref["logits"])):
             a, b = a.float(), b.float()
             if not torch.isfinite(a).all():
                 raise AssertionError(f"{arch} full width, rank {r['rank']}: "
                                      f"non-finite logits in call {i}")
             bound = LM_MESH_FULL_TOL * float(b.abs().max())
-            errs.append(float((a - b).abs().max()) / float(b.abs().max()))
+            errs.append(_rel_err(a, b))
             got, want = a.argmax(-1), ref["tokens"][i].long()
             for k in (got != want).nonzero().flatten().tolist():
                 gap = float(b[k, want[k]] - b[k, got[k]])
@@ -6449,44 +6606,57 @@ def _serve_full_checks(row, ranks: list, ref: dict) -> None:
     if not max(errs) <= LM_MESH_FULL_TOL:
         raise AssertionError(f"{arch} full-width mesh logits off by "
                              f"{max(errs)}")
-    cfg = dataclasses.replace(full, n_layers=layers)
+    reduced = []
+    if layers < full.n_layers:
+        reduced.append(f"n_layers {full.n_layers} -> {layers}: four ranks "
+                       f"share one card")
+    if dtype != full.dtype:
+        reduced.append(f"dtype {full.dtype} -> {dtype}: at this depth one "
+                       f"rank's {full.dtype} logits and the mesh's each lie "
+                       f"farther than LM_MESH_FULL_TOL from {dtype}'s, so "
+                       f"from each other too (twin)")
+    cfg = _serve_full_cfg(row)
     emit({"phase": "lm_serve_mesh_full", "arch": full.name,
-          "mesh": list(LM_MESH), "ranks": MESH_RANKS,
+          "mesh": list(LM_MESH), "card": _card(), "ranks": MESH_RANKS,
           "n_layers": layers, "d_model": full.d_model,
           "n_experts": full.n_experts, "vocab": full.vocab,
-          "dtype": full.dtype,
+          "dtype": dtype,
           "split": {k: _split_modes(cfg, q, k) for k, q in (("prefill", P),
                                                             ("decode", 1))},
-          "reduced": [f"n_layers {full.n_layers} -> {layers}: four ranks "
-                      f"share one card"],
+          "reduced": reduced,
           "batch": B, "prompt": P, "decode_steps_timed": n,
+          "working_copy_bytes_from_shapes": ranks[0]["full"][key][
+              "decode_exchange"]["working_copy_bytes_from_shapes"],
           "reference": "one rank, ambient MeshShape((2, 2)), greedy tokens "
                        "fed to the ranks",
           "logits_rel_err_max": max(errs), "logits_tol": LM_MESH_FULL_TOL,
           "calls_held": len(ref["logits"]),
           "token_near_ties": near_ties,
+          **({"twin": _serve_twin_checks(row, ranks, refs)}
+             if len(_served(row)) > 1 else {}),
           "transport": "gloo through the host, one card: not an NVLink or "
                        "NCCL number",
           "per_rank": [{"rank": r["rank"], **{k: v for k, v in
-                                              r["full"][arch].items()
+                                              r["full"][key].items()
                                               if k not in (
                                                   "counts", "logits",
                                                   "decode_counts",
                                                   "prefill_counts")}}
                        for r in ranks]})
-    for what, key, ex in (("prefill", "prefill_counts", "prefill_exchange"),
-                          ("decode", "decode_counts",
-                           "decode_exchange_per_step")):
-        emit(_split_row("lm_serve_mesh_split", what, full, ranks,
-                        lambda r, key=key, ex=ex: {
-                            "counts": r["full"][arch][key],
+    for what, part, ex in (("prefill", "prefill_counts", "prefill_exchange"),
+                           ("decode", "decode_counts",
+                            "decode_exchange_per_step")):
+        emit(_split_row("lm_serve_mesh_split", what, cfg, ranks,
+                        lambda r, part=part, ex=ex: {
+                            "counts": r["full"][key][part],
                             "exchange_per_step": (
-                                r["full"][arch][ex]
-                                if isinstance(r["full"][arch][ex], list)
-                                else [r["full"][arch][ex]]),
-                            "peak_gb": r["full"][arch]["peak_gb"]}, layers))
+                                r["full"][key][ex]
+                                if isinstance(r["full"][key][ex], list)
+                                else [r["full"][key][ex]]),
+                            "peak_gb": r["full"][key]["peak_gb"]},
+                        layers))
         for r in ranks:
-            cached = [x for x in r["full"][arch][key]["top_collectives"]
+            cached = [x for x in r["full"][key][part]["top_collectives"]
                       if "cache." in x["names"]]
             if cached:
                 raise AssertionError(f"{arch}: rank {r['rank']}'s {what} "
@@ -6511,11 +6681,14 @@ def lm_serve_mesh_phase(one_rank_ms: float, mesh_train: dict) -> None:
     try:
         ref_full = {}
         for row in LM_SERVE_MESH_FULL_ROWS:
-            ref_full[row[0]] = _serve_full_one_rank(row)
-            torch.save(ref_full[row[0]]["tokens"],
-                       os.path.join(root, f"full_feed_{row[0]}.pt"))
-            gc.collect()
-            torch.cuda.empty_cache()
+            for run in _served(row):
+                ref_full[_row_key(run)] = _serve_full_one_rank(
+                    run, None if run is row else ref_full[_row_key(row)][
+                        "tokens"])
+                torch.save(ref_full[_row_key(run)]["tokens"], os.path.join(
+                    root, f"full_feed_{_row_key(run)}.pt"))
+                gc.collect()
+                torch.cuda.empty_cache()
         spawn_mesh_ranks(_serve_mesh_rank, (MESH_RANKS, root), "phase 22")
         ranks = []
         for r in range(MESH_RANKS):
@@ -6555,31 +6728,34 @@ def lm_serve_mesh_phase(one_rank_ms: float, mesh_train: dict) -> None:
 
     # (b) each full-width row against one rank's
     for row in LM_SERVE_MESH_FULL_ROWS:
-        _serve_full_checks(row, ranks, ref_full[row[0]])
+        _serve_full_checks(row, ranks, ref_full)
 
     # (c) the counts: each row's mesh decode step, then one rank's steps
     t1 = time.perf_counter()
-    mesh = _counts_mesh({row[0]: ranks[0]["full"][row[0]]["counts"]
-                         for row in LM_SERVE_MESH_FULL_ROWS})
-    for arch, layers, B, _, _ in LM_SERVE_MESH_FULL_ROWS:
-        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
-        real = ranks[0]["full"][arch]["counts"]
+    mesh = _counts_mesh({_row_key(row): ranks[0]["full"][_row_key(row)][
+        "counts"] for row in LM_SERVE_MESH_FULL_ROWS})
+    for row in LM_SERVE_MESH_FULL_ROWS:
+        arch, layers, B = row[:3]
+        cfg, res = _serve_full_cfg(row), ranks[0]["full"][_row_key(row)]
         emit({"phase": "lm_counts", "step": "mesh_decode", "arch": cfg.name,
-              "n_layers": layers, "mesh": list(LM_MESH), "rank": 0,
-              **mesh[arch],
-              "roofline": _roofline("mesh decode", real,
-                                    ranks[0]["full"][arch]["decode_ms_median"],
-                                    2 * cfg.active_param_count() * B
-                                    // LM_MESH[0], NVLINK_BW)})
+              "n_layers": layers, "dtype": cfg.dtype, "mesh": list(LM_MESH),
+              "rank": 0, **mesh[_row_key(row)],
+              "roofline": _roofline("mesh decode", res["counts"],
+                                    res["decode_ms_median"],
+                                    2 * cfg.active_param_count()
+                                    * _rank_batch(B), NVLINK_BW)})
+    # phase 21 trained these archs at these depths
+    trained = dict(((LM_FULL, LM_MESH_FULL[0]),) + LM_MESH_FULL_MORE)
     for row in LM_SERVE_MESH_FULL_ROWS:
         arch, layers = row[:2]
-        split = {"prefill": ranks[0]["full"][arch]["prefill_counts"],
-                 "decode": ranks[0]["full"][arch]["decode_counts"]}
-        if arch in mesh_train:
+        res = ranks[0]["full"][_row_key(row)]
+        split = {"prefill": res["prefill_counts"],
+                 "decode": res["decode_counts"]}
+        if trained.get(arch) == layers:
             split["train"] = mesh_train[arch]
         _counts_unsplit(arch, layers, split, row)
     for arch, layers in LM_MESH_FULL_MORE:
-        if arch not in (row[0] for row in LM_SERVE_MESH_FULL_ROWS):
+        if (arch, layers) not in (row[:2] for row in LM_SERVE_MESH_FULL_ROWS):
             _counts_unsplit(arch, layers, {"train": mesh_train[arch]})
     gc.collect()
     torch.cuda.empty_cache()
@@ -6626,10 +6802,8 @@ def main() -> int:
         return 2
 
     # 1. environment
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(smi.splitlines()[0] if smi else "nvidia-smi: no output", flush=True)
+    smi = _card()
+    print(smi, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     emit({"phase": "env", "torch": torch.__version__,

@@ -1,7 +1,8 @@
 """Transport over a ``torch.distributed`` process group: the mesh ring's
 (one vertex shard per rank; ``core/partition.py``, the trainers) and the
-LM mesh step's (``launch/steps.py``: a sharded leaf gathered over the
-sub-groups of its mesh dims, the gradients summed over the batch axes;
+LM mesh step's (``launch/fsdp.py``: a block's sharded leaves gathered
+over the sub-groups of their mesh dims, their gradients reduce-scattered
+over the batch axes; ``launch/steps.py``: the rest summed over them;
 ``models/lm/tp.py``: the activations of the model axis's compute split).
 
 The split's collectives are ``torch.autograd.Function`` s, each the
@@ -43,6 +44,7 @@ import torch
 
 __all__ = ["process_group", "rank_of", "Hop", "all_reduce_sum",
            "all_gather_rows", "all_gather_cat", "reduce_scatter_sum",
+           "reduce_scatter_cat",
            "take_block", "gather_blocks", "copy_to_group",
            "reduce_from_group", "gather_along", "reduce_scatter_along"]
 
@@ -187,19 +189,38 @@ def reduce_scatter_sum(t: torch.Tensor, group, dim: int = 0
     """The element-wise sum over ``group`` of every rank's ``t`` (one
     shape on every rank), this rank's block of it along ``dim`` (blocks
     in group-rank order), summed in ``t``'s dtype."""
+    return reduce_scatter_cat([t], group, [dim])[0]
+
+
+def reduce_scatter_cat(tensors: Sequence[torch.Tensor], group,
+                       dims: Sequence[int]) -> List[torch.Tensor]:
+    """:func:`reduce_scatter_sum` of several tensors in one collective:
+    this rank's block along ``dims[k]`` of the sum over ``group`` of every
+    rank's ``tensors[k]`` (one shape per k on every rank), for every k,
+    summed in their dtype (one dtype for all)."""
     import torch.distributed as dist
 
+    if not tensors:
+        return []
     host = _via_host(group)
     n = dist.get_world_size(group)
-    x = t.detach().movedim(dim, 0).contiguous()
-    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    rows = [t.detach().movedim(d, 0).reshape(n, -1)
+            for t, d in zip(tensors, dims)]
+    x = (rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)).reshape(-1)
+    out = x.new_empty(x.numel() // n)
     if host:
         buf = out.cpu()
         dist.reduce_scatter_tensor(buf, x.cpu(), group=group)
         out = buf.to(x.device)
     else:
         dist.reduce_scatter_tensor(out, x, group=group)
-    return out.movedim(0, dim)
+    got, at = [], 0
+    for t, d, r in zip(tensors, dims, rows):
+        shape = list(t.movedim(d, 0).shape)
+        shape[0] //= n
+        got.append(out[at:at + r.shape[1]].reshape(shape).movedim(0, d))
+        at += r.shape[1]
+    return got
 
 
 def _block(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

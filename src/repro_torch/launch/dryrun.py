@@ -27,9 +27,9 @@ records which. ``device.resolve_device`` is not asked for a card: nothing
 real is allocated.
 
 The cell JSON has JAX's keys. Where the port's step differs from JAX's
-GSPMD program (a working copy gathered once a step, with the leaves a
-rank's split does not run on their 'model' chunk whole), its ``notes``
-say so; no count is scaled.
+GSPMD program (the leaves a rank's split does not run on their 'model'
+chunk gathered whole, each block's leaves gathered inside the block as a
+group), its ``notes`` say so; no count is scaled.
 ``--attn-block`` is left out: JAX's dry run accepts it and never reads
 it, and the port's model has no such knob.
 """
@@ -169,9 +169,14 @@ def build_cell(arch: str, shape: str, mesh, *, microbatch: int = 1,
             "MoE FFN (expert-parallel, ff-TP or the small experts' token "
             "slots) and the Mamba2 mixer (its heads, its conv channels)")
         notes.append(
-            "each rank gathers its working copy once a step: its 'model' "
-            "chunks of the split leaves over the batch axes, every other "
-            "leaf whole (queue A item 3 gathers per block)")
+            "each block's leaves are gathered inside the block, just before "
+            "it runs (and again by its recompute in a train step), and "
+            "freed after it: a rank's 'model' chunks of the split leaves "
+            "over the batch axes, every other leaf whole; their gradients "
+            "are reduce-scattered onto the rank's shards in float32. The "
+            "non-block leaves are gathered at their use, a tied embedding "
+            "and the hybrid's shared block once a step, held across their "
+            "uses")
         notes.append("every rank is handed the whole batch and narrows it "
                      "to its rows; argument bytes count its rows")
     if device != "cuda":
@@ -265,14 +270,17 @@ def _mesh_from_env(multi_pod: bool, device: str):
 
 def run_cell(arch: str, shape: str, multi_pod: bool,
              out_path: Optional[str] = None, *, microbatch: int = 1,
-             fsdp: bool = True) -> Dict[str, Any]:
+             fsdp: bool = True, peak_sites: bool = False) -> Dict[str, Any]:
+    """Build and count one cell, JAX's cell JSON written to ``out_path``;
+    ``peak_sites`` adds ``peak_sites``: what was alive at the temp's peak,
+    by op and site (``OpAnalysis.peak_sites``; slower)."""
     device = fake_device()
     mesh, mesh_label = _mesh_from_env(multi_pod, device)
     t0 = time.time()
     cell = build_cell(arch, shape, mesh, microbatch=microbatch, fsdp=fsdp,
                       device=device)
     t_lower = time.time() - t0
-    oa = OpAnalysis()
+    oa = OpAnalysis(peak_sites=peak_sites)
     outputs = cell.step(oa)
     t_compile = time.time() - t0 - t_lower
     tripaware = oa.analyze()
@@ -302,6 +310,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         "collective_bytes": coll,
         "tripaware": tripaware,
         "top_collectives": oa.top_collectives(),
+        **({"peak_sites": oa.peak_sites(20)} if peak_sites else {}),
         "lower_s": round(t_lower, 1),
         "compile_s": round(t_compile, 1),
         "microbatch": microbatch,
@@ -332,9 +341,13 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     ap.add_argument("--microbatch", type=int, default=1)
     ap.add_argument("--no-fsdp", action="store_true")
+    ap.add_argument("--peak-sites", action="store_true",
+                    help="record what is alive at the temp's peak, by op "
+                         "and site (slower)")
     args = ap.parse_args(argv)
     run_cell(args.arch, args.shape, args.multi_pod, args.out,
-             microbatch=args.microbatch, fsdp=not args.no_fsdp)
+             microbatch=args.microbatch, fsdp=not args.no_fsdp,
+             peak_sites=args.peak_sites)
 
 
 if __name__ == "__main__":

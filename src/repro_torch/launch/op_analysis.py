@@ -28,7 +28,9 @@ meta tensors alike) and records:
   counted;
 * the peak of live bytes allocated inside the mode (storages created by
   its ops, released when their last tensor dies): the step's transient
-  memory beyond its arguments;
+  memory beyond its arguments; with ``peak_sites=True``, also what was
+  alive at that peak, by the op and the port's call site that made each
+  storage (:meth:`OpAnalysis.peak_sites`; every op then reads its stack);
 * apart, the bytes of copies between the host and a device (within the
   HBM estimate): a ``gloo`` group's staging, which the ``nccl`` and
   ``fake`` transports do not make.
@@ -127,8 +129,11 @@ class OpAnalysis(TorchDispatchMode):
     active (``with OpAnalysis() as oa: step(...)``; see the module
     docstring). Launches made outside the ``with`` are not seen."""
 
-    def __init__(self):
+    def __init__(self, peak_sites: bool = False):
         super().__init__()
+        self._by_site = peak_sites
+        self._site_live: Dict[str, int] = {}
+        self._peak_by_site: Dict[str, int] = {}
         self.flops = 0
         self.hbm_bytes = 0
         self.ops = 0
@@ -165,20 +170,28 @@ class OpAnalysis(TorchDispatchMode):
         return t.untyped_storage() in self._read
 
     # -- the mode ---------------------------------------------------- #
-    def _track(self, t: torch.Tensor, seen: set) -> None:
+    def _track(self, t: torch.Tensor, seen: set, where: str = "") -> None:
         """Count ``t``'s storage as live if an op here made it (not an
-        input's, which an in-place op or a view returns)."""
+        input's, which an in-place op or a view returns); ``where``: the
+        op and site that made it (``peak_sites``)."""
         st = t.untyped_storage()
         if id(st) in seen or st in self._owned:
             return
         n = st.nbytes()
         self._owned[st] = n
         self.live += n
-        self.peak = max(self.peak, self.live)
-        weakref.finalize(st, self._release, n)
+        if self._by_site:
+            self._site_live[where] = self._site_live.get(where, 0) + n
+        if self.live > self.peak:
+            self.peak = self.live
+            if self._by_site:
+                self._peak_by_site = dict(self._site_live)
+        weakref.finalize(st, self._release, n, where)
 
-    def _release(self, n: int) -> None:
+    def _release(self, n: int, where: str = "") -> None:
         self.live -= n
+        if self._by_site:
+            self._site_live[where] -= n
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -223,8 +236,10 @@ class OpAnalysis(TorchDispatchMode):
                     self._names.setdefault(t.untyped_storage(),
                                            set()).update(names)
         seen = {id(t.untyped_storage()) for t in ins}
+        where = (f"{_site()} {name}".strip() if self._by_site and outs
+                 else "")
         for t in outs:
-            self._track(t, seen)
+            self._track(t, seen, where)
         return out
 
     # -- results ----------------------------------------------------- #
@@ -240,6 +255,15 @@ class OpAnalysis(TorchDispatchMode):
                 "ops": self.ops, "peak_live_bytes": self.peak,
                 "host_copy_bytes": float(self.host_copy_bytes),
                 "entry": "dispatched ops"}
+
+    def peak_sites(self, k: Optional[int] = 12) -> List[dict]:
+        """What was alive at the peak of live bytes (``peak_sites=True``):
+        the ``k`` largest (op, site) pairs that made it, with their
+        bytes."""
+        rows = [{"site": w, "bytes": n}
+                for w, n in self._peak_by_site.items() if n > 0]
+        rows.sort(key=lambda r: -r["bytes"])
+        return rows[:k]
 
     def top_collectives(self, k: Optional[int] = 12) -> List[dict]:
         """The ``k`` largest collective sites by total bytes (every site

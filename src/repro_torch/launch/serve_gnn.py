@@ -15,6 +15,13 @@ Usage (on the card; ``--device cpu`` runs the plain versions):
       --dataset tiny --mode fanout --fanout 10 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve_gnn --app rgcn \\
       --dataset tiny --mode fanout --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve_gnn --app gat \\
+      --dataset tiny --device cpu --trace t.json --drift
+
+``--trace OUT.json`` writes the session's spans as Chrome-trace JSON and
+prints their count and span coverage; ``--drift`` prints the planner's
+predicted-vs-measured drift report and the ``serve.batch_seconds``
+summary.
 """
 from __future__ import annotations
 
@@ -30,7 +37,8 @@ from ..core.serving import SERVE_APPS, SERVE_MODES, GNNServer
 from ..data import RequestQueue, make_node_dataset, relational_graph
 from ..device import DeviceLike, resolve_device
 from ..models.gnn import gat, gcn, rgcn, sage
-from ..obs.metrics import percentile_nearest_rank
+from ..obs import (drift_report, export_chrome_trace, percentile_nearest_rank,
+                   snapshot, span_coverage, trace_events)
 
 __all__ = ["build_server", "run_session", "percentile_nearest_rank", "main"]
 
@@ -141,7 +149,8 @@ def run_session(srv: GNNServer, *, n_clients: int, requests_per_client: int,
     }
 
 
-def main():
+def main(argv: Optional[List[str]] = None) -> None:
+    """The CLI; ``argv`` defaults to the command line's."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--app", choices=SERVE_APPS, default="gcn")
     ap.add_argument("--dataset", default="tiny")
@@ -158,7 +167,13 @@ def main():
     ap.add_argument("--pin-hot", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="export the session as Chrome-trace JSON "
+                         "(open in Perfetto / chrome://tracing)")
+    ap.add_argument("--drift", action="store_true",
+                    help="print the planner predicted-vs-measured "
+                         "drift report after the session")
+    args = ap.parse_args(argv)
 
     srv = build_server(args.app, args.dataset, mode=args.mode,
                        classes=tuple(args.classes), fanout=args.fanout,
@@ -186,6 +201,23 @@ def main():
             print(f"[serve_gnn] {name}: hit_ratio {cs.hit_ratio:.3f} "
                   f"({cs.hits}h/{cs.misses}m, {cs.evictions} evictions, "
                   f"{cs.pinned} pinned)")
+    if args.trace:
+        export_chrome_trace(args.trace)
+        print(f"[serve_gnn] trace: {len(trace_events())} events → "
+              f"{args.trace} (span coverage {span_coverage():.1%})")
+    if args.drift:
+        rows = drift_report()
+        print(f"[serve_gnn] drift report ({len(rows)} rows):")
+        for r in rows:
+            print(f"  {r['op']:28s} {r['chosen']:10s} "
+                  f"pred={r['predicted_cost']:.3g} "
+                  f"meas={1e3 * r['measured_mean_s']:.3f}ms "
+                  f"ratio={r['ratio']:.2f}"
+                  f"{'  DRIFTED' if r['drifted'] else ''}")
+        batch_h = snapshot().get("serve.batch_seconds")
+        if batch_h:
+            print(f"[serve_gnn] serve.batch_seconds: "
+                  f"n={batch_h['count']} mean={1e3 * batch_h['mean']:.3f}ms")
     if res["recompiles_steady"]:
         raise SystemExit("steady-state recompiles detected")
 

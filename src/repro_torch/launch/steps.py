@@ -22,18 +22,21 @@ attention, the sequence-parallel residual, the vocab-parallel embedding,
 head and CE, the MoE's expert-parallel, ff-TP and slot splits, the
 Mamba2 mixer over its heads). A step:
 
-1. builds the rank's working copy (:func:`_working_model`, which lives
-   for the step only): a leaf the split runs on its 'model' chunk
-   (``Split.chunk_dim``) is gathered over 'pod' / 'data' only and stays
-   that chunk (the experts on E under 'ep', on d_ff under 'ff';
-   ``out_proj`` on its 'model' dim; ``conv_w`` / ``conv_b`` only in a
-   decode, whose conv runs on the rank's channel chunk); every other
+1. hands the model's functions a ``fsdp.ShardedLM`` of the rank's
+   shards (``launch/fsdp.py``; its plan, ``fsdp.gather_plan``, once a
+   step): each block's leaves are gathered inside the function the
+   model's remat checkpoints, just before the block runs, and dropped
+   when it returns; the backward's recompute gathers them again, as
+   JAX's ``nothing_saveable`` remat does. A leaf the split runs on its
+   'model' chunk (``Split.chunk_dim``) is gathered over 'pod' / 'data'
+   only and stays that chunk (the experts on E under 'ep', on d_ff under
+   'ff'; ``out_proj`` on its 'model' dim; ``conv_w`` / ``conv_b`` only in
+   a decode, whose conv runs on the rank's channel chunk); every other
    leaf (norms, the small experts, ``in_proj``, ``conv_w`` / ``conv_b``
    in a train or prefill step, whose conv runs on the rank's heads'
    channels, a leaf whose stored shard does not hold the chunk) is
-   gathered whole (``pjit_utils.full_tensors``: one collective per mesh
-   dim). The stored shards keep JAX's specs either way, and the
-   optimizer updates the rank's shard of a whole leaf's gradient;
+   gathered whole. The non-block leaves are gathered at their use, a
+   tied ``embed`` and the hybrid's ``shared`` block once a step;
 2. runs the rank's share: its rows of the batch over 'data' (× 'pod')
    when ``batch_specs`` of a microbatch's size says so, else the whole
    batch (with ``microbatch > 1`` a rank's rows in microbatch i are its
@@ -41,13 +44,16 @@ Mamba2 mixer over its heads). A step:
    on them, the activations moving between the 'model' ranks at JAX's
    hint sites (``core/transport.py``); every 'model' rank gets the same
    loss;
-3. sums the loss and the gradients over the batch axes (``g / n``, in
-   float32; the mean over the data shards, the same bits on every rank
-   holding a leaf's chunk): every gradient is already complete for the
-   rank's rows (``tp`` module docstring), a chunk's for the chunk;
-4. clips by the global norm (each element once: a chunk's squares summed
-   over 'model') and runs AdamW on the rank's own shard of every
-   parameter, one at a time.
+3. takes the gradients to the rank's shards: each gather's backward
+   divides by the row shards, takes the rank's 'model' chunk and
+   reduce-scatters, in float32, over the batch axes the leaf is sharded
+   on (``fsdp._Gather``); the step then sums, in float32, the gradients
+   over the batch axes a leaf is replicated on, and the loss (every
+   gradient is complete for the rank's rows, ``tp`` module docstring);
+4. clips by the global norm (each element once: a shard's squares summed
+   over the mesh dims its leaf is sharded on, never over its replicas)
+   and runs AdamW on the rank's own shard of every parameter, one at a
+   time.
 
 The loss and grad norm reported are global. The mean of the ranks' mean
 losses is the global mean because every rank holds as many labels, all
@@ -62,9 +68,11 @@ and the cache is held as shards of ``shardings.cache_specs``
 (:func:`init_mesh_cache`, :func:`reshard_cache`). A call, under the
 ambient mesh (the MoE's token blocks):
 
-1. builds the working copy as a train step does, for the call's split
-   (a decode's attention follows its cache's layout: heads, head_dim or
-   whole);
+1. gathers each block's leaves just before it runs, as a train step
+   does (no grad, no recompute; the plan for the call's split, a
+   decode's attention following its cache's layout: heads, head_dim or
+   whole), and the non-block leaves at their use; the encoder's leaves
+   are never gathered;
 2. runs prefill or decode on the rank's rows (its block over 'data' ×
    'pod' when ``batch_specs`` says so, else the whole batch), each rank
    reading and writing its own shards of the cache in place: its K/V
@@ -94,6 +102,7 @@ from ..pjit_utils import (BATCH_AXES, ambient_mesh, axis_sizes, full_tensors,
                           local_nbytes, local_shard, mesh_group, to_dtensor,
                           to_placements)
 from . import shardings as shard_rules
+from .fsdp import ShardedLM, gather_plan
 
 __all__ = ["TrainState", "init_state", "state_of", "shard_model",
            "make_train_step", "make_prefill_step", "make_decode_step",
@@ -307,75 +316,59 @@ def _rank_rows(cfg: ModelConfig, mesh, batch: Dict, kind: str = "train"
     return out
 
 
-def _owns_chunk(p, dim: int) -> bool:
-    """Does the shard of the DTensor ``p`` hold its 'model' chunk along
-    ``dim`` whole along every other axis's sharding of that dim (the
-    chunk a gather over the batch axes alone completes)?"""
-    names = p.device_mesh.mesh_dim_names
-    if "model" not in names:
-        return False
-    own = p.placements[names.index("model")]
-    return (own.is_shard() and own.dim == dim and not any(
-        q.is_shard() and q.dim == dim
-        for a, q in zip(names, p.placements) if a != "model"))
-
-
-def _working_model(cfg: ModelConfig, sharded: lm.LM,
-                   split: Optional[Split] = None,
-                   skip: Tuple[str, ...] = ()) -> Tuple[lm.LM, set]:
-    """The step's working copy of ``sharded`` and the indices (in
-    ``parameters()`` order) of the leaves it holds as their 'model'
-    chunk. A leaf ``split`` runs on its chunk (``Split.chunk_dim``) is
-    gathered over 'pod' / 'data' only where its shard is sharded on that
-    dim by 'model' alone; every other leaf is gathered whole: the norms,
-    the small experts, ``in_proj`` (its shard a chunk of the fused dim),
-    and the fused fallbacks that shard one dim over both 'data' and
-    'model' (``wq`` ``(("data", "model"), None, None)``,
-    ``wo`` ``(None, None, ("data", "model"))``, ``embed`` / ``lm_head``
-    ``(None, ("model", "data"))`` where the vocabulary does not divide,
-    whose chunks DTensor orders in mesh order, not JAX's) or on another
-    dim (``wq`` on head_dim under 'heads'); ``Split.tp`` takes the rank's
-    chunk of those. Parameters whose name starts with one of ``skip`` are
-    not gathered (left ``meta``: a step that never runs them)."""
-    max_seq = sharded.dec_pos.shape[0] if hasattr(sharded, "dec_pos") else 0
-    model = lm.LM(cfg, max_seq=max_seq, device="meta", init=False)
-    named = list(sharded.named_parameters())
-    chunked, whole = [], []
-    for i, (n, p) in enumerate(named):
-        if n.startswith(skip):
-            continue
-        d = split.chunk_dim(n) if split is not None else None
-        (chunked if d is not None and _owns_chunk(p, d) else whole).append(i)
-    batch = tuple(a for a in named[0][1].device_mesh.mesh_dim_names
-                  if a in BATCH_AXES)
-    full = dict(zip(chunked, full_tensors([named[i][1] for i in chunked],
-                                          axes=batch)))
-    full.update(zip(whole, full_tensors([named[i][1] for i in whole])))
-    _set_params(model, [nn.Parameter(full[i] if i in full else torch.empty(
-        p.shape, dtype=p.dtype, device="meta"))
-        for i, (_, p) in enumerate(named)])
-    return model, set(chunked)
-
-
 def _seq_len(batch: Dict) -> int:
     """The positions a train batch runs (``loss_fn``'s inputs)."""
     S = batch["tokens"].shape[1]
     return S if "labels" in batch else S - 1
 
 
-def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
-                     clip: float, microbatch: int, mesh):
-    from torch.distributed.tensor import Replicate
-
-    _, opt_update = adamw(lr, weight_decay=weight_decay)
-    mesh_group(mesh)                # the mesh must span the default group
-    names = mesh.mesh_dim_names
-    batch_dims = [i for i, a in enumerate(names)
+def _shard_grads(cfg: ModelConfig, sharded: lm.LM, mesh, rows: List[Dict],
+                 split: Optional[Split]) -> Tuple[torch.Tensor, list]:
+    """The mean loss over the data shards and microbatches ``rows`` (the
+    rank's), and the gradient of each of the rank's shards (before the
+    clip), in ``parameters()`` order: the gathers' backward reduced each
+    over the batch axes its leaf is sharded on (÷ the row shards, in
+    float32); the rest of the mean runs here, in float32, over the batch
+    axes it is replicated on, with the loss's."""
+    batch_dims = [i for i, a in enumerate(mesh.mesh_dim_names)
                   if a in BATCH_AXES and int(mesh.shape[i]) > 1]
     n_rows = 1
     for i in batch_dims:
         n_rows *= int(mesh.shape[i])
-    model_dim = names.index("model") if "model" in names else None
+    shards = list(sharded.parameters())
+    leaves = [p.to_local().detach().requires_grad_() for p in shards]
+    plan = gather_plan(sharded, split)
+    # a ShardedLM per microbatch (its held leaves belong to one backward),
+    # the grads accumulated as _loss_and_grads accumulates them
+    if len(rows) == 1:
+        loss, grads = _loss_and_grads(ShardedLM(sharded, plan, leaves,
+                                                n_rows), rows, split)
+    else:
+        grads = [torch.zeros_like(p) for p in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for b in rows:
+            li, gi = _loss_and_grads(ShardedLM(sharded, plan, leaves,
+                                               n_rows), [b], split)
+            grads = [a + g for a, g in zip(grads, gi)]
+            loss = loss + li
+        loss, grads = loss / len(rows), [g / len(rows) for g in grads]
+    del leaves
+    loss = loss / n_rows
+    for i in batch_dims:
+        rep = [k for k, p in enumerate(shards)
+               if not p.placements[i].is_shard()]
+        red = all_reduce_sum([grads[k] for k in rep] + [loss],
+                             mesh.get_group(i), dtype=torch.float32)
+        loss = red[-1]
+        for k, g in zip(rep, red):
+            grads[k] = g
+    return loss, grads
+
+
+def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
+                     clip: float, microbatch: int, mesh):
+    _, opt_update = adamw(lr, weight_decay=weight_decay)
+    mesh_group(mesh)                # the mesh must span the default group
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
@@ -391,29 +384,24 @@ def _mesh_train_step(cfg: ModelConfig, lr: float, weight_decay: float,
         rows = [_rank_rows(cfg, mesh, b)
                 for b in _microbatches(batch, microbatch)]
         split = make_split(cfg, mesh, _seq_len(rows[0]))
-        model, chunked = _working_model(cfg, state.params, split)
-        loss, grads = _loss_and_grads(model, rows, split)
-        del model
-        # the mean over the data shards, in float32, the same bits on
-        # every rank holding a leaf's chunk
-        red = [g / n_rows for g in grads] + [loss / n_rows]
-        for i in batch_dims:
-            red = all_reduce_sum(red, mesh.get_group(i), dtype=torch.float32)
-        loss, grads = red[-1], red[:-1]
-        # the global norm, each element once
-        sq = [torch.sum(torch.square(g.float())) for g in grads]
-        own = sum((sq[i] for i in chunked), loss.new_zeros(()))
-        if chunked:
-            own = all_reduce_sum([own], mesh.get_group(model_dim))[0]
-        gnorm = torch.sqrt(own + sum(q for i, q in enumerate(sq)
-                                     if i not in chunked))
+        loss, grads = _shard_grads(cfg, state.params, mesh, rows, split)
+        # the global norm, each element once: a shard's squares summed over
+        # the mesh dims its leaf is sharded on
+        sq = {}
+        for p, g in zip(shards, grads):
+            on = tuple(i for i, q in enumerate(p.placements)
+                       if q.is_shard() and int(mesh.shape[i]) > 1)
+            sq[on] = sq.get(on, 0) + torch.sum(torch.square(g.float()))
+        for i in range(mesh.ndim):
+            on = [k for k in sq if i in k]
+            if on:
+                sq.update(zip(on, all_reduce_sum([sq[k] for k in on],
+                                                 mesh.get_group(i))))
+        gnorm = torch.sqrt(sum(sq.values()))
         scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
         with torch.no_grad():
             for i, p in enumerate(shards):
-                pl = tuple(Replicate() if i in chunked and j == model_dim
-                           else q for j, q in enumerate(p.placements))
-                g = local_shard(grads[i], mesh, pl)
-                g, grads[i] = g * scale.to(g.dtype), None
+                g, grads[i] = grads[i] * scale.to(grads[i].dtype), None
                 ups, opt = opt_update([g], AdamState(
                     [state.mu[i].to_local()], [state.nu[i].to_local()]),
                     [p.to_local()], state.step)
@@ -470,9 +458,6 @@ def _mesh_serve_step(cfg: ModelConfig, mesh, kind: str):
         p = dt.placements[names.index("model")]
         return p.dim - 1 if p.is_shard() else None
 
-    # the serve step never runs the encoder (memory is an input)
-    skip = ("enc_",) if cfg.family == "encdec" else ()
-
     @torch.no_grad()
     def serve_step(model, tokens, cache, pos, extras):
         inputs = {"tokens": tokens, **{k: v for k, v in extras.items()
@@ -484,7 +469,8 @@ def _mesh_serve_step(cfg: ModelConfig, mesh, kind: str):
                 cfg, mesh, rows["tokens"].shape[1] if kind == "prefill"
                 else 1, kind, layout(attn["k"]) if "k" in attn else None,
                 layout(attn["cross_k"]) if "cross_k" in attn else None)
-            work, _ = _working_model(cfg, model, split, skip)
+            work = ShardedLM(model, gather_plan(model, split),
+                             [p.to_local() for p in model.parameters()])
             tree = _with_leaves(cache, [dt.to_local()
                                         for dt in tree_leaves(cache)])
             if kind == "prefill":

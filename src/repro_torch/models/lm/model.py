@@ -24,7 +24,10 @@ identity. On a process mesh the steps pass ``split=`` (a ``tp.Split``):
 the blocks, the embedding, the head and the CE then run the rank's
 share of the model axis's work (``tp`` module docstring): attention,
 the MLP, the MoE FFN (``moe.moe_split``) and the Mamba2 mixer
-(``mamba2.mamba2_split``, on the rank's shards of its state).
+(``mamba2.mamba2_split``, on the rank's shards of its state). There the
+model is a ``launch.fsdp.ShardedLM`` of shards: each block's leaves are
+gathered inside its checkpointed function (:func:`_gathered`), and the
+other leaves at their use.
 
 Caches (:func:`init_cache`) have JAX's layout, stacked per layer, and
 :func:`prefill` / :func:`decode_step` update them IN PLACE and return them.
@@ -264,12 +267,23 @@ def _attn_block_split(bp: AttnBlock, cfg: ModelConfig, h, angles, split,
     return h + y, aux
 
 
+def _gathered(bp):
+    """A block's parameters for this call: ``bp`` itself, or, for a block
+    of a mesh step's ``launch.fsdp.ShardedLM`` (a handle), its leaves
+    gathered now. The block functions call this first, inside the
+    function :func:`_remat` checkpoints: the gathered leaves are dropped
+    when the block returns, and its recompute gathers them again."""
+    gather = getattr(bp, "gather", None)
+    return bp if gather is None else gather()
+
+
 def _attn_block(bp: AttnBlock, cfg: ModelConfig, h, angles, *, causal=True,
                 memory=None, cache=None, q_offset=0, split=None):
     """Returns (h, aux). A decoder block's cross-attention K/V are
     projected from ``memory`` (and written to the cache when there is
     one) or, at decode, read from the cache. Under ``split``, the rank's
     share (``_attn_block_split``)."""
+    bp = _gathered(bp)
     if split is not None:
         return _attn_block_split(bp, cfg, h, angles, split, causal=causal,
                                  memory=memory, cache=cache,
@@ -298,6 +312,7 @@ def _attn_block(bp: AttnBlock, cfg: ModelConfig, h, angles, *, causal=True,
 
 def _mamba_block(bp: MambaBlock, cfg: ModelConfig, h, state=None,
                  split=None):
+    bp = _gathered(bp)
     if split is not None:
         return h + mamba2_split(bp.mixer, cfg, _norm(bp.norm, h, split),
                                 split, state)

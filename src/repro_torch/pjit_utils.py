@@ -38,8 +38,8 @@ import torch
 __all__ = ["MeshShape", "axis_sizes", "is_process_mesh", "mesh_group",
            "current_mesh", "ambient_mesh", "resolve_axis", "make_spec",
            "shard_hint", "to_placements", "shard_shape", "local_shard",
-           "local_nbytes", "to_dtensor", "full_tensors", "axis_index",
-           "owned_chunk", "BATCH_AXES"]
+           "local_nbytes", "to_dtensor", "full_tensors", "gather_shards",
+           "axis_index", "owned_chunk", "BATCH_AXES"]
 
 BATCH_AXES = ("pod", "data")
 
@@ -236,40 +236,38 @@ def to_dtensor(local: torch.Tensor, mesh, placements,
                               shape=shape, stride=stride)
 
 
-def full_tensors(dts: Sequence, axes: Sequence[str] = None
-                 ) -> List[torch.Tensor]:
-    """Each ``DTensor`` of ``dts`` whole, on every rank: per mesh dim,
-    innermost first, one ``transport.all_gather_cat`` over that dim's
-    sub-group carries every leaf sharded on it. With ``axes``, only the
-    mesh dims of those names are gathered: each leaf comes back whole
-    along them and still this rank's chunk along the others (a tensor dim
-    sharded over a gathered and a kept mesh dim raises). A leaf with
-    nothing to gather comes back as its local tensor itself. The leaves
-    share one mesh; every rank calls this with the same leaves."""
+def full_tensors(dts: Sequence) -> List[torch.Tensor]:
+    """Each ``DTensor`` of ``dts`` whole, on every rank
+    (:func:`gather_shards` over every mesh dim). A leaf with nothing to
+    gather comes back as its local tensor itself. The leaves share one
+    mesh; every rank calls this with the same leaves."""
+    if not dts:
+        return []
+    mesh = dts[0].device_mesh
+    return gather_shards([dt.to_local() for dt in dts],
+                         [dt.placements for dt in dts], mesh,
+                         [range(mesh.ndim)] * len(dts))
+
+
+def gather_shards(locals_: Sequence[torch.Tensor], placements: Sequence,
+                  mesh, over: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+    """:func:`full_tensors` of local shards: ``locals_[k]`` (this rank's
+    shard under ``placements[k]``) gathered over the mesh dims
+    ``over[k]`` (indices): per mesh dim, innermost first, one
+    ``transport.all_gather_cat`` over that dim's sub-group carries every
+    leaf gathered there, so a tensor dim sharded over several mesh dims
+    comes back in mesh order. A leaf with nothing to gather comes back as
+    itself. Every rank calls this with the same leaves."""
     from .core.transport import all_gather_cat
 
-    out = [dt.to_local() for dt in dts]
-    if not dts:
-        return out
-    mesh = dts[0].device_mesh
-    names = mesh.mesh_dim_names
-    keep = [i for i in range(mesh.ndim)
-            if axes is not None and names[i] not in axes]
+    out = list(locals_)
     for i in reversed(range(mesh.ndim)):
-        if i in keep:
-            continue
-        which = [k for k, dt in enumerate(dts) if dt.placements[i].is_shard()]
-        for k in which:
-            d = dts[k].placements[i].dim
-            if any(dts[k].placements[j].is_shard()
-                   and dts[k].placements[j].dim == d for j in keep):
-                raise ValueError(f"dim {d} of a leaf is sharded over mesh "
-                                 f"dims {names[i]!r} and kept ones: gather "
-                                 f"them all")
+        which = [k for k, pl in enumerate(placements)
+                 if i in over[k] and pl[i].is_shard()]
         if not which:
             continue
         got = all_gather_cat([out[k] for k in which], mesh.get_group(i),
-                             [dts[k].placements[i].dim for k in which])
+                             [placements[k][i].dim for k in which])
         for k, t in zip(which, got):
             out[k] = t
     return out

@@ -17,7 +17,8 @@ Mamba2 conv on the rank's heads with no gather). This file: the dense
 train cell, the SSM long-context decode cell, the SSM train cell,
 ``llama3p2_3b × train_4k`` on the 256-rank pod mesh, and
 ``dryrun_all``'s skip and error JSONs; ``test_torch_dryrun_serve.py``
-the enc-dec prefill and MoE decode cells.
+the enc-dec prefill and MoE decode cells. The SSM decode cell's temp is
+held at most 2.0 GB: its blocks are gathered one at a time.
 """
 import json
 import os
@@ -173,6 +174,19 @@ def test_ssm_cell_splits_the_mixer(cells):
     assert ratio <= 1.2, f"port / JAX FLOPs a device: {ratio:.3f}"
     assert (port["memory_analysis"]["argument_size_in_bytes"]
             == jax_cell["memory_analysis"]["argument_size_in_bytes"])
+
+
+def test_long_decode_cell_gathers_per_block(cells):
+    """A decode step gathers each block's leaves just before the block and
+    frees them after it: ``mamba2_1p3b × long_500k``'s temp (the peak of
+    live bytes) at most 2.0 GB (7.96 GB while a rank gathered a working
+    copy of the whole model once a step; JAX's 0.68 GB)."""
+    port = cells[("repro_torch", "mamba2_1p3b", "long_500k")]
+    jax_cell = cells[("repro", "mamba2_1p3b", "long_500k")]
+    temp = port["memory_analysis"]["temp_size_in_bytes"]
+    print(f"mamba2_1p3b × long_500k: temp {temp / 1e9:.3f} GB, JAX's "
+          f"{jax_cell['memory_analysis']['temp_size_in_bytes'] / 1e9:.3f}")
+    assert temp <= 2.0e9, f"temp {temp / 1e9:.3f} GB"
 
 
 def test_pod_mesh_cell(cells):

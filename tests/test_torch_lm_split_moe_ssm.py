@@ -221,26 +221,21 @@ class _BigExperts:
 
 def _mesh_grads(cfg, state, mesh, batch) -> dict:
     """The mesh step's gradients of ``batch`` (before the clip) as JAX's
-    tree, each leaf whole: the rank's working copy's, summed over 'data'
-    (÷ its size), its 'model' chunks gathered."""
-    from repro_torch.core.transport import all_gather_cat, all_reduce_sum
+    tree, each leaf whole: the rank's shards' (each summed over 'data',
+    ÷ its size), gathered."""
     from repro_torch.launch import steps
     from repro_torch.models.lm import model as T
     from repro_torch.models.lm.tp import make_split
-    from repro_torch.pjit_utils import ambient_mesh, axis_sizes
+    from repro_torch.pjit_utils import ambient_mesh, full_tensors, to_dtensor
 
     with ambient_mesh(mesh):
         rows = steps._rank_rows(cfg, mesh, batch)
         split = make_split(cfg, mesh, steps._seq_len(rows))
-        model, chunked = steps._working_model(cfg, state.params, split)
-        _, grads = steps._loss_and_grads(model, [rows], split)
-    grads = all_reduce_sum([g / axis_sizes(mesh)["data"] for g in grads],
-                           mesh.get_group("data"), dtype=torch.float32)
-    names = [n for n, _ in model.named_parameters()]
-    return T.to_jax_tree(model, [
-        all_gather_cat([g], mesh.get_group("model"),
-                       [split.chunk_dim(n)])[0] if i in chunked else g
-        for i, (n, g) in enumerate(zip(names, grads))])
+        _, grads = steps._shard_grads(cfg, state.params, mesh, [rows], split)
+    shards = list(state.params.parameters())
+    return T.to_jax_tree(state.params, full_tensors([
+        to_dtensor(g, mesh, p.placements, p.shape)
+        for g, p in zip(grads, shards)]))
 
 
 def _collectives(oa) -> list:
@@ -261,17 +256,15 @@ def _train(rank, case, arch, S, ins, mesh, flags, out):
     from repro_torch.pjit_utils import MeshShape, ambient_mesh, axis_sizes
 
     working = {}
-    build = steps._working_model
+    build = steps.gather_plan
 
-    def recording(cfg, sharded, split=None, skip=()):
-        model, chunked = build(cfg, sharded, split, skip)
-        working["shapes"] = {n: tuple(p.shape)
-                             for n, p in model.named_parameters()}
-        working["chunked"] = {n for i, (n, _) in enumerate(
-            model.named_parameters()) if i in chunked}
+    def recording(sharded, split=None):
+        plan = build(sharded, split)
+        working["shapes"] = dict(plan.shapes)
+        working["chunked"] = set(plan.chunked)
         working["modes"] = (split.moe if cfg.n_experts else None,
                             split.mixer if cfg.ssm_state else None)
-        return model, chunked
+        return plan
 
     cfg = get_smoke_config(arch)
     tree = _tree(ins, f"train/{case}/params")
@@ -281,7 +274,7 @@ def _train(rank, case, arch, S, ins, mesh, flags, out):
     if rank == 0:
         for name, g in named_leaves(grads):
             out[f"train/{case}/grads/{name}"] = g.numpy()
-    steps._working_model = recording
+    steps.gather_plan = recording
     try:
         state = steps.state_of(T.from_jax_params(cfg, tree, "cpu"), mesh)
         step = steps.make_train_step(cfg, lr=LR, mesh=mesh)
@@ -299,7 +292,7 @@ def _train(rank, case, arch, S, ins, mesh, flags, out):
                 losses.append(float(m["loss"]))
                 gnorms.append(float(m["grad_norm"]))
     finally:
-        steps._working_model = build
+        steps.gather_plan = build
     flags[f"{case}/losses"] = losses
     flags[f"{case}/gnorms"] = gnorms
     flags[f"{case}/working"] = dict(working)
@@ -327,7 +320,7 @@ def _serve(case, arch, P, ins, ref, mesh, flags, out):
 
     handed, working = [], {}
     calls = {k: getattr(T, k) for k in ("prefill", "decode_step")}
-    build = steps._working_model
+    build = steps.gather_plan
 
     def recording(fn):
         def call(model, tokens, cache, *a, **kw):
@@ -336,15 +329,14 @@ def _serve(case, arch, P, ins, ref, mesh, flags, out):
             return fn(model, tokens, cache, *a, **kw)
         return call
 
-    def building(cfg, sharded, split=None, skip=()):
-        model, chunked = build(cfg, sharded, split, skip)
-        working[split.kind] = {n: tuple(p.shape) for i, (n, p) in enumerate(
-            model.named_parameters()) if i in chunked}
-        return model, chunked
+    def building(sharded, split=None):
+        plan = build(sharded, split)
+        working[split.kind] = {n: plan.shapes[n] for n in plan.chunked}
+        return plan
 
     for k, fn in calls.items():
         setattr(T, k, recording(fn))
-    steps._working_model = building
+    steps.gather_plan = building
     try:
         cfg = get_smoke_config(arch)
         model = T.from_jax_params(cfg, _tree(ins, f"serve/{case}/params"),
@@ -382,7 +374,7 @@ def _serve(case, arch, P, ins, ref, mesh, flags, out):
         flags[f"{case}/shards"] = shards
         flags[f"{case}/serve_chunked"] = dict(working)
     finally:
-        steps._working_model = build
+        steps.gather_plan = build
         for k, fn in calls.items():
             setattr(T, k, fn)
 

@@ -187,7 +187,7 @@ def _tree(flat: dict, prefix: str) -> dict:
 # the port's ranks
 # --------------------------------------------------------------------- #
 def _train(rank, ins, mesh, flags, out):
-    """The mesh train steps of ``TRAIN``; each step's working copy's leaf
+    """The mesh train steps of ``TRAIN``; each step's gathered leaf
     shapes recorded, and for ``FLOPS`` one step's count beside one
     unsplit rank's count of the same rows."""
     from repro_torch.configs import get_smoke_config
@@ -197,17 +197,15 @@ def _train(rank, ins, mesh, flags, out):
     from repro_torch.pjit_utils import MeshShape, ambient_mesh, full_tensors
 
     working = {}
-    build = steps._working_model
+    build = steps.gather_plan
 
-    def recording(cfg, sharded, split=None, skip=()):
-        model, chunked = build(cfg, sharded, split, skip)
-        working["shapes"] = {n: tuple(p.shape)
-                             for n, p in model.named_parameters()}
-        working["chunked"] = {n for i, (n, _) in enumerate(
-            model.named_parameters()) if i in chunked}
-        return model, chunked
+    def recording(sharded, split=None):
+        plan = build(sharded, split)
+        working["shapes"] = dict(plan.shapes)
+        working["chunked"] = set(plan.chunked)
+        return plan
 
-    steps._working_model = recording
+    steps.gather_plan = recording
     try:
         for arch in TRAIN:
             cfg = get_smoke_config(arch)
@@ -245,7 +243,7 @@ def _train(rank, ins, mesh, flags, out):
                     flags[f"{arch}/flops_unsplit"] = oa.analyze()[
                         "flops_hlo"]
     finally:
-        steps._working_model = build
+        steps.gather_plan = build
 
 
 def _serve(rank, ins, ref_path, mesh, flags, out):

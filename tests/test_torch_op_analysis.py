@@ -11,7 +11,8 @@ op_analysis``, the counterpart of ``repro.launch.hlo_analysis``).
   operand is the shard, a reduce-scatter's the whole input); the
   transport's ``fake`` branch issues its gathers there; a site is named
   by the tensors its operand was copied from;
-* the peak of live bytes made in the mode, and which arguments were read.
+* the peak of live bytes made in the mode, what was alive at it (by op
+  and site), and which arguments were read.
 """
 import pytest
 import torch
@@ -75,6 +76,21 @@ def test_live_bytes_and_reads():
         dst.copy_(v)                       # dst overwritten whole: not read
     assert oa.peak == 2 * 4096
     assert oa.was_read(a) and not oa.was_read(dst)
+
+
+def test_peak_sites_name_what_is_alive_at_the_peak():
+    """``peak_sites=True``: the storages alive at the peak, by the op that
+    made them (and the port's site, none from a test's own frame)."""
+    a = torch.ones(1024)
+    with OpAnalysis(peak_sites=True) as oa:
+        t = a * 2                          # 4 KiB live
+        u = t + 1                          # 8 KiB live: the peak
+        del t
+        v = u * 3
+        del u, v
+    assert oa.peak == 2 * 4096
+    assert sorted((r["site"], r["bytes"]) for r in oa.peak_sites()) == [
+        ("add", 4096), ("mul", 4096)]
 
 
 @pytest.fixture
