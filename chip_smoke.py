@@ -236,7 +236,18 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     on a fixed batch, the loss falling) and ``launch.serve.main`` twice
     (prefill 4 × 512, 32 greedy decode steps, the tokens equal): step ms,
     tokens/s, model TFLOP/s (6·active params·tokens; prefill 2·…) and its
-    share of 989 TFLOP/s, prefill ms, decode ms a step, peak memory.
+    share of 989 TFLOP/s, prefill ms, decode ms a step, peak memory;
+    (d) attention's backward residency: ``blockwise_attention`` alone at
+    llama's attention widths (1 × 24 heads × 4,096, head_dim 128, KV
+    blocks of 512, fp32), the bytes its forward leaves for its backward
+    held to each KV block's running (acc, m, denom) plus q's fp32 copy
+    and 64 MiB (every block's scores and probabilities printed beside),
+    output and grads against the CPU within 1e-4·max + 1e-6; then
+    ``llama3.2-3b`` at its full published config through
+    ``launch.train.main`` and ``zamba2-2.7b`` at its published width cut
+    to 12 of 54 layers (two applications of its shared attention block),
+    each at B = 1, S = 4,096, 1 warm-up and 3 timed steps, the loss
+    falling: step ms, peak memory, reckoned state, the card.
 
 20. The mesh ring (``core/partition.py`` with a process group,
     ``core/transport.py``, ``launch/mesh.py``; run after phase 18, before
@@ -681,6 +692,16 @@ LM_PARITY = (2, 1, 64)
 LM_TRAIN = (2, 512, 4)
 LM_SERVE = (4, 512, 33)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 dense
+# phase 19 (d), attention's backward residency: (i) blockwise_attention
+# alone at LM_FULL's attention widths (B, heads, head_dim, S, KV block;
+# causal, fp32) and the slack its bound allows; (ii) LM_FULL at its
+# published config and (iii) LM_RESIDENCY_HYBRID's arch at its published
+# width cut to that many layers, each trained at (B, S) for 1 warm-up
+# step and the rest timed
+LM_ATTN_RESIDENCY = (1, 24, 128, 4096, 512)
+LM_ATTN_RESIDENCY_SLACK = 64 * 2 ** 20
+LM_RESIDENCY_TRAIN = (1, 4096, 4)
+LM_RESIDENCY_HYBRID = ("zamba2_2p7b", 12)
 LM_CKPT_DIR = os.path.join("build", "lm_ckpt")
 # the LM mesh phase (21): MESH_RANKS ranks as a (data, model) mesh; the
 # smoke archs held to the one-rank mesh semantics (llama: 3 heads on a
@@ -4949,7 +4970,8 @@ def mesh_phase(heavy_rows: list) -> list:
 
 # --------------------------------------------------------------------- #
 # 19. the LM stack: the smoke configs card against CPU, a checkpoint
-# resume on the card, llama3.2-3b at its full published width
+# resume on the card, llama3.2-3b at its full published width, the
+# attention's backward residency
 # --------------------------------------------------------------------- #
 def lm_ratio(got: torch.Tensor, ref: torch.Tensor, what: str) -> float:
     """max|got - ref| over the tolerance 1e-4·max|ref| + 1e-6; raises
@@ -5298,9 +5320,125 @@ def lm_trace(cfg) -> dict:
     return row
 
 
+def lm_attention_residency() -> dict:
+    """Phase 19 (d)(i): what ``blockwise_attention`` keeps from its
+    forward for its backward on the card (``memory_allocated`` after the
+    forward less before it, the output excluded, after a no-grad call of
+    the same shapes). Each KV block's body is
+    checkpointed, so that is each block's running (acc, m, denom) and q's
+    fp32 copy, held to ``nblk·B·H·S·(Dh + 2)·4 + B·H·S·Dh·4`` plus
+    ``LM_ATTN_RESIDENCY_SLACK``, beside what keeping every block's scores
+    and probabilities would take. The output and gradients of
+    ``sum(out·w)`` are held to the same call on the CPU."""
+    from repro_torch.models.lm.layers import blockwise_attention
+
+    B, H, Dh, S, block = LM_ATTN_RESIDENCY
+    nblk = -(-S // block)
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, w = (torch.randn(B, S, H, Dh, generator=gen) for _ in range(4))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        qkv = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        wd = w.to(dev)
+        if dev == "cuda":
+            # a no-grad call first: the first matmul allocates cuBLAS's
+            # workspace (32 MiB), which lives as long as the process
+            with torch.no_grad():
+                blockwise_attention(*qkv, causal=True, block=block)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+        o = blockwise_attention(*qkv, causal=True, block=block)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            held = (torch.cuda.memory_allocated() - base
+                    - o.numel() * o.element_size())
+        (o * wd).sum().backward()
+        out[dev] = [o.detach()] + [t.grad for t in qkv]
+        del qkv, wd, o
+    bound = (nblk * B * H * S * (Dh + 2) * 4 + B * H * S * Dh * 4
+             + LM_ATTN_RESIDENCY_SLACK)
+    scores = 2 * nblk * B * H * S * block * 4
+    row = {"phase": "lm_attention_residency", "card": _card(),
+           "batch": B, "heads": H, "head_dim": Dh, "seq": S,
+           "kv_block": block, "held_bytes": held, "bound_bytes": bound,
+           "every_block_scores_bytes": scores,
+           "over_tol": [lm_ratio(g, c, f"attention {n}") for n, g, c in zip(
+               ("out", "dq", "dk", "dv"), out["cuda"], out["cpu"])]}
+    emit(row)
+    if not held <= bound:
+        raise AssertionError(f"blockwise_attention held {held / 1e9:.3f} GB "
+                             f"for its backward, bound {bound / 1e9:.3f}")
+    return row
+
+
+def _residency_row(what: str, cfg, reduced: list, res: dict, peak: int
+                   ) -> dict:
+    losses, step_s = res["losses"], res["step_s"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: train losses {losses}")
+    row = {"phase": what, "card": _card(), "arch": cfg.name,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "reduced": reduced, "batch": LM_RESIDENCY_TRAIN[0],
+           "seq": LM_RESIDENCY_TRAIN[1], "losses": losses,
+           "reckoned_state_gb": cfg.param_count() * (2 + 2 + 8) / 1e9,
+           "warmup_ms": step_s[0] * 1e3,
+           "step_ms": [t * 1e3 for t in step_s[1:]],
+           "step_ms_median": statistics.median(step_s[1:]) * 1e3,
+           "peak_gb": peak / 1e9}
+    emit(row)
+    return row
+
+
+def lm_residency_train() -> list:
+    """Phase 19 (d)(ii)-(iii): a long-sequence train step's peak, step
+    time and reckoned state (bf16 params and grads, fp32 moments) for
+    ``LM_FULL`` at its published config, through ``train.main``, and
+    for ``LM_RESIDENCY_HYBRID`` at its published width cut in depth (two
+    applications of its shared attention block, which runs outside the
+    block remat)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import init_state, make_train_step
+
+    B, S, n = LM_RESIDENCY_TRAIN
+    rows = []
+    torch.cuda.reset_peak_memory_stats()
+    res = train.main(["--arch", LM_FULL, "--steps", str(n), "--batch",
+                      str(B), "--seq", str(S), "--fixed-batch",
+                      "--log-every", "1", "--device", "cuda"])
+    rows.append(_residency_row("lm_residency_train", get_config(LM_FULL), [],
+                               res, torch.cuda.max_memory_allocated()))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    arch, layers = LM_RESIDENCY_HYBRID
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = make_train_step(cfg)
+    state = init_state(cfg, device="cuda")
+    batch = train.synthetic_batch(cfg, 0, B, S, device="cuda")
+    res = {"losses": [], "step_s": []}
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        res["step_s"].append(time.perf_counter() - t0)
+        res["losses"].append(float(metrics["loss"]))
+    rows.append(_residency_row(
+        "lm_residency_train", cfg,
+        [f"n_layers {full.n_layers} -> {layers}"], res,
+        torch.cuda.max_memory_allocated()))
+    del state, batch, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def lm_phase() -> None:
     """Phase 19: (a) every smoke config, (b) the checkpoint resume,
-    (c) the full-width config."""
+    (c) the full-width config, (d) attention's backward residency."""
     from repro_torch.configs import ARCHS
 
     t0 = time.perf_counter()
@@ -5314,6 +5452,10 @@ def lm_phase() -> None:
     lm_full()
     gc.collect()
     torch.cuda.empty_cache()
+    lm_attention_residency()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm_residency_train()
     emit({"phase": "lm_done", "seconds": time.perf_counter() - t0})
 
 

@@ -26,10 +26,13 @@ support for cuda devices"), so there the cell fakes on the CPU; the JSON
 records which. ``device.resolve_device`` is not asked for a card: nothing
 real is allocated.
 
-The cell JSON has JAX's keys. Where the port's step differs from JAX's
-GSPMD program (the leaves a rank's split does not run on their 'model'
-chunk gathered whole, each block's leaves gathered inside the block as a
-group), its ``notes`` say so; no count is scaled.
+The cell JSON has JAX's keys, plus the port's ``top_collectives`` (the
+largest collective sites), ``collective_sites`` (every call site that
+posted a collective) and, with ``--peak-sites``, ``peak_sites``. Where
+the port's step differs from JAX's GSPMD program (the leaves a rank's
+split does not run on their 'model' chunk gathered whole, each block's
+leaves gathered inside the block as a group), its ``notes`` say so; no
+count is scaled.
 ``--attn-block`` is left out: JAX's dry run accepts it and never reads
 it, and the port's model has no such knob.
 """
@@ -310,6 +313,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
         "collective_bytes": coll,
         "tripaware": tripaware,
         "top_collectives": oa.top_collectives(),
+        "collective_sites": sorted({r["site"]
+                                    for r in oa.top_collectives(None)}),
         **({"peak_sites": oa.peak_sites(20)} if peak_sites else {}),
         "lower_s": round(t_lower, 1),
         "compile_s": round(t_compile, 1),

@@ -22,22 +22,24 @@ reads one back to the host.
 """
 from __future__ import annotations
 
+import functools
 import types
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...core.transport import gather_along, reduce_from_group
-from ...pjit_utils import axis_sizes, current_mesh, shard_hint
+from ...pjit_utils import ambient_mesh, axis_sizes, current_mesh, shard_hint
 from ...substrate.nn import matmul
 from .config import ModelConfig
 from .tp import Split
 
 __all__ = ["Norm", "Attention", "MLP", "normal", "norm_init", "norm_apply",
            "rope_freqs", "rope_angles", "apply_rope", "attention_init",
-           "blockwise_attention", "attention_kv", "attention_apply",
+           "remat", "blockwise_attention", "attention_kv", "attention_apply",
            "attention_split", "mlp_init", "mlp_apply", "mlp_split"]
 
 
@@ -182,6 +184,60 @@ def _repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
         b, s, h * groups, d)
 
 
+def remat(fn, *args):
+    """``fn(*args)``, checkpointed while gradients are recorded: JAX's
+    ``jax.checkpoint`` with ``nothing_saveable``, as
+    ``torch.utils.checkpoint`` (non-reentrant). Only ``args`` are kept for
+    the backward, which runs ``fn`` again. Two levels use it, nested as
+    JAX nests its two: each block of the model (``model._attn_stack`` /
+    ``_mamba_stack``) and, inside it, each KV block's body of
+    :func:`blockwise_attention`. Neither draws random numbers, so no RNG
+    state is kept. The recomputation, which the backward may run on
+    another thread, sees the forward's ambient mesh."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    mesh = current_mesh()
+
+    def run(*a):
+        with ambient_mesh(mesh):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _kv_block(q32, kblk, vblk, acc, m, denom, *, i: int, block: int, qpos,
+              causal: bool, window: int, kv_len, Skv: int, pad: int,
+              reduce_scores):
+    """One KV block of :func:`blockwise_attention` (JAX's scan ``body``):
+    the block's scores, masked, folded into the running ``(acc, m,
+    denom)``. ``kblk`` / ``vblk`` come in their own dtype and are cast
+    here, as JAX's body casts them; the scores and probabilities are
+    locals, alive only while the body runs."""
+    kpos = i * block + torch.arange(block, device=q32.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, kblk.float())
+    if reduce_scores is not None:
+        s = reduce_scores(s)
+    mask = torch.ones((q32.shape[1], block), dtype=torch.bool,
+                      device=q32.device)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    if kv_len is not None:
+        mask = mask & (kpos[None, :] < kv_len)
+    if pad:
+        mask = mask & (kpos[None, :] < Skv)
+    s = torch.where(mask, s, -1e30)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    denom = denom * corr + p.sum(-1)
+    acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                               vblk.float())
+    return acc, m_new, denom
+
+
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int = 0, q_offset=0,
                         kv_len: Optional[torch.Tensor] = None,
@@ -197,7 +253,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk's correction exactly as in JAX. ``scale_dim``: the head dim of
     the 1/sqrt scale (default q's); ``reduce_scores``: applied to each
     block's scores before masking (the sum over 'model' of a head_dim
-    split's partial q·k)."""
+    split's partial q·k; only a decode call sets it, and a recompute
+    would post it again, as GSPMD's remat does).
+
+    Each KV block's body (:func:`_kv_block`) runs under :func:`remat`
+    while gradients are recorded for q, k or v, as JAX's runs under
+    ``jax.checkpoint(body, nothing_saveable)``: the backward keeps only
+    the running ``(acc, m, denom)`` before each block and the block's
+    inputs (views of k / v), and recomputes each block's scores and
+    probabilities."""
     B, Sq, H, Dh = q.shape
     Skv = k.shape[1]
     dev = q.device
@@ -211,30 +275,16 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     acc = torch.zeros((B, H, Sq, Dh), dtype=torch.float32, device=dev)
     m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=dev)
     denom = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     for i in range(nblk):
-        kblk = k[:, i * block:(i + 1) * block].float()
-        vblk = v[:, i * block:(i + 1) * block].float()
-        kpos = i * block + torch.arange(block, device=dev)
-        s = torch.einsum("bqhd,bkhd->bhqk", q32, kblk)
-        if reduce_scores is not None:
-            s = reduce_scores(s)
-        mask = torch.ones((Sq, block), dtype=torch.bool, device=dev)
-        if causal:
-            mask = mask & (qpos[:, None] >= kpos[None, :])
-        if window:
-            mask = mask & (qpos[:, None] - kpos[None, :] < window)
-        if kv_len is not None:
-            mask = mask & (kpos[None, :] < kv_len)
-        if pad:
-            mask = mask & (kpos[None, :] < Skv)
-        s = torch.where(mask, s, -1e30)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        denom = denom * corr + p.sum(-1)
-        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
-                                                   vblk)
-        m = m_new
+        body = functools.partial(
+            _kv_block, i=i, block=block, qpos=qpos, causal=causal,
+            window=window, kv_len=kv_len, Skv=Skv, pad=pad,
+            reduce_scores=reduce_scores)
+        xs = (q32, k[:, i * block:(i + 1) * block],
+              v[:, i * block:(i + 1) * block], acc, m, denom)
+        acc, m, denom = remat(body, *xs) if grad else body(*xs)
     out = acc / torch.clamp(denom[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)          # (B, Sq, H, Dh)
 

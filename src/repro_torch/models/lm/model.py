@@ -14,11 +14,14 @@ Families:
 The model is an ``nn.Module`` (:class:`LM`) whose parameter names are the
 JAX tree's, with one module per layer in a ``ModuleList`` where JAX stacks
 the layers on a leading L axis; :func:`from_jax_params` and
-:func:`to_jax_tree` carry weights across. JAX's per-block
+:func:`to_jax_tree` carry weights across. JAX's
 ``jax.checkpoint`` is ``torch.utils.checkpoint`` (non-reentrant) while
-gradients are recorded; recomputing a block gives the same values, so it
-changes no result (the recomputation runs under the ambient mesh of the
-forward, which the MoE's token blocks read). JAX's residual and logits
+gradients are recorded, at JAX's two levels through one helper
+(``layers.remat``): each block, and inside it each KV block's body of
+``layers.blockwise_attention`` (JAX's ``jax.checkpoint(body,
+nothing_saveable)``). Recomputing gives the same values, so it changes no
+result (the recomputation runs under the ambient mesh of the forward,
+which the MoE's token blocks read). JAX's residual and logits
 sharding hints sit at JAX's sites; on plain tensors they are the
 identity. On a process mesh the steps pass ``split=`` (a ``tp.Split``):
 the blocks, the embedding, the head and the CE then run the rank's
@@ -42,17 +45,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ...core.transport import (all_gather_cat, copy_to_group, gather_along,
                                gather_blocks, reduce_from_group)
 from ...device import DeviceLike, resolve_device
-from ...pjit_utils import ambient_mesh, current_mesh, shard_hint
+from ...pjit_utils import shard_hint
 from ...substrate.nn import matmul
 from .config import ModelConfig
 from .layers import (Attention, MLP, Norm, attention_apply, attention_kv,
                      attention_split, mlp_apply, mlp_split, norm_apply,
-                     normal, rope_angles)
+                     normal, remat as _remat, rope_angles)
 from .mamba2 import Mamba2, mamba2_apply, mamba2_split
 from .moe import MoE, moe_apply, moe_split
 from .tp import Split
@@ -325,22 +327,6 @@ def _layer(caches: Optional[Dict], i: int) -> Optional[Dict]:
     if caches is None:
         return None
     return {k: v[i] for k, v in caches.items()}
-
-
-def _remat(fn, *args):
-    """``fn(*args)``, checkpointed per block while gradients are
-    recorded (JAX's ``jax.checkpoint`` with ``nothing_saveable``). The
-    recomputation, which the backward may run on another thread, sees
-    the forward's ambient mesh."""
-    if torch.is_grad_enabled():
-        mesh = current_mesh()
-
-        def run(*a):
-            with ambient_mesh(mesh):
-                return fn(*a)
-
-        return checkpoint(run, *args, use_reentrant=False)
-    return fn(*args)
 
 
 def _attn_stack(model: LM, blocks, h, angles, *, causal=True, memory=None,

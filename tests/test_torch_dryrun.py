@@ -17,8 +17,10 @@ Mamba2 conv on the rank's heads with no gather). This file: the dense
 train cell, the SSM long-context decode cell, the SSM train cell,
 ``llama3p2_3b × train_4k`` on the 256-rank pod mesh, and
 ``dryrun_all``'s skip and error JSONs; ``test_torch_dryrun_serve.py``
-the enc-dec prefill and MoE decode cells. The SSM decode cell's temp is
-held at most 2.0 GB: its blocks are gathered one at a time.
+the enc-dec prefill and MoE decode cells; ``test_torch_dryrun_remat.py``
+what attention keeps for the backward. The SSM decode cell's temp is
+held at most 2.0 GB: its blocks are gathered one at a time; the dense
+train cell's at most JAX's, with no collective on attention scores.
 """
 import json
 import os
@@ -29,6 +31,8 @@ import time
 import pytest
 
 CELL_TIMEOUT_S = 300
+# the closure that sums a head_dim split's partial scores over 'model'
+SCORES_SITE = "models/lm/layers.py:reduce"
 CASES = [("llama3p2_3b", "train_4k"),       # dense train
          ("mamba2_1p3b", "long_500k"),      # SSM long-context decode
          ("mamba2_1p3b", "train_4k")]       # SSM train
@@ -65,14 +69,16 @@ def finish_cell(proc, out: str, deadline: float) -> dict:
     return cell
 
 
-def run_pairs(tmp, cases) -> dict:
-    """Every case's JAX cell and port cell, all started at once."""
+def run_pairs(tmp, cases, port_extra=()) -> dict:
+    """Every case's JAX cell and port cell (its CLI given ``port_extra``),
+    all started at once."""
     procs = {}
     for arch, shape in cases:
         for pkg in ("repro", "repro_torch"):
             out = str(tmp / f"{pkg}__{arch}__{shape}.json")
-            procs[(pkg, arch, shape)] = (start_cell(pkg, arch, shape, out),
-                                         out)
+            extra = port_extra if pkg == "repro_torch" else ()
+            procs[(pkg, arch, shape)] = (
+                start_cell(pkg, arch, shape, out, extra=extra), out)
     deadline = time.time() + CELL_TIMEOUT_S
     return {k: finish_cell(p, out, deadline)
             for k, (p, out) in procs.items()}
@@ -129,15 +135,24 @@ def test_train_cell_splits_the_model_axis(cells):
     """A rank of the port runs its share of the model axis's work on its
     data rows (TP / context-parallel attention, TP MLP, vocab-parallel
     head and CE, the sequence-parallel residual): at most JAX's FLOPs a
-    device on (2, 4) (0.91× when this was written; 3.65× while every rank
-    ran the whole model), with the residual's reduce-scatters, in bf16 as
-    GSPMD's: at most JAX's collective bytes (0.64× when this was written;
-    1.13× while they reduced in float32)."""
+    device on (2, 4) (0.93× when this was written, with each KV block's
+    scores recomputed in the backward as JAX's are; 0.91× before that;
+    3.65× while every rank ran the whole model), with the residual's
+    reduce-scatters, in bf16 as GSPMD's: at most JAX's collective bytes
+    (0.64× when this was written; 1.13× while they reduced in float32).
+    Its temp at most JAX's (130.2 of 224.3 GB when this was written;
+    186.3 while every KV block's scores and probabilities were kept for
+    the backward). No collective reduces attention scores: only a decode
+    call's head_dim split posts ``reduce_scores``."""
     port = cells[("repro_torch", "llama3p2_3b", "train_4k")]
     jax_cell = cells[("repro", "llama3p2_3b", "train_4k")]
     ratio, coll = _ratios(port, jax_cell, "llama3p2_3b × train_4k")
     assert ratio <= 1.0, f"port / JAX FLOPs a device: {ratio:.3f}"
     assert coll <= 1.0, f"port / JAX collective bytes a device: {coll:.3f}"
+    temp, jtemp = (c["memory_analysis"]["temp_size_in_bytes"]
+                   for c in (port, jax_cell))
+    assert temp <= jtemp, f"temp {temp / 1e9:.1f} GB, JAX's {jtemp / 1e9:.1f}"
+    assert SCORES_SITE not in port["collective_sites"]
     assert port["collective_bytes"]["all-gather"] > 0
     assert port["collective_bytes"]["all-reduce"] > 0
     assert port["collective_bytes"]["reduce-scatter"] > 0

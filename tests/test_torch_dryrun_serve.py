@@ -9,7 +9,8 @@ moving a cache leaf (each rank reads and writes its own shards), the
 enc-dec prefill's FLOPs a device within 1.3× JAX's (the model axis split;
 3.71× while every rank ran the whole model), and the MoE decode's within
 JAX's (expert parallelism: 8 experts over a model axis of 4; 1.72× while
-every 'model' rank ran all 8).
+every 'model' rank ran all 8), and the enc-dec prefill's temp at most
+17.0 GB a rank.
 """
 import pytest
 
@@ -45,6 +46,17 @@ def test_encdec_prefill_flops_near_jax(cells):
     ratio = port["tripaware"]["flops_hlo"] / jax_cell["tripaware"][
         "flops_hlo"]
     assert ratio <= 1.3, f"port / JAX FLOPs a device: {ratio:.3f}"
+
+
+def test_encdec_prefill_temp(cells):
+    """The prefill's attention keeps one KV block's scores alive at a time
+    (the body's locals die when it returns): temp at most 17.0 GB a rank
+    (16.43 when this was written; 20.75 while the loop held two blocks'
+    probabilities at once; JAX's 12.2)."""
+    port = cells[("repro_torch", "whisper_medium", "prefill_32k")]
+    temp = port["memory_analysis"]["temp_size_in_bytes"]
+    print(f"whisper_medium × prefill_32k: temp {temp / 1e9:.2f} GB")
+    assert temp <= 17.0e9, f"temp {temp / 1e9:.2f} GB"
 
 
 def test_moe_decode_flops_within_jax(cells):
