@@ -1,0 +1,10 @@
+"""The benchmark of the PyTorch and CUDA port (``repro_torch``).
+
+``python3 gnnbench/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>`` runs one cell of ``BENCHMARK.json``. Everything that
+belongs to one configuration, traffic mix, mode, kernel or per-layer
+metric is a file of its own, found by name (``configs/``,
+``workloads/``, ``modes/``, ``costs/``, ``metrics/``), so a new cell or
+metric is added by adding files. ``reference/`` is the plain PyTorch
+reference that decides ``correct``; it imports nothing of the port.
+"""
