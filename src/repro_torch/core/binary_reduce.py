@@ -35,9 +35,12 @@ to ``ell``) with a one-time warning; a kernel
 that fails to build or launch still raises. The packs are built once per
 graph, on the host, at first use. ``push``, ``ell`` and ``onehot`` are
 plain PyTorch: ELL and tiles are TPU layouts, and the kernels walk the
-CSR. A call under ``torch.no_grad`` runs under ``obs.events.timed`` as
-``<op>`` (fenced); with grad mode on it is not timed, so a training
-step's ops gain no fence (JAX times an op only outside a trace).
+CSR. Every call runs inside an ``agg.<op>`` span timed on the device
+with no host wait (args ``route``, the strategy that ran, and ``dir``,
+``fwd``; the kernel and segment routes' backward open ``dir`` ``bwd``
+spans); under ``torch.no_grad`` it also records a measured ``<op>`` row
+(``obs.events.timed``), with grad mode on none (JAX times an op only
+outside a trace).
 
 Strategies of :func:`gsddmm` (edge outputs), planned by
 ``planner.plan_sddmm`` and timed as ``sddmm:<op>``:
@@ -98,6 +101,7 @@ from .planner import get_plan_cache
 from ..kernels.binary_reduce.ops import binary_reduce_csr
 from ..kernels.dispatch import gspmm_kernel
 from ..obs.events import timed as _timed
+from ..obs.spans import span
 from ..kernels.sddmm.ops import (CALLER_INDEX, TARGET_INDEX, sddmm_csr,
                                  sddmm_plain)
 from ..kernels.spmm.ops import spmm
@@ -237,15 +241,70 @@ def _needs_grad(*ts: Optional[torch.Tensor]) -> bool:
         t is not None and t.requires_grad for t in ts)
 
 
-def _timed_eager(op: str, thunk):
-    """``thunk()`` timed as ``op`` (``obs.events.timed``, which fences)
-    under ``torch.no_grad`` / ``inference_mode`` only: with grad mode on,
-    autograd may be recording a training step — the port's analogue of
-    JAX's traced vjp, where JAX times nothing — so a step gains no fence
-    per op, not even for an op on inputs that need no grad."""
+def _timed_eager(op: str, route: str, thunk, device: torch.device):
+    """``thunk()`` inside an ``agg.<op>`` span (args ``route`` and ``dir``
+    ``fwd``; timed on ``device`` when it is a CUDA device), waiting for
+    nothing. Under ``torch.no_grad`` / ``inference_mode`` the span is
+    ``obs.events.timed``'s, which records a measured ``op`` row; with grad
+    mode on, autograd may be recording a training step — the port's
+    analogue of JAX's traced vjp, where JAX times nothing — so it records
+    none, not even for an op on inputs that need no grad."""
+    args = {"route": route, "dir": "fwd"}
     if torch.is_grad_enabled():
-        return thunk()
-    return _timed(op, thunk)
+        with span(f"agg.{op}", args=args, device=device):
+            return thunk()
+    return _timed(op, thunk, args=args, device=device)
+
+
+def _bwd_span(op: str, route: str, ct: torch.Tensor):
+    """The ``agg.<op>`` span of a backward (``dir`` ``bwd``)."""
+    return span(f"agg.{op}", args={"route": route, "dir": "bwd"},
+                device=ct.device)
+
+
+class _PlainRoute(torch.autograd.Function):
+    """A plain route that autograd differentiates, recorded on detached
+    inputs in the forward and differentiated in the backward, so that the
+    backward runs inside a span of its own: ``bwd(grads, ct)`` runs the
+    thunk ``grads`` in it (an ``agg.<op>`` span with ``dir`` ``bwd``, as
+    the kernel and segment routes' own backward open; a block's
+    ``block_bwd:<op>``). Saves what the route's autograd graph saves,
+    nothing more; has no second derivative."""
+
+    @staticmethod
+    def forward(ctx, bwd, fn, *operands):
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(operands, need)]
+            out = fn(*ins)
+        ctx.bwd, ctx.out = bwd, out
+        ctx.ins = [t if n else None for t, n in zip(ins, need)]
+        return out.detach()
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        ins, out = ctx.ins, ctx.out
+        del ctx.ins, ctx.out
+        wrt = [t for t in ins if t is not None]
+        got = iter(ctx.bwd(lambda: torch.autograd.grad(
+            out, wrt, ct, allow_unused=True), ct))
+        return (None, None) + tuple(
+            None if t is None else next(got) for t in ins)
+
+
+def _plain(op: str, route: str, fn, *operands):
+    """``fn(*operands)`` on a plain route; where autograd wants a
+    gradient, through :class:`_PlainRoute` so its backward is spanned."""
+    if not _needs_grad(*operands):
+        return fn(*operands)
+
+    def bwd(grads, ct):
+        with _bwd_span(op, route, ct):
+            return grads()
+
+    return _PlainRoute.apply(bwd, fn, *operands)
 
 
 # --------------------------------------------------------------------- #
@@ -325,8 +384,8 @@ def gspmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
         get_plan_cache(g).ell()
     elif plan.strategy == "onehot":
         get_plan_cache(g).tiles()
-    out = _timed_eager(spec.name, lambda: _execute(
-        g, spec, lhs_data, rhs_data, plan.strategy))
+    out = _timed_eager(spec.name, plan.strategy, lambda: _execute(
+        g, spec, lhs_data, rhs_data, plan.strategy), lhs_data.device)
     # node outputs keep the feature operand's floating dtype
     if (lhs_data.dtype.is_floating_point and out.dtype.is_floating_point
             and out.dtype != lhs_data.dtype):
@@ -341,20 +400,25 @@ def _execute(g, spec: BRSpec, lhs_data, rhs_data,
         if _needs_grad(lhs_data, rhs_data):
             return _KernelGspmm.apply(g, spec, lhs_data, rhs_data)
         return gspmm_kernel(g, spec, lhs_data, rhs_data)
-    if chosen == "ell":
-        return _gspmm_ell(g, spec, get_plan_cache(g).ell(), lhs_data,
-                          rhs_data)
-    if chosen == "onehot":
-        return _gspmm_onehot(g, spec, lhs_data, rhs_data)
-    if chosen == "push":
-        return _execute_segment(g, spec, lhs_data, rhs_data, push=True)
     if chosen == "ring":
         ctx = planner.active_ring()
         return _gspmm_ring(g, spec, get_plan_cache(g).partition(
             ctx.n_shards, ctx.mode), lhs_data, rhs_data, mesh=ctx.mesh)
-    if spec.reduce in ("sum", "mean") and _needs_grad(lhs_data, rhs_data):
+    if (chosen not in ("ell", "onehot", "push")
+            and spec.reduce in ("sum", "mean")
+            and _needs_grad(lhs_data, rhs_data)):
         return _SegmentGspmm.apply(g, spec, lhs_data, rhs_data)
-    return _execute_segment(g, spec, lhs_data, rhs_data)
+    if chosen == "ell":
+        def fn(lhs, rhs):
+            return _gspmm_ell(g, spec, get_plan_cache(g).ell(), lhs, rhs)
+    elif chosen == "onehot":
+        def fn(lhs, rhs):
+            return _gspmm_onehot(g, spec, lhs, rhs)
+    else:
+        def fn(lhs, rhs):
+            return _execute_segment(g, spec, lhs, rhs,
+                                    push=chosen == "push")
+    return _plain(spec.name, chosen, fn, lhs_data, rhs_data)
 
 
 def _execute_segment(g, spec: BRSpec, lhs_data, rhs_data,
@@ -489,8 +553,8 @@ def gsddmm(g, op_name: str, *, u: Optional[torch.Tensor] = None,
     chosen = planner.plan_sddmm((g.n_src, g.n_dst, g.n_edges), spec, d,
                                 requested=strategy, lhs_data=lhs_data,
                                 rhs_data=rhs_data, runner=runner)
-    return _timed_eager(f"sddmm:{spec.name}", lambda: _sddmm_execute(
-        g, spec, lhs_data, rhs_data, chosen))
+    return _timed_eager(f"sddmm:{spec.name}", chosen, lambda: _sddmm_execute(
+        g, spec, lhs_data, rhs_data, chosen), lhs_data.device)
 
 
 def _sddmm_execute(g, spec: BRSpec, lhs_data, rhs_data,
@@ -508,10 +572,14 @@ def _sddmm_execute(g, spec: BRSpec, lhs_data, rhs_data,
             name = CALLER_INDEX[target]
             return x if name is None else take_rows(x, g.long(name))
 
-        return BINARY_OPS[spec.op](
-            fetch(spec.lhs, lhs_data),
-            None if rhs_data is None else fetch(spec.rhs, rhs_data))
-    return sddmm_plain(g, spec.op, spec.lhs, lhs_data, spec.rhs, rhs_data)
+        def fn(lhs, rhs):
+            return BINARY_OPS[spec.op](
+                fetch(spec.lhs, lhs), None if rhs is None
+                else fetch(spec.rhs, rhs))
+    else:
+        def fn(lhs, rhs):
+            return sddmm_plain(g, spec.op, spec.lhs, lhs, spec.rhs, rhs)
+    return _plain(f"sddmm:{spec.name}", chosen, fn, lhs_data, rhs_data)
 
 
 def _sddmm_kernel(g, spec: BRSpec, lhs_data: torch.Tensor,
@@ -643,9 +711,10 @@ class _SegmentGspmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         lhs, rhs = ctx.saved_tensors
-        return (None, None) + _pull_grads(ctx.g, ctx.spec, lhs, rhs,
-                                          ct.contiguous(),
-                                          ctx.needs_input_grad[2:])
+        with _bwd_span(ctx.spec.name, "segment", ct):
+            return (None, None) + _pull_grads(ctx.g, ctx.spec, lhs, rhs,
+                                              ct.contiguous(),
+                                              ctx.needs_input_grad[2:])
 
 
 class _CanonicalGsddmm(torch.autograd.Function):
@@ -661,9 +730,10 @@ class _CanonicalGsddmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         lhs, rhs = ctx.saved_tensors
-        return (None, None) + _pull_grads(ctx.g, ctx.spec, lhs, rhs,
-                                          ct.contiguous(),
-                                          ctx.needs_input_grad[2:])
+        with _bwd_span(f"sddmm:{ctx.spec.name}", "canonical", ct):
+            return (None, None) + _pull_grads(ctx.g, ctx.spec, lhs, rhs,
+                                              ct.contiguous(),
+                                              ctx.needs_input_grad[2:])
 
 
 # --------------------------------------------------------------------- #
@@ -761,9 +831,10 @@ class _KernelGspmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         lhs, rhs = ctx.saved_tensors
-        return (None, None) + _as_dtypes(_gspmm_grads(
-            ctx.g, ctx.spec, lhs.detach(), _detach(rhs), ct,
-            ctx.needs_input_grad[2:]), (lhs, rhs))
+        with _bwd_span(ctx.spec.name, "kernel", ct):
+            return (None, None) + _as_dtypes(_gspmm_grads(
+                ctx.g, ctx.spec, lhs.detach(), _detach(rhs), ct,
+                ctx.needs_input_grad[2:]), (lhs, rhs))
 
 
 class _KernelGsddmm(torch.autograd.Function):
@@ -780,6 +851,7 @@ class _KernelGsddmm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         lhs, rhs, out = ctx.saved_tensors
-        return (None, None) + _as_dtypes(_sddmm_grads(
-            ctx.g, ctx.spec, lhs.detach(), _detach(rhs), out,
-            ct.contiguous(), ctx.needs_input_grad[2:]), (lhs, rhs))
+        with _bwd_span(f"sddmm:{ctx.spec.name}", "kernel", ct):
+            return (None, None) + _as_dtypes(_sddmm_grads(
+                ctx.g, ctx.spec, lhs.detach(), _detach(rhs), out,
+                ct.contiguous(), ctx.needs_input_grad[2:]), (lhs, rhs))

@@ -73,9 +73,9 @@ from ..obs.events import timed as _timed
 from ..optim.precision import accum_dtype
 from . import planner
 from .binary_reduce import (BINARY_OPS, BRSpec, _as2d, _as_dtypes, _detach,
-                            _execute, _gspmm_grads, _kernel_name,
-                            _needs_grad, _pull_grads, edge_order, gsddmm,
-                            parse_op, take_rows)
+                            _PlainRoute, _execute, _gspmm_grads,
+                            _kernel_name, _needs_grad, _pull_grads,
+                            edge_order, gsddmm, parse_op, take_rows)
 from .graph import Graph, reverse, reverse_built
 from .strategies import REDUCE_IDENTITY
 
@@ -297,8 +297,9 @@ def block_gspmm(bg: BlockGraph, op_name: str, *,
         def bwd_runner(s):          # the differentiated call, as trained
             with torch.enable_grad():
                 x = lhs_data.detach().requires_grad_()
-                fn = _BlockGather if s == "gather" else _BlockScatter
-                out = fn.apply(bg, spec, chosen, x, _detach(rhs_data))
+                fn = (_BlockGather.apply if s == "gather"
+                      else _block_scatter)
+                out = fn(bg, spec, chosen, x, _detach(rhs_data))
                 return torch.autograd.grad(out.sum(), x)
 
     bwd = planner.plan_block_vjp(
@@ -315,13 +316,15 @@ def _run_block(bg: BlockGraph, spec: BRSpec, chosen: str, bwd: str,
     autograd through the block VJP ``bwd`` names (a kernel forward's is
     the gather)."""
     name = f"block:{spec.name}"
+    args, on_cuda = {"route": chosen, "dir": "fwd"}, lhs_data.is_cuda
     if not _needs_grad(lhs_data, rhs_data):
         return _timed(name, lambda: _block_execute(bg, spec, lhs_data,
-                                                   rhs_data, chosen))
-    fn = (_BlockGather if bwd == "gather" or chosen == "kernel"
-          else _BlockScatter)
-    return _timed(name, lambda: fn.apply(bg, spec, chosen, lhs_data,
-                                         rhs_data))
+                                                   rhs_data, chosen),
+                      args, on_cuda)
+    fn = (_BlockGather.apply if bwd == "gather" or chosen == "kernel"
+          else _block_scatter)
+    return _timed(name, lambda: fn(bg, spec, chosen, lhs_data, rhs_data),
+                  args, on_cuda)
 
 
 def _block_execute(bg: BlockGraph, spec: BRSpec, lhs_data, rhs_data,
@@ -429,32 +432,19 @@ class _BlockGather(torch.autograd.Function):
                                                needs), (lhs, rhs))
             return _reverse_grads(bg, spec, lhs, rhs, ct_pad, needs, arg)
 
+        route = "kernel" if ctx.chosen == "kernel" else "gather"
         return (None, None, None) + tuple(
-            _timed(f"block_bwd:{spec.name}", grads))
+            _timed(f"block_bwd:{spec.name}", grads,
+                   {"route": route, "dir": "bwd"}, ct.is_cuda))
 
 
-class _BlockScatter(torch.autograd.Function):
+def _block_scatter(bg, spec, chosen, lhs, rhs):
     """A plain block aggregation differentiated by autograd of its
-    forward (the 'scatter' baseline), replayed inside ``timed`` so its
-    backward is measured as ``block_bwd:<op>`` like the gather one."""
+    forward (the 'scatter' baseline), its backward measured as
+    ``block_bwd:<op>`` like the gather one."""
+    def bwd(grads, ct):
+        return _timed(f"block_bwd:{spec.name}", grads,
+                      {"route": "scatter", "dir": "bwd"}, ct.device)
 
-    @staticmethod
-    def forward(ctx, bg, spec, chosen, lhs, rhs):
-        need = ctx.needs_input_grad[3:]
-        with torch.enable_grad():
-            ins = [None if t is None else t.detach().requires_grad_(n)
-                   for t, n in zip((lhs, rhs), need)]
-            out = _block_execute(bg, spec, ins[0], ins[1], chosen)
-        ctx.spec, ctx.out = spec, out
-        ctx.ins = [t if n else None for t, n in zip(ins, need)]
-        return out.detach()
-
-    @staticmethod
-    def backward(ctx, ct):
-        ins, out = ctx.ins, ctx.out
-        del ctx.ins, ctx.out
-        wrt = [t for t in ins if t is not None]
-        got = iter(_timed(f"block_bwd:{ctx.spec.name}",
-                          lambda: torch.autograd.grad(out, wrt, ct)))
-        return (None, None, None) + tuple(
-            None if t is None else next(got) for t in ins)
+    return _PlainRoute.apply(bwd, lambda lhs, rhs: _block_execute(
+        bg, spec, lhs, rhs, chosen), lhs, rhs)

@@ -62,9 +62,10 @@ from ..kernels.edge_softmax.ops import (attention_alpha, edge_softmax_csr,
                                         fused_attention_csr,
                                         fused_attention_plain)
 from ..kernels.sddmm.ops import sddmm_csr
+from ..obs.spans import span
 from . import planner
-from .binary_reduce import (_kernel_name, _needs_grad, _timed_eager, gsddmm,
-                            gspmm)
+from .binary_reduce import (_bwd_span, _kernel_name, _needs_grad, _plain,
+                            _timed_eager, gsddmm, gspmm)
 from .blocks import (SDDMM_FOR_BLOCK, BlockGraph, block_gspmm,
                      check_block_strategy)
 from .planner import get_plan_cache
@@ -148,11 +149,15 @@ def edge_softmax_fused(g, logits: torch.Tensor,
     canonical-order PyTorch form (``edge_softmax_plain``), 'kernel' the
     B5 kernel, 'auto' the kernel for fp32 CUDA tensors."""
     x = logits[:, None] if logits.ndim == 1 else logits
-    if _single_pass(strategy, x) == "kernel":
-        out = (_EdgeSoftmaxKernel.apply(g, x) if _needs_grad(x)
-               else edge_softmax_csr(g, x.contiguous()))
-    else:
-        out = edge_softmax_plain(g, x)
+    route = _single_pass(strategy, x)
+    with span("agg.edge_softmax", args={"route": route, "dir": "fwd"},
+              device=x.device):
+        if route == "kernel":
+            out = (_EdgeSoftmaxKernel.apply(g, x) if _needs_grad(x)
+                   else edge_softmax_csr(g, x.contiguous()))
+        else:
+            out = _plain("edge_softmax", route,
+                         lambda t: edge_softmax_plain(g, t), x)
     return out[:, 0] if logits.ndim == 1 else out
 
 
@@ -181,13 +186,14 @@ def fused_attention(g, el: torch.Tensor, er: torch.Tensor, z: torch.Tensor,
 
     def run():
         if chosen == "fused":
-            return fused_attention_plain(g, el, er, z, slope)
+            return _plain("attn:fused", chosen, lambda a, b, c:
+                          fused_attention_plain(g, a, b, c, slope), el, er, z)
         if _needs_grad(el, er, z):
             return _FusedAttentionKernel.apply(g, slope, el, er, z)
         return fused_attention_csr(g, el.contiguous(), er.contiguous(),
                                    z.contiguous(), slope)
 
-    out = _timed_eager("attn:fused", run)
+    out = _timed_eager("attn:fused", chosen, run, z.device)
     return out[:, 0, :] if squeeze else out
 
 
@@ -252,9 +258,10 @@ class _EdgeSoftmaxKernel(torch.autograd.Function):
     def backward(ctx, ct):
         alpha, = ctx.saved_tensors
         ct = ct.contiguous()
-        row = binary_reduce_csr(ctx.g, None, (alpha * ct).contiguous(),
-                                "copy_rhs")
-        return None, alpha * sddmm_csr(ctx.g, "sub", "e", ct, "v", row)
+        with _bwd_span("edge_softmax", "kernel", ct):
+            row = binary_reduce_csr(ctx.g, None, (alpha * ct).contiguous(),
+                                    "copy_rhs")
+            return None, alpha * sddmm_csr(ctx.g, "sub", "e", ct, "v", row)
 
 
 def _attention_grads(g, el, er, z, slope: float, ct, needs):
@@ -342,8 +349,11 @@ class _FusedAttentionKernel(torch.autograd.Function):
         el, er, z = (t.detach() for t in ctx.saved_tensors)
         needs = ctx.needs_input_grad[2:]
         pack = get_plan_cache(ctx.g).peek("ell_ragged")
-        if pack is not None:
-            return (None, None) + _attention_grads_ragged(
-                pack, el, er, z, ctx.slope, ct, needs)
-        return (None, None) + _attention_grads(ctx.g, el, er, z, ctx.slope,
-                                               ct, needs)
+        # plain PyTorch: on the ragged pack, else the canonical stream
+        with _bwd_span("attn:fused", "ell_ragged" if pack is not None
+                       else "fused", ct):
+            if pack is not None:
+                return (None, None) + _attention_grads_ragged(
+                    pack, el, er, z, ctx.slope, ct, needs)
+            return (None, None) + _attention_grads(ctx.g, el, er, z,
+                                                   ctx.slope, ct, needs)

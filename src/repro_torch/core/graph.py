@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..obs.spans import span
 
 __all__ = ["Graph", "HostIndex", "from_coo", "reverse", "reverse_from_draw",
            "reverse_built", "add_self_loops"]
@@ -137,10 +138,12 @@ class Graph:
 
 def _from_host(host: HostIndex, n_src: int, n_dst: int,
                dev: torch.device) -> Graph:
-    tensors = {f: torch.from_numpy(getattr(host, f)).to(dev)
-               for f in _INDEX_FIELDS}
-    return Graph(n_src=n_src, n_dst=n_dst, n_edges=int(host.src.shape[0]),
-                 host=host, **tensors)
+    n_edges = int(host.src.shape[0])
+    with span("graph.upload", args={"n_edges": n_edges}):
+        tensors = {f: torch.from_numpy(getattr(host, f)).to(dev)
+                   for f in _INDEX_FIELDS}
+    return Graph(n_src=n_src, n_dst=n_dst, n_edges=n_edges, host=host,
+                 **tensors)
 
 
 def from_coo(src, dst, *, n_src: Optional[int] = None,
@@ -175,27 +178,29 @@ def _host_index(src: np.ndarray, dst: np.ndarray, n_src: int,
                 n_dst: int) -> HostIndex:
     """Every index array of the graph with int64 host edges ``src`` /
     ``dst``, edge ids by position, as ``repro.core.graph.from_coo``
-    computes them."""
+    computes them (span ``graph.host_index``)."""
     nnz = src.shape[0]
-    order = np.lexsort((src, dst))
-    s_src, s_dst = src[order], dst[order]
-    eid = order.astype(np.int32)
+    with span("graph.host_index", args={"n_edges": int(nnz)}):
+        order = np.lexsort((src, dst))
+        s_src, s_dst = src[order], dst[order]
+        eid = order.astype(np.int32)
 
-    indptr_dst = np.zeros(n_dst + 1, dtype=np.int32)
-    np.add.at(indptr_dst, s_dst + 1, 1)
-    np.cumsum(indptr_dst, out=indptr_dst)
+        indptr_dst = np.zeros(n_dst + 1, dtype=np.int32)
+        np.add.at(indptr_dst, s_dst + 1, 1)
+        np.cumsum(indptr_dst, out=indptr_dst)
 
-    order_src = np.lexsort((s_dst, s_src))
-    indptr_src = np.zeros(n_src + 1, dtype=np.int32)
-    np.add.at(indptr_src, s_src + 1, 1)
-    np.cumsum(indptr_src, out=indptr_src)
+        order_src = np.lexsort((s_dst, s_src))
+        indptr_src = np.zeros(n_src + 1, dtype=np.int32)
+        np.add.at(indptr_src, s_src + 1, 1)
+        np.cumsum(indptr_src, out=indptr_src)
 
-    eid_inv = np.empty_like(eid)
-    eid_inv[eid] = np.arange(nnz, dtype=np.int32)
+        eid_inv = np.empty_like(eid)
+        eid_inv[eid] = np.arange(nnz, dtype=np.int32)
 
-    return HostIndex(src=s_src.astype(np.int32), dst=s_dst.astype(np.int32),
-                     eid=eid, indptr_dst=indptr_dst, indptr_src=indptr_src,
-                     perm_src=order_src.astype(np.int32), eid_inv=eid_inv)
+        return HostIndex(
+            src=s_src.astype(np.int32), dst=s_dst.astype(np.int32), eid=eid,
+            indptr_dst=indptr_dst, indptr_src=indptr_src,
+            perm_src=order_src.astype(np.int32), eid_inv=eid_inv)
 
 
 _reverse_lock = threading.Lock()

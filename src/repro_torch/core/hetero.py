@@ -689,7 +689,8 @@ def hetero_gspmm(rg: RelGraph, u: torch.Tensor, *,
         kernel_ok=(reduce in ("sum", "mean")
                    and _kernel_ok(u, w, basis, coeff, e)))
     return _timed(f"hetero:{op_name}", lambda: _exec(
-        rg, u, w, basis, coeff, e, reduce, chosen))
+        rg, u, w, basis, coeff, e, reduce, chosen),
+        {"route": chosen, "dir": "fwd"}, u.is_cuda)
 
 
 def _exec(rg: RelGraph, u, w, basis, coeff, e, reduce: str,
@@ -751,7 +752,8 @@ def hetero_block_gspmm(bg, rel: torch.Tensor, u: torch.Tensor,
         kernel_forward=chosen == "kernel")
     if bwd == "gather" and _needs_grad(u, w):
         return _timed(f"block:{_BLOCK_SPEC.name}", lambda:
-                      _HeteroBlockGather.apply(bg, chosen, rel, norm, u, w))
+                      _HeteroBlockGather.apply(bg, chosen, rel, norm, u, w),
+                      {"route": chosen, "dir": "fwd"}, u.is_cuda)
     msg = _block_messages(bg, rel, u, w, norm)
     return _run_block(bg, _BLOCK_SPEC, chosen, bwd, msg, None)
 
@@ -859,7 +861,9 @@ class _HeteroBlockGather(torch.autograd.Function):
             return grads_fn(bg, rel, norm, u.detach(), w.detach(),
                             ct_pad.contiguous(), needs)
 
-        du, dw = _timed(f"block_bwd:{_BLOCK_SPEC.name}", grads)
+        route = "kernel" if ctx.chosen == "kernel" else "gather"
+        du, dw = _timed(f"block_bwd:{_BLOCK_SPEC.name}", grads,
+                        {"route": route, "dir": "bwd"}, ct.is_cuda)
         return None, None, None, None, du, dw
 
 

@@ -64,7 +64,7 @@ from ..kernels.dispatch import kernel_supports, sddmm_kernel_supports
 from ..obs import events as _obs_events
 from ..obs import metrics as _obs_metrics
 from ..obs.events import drift_report, plan_events  # noqa: F401 (re-export)
-from ..obs.spans import fence
+from ..obs.spans import _cuda_devices, fence
 from ..optim.compression import wire_bytes as _wire_bytes
 from .tiling import (ELLClass, ELLPack, TilePack, build_ell, build_ell_ragged,
                      build_ell_uniform, build_tiles)
@@ -672,23 +672,38 @@ def get_mode() -> str:
     return _MODE
 
 
-def _measure(runner: Callable[[str], Any], strategy: str) -> float:
-    """Seconds of one call of ``runner(strategy)`` after one warm-up,
-    fenced (``torch.cuda.synchronize``) where its output is on the card."""
+def _measure(runner: Callable[[str], Any], strategy: str) -> tuple:
+    """``(wall, device)``: seconds of one call of ``runner(strategy)``
+    after one warm-up, fenced (``torch.cuda.synchronize``) where its
+    output is on the card, and that call's device seconds between two
+    CUDA timing events (None where its output is on the host)."""
     fence(runner(strategy))
+    marks = None
+    if torch.cuda.is_initialized():
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
     t0 = time.perf_counter()
-    fence(runner(strategy))
-    return time.perf_counter() - t0
+    out = runner(strategy)
+    if marks is not None:
+        marks[1].record()
+    fence(out)
+    wall = time.perf_counter() - t0
+    on_card = marks is not None and _cuda_devices(out, set())
+    return wall, marks[0].elapsed_time(marks[1]) / 1e3 if on_card else None
 
 
 _AUTOTUNE_TIMES: Dict[str, Dict[str, float]] = {}
 
 
 def _autotune(log_name: str, runner, candidates) -> str:
-    times = {s: _measure(runner, s) for s in candidates}
+    """The candidate of least wall time; its measured row is the device
+    time where it ran on the card, as ``obs.events.timed`` records."""
+    got = {s: _measure(runner, s) for s in candidates}
+    times = {s: wall for s, (wall, _) in got.items()}
     winner = min(times, key=times.get)
     _AUTOTUNE_TIMES[log_name] = times
-    _obs_events.measured_event(log_name, times[winner])
+    wall, device = got[winner]
+    _obs_events.measured_event(log_name, wall if device is None else device)
     return winner
 
 

@@ -437,13 +437,14 @@ class GNNServer:
             logits = self._full_fn(self.model, self._graph_arg,
                                    self.x_device)
             sp.fence(logits)
-        store = logits.cpu().numpy()
-        self.refreshes += 1
-        if self._out_cache is None:
-            self._out_cache = FeatureCache(store, self.cache_rows,
-                                           pinned=self._hot, name="out")
-        else:
-            self._out_cache.replace_store(store)
+        with span("serve.refresh_store"):
+            store = logits.cpu().numpy()
+            self.refreshes += 1
+            if self._out_cache is None:
+                self._out_cache = FeatureCache(store, self.cache_rows,
+                                               pinned=self._hot, name="out")
+            else:
+                self._out_cache.replace_store(store)
         return self._out_cache.stats()
 
     def update_features(self, ids, rows) -> None:

@@ -29,6 +29,7 @@ from ...core.tiling import ELLPack, TilePack
 from ...core.training_ops import TrainingGraph, make_training_graph
 from ...core.transport import process_group, rank_of
 from ...device import DeviceLike, resolve_device
+from ...obs.spans import span
 from ...substrate.nn import dropout
 
 __all__ = ["GraphBundle", "edge_norms", "make_bundle", "from_jax_params",
@@ -119,25 +120,26 @@ def make_bundle(g: Graph, *, ell: bool = False, tiles: bool = False,
     ELL pack and the training graph by default; the port's builds them
     only when asked, or when ``"auto"`` picks the ELL pull. ``krel=K``
     also builds the K-relation RelGraph (:meth:`GraphBundle.krel`), on the
-    host, once."""
-    w_caller, m_caller = edge_norms(g)
-    cache = get_plan_cache(g)
-    cache.set_ell_cap(ell_width)
-    if ell or training:
-        cache.ell()
-    if tiles:
-        cache.tiles()
-    tg = make_training_graph(g, ell_width) if training else None
-    krels = {}
-    if krel is not None:
-        src, dst = caller_coo(g)
-        krels[int(krel)] = from_rels([(src, dst)] * int(krel),
-                                     n_src=g.n_src, n_dst=g.n_dst,
-                                     device=g.device)
-    return GraphBundle(g=g,
-                       gcn_norm=torch.from_numpy(w_caller).to(g.device),
-                       mean_norm=torch.from_numpy(m_caller).to(g.device),
-                       krels=krels, cache=cache, tg=tg)
+    host, once. Span ``gnn.make_bundle``."""
+    with span("gnn.make_bundle", args={"n_edges": g.n_edges}):
+        w_caller, m_caller = edge_norms(g)
+        cache = get_plan_cache(g)
+        cache.set_ell_cap(ell_width)
+        if ell or training:
+            cache.ell()
+        if tiles:
+            cache.tiles()
+        tg = make_training_graph(g, ell_width) if training else None
+        krels = {}
+        if krel is not None:
+            src, dst = caller_coo(g)
+            krels[int(krel)] = from_rels([(src, dst)] * int(krel),
+                                         n_src=g.n_src, n_dst=g.n_dst,
+                                         device=g.device)
+        return GraphBundle(
+            g=g, gcn_norm=torch.from_numpy(w_caller).to(g.device),
+            mean_norm=torch.from_numpy(m_caller).to(g.device), krels=krels,
+            cache=cache, tg=tg)
 
 
 # --------------------------------------------------------------------- #

@@ -121,7 +121,10 @@ def make_loss_step(loss_fn: Callable, lr: float = 1e-2,
     parameters in place; it returns ``(opt_state, loss)`` with ``loss`` a
     device scalar. ``step(..., group=g)`` with a process group sums the
     gradients over its ranks before the clip (each rank's loss its share
-    of the whole)."""
+    of the whole). The step records the spans ``train.forward``,
+    ``train.backward``, ``train.clip`` (the all-reduce with it) and
+    ``train.optimizer``, each timed on the device without a host wait and
+    tagged ``step`` = ``step_i``."""
     opt_init, opt_update = adamw(lr, weight_decay=weight_decay)
 
     def init(model: nn.Module):
@@ -129,16 +132,22 @@ def make_loss_step(loss_fn: Callable, lr: float = 1e-2,
 
     def step(model: nn.Module, opt_state, step_i: int, *args, group=None):
         params = list(model.parameters())
-        loss = loss_fn(model, *args)
-        # a parameter the loss does not reach (LGNN's last line-graph
-        # update) has a zero gradient, as under jax.grad
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
-            params, torch.autograd.grad(loss, params, allow_unused=True))]
-        if group is not None:
-            grads = all_reduce_sum(grads, group)
-        grads, _ = clip_by_global_norm(grads, clip)
-        ups, opt_state = opt_update(grads, opt_state, params, step_i)
-        apply_updates(params, ups)
+        tag = {"step": int(step_i)}
+        with span("train.forward", args=tag, device=True):
+            loss = loss_fn(model, *args)
+        with span("train.backward", args=tag, device=True):
+            # a parameter the loss does not reach (LGNN's last line-graph
+            # update) has a zero gradient, as under jax.grad
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, torch.autograd.grad(
+                         loss, params, allow_unused=True))]
+        with span("train.clip", args=tag, device=True):
+            if group is not None:
+                grads = all_reduce_sum(grads, group)
+            grads, _ = clip_by_global_norm(grads, clip)
+        with span("train.optimizer", args=tag, device=True):
+            ups, opt_state = opt_update(grads, opt_state, params, step_i)
+            apply_updates(params, ups)
         return opt_state, loss.detach()
 
     return init, step

@@ -7,7 +7,7 @@ Every planner decision (``gspmm``, ``block:*``, ``block_bwd:*``,
 the chosen strategy next to the decision. When the op actually runs
 eagerly (serve refresh, fan-out inference, the sampled-training drift
 probe, autotune measurement), :func:`measured_event` / :func:`timed`
-record *measured* wall time under the same op key.
+record *measured* time under the same op key.
 
 :func:`drift_report` joins the two. Predicted costs are relative
 element-op counts whose absolute scale differs per plan-row family, so
@@ -17,24 +17,27 @@ normalized ratio falls outside ``[1/threshold, threshold]`` — i.e. ops
 where the cost model's *ranking within its own family* has drifted from
 reality.
 
-PyTorch runs every call eagerly, so :func:`timed` fences and times each
-call while telemetry is on — except while the current CUDA stream is
-being captured into a graph, where nothing runs and a timing would
-measure the capture (the JAX package skips calls under a trace the same
-way). Callers that must not fence (an op autograd records inside a
-training step, the port's analogue of JAX's vjp trace) do not call it.
+PyTorch runs every call eagerly, so :func:`timed` times each call while
+telemetry is on — except while the current CUDA stream is being
+captured into a graph, where nothing runs and a timing would measure
+the capture (the JAX package skips calls under a trace the same way).
+It waits for nothing: the call runs inside a device-timed ``agg.<op>``
+span (:func:`~repro_torch.obs.spans.span`), and the measured event is
+recorded when the span's device time is resolved; on the CPU it is the
+span's host time, recorded at once. Callers that must record no drift
+row (an op autograd records inside a training step, the port's analogue
+of JAX's vjp trace) open the span without calling it.
+:func:`measured_events`, :func:`plan_events` and :func:`drift_report`
+first resolve every pending reading, waiting for the device if need be.
 
 The record schemas (:data:`PLAN_EVENT_FIELDS`, :data:`DRIFT_FIELDS`) are
 the JAX package's, letter for letter.
 """
 import threading
-import time
-
-import torch
 
 from . import metrics as _metrics
 from .metrics import enabled
-from .spans import fence
+from .spans import _capturing, resolve_device_spans, span
 
 __all__ = ["PLAN_EVENT_FIELDS", "DRIFT_FIELDS", "plan_event",
            "measured_event", "timed", "plan_events", "measured_events",
@@ -93,8 +96,8 @@ def plan_event(op, requested, chosen, predicted_cost=None, dtype=None):
 
 
 def measured_event(op, seconds):
-    """Record one measured execution of ``op`` (seconds of wall time,
-    fenced by the caller)."""
+    """Record one measured execution of ``op`` (seconds: the caller's
+    device time, or wall time it fenced)."""
     if not enabled():
         return
     s = float(seconds)
@@ -109,27 +112,29 @@ def measured_event(op, seconds):
         row["max_s"] = max(row["max_s"], s)
 
 
-def _capturing() -> bool:
-    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
-
-
-def timed(op, thunk):
-    """Run ``thunk()``; while telemetry is on and no CUDA graph is being
-    captured, fence the result (:func:`~repro_torch.obs.spans.fence`) and
-    record the wall time as a measured event for ``op``. Returns the
-    thunk's result."""
-    if not enabled() or _capturing():
+def timed(op, thunk, args=None, device=True):
+    """Run ``thunk()``; while telemetry is on, run it inside an
+    ``agg.<op>`` span with ``args``, timed on ``device`` (True: the
+    current CUDA device; or the operands' ``torch.device``), and, unless
+    a CUDA graph is being captured, record a measured event for ``op``:
+    the span's device time once it is resolved, else its host time. Never
+    waits for the device. Returns the thunk's result."""
+    if not enabled():
         return thunk()
-    t0 = time.perf_counter()
-    out = thunk()
-    fence(out)
-    measured_event(op, time.perf_counter() - t0)
+    with span(f"agg.{op}", args=args, device=device,
+              on_device_ms=lambda ms: measured_event(op, ms / 1e3)) as sp:
+        out = thunk()
+    # a span opened under a capture is not on the device: nothing ran
+    if not sp.on_device and not _capturing():
+        measured_event(op, sp.seconds)
     return out
 
 
 def measured_events():
     """op → ``{"calls", "total_s", "min_s", "max_s", "mean_s"}`` of every
-    measured op, sorted by op key."""
+    measured op, sorted by op key (pending device readings resolved
+    first)."""
+    resolve_device_spans(wait=True)
     with _LOCK:
         rows = {k: dict(v) for k, v in sorted(_MEASURED.items())}
     for row in rows.values():
@@ -140,7 +145,8 @@ def measured_events():
 def plan_events():
     """The plan-event stream as a list of dicts in the
     :data:`PLAN_EVENT_FIELDS` schema, joined with per-op measurements,
-    sorted by op key."""
+    sorted by op key (pending device readings resolved first)."""
+    resolve_device_spans(wait=True)
     with _LOCK:
         plans = {k: dict(v) for k, v in _PLANS.items()}
         measured = {k: dict(v) for k, v in _MEASURED.items()}
@@ -211,7 +217,10 @@ def drift_report(threshold=4.0):
 
 
 def clear_events():
-    """Drop all plan and measured events (tests / bench isolation)."""
+    """Drop all plan and measured events (tests / bench isolation). The
+    pending device readings are resolved first (a wait), so none of an
+    earlier call lands in the next window."""
+    resolve_device_spans(wait=True)
     with _LOCK:
         _PLANS.clear()
         _MEASURED.clear()

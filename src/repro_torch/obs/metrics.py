@@ -246,6 +246,9 @@ class MetricsRegistry:
     def _get(self, name, cls, *args):
         if not _ENABLED:
             return _NULL
+        inst = self._instruments.get(name)      # atomic: no lock
+        if type(inst) is cls:
+            return inst
         with self._lock:
             inst = self._instruments.get(name)
             if inst is None:

@@ -153,7 +153,9 @@ def test_span_records_chrome_complete_event():
     (ev,) = obs.trace_events()
     assert (ev["name"], ev["ph"], ev["cat"]) == ("unit.work", "X", "repro")
     assert ev["dur"] >= 1_000
-    assert ev["args"] == {"k": 3, "depth": 0}
+    assert ev["args"] == {"k": 3, "depth": 0, "id": ev["args"]["id"],
+                          "parent": None}
+    assert isinstance(ev["args"]["id"], int)
     assert obs.snapshot()["span.unit.work"]["count"] == 1
 
 
