@@ -71,8 +71,8 @@ Phases (one JSON line per result; any failure raises, exit code != 0):
     on the kernel path (``strategy="auto"``) against ``"segment"``, per
     parameter, with one dropout seed; the kernel launches of one step
     (``TRAIN_LAUNCHES``); every app's grads bit-identical over two calls
-    (GAT's rank-3 ``u_mul_e_add_v`` on the segment route sums sorted
-    segments, forward and backward);
+    (GAT's rank-3 ``u_mul_e_add_v`` on B4 per head / B1, its backward on
+    B4 / B1 over Gᵀ and B3's dot per head);
     ``train_full_graph`` for 10 epochs on each path, twice, in turns
     (kernel, plain, plain, kernel: epoch time median and p90 over the 20,
     loss finite and falling, peak device memory, launches: every kernel
@@ -341,6 +341,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -376,10 +377,11 @@ B3_MAIN = [(op, lt, rt, d) for d in (4, 1)
                               ("div", "e", "v"))]
 # (binop, width of B, width of E, reduce): the composed softmax's sums
 # at H = 4 then 1, a vector-E u_mul_e, a mean, and a width-1 E divided
-# into a width that is no power of two, a mean through the split rows' fold
+# into a width that is no power of two, a mean through the split rows' fold,
+# and GAT's per-head sum at 8 heads × 8 (an E value per head)
 B4_SHAPES = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum"),
              ("mul", 32, 32, "sum"), ("copy_rhs", 4, 4, "mean"),
-             ("div", 41, 1, "mean")]
+             ("div", 41, 1, "mean"), ("mul", 64, 8, "sum")]
 B4_MAIN = B4_SHAPES[:2]
 B4_CAPS = (128, 256)          # work-list caps K of B4's sweep rows
 B4_LANES = (16, 32)           # lanes per segment of B4's sweep rows
@@ -398,30 +400,37 @@ REPLACES = {"spmm_csr": "src/repro/kernels/spmm/kernel.py:31",
             "binary_reduce_csr": "src/repro/kernels/binary_reduce/kernel.py:32",
             "edge_softmax_csr": "src/repro/kernels/edge_softmax/kernel.py:23"}
 # kernel launches per refresh of each app's served (default) forward, and
-# per forward of each GAT attn mode; every other counter must stay 0
+# per forward of each GAT attn mode; every other counter must stay 0.
+# GAT's per-head sum is B4 at layer 0's H heads and B1 at the output
+# layer's one head
 SERVE_LAUNCHES = {"gcn": {"spmm_csr": 2}, "sage": {"spmm_csr": 2},
-                  "gat": {"sddmm_csr": 6, "binary_reduce_csr": 2}}
+                  "gat": {"sddmm_csr": 6, "binary_reduce_csr": 3,
+                          "spmm_csr": 1}}
 # (attn="fused" names the fused pipeline's plain version, as in the JAX
 # package; "auto" is the pipeline on its kernel, B2)
-FORWARD_LAUNCHES = {"multipass": {"sddmm_csr": 6, "binary_reduce_csr": 2},
-                    "softmax-fused": {"sddmm_csr": 2, "edge_softmax_csr": 2},
+FORWARD_LAUNCHES = {"multipass": {"sddmm_csr": 6, "binary_reduce_csr": 3,
+                                  "spmm_csr": 1},
+                    "softmax-fused": {"sddmm_csr": 2, "edge_softmax_csr": 2,
+                                      "binary_reduce_csr": 1, "spmm_csr": 1},
                     "auto": {"fused_attention_csr": 2}}
 # kernel launches per full-graph training step (forward and backward) of
 # each app, strategy "auto": GCN B1 × 2 forward, × 2
 # on Gᵀ backward; SAGE B1 × 2 forward, × 1 on Gᵀ backward (layer 0 reads
-# x, which needs no grad); GAT multipass B3 × 6 and B4 × 2 forward, per
+# x, which needs no grad); GAT multipass B3 × 6, B4 × 2 and the per-head
+# sum (B4 at layer 0's heads, B1 at the output's one head) forward, per
 # layer backward B3 e_div_v and copy, B4 on G × 3 (div, sub, add's v) and
-# on Gᵀ × 1 (add's u)
+# on Gᵀ × 1 (add's u), and the per-head sum's ∂z on Gᵀ (B4 / B1) and
+# ∂α (B3 dot per head / dot)
 TRAIN_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
-                  "gat": {"sddmm_csr": 8, "sddmm_csr:copy": 2,
-                          "binary_reduce_csr": 10}}
+                  "gat": {"sddmm_csr": 10, "sddmm_csr:copy": 2,
+                          "binary_reduce_csr": 12, "spmm_csr": 2}}
 # kernel launches per sampled training step (two blocks; forward and
 # backward), strategy and bwd_strategy "auto": the full-graph step's, now
-# on the block graphs and their Gᵀ (GAT's max and rank-3 sum run on the
-# uniform pull, with the gather backward in plain torch)
+# on the block graphs and their Gᵀ (GAT's max runs on the uniform pull,
+# with the gather backward in plain torch)
 TRAIN_SAMPLED_LAUNCHES = {"gcn": {"spmm_csr": 4}, "sage": {"spmm_csr": 3},
-                          "gat": {"sddmm_csr": 8, "sddmm_csr:copy": 2,
-                                  "binary_reduce_csr": 10}}
+                          "gat": {"sddmm_csr": 10, "sddmm_csr:copy": 2,
+                                  "binary_reduce_csr": 12, "spmm_csr": 2}}
 # kernel launches per forward of each relational app on the kernel route
 # (the relational phase): R-GCN B1 × 2 (one fused aggregation a layer, on
 # the relation-expanded graph); GC-MC B1 × 2 (the two encoder directions)
@@ -545,12 +554,16 @@ TRAIN_GRAD_RTOL = 1e-4
 # its 1/deg_in folded into the cotangent) and on G at d = 16 (GCN layer
 # 0 weighted, SAGE layer 1 mean); B3 copy of ct from the destination (∂
 # of e_copy_add_v) at H = 4, 1, and u_dot_v (∂ of a scalar weight) at d =
-# 16, 41; B4 copy_rhs on Gᵀ (∂ of u_add_v_copy_e's u) at H = 4, 1
+# 16, 41; B4 copy_rhs on Gᵀ (∂ of u_add_v_copy_e's u) at H = 4, 1. GAT's
+# per-head sum at 8 heads × 8: ∂α a u_dot_v per head (B3, the fifth field
+# its heads) and ∂z B4 mul on Gᵀ with an edge value per head
 TRAIN_B1 = {"reverse": [(16, "sum"), (41, "sum"), (16, "copy_sum")],
             "self_loops": [(16, "sum"), (16, "mean")]}
 TRAIN_B3 = [("copy", "v", None, 4), ("copy", "v", None, 1),
-            ("dot", "u", "v", 16), ("dot", "u", "v", 41)]
-TRAIN_B4 = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
+            ("dot", "u", "v", 16), ("dot", "u", "v", 41),
+            ("dot", "u", "v", 64, 8)]
+TRAIN_B4 = [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum"),
+            ("mul", 64, 8, "sum")]
 # the strategies phase (15) on reddit-like: each layout route of gspmm
 # against the kernel route — (op, width, routes): GCN's weighted sum at
 # d = 16, SAGE's mean at d = 602, and the one-hot route's mean at d = 32
@@ -595,8 +608,10 @@ PLANNER_SAMPLED = ((10, 10), 64, 64, 8)
 # Gᵀ, as TRAIN_B1 / TRAIN_B3 / TRAIN_B4 and serving's GAT shapes): B1
 # GCN's weighted sum at d = 16 / 41, SAGE's mean at d = 602 (layer 0) and
 # 16, and on Gᵀ the weighted and unweighted (SAGE's ∂h) sums; B3 GAT's
-# logits, shift and divide at H = 4 / 1, the copy of ct, a u_dot_v at 16;
-# B4 copy_rhs on G (forward) and Gᵀ (∂u) at H = 4 / 1. A kernel is held to
+# logits, shift and divide at H = 4 / 1, the copy of ct, a u_dot_v at 16
+# and 41 and one per head (64, 8 heads: GAT's ∂α); B4 copy_rhs on G
+# (forward) and Gᵀ (∂u) at H = 4 / 1, and GAT's per-head sum (mul, 64
+# with an edge value per head, 8) on both. A kernel is held to
 # BF16_REF_REL·|ref| + 1e-5·max|ref| of float64 (bf16's unit roundoff:
 # one rounding at the store) and BF16_PLAIN_REL·|plain| + 1e-5·max|plain|
 # of its plain bf16 version (one bf16 ulp: both round an fp32 sum taken
@@ -612,8 +627,10 @@ BF16_B3 = {"self_loops": [(op, lt, rt, d) for d in (4, 1)
                                              ("sub", "e", "v"),
                                              ("div", "e", "v"),
                                              ("copy", "v", None))]
-           + [("dot", "u", "v", 16)]}
-BF16_B4 = {label: [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum")]
+           + [("dot", "u", "v", 16), ("dot", "u", "v", 41),
+              ("dot", "u", "v", 64, 8)]}
+BF16_B4 = {label: [("copy_rhs", 4, 4, "sum"), ("copy_rhs", 1, 1, "sum"),
+                   ("mul", 64, 8, "sum")]
            for label in ("self_loops", "reverse")}
 BF16_REF_REL = 2.0 ** -8
 BF16_PLAIN_REL = 2.0 ** -7
@@ -999,21 +1016,24 @@ def b3_operands(g, gen, op: str, lt: str, rt, d: int) -> tuple:
 def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
              fp64: bool = False) -> None:
     """B3 at ``shapes`` against its plain version (with ``fp64``, the
-    float64 plain version, and bit-identical over two calls), timed."""
+    float64 plain version, and bit-identical over two calls), timed. A
+    shape's optional fifth field is a dot's heads (a dot per head)."""
     from benchmarks.torch_sddmm_walks import sddmm_canonical
     from repro_torch.kernels.sddmm.ops import (CALLER_INDEX, sddmm_csr,
                                                sddmm_plain)
 
     n_u, n_v = rows_read(g)
     read = {"u": n_u, "v": n_v, "e": g.n_edges}
-    for op, lt, rt, d in shapes:
+    for op, lt, rt, d, *more in shapes:
+        heads = more[0] if more else 1
         args = b3_operands(g, gen, op, lt, rt, d)
         lhs = args[3]
         n0 = sddmm_csr.launches
-        got = (bit_identical(f"sddmm_csr {op} d={d}",
-                             lambda: sddmm_csr(*args)) if fp64
-               else sddmm_csr(*args))
-        ref = plain_reference(sddmm_plain, *args, fp64=fp64)
+        kernel = functools.partial(sddmm_csr, *args, heads=heads)
+        plain = functools.partial(sddmm_plain, heads=heads)
+        got = (bit_identical(f"sddmm_csr {op} d={d} heads={heads}", kernel)
+               if fp64 else kernel())
+        ref = plain_reference(plain, *args, fp64=fp64)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         if op == "dot" or fp64:
@@ -1030,7 +1050,7 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
                 raise AssertionError(f"index_select copy differs: {lib_err}")
             lib_ms = time_ms(lambda: lhs.index_select(0, caller))
             lib_dev = warm_cold_ms(lambda: lhs.index_select(0, caller))
-        if (op, lt, rt) == ("dot", "u", "v"):
+        if (op, lt, rt, heads) == ("dot", "u", "v", 1):
             # sampled V·Uᵀ on the graph's CSR by destination: one value per
             # edge, in CSR (canonical) order, not the caller's
             A = torch.sparse_csr_tensor(
@@ -1049,13 +1069,16 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
             lib_dev = warm_cold_ms(sampled)
             lib = {"library": "torch.sparse.sampled_addmm (CSR order)",
                    "library_max_abs_err": lib_err}
-        k_ms = time_ms(lambda: sddmm_csr(*args))
-        p_ms = time_ms(lambda: sddmm_plain(*args))
-        k_dev = warm_cold_ms(lambda: sddmm_csr(*args))
+        k_ms = time_ms(kernel)
+        p_ms = time_ms(lambda: plain(*args))
+        k_dev = warm_cold_ms(kernel)
         # the kernel's first walk (canonical order, written through eid),
         # a benchmark variant kept to show what the caller-order walk buys
-        canon_err = max_err(sddmm_canonical(*args), ref)
-        canon_ms = time_device_ms(lambda: sddmm_canonical(*args), False)
+        # (it has no dot per head)
+        canon_err = canon_ms = None
+        if heads == 1:
+            canon_err = max_err(sddmm_canonical(*args), ref)
+            canon_ms = time_device_ms(lambda: sddmm_canonical(*args), False)
         # one caller-order index array per node operand; an edge operand
         # is read at its own caller edge id, with no index
         n_idx = len({lt, rt} - {"e", None})
@@ -1064,9 +1087,9 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
                       + ref.numel())
         b_ms, b_by = bound(nbytes, g.n_edges * d)
         row = {"phase": "kernel", "kernel": "sddmm_csr", "graph": label,
-               "op": op, "lhs": lt, "rhs": rt, "d": d, "max_abs_err": err,
-               "tol": tol, "tol_reason": why,
-               **reference_fields(ref, sddmm_plain, args, fp64),
+               "op": op, "lhs": lt, "rhs": rt, "d": d, "heads": heads,
+               "max_abs_err": err, "tol": tol, "tol_reason": why,
+               **reference_fields(ref, plain, args, fp64),
                "kernel_ms": k_ms,
                "plain_ms": p_ms, "library_ms": lib_ms,
                "kernel_device_ms": k_dev[0], "kernel_cold_ms": k_dev[1],
@@ -1076,9 +1099,9 @@ def check_b3(g, gen, label: str, rows: dict, shapes=B3_SHAPES,
                "canonical_max_abs_err": canon_err, "bound_ms": b_ms,
                "bound_by": b_by, "launches": sddmm_csr.launches - n0, **lib}
         emit(row)
-        if not (err <= tol and canon_err <= tol):
+        if not (err <= tol and (canon_err is None or canon_err <= tol)):
             raise AssertionError(f"sddmm_csr disagrees: {row}")
-        rows[(label, op, lt, rt, d)] = row
+        rows[(label, op, lt, rt, d) + tuple(more)] = row
 
 
 def check_b4(g, gen, label: str, rows: dict, shapes=B4_SHAPES,
@@ -3769,31 +3792,40 @@ def bf16_cases(g, w_canon, gen, label: str, shapes=None) -> list:
                     2 * g.n_edges * d,
                     lambda A=A, B=B: torch.sparse.mm(A, B)))
     read = {"u": n_u, "v": n_v, "e": g.n_edges}
-    for op, lt, rt, d in b3:
+    for op, lt, rt, d, *more in b3:
+        heads = more[0] if more else 1     # a dot per head (check_b3)
         args = _bf16(b3_operands(g, gen, op, lt, rt, d))
         n_idx = len({lt, rt} - {"e", None})
         nbytes = (4 * n_idx * g.n_edges
                   + 2 * (read[lt] * d + (0 if rt is None else read[rt] * d)
-                         + g.n_edges * (1 if op == "dot" else d)))
+                         + g.n_edges * (heads if op == "dot" else d)))
         lib = None
         if op == "copy":
             lib = (lambda lhs=args[3], caller=g.long(CALLER_INDEX[lt]):
                    lhs.index_select(0, caller))
         out.append(("sddmm_csr:copy" if op == "copy" else "sddmm_csr",
-                    {"op": op, "lhs": lt, "rhs": rt, "d": d}, sddmm_csr,
-                    sddmm_plain, args, nbytes, g.n_edges * d, lib))
+                    {"op": op, "lhs": lt, "rhs": rt, "d": d, "heads": heads},
+                    functools.partial(sddmm_csr, heads=heads),
+                    functools.partial(sddmm_plain, heads=heads), args,
+                    nbytes, g.n_edges * d, lib))
     for binop, d, de, red in b4:
+        # copy_rhs reads no node rows; mul reads B through the sources
+        B = (None if binop == "copy_rhs"
+             else torch.randn(g.n_src, d, generator=gen).cuda().to(bf))
         E = torch.randn(g.n_edges, de, generator=gen).cuda().to(bf)
         nbytes = (4 * ((g.n_dst + 1) + g.n_edges)
-                  + 2 * (E.numel() + g.n_dst * d))
+                  + 2 * (E.numel() + g.n_dst * d)
+                  + (0 if B is None else 4 * g.n_edges + 2 * n_u * d))
+        lib = None
+        if B is None:
+            lib = (lambda e=E.index_select(0, g.long("eid")),
+                   n=g.in_degrees.long(), r=red:
+                   torch.segment_reduce(e, r, lengths=n))
         out.append(("binary_reduce_csr",
                     {"binop": binop, "d": d, "de": de, "reduce": red},
                     binary_reduce_csr, binary_reduce_plain,
-                    (g, None, E, binop, red == "mean"), nbytes,
-                    g.n_edges * d,
-                    lambda e=E.index_select(0, g.long("eid")),
-                    n=g.in_degrees.long(), r=red:
-                    torch.segment_reduce(e, r, lengths=n)))
+                    (g, B, E, binop, red == "mean"), nbytes,
+                    g.n_edges * d * (1 if B is None else 2), lib))
     return out
 
 
@@ -6927,8 +6959,8 @@ def summary(name, source, replaces, main_rows, all_rows, launches,
 
 def shape_entry(r: dict) -> dict:
     return {k: r[k] for k in (
-        "dtype", "graph", "op", "binop", "lhs", "rhs", "d", "de", "reduce",
-        "H", "F", "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
+        "dtype", "graph", "op", "binop", "lhs", "rhs", "d", "de", "heads",
+        "reduce", "H", "F", "kernel_ms", "kernel_device_ms", "kernel_cold_ms",
         "fp32_kernel_device_ms", "canonical_device_ms", "library_ms",
         "library_device_ms", "library_cold_ms", "plain_ms", "bound_ms",
         "max_abs_err") if k in r}

@@ -20,7 +20,10 @@ Strategies of :func:`gspmm` (node outputs):
   edge weight, rank-2 operands, sum or mean, destination outputs.
 * ``"kernel"`` (JAX's ``"pallas"``, which names it here too) — the CUDA
   Copy-Reduce (B1) or Binary-Reduce (B4) kernel through
-  ``kernels/dispatch.py``; on a CPU tensor, the kernels' plain versions.
+  ``kernels/dispatch.py``, rank-2 operands and GAT's per-head rank-3
+  ``u_mul_e`` ((n, H, F) features, (E, H, 1) weights: B1 at H = 1, else B4
+  with an edge value per head); on a CPU tensor, the kernels' plain
+  versions.
 * ``"ring"`` — partitioned execution (``core/partition.ring_gspmm``,
   :func:`_gspmm_ring`): ``u_copy`` or ``u_mul_e`` with a scalar weight,
   sum or mean, on a square graph, inside ``planner.use_ring``.
@@ -73,12 +76,15 @@ into the cotangent first (never B1 mean on Gᵀ); Gᵀ is
 
 * ∂ of the node operand: B1 on Gᵀ — unweighted for ``copy``, ``add``
   and ``sub``, with the same weights for a scalar ``mul`` — or B4 on Gᵀ
-  (ct ⊗ e, the same caller-order ``e``) for a vector ``mul`` and ``div``;
+  (ct ⊗ e, the same caller-order ``e``) for a vector or per-head ``mul``
+  and a vector ``div``;
 * ∂e, per edge on B3: ``copy`` of ct from the destination for
   ``e_copy_*_v`` and ``add`` (for ``sub`` negated, for a scalar ``e``
   summed over the width, both at the node first); ``u_mul_v`` (vector
-  ``e``) or ``u_dot_v`` (scalar ``e``) for ``mul``, the same ÷ −e² for
-  ``div``;
+  ``e``), ``u_dot_v`` (scalar ``e``) or a ``u_dot_v`` per head (a
+  per-head ``e``, B3's ``heads``) for ``mul``, the same ÷ −e² for
+  ``div``. The per-head form runs on the forward's (rows, H·F) and (E,
+  H) views, so no (E, H, F) tensor is made either way;
 * gSDDMM on B3 (:func:`_sddmm_grads`): per-edge factors on B3 (``mul`` /
   ``div`` by a node operand), node sums on B4 ``copy_rhs`` — over G for a
   ``v`` operand, over Gᵀ for a ``u`` operand; an ``e`` operand's grad
@@ -99,7 +105,7 @@ from . import strategies as S
 from .graph import reverse
 from .planner import get_plan_cache
 from ..kernels.binary_reduce.ops import binary_reduce_csr
-from ..kernels.dispatch import gspmm_kernel
+from ..kernels.dispatch import gspmm_kernel, per_head
 from ..obs.events import timed as _timed
 from ..obs.spans import span
 from ..kernels.sddmm.ops import (CALLER_INDEX, TARGET_INDEX, sddmm_csr,
@@ -752,7 +758,14 @@ def _node_sum(g, target: str, gmsg: torch.Tensor) -> torch.Tensor:
 def _gspmm_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool]):
     """(∂lhs, ∂rhs) of a node-output BR that ran on B1 or B4 — any spec
     ``kernels.dispatch.kernel_supports`` admits — on the kernels (module
-    docstring: "Gradients")."""
+    docstring: "Gradients"). The per-head rank-3 ``mul`` runs on its
+    (rows, H·F) and (E, H) views, as its forward does, and its gradients
+    come back in the operands' shapes."""
+    if per_head(spec, lhs, rhs):
+        flat = [t.reshape(t.shape[0], -1) for t in (lhs, rhs, ct)]
+        return tuple(None if d is None else d.reshape(t.shape)
+                     for d, t in zip(_gspmm_grads(g, spec, *flat, needs),
+                                     (lhs, rhs)))
     if spec.reduce == "mean":       # fold 1/deg_in into the cotangent
         ct = ct / g.in_degrees.clamp(min=1).to(ct.dtype)[:, None]
     ct = ct.contiguous()
@@ -770,8 +783,8 @@ def _gspmm_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool]):
     if need_u:                      # Σ over out-edges: pulls over Gᵀ
         if spec.op in ("add", "sub"):
             du = spmm(reverse(g), ct, "sum")
-        elif spec.op == "mul" and scalar:
-            du = spmm(reverse(g), ct, "sum", weight=e)
+        elif spec.op == "mul" and scalar:    # B1 takes an fp32 weight
+            du = spmm(reverse(g), ct, "sum", weight=e.float())
         else:
             du = binary_reduce_csr(reverse(g), ct, e, spec.op)
     if need_e:
@@ -779,6 +792,10 @@ def _gspmm_grads(g, spec: BRSpec, lhs, rhs, ct, needs: Sequence[bool]):
             c = ct.sum(-1, keepdim=True) if scalar else ct
             de = sddmm_csr(g, "copy", "v",
                            (-c if spec.op == "sub" else c).contiguous())
+        elif not scalar and e.shape[-1] != u.shape[-1]:
+            # a value per head (mul): u[src_e] · ct[dst_e] over each head
+            de = sddmm_csr(g, "dot", "u", u.contiguous(), "v", ct,
+                           heads=e.shape[-1])
         else:                       # u[src_e] ⊙ ct[dst_e], summed if scalar
             de = sddmm_csr(g, "dot" if scalar else "mul", "u",
                            u.contiguous(), "v", ct)

@@ -41,10 +41,11 @@ Two routes compute each op (``strategy``):
   operand takes the plain form). The owner-local part is the diagonal-0
   stage; int8's and the delayed halo's remote part one graph of every
   off-diagonal bucket. A per-head weight (GAT's α, (S, S, eb, H) against
-  (n_pad, H, F) features) is rank 3, which no kernel takes: it runs per
-  stage graph on gspmm's sorted segment route, as full-graph GAT's
-  ``u_mul_e_add_v`` does. On a CPU tensor the wrappers run their plain
-  versions; on the card a kernel that fails to build or launch fails.
+  (n_pad, H, F) features) runs per stage graph on gspmm's sorted segment
+  route (full-graph GAT's ``u_mul_e_add_v`` takes B4 with an edge value
+  per head; the ring's stage sums do not). On a CPU tensor the wrappers
+  run their plain versions; on the card a kernel that fails to build or
+  launch fails.
 
 ``mesh`` — a ``torch.distributed`` process group of ``n_shards`` ranks
 (anything else raises ``TypeError``) — runs the mesh ring, JAX's
@@ -495,9 +496,9 @@ def _stage_segment_sum(parts, x: torch.Tensor,
                        w: torch.Tensor) -> torch.Tensor:
     """Σ over ``parts`` of ``u_mul_e_add_v`` with a per-head weight
     (``w`` (S, S, eb, H), ``x`` (n_pad, H, F)) on gspmm's sorted segment
-    route per stage graph — rank 3, which no kernel takes — in fp32,
-    cast once. Autograd differentiates it (the segment route's
-    scatter-free backward, bit-identical from call to call)."""
+    route per stage graph, in fp32, cast once. Autograd differentiates
+    it (the segment route's scatter-free backward, bit-identical from
+    call to call)."""
     from .binary_reduce import _execute, parse_op   # binary_reduce is heavy
 
     spec = parse_op("u_mul_e_add_v")

@@ -11,9 +11,13 @@ reads the edge operand in caller order through ``eid``, so no TilePack is
 built and no edge feature is permuted first; a heavy row's segments'
 sums are folded in edge order, in the same launch, by whichever of them
 finishes last. Its header says what bounds it on the H100 (bytes) and how
-narrow rows keep the warp's lanes busy. Its operands are all fp32 or all
-bf16 (a bf16 step's pairs); the output takes their dtype, and both the
-kernel and the plain version sum in fp32 and round once.
+narrow rows keep the warp's lanes busy. The edge operand's width divides
+the node width: ``d`` (element for element), 1 (a scalar per edge) or a
+head count ``H`` (a value per head over its ``d / H`` consecutive
+features: GAT's per-head α times its (n, H, F) features as (n, H·F)).
+Its operands are all fp32 or all bf16 (a bf16 step's pairs); the output
+takes their dtype, and both the kernel and the plain version sum in fp32
+and round once.
 """
 from __future__ import annotations
 
@@ -65,20 +69,24 @@ def binary_reduce_plain(g, B: Optional[torch.Tensor], E: torch.Tensor,
                         binop: str = "mul", mean: bool = False
                         ) -> torch.Tensor:
     """``C[v] = Σ_{e=(u→v)} B[u] ⊗ E[e]`` (÷ max(deg, 1) when ``mean``)
-    with ``index_select`` + ``index_add_``; ``E`` (n_edges, d) or
-    (n_edges, 1) in caller edge order, ``B`` (n_src, d) or None for
-    ``copy_rhs``. Empty rows are 0. The output takes ``B``'s dtype (``E``'s
-    for ``copy_rhs``); half-precision operands sum in fp32 and are
-    rounded once, as the kernel does. The reference the kernel is held
-    against."""
+    with ``index_select`` + ``index_add_``; ``E`` (n_edges, de) in caller
+    edge order with ``de`` dividing d (feature j takes ``E[e, j / (d /
+    de)]``), ``B`` (n_src, d) or None for ``copy_rhs``. Empty rows are 0.
+    The output takes ``B``'s dtype (``E``'s for ``copy_rhs``);
+    half-precision operands sum in fp32 and are rounded once, as the
+    kernel does. The reference the kernel is held against."""
     dtype = E.dtype if B is None else B.dtype
     acc = accum_dtype(dtype if B is None else torch.promote_types(
         B.dtype, E.dtype))
     e_val = E.index_select(0, g.long("eid")).to(acc)
     b_val = None if B is None else B.index_select(0, g.long("src")).to(acc)
+    de = e_val.shape[-1]
+    if B is not None and de not in (1, B.shape[-1]):    # a value per head
+        b_val = b_val.reshape(-1, de, B.shape[-1] // de)
+        e_val = e_val[:, :, None]
     msg = _PLAIN[binop](b_val, e_val)
-    if msg.shape[-1] == 1 and B is not None and B.shape[-1] != 1:
-        msg = msg.expand(-1, B.shape[-1])      # copy_rhs of a scalar E
+    if B is not None:
+        msg = msg.expand(-1, *b_val.shape[1:]).reshape(-1, B.shape[-1])
     out = torch.zeros((g.n_dst, msg.shape[-1]), dtype=acc,
                       device=msg.device)
     out.index_add_(0, g.long("dst"), msg)
@@ -92,8 +100,9 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
                       ) -> torch.Tensor:
     """B4 wrapper: the CUDA kernel for a CUDA ``E``, the plain version for
     a CPU ``E``. ``B``: (n_src, d), None only for ``copy_rhs``; ``E``:
-    (n_edges, d) or (n_edges, 1) in caller edge order; both fp32 or both
-    bf16. Returns (n_dst, d) in their dtype.
+    (n_edges, de) in caller edge order, ``de`` dividing d (d, 1, or a
+    value per head); both fp32 or both bf16. Returns (n_dst, d) in their
+    dtype.
 
     ``binary_reduce_csr.launches`` counts calls that launched the kernel
     (CUDA only).
@@ -115,9 +124,9 @@ def binary_reduce_csr(g, B: Optional[torch.Tensor], E: torch.Tensor,
     if B is not None:
         check_operand(_KERNEL, "B", B, E.dtype, (g.n_src, None), dev)
         d = B.shape[1]
-    if de not in (d, 1):
-        raise ValueError(f"{_KERNEL}: edge feature width {de} is neither "
-                         f"the node width {d} nor 1")
+    if de == 0 or d % de:
+        raise ValueError(f"{_KERNEL}: edge feature width {de} does not "
+                         f"divide the node width {d}")
     if g.n_dst * d == 0:
         return torch.empty((g.n_dst, d), dtype=E.dtype, device=dev)
     out = _launch_br(g, B, E, binop, mean, row_split(g, BR_SEGMENT_EDGES))
@@ -180,16 +189,17 @@ def binary_reduce(g, B: Optional[torch.Tensor], E: torch.Tensor,
     """Fused ``u_⊗_e_{add,mean}_v``: ``C[v] = ⊕_(u→v)=e B[u] ⊗ E[e]``, as
     in ``repro.kernels.binary_reduce.ops.binary_reduce``.
 
-    ``E``: (n_edges, d), (n_edges, 1) or (n_edges,) in the caller's edge
-    order; a scalar edge feature broadcasts across the feature dim. ``B``
-    may be None for ``copy_rhs`` (``e_copy_*_v``), where the JAX package
-    passes a zero node operand that is never read.
+    ``E``: (n_edges, de) or (n_edges,) in the caller's edge order, ``de``
+    dividing d: a scalar edge feature broadcasts across the feature dim, a
+    value per head across its head's features. ``B`` may be None for
+    ``copy_rhs`` (``e_copy_*_v``), where the JAX package passes a zero
+    node operand that is never read.
     """
     if reduce_op not in ("sum", "mean"):
         raise ValueError("binary_reduce supports sum/mean")
     E = E.reshape(E.shape[0], -1)
-    if B is not None and E.shape[1] not in (1, B.shape[-1]):
-        raise ValueError(f"edge feature dim {E.shape[1]} != node dim "
-                         f"{B.shape[-1]}")
+    if B is not None and (E.shape[1] == 0 or B.shape[-1] % E.shape[1]):
+        raise ValueError(f"edge feature dim {E.shape[1]} does not divide "
+                         f"node dim {B.shape[-1]}")
     return binary_reduce_csr(g, None if B is None else B.contiguous(),
                              E.contiguous(), binop, mean=reduce_op == "mean")

@@ -5,9 +5,13 @@
 //   op in {add, sub, mul, div, copy_lhs, copy_rhs}
 //   mean:  C[v, :] /= max(deg_v, 1);   rows with no edge write 0.
 //
-// E is in the caller's edge order and is read through eid; an E of width
-// 1 broadcasts over the d features. For copy_rhs (e_copy_*_v) B may be
-// null: the node operand is never read.
+// E is in the caller's edge order and is read through eid. Its width de
+// divides d: feature j reads E[eid[k], j / (d / de)], so an E of width d
+// is read element for element, one of width 1 broadcasts over the d
+// features, and one of width H holds a value per head, spread over that
+// head's d / H consecutive features (GAT's per-head alpha times its
+// (n, H, F) features, flattened to d = H * F). For copy_rhs (e_copy_*_v) B
+// may be null: the node operand is never read.
 //
 // Replaces the TPU kernel src/repro/kernels/binary_reduce/kernel.py::
 // _br_kernel, which walks TilePack buckets, gathers B with a one-hot
@@ -53,6 +57,12 @@
 //     launch for the fold cost ~0.002 ms more (PERF.md §6).
 // No value is summed by an atomic and every sum has a fixed order: C is
 // bit-identical from call to call.
+// A per-head E: a lane's column c, and so its edge column c / (d / de), is
+// fixed for a pass of the column loop, so the edge column is found once a
+// pass, outside the edge loop, and widths d and 1 keep their loop as it
+// was. At d = 64, H = 8 (F = 8) a warp's 32 lanes cover four heads in a
+// pass: its E loads for one edge are four floats of one 32-byte sector,
+// the two passes read the same sector, and one E value serves F lanes.
 // Element types: B, E and C are all fp32 (binary_reduce_csr_f32) or all
 // bf16 (binary_reduce_csr_bf16; for copy_rhs E and C). A bf16 value is
 // widened exactly, the op and the sum run in fp32 (the split rows'
@@ -147,7 +157,7 @@ br_segment_kernel(const int4* __restrict__ seg, int n_seg,
   for (int c0 = 0; c0 < d; c0 += LPE) {
     const int c = c0 + sub;
     const bool col_ok = c < d;
-    const int ce = de == 1 ? 0 : c;
+    const int ce = de == 1 ? 0 : de == d ? c : c / (d / de);
     float acc = 0.0f;
     for (int t0 = 0; t0 < wlen; t0 += tile) {
       int s[R], id[R];
@@ -259,7 +269,7 @@ int run(const void* seg, int n_seg, int n_split, const void* indptr,
   int lpe = 1;
   while (lpe < d && lpe < 32) lpe <<= 1;
   if (lanes == 0) lanes = lpe > 16 ? lpe : 16;
-  if (binop < kAdd || binop > kCopyRhs || (de != d && de != 1) ||
+  if (binop < kAdd || binop > kCopyRhs || de < 1 || d % de != 0 ||
       (B == nullptr && binop != kCopyRhs) ||
       (lanes != 16 && lanes != 32) || lanes < lpe ||
       (n_split > 0 && (partial == nullptr || counters == nullptr)))
@@ -294,8 +304,8 @@ int run(const void* seg, int n_seg, int n_split, const void* indptr,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown op, an E width other than d or 1,
-// a null B for an op that reads it, ``lanes`` (lanes per segment: 16 or
+// cudaErrorInvalidValue for an unknown op, an E width that does not divide
+// d, a null B for an op that reads it, ``lanes`` (lanes per segment: 16 or
 // 32, at least lpe; 0 for the default, max(lpe, 16)) not one of those, or
 // split rows without a workspace. ``seg`` (n_seg x 4) is the work list of
 // kernels/rowsplit.py at cap K, with n_split split rows; ``partial``

@@ -2,7 +2,9 @@
 //
 //   out[e, j] = lhs[ia[e], j] (op) rhs[ib[e], j]      e < n_edges, caller id
 //   op in {add, sub, mul, div, copy};
-//   dot: out[e, 0] = one fma chain over j ascending of lhs * rhs
+//   dot: out[e, 0] = one fma chain over j ascending of lhs * rhs;
+//   dot by heads (heads = H > 1, both operands of width d = H * F):
+//   out[e, h] = one fma chain over f ascending of lhs * rhs at h * F + f
 //
 // ia / ib give each operand's row: src_caller (src[eid_inv]) for a 'u'
 // operand, dst_caller for 'v', and null for 'e', whose row is e itself (no
@@ -31,7 +33,14 @@
 //   * width 1: four edges per thread, one int4 load per index array, one
 //     float4 load of an 'e' operand and one float4 store;
 //   * other widths, or pointers not 16-byte aligned: one thread per output
-//     element (dot: per edge), in caller order all the same.
+//     element (dot: per output value), in caller order all the same;
+//   * dot, by heads or not (heads = H; H > 1 is the adjoint of GAT's
+//     per-head alpha): one thread per (edge, head), heads fastest, so H
+//     consecutive threads read one operand row, contiguous, and write one
+//     output row; F % 4 == 0 and aligned rows are read as 4-vectors (at
+//     H = 8, F = 8 a warp reads four whole 256-byte rows of each operand
+//     and writes 128 bytes); its 4-vector and scalar reads make one
+//     chain, so one result.
 // Per element the arithmetic is the plain version's (one IEEE op; division
 // is IEEE, nvcc's default -prec-div=true), so every op but dot gives the
 // plain version's bits. There are no pad rows.
@@ -197,21 +206,43 @@ sddmm_elem_kernel(const int* __restrict__ ia, const int* __restrict__ ib,
   }
 }
 
-// Any width, dot: thread per edge, one fp32 fma chain over j ascending.
+// Dot, any width: thread per (edge, head), heads fastest, one fp32 fma
+// chain over the head's F = d / heads features ascending (heads = 1: a
+// thread per edge and its whole row; a width-1 operand broadcasts).
+// ``vec``: F % 4 == 0 and both operands of width d, aligned to four
+// elements, read as 4-vectors (the same chain, so the same result).
+// n_out = n_edges * heads < 2^32 (the host checks it), so the quotient
+// is taken in 32 bits; the loop counter is 64-bit, as t + stride may not
+// fit in 32.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sddmm_dot_kernel(const int* __restrict__ ia, const int* __restrict__ ib,
                  const T* __restrict__ lhs, const T* __restrict__ rhs,
-                 T* __restrict__ out, int n_edges, int d, int dl, int dr) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n_edges;
-       e += stride) {
-    const T* a = lhs + row_of(ia, e) * dl;
-    const T* b = rhs + row_of(ib, e) * dr;
+                 T* __restrict__ out, int64_t n_out, int dl, int dr,
+                 unsigned heads, int f, int vec) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       t < n_out; t += stride) {
+    const unsigned e = (unsigned)t / heads;
+    const int h = (int)((unsigned)t - e * heads);
+    const T* a = lhs + row_of(ia, e) * dl + (dl == 1 ? 0 : h * f);
+    const T* b = rhs + row_of(ib, e) * dr + (dr == 1 ? 0 : h * f);
     float acc = 0.0f;
-    for (int j = 0; j < d; ++j)
-      acc = fmaf(ld(a + (dl == 1 ? 0 : j)), ld(b + (dr == 1 ? 0 : j)), acc);
-    st(out + e, acc);
+    if (vec) {
+      // an unsigned counter: so nvcc issues a short row's loads together
+      // (at F = 8 a signed one measured 38% slower on the H100)
+      for (unsigned j = 0; j < (unsigned)f; j += 4) {
+        const float4 x = ld4(a + j);
+        const float4 y = ld4(b + j);
+        acc = fmaf(x.w, y.w, fmaf(x.z, y.z, fmaf(x.y, y.y,
+                                                 fmaf(x.x, y.x, acc))));
+      }
+    } else {
+      for (int j = 0; j < f; ++j)
+        acc = fmaf(ld(a + (dl == 1 ? 0 : j)), ld(b + (dr == 1 ? 0 : j)),
+                   acc);
+    }
+    st(out + t, acc);
   }
 }
 
@@ -228,6 +259,19 @@ bool aligned16(const void* p) {
 template <typename T>
 bool aligned4(const T* p) {
   return (reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T))) == 0;
+}
+
+// a dot of n_edges x heads outputs (module header)
+template <typename T>
+void launch_dot(const int* ia, const int* ib, const T* lp, const T* rp,
+                T* o, int n_edges, int d, int dl, int dr, int heads,
+                cudaStream_t st) {
+  const int64_t n_out = (int64_t)n_edges * heads;
+  const int f = d / heads;
+  const int vec = f % 4 == 0 && dl == d && dr == d && aligned4(lp) &&
+                  aligned4(rp);
+  sddmm_dot_kernel<T><<<grid_for(n_out), kThreads, 0, st>>>(
+      ia, ib, lp, rp, o, n_out, dl, dr, (unsigned)heads, f, vec);
 }
 
 template <typename T, int OP>
@@ -247,8 +291,7 @@ void launch(const int* ia, const int* ib, const T* lp, const T* rp, T* o,
     sddmm_w1_kernel<T, OP><<<grid_for((n_edges + 3) / 4), kThreads, 0, st>>>(
         ia, ib, lp, rp, o, n_edges);
   } else if constexpr (OP == kDot) {
-    sddmm_dot_kernel<T><<<grid_for(n_edges), kThreads, 0, st>>>(
-        ia, ib, lp, rp, o, n_edges, w, dl, dr);
+    launch_dot<T>(ia, ib, lp, rp, o, n_edges, w, dl, dr, 1, st);
   } else {
     const int64_t n = (int64_t)n_edges * w;
     sddmm_elem_kernel<T, OP><<<grid_for(n), kThreads, 0, st>>>(
@@ -259,11 +302,14 @@ void launch(const int* ia, const int* ib, const T* lp, const T* rp, T* o,
 template <typename T>
 int run(const void* idx_l, const void* idx_r, const void* lhs,
         const void* rhs, void* out, int n_edges, int dl, int dr, int op,
-        void* stream) {
+        int heads, void* stream) {
   if (op < kAdd || op > kCopy || dl < 1 || (op != kCopy && dr < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const int d = op == kCopy ? dl : (dl > dr ? dl : dr);
   if (op != kCopy && ((dl != d && dl != 1) || (dr != d && dr != 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (heads < 1 || (heads > 1 && (op != kDot || dl != dr || d % heads != 0 ||
+                                  (int64_t)n_edges * heads >= (1LL << 32))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_edges > 0) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -272,6 +318,10 @@ int run(const void* idx_l, const void* idx_r, const void* lhs,
     const T* lp = static_cast<const T*>(lhs);
     const T* rp = static_cast<const T*>(rhs);
     T* o = static_cast<T*>(out);
+    if (heads > 1) {
+      launch_dot<T>(ia, ib, lp, rp, o, n_edges, d, dl, dr, heads, st);
+      return static_cast<int>(cudaGetLastError());
+    }
     switch (op) {
       case kAdd: launch<T, kAdd>(ia, ib, lp, rp, o, n_edges, dl, dr, st); break;
       case kSub: launch<T, kSub>(ia, ib, lp, rp, o, n_edges, dl, dr, st); break;
@@ -287,23 +337,26 @@ int run(const void* idx_l, const void* idx_r, const void* lhs,
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unknown op or widths that neither match
-// nor broadcast from 1. ``idx_l`` / ``idx_r`` are the operands' caller-order
-// index arrays, null for an 'e' operand; ``rhs`` / ``idx_r`` are ignored
-// (may be null) for copy, whose width is dl. Operands and output fp32.
+// cudaErrorInvalidValue for an unknown op, widths that neither match nor
+// broadcast from 1, or ``heads`` other than 1 but for a dot of two
+// operands of one width it divides (n_edges * heads < 2^32); the output
+// then has ``heads`` columns. ``idx_l`` / ``idx_r`` are the operands'
+// caller-order index arrays, null for an 'e' operand; ``rhs`` / ``idx_r``
+// are ignored (may be null) for copy, whose width is dl. Operands and
+// output fp32.
 extern "C" int sddmm_csr_f32(const void* idx_l, const void* idx_r,
                              const void* lhs, const void* rhs, void* out,
-                             int n_edges, int dl, int dr, int op,
+                             int n_edges, int dl, int dr, int op, int heads,
                              void* stream) {
-  return run<float>(idx_l, idx_r, lhs, rhs, out, n_edges, dl, dr, op,
+  return run<float>(idx_l, idx_r, lhs, rhs, out, n_edges, dl, dr, op, heads,
                     stream);
 }
 
 // The same with operands and output in bf16 (arithmetic in fp32).
 extern "C" int sddmm_csr_bf16(const void* idx_l, const void* idx_r,
                               const void* lhs, const void* rhs, void* out,
-                              int n_edges, int dl, int dr, int op,
+                              int n_edges, int dl, int dr, int op, int heads,
                               void* stream) {
-  return run<bf16>(idx_l, idx_r, lhs, rhs, out, n_edges, dl, dr, op,
+  return run<bf16>(idx_l, idx_r, lhs, rhs, out, n_edges, dl, dr, op, heads,
                    stream);
 }

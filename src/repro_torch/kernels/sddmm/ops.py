@@ -18,6 +18,9 @@ The graph's index arrays are fixed at construction, so the wrapper checks
 them once per graph; each call checks only its operands. Operands are both
 fp32 or both bf16, and the output takes their dtype; a bf16 op runs in
 fp32 and is rounded once, in the kernel and its plain version alike.
+``dot`` takes a head count: with ``heads=H`` both operands are (rows, H·F)
+and the output (n_edges, H) holds each head's dot over its F features
+(the adjoint of GAT's per-head α).
 """
 from __future__ import annotations
 
@@ -60,15 +63,21 @@ def _lib(dtype: torch.dtype = torch.float32):
     fn = getattr(lib, {torch.float32: "sddmm_csr_f32",
                        torch.bfloat16: "sddmm_csr_bf16"}[dtype])
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def out_width(op: str, dl: int, dr: Optional[int]) -> Optional[int]:
+def out_width(op: str, dl: int, dr: Optional[int],
+              heads: int = 1) -> Optional[int]:
     """Width of ``op``'s output for operand widths ``dl`` / ``dr``, or
-    None when the widths neither match nor broadcast from 1."""
+    None when the widths neither match nor broadcast from 1 (with
+    ``heads`` > 1: unless ``op`` is ``dot`` on one width ``heads``
+    divides)."""
+    if heads != 1:
+        ok = op == "dot" and heads > 1 and dl == dr and dl % heads == 0
+        return heads if ok else None
     if op == "copy":
         return dl
     if dl != dr and 1 not in (dl, dr):
@@ -78,21 +87,27 @@ def out_width(op: str, dl: int, dr: Optional[int]) -> Optional[int]:
 
 def sddmm_plain(g, op: str, lhs_target: str, lhs: torch.Tensor,
                 rhs_target: Optional[str] = None,
-                rhs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                rhs: Optional[torch.Tensor] = None,
+                heads: int = 1) -> torch.Tensor:
     """The JAX package's two-step: gather each operand into canonical edge
-    order, apply ⊗ (width-1 operands broadcast, ``dot`` gives width 1),
-    un-permute by ``eid_inv`` into caller order. Half-precision operands
-    are widened and the result (the operands' promoted dtype) rounded
-    once, as the kernel computes in fp32. The reference the kernel is held
-    against."""
+    order, apply ⊗ (width-1 operands broadcast, ``dot`` gives width 1, or
+    one column per head with ``heads``), un-permute by ``eid_inv`` into
+    caller order. Half-precision operands are widened and the result (the
+    operands' promoted dtype) rounded once, as the kernel computes in
+    fp32. The reference the kernel is held against."""
     dtype = lhs.dtype if rhs is None else torch.promote_types(lhs.dtype,
                                                               rhs.dtype)
     acc = accum_dtype(dtype)
     lhs_val = lhs.index_select(0, g.long(TARGET_INDEX[lhs_target])).to(acc)
     rhs_val = (None if rhs is None else rhs.index_select(
         0, g.long(TARGET_INDEX[rhs_target])).to(acc))
-    return _PLAIN[op](lhs_val, rhs_val).index_select(
-        0, g.long("eid_inv")).to(dtype)
+    if heads != 1:                  # a dot per head: (E, H, F) → (E, H)
+        lhs_val = lhs_val.reshape(lhs_val.shape[0], heads, -1)
+        rhs_val = rhs_val.reshape(rhs_val.shape[0], heads, -1)
+    val = _PLAIN[op](lhs_val, rhs_val)
+    if heads != 1:
+        val = val[..., 0]
+    return val.index_select(0, g.long("eid_inv")).to(dtype)
 
 
 def _rows(g, target: str) -> int:
@@ -107,12 +122,15 @@ def _index(ptrs, target: str) -> Optional[int]:
 
 def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
               rhs_target: Optional[str] = None,
-              rhs: Optional[torch.Tensor] = None) -> torch.Tensor:
+              rhs: Optional[torch.Tensor] = None,
+              heads: int = 1) -> torch.Tensor:
     """B3 wrapper: the CUDA kernel for a CUDA ``lhs``, the plain version
     for a CPU ``lhs``. Operands are (rows of their target, width), both
     fp32 or both bf16, indexed by node id or caller edge id; ``rhs`` is
     None for ``copy``. Returns (n_edges, width) in caller edge order, in
-    the operands' dtype.
+    the operands' dtype. ``heads`` > 1 (``dot`` only, both operands of
+    one width it divides, n_edges·heads < 2³²) returns (n_edges, heads):
+    a dot per head.
 
     ``sddmm_csr.launches`` counts kernel launches (CUDA only), and
     ``sddmm_csr.op_launches`` counts them by ``op``.
@@ -123,8 +141,15 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
     if (rhs is None) != (op == "copy"):
         raise ValueError(f"{_KERNEL}: op {op!r} "
                          f"{'takes no' if op == 'copy' else 'needs an'} rhs")
+    if heads != 1 and (rhs is None or out_width(
+            op, lhs.shape[-1], rhs.shape[-1], heads) is None):
+        raise ValueError(f"{_KERNEL}: heads={heads} takes a dot of two "
+                         f"operands of one width it divides (got {op!r})")
+    if g.n_edges * heads >= 2 ** 32:
+        raise ValueError(f"{_KERNEL}: heads={heads} gives n_edges * heads "
+                         f"= {g.n_edges * heads} outputs, at least 2^32")
     if lhs.device.type == "cpu":
-        return sddmm_plain(g, op, lhs_target, lhs, rhs_target, rhs)
+        return sddmm_plain(g, op, lhs_target, lhs, rhs_target, rhs, heads)
     if lhs.device.type != "cuda":
         raise ValueError(f"{_KERNEL}: unsupported device {lhs.device}")
     dev = g.device
@@ -136,7 +161,7 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
         check_operand(_KERNEL, "rhs", rhs, lhs.dtype,
                       (_rows(g, rhs_target), None), dev)
         dr, idx_r = rhs.shape[1], _index(idx, rhs_target)
-    d = out_width(op, dl, dr)
+    d = out_width(op, dl, dr, heads)
     if d is None or dl == 0:
         raise ValueError(f"{_KERNEL}: widths {dl} and {dr} neither match "
                          f"nor broadcast from 1")
@@ -146,7 +171,7 @@ def sddmm_csr(g, op: str, lhs_target: str, lhs: torch.Tensor,
     fn = _lib(lhs.dtype)
     with device_guard(dev):
         rc = fn(_index(idx, lhs_target), idx_r, lhs.data_ptr(), ptr(rhs),
-                out.data_ptr(), g.n_edges, dl, dr, OPS[op],
+                out.data_ptr(), g.n_edges, dl, dr, OPS[op], heads,
                 stream_handle(dev))
     raise_on_error(_KERNEL, rc)
     sddmm_csr.launches += 1

@@ -8,8 +8,9 @@ the attention pipeline fuses, with the JAX package's modes:
     'multipass'     — ``u_add_v_copy_e`` logits on gSDDMM (kernel B3),
                       leaky-relu, the composed 5-primitive edge softmax
                       (B3 and B4 on the card, the max on a plain route),
-                      then ``u_mul_e_add_v`` with per-head α (rank 3, so
-                      no kernel takes it) — the paper's layering;
+                      then ``u_mul_e_add_v`` with per-head α (rank 3: B4
+                      with an edge value per head, B1 at one head) — the
+                      paper's layering;
     'softmax-fused' — the same, with the single-pass edge softmax (B5);
     'fused'/'pallas'/'auto'
                     — the whole pipeline as ONE pass,
@@ -24,19 +25,19 @@ tier and training run. ``train=True`` drops out each layer's input (rate
 its own backward (``core/binary_reduce.py``, ``core/edge_softmax.py``).
 Every op takes ``strategy`` as JAX's GAT hands it on: ``'auto'`` the
 planner's choice per op, ``'segment'`` the plain versions everywhere,
-``'kernel'`` the kernels for every op a kernel covers (the max and the
-rank-3 sum fall back down the planner's chain, with a warning).
+``'kernel'`` the kernels for every op a kernel covers (the max falls
+back down the planner's chain, with a warning).
 
 On a sampled block (:func:`block_layer`, :func:`forward_blocks`) the
 same modes run on the block graph ``bg.g``: multipass as B3 logits, the
 block edge softmax (B3 + B4, its max on a plain route) and the rank-3
-aggregation on a plain route; softmax-fused with B5 on ``bg.g`` (pad
-edges get the dummy row's own softmax, which no real row reads); the
-fused modes as B2. ``strategy='ell'`` pins the JAX block path's plain
+aggregation as the block planner says (B4 / B1 where it takes the kernel
+route); softmax-fused with B5 on ``bg.g`` (pad edges get the dummy row's
+own softmax, which no real row reads); the fused modes as B2. ``strategy='ell'`` pins the JAX block path's plain
 pulls, ``'push'`` its scatter baseline for the node reductions. Sampled
 training differentiates the block ops as ``bwd_strategy`` says
-(``core/blocks.py``): the max and the rank-3 sum as the block planner
-says, the rest on the kernels.
+(``core/blocks.py``): the max as the block planner says, the rest (the
+rank-3 sum after a kernel forward) on the kernels.
 
 :func:`forward_partitioned` runs each layer as one
 ``fused_attention_partitioned`` on a vertex-partitioned graph: the logits
@@ -118,8 +119,8 @@ class GATLayer(nn.Module):
                                        strategy=_SINGLE_PASS[strategy])
         else:
             alpha = edge_softmax(g, logits, strategy=strategy)  # (E, H)
-        # u_mul_e_add_v with per-head scalar α is a rank-3 broadcast: no
-        # kernel takes it, so the planner runs it on a plain route
+        # u_mul_e_add_v with per-head scalar α, rank 3: the kernel route
+        # runs it on (n, H·F) and (E, H) views (B4 per head, B1 at H = 1)
         out_feat = gspmm(g, "u_mul_e_add_v", u=z, e=alpha[:, :, None],
                          strategy=strategy)
         return out_feat.reshape(-1, heads * out)

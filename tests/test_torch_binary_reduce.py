@@ -148,6 +148,128 @@ def test_gspmm_routes_like_jax_dispatch(graph, op, de, kernel, monkeypatch,
     assert calls == ["spmm" if kernel == "spmm" else "binary_reduce"]
 
 
+def _heavy_graph():
+    """A random graph whose row 0 holds 300 in-edges: more than B4's
+    work-list cap (128), so on the card its row is split and folded."""
+    rng = np.random.default_rng(37)
+    src, dst = random_edges(rng, 90, 100, 400)
+    src = np.concatenate([src, rng.integers(0, 90, 300)])
+    dst = np.concatenate([dst, np.zeros(300, dtype=dst.dtype)])
+    return src, dst, 90, 100
+
+
+def _bf16_close(got, ref):
+    """bf16's rule: each element within 2⁻⁸·|ref| + 1e-5·max|ref| of the
+    float64 result."""
+    got, ref = got.double(), ref.double()
+    assert bool(((got - ref).abs() <= 2.0 ** -8 * ref.abs()
+                 + 1e-5 * ref.abs().max()).all())
+
+
+# (d, de): an edge value per head, de heads of d / de features
+PER_HEAD = [(8, 2), (8, 4), (16, 2), (16, 4), (16, 8), (64, 2), (64, 4),
+            (64, 8)]
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("reduce_op", ["sum", "mean"])
+@pytest.mark.parametrize("d,de", PER_HEAD)
+def test_per_head_edge_operand(d, de, reduce_op, dtype):
+    """B4 with an edge operand of width de dividing d (feature j reads
+    ``E[e, j / (d / de)]``) on a graph with a heavy row: the wrapper and
+    the plain version against the segment route on the rank-3 operands
+    (n, de, F) and (E, de, 1), against JAX's ``gspmm`` there and against
+    float64; two calls bit-identical; ``gspmm``'s kernel route on the
+    rank-3 operands gives the wrapper's bits in (n_dst, de, F)."""
+    src, dst, n_src, n_dst = _heavy_graph()
+    tg = from_coo(src, dst, n_src=n_src, n_dst=n_dst, device="cpu")
+    rng = np.random.default_rng(d * 10 + de)
+    B = rng.normal(size=(n_src, d)).astype(np.float32)
+    E = rng.normal(size=(len(src), de)).astype(np.float32)
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    Bt, Et = torch.from_numpy(B).to(dt), torch.from_numpy(E).to(dt)
+    mean = reduce_op == "mean"
+    got = binary_reduce_csr(tg, Bt, Et, "mul", mean)
+    assert got.dtype == dt and got.shape == (n_dst, d)
+    assert torch.equal(got, binary_reduce_csr(tg, Bt, Et, "mul", mean))
+    assert torch.equal(got, binary_reduce_plain(tg, Bt, Et, "mul", mean))
+    op = f"u_mul_e_{'add' if reduce_op == 'sum' else 'mean'}_v"
+    u3, e3 = Bt.reshape(n_src, de, d // de), Et[:, :, None]
+    kernel = gspmm(tg, op, u=u3, e=e3, strategy="kernel")
+    assert planner.last_plan(op, "kernel") == "kernel"
+    assert kernel.shape == (n_dst, de, d // de)
+    assert torch.equal(kernel.reshape(n_dst, d), got)
+    ref = binary_reduce_plain(tg, Bt.double(), Et.double(), "mul", mean)
+    if dt == torch.bfloat16:
+        _bf16_close(got, ref)
+        return
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    segment = gspmm(tg, op, u=u3, e=e3, strategy="segment")
+    jg = jax_from_coo(src, dst, n_src=n_src, n_dst=n_dst)
+    jax_ref = jax_gspmm(jg, op, u=jnp.asarray(u3.numpy()),
+                        e=jnp.asarray(e3.numpy()), strategy="segment")
+    for want in (segment.numpy(), np.asarray(jax_ref)):
+        np.testing.assert_allclose(kernel.numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("binop", sorted(set(BINOPS) - {"copy_rhs"}))
+def test_per_head_edge_operand_every_binop(binop):
+    """Every ⊗ reads a per-head edge value as if it were repeated over its
+    head's features: the plain version's bits, sum and mean."""
+    src, dst, n_src, n_dst = _heavy_graph()
+    tg = from_coo(src, dst, n_src=n_src, n_dst=n_dst, device="cpu")
+    rng = np.random.default_rng(5)
+    Bt = torch.from_numpy(rng.normal(size=(n_src, 16)).astype(np.float32))
+    Et = torch.from_numpy((0.5 + rng.random((len(src), 4))).astype(
+        np.float32))
+    for mean in (False, True):
+        got = binary_reduce_csr(tg, Bt, Et, binop, mean)
+        want = binary_reduce_plain(tg, Bt, Et.repeat_interleave(4, 1), binop,
+                                   mean)
+        assert torch.equal(got, want), (binop, mean)
+
+
+def _parent_plain(g, B, E, binop, mean):
+    """The plain version as it was before a per-head edge operand: E of
+    width d or 1 only."""
+    dtype = E.dtype if B is None else B.dtype
+    acc = torch.float32
+    e_val = E.index_select(0, g.long("eid")).to(acc)
+    b_val = None if B is None else B.index_select(0, g.long("src")).to(acc)
+    msg = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+           "div": torch.div, "copy_lhs": lambda a, b: a,
+           "copy_rhs": lambda a, b: b}[binop](b_val, e_val)
+    if msg.shape[-1] == 1 and B is not None and B.shape[-1] != 1:
+        msg = msg.expand(-1, B.shape[-1])
+    out = torch.zeros((g.n_dst, msg.shape[-1]), dtype=acc)
+    out.index_add_(0, g.long("dst"), msg)
+    if mean:
+        out = out / g.in_degrees.clamp(min=1).to(acc)[:, None]
+    return out.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("binop", sorted(BINOPS))
+def test_full_and_scalar_edge_operands_keep_their_bits(binop, dtype):
+    """E of width d and of width 1 give the bits they gave before the
+    per-head width: the wrapper against the former plain version."""
+    src, dst, n_src, n_dst = _heavy_graph()
+    tg = from_coo(src, dst, n_src=n_src, n_dst=n_dst, device="cpu")
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(9)
+    for d, de in ((4, 4), (4, 1), (1, 1), (41, 1), (16, 16)):
+        Bt = torch.from_numpy(rng.normal(size=(n_src, d)).astype(
+            np.float32)).to(dt)
+        Et = torch.from_numpy((0.5 + rng.random((len(src), de))).astype(
+            np.float32)).to(dt)
+        for mean in (False, True):
+            assert torch.equal(binary_reduce_csr(tg, Bt, Et, binop, mean),
+                               _parent_plain(tg, Bt, Et, binop, mean)), (
+                d, de, mean)
+
+
 def test_e_op_u_flip_only_for_commutative_ops(fresh_fallback_warnings):
     """No kernel takes e_sub_u / e_div_u / u_add_v: a pinned 'kernel'
     falls back down the planner's chain with a warning, and 'auto' takes
@@ -185,6 +307,8 @@ def test_wrapper_on_cpu_counts_nothing_and_checks_arguments():
     with pytest.raises(ValueError, match="needs the node operand"):
         binary_reduce_csr(tg, None, Et, "add")
     with pytest.raises(ValueError, match="edge feature dim"):
+        binary_reduce(tg, Bt, Et[:, :3], "add")
+    with pytest.raises(ValueError, match="does not divide"):
         binary_reduce(tg, Bt, Et[:, :3], "add")
     with pytest.raises(ValueError, match="sum/mean"):
         binary_reduce(tg, Bt, Et, "add", "max")

@@ -146,6 +146,38 @@ def test_block_rank3_vjp_matches_jax_grad():
                                        err_msg=f"d{k} {bwd}")
 
 
+@pytest.mark.parametrize("heads", [3, 1])
+@pytest.mark.parametrize("red", ["add", "mean"])
+def test_block_rank3_kernel_vjp_matches_jax_grad(red, heads):
+    """GAT's per-head aggregation on the kernel route of a block (B4 with
+    an edge value per head, B1 at one head; the gather backward on the
+    block's Gᵀ and B3): values and grads against ``jax.grad`` and against
+    the segment route at 1e-5, with the gather backward pinned and as
+    ``auto`` plans it."""
+    jblk, tblk = _block()
+    name = f"u_mul_e_{red}_v"
+    rng = np.random.default_rng(9 + heads)
+    args = {"u": rng.normal(size=(jblk.bg.g.n_src, heads, 5))
+            .astype(np.float32),
+            "e": rng.uniform(0.1, 1, size=(jblk.bg.g.n_edges, heads, 1))
+            .astype(np.float32)}
+    ct = rng.normal(size=(jblk.bg.n_dst_real, heads, 5)).astype(np.float32)
+    ref, ref_g = _jax_value_and_grads(jblk.bg, name, args, ct)
+    seg, seg_g = _port_value_and_grads(tblk.bg, name, args, ct, "segment",
+                                       "gather")
+    for bwd in ("gather", "auto"):
+        out, got = _port_value_and_grads(tblk.bg, name, args, ct, "kernel",
+                                         bwd)
+        assert set(planner.plan_log()[(f"block:{name}", "kernel")]) == {
+            "kernel"}
+        for want in (ref, seg):
+            np.testing.assert_allclose(out, want, rtol=TOL, atol=TOL)
+        for k in ref_g:
+            for want in (ref_g[k], seg_g[k]):
+                np.testing.assert_allclose(got[k], want, rtol=TOL, atol=TOL,
+                                           err_msg=f"d{k} {bwd}")
+
+
 @pytest.mark.parametrize("strategy", ["ell", "segment", "kernel"])
 def test_block_pad_poison_invariance(strategy):
     """Poisoning every pad source slot's features and every pad edge's

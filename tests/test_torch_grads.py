@@ -8,10 +8,10 @@ function and ``torch.autograd.grad`` of the port's, on a bipartite graph
 * ``reverse``: every index array of Gᵀ bit-equal to JAX's;
 * ``weighted_copy_reduce`` (∂x, ∂w);
 * ``gspmm`` for every spec of the kernel routes' adjoint table (B1 and
-  B4, every ⊗ and width they take) and the specs only the segment route
-  computes, on ``segment`` and ``kernel``; and, counted through the
-  wrappers' plain branches, which kernels a kernel route's backward runs
-  (never the segment route);
+  B4, every ⊗ and width they take, and GAT's rank-3 per-head sum) and
+  the specs only the segment route computes, on ``segment`` and
+  ``kernel``; and, counted through the wrappers' plain branches, which
+  kernels a kernel route's backward runs (never the segment route);
 * ``gsddmm`` for every ⊗ on u / v / e operands and width broadcasts, on
   ``kernel``, ``canonical`` and ``gather``;
 * ``edge_softmax``, ``edge_softmax_fused`` and ``fused_attention``, with
@@ -147,7 +147,8 @@ def test_weighted_copy_reduce_grads(wrt):
 # (op, lhs width/shape, rhs width/shape or None): the kernel routes'
 # adjoint table — B1 sum / mean, weighted or not; B4 e_copy, u_⊗_e for
 # every ⊗ with a vector or a scalar edge operand, e_⊗_u; the rank-3
-# per-head aggregation and the max run on segment only
+# per-head aggregation (B4 with an edge value per head, B1 at one head);
+# the max runs on segment only
 GSPMM_CASES = [
     ("u_mul_e_add_v", (N_SRC, 8), (E, 1)),
     ("u_mul_e_mean_v", (N_SRC, 8), (E, 1)),
@@ -167,6 +168,9 @@ GSPMM_CASES = [
     ("e_mul_u_add_v", (E, 1), (N_SRC, 4)),
     ("e_add_u_mean_v", (E, 4), (N_SRC, 4)),
     ("u_mul_e_add_v", (N_SRC, 4, 3), (E, 4, 1)),
+    ("u_mul_e_mean_v", (N_SRC, 4, 3), (E, 4, 1)),
+    ("u_mul_e_add_v", (N_SRC, 1, 5), (E, 1, 1)),
+    ("e_mul_u_add_v", (E, 4, 1), (N_SRC, 4, 3)),
     ("e_copy_max_v", (E, 4), None),
 ]
 
@@ -177,7 +181,7 @@ def _operand_kw(op, operands):
 
 
 GSPMM_RUNS = [c + (s,) for c in GSPMM_CASES for s in ("segment", "kernel")
-              if s == "segment" or (len(c[1]) == 2 and "max" not in c[0])]
+              if s == "segment" or "max" not in c[0]]
 
 
 @pytest.mark.parametrize("op,lshape,rshape,strategy", GSPMM_RUNS,
@@ -207,7 +211,9 @@ def test_gspmm_grads(op, lshape, rshape, strategy):
 
 # the wrappers' plain branches a kernel route runs, forward and backward
 # (all operands differentiated): B1 on G then Gᵀ, B4 on G (and on Gᵀ for
-# a vector mul or a div), B3 for the edge operand
+# a vector mul or a div), B3 for the edge operand. The rank-3 per-head
+# sum launches what the rank-2 spec of its edge width does: at H heads B4
+# on G and Gᵀ and B3's dot per head, at one head B1 twice and B3's dot
 KERNEL_BACKWARDS = {
     ("u_mul_e_add_v", 1): {"spmm": 2, "sddmm": 1},
     ("u_mul_e_mean_v", 1): {"spmm": 2, "sddmm": 1},
@@ -227,8 +233,7 @@ KERNEL_BACKWARDS = {
     ("e_mul_u_add_v", 1): {"br": 1, "spmm": 1, "sddmm": 1},
     ("e_add_u_mean_v", 4): {"br": 1, "spmm": 1, "sddmm": 1},
 }
-KERNEL_CASES = [c for c in GSPMM_CASES
-                if len(c[1]) == 2 and "max" not in c[0]]
+KERNEL_CASES = [c for c in GSPMM_CASES if "max" not in c[0]]
 
 
 def _edge_width(op, lshape, rshape):
@@ -239,6 +244,7 @@ def _edge_width(op, lshape, rshape):
 
 @pytest.mark.parametrize("op,lshape,rshape", KERNEL_CASES,
                          ids=[f"{c[0]}-{c[2] and c[2][1]}"
+                              + ("-3d" if len(c[1]) == 3 else "")
                               for c in KERNEL_CASES])
 def test_gspmm_kernel_route_backward_runs_the_kernels(op, lshape, rshape,
                                                       monkeypatch):
@@ -274,6 +280,53 @@ def test_gspmm_kernel_route_backward_runs_the_kernels(op, lshape, rshape,
     assert all(gr.shape == t.shape for gr, t in zip(grads, ops))
     assert counts == KERNEL_BACKWARDS[(op, _edge_width(op, lshape,
                                                        rshape))]
+
+
+RANK3_CASES = [c for c in GSPMM_CASES if len(c[1]) == 3]
+
+
+@pytest.mark.parametrize("op,lshape,rshape", RANK3_CASES,
+                         ids=[f"{c[0]}-{c[1][1]}x{c[1][2]}"
+                              for c in RANK3_CASES])
+def test_rank3_kernel_route_grads_match_segment(op, lshape, rshape,
+                                                monkeypatch):
+    """GAT's per-head sum on the kernel route: output, ∂z and ∂α against
+    the segment route at 1e-5, in the operands' shapes; every wrapper it
+    calls gets operands of rank 1 or 2, an edge operand of at most H
+    columns: no per-edge (E, H, F) tensor is made, forward or backward."""
+    from repro_torch.kernels.binary_reduce import ops as br_ops
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    from repro_torch.kernels.spmm import ops as spmm_ops
+
+    _, tg = _graphs()
+    rng = np.random.default_rng(4)
+    ops = [_normal(rng, *lshape), np.abs(_normal(rng, *rshape))]
+    kw = {}
+    for strategy in ("segment", "kernel"):
+        ts = [torch.tensor(a, requires_grad=True) for a in ops]
+        kw[strategy] = ts
+    ref = gspmm(tg, op, strategy="segment", **_operand_kw(op, kw["segment"]))
+    ct = torch.from_numpy(_normal(rng, *ref.shape))
+    ref_grads = torch.autograd.grad(ref, kw["segment"], ct)
+    seen = []
+    for mod, name in ((spmm_ops, "spmm_plain"), (sddmm_ops, "sddmm_plain"),
+                      (br_ops, "binary_reduce_plain")):
+        def wrapped(*a, _plain=getattr(mod, name), **k):
+            seen.extend(tuple(t.shape) for t in a
+                        if isinstance(t, torch.Tensor)
+                        and t.is_floating_point())
+            return _plain(*a, **k)
+        monkeypatch.setattr(mod, name, wrapped)
+    got = gspmm(tg, op, strategy="kernel", **_operand_kw(op, kw["kernel"]))
+    grads = torch.autograd.grad(got, kw["kernel"], ct)
+    assert got.shape == ref.shape
+    _close(got.detach().numpy(), ref.detach().numpy(), what=op)
+    for a, b, t in zip(grads, ref_grads, kw["kernel"]):
+        assert a.shape == t.shape
+        _close(a.numpy(), b.numpy(), what=op)
+    heads = (lshape if op.startswith("e_") else rshape)[1]
+    assert seen and all(len(sh) <= 2 for sh in seen)
+    assert all(int(np.prod(sh[1:])) <= heads for sh in seen if sh[0] == E)
 
 
 # --------------------------------------------------------------------- #

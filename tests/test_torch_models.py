@@ -96,9 +96,10 @@ def test_infer_matches_jax(app):
 @pytest.mark.parametrize("app", ["gcn", "sage", "gat"])
 def test_strategies_agree_on_cpu(app):
     """On the CPU 'kernel' runs the kernels' plain versions: bit for bit
-    segment's wherever a kernel takes every op (GCN, SAGE); GAT's max and
-    rank-3 sum fall back down the planner's chain to the blocked pull,
-    which sums in another order. 'auto' runs the JAX cpu row's choice per
+    segment's wherever a kernel takes every op (GCN, SAGE); GAT's max
+    falls back down the planner's chain to the blocked pull, and its
+    rank-3 sum runs on the kernels' plain versions, which sum in another
+    order. 'auto' runs the JAX cpu row's choice per
     op, so it matches JAX's auto (and its ELL pulls JAX's)."""
     (jg, jf, *_, n_cls), (tg, tf, *_) = _tiny()
     p, tree = _params(app, jf.shape[1], n_cls)

@@ -390,12 +390,14 @@ def test_gat_aggregation_spans_both_directions():
     for op in ("sddmm:u_add_v_copy_e", "sddmm:e_sub_v_copy_e",
                "e_copy_add_v", "sddmm:e_div_v_copy_e"):
         assert dirs[f"agg.{op}"] == {"fwd", "bwd"}, op
-    # no kernel takes the max or the rank-3 sum: a plain route runs them,
-    # and its backward is spanned too
-    for op in ("e_copy_max_v", "u_mul_e_add_v"):
-        assert dirs[f"agg.{op}"] == {"fwd", "bwd"}, op
-        assert {e["args"]["route"] for e in agg
-                if e["name"] == f"agg.{op}"} & {"kernel"} == set()
+    # no kernel takes the max: a plain route runs it, and its backward is
+    # spanned too; the rank-3 sum runs on the kernel route both ways
+    assert dirs["agg.e_copy_max_v"] == {"fwd", "bwd"}
+    assert {e["args"]["route"] for e in agg
+            if e["name"] == "agg.e_copy_max_v"} & {"kernel"} == set()
+    assert dirs["agg.u_mul_e_add_v"] == {"fwd", "bwd"}
+    assert {e["args"]["route"] for e in agg
+            if e["name"] == "agg.u_mul_e_add_v"} == {"kernel"}
     assert obs.measured_events() == {}         # grad mode: no drift rows
 
 

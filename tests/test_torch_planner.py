@@ -503,10 +503,13 @@ def test_cuda_row_keeps_the_kernels_on_the_main_path():
         got = tp.plan_gspmm(g, parse_op(op), torch.zeros(1, d), None,
                             device="cuda").strategy
         assert got == "segment", (op, d)
-    # GAT's rank-3 sum (no kernel takes it) stays on segment too
-    got = tp.plan_gspmm(g, parse_op("u_mul_e_add_v"), torch.zeros(1, 4, 16),
-                        torch.zeros(1, 4, 1), device="cuda").strategy
-    assert got == "segment"
+    # GAT's rank-3 sum takes the kernel route: B4 with an edge value per
+    # head (B1 at one head)
+    for heads in (4, 1):
+        got = tp.plan_gspmm(g, parse_op("u_mul_e_add_v"),
+                            torch.zeros(1, heads, 16),
+                            torch.zeros(1, heads, 1), device="cuda").strategy
+        assert got == "kernel", heads
     sig = (g.n_src, g.n_dst, g.n_edges)
     for op, lt, rt in (("u_add_v_copy_e", "u", "v"),
                        ("e_sub_v_copy_e", "e", "v"),

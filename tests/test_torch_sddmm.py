@@ -14,6 +14,7 @@ tests use. ``emulate_caller_order`` mirrors the CUDA kernel's walk
 CUDA branch is exercised on the card by ``chip_smoke.py``.
 """
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -200,6 +201,69 @@ def test_wrapper_on_cpu_counts_nothing_and_checks_arguments():
         sddmm_csr(tg, "add", "u", u)
     with pytest.raises(ValueError, match="takes no rhs"):
         sddmm_csr(tg, "copy", "u", u, "v", v)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("heads,feat", [(8, 8), (4, 4), (3, 4), (2, 3),
+                                        (5, 1)])
+@pytest.mark.parametrize("graph", sorted(GRAPHS))
+def test_dot_per_head(graph, heads, feat, dtype):
+    """``dot`` with ``heads``: out[e, h] = Σ_f u[src_e, h, f]·v[dst_e, h, f]
+    in caller order, (n_edges, heads) — against a plain per-head dot in
+    float64, and in fp32 against JAX's ``gsddmm`` ``u_dot_v`` on the
+    (rows, H, F) operands and the kernel's fma chain (f ascending);
+    ``heads=1`` is the dot of the whole row, as before."""
+    src, dst, n_src, n_dst = GRAPHS[graph]
+    tg = from_coo(src, dst, n_src=n_src, n_dst=n_dst, device="cpu")
+    d = heads * feat
+    rng = np.random.default_rng(heads * 100 + feat)
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    u = torch.from_numpy(rng.normal(size=(n_src, d)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(n_dst, d)).astype(np.float32))
+    u, v = u.to(dt), v.to(dt)
+    got = sddmm_csr(tg, "dot", "u", u, "v", v, heads=heads)
+    assert got.shape == (len(src), heads) and got.dtype == dt
+    assert torch.equal(got, sddmm_plain(tg, "dot", "u", u, "v", v, heads))
+    a = u.double()[tg.src_caller.long()].reshape(-1, heads, feat)
+    b = v.double()[tg.dst_caller.long()].reshape(-1, heads, feat)
+    ref = (a * b).sum(-1)
+    whole = sddmm_csr(tg, "dot", "u", u, "v", v)
+    assert torch.equal(whole, sddmm_csr(tg, "dot", "u", u, "v", v, heads=1))
+    if dt == torch.bfloat16:
+        got, ref = got.double(), ref
+        assert bool(((got - ref).abs() <= 2.0 ** -8 * ref.abs()
+                     + 1e-5 * ref.abs().max()).all())
+        return
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    chain = torch.zeros(len(src), heads)
+    for f in range(feat):
+        chain = chain + (a[:, :, f] * b[:, :, f]).float()
+    np.testing.assert_allclose(got.numpy(), chain.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    jg = jax_from_coo(src, dst, n_src=n_src, n_dst=n_dst)
+    jax_ref = jax_gsddmm(jg, "u_dot_v_copy_e",
+                         u=jnp.asarray(u.numpy().reshape(n_src, heads, feat)),
+                         v=jnp.asarray(v.numpy().reshape(n_dst, heads, feat)),
+                         strategy="gather")
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(jax_ref).reshape(-1, heads),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_dot_per_head_checks_arguments():
+    _, tg, lhs, rhs = _case("random", "u", 8, "v", 8, "dot")
+    u, v = torch.from_numpy(lhs), torch.from_numpy(rhs)
+    for op, r, heads in (("mul", v, 2), ("dot", v, 3), ("dot", v[:, :4], 2),
+                         ("dot", v, 0), ("copy", None, 2)):
+        with pytest.raises(ValueError, match="heads="):
+            sddmm_csr(tg, op, "u", u, None if r is None else "v", r,
+                      heads=heads)
+    # the kernel takes an output index below 2^32 (a 32-bit quotient by
+    # heads); the wrapper refuses a graph whose outputs reach it
+    big = types.SimpleNamespace(n_edges=2 ** 29)
+    with pytest.raises(ValueError, match="2\\^32"):
+        sddmm_csr(big, "dot", "u", u, "v", v, heads=8)
 
 
 def emulate_caller_order(tg, op, lt, lhs, rt=None, rhs=None):

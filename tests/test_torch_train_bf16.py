@@ -23,6 +23,7 @@
 import copy
 import functools
 import warnings
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -65,6 +66,11 @@ from tests.test_torch_harness import jax_c1_shim  # noqa: F401
 pytestmark = pytest.mark.usefixtures("jax_c1_shim")
 
 BF16_TOL = 2e-2
+# a GAT logit within KINK_ULPS bf16 ulps of its terms lies at leaky-relu's
+# kink (_kink_sides): each term is rounded to bf16 after inputs that were
+# rounded too, so two bf16 computations may differ by about two ulps of
+# each term
+KINK_ULPS = 4
 JAX_APPS = {"gcn": jax_gcn, "sage": jax_sage, "gat": jax_gat,
             "rgcn": jax_rgcn, "monet": jax_monet}
 PORT_APPS = {"gcn": gcn, "sage": sage, "gat": gat, "rgcn": rgcn,
@@ -150,6 +156,7 @@ def _full_case(app):
 
 
 def _sampled_batch():
+    """One batch of 16 seeds at fan-out (4, 4)."""
     def build():
         (jg, _, jl, jtr, _, _), (tg, *_) = _tiny()
         ids = np.nonzero(np.asarray(jtr))[0][5:21]
@@ -292,16 +299,110 @@ def _case_id(kind, app, strategy):
                                    else tuple(strategy)))
 
 
+def _spy_logits(module, run):
+    """``run()`` with ``module.gsddmm`` watched: each ``u_add_v_copy_e``
+    call's (graph, el, er, logits), one per GAT layer, and the result."""
+    seen, sddmm = [], module.gsddmm
+
+    def spy(g, op, **kw):
+        out = sddmm(g, op, **kw)
+        if op == "u_add_v_copy_e":
+            seen.append((g, kw["u"], kw["v"], out))
+        return out
+    with mock.patch.object(module, "gsddmm", spy):
+        return seen, run()
+
+
+def _kink_sides(jloss, params, port):
+    """Per GAT layer, ``(at, positive)``: the logits el[u] + er[v] that
+    lie within ``KINK_ULPS`` bf16 ulps of their terms (2⁻⁸·(|el[u]| +
+    |er[v]|), JAX's fp32 forward) of leaky-relu's kink at 0 and that the
+    port's bf16 forward (``port``, :func:`_spy_logits`) put on the other
+    side than JAX's bf16 forward, and the port's side of each logit. Two
+    bf16 computations that round the terms differently may put such a
+    logit on either side; its slope (1 or 0.2) moves the attention grads
+    by far more than bf16's noise."""
+    j32, _ = _spy_logits(jax_gat, lambda: jloss(params, jnp.float32))
+    j16, _ = _spy_logits(jax_gat, lambda: jloss(params, jnp.bfloat16))
+    assert len(j32) == len(j16) == len(port)
+    sides = []
+    for (g, el, er, _), (*_, x16), (*_, x) in zip(j32, j16, port):
+        slot = np.asarray(g.eid_inv)        # caller edge → canonical slot
+        a = np.asarray(el)[np.asarray(g.src)[slot]]
+        b = np.asarray(er)[np.asarray(g.dst)[slot]]
+        kink = (np.abs(a + b)
+                < KINK_ULPS * 2.0 ** -8 * (np.abs(a) + np.abs(b)))
+        pos = x.detach().float().numpy() >= 0
+        assert pos.shape == kink.shape
+        sides.append((kink & (pos != (np.asarray(x16, np.float32) >= 0)),
+                      pos))
+    return sides
+
+
+def _on_sides(jloss, sides):
+    """``jloss`` with leaky-relu's branch at each layer's ``at`` entries
+    taken on the ``positive`` side (``sides``, one per layer in call
+    order), in bf16 and fp32 alike; ``jloss`` itself where ``at`` marks
+    nothing."""
+    if not any(at.any() for at, _ in sides):
+        return jloss
+
+    def loss(p, dt):
+        layers = iter(sides)
+
+        def leaky_relu(x, slope=0.2):
+            at, pos = next(layers)
+            return jnp.where(jnp.where(at, pos, x >= 0), x, slope * x)
+        with mock.patch.object(jax_gat, "leaky_relu", leaky_relu):
+            return jloss(p, dt)
+    return loss
+
+
+def _jax_grads(jloss, params):
+    value_and_grad16, grad32 = _jax_bf16_loss(jloss)
+    return value_and_grad16(params)[1], grad32(params)
+
+
 @pytest.mark.parametrize("kind,app,strategy", GRAD_CASES,
                          ids=[_case_id(*c) for c in GRAD_CASES])
 def test_bf16_step_grads_match_jax(kind, app, strategy):
+    """One bf16 step's grads against JAX's (module docstring). For GAT,
+    JAX's loss takes the port's side of leaky-relu's kink at the logits
+    that lie at it and that the port rounded to the other side
+    (:func:`_kink_sides`): the kernel routes sum each head in fp32 and
+    round once, JAX's segment route rounds each product. Every other
+    logit, and every tolerance, is as for the other apps."""
     jloss, tgrads, params = CASES[kind](app)
-    value_and_grad16, grad32 = _jax_bf16_loss(jloss)
-    _, j16 = value_and_grad16(params)
-    j32 = grad32(params)
     model = from_jax_params(app, _np(params), device="cpu")
-    _close_grads(model, tgrads(model, strategy), j16, j32,
+    port, grads = _spy_logits(gat, lambda: tgrads(model, strategy))
+    if port:
+        jloss = _on_sides(jloss, _kink_sides(jloss, params, port))
+    _close_grads(model, grads, *_jax_grads(jloss, params),
                  f"{kind} {app} {strategy}")
+
+
+def test_sampled_gat_kernel_route_rounds_across_the_kink():
+    """The sampled batch's GAT output layer holds a logit at leaky-relu's
+    kink that the kernel route rounds to the other side than JAX's bf16
+    segment route, and that side moves ``attn_r``'s grad by more than the
+    grads' tolerance; with no logit marked, the reference is JAX's own
+    grads, bit for bit."""
+    jloss, tgrads, params = _sampled_case("gat")
+    model = from_jax_params("gat", _np(params), device="cpu")
+    port, _ = _spy_logits(gat, lambda: tgrads(model, ("kernel", "auto")))
+    sides = _kink_sides(jloss, params, port)
+    assert len(sides) == 2 and sides[-1][0].any()
+    j16, j32 = _jax_grads(jloss, params)
+    none = [(np.zeros_like(at), pos) for at, pos in sides]
+    same = _jax_grads(_on_sides(jloss, none), params)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves((j16, j32)),
+        jax.tree_util.tree_leaves(same)))
+    other, _ = _jax_grads(_on_sides(jloss, sides), params)
+    ref, ref32, alt = (_leaf(t, "layers.1.attn_r") for t in (j16, j32, other))
+    tol = (BF16_TOL * float(np.abs(ref).max())
+           + 2 * float(np.abs(ref - ref32).max()))
+    assert float(np.abs(alt - ref).max()) > tol
 
 
 # --------------------------------------------------------------------- #
@@ -450,8 +551,8 @@ def test_bf16_step_launches_equal_fp32(kind, app, strategy, want,
                                        monkeypatch):
     """A bf16 step's forward and backward launch the fp32 step's kernels
     (the plain branches stand in for them), and warn of no fallback the
-    fp32 step does not warn of (GAT's max and rank-3 sum fall back in
-    both: no kernel computes them)."""
+    fp32 step does not warn of (GAT's max falls back in both: no kernel
+    computes it; its rank-3 sum runs on the kernels in both)."""
     from repro_torch.core import planner
 
     _, tgrads, params = CASES[kind](app)
