@@ -1,19 +1,20 @@
 """B3, ``sddmm_csr(g, op, lhs_target, lhs, rhs_target, rhs)``: out
 (n_edges, d) in caller edge order, out[e] = lhs[i(e)] ⊗ rhs[j(e)] for
 node targets through the caller-order index arrays, edge targets
-directly."""
+directly; with ``heads`` > 1 a ``dot`` per head, out (n_edges, heads)."""
 from gnnbench.costs._graph import rows_referenced
 
 INDEX_BYTES = 4
-# output width of each op on widths (dl, dr), as the kernel computes it
+# output width of each op on widths (dl, dr), as the kernel computes it:
+# a dot gives one output per head
 DOT = ("dot",)
 
 
-def _out_width(op, dl, dr):
+def _out_width(op, dl, dr, heads):
     if op == "copy":
         return dl
     if op in DOT:
-        return 1
+        return heads
     return max(dl, dr)
 
 
@@ -27,7 +28,8 @@ def describe(args):
             "rows": [rows_referenced(g, lt)]
             + ([] if rhs is None else [rows_referenced(g, rt)]),
             "widths": [dl] + ([] if rhs is None else [dr]),
-            "d_out": _out_width(args["op"], dl, dr),
+            "d_out": _out_width(args["op"], dl, dr,
+                                int(args.get("heads", 1))),
             "itemsize": int(lhs.element_size())}
 
 

@@ -1,7 +1,11 @@
-"""A cell's inputs and what both sides get from them: the COO (on the
-host, the port's ``from_coo`` entry takes host arrays), the node data and
-the weights on the device, the port's model built from the weights, and
-the reference's module and graph; and the gaps that decide ``correct``.
+"""A cell's inputs and what both sides get from them, through the files
+its configuration names: the graph kind (``graphs/<graph>.py``) makes the
+host arrays, the node data and the weights, builds the object the port's
+step takes, and gives the reference its graph; the app's reference
+(``reference/<app>.py``) and model costs (``costs/model_<app>.py``); the
+port's model built from the weights; and the gaps that decide
+``correct``. Each file is found under the cell's benchmark folder, so a
+new app or graph kind is added as files.
 """
 from __future__ import annotations
 
@@ -11,15 +15,26 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from .data.graph import glorot_leaves, node_data, rmat_edges
-
-__all__ = ["make_inputs", "reference_module", "port_module", "port_model",
+__all__ = ["bench_module", "graph_kind", "make_inputs", "build_graph",
+           "reference_module", "port_module", "port_model",
            "reference_inputs", "model_costs", "n_edges", "relative_gap",
            "table_gap"]
 
 
-def reference_module(cfg: Dict):
-    return importlib.import_module(f"gnnbench.reference.{cfg['app']}")
+def bench_module(ctx, folder: str, name: str):
+    """``<folder>/<name>.py`` of the cell's benchmark folder, loaded as
+    ``gnnbench.<folder>.<name>`` (so that its relative imports resolve)."""
+    from .harness import load_file_module
+    return load_file_module(ctx.cell.bench / folder / f"{name}.py",
+                            f"gnnbench.{folder}.{name}")
+
+
+def graph_kind(ctx):
+    return bench_module(ctx, "graphs", ctx.config["graph"])
+
+
+def reference_module(ctx):
+    return bench_module(ctx, "reference", ctx.config["app"])
 
 
 def port_module(cfg: Dict):
@@ -28,31 +43,31 @@ def port_module(cfg: Dict):
 
 def model_costs(ctx):
     """The app's model-FLOP functions, ``costs/model_<app>.py``."""
-    from .harness import load_file_module
-    app = ctx.config["app"]
-    return load_file_module(ctx.cell.bench / "costs" / f"model_{app}.py",
-                            f"gnnbench_model_{app}")
+    return bench_module(ctx, "costs", f"model_{ctx.config['app']}")
 
 
-def n_edges(cfg: Dict) -> int:
-    """Edges of the configuration's graph, self-loops included."""
-    return cfg["edges"] + cfg["nodes"] * bool(cfg["self_loops"])
+def n_edges(ctx) -> int:
+    """Edges of the cell's graph, as its kind counts them."""
+    return graph_kind(ctx).n_edges(ctx.config)
 
 
 def make_inputs(ctx) -> Dict:
-    """The graph's host COO, the node data and the weights of ``ctx``'s
+    """The graph's host arrays, the node data and the weights of ``ctx``'s
     cell from its seed."""
-    cfg, dev = ctx.config, ctx.device
-    src, dst = rmat_edges(cfg["nodes"], cfg["edges"], ctx.seed, dev,
-                          a=cfg["rmat_a"], b=cfg["rmat_b"], c=cfg["rmat_c"],
-                          self_loops=cfg["self_loops"])
-    out = {"src": src.cpu().numpy(), "dst": dst.cpu().numpy()}
-    del src, dst
-    out.update(node_data(cfg["nodes"], cfg["features"], cfg["classes"],
-                         cfg["train_nodes"], ctx.seed, dev))
-    out["leaves"] = glorot_leaves(reference_module(cfg).leaf_shapes(cfg),
-                                  ctx.seed, dev)
-    return out
+    return graph_kind(ctx).make_inputs(ctx)
+
+
+def build_graph(ctx, inp: Dict):
+    """The object the port's step takes, built from ``inp``; the set-up
+    parts timed into ``ctx.info["graph_build_s"]``."""
+    return graph_kind(ctx).build(ctx, inp)
+
+
+def reference_inputs(ctx, inp: Dict, mask: Optional[torch.Tensor] = None
+                     ) -> Dict:
+    """The reference's graph, features, labels and train mask (``mask``
+    in place of the cell's)."""
+    return graph_kind(ctx).reference_inputs(inp, ctx.device, mask)
 
 
 def port_model(cfg: Dict, leaves: Dict[str, torch.Tensor], device):
@@ -65,19 +80,6 @@ def port_model(cfg: Dict, leaves: Dict[str, torch.Tensor], device):
     tree = {"layers": [layers[i] for i in sorted(layers)]}
     cls = getattr(port_module(cfg), cfg["app"].upper())
     return cls.from_numpy(tree, device=device)
-
-
-def reference_inputs(inp: Dict, device, mask: Optional[torch.Tensor] = None
-                     ) -> Dict:
-    from .reference.common import ref_graph
-    n = int(inp["labels"].shape[0])
-    g = ref_graph(torch.from_numpy(inp["src"]).to(device),
-                  torch.from_numpy(inp["dst"]).to(device), n)
-    x = inp["x"]
-    if not isinstance(x, torch.Tensor):
-        x = torch.from_numpy(x).to(device)
-    return {"graph": g, "x": x, "labels": inp["labels"],
-            "train_mask": inp["train_mask"] if mask is None else mask}
 
 
 def relative_gap(got: Iterable[float], ref: Iterable[float]) -> float:

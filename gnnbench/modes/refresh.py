@@ -5,11 +5,13 @@ no Gᵀ, no optimizer), the output table copied to the host and swapped
 into the server's row cache — back to back, as fresh outputs cost a
 layer-wise serving user.
 
-Set-up builds G and the server (its bundle, its device copy of the
-features) and runs ``setup_units`` refreshes, which warm every shape. The
-window keeps the table of a few refreshes drawn from the seed, and of the
-last; the check compares each with the reference forward. A refresh
-whose table is not finite counts as failed.
+Set-up takes its inputs from the configuration's graph kind, which has to
+be ``rmat`` (the server is built on one plain graph), builds G and the
+server (its bundle, its device copy of the features) and runs
+``setup_units`` refreshes, which warm every shape. The window keeps the
+table of a few refreshes drawn from the seed, and of the last; the check
+compares each with the reference forward. A refresh whose table is not
+finite counts as failed.
 """
 from __future__ import annotations
 
@@ -70,6 +72,10 @@ def setup(ctx) -> State:
     from repro_torch.core.serving import GNNServer
 
     cfg, p, dev = ctx.config, ctx.params, ctx.device
+    if cfg["graph"] != "rmat":
+        raise ValueError(f"{ctx.cell.name}: the refresh serves one plain "
+                         f"graph and takes the rmat graph kind, not "
+                         f"{cfg['graph']!r}")
     inp = make_inputs(ctx)
     feats = inp["x"].cpu().numpy()
     inp["x"] = feats              # the server keeps its own device copy
@@ -106,7 +112,7 @@ def end_to_end(ctx, state, window) -> Dict[str, float]:
 
 def model_flops(ctx) -> float:
     cfg = ctx.config
-    return model_costs(ctx).forward(cfg, cfg["nodes"], n_edges(cfg))
+    return model_costs(ctx).forward(cfg, cfg["nodes"], n_edges(ctx))
 
 
 def reference_table(ctx, inp: Dict, *, tf32: bool = False) -> torch.Tensor:
@@ -114,8 +120,8 @@ def reference_table(ctx, inp: Dict, *, tf32: bool = False) -> torch.Tensor:
 
     cfg = ctx.config
     with torch.no_grad(), tf32_mode(tf32):
-        return reference_module(cfg).forward(
-            inp["leaves"], reference_inputs(inp, ctx.device), cfg)
+        return reference_module(ctx).forward(
+            inp["leaves"], reference_inputs(ctx, inp), cfg)
 
 
 def free_program(state) -> Dict:

@@ -5,14 +5,14 @@ cross-entropy, ``autograd.grad`` (the kernels' backward on Gᵀ), global
 norm clip, AdamW — ending in the loss read, as an epoch of
 ``train_full_graph`` ends, on the trainer's default strategy (``auto``).
 
-Set-up builds G (``from_coo``), Gᵀ (``reverse``, which the first
-backward would otherwise build) and the bundle, loads the model from the
-benchmark's weights, and runs the first ``setup_steps`` steps of the one
-step object (model and AdamW state) that the window then continues; they
-warm every shape of the window. The check compares those first steps
-with the reference's: each step's loss, the first gradient as AdamW got
-it (its first moment over 1 − β₁) and the parameters' change after the
-last set-up step, per leaf.
+Set-up builds the graph the step takes through the configuration's graph
+kind (``graphs/<graph>.py``; ``rmat``'s is G, Gᵀ and the bundle), loads
+the model from the benchmark's weights, and runs the first
+``setup_steps`` steps of the one step object (model and AdamW state)
+that the window then continues; they warm every shape of the window.
+The check compares those first steps with the reference's: each step's
+loss, the first gradient as AdamW got it (its first moment over 1 − β₁)
+and the parameters' change after the last set-up step, per leaf.
 """
 from __future__ import annotations
 
@@ -25,9 +25,9 @@ from typing import Dict
 import torch
 
 from gnnbench.data.graph import generator
-from gnnbench.inputs import (make_inputs, model_costs, n_edges, port_model,
-                             port_module, reference_inputs, reference_module,
-                             relative_gap)
+from gnnbench.inputs import (build_graph, make_inputs, model_costs, n_edges,
+                             port_model, port_module, reference_inputs,
+                             reference_module, relative_gap)
 
 # leaves whose reference gradient is under this share of the median
 # leaf's move under AdamW by round-off alone: not compared by their change
@@ -53,27 +53,11 @@ class State:
 
 
 def setup(ctx) -> State:
-    from repro_torch.core.graph import from_coo, reverse
     from repro_torch.models.gnn import train as port_train
-    from repro_torch.models.gnn.common import make_bundle
 
     cfg, p, dev = ctx.config, ctx.params, ctx.device
     inp = make_inputs(ctx)
-    n = cfg["nodes"]
-    build = {}
-    t = time.perf_counter()
-    g = from_coo(inp["src"], inp["dst"], n_src=n, n_dst=n, device=dev)
-    ctx.sync()
-    build["G"] = time.perf_counter() - t
-    t = time.perf_counter()
-    reverse(g)
-    ctx.sync()
-    build["G_T"] = time.perf_counter() - t
-    t = time.perf_counter()
-    bundle = make_bundle(g)
-    ctx.sync()
-    build["make_bundle"] = time.perf_counter() - t
-    ctx.info["graph_build_s"] = build
+    bundle = build_graph(ctx, inp)
 
     opt = cfg["optimizer"]
     model = port_model(cfg, inp["leaves"], dev)
@@ -81,7 +65,7 @@ def setup(ctx) -> State:
     opt_init, step = port_train.make_train_step(
         fwd, lr=opt["lr"], weight_decay=opt["weight_decay"],
         clip=opt["clip"])
-    state = State(inp=inp, g=g, bundle=bundle, model=model, step=step,
+    state = State(inp=inp, bundle=bundle, model=model, step=step,
                   opt_state=opt_init(model), i=0, x=inp["x"],
                   labels=inp["labels"], mask=inp["train_mask"],
                   gen=generator(ctx.seed, "dropout", dev))
@@ -109,8 +93,7 @@ def setup(ctx) -> State:
                           state.readings["grad_norms"].values()))
     ctx.log(f"set-up steps: losses {losses}, last step "
             f"{ctx.info['unit_s'] * 1e3:.2f} ms; first gradient's norm "
-            f"{first:.6g} (clip {opt['clip']}); largest in-degree "
-            f"{int(g.host.in_degrees.max())}")
+            f"{first:.6g} (clip {opt['clip']})")
     return state
 
 
@@ -120,13 +103,13 @@ def end_to_end(ctx, state, window) -> Dict[str, float]:
 
 def model_flops(ctx) -> float:
     cfg = ctx.config
-    return model_costs(ctx).train_step(cfg, cfg["nodes"], n_edges(cfg))
+    return model_costs(ctx).train_step(cfg, cfg["nodes"], n_edges(ctx))
 
 
 def free_program(state) -> Dict:
     """Drop every object of the program, keep the inputs."""
     inp = state.inp
-    for name in ("model", "bundle", "g", "opt_state", "step"):
+    for name in ("model", "bundle", "opt_state", "step"):
         setattr(state, name, None)
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
@@ -144,8 +127,8 @@ def reference_readings(ctx, inp: Dict, *, tf32: bool = False,
     cfg = ctx.config
     opt = (dict(cfg["optimizer"], lr=0.0, weight_decay=0.0) if still
            else cfg["optimizer"])
-    ref = reference_module(cfg)
-    inputs = reference_inputs(inp, ctx.device, mask)
+    ref = reference_module(ctx)
+    inputs = reference_inputs(ctx, inp, mask)
     with tf32_mode(tf32):
         return train_steps(
             lambda prm, ins, gen: ref.forward(prm, ins, cfg, gen),
@@ -155,7 +138,10 @@ def reference_readings(ctx, inp: Dict, *, tf32: bool = False,
 
 def gaps(got: Dict, ref: Dict) -> Dict[str, float]:
     """The numbers a training cell compares: the widest loss gap of the
-    set-up steps (``loss_gap``); the worst leaf's first-gradient norm gap
+    set-up steps (``loss_gap``) and the first step's (``first_loss_gap``:
+    the forward alone, which a logit rounded across leaky-relu's kink
+    does not move, where one such logit can move every leaf's gradient
+    nearly as far as TF32 does); the worst leaf's first-gradient norm gap
     (``grad_gap``) and the worst leaf's norm of the first gradient's
     difference (``grad_diff``); the worst leaf's change-norm gap
     (``update_gap``; leaves the reference does not move left out). Each
@@ -167,6 +153,8 @@ def gaps(got: Dict, ref: Dict) -> Dict[str, float]:
     cn = ref["change_norms"]
     cmed = statistics.median(cn[n] for n in moving)
     return {"loss_gap": relative_gap(got["losses"], ref["losses"]),
+            "first_loss_gap": relative_gap(got["losses"][:1],
+                                           ref["losses"][:1]),
             "grad_gap": max(abs(got["grad_norms"][n] - v) / max(v, med)
                             for n, v in gn.items()),
             "grad_diff": max(float((got["grads"][n].to(g.device) - g).norm())

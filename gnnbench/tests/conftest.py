@@ -1,5 +1,6 @@
 """A tiny copy of the benchmark for CPU runs of the harness: the real
-files with each configuration shrunk to a few hundred nodes."""
+files with each configuration shrunk to its ``tiny`` size; and the
+cells of ``BENCHMARK.json`` that the tests run."""
 import json
 import shutil
 from pathlib import Path
@@ -8,20 +9,28 @@ import pytest
 
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
-TINY = {"nodes": 300, "edges": 3000, "features": 16, "classes": 5,
-        "train_nodes": 180}
-TINY_APP = {"sage": {"hidden": 8}, "gat": {"heads": 2, "hidden": 4}}
+SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
+CELLS = [w["name"] for w in SPEC["workloads"]]
+
+
+def mode_of(cell: str) -> str:
+    return json.loads((BENCH / "workloads"
+                       / f"{cell}.json").read_text())["mode"]
+
+
+TRAIN = [c for c in CELLS if mode_of(c) == "train_full"]
 
 
 def make_tiny(dest: Path) -> Path:
-    """``dest`` holds BENCHMARK.json and ``gnnbench/`` with tiny configs;
-    returns the copy's ``gnnbench`` folder."""
+    """``dest`` holds BENCHMARK.json and ``gnnbench/`` with each config
+    shrunk by its own ``tiny`` keys; returns the copy's ``gnnbench``
+    folder."""
     bench = dest / "gnnbench"
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns(
         "__pycache__", "tests"))
     for p in (bench / "configs").glob("*.json"):
         cfg = json.loads(p.read_text())
-        cfg.update(TINY, **TINY_APP[cfg["app"]])
+        cfg.update(cfg["tiny"])
         p.write_text(json.dumps(cfg))
     shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
     return bench

@@ -69,6 +69,27 @@ def test_bound_column(reddit_like, label, mod, args, bound_ms):
     assert round(least_seconds(nbytes, flops) * 1e3, 5) == bound_ms
 
 
+def test_dot_per_head_counts_each_head():
+    """GAT's ∂α on the cells' graph (14,559,952 edges, 8 heads of 8):
+    B3's dot per head writes one fp32 output a head, 466 MB a launch."""
+    import numpy as np
+    from types import SimpleNamespace
+    n, e = 232_965, 14_559_952
+    deg = np.ones(n, dtype=np.int64)
+    g = SimpleNamespace(n_edges=e, host=SimpleNamespace(out_degrees=deg,
+                                                        in_degrees=deg))
+    args = {"g": g, "op": "dot", "lhs_target": "u", "lhs": meta(n, 64),
+            "rhs_target": "v", "rhs": meta(n, 64), "heads": 8}
+    c = sddmm_csr.describe(args)
+    assert c["d_out"] == 8
+    nbytes, flops = sddmm_csr.cost(c)
+    rows = 4 * 2 * n * 64
+    assert nbytes - rows - 4 * 2 * e == 4 * e * 8 == 465_918_464
+    assert flops == 2.0 * e * 64
+    one = sddmm_csr.cost(sddmm_csr.describe(dict(args, heads=1)))[0]
+    assert nbytes - one == 4 * e * 7
+
+
 def test_model_flops_sage_reddit():
     """About 0.33 TFLOP a SAGE step at Reddit's widths, 14.56M edges."""
     from gnnbench.costs import model_sage

@@ -1,7 +1,11 @@
-"""Whole runs of the harness on the CPU at a tiny size (the port's plain
-versions stand in for its kernels): the result line, the traced line, a
-cell and a metric added by files alone, the reference against the port,
-and the faults each cell can have, which must read ``correct`` false."""
+"""Whole runs of the harness on the CPU at each configuration's tiny
+size (the port's plain versions stand in for its kernels), for every
+cell of ``BENCHMARK.json``: the result line, the traced line, the
+reference against the port, and the faults each cell can have, which
+must read ``correct`` false; and a cell, a metric, an app and a graph
+kind added by files alone."""
+import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -10,10 +14,21 @@ import sys
 import pytest
 import torch
 
-from .conftest import BENCH, ROOT, make_tiny, run_tiny
+from .conftest import BENCH, CELLS, ROOT, SPEC, TRAIN, make_tiny, run_tiny
 
-CELLS = ["sage-reddit.train", "gat-reddit.train", "gat-reddit.refresh"]
-TRAIN = CELLS[:2]
+# the configurations that a training cell runs, with one such cell each
+TRAIN_CONFIGS = {}
+for _w in SPEC["workloads"]:
+    if _w["name"] in TRAIN:
+        TRAIN_CONFIGS.setdefault(_w["config"], _w["name"])
+APPS = {c: json.loads((BENCH / "configs" / f"{c}.json").read_text())["app"]
+        for c in TRAIN_CONFIGS}
+
+
+def config_id(config: str) -> str:
+    """The app's name where one training configuration runs the app."""
+    app = APPS[config]
+    return app if list(APPS.values()).count(app) == 1 else config
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -42,10 +57,11 @@ def test_traced_line(tiny, cell):
     assert r["correct"] is True
     assert {"busy_s", "window_s"} <= set(r["device"])
     assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
-    assert "graph_build_s" in r["metrics"]
-    host = "step_host_ms.train" if "train" in cell else \
-        "refresh_store_ms.refresh"
-    assert r["metrics"][host]["value"] > 0
+    host = [m["name"] for m in SPEC["per_layer"] if m["source"]
+            == "host_clock" and cell in m.get("workloads", [cell])]
+    assert host
+    for name in host:                # the host's clock reads on the CPU
+        assert r["metrics"][name]["value"] > 0, name
 
 
 def test_new_cell_and_metric_by_files_alone(tiny):
@@ -83,38 +99,152 @@ def test_new_cell_and_metric_by_files_alone(tiny):
     assert "epoch_ms" in r["metrics"]
 
 
-@pytest.mark.parametrize("app", ["sage", "gat"])
-def test_reference_matches_port(app):
-    """The plain reference and the port's app agree at a small size: the
-    forward without dropout, and three training steps."""
-    from gnnbench.data.graph import glorot_leaves, node_data, rmat_edges
-    from gnnbench.inputs import port_model, port_module, reference_module
-    from gnnbench.reference.common import ref_graph, train_steps
-    from repro_torch.core.graph import from_coo
-    from repro_torch.models.gnn import train as port_train
-    from repro_torch.models.gnn.common import make_bundle
+GCN_REFERENCE = '''"""GCN, plain PyTorch (Kipf & Welling 2017): h' = Σ over in-edges
+(u → v) of (h·W + b)[u] / sqrt(deg_out(u)·deg_in(v)), degrees at least
+1, ReLU between layers, dropout on each layer's input while training."""
+import torch
 
-    cfg = json.loads((BENCH / "configs" / f"{app}-reddit.json").read_text())
-    cfg.update(nodes=400, edges=5000, features=24, classes=6,
-               train_nodes=250, hidden=8, heads=2)
-    src, dst = rmat_edges(cfg["nodes"], cfg["edges"], 11, "cpu")
-    data = node_data(cfg["nodes"], 24, 6, 250, 11, "cpu")
-    ref = reference_module(cfg)
-    leaves = glorot_leaves(ref.leaf_shapes(cfg), 11, "cpu")
-    g = from_coo(src.numpy(), dst.numpy(), n_src=400, n_dst=400,
-                 device="cpu")
-    bundle = make_bundle(g)
-    model = port_model(cfg, leaves, "cpu")
-    inputs = {"graph": ref_graph(src, dst, 400), **data}
+from .common import dropout, matmul, neighbour_sum
+
+
+def leaf_shapes(cfg):
+    dims = ([cfg["features"]] + [cfg["hidden"]] * (cfg["layers"] - 1)
+            + [cfg["classes"]])
+    shapes = {}
+    for i in range(cfg["layers"]):
+        shapes[f"layers.{i}.w"] = (dims[i], dims[i + 1])
+        shapes[f"layers.{i}.b"] = (dims[i + 1],)
+    return shapes
+
+
+def forward(params, inputs, cfg, gen=None):
+    g = inputs["graph"]
+    deg_out = torch.bincount(g.src, minlength=g.n).clamp(min=1).double()
+    deg_in = g.in_deg.clamp(min=1).double()
+    norm = (1.0 / torch.sqrt(deg_out[g.src] * deg_in[g.dst])).float()
+    h = inputs["x"]
+    for i in range(cfg["layers"]):
+        if gen is not None:
+            h = dropout(gen, h, cfg["dropout"])
+        h = matmul(h, params[f"layers.{i}.w"]) + params[f"layers.{i}.b"]
+        h = neighbour_sum(g, h, norm)
+        if i < cfg["layers"] - 1:
+            h = torch.relu(h)
+    return h
+'''
+
+GCN_COSTS = '''"""Model FLOPs of GCN: the products and the weighted sums."""
+
+
+def _dims(cfg):
+    return ([cfg["features"]] + [cfg["hidden"]] * (cfg["layers"] - 1)
+            + [cfg["classes"]])
+
+
+def forward(cfg, n, e):
+    d = _dims(cfg)
+    return sum(2.0 * n * d[i] * d[i + 1] + 2.0 * e * d[i + 1]
+               for i in range(cfg["layers"]))
+
+
+def train_step(cfg, n, e):
+    return 3.0 * forward(cfg, n, e)
+'''
+
+GCN_TOY_GRAPH = '''"""The rmat graph kind under another name."""
+from gnnbench.graphs.rmat import (build, make_inputs, n_edges,
+                                  reference_inputs)
+
+__all__ = ["build", "make_inputs", "n_edges", "reference_inputs"]
+'''
+
+
+def file_hashes(root):
+    return {p: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def test_new_app_and_graph_kind_by_files_alone(tiny):
+    """An app that no configuration names (the port's GCN), its graph
+    kind, reference, model costs, workload and entries in BENCHMARK.json,
+    all new files: its training cell runs untraced and traced, correct,
+    and no file that was there changes."""
+    before = file_hashes(tiny.parent)
+    spec_path = tiny.parent / "BENCHMARK.json"
+    spec = json.loads(spec_path.read_text())
+    small = {"nodes": 240, "edges": 2000, "features": 12, "classes": 4,
+             "train_nodes": 150, "hidden": 8}
+    sage = json.loads((tiny / "configs" / "sage-reddit.json").read_text())
+    source = "GCN, 2 layers, hidden 16: Kipf & Welling 2017, arXiv:1609.02907"
+    cfg = {"name": "gcn-toy", "source": source, "app": "gcn",
+           "graph": "gcn_toy", "layers": 2, "dropout": 0.5,
+           "self_loops": True, "precision": "fp32", "tf32": False,
+           **{k: sage[k] for k in ("rmat_a", "rmat_b", "rmat_c",
+                                   "optimizer")},
+           "port_forward": {"drop": 0.5}, "published": {}, "reduced": [],
+           "assumed": ["R-MAT edges, as the rmat graph kind makes them"],
+           **small, "tiny": small}
+    wl = json.loads((tiny / "workloads"
+                     / "sage-reddit.train.json").read_text())
+    wl.update(name="gcn-toy.train", config="gcn-toy", why="a test cell")
+    new = {"configs/gcn-toy.json": json.dumps(cfg),
+           "workloads/gcn-toy.train.json": json.dumps(wl),
+           "graphs/gcn_toy.py": GCN_TOY_GRAPH,
+           "reference/gcn.py": GCN_REFERENCE,
+           "costs/model_gcn.py": GCN_COSTS}
+    for rel, text in new.items():
+        assert not (tiny / rel).exists(), rel
+        (tiny / rel).write_text(text)
+    spec["configs"].append({"name": "gcn-toy", "source": source,
+                            "file": "gnnbench/configs/gcn-toy.json",
+                            "reduced": [], "why": "a test configuration"})
+    spec["workloads"].append({"name": "gcn-toy.train", "config": "gcn-toy",
+                              "traffic": wl["traffic"], "chips": 1,
+                              "why": "a test cell"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "sage-reddit.train" in m.get("workloads", []):
+            m["workloads"].append("gcn-toy.train")
+    spec_path.write_text(json.dumps(spec))
+    r = run_tiny(tiny, "gcn-toy.train", seed=3)
+    assert r["correct"] is True and r["failed"] == 0
+    assert {"epoch_ms", "setup_s", "peak_gib"} <= set(r["metrics"])
+    r = run_tiny(tiny, "gcn-toy.train", trace=True, seed=3)
+    assert r["correct"] is True
+    assert r["metrics"]["graph_build_s"]["value"] > 0
+    assert r["metrics"]["step_host_ms.train"]["value"] > 0
+    changed = [p for p, h in before.items() if p != spec_path
+               and hashlib.sha256(p.read_bytes()).hexdigest() != h]
+    assert changed == []
+
+
+@pytest.mark.parametrize("config", sorted(TRAIN_CONFIGS), ids=config_id)
+def test_reference_matches_port(tiny, config):
+    """The plain reference and the port's app agree at the configuration's
+    tiny size, on inputs and a graph from its graph kind: the forward
+    without dropout, and three training steps."""
+    from gnnbench.harness import Cell, Context
+    from gnnbench.inputs import (build_graph, make_inputs, port_model,
+                                 port_module, reference_inputs,
+                                 reference_module)
+    from gnnbench.reference.common import train_steps
+    from repro_torch.models.gnn import train as port_train
+
+    cell = Cell(TRAIN_CONFIGS[config], tiny.parent, tiny)
+    ctx = Context(cell, 11, torch.device("cpu"), False, 0.3)
+    cfg = ctx.config
+    inp = make_inputs(ctx)
+    graph = build_graph(ctx, inp)
+    model = port_model(cfg, inp["leaves"], "cpu")
+    ref = reference_module(ctx)
+    inputs = reference_inputs(ctx, inp)
     mod = port_module(cfg)
     with torch.no_grad():
-        got = mod.forward(model, bundle, data["x"], strategy="segment",
+        got = mod.forward(model, graph, inp["x"], strategy="segment",
                           **{k: v for k, v in cfg["port_forward"].items()
                              if k != "drop"})
-        want = ref.forward(leaves, inputs, cfg)
+        want = ref.forward(inp["leaves"], inputs, cfg)
     assert torch.allclose(got, want, rtol=1e-5, atol=1e-6)
 
-    import functools
     opt = cfg["optimizer"]
     init, step = port_train.make_train_step(
         functools.partial(mod.forward, **cfg["port_forward"]), "segment",
@@ -123,15 +253,30 @@ def test_reference_matches_port(app):
     gen = torch.Generator().manual_seed(5)
     losses = []
     for i in range(3):
-        state, loss = step(model, state, i, bundle, data["x"],
-                           data["labels"], data["train_mask"], gen)
+        state, loss = step(model, state, i, graph, inp["x"],
+                           inp["labels"], inp["train_mask"], gen)
         losses.append(float(loss))
-    r = train_steps(lambda p, ins, gn: ref.forward(p, ins, cfg, gn), leaves,
-                    inputs, opt, 3, torch.Generator().manual_seed(5))
+    r = train_steps(lambda p, ins, gn: ref.forward(p, ins, cfg, gn),
+                    inp["leaves"], inputs, opt, 3,
+                    torch.Generator().manual_seed(5))
     assert r["losses"] == pytest.approx(losses, rel=1e-5)
     for name, p in model.named_parameters():
-        assert float((p.detach() - leaves[name]).norm()) == pytest.approx(
-            r["change_norms"][name], rel=1e-4)
+        assert float((p.detach() - inp["leaves"][name]).norm()) == \
+            pytest.approx(r["change_norms"][name], rel=1e-4)
+
+
+def test_gat_reference_kink_as_the_port():
+    """At a logit of exactly 0.0 the reference's leaky-relu has the
+    port's gradient (1; ``F.leaky_relu``'s is the slope): a logit that
+    rounds to 0.0 on both sides must not part them."""
+    from gnnbench.reference.gat import leaky_relu
+    from repro_torch.substrate.nn import leaky_relu as port_leaky_relu
+    grads = []
+    for fn in (lambda e: leaky_relu(e, 0.2), port_leaky_relu):
+        e = torch.tensor([-1.0, 0.0, 2.0], requires_grad=True)
+        grads.append(torch.autograd.grad(fn(e).sum(), e)[0])
+    assert torch.equal(grads[0], grads[1])
+    assert grads[0].tolist() == pytest.approx([0.2, 1.0, 1.0])
 
 
 # ------------------------------------------------------------------ #

@@ -6,7 +6,7 @@ import pytest
 from gnnbench import spans as S
 from gnnbench.harness import load_file_module, reader_path
 
-from .conftest import BENCH, run_tiny
+from .conftest import BENCH, CELLS, mode_of, run_tiny
 
 _ids = iter(range(1, 10_000))
 
@@ -119,8 +119,7 @@ def test_readers_read_the_process_spans(monkeypatch):
         assert reader(name)({}) is None, name
 
 
-@pytest.mark.parametrize("cell", ["sage-reddit.train", "gat-reddit.train",
-                                  "gat-reddit.refresh"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_tiny_traced_run_reads_host_spans(tiny, cell):
     from repro_torch import obs
     obs.clear_trace()
@@ -131,7 +130,7 @@ def test_tiny_traced_run_reads_host_spans(tiny, cell):
                                      "make_bundle_s")]
     assert all(v > 0 for v in build)
     assert sum(build) <= m["graph_build_s"]["value"]
-    if cell.endswith(".refresh"):
+    if mode_of(cell) == "refresh":
         assert m["store_span_ms.refresh"]["value"] > 0
         assert "refresh_store_ms.refresh" in m
     for name in ("forward_ms.train", "backward_ms.train",

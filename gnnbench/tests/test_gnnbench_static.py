@@ -8,9 +8,8 @@ import pytest
 
 from gnnbench.harness import reader_path
 
-from .conftest import BENCH, ROOT
+from .conftest import BENCH, ROOT, SPEC
 
-SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
@@ -82,6 +81,12 @@ def test_config_entry(cfg):
         assert body[key] != body["published"][key]
     assert body["assumed"]
     assert any(w["config"] == cfg["name"] for w in SPEC["workloads"])
+    # the files the configuration names, and its size for the CPU tests
+    for path in (f"graphs/{body['graph']}.py", f"reference/{body['app']}.py",
+                 f"costs/model_{body['app']}.py"):
+        assert (BENCH / path).is_file(), path
+    assert isinstance(body["tiny"], dict) and body["tiny"]
+    assert set(body["tiny"]) <= set(body) - {"tiny", "published"}
 
 
 @pytest.mark.parametrize("cell", SPEC["workloads"], ids=lambda w: w["name"])
